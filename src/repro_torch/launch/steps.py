@@ -1,0 +1,141 @@
+"""Serving step builders: the paged decode step and the paged prefill-chunk
+step, with batched sampling and device-side finish exits.
+
+All per-slot state lives on the device: cache_len, last_token, budget,
+sampling keys and active flags.  A decode step samples every live row,
+advances lengths and budgets, and clears ``active`` for a row that sampled
+its eos id, spent its budget, or reached the max_len-1 cache bound — on the
+device, in the same step.  The host learns of finishes from the one token
+vector it copies per step.
+
+Sampling keys: greedy rows take the argmax, bit for bit the reference's.
+Temperature rows cannot reproduce the reference's threefry streams; each
+row instead draws Gumbel noise from a counter-based hash of (request key,
+draw counter, vocab id), where the request key hashes (engine seed, uid).
+So a stream depends only on (seed, uid, prompt) — not on slot, batch or
+admission timing — which is the invariant the reference pins.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+_M32 = 0xFFFFFFFF
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    """murmur3's 32-bit finalizer on int64 tensors holding 32-bit values
+    (products wrap mod 2**64; the mask keeps the low 32 bits exact)."""
+    h = h ^ (h >> 16)
+    h = (h * 0x85EBCA6B) & _M32
+    h = h ^ (h >> 13)
+    h = (h * 0xC2B2AE35) & _M32
+    return h ^ (h >> 16)
+
+
+def request_keys(seed: int, uids, device) -> torch.Tensor:
+    """(N, 2) int64 key data [request key, draw counter = 0] per request."""
+    u = torch.as_tensor(list(uids), dtype=torch.int64, device=device)
+    key = _fmix32((_fmix32(torch.full_like(u, seed & _M32)) ^ (u & _M32)) & _M32)
+    return torch.stack([key, torch.zeros_like(key)], dim=1)
+
+
+def _uniform(key_data: torch.Tensor, vocab: int) -> torch.Tensor:
+    """(B, V) uniforms in (0, 1) for each row's current draw."""
+    base = _fmix32(key_data[:, 0] ^ _fmix32((key_data[:, 1] + 0x632BE5AB) & _M32))
+    col = (torch.arange(vocab, device=key_data.device, dtype=torch.int64)
+           * 0x27D4EB2D) & _M32
+    bits = _fmix32(base[:, None] ^ col[None, :])
+    return (bits.double() + 0.5) / 4294967296.0
+
+
+def sample_tokens(key_data: torch.Tensor, logits: torch.Tensor,
+                  temps: torch.Tensor):
+    """Greedy where temps <= 0, categorical at logits/temp otherwise.
+    key_data (B, 2) int64, logits (B, V), temps (B,) fp32.
+    Returns (advanced key_data, tokens (B,) int32)."""
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    # Drawn for every row (no host-side branch: a step syncs only once).
+    gumbel = -torch.log(-torch.log(_uniform(key_data, logits.shape[-1])))
+    scaled = logits.float() / temps.clamp(min=1e-6)[:, None]
+    drawn = torch.argmax(scaled.double() + gumbel, dim=-1).to(torch.int32)
+    tok = torch.where(temps > 0, drawn, greedy)
+    new_kd = key_data.clone()
+    new_kd[:, 1] += 1
+    return new_kd, tok
+
+
+def _sample_advance_exit(logits, last_token, cache_len, budget, key_data,
+                         active, host_keep, temps, eos, max_len):
+    """Sampling, inactive-row freezing, length advance and the device-side
+    finish update (EOS, exhausted budget, or the max_len-1 cache bound)."""
+    act = active & host_keep
+    new_kd, sampled = sample_tokens(key_data, logits[:, 0], temps)
+    sampled = torch.where(act, sampled, last_token)
+    key_data = torch.where(act[:, None], new_kd, key_data)
+    adv = act.to(torch.int32)
+    cache_len = cache_len + adv
+    budget = budget - adv
+    alive = (budget > 0) & (cache_len < max_len - 1)
+    new_active = act & (sampled != eos) & alive
+    active = torch.where(host_keep, new_active, active)
+    return sampled, cache_len, budget, key_data, active
+
+
+def make_paged_decode_step(model, max_len: int) -> Callable:
+    """One decode step over the paged cache for every slot.  Rows that are
+    not effectively active get their table row forced to -1 (their cache
+    writes drop: a freed slot's blocks may already belong to another
+    request) and their attention length to cache_len 0."""
+
+    @torch.no_grad()
+    def paged_decode_step(params, pools, block_tables, last_token, cache_len,
+                          budget, key_data, active, host_keep, temps, eos):
+        act = active & host_keep
+        bt_eff = torch.where(act[:, None], block_tables,
+                             torch.full_like(block_tables, -1))
+        cl_eff = torch.where(act, cache_len, torch.zeros_like(cache_len))
+        logits = model.apply(params, last_token[:, None], mode="decode",
+                             cache=pools, cache_len=cl_eff, block_tables=bt_eff)
+        return _sample_advance_exit(logits, last_token, cache_len, budget,
+                                    key_data, active, host_keep, temps, eos,
+                                    max_len)
+
+    return paged_decode_step
+
+
+def make_paged_prefill_chunk_step(model) -> Callable:
+    """One chunk of streaming prefill for up to R requests at once: row r
+    writes ``tokens[r]`` at positions starts[r].. of its table row and
+    attends causally over its own prefix.  Only ``nvalid[r]`` leading tokens
+    are real; ``fslots[r]`` is the row's engine slot when this chunk
+    finishes its prompt (>= the slot count otherwise, dropped): finishing
+    rows commit cache_len/last_token/budget/key/active and sample their
+    first token from the last real position's logits."""
+
+    @torch.no_grad()
+    def paged_prefill_chunk_step(params, pools, bt_rows, tokens, starts,
+                                 nvalid, fslots, budgets, row_keys, cache_len,
+                                 last_token, budget, key_data, temps, active):
+        logits = model.apply(params, tokens, mode="decode", cache=pools,
+                             cache_len=starts, block_tables=bt_rows)
+        idx = (nvalid.long() - 1).clamp(min=0)
+        last = logits[torch.arange(logits.shape[0], device=logits.device), idx]
+        row_keys, first = sample_tokens(row_keys, last, temps)
+        n = cache_len.shape[0]
+        # Non-finishing rows write to a scratch slot n that is cut off again
+        # (a sync-free "drop"; boolean indexing would sync with the host).
+        s = fslots.long().clamp(max=n)
+
+        def put(state, vals):
+            ext = torch.cat([state, state[:1]])
+            ext[s] = vals.to(state.dtype)
+            return ext[:n]
+
+        return (first, put(cache_len, starts + nvalid), put(last_token, first),
+                put(budget, budgets), put(key_data, row_keys),
+                put(active, torch.ones_like(fslots, dtype=torch.bool)))
+
+    return paged_prefill_chunk_step
