@@ -5,16 +5,22 @@
 
 Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
   1. device: nvidia-smi's name and power limit, torch's device name;
-  2. build: compiles every kernel of the main path from src/repro_torch/csrc
+  2. build: compiles every kernel of the main paths from src/repro_torch/csrc
      (one nvcc per source, in parallel);
   3. kernels: each kernel against its plain PyTorch version at the main
-     path's shapes, with the stated tolerance, timed (CUDA events) beside
+     paths' shapes, with the stated tolerance, timed (CUDA events) beside
      the plain version, one PyTorch library call and the bytes/FLOP bound;
-  4. main path: ``serve()`` on mistral-7b at full width (depth cut to 2
+  4. serve path: ``serve()`` on mistral-7b at full width (depth cut to 2
      layers, random weights from a seed): calibrate, NSVD-compress (nsvd1,
      ratio 0.2, bf16 factors) and serve 8 requests, with the kernels' launch
      counters read around the run; then one decode step's logits through the
-     kernels against the same step through the plain versions.
+     kernels against the same step through the plain versions;
+  5. quality path: ``obs.quality_report.build_entry`` on the same model:
+     calibrate (gram kernel), compress with telemetry, evaluate dense vs
+     compressed perplexity on five domains at (4, 2048) tokens a batch
+     (flash_attention kernel), logit KL, per-target attribution, activation
+     similarity; launch counts read around it, and one eval batch's logits
+     through the kernels against the plain versions.
 Prints a JSON kernel summary, nvidia-smi's line, and as its last line
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero; without a
 card (or outside the repository) it exits non-zero before printing results.
@@ -23,6 +29,7 @@ card (or outside the repository) it exits non-zero before printing results.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import os
 import subprocess
@@ -50,6 +57,17 @@ NESTED_ROWS = (1, 8, 64, 512)
 NESTED_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 PAGED_TOL = 2e-2   # bf16 output; int8 pages dequantized in fp32 vs bf16
 STEP_LOGIT_TOL = 5e-2  # 2-layer model: kernel vs plain rounding through a step
+GRAM_SHAPES = ((2048, 4096), (2048, 14336))  # (rows, n): d_model and d_ff taps
+# Max |kernel - plain| / max |plain|, for G and for sum |x|: both sum the
+# same exact products (bf16 x bf16 is exact in fp32) in another order.
+GRAM_TOL = 1e-5
+# (B, S, Hq, Hkv): calibration and evaluation batches at Mistral-7B's heads,
+# a ragged S, and G = 1.
+FLASH_SHAPES = ((16, 128, 32, 8), (4, 2048, 32, 8), (4, 1000, 32, 8), (4, 1000, 8, 8))
+# bf16: P is rounded to bf16 before P V unnormalized (kernel) vs normalized
+# (plain), and outputs round to bf16; fp32: sum order only.
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+EVAL_LOGIT_TOL = 5e-2  # 2-layer bf16 model: flash vs naive rounding, one batch
 
 
 def log(msg: str) -> None:
@@ -203,9 +221,108 @@ def paged_phase(torch, ops, ref):
     return rows
 
 
-def profile_step(torch, fn) -> dict:
+def gram_phase(torch, ops, ref):
+    rows_out = []
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        for rows, n in GRAM_SHAPES:
+            x = torch.randn((rows, n), generator=gen, device="cuda")
+            x[:, ::97] *= 20.0  # outlier channels, as calibration taps have
+            x = x.to(dt)
+            got_g, got_a = ops.gram_accumulate(x)
+            want_g, want_a = ref.gram_accumulate_ref(x)
+            torch.cuda.synchronize()
+            err = float((got_g - want_g).abs().max())
+            scale = float(want_g.abs().max())
+            a_err = float((got_a - want_a).abs().max())
+            a_scale = float(want_a.abs().max())
+            ok = (bool(torch.isfinite(got_g).all()) and err <= GRAM_TOL * scale
+                  and a_err <= GRAM_TOL * a_scale)
+            del got_g, want_g
+            ms = time_ms(lambda: ops.gram_accumulate(x), reps=5)
+            plain = time_ms(lambda: ref.gram_accumulate_ref(x), reps=5)
+            flat = x.float()
+            lib = time_ms(lambda: torch.matmul(flat.T, flat), reps=5)
+            del flat
+            nbytes = x.numel() * x.element_size() + 4 * (n * n + n)
+            flops = rows * n * (n + 1)  # upper triangle: products exact for bf16
+            b, by = bound_ms(nbytes, flops, dname)
+            row = dict(kernel="gram", dtype=dname, rows=rows, n=n, max_abs_err=err,
+                       ref_max_abs=scale, tol=GRAM_TOL * scale, abs_sum_err=a_err,
+                       abs_sum_tol=GRAM_TOL * a_scale, ok=ok, ms=ms, plain_ms=plain,
+                       library_ms=lib, bytes=nbytes, flops=flops, bound_ms=b,
+                       bound_by=by)
+            rows_out.append(row)
+            log(f"gram   {dname:8s} rows={rows} n={n:<5d} err={err:.3e} (tol "
+                f"{row['tol']:.3e}) |x| err={a_err:.3e} (tol {row['abs_sum_tol']:.3e}) "
+                f"{'OK' if ok else 'FAIL'}  kernel {ms:.3f} ms  plain {plain:.3f} ms  "
+                f"library(matmul) {lib:.3f} ms  bound {b:.3f} ms ({by})")
+    return rows_out
+
+
+def flash_phase(torch, ops, ref):
+    rows_out = []
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    hd = 128
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        for b, s, hq, hkv in FLASH_SHAPES:
+            if dname == "float32" and s == 1000:
+                continue  # the ragged and G = 1 cases are checked in bf16
+
+            def mk(h):
+                return torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dt)
+            q, k, v = mk(hq), mk(hkv), mk(hkv)
+            got = ops.flash_attention(q, k, v)
+            want = ref.flash_attention_ref(q, k, v)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            scale = float(want.float().abs().max())
+            ok = bool(torch.isfinite(got).all()) and err <= FLASH_TOL[dname] * scale
+            del got, want
+            ms = time_ms(lambda: ops.flash_attention(q, k, v))
+            plain = time_ms(lambda: ref.flash_attention_ref(q, k, v), reps=3)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+            flops = 2 * b * hq * hd * s * (s + 1)
+            bnd, by = bound_ms(nbytes, flops, dname)
+            row = dict(kernel="flash_attention", dtype=dname, B=b, S=s, Hq=hq, Hkv=hkv,
+                       hd=hd, max_abs_err=err, ref_max_abs=scale,
+                       tol=FLASH_TOL[dname] * scale, ok=ok, ms=ms, plain_ms=plain,
+                       library_ms=lib, bytes=nbytes, flops=flops, bound_ms=bnd,
+                       bound_by=by)
+            rows_out.append(row)
+            log(f"flash  {dname:8s} B={b:<2d} S={s:<4d} Hq/Hkv={hq}/{hkv} err={err:.3e} "
+                f"(tol {row['tol']:.3e}) {'OK' if ok else 'FAIL'}  kernel {ms:.3f} ms  "
+                f"plain {plain:.3f} ms  library(sdpa) {lib:.3f} ms  bound {bnd:.4f} ms "
+                f"({by})")
+    return rows_out
+
+
+KERNELS = ("nested_lowrank", "paged_attention", "gram", "flash_attention")
+
+
+def _ops(name):
+    return importlib.import_module(f"repro_torch.kernels.{name}.ops")
+
+
+def reset_counts() -> None:
+    for name in KERNELS:
+        _ops(name).launches = 0
+
+
+def read_counts() -> dict:
+    return {name: _ops(name).launches for name in KERNELS}
+
+
+def profile_step(torch, fn, label: str = "decode step") -> dict:
     """Device time by kernel name and device busy share of one call of
-    ``fn`` (after a warm-up call), from torch.profiler's CUDA trace."""
+    ``fn`` (after a warm-up call), from torch.profiler's CUDA trace.  Only
+    device events are summed: an aten op's row repeats its kernels' time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -219,14 +336,14 @@ def profile_step(torch, fn) -> dict:
         torch.cuda.synchronize()
     per = {}
     for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = ev.self_device_time_total
         if dev_us > 0:
             per[ev.key] = (per.get(ev.key, (0.0, 0))[0] + dev_us / 1e3, ev.count)
     busy = sum(ms for ms, _ in per.values())
     top = sorted(per.items(), key=lambda kv: -kv[1][0])[:12]
-    log(f"  profiled decode step: wall {wall_ms:.2f} ms (profiler off), device "
+    log(f"  profiled {label}: wall {wall_ms:.2f} ms (profiler off), device "
         f"busy {busy:.3f} ms ({busy / wall_ms:.1%} of wall)")
     for name, (ms, n) in top:
         log(f"    {ms:8.3f} ms  x{n:<4d} {name[:90]}")
@@ -234,11 +351,9 @@ def profile_step(torch, fn) -> dict:
             "top": [{"name": k, "ms": ms, "count": n} for k, (ms, n) in top]}
 
 
-def main_path(torch, np):
+def serve_path(torch, np):
     from repro_torch import kernels
     from repro_torch.configs import MISTRAL_7B
-    from repro_torch.kernels.nested_lowrank import ops as nlr
-    from repro_torch.kernels.paged_attention import ops as pa
     from repro_torch.launch.serve import serve
     from repro_torch.serving.kvcache import PagedKVCache
 
@@ -246,24 +361,28 @@ def main_path(torch, np):
     rng = np.random.default_rng(0)
     plens = rng.integers(16, 201, size=8)
     prompts = [rng.integers(2, cfg.vocab_size // 2, size=int(n)) for n in plens]
-    nlr.launches = 0
-    pa.launches = 0
+    reset_counts()
     res = serve(cfg, requests=8, max_new=32, max_batch=8, max_len=256,
                 seed=0, compress=0.2, block_size=16, prefill_chunk=64,
                 prompts=prompts)
-    counts = {"nested_lowrank": nlr.launches, "paged_attention": pa.launches}
+    counts = read_counts()
     eng, model, params = res["engine"], res["model"], res["params"]
     st = eng.stats()
     n_linear = len(model.compressible_targets()) * cfg.num_layers
+    # Calibration: 256 samples in batches of 16, each one causal forward
+    # with 4 taps per layer plus the final-norm tap.
+    calib_batches = 256 // 16
     expect = {"nested_lowrank": n_linear * (st["steps"] + st["prefill_ticks"]),
-              "paged_attention": cfg.num_layers * st["steps"]}
+              "paged_attention": cfg.num_layers * st["steps"],
+              "gram": (4 * cfg.num_layers + 1) * calib_batches,
+              "flash_attention": cfg.num_layers * calib_batches}
     reasons = {u: r.finish_reason for u, r in res["requests"].items()}
     outs = res["outputs"]
     ok = (len(outs) == 8 and all(reasons.get(u) for u in outs)
           and all(1 <= len(v) <= 32 for v in outs.values())
           and all(0 <= t < cfg.vocab_size for v in outs.values() for t in v)
           and all(counts[k] == expect[k] > 0 for k in counts))
-    log(f"main path: {cfg.name} d_model={cfg.d_model} heads={cfg.num_heads}/"
+    log(f"serve path: {cfg.name} d_model={cfg.d_model} heads={cfg.num_heads}/"
         f"{cfg.num_kv_heads} hd={cfg.head_dim} d_ff={cfg.d_ff} vocab="
         f"{cfg.vocab_size} layers={cfg.num_layers} (depth cut from 32)")
     log(f"  prompt lengths {plens.tolist()}; plan achieved ratio "
@@ -297,13 +416,9 @@ def main_path(torch, np):
         with kernels.plain():
             lp = model.apply(params, nxt, mode="decode", cache=saved,
                              cache_len=clen, block_tables=bt).float()
-        try:  # measurement only: a profiler fault must not fail the smoke
-            prof = profile_step(torch, lambda: model.apply(
-                params, nxt, mode="decode", cache=clone(saved), cache_len=clen,
-                block_tables=bt))
-        except RuntimeError as e:
-            prof = {"error": str(e)[:300]}
-            log(f"  profiler unavailable: {prof['error']}")
+        prof = profile_step(torch, lambda: model.apply(
+            params, nxt, mode="decode", cache=clone(saved), cache_len=clen,
+            block_tables=bt))
     torch.cuda.synchronize()
     step_err = float((lk - lp).abs().max())
     step_scale = float(lp.abs().max())
@@ -324,6 +439,92 @@ def main_path(torch, np):
     return summary, counts
 
 
+def quality_path(torch, np):
+    import math
+
+    from repro_torch import kernels
+    from repro_torch.calib.runner import calibration_batches, collect_grams
+    from repro_torch.configs import MISTRAL_7B
+    from repro_torch.eval.perplexity import eval_batches
+    from repro_torch.models import build_model
+    from repro_torch.obs.quality_report import EVAL_DOMAINS, build_entry
+
+    cfg = dataclasses.replace(MISTRAL_7B, num_layers=2)
+    model = build_model(cfg)
+    params = model.init(0, "cuda")
+    eval_n, eval_b, eval_s, attr_n = 2, 4, 2048, 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    entry = build_entry(cfg, method="nsvd1", ratio=0.2, k1_frac=0.9,
+                        eval_n_batches=eval_n, eval_batch=eval_b, eval_seq=eval_s,
+                        calib_samples=256, attribution_batches=attr_n, params=params)
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # Causal forwards: calibration, dense and compressed ppl per domain, the
+    # two forwards of each KL batch (logit KL, then each target's patch), and
+    # 2 domains x 4 batches of activation similarity.
+    n_targets = len(model.compressible_targets())
+    forwards = (256 // 16 + 2 * len(EVAL_DOMAINS) * eval_n + 2 * eval_n
+                + 2 * n_targets * attr_n + 2 * 4)
+    # Eval batches have 8192 rows, above the nested kernel's 1024-row gate
+    # (the reference's): compressed linears run as plain matmuls there.
+    expect = {"nested_lowrank": 0, "paged_attention": 0,
+              "gram": (4 * cfg.num_layers + 1) * (256 // 16),
+              "flash_attention": cfg.num_layers * forwards}
+    numbers = [*entry["dense_ppl"].values(), *entry["compressed_ppl"].values(),
+               *entry["ppl_ratio"].values(), entry["logit_kl"], entry["achieved_ratio"],
+               *(r["logit_kl"] for r in entry["attribution"]),
+               entry["activation_similarity"]["mean"],
+               *(v for v in entry["decomposition"].values())]
+    finite = all(math.isfinite(float(x)) for x in numbers)
+    ok = finite and counts == expect and len(entry["attribution"]) == n_targets
+    log(f"quality path: {cfg.name} layers={cfg.num_layers} (depth cut from 32), "
+        f"eval batches {eval_n} x ({eval_b}, {eval_s}) per domain; peak device "
+        f"memory {peak_gb:.1f} GB")
+    log("  phase seconds: " + ", ".join(f"{k}={v:.2f}" for k, v in entry["seconds"].items()))
+    for d in EVAL_DOMAINS:
+        log(f"  ppl[{d}]: dense {entry['dense_ppl'][d]:.3f} compressed "
+            f"{entry['compressed_ppl'][d]:.3f} (x{entry['ppl_ratio'][d]:.4f})")
+    tot = entry["decomposition"]
+    log(f"  logit KL {entry['logit_kl']:.5f} nats/token; achieved ratio "
+        f"{entry['achieved_ratio']:.5f}; decomposition {tot}")
+    log(f"  attribution top: {entry['attribution'][:2]}; activation similarity "
+        f"{entry['activation_similarity']}")
+    log(f"  launches {counts} expected {expect}; all numbers finite: {finite}")
+
+    # One eval batch's dense logits through the kernels vs the plain versions.
+    toks = torch.as_tensor(next(eval_batches(cfg.vocab_size, "en_a", 1, eval_b, eval_s)),
+                           device="cuda")
+    with torch.no_grad():
+        lk = model.apply(params, toks, mode="train").float()
+        with kernels.plain():
+            lp = model.apply(params, toks, mode="train").float()
+    err = float((lk - lp).abs().max())
+    scale = float(lp.abs().max())
+    agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    logit_ok = (lk.shape == (eval_b, eval_s, cfg.vocab_size)
+                and bool(torch.isfinite(lk).all()) and err <= EVAL_LOGIT_TOL * scale)
+    del lk, lp
+    log(f"  eval-batch logits kernels vs plain: max abs err {err:.4e} (max |logit| "
+        f"{scale:.3f}, tol {EVAL_LOGIT_TOL * scale:.4e}), argmax agreement "
+        f"{agree:.4f} {'OK' if logit_ok else 'FAIL'}")
+    # Where the quality path's time goes: one eval forward and one
+    # calibration batch (forward, 9 gram launches, fp64 accumulation).
+    calib_toks = next(calibration_batches(cfg.vocab_size, "en_a", 16, 16, 128))
+    with torch.no_grad():
+        prof_eval = profile_step(torch, lambda: model.apply(params, toks, mode="train"),
+                                 f"eval forward ({eval_b} x {eval_s})")
+    prof_calib = profile_step(torch, lambda: collect_grams(model, params, [calib_toks]),
+                              "calibration batch (16 x 128)")
+    summary = dict(entry=entry, launches=counts, expected_launches=expect,
+                   peak_memory_gb=peak_gb, eval_profile=prof_eval,
+                   calib_profile=prof_calib, eval_logit_max_abs_err=err,
+                   eval_logit_max_abs=scale, eval_argmax_agreement=agree,
+                   ok=bool(ok and logit_ok))
+    return summary, counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -335,6 +536,8 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
         from repro_torch.kernels import build
+        from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+        from repro_torch.kernels.gram import ops as gram_ops, ref as gram_ref
         from repro_torch.kernels.nested_lowrank import ops as nlr_ops, ref as nlr_ref
         from repro_torch.kernels.paged_attention import ops as pa_ops, ref as pa_ref
     except ImportError as e:
@@ -365,22 +568,36 @@ def main() -> int:
 
     nested = nested_phase(torch, nlr_ops, nlr_ref)
     paged = paged_phase(torch, pa_ops, pa_ref)
-    kernels_ok = all(r["ok"] for r in nested + paged)
-    summary, counts = main_path(torch, np)
+    grams = gram_phase(torch, gram_ops, gram_ref)
+    flash = flash_phase(torch, fa_ops, fa_ref)
+    kernels_ok = all(r["ok"] for r in nested + paged + grams + flash)
+    t0 = time.perf_counter()
+    serve_summary, serve_counts = serve_path(torch, np)
+    serve_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    quality_summary, quality_counts = quality_path(torch, np)
+    log(f"path seconds: serve {serve_s:.1f}, quality {time.perf_counter() - t0:.1f}")
 
-    # One entry per kernel at the main path's decode shape: the gate
-    # projection (largest factor bytes) at 8 live rows in bf16, and the bf16
-    # page pools.
-    nrow = next(r for r in nested if r["dtype"] == "bfloat16"
-                and r["target"] == "gate" and r["M"] == 8)
-    prow = next(r for r in paged if r["pool"] == "bfloat16")
-    entries = []
-    for row, src, replaces in (
-        (nrow, "src/repro_torch/csrc/nested_lowrank.cu",
+    # One entry per kernel at its path's main shape: the gate projection
+    # (largest factor bytes) at 8 live decode rows in bf16 and the bf16 page
+    # pools (serve path); the d_ff-wide tap in bf16 and the (4, 2048) eval
+    # batch in bf16 (quality path).  Launches are each kernel's count on its
+    # own path.
+    picks = (
+        (next(r for r in nested if r["dtype"] == "bfloat16" and r["target"] == "gate"
+              and r["M"] == 8), serve_counts, "src/repro_torch/csrc/nested_lowrank.cu",
          "src/repro/kernels/nested_lowrank/nested_lowrank.py:84"),
-        (prow, "src/repro_torch/csrc/paged_attention.cu",
+        (next(r for r in paged if r["pool"] == "bfloat16"), serve_counts,
+         "src/repro_torch/csrc/paged_attention.cu",
          "src/repro/kernels/paged_attention/paged_attention.py:243"),
-    ):
+        (next(r for r in grams if r["dtype"] == "bfloat16" and r["n"] == 14336),
+         quality_counts, "src/repro_torch/csrc/gram.cu", "src/repro/kernels/gram/gram.py:54"),
+        (next(r for r in flash if r["dtype"] == "bfloat16" and r["S"] == 2048),
+         quality_counts, "src/repro_torch/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention/flash_attention.py:108"),
+    )
+    entries = []
+    for row, counts, src, replaces in picks:
         entries.append({"name": row["kernel"], "route": "cuda", "source": src,
                         "replaces": replaces, "launches": counts[row["kernel"]],
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
@@ -389,11 +606,13 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": kind, "nvidia_smi": smi_line, "build_s": build_s,
-                   "nested": nested, "paged": paged, "main_path": summary,
+                   "nested": nested, "paged": paged, "gram": grams, "flash": flash,
+                   "serve_path": serve_summary, "quality_path": quality_summary,
                    "kernels": entries}, f, indent=1)
-    ok = kernels_ok and summary["ok"]
+    ok = kernels_ok and serve_summary["ok"] and quality_summary["ok"]
     if not ok:
-        log(f"chip_smoke: FAILED (kernels ok={kernels_ok}, main path ok={summary['ok']})")
+        log(f"chip_smoke: FAILED (kernels ok={kernels_ok}, serve path ok="
+            f"{serve_summary['ok']}, quality path ok={quality_summary['ok']})")
         return 1
     print(json.dumps({"kernels": entries}))
     print(smi_line)

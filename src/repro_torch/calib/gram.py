@@ -3,8 +3,10 @@
 For each tapped activation x (..., n):  G += x^T x (fp32 product), a +=
 sum |x|, c += rows — accumulated on the device into the GramStore's fp64
 sums (the reference copies every per-batch Gram to the host as fp64).  The
-Gram is a plain ``torch.matmul`` in full fp32: TF32 must stay off to match
-the reference's ``Precision.HIGHEST`` (``calibration_precision`` sets it).
+per-batch Gram and sum |x| come from the ``gram`` kernel
+(``kernels/gram``); its plain version is a full-fp32 matmul, for which TF32
+must stay off to match the reference's ``Precision.HIGHEST``
+(``calibration_precision`` sets it).
 
 Tap names from stacked groups look like "g0/rep3/sub0.mlp.in";
 ``normalize_tap`` rewrites them to the per-layer GramStore key
@@ -19,6 +21,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.core.compress import GramStore
+from repro_torch.kernels.gram.ops import gram_accumulate
 
 _REP_RE = re.compile(r"/rep(\d+)/")
 
@@ -39,15 +42,26 @@ def normalize_tap(name: str) -> Tuple[str, str]:
 
 def gram_update(x: torch.Tensor):
     """x (..., n) -> (G (n, n) fp32, sum |x| (n,) fp32, row count)."""
-    flat = x.reshape(-1, x.shape[-1]).float()
-    return flat.T @ flat, flat.abs().sum(0), float(flat.shape[0])
+    g, a = gram_accumulate(x)
+    return g, a, float(x.numel() // max(1, x.shape[-1]))
 
 
-def accumulate_taps(store: GramStore, taps: Dict[str, torch.Tensor]) -> None:
-    """Fold one batch of dense taps into ``store``."""
+def accumulate_taps(store: GramStore, taps: Dict[str, torch.Tensor],
+                    telemetry=None) -> None:
+    """Fold one batch of dense taps into ``store``.
+
+    ``telemetry`` (``repro_torch.obs.compression.CompressionTelemetry``)
+    gets the cheap per-batch signal only: rows folded per normalized tap.
+    The expensive per-tap statistics run once at the end of calibration
+    (``runner.collect_grams``)."""
+    tap_rows: Dict[str, float] = {}
     for name, x in taps.items():
         base, suffix = normalize_tap(name)
         g, a, c = gram_update(x)
         if suffix:
             store.update(f"{base}/{suffix}", g, a, c)
         store.update(base, g, a, c)
+        del g  # an fp32 Gram of a 14336-wide tap is 822 MB
+        tap_rows[base] = tap_rows.get(base, 0.0) + c
+    if telemetry is not None and telemetry.enabled:
+        telemetry.on_calib_batch(tap_rows)

@@ -19,8 +19,12 @@ logger = logging.getLogger(__name__)
 
 @torch.no_grad()
 def collect_grams(model, params, batches: Iterable[np.ndarray],
-                  max_batches: Optional[int] = None) -> GramStore:
-    """Accumulate Grams on the params' device from (B, S) token batches."""
+                  max_batches: Optional[int] = None, telemetry=None) -> GramStore:
+    """Accumulate Grams on the params' device from (B, S) token batches.
+
+    ``telemetry`` (``repro_torch.obs.compression.CompressionTelemetry``)
+    observes without changing the store: per-batch row counts during the
+    pass, the per-tap activation statistics once over the final store."""
     calibration_precision()
     device = params["embed"]["table"].device
     store = GramStore()
@@ -31,9 +35,12 @@ def collect_grams(model, params, batches: Iterable[np.ndarray],
         taps = {}
         model.apply(params, torch.as_tensor(tokens, device=device),
                     mode="train", taps=taps)
-        accumulate_taps(store, taps)
+        accumulate_taps(store, taps, telemetry=telemetry)
+        del taps
         n += 1
     logger.info("calibration: %d batches, %d gram keys", n, len(store.keys()))
+    if telemetry is not None and telemetry.enabled:
+        telemetry.on_calib_store(store)
     return store
 
 

@@ -12,7 +12,13 @@ from .lowrank import (
     linear_apply,
     param_count,
 )
-from .nsvd import NESTED_METHODS, nested_compress, nsvd_compress, split_rank
+from .nsvd import (
+    NESTED_METHODS,
+    decomposition_diagnostics,
+    nested_compress,
+    nsvd_compress,
+    split_rank,
+)
 from .plan import CompressionConfig, CompressionPlan, TargetSpec, build_plan
 from .ratio import achieved_ratio, rank_for_ratio, ratio_for_rank, uniform_ranks
 from .svd import SVDResult, best_svd, randomized_svd, truncated_svd

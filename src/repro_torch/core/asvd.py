@@ -32,6 +32,12 @@ class LowRankFactors:
     def nested(self) -> bool:
         return self.w2 is not None
 
+    def param_count(self) -> int:
+        n = self.w.numel() + self.z.numel()
+        if self.nested:
+            n += self.w2.numel() + self.z2.numel()
+        return int(n)
+
     def matrix(self) -> torch.Tensor:
         a = self.w @ self.z
         if self.nested:

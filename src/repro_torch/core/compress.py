@@ -18,8 +18,9 @@ import torch
 from repro_torch import Device, bridge, resolve_device
 
 from .lowrank import factors_to_params
-from .nsvd import nested_compress
+from .nsvd import decomposition_diagnostics, nested_compress
 from .plan import CompressionConfig, CompressionPlan
+from .ratio import rank_for_ratio
 
 logger = logging.getLogger(__name__)
 
@@ -68,6 +69,20 @@ class GramStore:
     def count(self, key: str) -> float:
         return self._counts.get(key, 0.0)
 
+    def resolve(self, key: str, fallback: Optional[str] = None,
+                min_count: int = 0) -> Tuple[str, Optional[str]]:
+        """The key gram()/absmean() would read, and the fallback reason:
+        None for the primary key, else "missing" or "min_count"."""
+        if key in self._grams:
+            if self._counts[key] >= min_count:
+                return key, None
+            reason = "min_count"
+        else:
+            reason = "missing"
+        if fallback is not None and fallback in self._grams:
+            return fallback, reason
+        raise KeyError(f"no Gram for {key!r} (fallback={fallback!r})")
+
     def keys(self):
         return self._grams.keys()
 
@@ -107,23 +122,41 @@ def _copy_dicts(tree):
 
 def compress_matrix(kernel: torch.Tensor, rank: int, config: CompressionConfig,
                     gram: Optional[torch.Tensor],
-                    absmean: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Compress one (in, out) kernel -> factored params dict."""
+                    absmean: Optional[torch.Tensor],
+                    telemetry: Optional[Any] = None, target: str = "",
+                    slice_idx: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
+    """Compress one (in, out) kernel -> factored params dict.
+
+    ``telemetry`` (``repro_torch.obs.compression.CompressionTelemetry``,
+    duck-typed so core never imports obs) is a pure observer: it records
+    diagnostics computed after the factors exist, so the factored params
+    are bit-identical with it on or off."""
+    a = kernel.to(torch.float64).T  # paper orientation (out, in)
     factors = nested_compress(
-        kernel.to(torch.float64).T, rank, config.method, gram=gram,
-        absmean=absmean, k1_frac=config.k1_frac, damp=config.damp,
+        a, rank, config.method, gram=gram, absmean=absmean,
+        k1_frac=config.k1_frac, damp=config.damp,
         use_randomized=config.use_randomized)
+    if telemetry is not None and telemetry.enabled:
+        telemetry.on_slice(target, slice_idx, decomposition_diagnostics(
+            a, factors, gram=gram,
+            compare_plain=getattr(telemetry, "compare_plain", True),
+            use_randomized=config.use_randomized))
     return factors_to_params(factors, dtype=config.dtype)
 
 
 def compress_params(params: Mapping[str, Any], plan: CompressionPlan,
-                    grams: GramStore) -> Dict[str, Any]:
+                    grams: GramStore, telemetry: Optional[Any] = None) -> Dict[str, Any]:
     """A new param tree with every planned target factored; other leaves are
     passed through by reference.  Stacked kernels (L, in, out) compress
-    slice by slice against f"{gram_key}/{i}" (falling back to gram_key)."""
+    slice by slice against f"{gram_key}/{i}" (falling back to gram_key).
+
+    ``telemetry`` observes the pass without affecting it: one report per
+    target (errors, tail mass, k1/k2, absorption, achieved-vs-requested
+    rank and params, Gram fallbacks)."""
     new_params = _copy_dicts(params)
     cfg = plan.config
     needs_gram = cfg.method not in ("svd", "plain")
+    observing = telemetry is not None and telemetry.enabled
     for spec in plan.targets:
         t0 = time.time()
         leaf = _get_subtree(new_params, spec.path)
@@ -131,19 +164,28 @@ def compress_params(params: Mapping[str, Any], plan: CompressionPlan,
             raise KeyError(f"target {spec.name} has no dense kernel (already compressed?)")
         kernel = leaf["kernel"].to(torch.float32)
         rank = plan.rank_of(spec)
+        fallback_slices = 0
         if spec.stacked:
             flat = kernel.reshape(-1, spec.in_dim, spec.out_dim)
             outs = []
             for flat_i in range(flat.shape[0]):
+                idx = _unravel(flat_i, spec.stacked)
                 g = a = None
                 if needs_gram:
-                    idx = _unravel(flat_i, spec.stacked)
                     key = (f"{spec.gram_key}/{'/'.join(map(str, idx))}"
                            if spec.per_layer_gram else spec.gram_key)
                     min_count = spec.in_dim // 4
                     g = grams.gram(key, fallback=spec.gram_key, min_count=min_count)
                     a = grams.absmean(key, fallback=spec.gram_key, min_count=min_count)
-                outs.append(compress_matrix(flat[flat_i], rank, cfg, g, a))
+                    if observing:
+                        _, reason = grams.resolve(key, fallback=spec.gram_key,
+                                                  min_count=min_count)
+                        if reason is not None:
+                            fallback_slices += 1
+                            telemetry.on_gram_fallback(key, spec.gram_key, reason)
+                outs.append(compress_matrix(flat[flat_i], rank, cfg, g, a,
+                                            telemetry=telemetry, target=spec.name,
+                                            slice_idx=idx))
             factored = {k: torch.stack([o[k] for o in outs]).reshape(
                 *spec.stacked, *outs[0][k].shape) for k in outs[0]}
         else:
@@ -151,10 +193,23 @@ def compress_params(params: Mapping[str, Any], plan: CompressionPlan,
             if needs_gram:
                 g = grams.gram(spec.gram_key)
                 a = grams.absmean(spec.gram_key)
-            factored = compress_matrix(kernel, rank, cfg, g, a)
+            factored = compress_matrix(kernel, rank, cfg, g, a,
+                                       telemetry=telemetry, target=spec.name)
         _set_subtree(new_params, spec.path, factored)
-        logger.info("compressed %s rank=%d in %.2fs", spec.name, rank,
-                    time.time() - t0)
+        dt = time.time() - t0
+        if observing:
+            m, n = spec.out_dim, spec.in_dim
+            dense_params = m * n * spec.count
+            factored_params = spec.count * (m + n) * rank
+            telemetry.on_target(
+                name=spec.name, method=cfg.method, shape=(m, n),
+                stacked=spec.stacked, rank=rank,
+                requested_rank=rank_for_ratio(m, n, cfg.ratio),
+                requested_ratio=cfg.ratio,
+                achieved_ratio=1.0 - factored_params / dense_params,
+                dense_params=dense_params, factored_params=factored_params,
+                gram_fallback_slices=fallback_slices, seconds=dt)
+        logger.info("compressed %s rank=%d in %.2fs", spec.name, rank, dt)
     return new_params
 
 

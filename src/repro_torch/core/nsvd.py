@@ -7,11 +7,11 @@ The column-ID residual (NID) is not ported yet.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
-from .asvd import LowRankFactors, asvd_compress, compress, plain_svd_compress
+from .asvd import LowRankFactors, asvd_compress, compress, gram_loss, plain_svd_compress
 from .whitening import make_whitener
 
 NESTED_METHODS = ("nsvd1", "nsvd2")
@@ -60,3 +60,49 @@ def nested_compress(a: torch.Tensor, k: int, method: str,
                              use_randomized=use_randomized)
     return compress(a, k, m, gram=gram, absmean=absmean, damp=damp,
                     use_randomized=use_randomized)
+
+
+def decomposition_diagnostics(a: torch.Tensor, factors: LowRankFactors,
+                              gram: Optional[torch.Tensor] = None,
+                              compare_plain: bool = True,
+                              use_randomized: bool = False) -> Dict[str, float]:
+    """Pure observation of a finished decomposition, in fp64 on the device
+    of ``a`` (never mutates its inputs):
+
+      plain_rel_err      ||A - Ã||_F / ||A||_F
+      whitened_rel_err   ||(A - Ã) X||_F / ||A X||_F, from the Gram only
+      sv_tail_mass       whitened_rel_err² (the whitened singular-value tail
+                         at the chosen rank, by Eckart–Young)
+      outlier_absorption 1 - whitened loss / rank-matched plain-SVD
+                         whitened loss (one extra truncated SVD; nan when
+                         ``compare_plain`` is False)
+      k1 / k2            the nested split used.
+    """
+    a = a.to(torch.float64)
+    approx = factors.matrix().to(torch.float64)
+    fro_a = float(torch.linalg.norm(a))
+    k1 = int(factors.w.shape[1])
+    k2 = int(factors.w2.shape[1]) if factors.nested else 0
+    out: Dict[str, float] = {
+        "rank": float(factors.rank),
+        "k1": float(k1),
+        "k2": float(k2),
+        "param_count": float(factors.param_count()),
+        "plain_rel_err": float(torch.linalg.norm(a - approx)) / max(fro_a, 1e-300),
+        "whitened_rel_err": float("nan"),
+        "sv_tail_mass": float("nan"),
+        "outlier_absorption": float("nan"),
+    }
+    if gram is None:
+        return out
+    g = gram.to(torch.float64)
+    g = 0.5 * (g + g.T)
+    total = gram_loss(a, torch.zeros_like(a), g)  # ||A X||_F
+    whit = gram_loss(a, approx, g)
+    out["whitened_rel_err"] = whit / max(total, 1e-300)
+    out["sv_tail_mass"] = (whit / max(total, 1e-300)) ** 2
+    if compare_plain:
+        base = plain_svd_compress(a, factors.rank, use_randomized=use_randomized)
+        out["outlier_absorption"] = 1.0 - whit / max(
+            gram_loss(a, base.matrix(), g), 1e-300)
+    return out

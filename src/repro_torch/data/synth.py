@@ -88,6 +88,9 @@ class MarkovSource:
         logits = logits + np.where(mask, boost + 5.0, 0.0)
         p = np.exp(logits - logits.max(axis=1, keepdims=True))
         self.probs = p / p.sum(axis=1, keepdims=True)
+        # Per-state CDFs, once: the same sequential cumsum the reference
+        # takes per step, so the draws below are bit-identical to its.
+        self.cdf = self.probs.cumsum(axis=1)
         self.mix_a = int(rng.integers(1, 1 << 16)) | 1
         self.mix_b = int(rng.integers(1, 1 << 16)) | 1
 
@@ -101,10 +104,11 @@ class MarkovSource:
         t1 = rng.integers(0, n, batch)
         for j in range(seq):
             st = self._state(t2, t1)
-            p = self.probs[st]
-            # Vectorized categorical sampling per row.
+            # Categorical sampling per row: the count of CDF entries below
+            # u, by binary search (the reference counts them per step).
             u = rng.random((batch, 1))
-            idx = (p.cumsum(axis=1) < u).sum(axis=1).clip(0, n - 1)
+            idx = np.fromiter((np.searchsorted(self.cdf[s], x) for s, x in zip(st, u[:, 0])),
+                              np.int64, batch).clip(0, n - 1)
             out[:, j] = idx
             t2, t1 = t1, idx
         return self.vocab_slice[out]

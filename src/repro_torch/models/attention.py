@@ -1,5 +1,6 @@
-"""GQA attention: causal train/prefill and the paged decode / chunked-prefill
-path through a block table, with optional int8 KV quantization.
+"""GQA attention: causal train/prefill (the flash-attention kernel) and the
+paged decode / chunked-prefill path through a block table, with optional
+int8 KV quantization.
 
 Conventions (the reference's):
   x          (B, S, D)
@@ -21,6 +22,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import gather_pages, paged_attention
 
 from .layers import apply_rope, linear, linear_init, rope_frequencies
@@ -177,8 +179,7 @@ def attention_apply(
                              "block_tables (the dense-slab decode is not ported)")
         out = _paged_decode_attend(q, k, v, cache, cache_len, block_tables, scale)
     elif mode == "causal":
-        causal = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()
-        out = _naive_attention(q, k, v, causal[None, None, None], scale)
+        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
     else:
         raise ValueError(f"attention mode {mode!r} is not ported")
 

@@ -12,7 +12,12 @@ import pytest
 import torch
 
 from repro_torch import kernels
+from repro_torch.calib.runner import collect_grams
 from repro_torch.configs import MISTRAL_7B, small_lm
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.gram import ops as gram_ops
+from repro_torch.kernels.gram import ref as gram_ref
 from repro_torch.kernels.nested_lowrank import ops as nlr_ops
 from repro_torch.kernels.nested_lowrank import ref as nlr_ref
 from repro_torch.kernels.paged_attention import ops as pa_ops
@@ -95,6 +100,70 @@ def test_paged_kernel_matches_plain(dev, group, pool):
     tol = 1e-5 if pool == torch.float32 else 2e-2
     assert _err(got[live], want[live]) < tol
     assert (got[~live] == 0).all()  # a length-0 row reads nothing, writes 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,n", [(64, 128), (77, 200), (2048, 4096), (5, 1)])
+def test_gram_kernel_matches_plain(dev, rows, n, dtype):
+    """Ragged rows and n included.  Tolerance: fp32 sums in another order
+    (bf16 products are exact in fp32), 1e-5 of the largest entry."""
+    g = torch.Generator(device=dev).manual_seed(rows + n)
+    x = torch.randn((rows, n), generator=g, device=dev).to(dtype)
+    x[:, n // 2] *= 30.0  # an outlier channel
+    before = gram_ops.launches
+    got_g, got_a = gram_ops.gram_accumulate(x.reshape(1, rows, n))
+    torch.cuda.synchronize()
+    assert gram_ops.launches == before + 1
+    want_g, want_a = gram_ref.gram_accumulate_ref(x)
+    assert _err(got_g, want_g) < 1e-5
+    assert _err(got_a, want_a) < 1e-5
+    assert torch.equal(got_g, got_g.T)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,hkv,group,hd", [
+    (2, 128, 2, 4, 128), (1, 1000, 1, 4, 64), (3, 37, 2, 1, 32),
+    (2, 70, 2, 2, 256), (1, 5, 3, 3, 40)])
+def test_flash_kernel_matches_plain(dev, b, s, hkv, group, hd, dtype):
+    """Ragged S, G in {1, 2, 3, 4}, hd up to 256.  Tolerance: fp32 sum order
+    (1e-5); bf16 P rounded before P V at other points than the plain
+    version's normalized probabilities (2e-2)."""
+    g = torch.Generator(device=dev).manual_seed(s)
+    mk = lambda h: torch.randn((b, s, h, hd), generator=g, device=dev).to(dtype)  # noqa: E731
+    q, k, v = mk(hkv * group), mk(hkv), mk(hkv)
+    before = fa_ops.launches
+    got = fa_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert _err(got, fa_ref.flash_attention_ref(q, k, v)) < tol
+
+
+def test_flash_kernel_rejects_bad_head_dim(dev):
+    q = torch.zeros((1, 4, 2, 12), device=dev)
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q, q[:, :, :1].contiguous(), q[:, :, :1].contiguous())
+
+
+def test_calibration_runs_through_gram_and_flash(dev):
+    """collect_grams on a CUDA model launches gram once per tap and batch
+    and flash_attention once per layer and batch, and its Grams match the
+    same calibration through the plain versions."""
+    cfg = small_lm("card-calib", MISTRAL_7B, num_layers=2, d_model=64, d_ff=96,
+                   vocab_size=128, num_heads=8)
+    model = build_model(cfg)
+    params = model.init(0, dev)
+    rng = np.random.default_rng(0)
+    batches = [rng.integers(0, 128, (4, 40)).astype(np.int32) for _ in range(3)]
+    g0, f0 = gram_ops.launches, fa_ops.launches
+    store = collect_grams(model, params, batches)
+    assert gram_ops.launches - g0 == 3 * (4 * cfg.num_layers + 1)
+    assert fa_ops.launches - f0 == 3 * cfg.num_layers
+    with kernels.plain():
+        plain = collect_grams(model, params, batches)
+    assert set(store.keys()) == set(plain.keys())
+    for key in store.keys():
+        assert _err(store.gram(key), plain.gram(key)) < 1e-5
 
 
 def test_served_greedy_stream_kernels_vs_plain(dev):
