@@ -20,7 +20,15 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
      compressed perplexity on five domains at (4, 2048) tokens a batch
      (flash_attention kernel), logit KL, per-target attribution, activation
      similarity; launch counts read around it, and one eval batch's logits
-     through the kernels against the plain versions.
+     through the kernels against the plain versions;
+  6. RWKV-6 serve path: ``serve()`` on rwkv6-1.6b at full width (depth cut to
+     4 layers, random weights from a seed) on the dense recurrent-state slab:
+     calibrate (gram, rwkv6), compress, serve the same 8 requests (each
+     admission one exact-length prefill through rwkv6; decode through
+     nested_lowrank), launch counts read around it; then one dense decode
+     step's logits through the kernels against the plain versions;
+  7. RWKV-6 quality path: ``build_entry`` on the same model, one (4, 2048)
+     eval batch per domain, every causal forward through rwkv6.
 Prints a JSON kernel summary, nvidia-smi's line, and as its last line
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero; without a
 card (or outside the repository) it exits non-zero before printing results.
@@ -68,6 +76,22 @@ FLASH_SHAPES = ((16, 128, 32, 8), (4, 2048, 32, 8), (4, 1000, 32, 8), (4, 1000, 
 # (plain), and outputs round to bf16; fp32: sum order only.
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 EVAL_LOGIT_TOL = 5e-2  # 2-layer bf16 model: flash vs naive rounding, one batch
+# (case, BH, T, K, dtype, fixed w): an rwkv6-1.6b eval batch (4 x 32 heads,
+# 2048 tokens), one request's prefill (32 heads, ragged 200 tokens, with its
+# final state), a calibration batch (16 x 32 heads, 128 tokens), extreme
+# decay, and the eval batch in bf16.
+RWKV_SHAPES = (("eval", 128, 2048, 64, "float32", None),
+               ("prefill", 32, 200, 64, "float32", None),
+               ("calib", 512, 128, 64, "float32", None),
+               ("extreme", 32, 200, 64, "float32", 1e-6),
+               ("eval", 128, 2048, 64, "bfloat16", None))
+# Max |kernel - plain| / max |plain| for y and for the fp32 final state.
+# fp32: the chunked form (exp of cumulated log-decays) vs the sequential
+# scan's running products, summed in another order.  bf16: inputs widen
+# exactly and both sides compute in fp32, then each rounds y to bf16 on its
+# own: one bf16 ulp (2^-8) of the output; the state keeps the fp32 bound.
+RWKV_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+RWKV_STATE_TOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -302,7 +326,53 @@ def flash_phase(torch, ops, ref):
     return rows_out
 
 
-KERNELS = ("nested_lowrank", "paged_attention", "gram", "flash_attention")
+def rwkv6_phase(torch, ops, ref):
+    rows_out = []
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for case, bh, t, k, dname, w_fixed in RWKV_SHAPES:
+        dt = getattr(torch, dname)
+        r, kk, v = (torch.randn((bh, t, k), generator=gen, device="cuda") * 0.5
+                    for _ in range(3))
+        w = (torch.full((bh, t, k), w_fixed, device="cuda") if w_fixed is not None
+             else torch.rand((bh, t, k), generator=gen, device="cuda") * 0.989 + 0.01)
+        u = torch.randn((bh, k), generator=gen, device="cuda") * 0.5
+        args = [x.to(dt) for x in (r, kk, v, w)] + [u]
+        got, got_s = ops.rwkv6_attention(*args, return_state=True)
+        want, want_s = ref.rwkv6_scan_ref(*args, return_state=True)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        s_err = float((got_s - want_s).abs().max())
+        s_scale = float(want_s.abs().max())
+        ok = (bool(torch.isfinite(got).all()) and bool(torch.isfinite(got_s).all())
+              and err <= RWKV_TOL[dname] * scale and s_err <= RWKV_STATE_TOL * s_scale)
+        del got, want, got_s, want_s
+        with_state = case == "prefill"  # as the path calls it
+        ms = time_ms(lambda: ops.rwkv6_attention(*args, return_state=with_state))
+        plain = time_ms(lambda: ref.rwkv6_scan_ref(*args, return_state=with_state), reps=3)
+        el = args[0].element_size()
+        nbytes = (5 * bh * t * k * el + 4 * bh * k
+                  + (4 * bh * k * k if with_state else 0))
+        # As the chunked form executes it, per token: the cross and state
+        # products (2 K^2 each), the intra-chunk matrix and its product
+        # (2 L K each), the bonus (4 K).
+        flops = bh * t * (4 * k * k + 4 * ops.CHUNK * k + 4 * k)
+        bnd, by = bound_ms(nbytes, flops, dname)
+        row = dict(kernel="rwkv6", case=case, dtype=dname, BH=bh, T=t, K=k,
+                   w=w_fixed, with_state=with_state, max_abs_err=err,
+                   ref_max_abs=scale, tol=RWKV_TOL[dname] * scale,
+                   state_max_abs_err=s_err, state_tol=RWKV_STATE_TOL * s_scale, ok=ok,
+                   ms=ms, plain_ms=plain, library_ms=None, bytes=nbytes, flops=flops,
+                   bound_ms=bnd, bound_by=by)
+        rows_out.append(row)
+        log(f"rwkv6  {dname:8s} {case:7s} BH={bh:<3d} T={t:<4d} K={k} err={err:.3e} (tol "
+            f"{row['tol']:.3e}) state err={s_err:.3e} (tol {row['state_tol']:.3e}) "
+            f"{'OK' if ok else 'FAIL'}  kernel {ms:.3f} ms  plain {plain:.3f} ms  "
+            f"library none  bound {bnd:.4f} ms ({by}, {nbytes / 1e6:.1f} MB)")
+    return rows_out
+
+
+KERNELS = ("nested_lowrank", "paged_attention", "gram", "flash_attention", "rwkv6")
 
 
 def _ops(name):
@@ -351,13 +421,32 @@ def profile_step(torch, fn, label: str = "decode step") -> dict:
             "top": [{"name": k, "ms": ms, "count": n} for k, (ms, n) in top]}
 
 
-def serve_path(torch, np):
+def factored_ratio(params, plan) -> float:
+    """1 - (factor parameters / dense parameters) over the plan's targets,
+    counted from the compressed params themselves."""
+    dense = factored = 0
+    for t in plan.targets:
+        leaf = params
+        for key in t.path:
+            leaf = leaf[key]
+        n = 1
+        for d in t.stacked:
+            n *= d
+        dense += n * t.in_dim * t.out_dim
+        factored += sum(leaf[k].numel() for k in ("u", "v", "u2", "v2") if k in leaf)
+    return 1.0 - factored / dense
+
+
+def serve_path(torch, np, cfg, mixer: str, taps_per_layer: int):
+    """``serve()`` on ``cfg``: calibrate, compress (nsvd1, ratio 0.2) and
+    serve 8 requests on the layout the model takes, with exact launch counts
+    (``mixer``: the kernel each calibration forward runs once per layer);
+    then one decode step's logits through the kernels against the plain
+    versions, on a cache prefilled with each prompt's first 15 tokens."""
     from repro_torch import kernels
-    from repro_torch.configs import MISTRAL_7B
     from repro_torch.launch.serve import serve
     from repro_torch.serving.kvcache import PagedKVCache
 
-    cfg = dataclasses.replace(MISTRAL_7B, num_layers=2)
     rng = np.random.default_rng(0)
     plens = rng.integers(16, 201, size=8)
     prompts = [rng.integers(2, cfg.vocab_size // 2, size=int(n)) for n in plens]
@@ -366,59 +455,75 @@ def serve_path(torch, np):
                 seed=0, compress=0.2, block_size=16, prefill_chunk=64,
                 prompts=prompts)
     counts = read_counts()
-    eng, model, params = res["engine"], res["model"], res["params"]
+    eng, model, params, plan = res["engine"], res["model"], res["params"], res["plan"]
     st = eng.stats()
-    n_linear = len(model.compressible_targets()) * cfg.num_layers
+    paged = eng.layout == "paged"
+    layers = cfg.num_layers
+    n_linear = len(model.compressible_targets()) * layers
     # Calibration: 256 samples in batches of 16, each one causal forward
-    # with 4 taps per layer plus the final-norm tap.
+    # (the mixer kernel once per layer, taps_per_layer taps per layer plus
+    # the final-norm tap).  Every compressed linear of every prefill call and
+    # decode step runs the nested kernel; paged decode steps run paged
+    # attention once per layer; dense admissions prefill each prompt at its
+    # exact length through rwkv6 (paged prefill chunks attend over gathered
+    # pages, as the reference, not through flash_attention).
     calib_batches = 256 // 16
     expect = {"nested_lowrank": n_linear * (st["steps"] + st["prefill_ticks"]),
-              "paged_attention": cfg.num_layers * st["steps"],
-              "gram": (4 * cfg.num_layers + 1) * calib_batches,
-              "flash_attention": cfg.num_layers * calib_batches}
+              "paged_attention": layers * st["steps"] if paged else 0,
+              "gram": (taps_per_layer * layers + 1) * calib_batches,
+              "flash_attention": 0, "rwkv6": 0}
+    expect[mixer] = layers * (calib_batches + (0 if paged else st["prefill_ticks"]))
     reasons = {u: r.finish_reason for u, r in res["requests"].items()}
     outs = res["outputs"]
+    ratio = factored_ratio(params, plan)
+    syncs_ok = (st["host_syncs"] <= st["steps"] + st["prefill_ticks"] if paged else
+                st["prefill_ticks"] == 8 and st["host_syncs"] == st["steps"] + 8)
     ok = (len(outs) == 8 and all(reasons.get(u) for u in outs)
           and all(1 <= len(v) <= 32 for v in outs.values())
           and all(0 <= t < cfg.vocab_size for v in outs.values() for t in v)
-          and all(counts[k] == expect[k] > 0 for k in counts))
+          and syncs_ok and abs(ratio - plan.achieved_ratio) < 1e-9
+          and counts == expect and expect["nested_lowrank"] > 0)
     log(f"serve path: {cfg.name} d_model={cfg.d_model} heads={cfg.num_heads}/"
         f"{cfg.num_kv_heads} hd={cfg.head_dim} d_ff={cfg.d_ff} vocab="
-        f"{cfg.vocab_size} layers={cfg.num_layers} (depth cut from 32)")
+        f"{cfg.vocab_size} layers={layers} (depth cut); cache layout {eng.layout}")
     log(f"  prompt lengths {plens.tolist()}; plan achieved ratio "
-        f"{res['plan'].achieved_ratio:.4f}")
+        f"{plan.achieved_ratio:.4f} (counted from the factors: {ratio:.4f})")
     log("  phase seconds: " + ", ".join(f"{k}={v:.2f}" for k, v in res["seconds"].items()))
     log(f"  {res['tokens']} tokens in {res['seconds']['serve']:.2f} s = "
         f"{res['tok_per_s']:.1f} tok/s; decode steps {st['steps']}, prefill "
-        f"chunks {st['prefill_ticks']}, host syncs {st['host_syncs']}, step p50 "
+        f"calls {st['prefill_ticks']}, host syncs {st['host_syncs']}, step p50 "
         f"{st['step_p50_s'] * 1e3:.2f} ms")
     log(f"  launches {counts} expected {expect}; finish reasons {sorted(set(reasons.values()))}")
 
-    # One decode step with the kernels vs the same step through the plain
-    # versions, on a cache prefilled with the first 15 tokens of each prompt.
-    kv = PagedKVCache(model, 8, 256, block_size=16, device="cuda")
-    for slot in range(8):
-        kv.reserve(slot, 65)
-    bt = kv.table_device()
     toks = torch.as_tensor(np.stack([p[:15] for p in prompts]), device="cuda")
-    zero = torch.zeros(8, dtype=torch.int32, device="cuda")
+    nxt = torch.as_tensor([[int(p[15])] for p in prompts], device="cuda")
+    clen = torch.full((8,), 15, dtype=torch.int32, device="cuda")
     with torch.no_grad():
-        model.apply(params, toks, mode="decode", cache=kv.pools, cache_len=zero,
-                    block_tables=bt)
-        clen = torch.full((8,), 15, dtype=torch.int32, device="cuda")
-        nxt = torch.as_tensor([[int(p[15])] for p in prompts], device="cuda")
+        if paged:
+            kv = PagedKVCache(model, 8, 256, block_size=16, device="cuda")
+            for slot in range(8):
+                kv.reserve(slot, 65)
+            extra = {"block_tables": kv.table_device()}
+            cache = kv.pools
+            model.apply(params, toks, mode="decode", cache=cache,
+                        cache_len=torch.zeros_like(clen), **extra)
+        else:
+            extra = {}
+            cache = model.init_cache(8, 256, device="cuda")
+            model.apply(params, toks, mode="prefill", cache=cache)
 
         def clone(tree):
-            return {k: clone(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.clone()
-        saved = clone(kv.pools)
-        lk = model.apply(params, nxt, mode="decode", cache=kv.pools, cache_len=clen,
-                         block_tables=bt).float()
+            return ({k: clone(v) for k, v in tree.items()} if isinstance(tree, dict)
+                    else tree.clone())
+        saved = clone(cache)
+        lk = model.apply(params, nxt, mode="decode", cache=cache, cache_len=clen,
+                         **extra).float()
         with kernels.plain():
-            lp = model.apply(params, nxt, mode="decode", cache=saved,
-                             cache_len=clen, block_tables=bt).float()
+            lp = model.apply(params, nxt, mode="decode", cache=clone(saved),
+                             cache_len=clen, **extra).float()
         prof = profile_step(torch, lambda: model.apply(
-            params, nxt, mode="decode", cache=clone(saved), cache_len=clen,
-            block_tables=bt))
+            params, nxt, mode="decode", cache=clone(saved), cache_len=clen, **extra),
+            f"{eng.layout} decode step (8 rows)")
     torch.cuda.synchronize()
     step_err = float((lk - lp).abs().max())
     step_scale = float(lp.abs().max())
@@ -428,31 +533,33 @@ def serve_path(torch, np):
     log(f"  decode-step logits kernels vs plain: max abs err {step_err:.4e} "
         f"(max |logit| {step_scale:.3f}, tol {STEP_LOGIT_TOL * step_scale:.4e}), "
         f"argmax agreement {agree:.3f} {'OK' if step_ok else 'FAIL'}")
-    summary = dict(config=cfg.name, layers=cfg.num_layers, prompt_lengths=plens.tolist(),
-                   seconds=res["seconds"], tokens=res["tokens"],
-                   tok_per_s=res["tok_per_s"], engine=st, launches=counts,
-                   expected_launches=expect, finish_reasons=reasons,
-                   achieved_ratio=res["plan"].achieved_ratio,
+    summary = dict(config=cfg.name, layers=layers, layout=eng.layout,
+                   prompt_lengths=plens.tolist(), seconds=res["seconds"],
+                   tokens=res["tokens"], tok_per_s=res["tok_per_s"], engine=st,
+                   launches=counts, expected_launches=expect, finish_reasons=reasons,
+                   achieved_ratio=plan.achieved_ratio, factored_ratio=ratio,
                    step_logit_max_abs_err=step_err, step_logit_max_abs=step_scale,
                    step_argmax_agreement=agree, step_profile=prof,
                    ok=bool(ok and step_ok))
     return summary, counts
 
 
-def quality_path(torch, np):
+def quality_path(torch, np, cfg, eval_n: int, taps_per_layer: int, mixer: str):
+    """``build_entry`` on ``cfg`` with exact launch counts (``mixer``: the
+    kernel every causal forward runs once per layer, flash_attention or
+    rwkv6), then one eval batch's logits through the kernels against the
+    plain versions, and profiles of an eval forward and a calibration batch."""
     import math
 
     from repro_torch import kernels
     from repro_torch.calib.runner import calibration_batches, collect_grams
-    from repro_torch.configs import MISTRAL_7B
     from repro_torch.eval.perplexity import eval_batches
     from repro_torch.models import build_model
     from repro_torch.obs.quality_report import EVAL_DOMAINS, build_entry
 
-    cfg = dataclasses.replace(MISTRAL_7B, num_layers=2)
     model = build_model(cfg)
     params = model.init(0, "cuda")
-    eval_n, eval_b, eval_s, attr_n = 2, 4, 2048, 1
+    eval_b, eval_s, attr_n = 4, 2048, 1
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -469,26 +576,27 @@ def quality_path(torch, np):
                 + 2 * n_targets * attr_n + 2 * 4)
     # Eval batches have 8192 rows, above the nested kernel's 1024-row gate
     # (the reference's): compressed linears run as plain matmuls there.
-    expect = {"nested_lowrank": 0, "paged_attention": 0,
-              "gram": (4 * cfg.num_layers + 1) * (256 // 16),
-              "flash_attention": cfg.num_layers * forwards}
+    expect = {"nested_lowrank": 0, "paged_attention": 0, "flash_attention": 0,
+              "rwkv6": 0, "gram": (taps_per_layer * cfg.num_layers + 1) * (256 // 16)}
+    expect[mixer] = cfg.num_layers * forwards
+    tot = entry["decomposition"]
     numbers = [*entry["dense_ppl"].values(), *entry["compressed_ppl"].values(),
                *entry["ppl_ratio"].values(), entry["logit_kl"], entry["achieved_ratio"],
                *(r["logit_kl"] for r in entry["attribution"]),
-               entry["activation_similarity"]["mean"],
-               *(v for v in entry["decomposition"].values())]
+               entry["activation_similarity"]["mean"], *tot.values()]
     finite = all(math.isfinite(float(x)) for x in numbers)
-    ok = finite and counts == expect and len(entry["attribution"]) == n_targets
-    log(f"quality path: {cfg.name} layers={cfg.num_layers} (depth cut from 32), "
-        f"eval batches {eval_n} x ({eval_b}, {eval_s}) per domain; peak device "
-        f"memory {peak_gb:.1f} GB")
+    ratio_ok = abs(tot["achieved_ratio"] - entry["achieved_ratio"]) < 1e-9
+    ok = (finite and ratio_ok and counts == expect
+          and len(entry["attribution"]) == n_targets)
+    log(f"quality path: {cfg.name} layers={cfg.num_layers} (depth cut), eval batches "
+        f"{eval_n} x ({eval_b}, {eval_s}) per domain; peak device memory {peak_gb:.1f} GB")
     log("  phase seconds: " + ", ".join(f"{k}={v:.2f}" for k, v in entry["seconds"].items()))
     for d in EVAL_DOMAINS:
         log(f"  ppl[{d}]: dense {entry['dense_ppl'][d]:.3f} compressed "
             f"{entry['compressed_ppl'][d]:.3f} (x{entry['ppl_ratio'][d]:.4f})")
-    tot = entry["decomposition"]
     log(f"  logit KL {entry['logit_kl']:.5f} nats/token; achieved ratio "
-        f"{entry['achieved_ratio']:.5f}; decomposition {tot}")
+        f"{entry['achieved_ratio']:.5f} (factors: {tot['achieved_ratio']:.5f}); "
+        f"decomposition {tot}")
     log(f"  attribution top: {entry['attribution'][:2]}; activation similarity "
         f"{entry['activation_similarity']}")
     log(f"  launches {counts} expected {expect}; all numbers finite: {finite}")
@@ -510,18 +618,18 @@ def quality_path(torch, np):
         f"{scale:.3f}, tol {EVAL_LOGIT_TOL * scale:.4e}), argmax agreement "
         f"{agree:.4f} {'OK' if logit_ok else 'FAIL'}")
     # Where the quality path's time goes: one eval forward and one
-    # calibration batch (forward, 9 gram launches, fp64 accumulation).
+    # calibration batch (forward, gram launches, fp64 accumulation).
     calib_toks = next(calibration_batches(cfg.vocab_size, "en_a", 16, 16, 128))
     with torch.no_grad():
         prof_eval = profile_step(torch, lambda: model.apply(params, toks, mode="train"),
                                  f"eval forward ({eval_b} x {eval_s})")
     prof_calib = profile_step(torch, lambda: collect_grams(model, params, [calib_toks]),
                               "calibration batch (16 x 128)")
-    summary = dict(entry=entry, launches=counts, expected_launches=expect,
-                   peak_memory_gb=peak_gb, eval_profile=prof_eval,
-                   calib_profile=prof_calib, eval_logit_max_abs_err=err,
-                   eval_logit_max_abs=scale, eval_argmax_agreement=agree,
-                   ok=bool(ok and logit_ok))
+    summary = dict(config=cfg.name, layers=cfg.num_layers, entry=entry, launches=counts,
+                   expected_launches=expect, peak_memory_gb=peak_gb,
+                   eval_profile=prof_eval, calib_profile=prof_calib,
+                   eval_logit_max_abs_err=err, eval_logit_max_abs=scale,
+                   eval_argmax_agreement=agree, ok=bool(ok and logit_ok))
     return summary, counts
 
 
@@ -540,6 +648,8 @@ def main() -> int:
         from repro_torch.kernels.gram import ops as gram_ops, ref as gram_ref
         from repro_torch.kernels.nested_lowrank import ops as nlr_ops, ref as nlr_ref
         from repro_torch.kernels.paged_attention import ops as pa_ops, ref as pa_ref
+        from repro_torch.kernels.rwkv6 import ops as rwkv_ops, ref as rwkv_ref
+        from repro_torch.configs import MISTRAL_7B, RWKV6_1_6B
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
         return 2
@@ -570,19 +680,33 @@ def main() -> int:
     paged = paged_phase(torch, pa_ops, pa_ref)
     grams = gram_phase(torch, gram_ops, gram_ref)
     flash = flash_phase(torch, fa_ops, fa_ref)
-    kernels_ok = all(r["ok"] for r in nested + paged + grams + flash)
-    t0 = time.perf_counter()
-    serve_summary, serve_counts = serve_path(torch, np)
-    serve_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    quality_summary, quality_counts = quality_path(torch, np)
-    log(f"path seconds: serve {serve_s:.1f}, quality {time.perf_counter() - t0:.1f}")
+    rwkv = rwkv6_phase(torch, rwkv_ops, rwkv_ref)
+    kernels_ok = all(r["ok"] for r in nested + paged + grams + flash + rwkv)
+    # mistral-7b cut to 2 of 32 layers; rwkv6-1.6b cut to 4 of 24; widths
+    # untouched.  (path, function, args): the mixer kernel and the
+    # calibration taps per layer of each model.
+    mistral = dataclasses.replace(MISTRAL_7B, num_layers=2)
+    rwkv6 = dataclasses.replace(RWKV6_1_6B, num_layers=4)
+    runs = (("serve", serve_path, (mistral, "flash_attention", 4)),
+            ("quality", quality_path, (mistral, 2, 4, "flash_attention")),
+            ("rwkv_serve", serve_path, (rwkv6, "rwkv6", 9)),
+            ("rwkv_quality", quality_path, (rwkv6, 1, 9, "rwkv6")))
+    summaries, path_counts, path_s = {}, {}, {}
+    for name, fn, args in runs:
+        t0 = time.perf_counter()
+        summaries[name], path_counts[name] = fn(torch, np, *args)
+        path_s[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    log("path seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in path_s.items()))
+    serve_counts, quality_counts = path_counts["serve"], path_counts["quality"]
+    rwkv_serve_counts = path_counts["rwkv_serve"]
 
     # One entry per kernel at its path's main shape: the gate projection
     # (largest factor bytes) at 8 live decode rows in bf16 and the bf16 page
     # pools (serve path); the d_ff-wide tap in bf16 and the (4, 2048) eval
-    # batch in bf16 (quality path).  Launches are each kernel's count on its
-    # own path.
+    # batch in bf16 (quality path); the rwkv6-1.6b eval batch in fp32 (the
+    # model's dtype for the recurrence).  Launches are each kernel's count on
+    # its own path (rwkv6: the RWKV-6 serve path).
     picks = (
         (next(r for r in nested if r["dtype"] == "bfloat16" and r["target"] == "gate"
               and r["M"] == 8), serve_counts, "src/repro_torch/csrc/nested_lowrank.cu",
@@ -595,6 +719,9 @@ def main() -> int:
         (next(r for r in flash if r["dtype"] == "bfloat16" and r["S"] == 2048),
          quality_counts, "src/repro_torch/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention/flash_attention.py:108"),
+        (next(r for r in rwkv if r["dtype"] == "float32" and r["case"] == "eval"),
+         rwkv_serve_counts, "src/repro_torch/csrc/rwkv6.cu",
+         "src/repro/kernels/rwkv6/rwkv6.py:105"),
     )
     entries = []
     for row, counts, src, replaces in picks:
@@ -607,12 +734,11 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": kind, "nvidia_smi": smi_line, "build_s": build_s,
                    "nested": nested, "paged": paged, "gram": grams, "flash": flash,
-                   "serve_path": serve_summary, "quality_path": quality_summary,
-                   "kernels": entries}, f, indent=1)
-    ok = kernels_ok and serve_summary["ok"] and quality_summary["ok"]
-    if not ok:
-        log(f"chip_smoke: FAILED (kernels ok={kernels_ok}, serve path ok="
-            f"{serve_summary['ok']}, quality path ok={quality_summary['ok']})")
+                   "rwkv6": rwkv, **{f"{k}_path": v for k, v in summaries.items()},
+                   "path_seconds": path_s, "kernels": entries}, f, indent=1)
+    paths_ok = {k: v["ok"] for k, v in summaries.items()}
+    if not (kernels_ok and all(paths_ok.values())):
+        log(f"chip_smoke: FAILED (kernels ok={kernels_ok}, paths ok={paths_ok})")
         return 1
     print(json.dumps({"kernels": entries}))
     print(smi_line)

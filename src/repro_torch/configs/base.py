@@ -1,15 +1,23 @@
-"""Model configuration: the dense-decoder subset of the reference config.
+"""Model configuration: the subset of the reference config the port reads.
 
-The port serves the paper's dense families (LLaMA / OPT / Mistral), so the
-frozen dataclass keeps the reference's field names and defaults for every
-field those families read; family sub-configs (MoE, MLA, Mamba, RWKV) are
-not ported yet.  ``reduced()`` is the reference's smoke-test shrink.
+The port serves the paper's dense families (LLaMA / OPT / Mistral) and the
+RWKV-6 family, so the frozen dataclass keeps the reference's field names and
+defaults for every field those families read; the other family sub-configs
+(MoE, MLA, Mamba) are not ported yet.  ``reduced()`` is the reference's
+smoke-test shrink.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class RWKVConfig:
+    head_dim: int = 64
+    decay_lora: int = 64
+    mix_lora: int = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,10 +39,13 @@ class ModelConfig:
     norm: str = "rmsnorm"  # rmsnorm | layernorm
     activation: str = "swiglu"  # swiglu | gelu
     tie_embeddings: bool = False
-    mixer_pattern: Tuple[str, ...] = ("attn",)
+    mixer_pattern: Tuple[str, ...] = ("attn",)  # "attn" | "rwkv", cycled
+
+    rwkv: Optional[RWKVConfig] = None
 
     max_seq: int = 131072
     dtype: str = "bfloat16"
+    subquadratic: bool = False  # sub-quadratic mixer (recurrent state)
 
     def __post_init__(self):
         if self.head_dim == 0 and self.num_heads > 0:
@@ -54,6 +65,9 @@ class ModelConfig:
         if self.num_kv_heads and self.num_heads % self.num_kv_heads == 0:
             group = self.num_heads // self.num_kv_heads
             kv = max(1, scale_heads // min(group, scale_heads))
+        rwkv = None
+        if self.rwkv is not None:
+            rwkv = RWKVConfig(head_dim=8, decay_lora=8, mix_lora=4)
         return dataclasses.replace(
             self,
             name=self.name + "-reduced",
@@ -64,6 +78,7 @@ class ModelConfig:
             d_ff=64,
             vocab_size=256,
             head_dim=8,
+            rwkv=rwkv,
             max_seq=128,
             dtype="float32",
         )

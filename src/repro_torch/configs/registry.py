@@ -1,9 +1,9 @@
 """Architecture registry: ``--arch <id>`` lookup for the launchers.
 
-The paper's three families at full width, plus the ``small-*`` variants
-whose trained checkpoints the reference keeps under
-``experiments/models/<name>/`` (same widths as the reference benchmarks'
-SMALL_CONFIGS, vocabulary 512)."""
+The paper's three families at full width, the other ported families at
+their published width (``FAMILIES``), plus the ``small-*`` variants whose
+trained checkpoints the reference keeps under ``experiments/models/<name>/``
+(same widths as the reference benchmarks' SMALL_CONFIGS, vocabulary 512)."""
 
 from __future__ import annotations
 
@@ -11,11 +11,16 @@ from typing import Dict
 
 from .base import ModelConfig
 from .paper_models import LLAMA_7B, MISTRAL_7B, OPT_6_7B, small_lm
+from .rwkv6_1_6b import CONFIG as RWKV6_1_6B
 
 PAPER: Dict[str, ModelConfig] = {
     "llama-7b": LLAMA_7B,
     "opt-6.7b": OPT_6_7B,
     "mistral-7b": MISTRAL_7B,
+}
+
+FAMILIES: Dict[str, ModelConfig] = {
+    "rwkv6-1.6b": RWKV6_1_6B,
 }
 
 SMALL_VOCAB = 512
@@ -28,7 +33,7 @@ SMALL: Dict[str, ModelConfig] = {
                               SMALL_VOCAB),
 }
 
-ALL: Dict[str, ModelConfig] = {**PAPER, **SMALL}
+ALL: Dict[str, ModelConfig] = {**PAPER, **FAMILIES, **SMALL}
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -1,8 +1,13 @@
 """Serving launcher: build (or load) a model, optionally calibrate and
-NSVD-compress it, and serve batched requests through the paged engine.
+NSVD-compress it, and serve batched requests through the engine, on the
+cache layout the model takes (``models.api.cache_layout``): paged block
+pools for the attention families, the dense recurrent-state slab for
+RWKV-6.
 
     python -m repro_torch.launch.serve --arch mistral-7b --no-reduced \\
         --compress 0.2 --requests 8 --max-new 32
+    python -m repro_torch.launch.serve --arch rwkv6-1.6b --no-reduced \\
+        --compress 0.2 --requests 8 --max-new 32 --max-batch 8
 
 ``small-*`` archs load the reference's trained checkpoint from
 ``experiments/models/<name>/`` (and its ``grams.npz`` when present); every
@@ -124,9 +129,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--compress", type=float, default=None,
                     help="NSVD ratio (runs a calibration pass first)")
-    ap.add_argument("--block-size", type=int, default=16)
-    ap.add_argument("--num-blocks", type=int, default=None)
-    ap.add_argument("--prefill-chunk", type=int, default=64)
+    ap.add_argument("--block-size", type=int, default=16, help="paged layout only")
+    ap.add_argument("--num-blocks", type=int, default=None, help="paged layout only")
+    ap.add_argument("--prefill-chunk", type=int, default=64, help="paged layout only")
     ap.add_argument("--eos", type=int, default=None)
     ap.add_argument("--device", default=None, help="default: cuda")
     args = ap.parse_args(argv)
@@ -148,6 +153,7 @@ def main(argv=None):
     print("phase seconds: " + ", ".join(f"{k}={v:.2f}"
                                          for k, v in res["seconds"].items()))
     s = res["engine"].stats()
+    print(f"cache layout {res['engine'].layout}; prefill calls {s['prefill_ticks']}")
     print(f"decode steps: {s['steps']}  p50={s['step_p50_s'] * 1e3:.2f}ms  "
           f"p90={s['step_p90_s'] * 1e3:.2f}ms  host syncs={s['host_syncs']}")
 

@@ -1,5 +1,7 @@
-"""Serving step builders: the paged decode step and the paged prefill-chunk
-step, with batched sampling and device-side finish exits.
+"""Serving step builders, with batched sampling and device-side finish
+exits: the paged decode step and the paged prefill-chunk step (attention
+stacks), and the dense-slab decode step and prefill-admit step (recurrent
+stacks: RWKV-6).
 
 All per-slot state lives on the device: cache_len, last_token, budget,
 sampling keys and active flags.  A decode step samples every live row,
@@ -82,6 +84,74 @@ def _sample_advance_exit(logits, last_token, cache_len, budget, key_data,
     new_active = act & (sampled != eos) & alive
     active = torch.where(host_keep, new_active, active)
     return sampled, cache_len, budget, key_data, active
+
+
+def make_decode_sample_step(model, max_len: int) -> Callable:
+    """One decode step over the dense cache slab for all max_batch rows.
+    Rows that are not effectively active decode garbage into their own slab
+    rows; that is harmless because admission replaces a slot's rows
+    wholesale (``set_cache_rows``), and it needs no data-dependent
+    selection (which would sync with the host).  Their token, length,
+    budget and key stay frozen in ``_sample_advance_exit``."""
+
+    @torch.no_grad()
+    def decode_sample_step(params, cache, last_token, cache_len, budget, key_data,
+                           active, host_keep, temps, eos):
+        logits = model.apply(params, last_token[:, None], mode="decode",
+                             cache=cache, cache_len=cache_len)
+        return _sample_advance_exit(logits, last_token, cache_len, budget,
+                                    key_data, active, host_keep, temps, eos,
+                                    max_len)
+
+    return decode_sample_step
+
+
+# Dense-slab (recurrent) cache leaves: name -> ndim of one layer's leaf; a
+# stacked group adds a leading layer dim, so the batch axis is ndim - base.
+_CACHE_LEAF_NDIM = {"state": 4, "shift_t": 2, "shift_c": 2}
+
+
+def set_cache_rows(cache, rows, slots: torch.Tensor) -> None:
+    """Write R per-row cache slices ``rows`` into batch rows ``slots`` (R,)
+    of ``cache``, in place, one index_copy_ per leaf.  Every slot must be a
+    real row: the port admits dense-layout requests one at a time, so it
+    has no padding rows to drop."""
+    idx = slots.long()
+    for name, c in cache.items():
+        if isinstance(c, dict):
+            set_cache_rows(c, rows[name], slots)
+        else:
+            c.index_copy_(c.ndim - _CACHE_LEAF_NDIM[name], idx, rows[name].to(c.dtype))
+
+
+def make_prefill_admit_step(model, max_len: int) -> Callable:
+    """Admission of R requests in one call: prefill R prompts of one exact
+    length (R, P) into a FRESH row cache, write its rows into the engine
+    cache at ``slots`` (replacing any previous occupant's rows wholesale),
+    set per-slot length / last token / budget / key / active, and sample
+    each row's first token from its last position.  The engine calls it
+    with R = 1: a recurrent state folds in every position, so prompts of
+    other lengths cannot share a padded call."""
+
+    @torch.no_grad()
+    def prefill_admit_step(params, cache, tokens, slots, budgets, row_keys,
+                           cache_len, last_token, budget, key_data, temps,
+                           active):
+        r, plen = tokens.shape
+        row_cache = model.init_cache(r, max_len, device=tokens.device)
+        logits = model.apply(params, tokens, mode="prefill", cache=row_cache)
+        row_keys, first = sample_tokens(row_keys, logits[:, -1], temps)
+        set_cache_rows(cache, row_cache, slots)
+        idx = slots.long()
+
+        def put(state, vals):
+            return state.index_copy(0, idx, vals.to(state.dtype))
+
+        return (first, put(cache_len, torch.full_like(idx, plen)), put(last_token, first),
+                put(budget, budgets), put(key_data, row_keys),
+                put(active, torch.ones_like(idx, dtype=torch.bool)))
+
+    return prefill_admit_step
 
 
 def make_paged_decode_step(model, max_len: int) -> Callable:

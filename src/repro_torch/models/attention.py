@@ -40,6 +40,15 @@ def attention_init(gen, cfg: ModelConfig, dtype, device) -> Dict:
     }
 
 
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> Dict:
+    """The reference's dense (batch, max_len) K/V slab.  The port decodes
+    attention through the paged pools only; this slab names the leaves
+    ``models.api.cache_layout`` reads."""
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
 def init_paged_kv_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                         dtype, device, quant: bool = False) -> Dict:
     """Block-pool KV cache shared by all rows (see serving/kvcache).

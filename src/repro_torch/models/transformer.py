@@ -1,4 +1,5 @@
-"""Decoder-only LM assembly for the dense (gqa, mlp) families."""
+"""Decoder-only LM assembly for the dense (gqa, mlp) families and RWKV-6
+(rwkv, cmix)."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from repro_torch.configs.base import ModelConfig
 
 from .blocks import (
     group_apply,
+    group_cache_init,
     group_init,
     group_layers,
     group_paged_cache_init,
@@ -30,9 +32,11 @@ from .layers import (
 class DecoderLM:
     """Functional decoder-only LM over plain dict param trees.
 
-    apply modes: "train" (causal, no cache) and "decode" (S new tokens per
-    row written into a paged cache at each row's cache_len: S == 1 is a
-    decode step, S > 1 a chunk of streaming prefill).
+    apply modes: "train" (causal, no cache); "prefill" (causal, writing a
+    fresh dense row cache from ``init_cache``: recurrent state and shifts);
+    and "decode" (S new tokens per row at each row's cache_len, into a paged
+    cache for attention — S == 1 is a decode step, S > 1 a chunk of
+    streaming prefill — or one token per row into the dense recurrent cache).
     """
 
     def __init__(self, cfg: ModelConfig):
@@ -59,6 +63,15 @@ class DecoderLM:
                                             self.dtype, dev)
         return params
 
+    def init_cache(self, batch: int, max_len: int, dtype=None,
+                   device: Device = None) -> Dict:
+        """The dense (batch, ...) cache slab (the reference's layout);
+        ``device="meta"`` gives its leaves without allocating."""
+        dtype = dtype or self.dtype
+        dev = resolve_device(device)
+        return {f"g{i}": group_cache_init(g, self.cfg, batch, max_len, dtype, dev)
+                for i, g in enumerate(self.groups)}
+
     def init_paged_cache(self, num_blocks: int, block_size: int, dtype=None,
                          kv_quant: bool = False, device: Device = None) -> Dict:
         dtype = dtype or self.dtype
@@ -72,15 +85,15 @@ class DecoderLM:
               cache_len: Optional[torch.Tensor] = None,
               block_tables: Optional[torch.Tensor] = None,
               taps: Optional[Dict] = None) -> torch.Tensor:
-        """Logits (B, S, V).  In "decode" mode the paged ``cache`` pools are
-        written in place."""
+        """Logits (B, S, V).  In "prefill" and "decode" mode the ``cache``
+        tensors are written in place."""
         cfg = self.cfg
         b, s = tokens.shape
         x = embed(params["embed"], tokens).to(self.dtype)
         ar = torch.arange(s, device=tokens.device)
         if mode == "decode":
             positions = cache_len.long()[:, None] + ar
-        elif mode == "train":
+        elif mode in ("train", "prefill"):
             positions = ar.expand(b, s)
         else:
             raise ValueError(f"mode {mode!r} is not ported")
@@ -106,22 +119,32 @@ class DecoderLM:
         d = cfg.d_model
         hq = cfg.num_heads * cfg.head_dim
         hkv = cfg.num_kv_heads * cfg.head_dim
+        layers = {
+            ("gqa", "mlp"): [
+                (("attn", "wq"), d, hq, "attn.in"),
+                (("attn", "wk"), d, hkv, "attn.in"),
+                (("attn", "wv"), d, hkv, "attn.in"),
+                (("attn", "wo"), hq, d, "attn.out_in"),
+                (("mlp", "wi"), d, cfg.d_ff, "mlp.in"),
+                *([(("mlp", "wg"), d, cfg.d_ff, "mlp.in")]
+                  if cfg.activation == "swiglu" else []),
+                (("mlp", "wo"), cfg.d_ff, d, "mlp.mid"),
+            ],
+            ("rwkv", "cmix"): [
+                *((("rwkv_t", w), d, d, f"rwkv_t.{t}_in")
+                  for w, t in (("wr", "r"), ("wk", "k"), ("wv", "v"), ("wg", "g"))),
+                (("rwkv_t", "wo"), d, d, "rwkv_t.out_in"),
+                (("rwkv_c", "wk"), d, cfg.d_ff, "rwkv_c.k_in"),
+                (("rwkv_c", "wv"), cfg.d_ff, d, "rwkv_c.mid"),
+                (("rwkv_c", "wr"), d, d, "rwkv_c.r_in"),
+            ],
+        }
         targets = []
         for i, g in enumerate(self.groups):
             rep = (g.repeats,) if g.repeats > 1 else ()
-            for j in range(len(g.period)):
+            for j, spec in enumerate(g.period):
                 base, tap = (f"g{i}", f"sub{j}"), f"g{i}/sub{j}"
-                for path, in_dim, out_dim, key in (
-                    (("attn", "wq"), d, hq, "attn.in"),
-                    (("attn", "wk"), d, hkv, "attn.in"),
-                    (("attn", "wv"), d, hkv, "attn.in"),
-                    (("attn", "wo"), hq, d, "attn.out_in"),
-                    (("mlp", "wi"), d, cfg.d_ff, "mlp.in"),
-                    (("mlp", "wg"), d, cfg.d_ff, "mlp.in"),
-                    (("mlp", "wo"), cfg.d_ff, d, "mlp.mid"),
-                ):
-                    if path == ("mlp", "wg") and cfg.activation != "swiglu":
-                        continue
+                for path, in_dim, out_dim, key in layers[spec]:
                     targets.append(TargetSpec(path=base + path, in_dim=in_dim,
                                               out_dim=out_dim,
                                               gram_key=f"{tap}.{key}",

@@ -1,12 +1,18 @@
 """Batched serving engine (continuous batching) over (compressed) weights
-with a paged KV cache — the core of the reference engine, at pipeline
-depth 1 with worst-case admission.
+— the core of the reference engine, at pipeline depth 1 with worst-case
+admission — on either of the reference's cache layouts, chosen by
+``models.api.cache_layout``:
 
-Slot-based: requests are admitted into free slots and their prompts
-stream into reserved KV blocks ``prefill_chunk`` tokens per engine
-iteration (one fixed-shape chunk call for all prefilling rows), every
-engine step decodes one token for all live rows, and finished rows free
-their slot and blocks immediately, so new requests join mid-flight.
+* "paged" (attention stacks): requests are admitted into free slots and
+  their prompts stream into reserved KV blocks ``prefill_chunk`` tokens per
+  engine iteration (one fixed-shape chunk call for all prefilling rows).
+* "dense" (recurrent stacks: RWKV-6): one (max_batch, ...) slab per cache
+  leaf.  Each admission prefills ONE request at its exact length into a
+  fresh row cache that then replaces its slot's rows wholesale (a recurrent
+  state folds in every position, so prompts are never padded or bucketed).
+
+Every engine step decodes one token for all live rows, and finished rows
+free their slot (and blocks) immediately, so new requests join mid-flight.
 
 All per-slot state lives on the device (cache_len, last_token, budget,
 sampling keys, active).  A step is one decode call — sampling and the
@@ -15,9 +21,10 @@ device-to-host copy of the sampled token vector, from which the host
 learns every finish.  Admission reserves a request's worst case
 (prompt + max_new) up front, so a live row never runs out of blocks.
 
-Not ported yet (later slices): the dense-slab layout, speculative
-decoding, meshes, on-demand block growth and preemption, fault injection,
-telemetry and the depth-K dispatch ring.
+Not ported yet (later slices): bucketed dense-slab admission (no ported
+dense-layout model is pad-safe), speculative decoding, meshes, on-demand
+block growth and preemption, fault injection, telemetry and the depth-K
+dispatch ring.
 """
 
 from __future__ import annotations
@@ -32,10 +39,13 @@ import numpy as np
 import torch
 
 from repro_torch.launch.steps import (
+    make_decode_sample_step,
     make_paged_decode_step,
     make_paged_prefill_chunk_step,
+    make_prefill_admit_step,
     request_keys,
 )
+from repro_torch.models.api import cache_layout
 from repro_torch.serving.kvcache import PagedKVCache, upload
 
 
@@ -75,11 +85,21 @@ class ServingEngine:
         self.seed = seed
         self.eos_id = eos_id
         self.prefill_chunk = prefill_chunk
-        self.kv = PagedKVCache(model, max_batch, max_len, block_size=block_size,
-                               num_blocks=num_blocks, kv_quant=kv_quant,
-                               device=self.device)
-        self._decode = make_paged_decode_step(model, max_len)
-        self._chunk_step = make_paged_prefill_chunk_step(model)
+        self.layout = cache_layout(model)
+        if self.layout == "paged":
+            self.kv = PagedKVCache(model, max_batch, max_len, block_size=block_size,
+                                   num_blocks=num_blocks, kv_quant=kv_quant,
+                                   device=self.device)
+            self._decode = make_paged_decode_step(model, max_len)
+            self._chunk_step = make_paged_prefill_chunk_step(model)
+        else:
+            if kv_quant:
+                raise ValueError(f"{model.cfg.name}: kv_quant quantizes paged "
+                                 "attention K/V; this model's cache is recurrent")
+            self.kv = None
+            self.cache = model.init_cache(max_batch, max_len, device=self.device)
+            self._decode = make_decode_sample_step(model, max_len)
+            self._prefill = make_prefill_admit_step(model, max_len)
 
         dev = self.device
         self.cache_len = torch.zeros(max_batch, dtype=torch.int32, device=dev)
@@ -124,10 +144,11 @@ class ServingEngine:
         if len(prompt) > self.max_len - 1:
             raise ValueError(f"prompt length {len(prompt)} exceeds "
                              f"max_len-1={self.max_len - 1}")
-        need = self.kv.blocks_for(min(self.max_len, len(prompt) + max_new_tokens))
-        if need > self.kv.num_blocks:
-            raise ValueError(f"request needs {need} blocks worst-case but the "
-                             f"pool only has {self.kv.num_blocks}")
+        if self.kv is not None:
+            need = self.kv.blocks_for(min(self.max_len, len(prompt) + max_new_tokens))
+            if need > self.kv.num_blocks:
+                raise ValueError(f"request needs {need} blocks worst-case but the "
+                                 f"pool only has {self.kv.num_blocks}")
         req = Request(next(self._uid), prompt, max_new_tokens, temperature,
                       eos_id if eos_id is not None else self.eos_id)
         self.queue.append(req)
@@ -161,12 +182,17 @@ class ServingEngine:
     def _admission_could_progress(self) -> bool:
         if not self.queue or self.active.all():
             return False
+        if self.kv is None:
+            return True
         return self.kv.alloc.free_blocks() >= self.kv.blocks_for(
             self._need(self.queue[0]))
 
     def _admit(self) -> List[Request]:
         """Reserve blocks for queued requests (FIFO, worst case), then
-        advance every prefilling request by one chunk."""
+        advance every prefilling request by one chunk (paged); or prefill
+        queued requests into free slots (dense)."""
+        if self.kv is None:
+            return self._admit_dense()
         busy = {t.slot for t in self._prefilling}
         while self.queue:
             req = self.queue[0]
@@ -185,6 +211,30 @@ class ServingEngine:
             busy.add(slot)
             self._prefilling.append(_PrefillTask(req, slot))
         return self._prefill_tick() if self._prefilling else []
+
+    def _admit_dense(self) -> List[Request]:
+        """FIFO into free slots, one request per prefill-admit call at the
+        prompt's exact length; each call's first token is read back at once
+        (one host sync per admission, as the reference's dense admission)."""
+        dev = self.device
+        t = lambda a: upload(np.asarray(a), dev)  # noqa: E731
+        finished: List[Request] = []
+        while self.queue:
+            free = self._free_slots()
+            if not free:
+                break
+            req, slot = self.queue.popleft(), free[0]
+            (first, self.cache_len, self.last_token, self.budget_dev, self.key_data,
+             self.active_dev) = self._prefill(
+                self.params, self.cache, t(req.prompt[None]), t([slot]),
+                t([max(0, req.max_new_tokens - 1)]), request_keys(self.seed, [req.uid], dev),
+                self.cache_len, self.last_token, self.budget_dev, self.key_data,
+                t(np.asarray([req.temperature], np.float32)), self.active_dev)
+            self.prefill_ticks += 1
+            tok = int(first.cpu()[0])
+            self.host_syncs += 1
+            self._finish_or_activate(req, slot, tok, finished)
+        return finished
 
     def _prefill_tick(self) -> List[Request]:
         """Advance up to max_batch prefills by ONE chunk (one step call)."""
@@ -258,7 +308,8 @@ class ServingEngine:
         self.active[slot] = False
         self._host_dirty = True
         self._freed_at[slot] = next(self._free_clock)
-        self.kv.free(slot)
+        if self.kv is not None:
+            self.kv.free(slot)
 
     # ---------------------------------------------------------------- decode
 
@@ -277,11 +328,14 @@ class ServingEngine:
         t0 = time.perf_counter()
         mask = self.active.copy()
         host_keep, temps, eos = self._host_inputs()
-        (sampled, self.cache_len, self.budget_dev, self.key_data,
-         self.active_dev) = self._decode(
-            self.params, self.kv.pools, self.kv.table_device(), self.last_token,
-            self.cache_len, self.budget_dev, self.key_data, self.active_dev,
-            host_keep, temps, eos)
+        state = (self.cache_len, self.budget_dev, self.key_data, self.active_dev,
+                 host_keep, temps, eos)
+        if self.kv is None:
+            out = self._decode(self.params, self.cache, self.last_token, *state)
+        else:
+            out = self._decode(self.params, self.kv.pools, self.kv.table_device(),
+                               self.last_token, *state)
+        sampled, self.cache_len, self.budget_dev, self.key_data, self.active_dev = out
         self.last_token = sampled
         toks = sampled.cpu().numpy()  # the step's one host sync
         self.host_syncs += 1

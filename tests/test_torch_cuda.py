@@ -13,7 +13,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.calib.runner import collect_grams
-from repro_torch.configs import MISTRAL_7B, small_lm
+from repro_torch.configs import MISTRAL_7B, RWKV6_1_6B, small_lm
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.gram import ops as gram_ops
@@ -22,6 +22,8 @@ from repro_torch.kernels.nested_lowrank import ops as nlr_ops
 from repro_torch.kernels.nested_lowrank import ref as nlr_ref
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention import ref as pa_ref
+from repro_torch.kernels.rwkv6 import ops as rwkv_ops
+from repro_torch.kernels.rwkv6 import ref as rwkv_ref
 from repro_torch.models import build_model
 from repro_torch.serving.engine import ServingEngine
 
@@ -216,6 +218,147 @@ def test_decode_step_dispatch_is_sync_free(dev):
     args = (eng.params, eng.kv.pools, eng.kv.table_device(), eng.last_token,
             eng.cache_len, eng.budget_dev, eng.key_data, eng.active_dev,
             *eng._host_inputs())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._decode(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def _rwkv_inputs(dev, bh, t, k, dtype, seed, w_value=None):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r, kk, v = (torch.randn((bh, t, k), generator=g, device=dev) * 0.5 for _ in range(3))
+    w = (torch.full((bh, t, k), w_value, device=dev) if w_value is not None
+         else torch.rand((bh, t, k), generator=g, device=dev) * 0.989 + 0.01)
+    u = torch.randn((bh, k), generator=g, device=dev) * 0.5
+    return [x.to(dtype) for x in (r, kk, v, w)] + [u]
+
+
+# fp32: the chunked form sums in another order than the sequential scan
+# (exp of cumulated log-decays vs running products): 1e-4 of the largest
+# value.  bf16: inputs widen exactly and both sides compute in fp32, then
+# round y to bf16 on their own (one bf16 ulp, 2^-8 relative); the fp32
+# state keeps the fp32 tolerance.
+RWKV_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,t,k", [(2, 40, 16), (1, 5, 8), (3, 37, 32), (32, 200, 64),
+                                    (4, 16, 64), (2, 1, 64)])
+def test_rwkv6_kernel_matches_plain(dev, bh, t, k, dtype):
+    """Ragged T (not a multiple of the 16-token chunk, and T < 16), every
+    instantiated K, y and the final state."""
+    args = _rwkv_inputs(dev, bh, t, k, dtype, seed=t * k)
+    before = rwkv_ops.launches
+    y, s = rwkv_ops.rwkv6_attention(*args, return_state=True)
+    torch.cuda.synchronize()
+    assert rwkv_ops.launches == before + 1
+    assert y.dtype == dtype and s.dtype == torch.float32
+    wy, ws = rwkv_ref.rwkv6_scan_ref(*args, return_state=True)
+    assert _err(y, wy) < RWKV_TOL[dtype]
+    assert _err(s, ws) < 1e-4
+
+
+def test_rwkv6_kernel_extreme_decay(dev):
+    """w = 1e-6: the per-chunk rebase keeps every exponent <= 0."""
+    args = _rwkv_inputs(dev, 4, 64, 64, torch.float32, seed=9, w_value=1e-6)
+    y, s = rwkv_ops.rwkv6_attention(*args, return_state=True)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+    wy, ws = rwkv_ref.rwkv6_scan_ref(*args, return_state=True)
+    assert _err(y, wy) < 1e-4 and _err(s, ws) < 1e-4
+
+
+def test_rwkv6_kernel_reads_model_layout_in_place(dev):
+    """(B, T, H, K) tensors permuted to (B, H, T, K) and a broadcast bonus:
+    no copies, y keeps the model's layout, same values as the plain path."""
+    b, t, h, k = 2, 50, 4, 64
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = [torch.randn((b, t, h, k), generator=g, device=dev) for _ in range(3)]
+    x.append(torch.rand((b, t, h, k), generator=g, device=dev) * 0.9 + 0.05)
+    heads = [a.permute(0, 2, 1, 3) for a in x]
+    u = torch.randn((h, k), generator=g, device=dev).expand(b, h, k)
+    y, s = rwkv_ops.rwkv6_heads(*heads, u, return_state=True)
+    with kernels.plain():
+        wy, ws = rwkv_ops.rwkv6_heads(*heads, u, return_state=True)
+    torch.cuda.synchronize()
+    assert y.stride() == heads[0].stride()
+    assert _err(y, wy) < 1e-4 and _err(s, ws) < 1e-4
+
+
+def _rwkv_card_model(dev):
+    cfg = small_lm("card-rwkv", RWKV6_1_6B, num_layers=2, d_model=128, d_ff=256,
+                   vocab_size=128, num_heads=2)
+    model = build_model(cfg)
+    params = model.init(0, dev)
+    params["unembed"]["kernel"] *= 8.0
+    g = torch.Generator(device=dev).manual_seed(1)
+    for layer in ("wr", "wk", "wv", "wg", "wo"):  # factor the time mix in place
+        k_in, k_out = params["g0"]["sub0"]["rwkv_t"][layer]["kernel"].shape[-2:]
+        params["g0"]["sub0"]["rwkv_t"][layer] = {
+            "u": torch.randn((2, k_in, 24), generator=g, device=dev) * k_in ** -0.5,
+            "v": torch.randn((2, 24, k_out), generator=g, device=dev) * 24 ** -0.5,
+            "u2": torch.randn((2, k_in, 8), generator=g, device=dev) * k_in ** -0.5,
+            "v2": torch.randn((2, 8, k_out), generator=g, device=dev) * 8 ** -0.5}
+    return model, params
+
+
+def test_rwkv_dense_decode_step_kernels_vs_plain(dev):
+    """One dense-slab decode step after a prefill, through the kernels
+    (rwkv6 at prefill, nested_lowrank on the factored linears) and through
+    the plain versions: the same logits and cache to fp32 rounding."""
+    model, params = _rwkv_card_model(dev)
+    toks = torch.as_tensor(np.arange(3, 3 + 2 * 37).reshape(2, 37) % 128, device=dev)
+    nxt = toks[:, -1:]
+    clen = torch.full((2,), 37, dtype=torch.int32, device=dev)
+    out = []
+    for plain in (False, True):
+        cache = model.init_cache(2, 64, device=dev)
+        r0, n0 = rwkv_ops.launches, nlr_ops.launches
+        with (kernels.plain() if plain else torch.no_grad()), torch.no_grad():
+            model.apply(params, toks, mode="prefill", cache=cache)
+            logits = model.apply(params, nxt, mode="decode", cache=cache, cache_len=clen)
+        torch.cuda.synchronize()
+        launched = (rwkv_ops.launches - r0, nlr_ops.launches - n0)
+        assert launched == ((0, 0) if plain else (model.cfg.num_layers, 2 * 5 * 2))
+        out.append((logits, cache))
+    (lk, ck), (lp, cp) = out
+    assert _err(lk, lp) < 1e-4
+    for k in ("state", "shift_t", "shift_c"):
+        assert _err(ck["g0"]["sub0"]["rwkv"][k], cp["g0"]["sub0"]["rwkv"][k]) < 1e-4
+
+
+def test_rwkv_served_greedy_stream_kernels_vs_plain(dev):
+    model, params = _rwkv_card_model(dev)
+    prompts = [np.arange(3, 3 + n) % 128 for n in (5, 19, 40)]
+
+    def run():
+        eng = ServingEngine(model, params, max_batch=2, max_len=64)
+        ids = [eng.submit(p, max_new_tokens=12) for p in prompts]
+        out = eng.run()
+        st = eng.stats()
+        assert eng.layout == "dense"
+        assert st["host_syncs"] == st["steps"] + st["prefill_ticks"] == st["steps"] + 3
+        return [out[i] for i in ids]
+
+    launches = rwkv_ops.launches
+    with_kernels = run()
+    assert rwkv_ops.launches - launches == 3 * model.cfg.num_layers  # prefills only
+    with kernels.plain():
+        plain = run()
+    assert with_kernels == plain
+
+
+def test_rwkv_dense_decode_dispatch_is_sync_free(dev):
+    model, params = _rwkv_card_model(dev)
+    eng = ServingEngine(model, params, max_batch=4, max_len=64)
+    for n in (5, 9, 30):
+        eng.submit(np.arange(2, 2 + n), max_new_tokens=8)
+    eng._admit()
+    args = (eng.params, eng.cache, eng.last_token, eng.cache_len, eng.budget_dev,
+            eng.key_data, eng.active_dev, *eng._host_inputs())
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:

@@ -1,7 +1,9 @@
 """Port parity for the serving slice: greedy streams of the port's engine
 equal the reference engine's (worst-case admission, pipeline depth 1), on
-dense and NSVD-compressed weights, with fp32 and int8 KV pools; device-side EOS exits; the temperature-
-stream invariant; and the allocator the port copies."""
+dense and NSVD-compressed weights, with fp32 and int8 KV pools (paged
+layout) and for RWKV-6 on the dense recurrent-state slab; device-side EOS
+exits; the temperature-stream invariant; and the allocator the port
+copies."""
 
 import functools
 
@@ -12,13 +14,15 @@ import pytest
 from torch_parity import tiny_cfgs, to_t
 
 from repro.calib.runner import collect_grams as jax_collect_grams
+from repro.configs import get_config as jax_get_config
 from repro.core import CompressionConfig as JaxCompressionConfig
 from repro.core import build_plan as jax_build_plan
 from repro.core import compress_params as jax_compress_params
 from repro.models import build_model as jax_build_model
 from repro.serving.engine import ServingEngine as JaxEngine
 from repro.serving.scheduler import SchedulerConfig
-from repro_torch.models import build_model
+from repro_torch.configs import get_config
+from repro_torch.models import build_model, cache_layout, prefill_pad_safe
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.kvcache import BlockAllocator
 
@@ -188,3 +192,77 @@ def test_sampler_draws_the_softmax_distribution():
     freq = np.bincount(tok.numpy(), minlength=8) / n
     want = torch.softmax(logits / t, -1).numpy()
     assert 0.5 * np.abs(freq - want).sum() < 0.02
+
+
+# ------------------------------------------------- RWKV-6, dense slab
+
+
+@functools.lru_cache(maxsize=None)
+def _rwkv(kind):
+    jcfg = jax_get_config("rwkv6-1.6b").reduced()
+    jmodel = jax_build_model(jcfg)
+    jparams = jmodel.init(jax.random.key(0))
+    jparams["unembed"]["kernel"] = jparams["unembed"]["kernel"] * 8.0
+    if kind == "nsvd1":
+        rng = np.random.default_rng(3)
+        grams = jax_collect_grams(jmodel, jparams, [
+            {"tokens": jnp.asarray(rng.integers(0, 256, (4, 32)), jnp.int32)}])
+        plan = jax_build_plan(jmodel.compressible_targets(), JaxCompressionConfig(
+            method="nsvd1", ratio=0.3, dtype="float32", use_randomized=False))
+        jparams = jax_compress_params(jparams, plan, grams)
+    tmodel = build_model(get_config("rwkv6-1.6b").reduced())
+    return jmodel, jparams, tmodel, to_t(jparams)
+
+
+def _rwkv_prompts(seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(2, 200, size=n) for n in PROMPT_LENS]
+
+
+@pytest.mark.parametrize("kind", ["dense", "nsvd1"])
+def test_rwkv_greedy_streams_match_reference_dense_engine(kind):
+    """The reduced rwkv6-1.6b on the dense slab: the same greedy streams as
+    the reference engine's dense path (3 slots for 5 requests, so slots are
+    reused and every admission replaces a previous occupant's state)."""
+    jmodel, jparams, tmodel, tparams = _rwkv(kind)
+    kw = dict(max_batch=3, max_len=48)
+    ref = JaxEngine(jmodel, jparams, pipeline_depth=1,
+                    sched_config=SchedulerConfig(admission="worst_case"), **kw)
+    eng = ServingEngine(tmodel, tparams, **kw)
+    assert not ref.paged and eng.layout == "dense"
+    ref_ids = [ref.submit(p, max_new_tokens=10) for p in _rwkv_prompts()]
+    ids = [eng.submit(p, max_new_tokens=10) for p in _rwkv_prompts()]
+    want, got = ref.run(), eng.run()
+    for p, rid in zip(_rwkv_prompts(), ref_ids):
+        assert _min_margin(jmodel, jparams, p, want[rid]) > 50 * LOGIT_TOL
+    assert [got[i] for i in ids] == [want[i] for i in ref_ids]
+    assert all(r.finish_reason == "stop" for r in eng.finished_requests.values())
+
+
+def test_rwkv_dense_layout_exact_length_admission_one_sync_per_step():
+    """RWKV-6 takes the dense layout and is not pad-safe, so each admission
+    prefills ONE request at its exact prompt length; the engine syncs with
+    the host once per decode step and once per admission.  Attention
+    models keep the paged layout."""
+    _, _, tmodel, tparams = _rwkv("dense")
+    assert cache_layout(tmodel) == "dense" and not prefill_pad_safe(tmodel)
+    amodel = _lm("dense")[2]
+    assert cache_layout(amodel) == "paged" and prefill_pad_safe(amodel)
+    eng = ServingEngine(tmodel, tparams, max_batch=2, max_len=48)
+    assert eng.kv is None
+    shapes = []
+    prefill = eng._prefill
+
+    def spy(params, cache, tokens, *rest):
+        shapes.append(tuple(tokens.shape))
+        return prefill(params, cache, tokens, *rest)
+
+    eng._prefill = spy
+    for p in _rwkv_prompts(1):
+        eng.submit(p, max_new_tokens=6)
+    out = eng.run()
+    assert len(out) == len(PROMPT_LENS) and all(len(v) == 6 for v in out.values())
+    assert shapes == [(1, n) for n in PROMPT_LENS]
+    st = eng.stats()
+    assert st["prefill_ticks"] == len(PROMPT_LENS)
+    assert st["host_syncs"] == st["steps"] + st["prefill_ticks"]
