@@ -1,17 +1,19 @@
-"""Wrapper for the causal flash-attention CUDA kernel
+"""Wrapper for the causal flash-attention CUDA kernels
 (``csrc/flash_attention.cu``).
 
 ``flash_attention(q, k, v)``: q (B, S, Hq, hd), k/v (B, S, Hkv, hd) ->
 (B, S, Hq, hd), causal, query head h reading KV head h // (Hq / Hkv).  On
 the CPU (or inside ``kernels.plain()``) it is the plain version in
-``ref.py``; on a CUDA tensor it launches the kernel or raises.  The kernel
-masks a ragged S itself: nothing is padded here.
+``ref.py``; on a CUDA tensor it launches a kernel or raises: bf16 runs the
+tensor-core kernel, fp32 the CUDA-core one (``plan``).  The kernels mask a
+ragged S themselves: nothing is padded here.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -19,11 +21,42 @@ from .. import build, check_launch, use_plain
 from .ref import flash_attention_ref
 
 MAX_HEAD_DIM = 256
+MAX_GRID_Y = 65535  # the CUDA-core kernel's grid y is B * Hkv
 
-launches = 0  # kernel launches (one per wrapper call that runs the kernel)
+launches = 0  # kernel launches (one per wrapper call that runs a kernel)
+tensor_core_launches = 0  # of which bf16, mma.sync
+cuda_core_launches = 0  # of which fp32, FMA
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
+
+
+class Plan(NamedTuple):
+    """What ``flash_attention_launch`` runs for one (dtype, hd, G)."""
+
+    kernel: str  # "tensor_core" (bf16, mma.sync) or "cuda_core" (fp32 FMA)
+    head_dim: int  # the padded head dim the kernel is instantiated for
+    rows: int  # query rows a block holds: the largest G it takes
+
+
+def plan(dtype: torch.dtype, hd: int, g: int) -> Plan:
+    """The kernel, padded head dim and rows per block for (dtype, hd, G):
+    the one table of what each kernel is instantiated for (the C launcher
+    dispatches on the padded head dim it is given).  Raises on what no
+    kernel takes: hd not a multiple of 8 in [8, 256], G above the kernel's
+    rows (the largest G), or a dtype other than fp32 or bf16."""
+    if hd % 8 or not 8 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: hd={hd} (a multiple of 8 up to {MAX_HEAD_DIM})")
+    if dtype == torch.bfloat16:
+        p = Plan("tensor_core", next(n for n in (64, 128, 256) if hd <= n), 128)
+    elif dtype == torch.float32:
+        p = Plan("cuda_core", next(n for n in (32, 64, 128, 256) if hd <= n),
+                 32 if hd > 128 else 64)
+    else:
+        raise TypeError(f"flash_attention: dtype {dtype} (fp32 or bf16)")
+    if not 1 <= g <= p.rows:
+        raise ValueError(f"flash_attention: G={g} (at most {p.rows} at hd={hd}, {dtype})")
+    return p
 
 
 def _launcher():
@@ -31,45 +64,52 @@ def _launcher():
     if _fn is None:
         fn = build.load("flash_attention").flash_attention_launch
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def max_group(hd: int) -> int:
-    """Largest query-head group the kernel takes: its rows per block."""
-    return 32 if hd > 128 else 64
-
-
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    if use_plain(q):
-        return flash_attention_ref(q, k, v)
+def check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Plan:
+    """The wrapper's gates on shapes, dtypes, devices and layout; the plan."""
     b, s, hq, hd = q.shape
     hkv = k.shape[2]
     if k.shape != (b, s, hkv, hd) or v.shape != k.shape or hkv == 0 or hq % hkv:
         raise ValueError(f"flash_attention: q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)}")
-    g = hq // hkv
-    if hd % 8 or not 8 <= hd <= MAX_HEAD_DIM or g > max_group(hd):
-        raise ValueError(f"flash_attention: hd={hd} (a multiple of 8 up to "
-                         f"{MAX_HEAD_DIM}), G={g} (at most {max_group(hd)})")
-    if b * hkv > 65535:  # the kernel's grid y
-        raise ValueError(f"flash_attention: B*Hkv={b * hkv} > 65535")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/{v.dtype}")
+    p = plan(q.dtype, hd, hq // hkv)
+    if p.kernel == "cuda_core" and b * hkv > MAX_GRID_Y:
+        raise ValueError(f"flash_attention: B*Hkv={b * hkv} > {MAX_GRID_Y}")
     for t in (k, v):
         if t.device != q.device:
             raise ValueError("flash_attention: operands on different devices")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("flash_attention: operands must be contiguous")
-    global launches
+    if p.kernel == "tensor_core" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: bf16 operands must be 16-byte aligned (cp.async)")
+    return p
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    if use_plain(q):
+        return flash_attention_ref(q, k, v)
+    p = check(q, k, v)
+    b, s, hq, hd = q.shape
+    hkv = k.shape[2]
+    global launches, tensor_core_launches, cuda_core_launches
     out = torch.empty_like(q)
     if b == 0 or s == 0:
         return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                      b, s, hkv, g, hd, 1.0 / math.sqrt(hd), _DTYPES[q.dtype], stream)
+                      b, s, hkv, hq // hkv, hd, 1.0 / math.sqrt(hd), _DTYPES[q.dtype],
+                      p.head_dim, stream)
     check_launch(err, "flash_attention")
     launches += 1
+    if p.kernel == "tensor_core":
+        tensor_core_launches += 1
+    else:
+        cuda_core_launches += 1
     return out

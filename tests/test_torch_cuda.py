@@ -122,6 +122,23 @@ def test_gram_kernel_matches_plain(dev, rows, n, dtype):
     assert torch.equal(got_g, got_g.T)
 
 
+def _elem_err(got, want):
+    """Max over elements of |got - want| / (|want| + rms of want's row): a
+    fault in a late tile or a few keys of a long row cannot hide under the
+    large outputs of the first rows, as it can under max |want|."""
+    w = want.float()
+    rms = w.pow(2).mean(-1, keepdim=True).sqrt()
+    return float(((got.float() - w).abs() / (w.abs() + rms).clamp_min(1e-30)).max())
+
+
+# Per-element flash tolerance (chip_smoke.py's FLASH_ELEM_TOL).  bf16: the
+# output rounds to bf16 (one ulp, 2^-7 of |out|) after P's rounding at
+# another point has moved the fp32 value by a few 2^-9 of the row's rms;
+# four ulps allowed (measured up to 1.33e-2 on the H100).  fp32: sum order.
+FLASH_ELEM_TOL = {torch.bfloat16: 2 ** -5, torch.float32: 1e-4}
+BF16_ROWS = fa_ops.plan(torch.bfloat16, 128, 1).rows  # the largest bf16 G
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,hkv,group,hd", [
     (2, 128, 2, 4, 128), (1, 1000, 1, 4, 64), (3, 37, 2, 1, 32),
@@ -138,7 +155,67 @@ def test_flash_kernel_matches_plain(dev, b, s, hkv, group, hd, dtype):
     torch.cuda.synchronize()
     assert fa_ops.launches == before + 1
     tol = 1e-5 if dtype == torch.float32 else 2e-2
-    assert _err(got, fa_ref.flash_attention_ref(q, k, v)) < tol
+    want = fa_ref.flash_attention_ref(q, k, v)
+    assert _err(got, want) < tol
+    assert _elem_err(got, want) <= FLASH_ELEM_TOL[dtype]
+
+
+# bf16 S at the kernel's tile edges (64 keys a KV tile, 128 rows a block),
+# G = 8 and the largest G the bf16 kernel takes (its 128 rows: one position
+# a block), hd 256 (its own instantiation: 32-key tiles) at a ragged S.
+# Tolerances as above: P rounded to bf16 unnormalized (kernel) vs normalized
+# (plain), and the output rounded to bf16 (2e-2 of max |out|, and
+# FLASH_ELEM_TOL for every element).
+@pytest.mark.parametrize("b,s,hkv,group,hd", [
+    (2, 63, 2, 4, 128), (2, 64, 2, 4, 128), (2, 65, 2, 4, 128), (1, 129, 2, 8, 128),
+    (1, 2048, 2, 8, 128), (2, 130, 1, 8, 64), (1, 65, 1, BF16_ROWS, 128),
+    (1, 33, 1, BF16_ROWS, 64), (2, 97, 2, 4, 256), (1, 200, 1, 8, 256)])
+def test_flash_tensor_core_kernel_edges(dev, b, s, hkv, group, hd):
+    g = torch.Generator(device=dev).manual_seed(s + group)
+    mk = lambda h: torch.randn((b, s, h, hd), generator=g, device=dev).to(torch.bfloat16)  # noqa: E731
+    q, k, v = mk(hkv * group), mk(hkv), mk(hkv)
+    before = fa_ops.tensor_core_launches
+    got = fa_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa_ops.tensor_core_launches == before + 1
+    assert torch.isfinite(got).all()
+    want = fa_ref.flash_attention_ref(q, k, v)
+    assert _err(got, want) < 2e-2
+    assert _elem_err(got, want) <= FLASH_ELEM_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("s", [64, 300])
+def test_flash_tensor_core_kernel_large_scores(dev, s):
+    """q and k scaled by 4: scores q.k / sqrt(hd) of std 16, |s| up to ~60,
+    so the running max jumps between tiles and the rescale exp(m - m_new)
+    is far from 1.  Tolerances as above."""
+    b, hkv, group, hd = 2, 2, 4, 128
+    g = torch.Generator(device=dev).manual_seed(s)
+    mk = lambda h, a: (a * torch.randn((b, s, h, hd), generator=g, device=dev)).to(torch.bfloat16)  # noqa: E731
+    q, k, v = mk(hkv * group, 4.0), mk(hkv, 4.0), mk(hkv, 1.0)
+    want = fa_ref.flash_attention_ref(q, k, v)
+    scores = torch.einsum("bsgd,btgd->bgst", q[:, :, ::group].float(), k.float()) / hd ** 0.5
+    assert scores.abs().max() > 40  # the case this test is for
+    got = fa_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert _err(got, want) < 2e-2
+    assert _elem_err(got, want) <= FLASH_ELEM_TOL[torch.bfloat16]
+
+
+def test_flash_dtype_picks_kernel(dev):
+    """bf16 runs the tensor-core kernel and fp32 the CUDA-core one; the
+    total count is their sum."""
+    q = torch.randn((1, 40, 4, 64), device=dev)
+    k = torch.randn((1, 40, 2, 64), device=dev)
+    counts = lambda: (fa_ops.launches, fa_ops.tensor_core_launches, fa_ops.cuda_core_launches)  # noqa: E731
+    n0, t0, c0 = counts()
+    fa_ops.flash_attention(q, k, k)
+    assert counts() == (n0 + 1, t0, c0 + 1)
+    qb, kb = q.to(torch.bfloat16), k.to(torch.bfloat16)
+    fa_ops.flash_attention(qb, kb, kb)
+    assert counts() == (n0 + 2, t0 + 1, c0 + 1)
+    torch.cuda.synchronize()
 
 
 def test_flash_kernel_rejects_bad_head_dim(dev):

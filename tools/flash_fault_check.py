@@ -1,0 +1,123 @@
+#!/usr/bin/env python3
+"""Planted faults in the bf16 flash_attention kernel, against chip_smoke.py's
+two checks of it: the global one (max |kernel - plain| <= FLASH_TOL x max
+|plain|) and the per-element one (FLASH_ELEM_TOL, relative to |plain| plus
+the rms of the row).
+
+    python3 tools/flash_fault_check.py
+
+Needs one H100 and the CUDA toolkit.  Each fault is a one-line patch of
+``csrc/flash_attention.cu`` in a temporary copy of ``repro_torch`` (the
+checkout is never touched), built and run in its own process on the flash
+phase's bf16 shapes and a (1, 2048) G = 8 case.  Prints one line per fault
+and case, and exits non-zero unless the unpatched kernel passes both checks
+everywhere and every fault fails the per-element check somewhere.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+import chip_smoke  # noqa: E402
+
+MASK = "if (crosses && k0 + 8 * j + 2 * tig + (e & 1) > lim[e / 2]) s[j][e] = NEG_INF;"
+FAULTS = {
+    # The first key of every KV tile from tile 16 on (key 1024 at hd 128) dropped.
+    "drop_key_late_tiles": (MASK, "if ((crosses && k0 + 8 * j + 2 * tig + (e & 1) > lim[e / 2])"
+                            " || (t >= 16 && j == 0 && tig == 0 && !(e & 1))) s[j][e] = NEG_INF;"),
+    # The diagonal key masked off in tiles from 16 on: a mask edge one key early.
+    "mask_edge_late_tiles": (MASK, "if (crosses && k0 + 8 * j + 2 * tig + (e & 1) > lim[e / 2]"
+                             " - (t >= 16)) s[j][e] = NEG_INF;"),
+    # No barrier before a half of the K/V ring is refilled: a race.
+    "ring_race": ("        cp_async_wait<0>();\n        __syncthreads();\n",
+                  "        cp_async_wait<0>();\n"),
+}
+
+
+def measure() -> list:
+    """Both checks of the kernel on the current PYTHONPATH's repro_torch."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    cases = []
+    gen = torch.Generator(device="cuda").manual_seed(3)  # as chip_smoke's flash phase
+    for b, s, hq, hkv in chip_smoke.FLASH_SHAPES:
+        cases.append((f"phase ({b}, {s}) {hq}/{hkv}", b, s, hq, hkv, gen))
+    cases.append(("card test (1, 2048) 16/2", 1, 2048, 16, 2,
+                  torch.Generator(device="cuda").manual_seed(2048 + 8)))
+    out = []
+    for name, b, s, hq, hkv, g in cases:
+        def mk(h):
+            return torch.randn((b, s, h, 128), generator=g, device="cuda").to(torch.bfloat16)
+        q, k, v = mk(hq), mk(hkv), mk(hkv)
+        got = ops.flash_attention(q, k, v)
+        want = ref.flash_attention_ref(q, k, v)
+        glob = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+        out.append(dict(case=name, glob=glob, elem=chip_smoke.elem_err(torch, got, want),
+                        finite=bool(torch.isfinite(got).all())))
+    return out
+
+
+def run_variant(name: str, patch) -> list:
+    env = dict(os.environ)
+    tmp = None
+    if patch is None:
+        env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    else:
+        tmp = tempfile.mkdtemp(prefix=f"flash_{name}_")
+        shutil.copytree(os.path.join(ROOT, "src", "repro_torch"),
+                        os.path.join(tmp, "repro_torch"),
+                        ignore=shutil.ignore_patterns("build", "__pycache__"))
+        cu = os.path.join(tmp, "repro_torch", "csrc", "flash_attention.cu")
+        with open(cu) as f:
+            text = f.read()
+        old, new = patch
+        if text.count(old) != 1:
+            raise RuntimeError(f"{name}: the line to patch is not in flash_attention.cu once")
+        with open(cu, "w") as f:
+            f.write(text.replace(old, new))
+        env["PYTHONPATH"] = tmp
+    try:
+        p = subprocess.run([sys.executable, os.path.abspath(__file__), "--measure"], env=env,
+                           capture_output=True, text=True, timeout=600)
+    finally:
+        if tmp:
+            shutil.rmtree(tmp, ignore_errors=True)
+    lines = [ln for ln in p.stdout.splitlines() if ln.startswith("RESULT ")]
+    if p.returncode or not lines:
+        raise RuntimeError(f"{name}: exit {p.returncode}\n{p.stdout[-2000:]}{p.stderr[-2000:]}")
+    return json.loads(lines[-1][len("RESULT "):])
+
+
+def main() -> int:
+    if sys.argv[1:] == ["--measure"]:
+        print("RESULT " + json.dumps(measure()), flush=True)
+        return 0
+    g_tol, e_tol = chip_smoke.FLASH_TOL["bfloat16"], chip_smoke.FLASH_ELEM_TOL["bfloat16"]
+    ok = True
+    for name, patch in [("unpatched", None), *FAULTS.items()]:
+        rows = run_variant(name, patch)
+        caught_g = caught_e = False
+        for r in rows:
+            g_fail = not r["finite"] or r["glob"] > g_tol
+            e_fail = not r["finite"] or r["elem"] > e_tol
+            caught_g, caught_e = caught_g or g_fail, caught_e or e_fail
+            print(f"{name:21s} {r['case']:26s} global {r['glob']:.4e} (tol {g_tol:.0e}) "
+                  f"{'FAIL' if g_fail else 'pass'}  elem {r['elem']:.4e} (tol {e_tol:.4e}) "
+                  f"{'FAIL' if e_fail else 'pass'}", flush=True)
+        print(f"{name:21s} caught by the global check: {caught_g}; by the per-element "
+              f"check: {caught_e}", flush=True)
+        ok = ok and ((not caught_g and not caught_e) if patch is None else caught_e)
+    print(json.dumps({"ok": ok}))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
