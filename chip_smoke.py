@@ -9,12 +9,15 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
      (one nvcc per source, in parallel);
   3. kernels: each kernel against its plain PyTorch version at the main
      paths' shapes, with the stated tolerance, timed (CUDA events) beside
-     the plain version, one PyTorch library call and the bytes/FLOP bound;
+     the plain version, one PyTorch library call and the bytes/FLOP bound
+     (nested_lowrank: also a per-element check, which kernel ran, and the
+     device time of one call and of ``multi_dot`` from torch.profiler);
   4. serve path: ``serve()`` on mistral-7b at full width (depth cut to 2
      layers, random weights from a seed): calibrate, NSVD-compress (nsvd1,
      ratio 0.2, bf16 factors) and serve 8 requests, with the kernels' launch
-     counters read around the run; then one decode step's logits through the
-     kernels against the same step through the plain versions;
+     counters read around the run (every decode step's nested calls on the
+     stream kernel); then one decode step's logits through the kernels
+     against the same step through the plain versions;
   5. quality path: ``obs.quality_report.build_entry`` on the same model:
      calibrate (gram kernel), compress with telemetry, evaluate dense vs
      compressed perplexity on five domains at (4, 2048) tokens a batch
@@ -57,12 +60,19 @@ NESTED_SHAPES = (  # (target, in K, out N, rank) at ratio 0.2 on Mistral-7B
     ("gate", 4096, 14336, 2548),
     ("down", 14336, 4096, 2548),
 )
-NESTED_ROWS = (1, 8, 64, 512)
+NESTED_ROWS = (1, 8, 16, 64, 512)  # <= 16: the bf16 stream kernel; above: tile
 # Max |kernel - plain| / max |plain| allowed.  bf16: the kernel and the plain
 # version round the rank-width intermediate and the output to bf16 at the
 # same points but sum in different orders (a few bf16 ulps of the output);
 # fp32: summation order only.
 NESTED_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# And for every element: |kernel - plain| <= tol * (|plain| + rms of its
+# row), which a fault in a few columns, one u/u2 tile or a late split-K
+# slice cannot hide under max |plain|.  bf16: the plain version rounds x@u,
+# x@u2, their two products and the sum to bf16 (three roundings of the
+# output, one ulp up to 2^-7 of |y|), the kernel rounds t and y once each;
+# four ulps allowed.  fp32: sum order only.
+NESTED_ELEM_TOL = {"bfloat16": 2 ** -5, "float32": 1e-4}
 PAGED_TOL = 2e-2   # bf16 output; int8 pages dequantized in fp32 vs bf16
 STEP_LOGIT_TOL = 5e-2  # 2-layer model: kernel vs plain rounding through a step
 GRAM_SHAPES = ((2048, 4096), (2048, 14336))  # (rows, n): d_model and d_ff taps
@@ -100,6 +110,7 @@ RWKV_SHAPES = (("eval", 128, 2048, 64, "float32", None),
 # own: one bf16 ulp (2^-8) of the output; the state keeps the fp32 bound.
 RWKV_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 RWKV_STATE_TOL = 1e-4
+DEVICE_REPS = 5  # calls a nested row's profiled device time is the mean of
 
 
 def log(msg: str) -> None:
@@ -130,6 +141,13 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def elem_err(torch, got, want) -> float:
+    """Max over elements of |got - want| / (|want| + rms of want's row)."""
+    w = want.float()
+    rms = w.pow(2).mean(-1, keepdim=True).sqrt()
+    return float(((got.float() - w).abs() / (w.abs() + rms).clamp_min(1e-30)).max())
+
+
 def nested_phase(torch, ops, ref):
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -146,31 +164,47 @@ def nested_phase(torch, ops, ref):
             big_u, big_v = torch.cat([u, u2], 1), torch.cat([v, v2], 0)
             for m in NESTED_ROWS:
                 x = mk(m, k_in, s=1.0)
+                kernel = ops.plan(m, dt, k_in, n, k1, k2, True).kernel
+                before = (ops.stream_launches, ops.tile_launches)
                 got = ops.nested_lowrank_matmul(x, u, v, u2, v2)
                 want = ref.nested_lowrank_matmul_ref(x, u, v, u2, v2)
                 torch.cuda.synchronize()
+                ran = "stream" if ops.stream_launches > before[0] else "tile"
                 err = float((got.float() - want.float()).abs().max())
                 scale = float(want.float().abs().max())
-                ok = bool(torch.isfinite(got).all()) and err <= NESTED_TOL[dname] * scale
+                e_err = elem_err(torch, got, want)
+                ok = (bool(torch.isfinite(got).all()) and err <= NESTED_TOL[dname] * scale
+                      and e_err <= NESTED_ELEM_TOL[dname] and ran == kernel)
                 ms = time_ms(lambda: ops.nested_lowrank_matmul(x, u, v, u2, v2))
                 plain = time_ms(lambda: ref.nested_lowrank_matmul_ref(x, u, v, u2, v2))
                 lib = time_ms(lambda: torch.linalg.multi_dot([x, big_u, big_v]))
+                # Device time of one call (the events above include the
+                # wrapper's host time): the mean of DEVICE_REPS calls.
+                dev_ms = profile_step(torch, lambda: [ops.nested_lowrank_matmul(
+                    x, u, v, u2, v2) for _ in range(DEVICE_REPS)], quiet=True)[
+                    "device_busy_ms"] / DEVICE_REPS
+                lib_dev = profile_step(torch, lambda: [torch.linalg.multi_dot(
+                    [x, big_u, big_v]) for _ in range(DEVICE_REPS)], quiet=True)[
+                    "device_busy_ms"] / DEVICE_REPS
                 el = x.element_size()
                 nbytes = el * (x.numel() + u.numel() + v.numel() + u2.numel()
                                + v2.numel() + m * n)
                 flops = 2 * m * (k_in * r + r * n)
                 b, by = bound_ms(nbytes, flops, dname)
                 row = dict(kernel="nested_lowrank", target=target, dtype=dname,
-                           M=m, K=k_in, N=n, rank=r, k1=k1, k2=k2,
+                           M=m, K=k_in, N=n, rank=r, k1=k1, k2=k2, ran=ran,
                            max_abs_err=err, ref_max_abs=scale,
-                           tol=NESTED_TOL[dname] * scale, ok=ok, ms=ms,
-                           plain_ms=plain, library_ms=lib, bytes=nbytes,
+                           tol=NESTED_TOL[dname] * scale, elem_err=e_err,
+                           elem_tol=NESTED_ELEM_TOL[dname], ok=ok, ms=ms,
+                           device_ms=dev_ms, plain_ms=plain, library_ms=lib,
+                           library_device_ms=lib_dev, bytes=nbytes,
                            flops=flops, bound_ms=b, bound_by=by)
                 rows.append(row)
-                log(f"nested {dname:8s} {target:4s} M={m:<3d} err={err:.3e} "
-                    f"(tol {row['tol']:.3e}) {'OK' if ok else 'FAIL'}  "
-                    f"kernel {ms:.3f} ms  plain {plain:.3f} ms  library "
-                    f"{lib:.3f} ms  bound {b:.3f} ms ({by}, {nbytes / 1e6:.1f} MB)")
+                log(f"nested {dname:8s} {target:4s} M={m:<3d} {ran:6s} err={err:.3e} "
+                    f"(tol {row['tol']:.3e}) elem err {e_err:.3e} (tol "
+                    f"{row['elem_tol']:.3e}) {'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms "
+                    f"(device {dev_ms:.4f})  plain {plain:.3f} ms  library {lib:.4f} ms "
+                    f"(device {lib_dev:.4f})  bound {b:.4f} ms ({by}, {nbytes / 1e6:.1f} MB)")
     return rows
 
 
@@ -293,13 +327,6 @@ def gram_phase(torch, ops, ref):
     return rows_out
 
 
-def elem_err(torch, got, want) -> float:
-    """Max over elements of |got - want| / (|want| + rms of want's row)."""
-    w = want.float()
-    rms = w.pow(2).mean(-1, keepdim=True).sqrt()
-    return float(((got.float() - w).abs() / (w.abs() + rms).clamp_min(1e-30)).max())
-
-
 def flash_phase(torch, ops, ref):
     rows_out = []
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -405,6 +432,8 @@ def reset_counts() -> None:
         _ops(name).launches = 0
     fa = _ops("flash_attention")
     fa.tensor_core_launches = fa.cuda_core_launches = 0
+    nlr = _ops("nested_lowrank")
+    nlr.stream_launches = nlr.tile_launches = 0
 
 
 def read_counts() -> dict:
@@ -419,10 +448,17 @@ def flash_split_ok(counts: dict) -> tuple:
     return split, split == {"tensor_core": counts["flash_attention"], "cuda_core": 0}
 
 
-def profile_step(torch, fn, label: str = "decode step") -> dict:
+def nested_split() -> dict:
+    """nested_lowrank's launches by kernel since ``reset_counts``."""
+    nlr = _ops("nested_lowrank")
+    return {"stream": nlr.stream_launches, "tile": nlr.tile_launches}
+
+
+def profile_step(torch, fn, label: str = "decode step", quiet: bool = False) -> dict:
     """Device time by kernel name and device busy share of one call of
     ``fn`` (after a warm-up call), from torch.profiler's CUDA trace.  Only
-    device events are summed: an aten op's row repeats its kernels' time."""
+    device events are summed: an aten op's row repeats its kernels' time.
+    ``quiet``: log nothing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -444,6 +480,8 @@ def profile_step(torch, fn, label: str = "decode step") -> dict:
             per[ev.key] = (per.get(ev.key, (0.0, 0))[0] + dev_us / 1e3, ev.count)
     busy = sum(ms for ms, _ in per.values())
     top = sorted(per.items(), key=lambda kv: -kv[1][0])[:12]
+    if quiet:
+        return {"wall_ms": wall_ms, "device_busy_ms": busy}
     log(f"  profiled {label}: wall {wall_ms:.2f} ms (profiler off), device "
         f"busy {busy:.3f} ms ({busy / wall_ms:.1%} of wall)")
     for name, (ms, n) in top:
@@ -487,6 +525,7 @@ def serve_path(torch, np, cfg, mixer: str, taps_per_layer: int):
                 prompts=prompts)
     counts = read_counts()
     split, split_ok = flash_split_ok(counts)
+    nsplit = nested_split()
     eng, model, params, plan = res["engine"], res["model"], res["params"], res["plan"]
     st = eng.stats()
     paged = eng.layout == "paged"
@@ -505,6 +544,10 @@ def serve_path(torch, np, cfg, mixer: str, taps_per_layer: int):
               "gram": (taps_per_layer * layers + 1) * calib_batches,
               "flash_attention": 0, "rwkv6": 0}
     expect[mixer] = layers * (calib_batches + (0 if paged else st["prefill_ticks"]))
+    # Every decode step's compressed linears (8 rows, bf16) run the stream
+    # kernel; prefill calls of more than 16 rows run the tile kernel.
+    nested_ok = (nsplit["stream"] + nsplit["tile"] == expect["nested_lowrank"]
+                 and nsplit["stream"] >= n_linear * st["steps"])
     reasons = {u: r.finish_reason for u, r in res["requests"].items()}
     outs = res["outputs"]
     ratio = factored_ratio(params, plan)
@@ -514,7 +557,8 @@ def serve_path(torch, np, cfg, mixer: str, taps_per_layer: int):
           and all(1 <= len(v) <= 32 for v in outs.values())
           and all(0 <= t < cfg.vocab_size for v in outs.values() for t in v)
           and syncs_ok and abs(ratio - plan.achieved_ratio) < 1e-9
-          and counts == expect and split_ok and expect["nested_lowrank"] > 0)
+          and counts == expect and split_ok and nested_ok
+          and expect["nested_lowrank"] > 0)
     log(f"serve path: {cfg.name} d_model={cfg.d_model} heads={cfg.num_heads}/"
         f"{cfg.num_kv_heads} hd={cfg.head_dim} d_ff={cfg.d_ff} vocab="
         f"{cfg.vocab_size} layers={layers} (depth cut); cache layout {eng.layout}")
@@ -526,7 +570,9 @@ def serve_path(torch, np, cfg, mixer: str, taps_per_layer: int):
         f"calls {st['prefill_ticks']}, host syncs {st['host_syncs']}, step p50 "
         f"{st['step_p50_s'] * 1e3:.2f} ms")
     log(f"  launches {counts} expected {expect}; flash_attention by kernel {split}; "
-        f"finish reasons {sorted(set(reasons.values()))}")
+        f"nested_lowrank by kernel {nsplit} (decode calls {n_linear * st['steps']}: "
+        f"{'OK' if nested_ok else 'FAIL'}); finish reasons "
+        f"{sorted(set(reasons.values()))}")
 
     toks = torch.as_tensor(np.stack([p[:15] for p in prompts]), device="cuda")
     nxt = torch.as_tensor([[int(p[15])] for p in prompts], device="cuda")
@@ -570,7 +616,7 @@ def serve_path(torch, np, cfg, mixer: str, taps_per_layer: int):
                    prompt_lengths=plens.tolist(), seconds=res["seconds"],
                    tokens=res["tokens"], tok_per_s=res["tok_per_s"], engine=st,
                    launches=counts, expected_launches=expect, flash_launches=split,
-                   finish_reasons=reasons,
+                   nested_launches=nsplit, finish_reasons=reasons,
                    achieved_ratio=plan.achieved_ratio, factored_ratio=ratio,
                    step_logit_max_abs_err=step_err, step_logit_max_abs=step_scale,
                    step_argmax_agreement=agree, step_profile=prof,

@@ -2,31 +2,69 @@
 //
 // Replaces the TPU kernel src/repro/kernels/nested_lowrank/nested_lowrank.py
 // (nested_lowrank_matmul, body _kernel), which keeps x, u and u2 resident in
-// VMEM and streams v/v2 tiles.
+// VMEM and streams v/v2 tiles.  Its semantics are kept: t = x @ [u|u2] summed
+// in fp32 over all of K and rounded to the factor dtype once
+// (t_ref[...].astype(v.dtype)); y = t @ [v;v2] summed in fp32 and rounded
+// once.  The concatenation identity is exact, and the four factors are read
+// in place: no per-call copy or concatenation.
 //
-// What bounds it here: at decode (M = live rows, 1..64) every factor byte is
-// read once for a handful of rows, so the kernel is bound by the bytes of
-// the factors: at ratio 0.2 a Mistral-7B-width MLP factor pair is ~94 MB of
-// bf16, ~349 MB per layer per step, against 3.35 TB/s.  At prefill-chunk row
-// counts (M = 512) it turns compute-bound.
+// What bounds it here: at decode (M = live rows, 1..16) every factor byte
+// is read once for a handful of rows, so the kernel is bound by the bytes of
+// the factors.  At ratio 0.2 a Mistral-7B-width gate projection's four
+// bf16 factors are 94.2 MB: 28.1 us at 3.35 TB/s.  At M = 8 each factor
+// element takes 8 FMAs, which fp32 FMA on the CUDA cores can issue in
+// about half that time (at M = 16 in about all of it); measured, the
+// stream kernel below reaches about half the byte rate at M = 8, held by
+// instruction issue and latency, not by bytes (PERF.md).  At
+// prefill-chunk row counts (M = 512) the product turns compute-bound.
 //
-// Design:
-//  * The TPU design's resident factors cannot carry over: bf16 u alone is
-//    20.9 MB at rank 2548, far beyond a block's 227 KB of shared memory.  So
-//    both factors are STREAMED through shared-memory tiles.
-//  * Two phases over the concatenation identity y = (x @ [u|u2]) @ [v;v2]
-//    (exact), reading the four factors in place — ranks r < k1 come from
-//    u/v, the rest from u2/v2 — so no per-call copy or concatenation:
-//      phase 1  t = x @ [u|u2]   -> fp32 split-K partials, summed and
-//               rounded to the factor dtype (as the TPU kernel's
-//               t_ref[...].astype(v.dtype)), t kept at rank width (M, k);
-//      phase 2  y = t @ [v;v2]   -> fp32 split-K partials, summed, cast.
-//  * Split-K spreads the long reduction of a skinny product over enough
-//    blocks (~2 per SM) to keep the memory system busy; the partials are
-//    reduced by a separate pass, in a fixed order (deterministic: no
-//    atomics).
-//  * fp32 FMA on CUDA cores, fp32 accumulation.  Tensor cores (wgmma), TMA
-//    and a fused single pass are later work.
+// The TPU design's resident factors cannot carry over (bf16 u alone is
+// 20.9 MB at rank 2548, a block has 227 KB of shared memory), so both
+// factors are streamed.  Two phases, each a split-K pass into fp32
+// partials and a fixed-order reduction (reduce_partials; deterministic, no
+// atomics):  phase 1 t = x @ [u|u2] -> t (M, k1+k2) in the factor dtype;
+// phase 2 y = t @ [v;v2].  Split-K spreads each skinny product over ~2
+// blocks per SM.  Two kernels, chosen by the wrapper (ops.plan) and checked
+// here:
+//
+// stream_partial: bf16, M <= 16, N % 8 == 0, v and v2 16-byte aligned (u
+//   and u2 at any address and any rank).  Built to keep bytes in flight:
+//  * Each factor gets its own column tiles (phase 1: u's, then u2's) or
+//    K-ranges (phase 2: v's splits, then v2's), so no tile straddles the
+//    u/u2 seam and no element load branches on it.
+//  * A tile is BN = 256 columns; factor rows stream through a 4-stage ring
+//    of BK = 32-row stages by 16-byte cp.async.cg, one barrier a stage.
+//  * Any rank, any base address: u's rows (ld = k1, often odd) start at
+//    any 2-byte address, so a row cannot be copied with aligned 16-byte
+//    loads as it stands.  Each row's span [row*ld + n0, + BN) is covered by
+//    the 16-byte-aligned chunks that hold it, copied into a shared row of
+//    BN + 8 elements; the row's shift (address / 2 mod 8, the same for every
+//    stage because BK * ld and the tile origins are multiples of 8) says
+//    where column 0 lies, and column j is read at shift + j (an odd shift
+//    reads two 4-byte words and joins their halves).  Only chunks holding
+//    an element of the span are copied; the cp.async src-size form
+//    zero-fills past the span's end instead of reading it, and rows past
+//    the block's K-range are zero-filled.  A chunk's bytes before the span
+//    lie in the same allocation, which the allocator aligns to far more
+//    than 16 bytes.  Phase 2's rows (ld = N, N % 8 == 0, v/v2 aligned)
+//    have shift 0, and the template flag SHIFT compiles it out.
+//  * The block's slice of the left operand (x, or t in phase 2) is put in
+//    shared memory once, widened to fp32 as [k][MT], so a thread reads all
+//    MT rows of one k with MT/4 broadcast 16-byte loads.
+//  * MT in {8, 16} row tiles; a thread holds MT x C fp32 sums for C
+//    columns in C/2 pairs strided by 64 (conflict-free 4-byte reads); the
+//    8 warps split a stage's rows, and their sums are added in a fixed
+//    order through shared memory at the end.  MT 8 (C 8) runs 2 blocks an
+//    SM at <= 128 registers; MT 16 (C 4) 1 block, since 128 registers
+//    spill there.  No tensor cores (fp32 FMA), which is what now limits
+//    it: mma.sync is the next step.
+//
+// gemm_partial (the tile kernel): every other call (fp32, M > 16, or v/v2
+//   layouts the stream kernel does not take).  A (16, 128) or (64, 64)
+//   fp32-FMA tile, synchronous 16-deep loads, one element at a time.
+#include <algorithm>
+#include <climits>
+
 #include "common.cuh"
 
 namespace {
@@ -161,27 +199,283 @@ void run(const T* x, const T* u, const T* v, const T* u2, const T* v2, T* y,
   launch_reduce<T>(part2, y, s2, (size_t)M * N, stream);
 }
 
+// ---- the stream kernel (bf16, M <= 16) ----
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kBN = 256;             // columns of a tile
+constexpr int kSK = 32;              // factor rows a ring stage holds
+constexpr int kStages = 4;
+constexpr int kRow = kBN + 8;        // shared row, elements (16-byte multiple)
+constexpr int kMaxChunk = 512;       // deepest split-K chunk (x slice in smem)
+constexpr int kRingBytes = kStages * kSK * kRow * 2;
+constexpr int kMaxSmem = kRingBytes + kMaxChunk * 16 * 4;
+
+// One factor of a phase: b (kd, nc) row-major, multiplied by columns
+// [a_col, a_col + kd) of the left operand, its partial sums written to
+// columns [out_col, out_col + nc) of slices [z0, z0 + splits).
+struct Seg {
+  const bf16* b;
+  int kd, nc, a_col, out_col;
+  int tiles;   // ceil(nc / kBN)
+  int splits;  // ceil(kd / chunk)
+  int z0;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared, of which the first `bytes` are read and the
+// rest zero-filled (0 reads nothing).  src is 16-byte aligned.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+__device__ __forceinline__ float bf_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+
+// One (segment, column tile, split-K slice) per block; 1-D grid over s0's
+// tiles x splits, then s1's.  Partials: part[z][m][out_col + col], row
+// stride out_ld, for m < M.
+template <int MT, int C, bool SHIFT>
+__global__ void __launch_bounds__(kThreads, MT == 8 ? 2 : 1)
+stream_partial(const bf16* __restrict__ a, int lda, Seg s0, Seg s1,
+               float* __restrict__ part, int M, int out_ld, int chunk) {
+  constexpr int WN = 32 * C;                 // columns a warp covers
+  constexpr int WARPS_N = kBN / WN;
+  constexpr int WARPS_K = kThreads / 32 / WARPS_N;
+  constexpr int RPW = kSK / WARPS_K;         // rows of a stage a warp takes
+  constexpr int CH = SHIFT ? kRow / 8 : kBN / 8;  // chunks copied a row
+  constexpr int COPIES = (kSK * CH + kThreads - 1) / kThreads;
+  static_assert(WARPS_N * WN == kBN && WARPS_K * RPW == kSK && MT % 4 == 0, "tiling");
+  static_assert(WARPS_K * MT * kBN * 4 <= kRingBytes, "the reduction reuses the ring");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* xs = reinterpret_cast<float*>(smem + kRingBytes);  // [chunk][MT]
+  const uint32_t ring = smem_u32(smem);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  int blk = blockIdx.x;
+  const bool second = blk >= s0.tiles * s0.splits;
+  if (second) blk -= s0.tiles * s0.splits;
+  const int tiles = second ? s1.tiles : s0.tiles;
+  const int tile = blk % tiles, split = blk / tiles;
+  const bf16* __restrict__ b = second ? s1.b : s0.b;
+  const int kd = second ? s1.kd : s0.kd, nc = second ? s1.nc : s0.nc;
+  const int a_col = second ? s1.a_col : s0.a_col;
+  const int out_col = second ? s1.out_col : s0.out_col;
+  const int z = (second ? s1.z0 : s0.z0) + split;
+  const int n0 = tile * kBN, ncols = min(kBN, nc - n0);
+  const int kbeg = split * chunk, krows = min(chunk, kd - kbeg);
+  const int nst = (krows + kSK - 1) / kSK;  // ring stages of this block
+
+  // Element offset (mod 8) of the block's first row's column n0; row r of
+  // any stage starts at shift (sh0 + r * nc) & 7, since kSK * nc, kbeg and
+  // n0 are multiples of 8.
+  const unsigned sh0 = SHIFT ? (unsigned)(reinterpret_cast<uintptr_t>(b) >> 1)
+                                   + (unsigned)kbeg * nc + n0 : 0u;
+  const bf16* b_al = b - (sh0 & 7);  // 16-byte aligned, in b's allocation
+
+  // This thread's copies: chunk i = tid + p * kThreads is row i / CH,
+  // chunk i % CH of every stage.  coff: element offset from b_al of the
+  // chunk at stage 0; cbytes: bytes of it inside the span (0: skip).
+  int coff[COPIES], cbytes[COPIES];
+#pragma unroll
+  for (int p = 0; p < COPIES; ++p) {
+    const int i = tid + p * kThreads, r = i / CH, j = i % CH;
+    const int sh = SHIFT ? (int)((sh0 + (unsigned)r * nc) & 7u) : 0;
+    const int live = min(8, sh + ncols - 8 * j);  // span elements in chunk j
+    coff[p] = (kbeg + r) * nc + n0 + 8 * j + (int)(sh0 & 7) - sh;
+    cbytes[p] = (i < kSK * CH && 8 * j + 8 > sh && live > 0) ? 2 * live : 0;
+  }
+  auto load_stage = [&](int st) {
+    if (st < nst) {
+      const uint32_t base = ring + (uint32_t)((st % kStages) * kSK * kRow * 2);
+      const size_t step = (size_t)st * kSK * nc;
+#pragma unroll
+      for (int p = 0; p < COPIES; ++p) {
+        const int i = tid + p * kThreads;
+        if (COPIES * kThreads == kSK * CH || i < kSK * CH) {
+          const int r = i / CH, j = i % CH;
+          const bool ok = st * kSK + r < krows && cbytes[p] > 0;
+          cp_async16(base + (uint32_t)((r * kRow + 8 * j) * 2),
+                     ok ? b_al + coff[p] + step : b_al, ok ? cbytes[p] : 0);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) load_stage(st);
+
+  // The left operand's slice, widened, zero past the K-range and past M.
+  const int xrows = nst * kSK;
+  for (int i = tid; i < xrows * MT; i += kThreads) {
+    const int m = i / xrows, kk = i % xrows;
+    float val = 0.f;
+    if (m < M && kk < krows) val = __bfloat162float(a[(size_t)m * lda + a_col + kbeg + kk]);
+    xs[kk * MT + m] = val;
+  }
+
+  const int wn = warp % WARPS_N, wk = warp / WARPS_N;
+  const int wcol = wn * WN / 2 + lane;  // word of this thread's first pair
+  float acc[MT][C];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[m][c] = 0.f;
+
+  for (int st = 0; st < nst; ++st) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    load_stage(st + kStages - 1);
+    const uint32_t* rows = reinterpret_cast<const uint32_t*>(
+        smem + (st % kStages) * kSK * kRow * 2);
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      const int r = wk * RPW + i;
+      float xv[MT];
+      const float4* xr = reinterpret_cast<const float4*>(xs + (st * kSK + r) * MT);
+#pragma unroll
+      for (int q = 0; q < MT / 4; ++q) {
+        const float4 f = xr[q];
+        xv[4 * q] = f.x, xv[4 * q + 1] = f.y, xv[4 * q + 2] = f.z, xv[4 * q + 3] = f.w;
+      }
+      const int sh = SHIFT ? (int)((sh0 + (unsigned)r * nc) & 7u) : 0;
+      const uint32_t* w = rows + r * (kRow / 2) + (sh >> 1) + wcol;
+      float bv[C];
+      if (SHIFT && (sh & 1)) {
+#pragma unroll
+        for (int p = 0; p < C / 2; ++p) {
+          const uint32_t joined = __byte_perm(w[32 * p], w[32 * p + 1], 0x5432);
+          bv[2 * p] = bf_lo(joined), bv[2 * p + 1] = bf_hi(joined);
+        }
+      } else {
+#pragma unroll
+        for (int p = 0; p < C / 2; ++p) {
+          const uint32_t word = w[32 * p];
+          bv[2 * p] = bf_lo(word), bv[2 * p + 1] = bf_hi(word);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[m][c] = fmaf(xv[m], bv[c], acc[m][c]);
+    }
+  }
+
+  // The warps' sums over their rows, added in a fixed order.
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem);  // [WARPS_K][MT][kBN]
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int p = 0; p < C / 2; ++p)
+      *reinterpret_cast<float2*>(red + (wk * MT + m) * kBN + 2 * (wcol + 32 * p)) =
+          make_float2(acc[m][2 * p], acc[m][2 * p + 1]);
+  __syncthreads();
+  float* out = part + (size_t)z * M * out_ld + out_col + n0;
+  for (int i = tid; i < M * kBN; i += kThreads) {
+    const int m = i / kBN, c = i % kBN;
+    if (c >= ncols) continue;
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < WARPS_K; ++q) s += red[(q * MT + m) * kBN + c];
+    out[(size_t)m * out_ld + c] = s;
+  }
+}
+
+template <int MT, int C, bool SHIFT>
+int launch_stream(const bf16* a, int lda, const Seg& s0, const Seg& s1, float* part,
+                  int M, int out_ld, int chunk, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(stream_partial<MT, C, SHIFT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kMaxSmem);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const int blocks = s0.tiles * s0.splits + s1.tiles * s1.splits;
+  if (blocks == 0) return 0;
+  const size_t smem = kRingBytes + (size_t)chunk * MT * 4;
+  stream_partial<MT, C, SHIFT><<<blocks, kThreads, smem, stream>>>(a, lda, s0, s1, part, M,
+                                                                 out_ld, chunk);
+  return (int)cudaGetLastError();
+}
+
+int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// The stream kernel's phases.  Refuses (cudaErrorInvalidValue) what it
+// cannot do: M outside 1..16, N % 8 != 0, v or v2 not 16-byte aligned, a
+// chunk that is not a positive multiple of kSK up to kMaxChunk, or splits
+// that do not cover each depth with that chunk, or factors whose element
+// offsets pass 2^31.
+int run_stream(const bf16* x, const bf16* u, const bf16* v, const bf16* u2, const bf16* v2,
+               bf16* y, float* part1, bf16* t, float* part2, int M, int K, int k1, int k2,
+               int N, int s1, int c1, int s2, int c2, cudaStream_t stream) {
+  auto chunk_ok = [](int c) { return c > 0 && c % kSK == 0 && c <= kMaxChunk; };
+  const int sv = cdiv(k1, c2), sv2 = cdiv(k2, c2);
+  if (M < 1 || M > 16 || N % 8 || reinterpret_cast<uintptr_t>(v) % 16 ||
+      reinterpret_cast<uintptr_t>(v2) % 16 || !chunk_ok(c1) || !chunk_ok(c2) ||
+      s1 != cdiv(K, c1) || s2 != sv + sv2 ||
+      (long long)(K + kSK) * std::max(k1, k2) >= INT_MAX ||
+      (long long)(std::max(k1, k2) + kSK) * N >= INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const int k = k1 + k2;
+  const Seg pu{u, K, k1, 0, 0, cdiv(k1, kBN), s1, 0};
+  const Seg pu2{u2, K, k2, 0, k1, cdiv(k2, kBN), s1, 0};
+  int e = M <= 8 ? launch_stream<8, 8, true>(x, K, pu, pu2, part1, M, k, c1, stream)
+                 : launch_stream<16, 4, true>(x, K, pu, pu2, part1, M, k, c1, stream);
+  if (e) return e;
+  launch_reduce<bf16>(part1, t, s1, (size_t)M * k, stream);
+  const Seg pv{v, k1, N, 0, 0, cdiv(N, kBN), sv, 0};
+  const Seg pv2{v2, k2, N, k1, 0, cdiv(N, kBN), sv2, sv};
+  e = M <= 8 ? launch_stream<8, 8, false>(t, k, pv, pv2, part2, M, N, c2, stream)
+             : launch_stream<16, 4, false>(t, k, pv, pv2, part2, M, N, c2, stream);
+  if (e) return e;
+  launch_reduce<bf16>(part2, y, s2, (size_t)M * N, stream);
+  return 0;
+}
+
 }  // namespace
 
 // x (M, K), u (K, k1), v (k1, N), u2 (K, k2), v2 (k2, N), y (M, N), all of
 // one dtype (0 fp32, 1 bf16), row-major and contiguous.  Scratch: part1
 // fp32 (s1, M, k1+k2), t (M, k1+k2) in the factor dtype, part2 fp32
-// (s2, M, N).  c1/c2 are the split-K chunk depths (multiples of 16) with
-// s1 = ceil(K / c1), s2 = ceil((k1+k2) / c2).  Returns cudaGetLastError().
+// (s2, M, N).  kernel 0 (tile): c1/c2 are the split-K chunk depths
+// (multiples of 16), s1 = ceil(K / c1), s2 = ceil((k1+k2) / c2).  kernel 1
+// (stream, bf16 only): chunks are multiples of 32 up to 512, s1 = ceil(K /
+// c1), s2 = ceil(k1 / c2) + ceil(k2 / c2).  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a launch the chosen kernel cannot do.
 extern "C" int nested_lowrank_launch(const void* x, const void* u, const void* v,
                                      const void* u2, const void* v2, void* y,
                                      float* part1, void* t, float* part2, int M,
                                      int K, int k1, int k2, int N, int s1, int c1,
-                                     int s2, int c2, int dtype, void* stream) {
+                                     int s2, int c2, int dtype, int kernel, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kernel == 1) {
+    if (dtype != kBF16) return (int)cudaErrorInvalidValue;
+    const int e = run_stream((const bf16*)x, (const bf16*)u, (const bf16*)v, (const bf16*)u2,
+                             (const bf16*)v2, (bf16*)y, part1, (bf16*)t, part2, M, K, k1, k2,
+                             N, s1, c1, s2, c2, st);
+    return e ? e : (int)cudaGetLastError();
+  }
+  if (kernel != 0) return (int)cudaErrorInvalidValue;
   if (dtype == kF32) {
     run<float>((const float*)x, (const float*)u, (const float*)v, (const float*)u2,
                (const float*)v2, (float*)y, part1, (float*)t, part2, M, K, k1, k2,
                N, s1, c1, s2, c2, st);
   } else if (dtype == kBF16) {
-    using bf = __nv_bfloat16;
-    run<bf>((const bf*)x, (const bf*)u, (const bf*)v, (const bf*)u2, (const bf*)v2,
-            (bf*)y, part1, (bf*)t, part2, M, K, k1, k2, N, s1, c1, s2, c2, st);
+    run<bf16>((const bf16*)x, (const bf16*)u, (const bf16*)v, (const bf16*)u2,
+              (const bf16*)v2, (bf16*)y, part1, (bf16*)t, part2, M, K, k1, k2, N, s1, c1,
+              s2, c2, st);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -1,7 +1,7 @@
 """The bridge between the packages (checkpoints with bf16 leaves, param
 trees), the reference checkpoint read through it, and the port's import
-boundary: nothing under src/repro_torch/ nor chip_smoke.py imports jax or
-repro."""
+boundary: nothing under src/repro_torch/, chip_smoke.py nor tools/ imports
+jax or repro."""
 
 import ast
 import os
@@ -96,6 +96,8 @@ def _imports(path):
 
 def test_port_imports_neither_jax_nor_repro():
     files = [os.path.join(ROOT, "chip_smoke.py")]
+    tools = os.path.join(ROOT, "tools")  # the card-side fault checks and profiles
+    files += [os.path.join(tools, n) for n in os.listdir(tools) if n.endswith(".py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     assert len(files) > 20

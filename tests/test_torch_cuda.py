@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch import kernels
+from repro_torch.kernels import check_launch
 from repro_torch.calib.runner import collect_grams
 from repro_torch.configs import MISTRAL_7B, RWKV6_1_6B, small_lm
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -49,6 +50,24 @@ def _err(got, want):
 NESTED_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 
 
+# Per-element nested tolerance (chip_smoke.py's NESTED_ELEM_TOL): |kernel -
+# plain| <= tol * (|plain| + rms of its row).  bf16: the plain version
+# rounds x@u, x@u2, their two products and the sum to bf16 (three
+# roundings of the output, one ulp up to 2^-7 of |y|), the kernel rounds t
+# and y once each; fp32: sum order only.
+NESTED_ELEM_TOL = {torch.bfloat16: 2 ** -5, torch.float32: 1e-4}
+
+
+def _nested_checks(got, want, dtype):
+    assert bool(torch.isfinite(got).all())
+    assert _err(got, want) < NESTED_TOL[dtype]
+    assert _elem_err(got, want) <= NESTED_ELEM_TOL[dtype]
+
+
+def _nested_counts():
+    return nlr_ops.launches, nlr_ops.stream_launches, nlr_ops.tile_launches
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m", [1, 8, 64, 512, 1024])
 def test_nested_kernel_matches_plain(dev, m, dtype):
@@ -59,7 +78,86 @@ def test_nested_kernel_matches_plain(dev, m, dtype):
     got = nlr_ops.nested_lowrank_matmul(x, u, v, u2, v2)
     torch.cuda.synchronize()
     assert nlr_ops.launches == before + 1
-    assert _err(got, nlr_ref.nested_lowrank_matmul_ref(x, u, v, u2, v2)) < NESTED_TOL[dtype]
+    _nested_checks(got, nlr_ref.nested_lowrank_matmul_ref(x, u, v, u2, v2), dtype)
+
+
+def _at_offset(t, off):
+    """A contiguous copy of ``t`` starting ``off`` elements into a larger
+    buffer (a stacked layer slice's address)."""
+    buf = torch.zeros(off + t.numel() + 8, dtype=t.dtype, device=t.device)
+    view = buf[off:off + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("k_in", [320, 14336])
+@pytest.mark.parametrize("k1,k2", [(61, 3), (2421, 127), (8, 8), (1, 5)])
+@pytest.mark.parametrize("m", [1, 7, 8, 9, 16])
+def test_nested_stream_kernel_edges(dev, m, k1, k2, k_in):
+    """The stream kernel at both row tiles, odd and tiny ranks, u and u2 at
+    odd element offsets (every row shift), a ragged last column tile (N =
+    3 * 256 + 8) and split-K over a long depth."""
+    n = 776
+    g = torch.Generator(device=dev).manual_seed(m * 1000 + k1 + k_in)
+    mk = lambda *s: (torch.randn(s, generator=g, device=dev) * s[0] ** -0.5).to(torch.bfloat16)  # noqa: E731
+    x, v, v2 = mk(m, k_in), mk(k1, n), mk(k2, n)
+    u, u2 = _at_offset(mk(k_in, k1), 3), _at_offset(mk(k_in, k2), 5)
+    assert u.data_ptr() % 16 and u2.data_ptr() % 16 and u.is_contiguous()
+    assert nlr_ops.plan(m, torch.bfloat16, k_in, n, k1, k2, True).kernel == "stream"
+    n0, s0, t0 = _nested_counts()
+    got = nlr_ops.nested_lowrank_matmul(x, u, v, u2, v2)
+    torch.cuda.synchronize()
+    assert _nested_counts() == (n0 + 1, s0 + 1, t0)
+    _nested_checks(got, nlr_ref.nested_lowrank_matmul_ref(x, u, v, u2, v2), torch.bfloat16)
+
+
+def test_nested_gate_picks_kernel(dev):
+    """bf16 with <= 16 rows and aligned v/v2 rows runs the stream kernel;
+    N % 8 != 0, a misaligned v, fp32 and 17 rows run the tile kernel."""
+    g = torch.Generator(device=dev).manual_seed(17)
+
+    def mk(*s, dtype=torch.bfloat16):
+        return (torch.randn(s, generator=g, device=dev) * s[0] ** -0.5).to(dtype)
+
+    def case(m, n, dtype=torch.bfloat16, v_off=0):
+        x, u, u2 = mk(m, 320, dtype=dtype), mk(320, 61, dtype=dtype), mk(320, 3, dtype=dtype)
+        v = _at_offset(mk(61, n, dtype=dtype), v_off)
+        return x, u, v, u2, mk(3, n, dtype=dtype)
+
+    for args, kernel in ((case(8, 200), "stream"), (case(8, 201), "tile"),
+                         (case(8, 200, v_off=1), "tile"),
+                         (case(8, 200, dtype=torch.float32), "tile"), (case(17, 200), "tile")):
+        n0, s0, t0 = _nested_counts()
+        got = nlr_ops.nested_lowrank_matmul(*args)
+        torch.cuda.synchronize()
+        stream = kernel == "stream"
+        assert _nested_counts() == (n0 + 1, s0 + stream, t0 + (not stream)), kernel
+        _nested_checks(got, nlr_ref.nested_lowrank_matmul_ref(*args), args[0].dtype)
+
+
+def test_nested_stream_launch_refuses_what_it_cannot_do(dev):
+    """The C launcher returns an error, and launches nothing, for a stream
+    launch outside its gate: a misaligned v, fp32, 17 rows, a chunk that is
+    not a multiple of the stage depth."""
+    x = torch.zeros((8, 64), dtype=torch.bfloat16, device=dev)
+    u, u2 = torch.zeros((64, 8), dtype=x.dtype, device=dev), torch.zeros((64, 8), dtype=x.dtype, device=dev)
+    v = torch.zeros((8 * 64 + 8,), dtype=x.dtype, device=dev)
+    y, t = torch.empty((17, 64), dtype=x.dtype, device=dev), torch.empty((17, 16), dtype=x.dtype, device=dev)
+    part = torch.empty((64, 17, 64), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(m=8, v_ptr=v.data_ptr(), dtype=1, c1=32, c2=32):
+        return nlr_ops._launcher()(x.data_ptr(), u.data_ptr(), v_ptr, u2.data_ptr(),
+                                   v.data_ptr(), y.data_ptr(), part.data_ptr(), t.data_ptr(),
+                                   part.data_ptr(), m, 64, 8, 8, 64, -(-64 // c1), c1,
+                                   2 * -(-8 // c2), c2, dtype, 1, stream)
+    assert launch() == 0
+    for bad in (dict(v_ptr=v.data_ptr() + 2), dict(dtype=0), dict(m=17), dict(c1=48),
+                dict(c2=1024)):
+        assert launch(**bad) != 0, bad
+        with pytest.raises(RuntimeError):
+            check_launch(launch(**bad), "nested_lowrank")
+    torch.cuda.synchronize()
 
 
 def test_nested_rows_above_gate_use_plain_matmuls(dev):

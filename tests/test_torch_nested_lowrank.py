@@ -83,3 +83,50 @@ def test_split_k_covers_depth():
                               (8, 655, 1024), (64, 16, 8), (1, 1, 1)):
         s, c = ops.split_k(rows, depth, cols)
         assert c % ops.BK == 0 and (s - 1) * c < depth <= s * c
+
+
+# (rows, dtype, n, aligned) -> kernel: bf16 with 1..16 rows, n % 8 == 0 and
+# 16-byte aligned v/v2 streams; everything else takes the tile kernel.
+@pytest.mark.parametrize("rows,dtype,n,aligned,kernel", [
+    (1, torch.bfloat16, 4096, True, "stream"),
+    (8, torch.bfloat16, 14336, True, "stream"),
+    (16, torch.bfloat16, 1024, True, "stream"),
+    (17, torch.bfloat16, 4096, True, "tile"),
+    (512, torch.bfloat16, 4096, True, "tile"),
+    (8, torch.float32, 4096, True, "tile"),
+    (8, torch.bfloat16, 4100, True, "tile"),
+    (8, torch.bfloat16, 4096, False, "tile"),
+])
+def test_plan_picks_kernel(rows, dtype, n, aligned, kernel):
+    assert ops.plan(rows, dtype, 4096, n, 2421, 127, aligned).kernel == kernel
+
+
+def _covers(s, c, depth, stage):
+    return c % stage == 0 and (s == 0 if depth == 0 else (s - 1) * c < depth <= s * c)
+
+
+# (rows, K, N, k1, k2): the Mistral-7B gate/down/wq/wk shapes at ratio 0.2,
+# the card tests' ranks, and degenerate depths.
+PLAN_SHAPES = [(8, 4096, 14336, 2421, 127), (1, 14336, 4096, 2421, 127),
+               (16, 4096, 4096, 1556, 82), (8, 4096, 1024, 622, 33),
+               (7, 320, 776, 61, 3), (9, 14336, 776, 1, 5), (8, 320, 200, 8, 8),
+               (64, 4096, 14336, 2421, 127), (512, 2548, 4096, 2421, 127),
+               (8, 16, 8, 1, 0)]
+
+
+@pytest.mark.parametrize("rows,k_in,n,k1,k2", PLAN_SHAPES)
+def test_plan_splits_cover_each_depth(rows, k_in, n, k1, k2):
+    """Each phase's slices cover its depth exactly: the stream kernel's
+    chunks are multiples of its ring stage (at most STREAM_MAX_CHUNK) and
+    phase 2 covers v's and v2's depths with slices of their own; the tile
+    kernel keeps ``split_k``."""
+    p = ops.plan(rows, torch.bfloat16, k_in, n, k1, k2, True)
+    if p.kernel == "tile":
+        assert (p.s1, p.c1) == ops.split_k(rows, k_in, k1 + k2)
+        assert (p.s2, p.c2) == ops.split_k(rows, k1 + k2, n)
+        return
+    stage = ops.STREAM_BK
+    assert p.c1 <= ops.STREAM_MAX_CHUNK and p.c2 <= ops.STREAM_MAX_CHUNK
+    assert _covers(p.s1, p.c1, k_in, stage)
+    sv = -(-k1 // p.c2)
+    assert _covers(sv, p.c2, k1, stage) and _covers(p.s2 - sv, p.c2, k2, stage)

@@ -65,27 +65,31 @@ def measure() -> list:
     return out
 
 
-def run_variant(name: str, patch) -> list:
+def run_variant(name: str, patch, source: str = "flash_attention.cu",
+                script: str = __file__) -> list:
+    """``script --measure``'s results on ``repro_torch`` with ``patch`` (old,
+    new) applied once to ``csrc/<source>`` in a temporary copy (None: the
+    checkout as it is), built and run in a process of its own."""
     env = dict(os.environ)
     tmp = None
     if patch is None:
         env["PYTHONPATH"] = os.path.join(ROOT, "src")
     else:
-        tmp = tempfile.mkdtemp(prefix=f"flash_{name}_")
+        tmp = tempfile.mkdtemp(prefix=f"fault_{name}_")
         shutil.copytree(os.path.join(ROOT, "src", "repro_torch"),
                         os.path.join(tmp, "repro_torch"),
                         ignore=shutil.ignore_patterns("build", "__pycache__"))
-        cu = os.path.join(tmp, "repro_torch", "csrc", "flash_attention.cu")
+        cu = os.path.join(tmp, "repro_torch", "csrc", source)
         with open(cu) as f:
             text = f.read()
         old, new = patch
         if text.count(old) != 1:
-            raise RuntimeError(f"{name}: the line to patch is not in flash_attention.cu once")
+            raise RuntimeError(f"{name}: the line to patch is not in {source} once")
         with open(cu, "w") as f:
             f.write(text.replace(old, new))
         env["PYTHONPATH"] = tmp
     try:
-        p = subprocess.run([sys.executable, os.path.abspath(__file__), "--measure"], env=env,
+        p = subprocess.run([sys.executable, os.path.abspath(script), "--measure"], env=env,
                            capture_output=True, text=True, timeout=600)
     finally:
         if tmp:
@@ -96,26 +100,35 @@ def run_variant(name: str, patch) -> list:
     return json.loads(lines[-1][len("RESULT "):])
 
 
-def main() -> int:
-    if sys.argv[1:] == ["--measure"]:
-        print("RESULT " + json.dumps(measure()), flush=True)
-        return 0
-    g_tol, e_tol = chip_smoke.FLASH_TOL["bfloat16"], chip_smoke.FLASH_ELEM_TOL["bfloat16"]
+def check_faults(faults: dict, g_tol: float, e_tol: float, source: str = "flash_attention.cu",
+                 script: str = __file__) -> bool:
+    """Both checks on the unpatched kernel and on each fault, one line per
+    case: True when the unpatched kernel passes both everywhere and every
+    fault fails the per-element check somewhere."""
     ok = True
-    for name, patch in [("unpatched", None), *FAULTS.items()]:
-        rows = run_variant(name, patch)
+    for name, patch in [("unpatched", None), *faults.items()]:
+        rows = run_variant(name, patch, source, script)
         caught_g = caught_e = False
         for r in rows:
             g_fail = not r["finite"] or r["glob"] > g_tol
             e_fail = not r["finite"] or r["elem"] > e_tol
             caught_g, caught_e = caught_g or g_fail, caught_e or e_fail
-            print(f"{name:21s} {r['case']:26s} global {r['glob']:.4e} (tol {g_tol:.0e}) "
+            print(f"{name:25s} {r['case']:30s} global {r['glob']:.4e} (tol {g_tol:.0e}) "
                   f"{'FAIL' if g_fail else 'pass'}  elem {r['elem']:.4e} (tol {e_tol:.4e}) "
                   f"{'FAIL' if e_fail else 'pass'}", flush=True)
-        print(f"{name:21s} caught by the global check: {caught_g}; by the per-element "
+        print(f"{name:25s} caught by the global check: {caught_g}; by the per-element "
               f"check: {caught_e}", flush=True)
         ok = ok and ((not caught_g and not caught_e) if patch is None else caught_e)
     print(json.dumps({"ok": ok}))
+    return ok
+
+
+def main() -> int:
+    if sys.argv[1:] == ["--measure"]:
+        print("RESULT " + json.dumps(measure()), flush=True)
+        return 0
+    ok = check_faults(FAULTS, chip_smoke.FLASH_TOL["bfloat16"],
+                      chip_smoke.FLASH_ELEM_TOL["bfloat16"])
     return 0 if ok else 1
 
 
