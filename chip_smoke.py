@@ -10,14 +10,19 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
   3. kernels: each kernel against its plain PyTorch version at the main
      paths' shapes, with the stated tolerance, timed (CUDA events) beside
      the plain version, one PyTorch library call and the bytes/FLOP bound
-     (nested_lowrank: also a per-element check, which kernel ran, and the
-     device time of one call and of ``multi_dot`` from torch.profiler);
+     (nested_lowrank: also a per-element check, which kernel ran -- the
+     stream kernel at 1-16 bf16 rows, the mma kernel at 17-1024, the tile
+     kernel for fp32 -- the device time of one call and of ``multi_dot``
+     from torch.profiler, and at bf16 rows above 16 the device time of the
+     tile kernel that ran them before the mma kernel);
   4. serve path: ``serve()`` on mistral-7b at full width (depth cut to 2
      layers, random weights from a seed): calibrate, NSVD-compress (nsvd1,
      ratio 0.2, bf16 factors) and serve 8 requests, with the kernels' launch
-     counters read around the run (every decode step's nested calls on the
-     stream kernel); then one decode step's logits through the kernels
-     against the same step through the plain versions;
+     counters read around the run (nested calls: every decode step's on the
+     stream kernel, every 512-row prefill chunk's on the mma kernel, none on
+     the tile kernel); then one decode step's logits through the kernels
+     against the same step through the plain versions, and profiles of that
+     step and of one prefill chunk;
   5. quality path: ``obs.quality_report.build_entry`` on the same model:
      calibrate (gram kernel), compress with telemetry, evaluate dense vs
      compressed perplexity on five domains at (4, 2048) tokens a batch
@@ -27,9 +32,11 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
   6. RWKV-6 serve path: ``serve()`` on rwkv6-1.6b at full width (depth cut to
      4 layers, random weights from a seed) on the dense recurrent-state slab:
      calibrate (gram, rwkv6), compress, serve the same 8 requests (each
-     admission one exact-length prefill through rwkv6; decode through
-     nested_lowrank), launch counts read around it; then one dense decode
-     step's logits through the kernels against the plain versions;
+     admission one exact-length prefill through rwkv6 and, above 16 rows,
+     the nested mma kernel; decode through the nested stream kernel), launch
+     counts read around it; then one dense decode step's logits through the
+     kernels against the plain versions, and profiles of that step and of
+     the longest prompt's admission;
   7. RWKV-6 quality path: ``build_entry`` on the same model, one (4, 2048)
      eval batch per domain, every causal forward through rwkv6.
 Prints a JSON kernel summary, nvidia-smi's line, and as its last line
@@ -60,7 +67,10 @@ NESTED_SHAPES = (  # (target, in K, out N, rank) at ratio 0.2 on Mistral-7B
     ("gate", 4096, 14336, 2548),
     ("down", 14336, 4096, 2548),
 )
-NESTED_ROWS = (1, 8, 16, 64, 512)  # <= 16: the bf16 stream kernel; above: tile
+# bf16: <= 16 the stream kernel; 17 (the first mma row count), 64, 200 (an
+# RWKV admission, not a multiple of 16) and 512 (a paged prefill chunk of 8
+# x 64) the mma kernel.  fp32: the tile kernel at every row count.
+NESTED_ROWS = (1, 8, 16, 17, 64, 200, 512)
 # Max |kernel - plain| / max |plain| allowed.  bf16: the kernel and the plain
 # version round the rank-width intermediate and the output to bf16 at the
 # same points but sum in different orders (a few bf16 ulps of the output);
@@ -165,16 +175,19 @@ def nested_phase(torch, ops, ref):
             for m in NESTED_ROWS:
                 x = mk(m, k_in, s=1.0)
                 kernel = ops.plan(m, dt, k_in, n, k1, k2, True).kernel
-                before = (ops.stream_launches, ops.tile_launches)
+                before = nested_split()
                 got = ops.nested_lowrank_matmul(x, u, v, u2, v2)
                 want = ref.nested_lowrank_matmul_ref(x, u, v, u2, v2)
                 torch.cuda.synchronize()
-                ran = "stream" if ops.stream_launches > before[0] else "tile"
+                after = nested_split()
+                ran = next((k for k in after if after[k] > before[k]), "none")
                 err = float((got.float() - want.float()).abs().max())
                 scale = float(want.float().abs().max())
                 e_err = elem_err(torch, got, want)
+                want_ran = (("stream" if m <= ops.STREAM_ROWS else "mma")
+                            if dname == "bfloat16" else "tile")
                 ok = (bool(torch.isfinite(got).all()) and err <= NESTED_TOL[dname] * scale
-                      and e_err <= NESTED_ELEM_TOL[dname] and ran == kernel)
+                      and e_err <= NESTED_ELEM_TOL[dname] and ran == kernel == want_ran)
                 ms = time_ms(lambda: ops.nested_lowrank_matmul(x, u, v, u2, v2))
                 plain = time_ms(lambda: ref.nested_lowrank_matmul_ref(x, u, v, u2, v2))
                 lib = time_ms(lambda: torch.linalg.multi_dot([x, big_u, big_v]))
@@ -186,6 +199,14 @@ def nested_phase(torch, ops, ref):
                 lib_dev = profile_step(torch, lambda: [torch.linalg.multi_dot(
                     [x, big_u, big_v]) for _ in range(DEVICE_REPS)], quiet=True)[
                     "device_busy_ms"] / DEVICE_REPS
+                tile_dev = None
+                if ran == "mma":  # the tile kernel, which ran these rows before
+                    tile_plan = ops.Plan("tile", *ops.split_k(m, k_in, r),
+                                         *ops.split_k(m, r, n))
+                    y_tile = torch.empty_like(got)
+                    tile_dev = profile_step(torch, lambda: [ops.launch(
+                        x, u, v, u2, v2, y_tile, tile_plan) for _ in range(DEVICE_REPS)],
+                        quiet=True)["device_busy_ms"] / DEVICE_REPS
                 el = x.element_size()
                 nbytes = el * (x.numel() + u.numel() + v.numel() + u2.numel()
                                + v2.numel() + m * n)
@@ -197,14 +218,16 @@ def nested_phase(torch, ops, ref):
                            tol=NESTED_TOL[dname] * scale, elem_err=e_err,
                            elem_tol=NESTED_ELEM_TOL[dname], ok=ok, ms=ms,
                            device_ms=dev_ms, plain_ms=plain, library_ms=lib,
-                           library_device_ms=lib_dev, bytes=nbytes,
+                           library_device_ms=lib_dev, tile_device_ms=tile_dev, bytes=nbytes,
                            flops=flops, bound_ms=b, bound_by=by)
                 rows.append(row)
+                tile_txt = "" if tile_dev is None else f"  tile kernel device {tile_dev:.4f}"
                 log(f"nested {dname:8s} {target:4s} M={m:<3d} {ran:6s} err={err:.3e} "
                     f"(tol {row['tol']:.3e}) elem err {e_err:.3e} (tol "
                     f"{row['elem_tol']:.3e}) {'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms "
                     f"(device {dev_ms:.4f})  plain {plain:.3f} ms  library {lib:.4f} ms "
-                    f"(device {lib_dev:.4f})  bound {b:.4f} ms ({by}, {nbytes / 1e6:.1f} MB)")
+                    f"(device {lib_dev:.4f})  bound {b:.4f} ms ({by}, {nbytes / 1e6:.1f} MB)"
+                    f"{tile_txt}")
     return rows
 
 
@@ -433,7 +456,7 @@ def reset_counts() -> None:
     fa = _ops("flash_attention")
     fa.tensor_core_launches = fa.cuda_core_launches = 0
     nlr = _ops("nested_lowrank")
-    nlr.stream_launches = nlr.tile_launches = 0
+    nlr.stream_launches = nlr.mma_launches = nlr.tile_launches = 0
 
 
 def read_counts() -> dict:
@@ -451,7 +474,12 @@ def flash_split_ok(counts: dict) -> tuple:
 def nested_split() -> dict:
     """nested_lowrank's launches by kernel since ``reset_counts``."""
     nlr = _ops("nested_lowrank")
-    return {"stream": nlr.stream_launches, "tile": nlr.tile_launches}
+    return {"stream": nlr.stream_launches, "mma": nlr.mma_launches,
+            "tile": nlr.tile_launches}
+
+
+# Device kernels of one nested_lowrank call (both phases and reductions).
+NESTED_KERNEL_NAMES = ("stream_partial", "mma_partial", "gemm_partial", "reduce_partials")
 
 
 def profile_step(torch, fn, label: str = "decode step", quiet: bool = False) -> dict:
@@ -482,11 +510,14 @@ def profile_step(torch, fn, label: str = "decode step", quiet: bool = False) -> 
     top = sorted(per.items(), key=lambda kv: -kv[1][0])[:12]
     if quiet:
         return {"wall_ms": wall_ms, "device_busy_ms": busy}
+    nested = sum(ms for k, (ms, _) in per.items()
+                 if any(name in k for name in NESTED_KERNEL_NAMES))
     log(f"  profiled {label}: wall {wall_ms:.2f} ms (profiler off), device "
-        f"busy {busy:.3f} ms ({busy / wall_ms:.1%} of wall)")
+        f"busy {busy:.3f} ms ({busy / wall_ms:.1%} of wall), nested_lowrank "
+        f"{nested:.3f} ms ({nested / max(busy, 1e-9):.1%} of busy)")
     for name, (ms, n) in top:
         log(f"    {ms:8.3f} ms  x{n:<4d} {name[:90]}")
-    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "nested_ms": nested,
             "top": [{"name": k, "ms": ms, "count": n} for k, (ms, n) in top]}
 
 
@@ -545,9 +576,17 @@ def serve_path(torch, np, cfg, mixer: str, taps_per_layer: int):
               "flash_attention": 0, "rwkv6": 0}
     expect[mixer] = layers * (calib_batches + (0 if paged else st["prefill_ticks"]))
     # Every decode step's compressed linears (8 rows, bf16) run the stream
-    # kernel; prefill calls of more than 16 rows run the tile kernel.
-    nested_ok = (nsplit["stream"] + nsplit["tile"] == expect["nested_lowrank"]
-                 and nsplit["stream"] >= n_linear * st["steps"])
+    # kernel; a prefill call runs the stream kernel at <= 16 rows and the mma
+    # kernel above (paged: every chunk is max_batch x prefill_chunk = 512
+    # rows; dense: one call per prompt at its length); none runs the tile
+    # kernel.
+    nlr = _ops("nested_lowrank")
+    prefill_rows = ([8 * 64] * st["prefill_ticks"] if paged
+                    else [len(p) for p in prompts])
+    long_calls = sum(r > nlr.STREAM_ROWS for r in prefill_rows)
+    nested_expect = {"stream": n_linear * (st["steps"] + len(prefill_rows) - long_calls),
+                     "mma": n_linear * long_calls, "tile": 0}
+    nested_ok = (nsplit == nested_expect and len(prefill_rows) == st["prefill_ticks"])
     reasons = {u: r.finish_reason for u, r in res["requests"].items()}
     outs = res["outputs"]
     ratio = factored_ratio(params, plan)
@@ -570,8 +609,8 @@ def serve_path(torch, np, cfg, mixer: str, taps_per_layer: int):
         f"calls {st['prefill_ticks']}, host syncs {st['host_syncs']}, step p50 "
         f"{st['step_p50_s'] * 1e3:.2f} ms")
     log(f"  launches {counts} expected {expect}; flash_attention by kernel {split}; "
-        f"nested_lowrank by kernel {nsplit} (decode calls {n_linear * st['steps']}: "
-        f"{'OK' if nested_ok else 'FAIL'}); finish reasons "
+        f"nested_lowrank by kernel {nsplit} expected {nested_expect} "
+        f"{'OK' if nested_ok else 'FAIL'}; finish reasons "
         f"{sorted(set(reasons.values()))}")
 
     toks = torch.as_tensor(np.stack([p[:15] for p in prompts]), device="cuda")
@@ -603,6 +642,22 @@ def serve_path(torch, np, cfg, mixer: str, taps_per_layer: int):
         prof = profile_step(torch, lambda: model.apply(
             params, nxt, mode="decode", cache=clone(saved), cache_len=clen, **extra),
             f"{eng.layout} decode step (8 rows)")
+        # One prefill call as the engine makes it: paged, a chunk of 64
+        # tokens for each of the 8 rows (512 nested rows; rewriting the same
+        # positions each time); dense, the longest prompt's admission into a
+        # fresh row cache.
+        if paged:
+            ptoks = torch.as_tensor(rng.integers(2, cfg.vocab_size // 2, size=(8, 64)),
+                                    device="cuda")
+            prof_prefill = profile_step(torch, lambda: model.apply(
+                params, ptoks, mode="decode", cache=cache, cache_len=torch.zeros_like(clen),
+                **extra), "paged prefill chunk (8 x 64 = 512 rows)")
+        else:
+            longest = max(prompts, key=len)
+            ptoks = torch.as_tensor(longest[None], device="cuda")
+            prof_prefill = profile_step(torch, lambda: model.apply(
+                params, ptoks, mode="prefill", cache=model.init_cache(1, 256, device="cuda")),
+                f"dense admission prefill ({len(longest)} rows)")
     torch.cuda.synchronize()
     step_err = float((lk - lp).abs().max())
     step_scale = float(lp.abs().max())
@@ -616,10 +671,12 @@ def serve_path(torch, np, cfg, mixer: str, taps_per_layer: int):
                    prompt_lengths=plens.tolist(), seconds=res["seconds"],
                    tokens=res["tokens"], tok_per_s=res["tok_per_s"], engine=st,
                    launches=counts, expected_launches=expect, flash_launches=split,
-                   nested_launches=nsplit, finish_reasons=reasons,
+                   nested_launches=nsplit, expected_nested_launches=nested_expect,
+                   finish_reasons=reasons,
                    achieved_ratio=plan.achieved_ratio, factored_ratio=ratio,
                    step_logit_max_abs_err=step_err, step_logit_max_abs=step_scale,
                    step_argmax_agreement=agree, step_profile=prof,
+                   prefill_profile=prof_prefill,
                    ok=bool(ok and step_ok))
     return summary, counts
 
@@ -784,31 +841,41 @@ def main() -> int:
     rwkv_serve_counts = path_counts["rwkv_serve"]
 
     # One entry per kernel at its path's main shape: the gate projection
-    # (largest factor bytes) at 8 live decode rows in bf16 and the bf16 page
-    # pools (serve path); the d_ff-wide tap in bf16 and the (4, 2048) eval
-    # batch in bf16 (quality path); the rwkv6-1.6b eval batch in fp32 (the
-    # model's dtype for the recurrence).  Launches are each kernel's count on
-    # its own path (rwkv6: the RWKV-6 serve path).
+    # (largest factor bytes) in bf16 at 8 live decode rows (the nested
+    # stream kernel) and at one 512-row prefill chunk (the nested mma
+    # kernel), and the bf16 page pools (serve path); the d_ff-wide tap in
+    # bf16 and the (4, 2048) eval batch in bf16 (quality path); the
+    # rwkv6-1.6b eval batch in fp32 (the model's dtype for the recurrence).
+    # Launches are each kernel's count on its own path (nested: by kernel on
+    # the Mistral serve path; rwkv6: the RWKV-6 serve path).
+    nested_serve = summaries["serve"]["nested_launches"]
+    nested_src = "src/repro_torch/csrc/nested_lowrank.cu"
+    nested_tpu = "src/repro/kernels/nested_lowrank/nested_lowrank.py:84"
+
+    def nested_pick(m):
+        return next(r for r in nested if r["dtype"] == "bfloat16" and r["target"] == "gate"
+                    and r["M"] == m)
     picks = (
-        (next(r for r in nested if r["dtype"] == "bfloat16" and r["target"] == "gate"
-              and r["M"] == 8), serve_counts, "src/repro_torch/csrc/nested_lowrank.cu",
-         "src/repro/kernels/nested_lowrank/nested_lowrank.py:84"),
-        (next(r for r in paged if r["pool"] == "bfloat16"), serve_counts,
-         "src/repro_torch/csrc/paged_attention.cu",
+        ("nested_lowrank", nested_pick(8), nested_serve["stream"], nested_src, nested_tpu),
+        ("nested_lowrank_mma", nested_pick(512), nested_serve["mma"], nested_src, nested_tpu),
+        ("paged_attention", next(r for r in paged if r["pool"] == "bfloat16"),
+         serve_counts["paged_attention"], "src/repro_torch/csrc/paged_attention.cu",
          "src/repro/kernels/paged_attention/paged_attention.py:243"),
-        (next(r for r in grams if r["dtype"] == "bfloat16" and r["n"] == 14336),
-         quality_counts, "src/repro_torch/csrc/gram.cu", "src/repro/kernels/gram/gram.py:54"),
-        (next(r for r in flash if r["dtype"] == "bfloat16" and r["S"] == 2048),
-         quality_counts, "src/repro_torch/csrc/flash_attention.cu",
+        ("gram", next(r for r in grams if r["dtype"] == "bfloat16" and r["n"] == 14336),
+         quality_counts["gram"], "src/repro_torch/csrc/gram.cu",
+         "src/repro/kernels/gram/gram.py:54"),
+        ("flash_attention", next(r for r in flash if r["dtype"] == "bfloat16"
+                                 and r["S"] == 2048),
+         quality_counts["flash_attention"], "src/repro_torch/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention/flash_attention.py:108"),
-        (next(r for r in rwkv if r["dtype"] == "float32" and r["case"] == "eval"),
-         rwkv_serve_counts, "src/repro_torch/csrc/rwkv6.cu",
+        ("rwkv6", next(r for r in rwkv if r["dtype"] == "float32" and r["case"] == "eval"),
+         rwkv_serve_counts["rwkv6"], "src/repro_torch/csrc/rwkv6.cu",
          "src/repro/kernels/rwkv6/rwkv6.py:105"),
     )
     entries = []
-    for row, counts, src, replaces in picks:
-        entries.append({"name": row["kernel"], "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": counts[row["kernel"]],
+    for name, row, launches, src, replaces in picks:
+        entries.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": launches,
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

@@ -16,7 +16,9 @@
 // about half that time (at M = 16 in about all of it); measured, the
 // stream kernel below reaches about half the byte rate at M = 8, held by
 // instruction issue and latency, not by bytes (PERF.md).  At
-// prefill-chunk row counts (M = 512) the product turns compute-bound.
+// prefill-chunk row counts the product turns compute-bound: at M = 512 the
+// gate projection is 48.1 GFLOP (48.6 us at the bf16 tensor-core peak)
+// against 28.1 us of bytes, so rows 17..1024 run on the tensor cores.
 //
 // The TPU design's resident factors cannot carry over (bf16 u alone is
 // 20.9 MB at rank 2548, a block has 227 KB of shared memory), so both
@@ -24,8 +26,8 @@
 // partials and a fixed-order reduction (reduce_partials; deterministic, no
 // atomics):  phase 1 t = x @ [u|u2] -> t (M, k1+k2) in the factor dtype;
 // phase 2 y = t @ [v;v2].  Split-K spreads each skinny product over ~2
-// blocks per SM.  Two kernels, chosen by the wrapper (ops.plan) and checked
-// here:
+// blocks per SM.  Three kernels, chosen by the wrapper (ops.plan) and
+// checked here:
 //
 // stream_partial: bf16, M <= 16, N % 8 == 0, v and v2 16-byte aligned (u
 //   and u2 at any address and any rank).  Built to keep bytes in flight:
@@ -59,9 +61,42 @@
 //    spill there.  No tensor cores (fp32 FMA), which is what now limits
 //    it: mma.sync is the next step.
 //
-// gemm_partial (the tile kernel): every other call (fp32, M > 16, or v/v2
-//   layouts the stream kernel does not take).  A (16, 128) or (64, 64)
-//   fp32-FMA tile, synchronous 16-deep loads, one element at a time.
+// mma_partial: bf16, 17 <= M <= 1024, K % 8 == 0, N % 8 == 0, x, v and v2
+//   16-byte aligned (u and u2 at any address and any rank).  The tensor
+//   cores, fed the stream kernel's way:
+//  * (128 rows, 128 columns) block tiles, 8 warps as 2 x 4 of (64, 32);
+//    mma.sync m16n8k16 bf16 with fp32 sums in registers, A fragments by
+//    ldmatrix, B fragments by ldmatrix.trans from the row-major (k, n)
+//    tile.  Rows past M load as zeros and are never stored; a warp skips
+//    its m16 tiles that lie wholly past M.
+//  * A 4-stage ring of BK = 32-deep stages by 16-byte cp.async.cg: the
+//    left operand's (128, 32) tile (64-byte rows, chunk ^ (row/2 mod 4))
+//    and the factor's (32, 128) tile (256-byte rows, chunk ^ (row mod 8)),
+//    both swizzles free of bank conflicts for ldmatrix.  One barrier a
+//    stage: the ring runs one stage ahead of the compute it feeds.
+//  * Phase 1's B is u/u2 (ld = k1 or k2, odd ranks the common case), whose
+//    rows ldmatrix cannot read in place (it needs 16-byte-aligned rows).
+//    Of the two ways out -- re-pack each landed stage into an aligned tile,
+//    or build B fragments from 2-byte loads -- this takes the re-pack: the
+//    rows arrive by the stream kernel's per-row-shift copy into BN + 8
+//    element rows, and one stage ahead of its use every warp moves 4 rows
+//    into an aligned, swizzled tile (two of them, alternating) with 4-byte
+//    loads, joining the halves of two words where the shift is odd.  That
+//    is one shared read and write per factor element, against the >= 17 x
+//    2 FLOP each element feeds, while B fragments from 2-byte loads would
+//    take ~4 loads and packs per mma in the inner loop.  Phase 2's B (v,
+//    v2: ld = N, aligned) needs no re-pack (SHIFT false).
+//  * Phase 2's A is t, the wrapper's scratch, laid out (M, tld) with u's
+//    columns at 0 and u2's at k1p = k1 rounded up to 8 (tld = k1p + k2
+//    rounded up to 8), so that both K-ranges start 16-byte aligned; loads
+//    stop at each range's end (src-size), so the padding is never read.
+//  * The grid enumerates row tiles fastest, so the blocks that share a
+//    factor tile run together and read it once from memory, then from L2.
+//
+// gemm_partial (the tile kernel): every other call (fp32, or bf16 layouts
+//   the two bf16 kernels do not take: N % 8, unaligned v/v2, K % 8 above
+//   16 rows).  A (16, 128) or (64, 64) fp32-FMA
+//   tile, synchronous 16-deep loads, one element at a time.
 #include <algorithm>
 #include <climits>
 
@@ -444,6 +479,291 @@ int run_stream(const bf16* x, const bf16* u, const bf16* v, const bf16* u2, cons
   return 0;
 }
 
+
+// ---- the mma kernel (bf16, 17 <= M <= 1024) ----
+
+constexpr int kMM = 128;                  // rows of a block tile
+constexpr int kMN = 128;                  // columns of a block tile
+constexpr int kMK = 32;                   // depth of a ring stage
+constexpr int kMStages = 4;
+constexpr int kARow = kMK * 2;            // bytes of an A tile row (4 chunks)
+constexpr int kATile = kMM * kARow;
+constexpr int kBRow = kMN * 2;            // bytes of an aligned B tile row (16 chunks)
+constexpr int kBTile = kMK * kBRow;
+constexpr int kRawRow = (kMN + 8) * 2;    // bytes of a shifted B row (17 chunks)
+constexpr int kRawTile = kMK * kRawRow;
+template <bool SHIFT>
+constexpr int mma_smem_bytes() {
+  return kMStages * kATile + (SHIFT ? kMStages * kRawTile + 2 * kBTile : kMStages * kBTile);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+// c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One (segment, column tile, row tile, split-K slice) per block; 1-D grid,
+// row tiles fastest, over s0's tiles x splits, then s1's.  Partials:
+// part[z][m][out_col + col], row stride out_ld, for m < M.
+//
+// Fragment layouts (PTX ISA, mma.m16n8k16 .bf16), lane = 4 * gid + tig:
+//   C {(gid, 2tig), (gid, 2tig+1), (gid+8, 2tig), (gid+8, 2tig+1)}.
+// ldmatrix.x4: lanes 8i..8i+7 address the rows of matrix i, which lands in
+// register i (.trans: transposed).  A: matrices (rows 0-7, k 0-7), (rows
+// 8-15, k 0-7), (rows 0-7, k 8-15), (rows 8-15, k 8-15); B (.trans):
+// (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15), the
+// B registers of two n8 tiles.
+template <bool SHIFT>
+__global__ void __launch_bounds__(kThreads, 2)
+mma_partial(const bf16* __restrict__ a, int lda, Seg s0, Seg s1, float* __restrict__ part,
+            int M, int out_ld, int chunk, int mtiles) {
+  constexpr int CH = SHIFT ? kRawRow / 16 : kBRow / 16;  // chunks copied a factor row
+  constexpr int BCOPIES = (kMK * CH + kThreads - 1) / kThreads;
+  constexpr int ACH = kARow / 16;                        // chunks of an A row
+  constexpr int ACOPIES = kMM * ACH / kThreads;
+  constexpr int BSLOT = SHIFT ? kRawTile : kBTile;
+  static_assert(ACOPIES * kThreads == kMM * ACH && kMK % 16 == 0, "tiling");
+  static_assert(kMK == 4 * (kThreads / 32), "the re-pack gives each warp 4 rows");
+
+  extern __shared__ __align__(128) unsigned char smem_mma[];
+  const uint32_t aring = smem_u32(smem_mma);
+  const uint32_t bring = aring + kMStages * kATile;
+  const uint32_t bpack = bring + kMStages * kRawTile;  // SHIFT: two aligned tiles
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  int blk = blockIdx.x;
+  const bool second = blk >= mtiles * s0.tiles * s0.splits;
+  if (second) blk -= mtiles * s0.tiles * s0.splits;
+  const int mt = blk % mtiles;
+  blk /= mtiles;
+  const int tiles = second ? s1.tiles : s0.tiles;
+  const int tile = blk % tiles, split = blk / tiles;
+  const bf16* const __restrict__ b = second ? s1.b : s0.b;
+  const int kd = second ? s1.kd : s0.kd, nc = second ? s1.nc : s0.nc;
+  const int a_col = second ? s1.a_col : s0.a_col;
+  const int out_col = second ? s1.out_col : s0.out_col;
+  const int z = (second ? s1.z0 : s0.z0) + split;
+  const int m0 = mt * kMM, n0 = tile * kMN, ncols = min(kMN, nc - n0);
+  const int kbeg = split * chunk, krows = min(chunk, kd - kbeg);
+  const int nst = (krows + kMK - 1) / kMK;  // ring stages of this block
+
+  // Factor rows, as the stream kernel copies them (SHIFT) or straight into
+  // the swizzled tile.  Row r of any stage starts at element shift (sh0 +
+  // r * nc) & 7, since kMK * nc, kbeg and n0 are multiples of 8.
+  const unsigned sh0 = SHIFT ? (unsigned)(reinterpret_cast<uintptr_t>(b) >> 1)
+                                   + (unsigned)kbeg * nc + n0 : 0u;
+  const bf16* b_al = b - (sh0 & 7);  // 16-byte aligned, in b's allocation
+  int boff[BCOPIES], bbytes[BCOPIES];
+#pragma unroll
+  for (int p = 0; p < BCOPIES; ++p) {
+    const int i = tid + p * kThreads, r = i / CH, j = i % CH;
+    const int sh = SHIFT ? (int)((sh0 + (unsigned)r * nc) & 7u) : 0;
+    const int live = min(8, sh + ncols - 8 * j);  // span elements in chunk j
+    boff[p] = (kbeg + r) * nc + n0 + 8 * j + (int)(sh0 & 7) - sh;
+    bbytes[p] = (i < kMK * CH && live > 0) ? 2 * live : 0;
+  }
+  // The left operand: rows m0.., columns a_col + kbeg.. of this K-range.
+  const bf16* arow[ACOPIES];
+  uint32_t adst[ACOPIES];
+#pragma unroll
+  for (int p = 0; p < ACOPIES; ++p) {
+    const int i = tid + p * kThreads, r = i / ACH, c = i % ACH;
+    arow[p] = m0 + r < M ? a + (size_t)(m0 + r) * lda + a_col + kbeg + 8 * c : nullptr;
+    adst[p] = (uint32_t)(r * kARow + ((c ^ ((r >> 1) & 3)) << 4));
+  }
+  auto load_stage = [&](int st) {
+    if (st < nst) {
+      const int slot = st % kMStages;
+#pragma unroll
+      for (int p = 0; p < ACOPIES; ++p) {
+        const int live = min(8, krows - st * kMK - 8 * ((tid + p * kThreads) % ACH));
+        const bool ok = arow[p] != nullptr && live > 0;
+        cp_async16(aring + slot * kATile + adst[p], ok ? arow[p] + st * kMK : a,
+                   ok ? 2 * live : 0);
+      }
+      const size_t step = (size_t)st * kMK * nc;
+#pragma unroll
+      for (int p = 0; p < BCOPIES; ++p) {
+        const int i = tid + p * kThreads;
+        if (BCOPIES * kThreads == kMK * CH || i < kMK * CH) {
+          const int r = i / CH, j = i % CH;
+          const bool ok = st * kMK + r < krows && bbytes[p] > 0;
+          const uint32_t dst = SHIFT ? (uint32_t)(r * kRawRow + 16 * j)
+                                     : (uint32_t)(r * kBRow + ((j ^ (r & 7)) << 4));
+          cp_async16(bring + slot * BSLOT + dst, ok ? b_al + boff[p] + step : b_al,
+                     ok ? bbytes[p] : 0);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  // SHIFT: stage st's shifted rows -> aligned tile st & 1.  Warp w moves
+  // rows 4w..4w+3, a lane words lane and lane + 32 of each (conflict-free
+  // 4-byte reads; the swizzle keeps a row's half within its 32 banks).
+  auto repack = [&](int st) {
+    if (!SHIFT || st >= nst) return;
+    const unsigned char* raw = smem_mma + kMStages * kATile + (st % kMStages) * kRawTile;
+    unsigned char* dst = smem_mma + kMStages * kATile + kMStages * kRawTile + (st & 1) * kBTile;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int r = warp * 4 + q;
+      const int sh = (int)((sh0 + (unsigned)r * nc) & 7u);
+      const uint32_t* w = reinterpret_cast<const uint32_t*>(raw + r * kRawRow) + (sh >> 1);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int wl = 32 * h + lane;  // word of columns 2 wl, 2 wl + 1
+        uint32_t word = w[wl];
+        if (sh & 1) word = __byte_perm(word, w[wl + 1], 0x5432);
+        *reinterpret_cast<uint32_t*>(dst + r * kBRow + (((wl >> 2) ^ (r & 7)) << 4) +
+                                     ((wl & 3) << 2)) = word;
+      }
+    }
+  };
+
+  // ldmatrix addresses of this lane: A rows wm*64 + 16 i + (lane & 15),
+  // chunk 2 kk + (lane >> 4); B rows 16 kk + (lane & 7) + 8 ((lane >> 3) &
+  // 1), chunk wn*4 + 2 dn + (lane >> 4).  Swizzles by (row/2 mod 4) and (row
+  // mod 8), which depend on the lane only.
+  const int wm = warp / 4, wn = warp % 4;
+  uint32_t a_off[kMK / 16], b_off[2];
+#pragma unroll
+  for (int kk = 0; kk < kMK / 16; ++kk)
+    a_off[kk] = (uint32_t)((wm * 64 + (lane & 15)) * kARow +
+                           (((2 * kk + (lane >> 4)) ^ ((lane >> 1) & 3)) << 4));
+#pragma unroll
+  for (int dn = 0; dn < 2; ++dn)
+    b_off[dn] = (uint32_t)(((lane & 7) + (((lane >> 3) & 1) << 3)) * kBRow +
+                           (((wn * 4 + 2 * dn + (lane >> 4)) ^ (lane & 7)) << 4));
+  const int mlive = M - m0 - wm * 64;  // rows of this warp's 64 that exist
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < kMStages - 1; ++st) load_stage(st);
+  cp_async_wait<kMStages - 2>();  // stage 0 has landed (this thread's copies)
+  __syncthreads();
+  repack(0);
+  for (int st = 0; st < nst; ++st) {
+    // Stage st + 1 has landed for every thread; every warp is done with
+    // stage st - 1, whose ring slot the next load refills.
+    cp_async_wait<kMStages - 3>();
+    __syncthreads();
+    load_stage(st + kMStages - 1);
+    repack(st + 1);
+    const uint32_t as = aring + (st % kMStages) * kATile;
+    const uint32_t bs = SHIFT ? bpack + (st & 1) * kBTile : bring + (st % kMStages) * kBTile;
+#pragma unroll
+    for (int kk = 0; kk < kMK / 16; ++kk) {
+      uint32_t bf[2][4];  // n8 tiles 2 dn, 2 dn + 1 x both k halves
+#pragma unroll
+      for (int dn = 0; dn < 2; ++dn) ldsm_x4_trans(bs + kk * 16 * kBRow + b_off[dn], bf[dn]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (16 * i < mlive) {
+          uint32_t af[4];
+          ldsm_x4(as + a_off[kk] + i * 16 * kARow, af);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            mma_bf16(acc[i][j], af, bf[j >> 1][2 * (j & 1)], bf[j >> 1][2 * (j & 1) + 1]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  const int gid = lane >> 2, tig = lane & 3;
+  float* out = part + (size_t)z * M * out_ld + out_col + n0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = wm * 64 + 16 * i + gid + 8 * h;
+      if (m0 + row >= M) continue;
+      float* orow = out + (size_t)(m0 + row) * out_ld;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = wn * 32 + 8 * j + 2 * tig;
+        if (col + 1 < ncols)
+          *reinterpret_cast<float2*>(orow + col) =
+              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        else if (col < ncols)
+          orow[col] = acc[i][j][2 * h];
+      }
+    }
+}
+
+template <bool SHIFT>
+int launch_mma(const bf16* a, int lda, const Seg& s0, const Seg& s1, float* part, int M,
+               int out_ld, int chunk, cudaStream_t stream) {
+  constexpr int smem = mma_smem_bytes<SHIFT>();
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(mma_partial<SHIFT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const int mtiles = cdiv(M, kMM);
+  const int blocks = mtiles * (s0.tiles * s0.splits + s1.tiles * s1.splits);
+  if (blocks == 0) return 0;
+  mma_partial<SHIFT><<<blocks, kThreads, smem, stream>>>(a, lda, s0, s1, part, M, out_ld,
+                                                          chunk, mtiles);
+  return (int)cudaGetLastError();
+}
+
+int round8(int n) { return (n + 7) / 8 * 8; }
+
+// The mma kernel's phases; t is (M, round8(k1) + round8(k2)), u2's columns
+// from round8(k1) on.  Refuses (cudaErrorInvalidValue) what it cannot do:
+// M outside 17..1024, K % 8 != 0, N % 8 != 0, x, t, v or v2 not 16-byte
+// aligned, a chunk that is not a positive multiple of kMK, splits that do
+// not cover each depth with that chunk, or factors whose element offsets
+// pass 2^31.
+int run_mma(const bf16* x, const bf16* u, const bf16* v, const bf16* u2, const bf16* v2,
+            bf16* y, float* part1, bf16* t, float* part2, int M, int K, int k1, int k2, int N,
+            int s1, int c1, int s2, int c2, cudaStream_t stream) {
+  auto chunk_ok = [](int c) { return c > 0 && c % kMK == 0; };
+  auto al = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  if (!chunk_ok(c1) || !chunk_ok(c2)) return (int)cudaErrorInvalidValue;
+  const int sv = cdiv(k1, c2), sv2 = cdiv(k2, c2);
+  if (M < 17 || M > 1024 || K % 8 || N % 8 || !al(x) || !al(t) || !al(v) || !al(v2) ||
+      s1 != cdiv(K, c1) || s2 != sv + sv2 ||
+      (long long)(K + kMK) * std::max(k1, k2) >= INT_MAX ||
+      (long long)(std::max(k1, k2) + kMK) * N >= INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const int k1p = round8(k1), tld = k1p + round8(k2);
+  const Seg pu{u, K, k1, 0, 0, cdiv(k1, kMN), s1, 0};
+  const Seg pu2{u2, K, k2, 0, k1p, cdiv(k2, kMN), s1, 0};
+  int e = launch_mma<true>(x, K, pu, pu2, part1, M, tld, c1, stream);
+  if (e) return e;
+  launch_reduce<bf16>(part1, t, s1, (size_t)M * tld, stream);
+  const Seg pv{v, k1, N, 0, 0, cdiv(N, kMN), sv, 0};
+  const Seg pv2{v2, k2, N, k1p, 0, cdiv(N, kMN), sv2, sv};
+  e = launch_mma<false>(t, tld, pv, pv2, part2, M, N, c2, stream);
+  if (e) return e;
+  launch_reduce<bf16>(part2, y, s2, (size_t)M * N, stream);
+  return 0;
+}
+
 }  // namespace
 
 // x (M, K), u (K, k1), v (k1, N), u2 (K, k2), v2 (k2, N), y (M, N), all of
@@ -452,19 +772,22 @@ int run_stream(const bf16* x, const bf16* u, const bf16* v, const bf16* u2, cons
 // (s2, M, N).  kernel 0 (tile): c1/c2 are the split-K chunk depths
 // (multiples of 16), s1 = ceil(K / c1), s2 = ceil((k1+k2) / c2).  kernel 1
 // (stream, bf16 only): chunks are multiples of 32 up to 512, s1 = ceil(K /
-// c1), s2 = ceil(k1 / c2) + ceil(k2 / c2).  Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a launch the chosen kernel cannot do.
+// c1), s2 = ceil(k1 / c2) + ceil(k2 / c2).  kernel 2 (mma, bf16 only):
+// chunks are multiples of 32, splits as the stream kernel's, and t and
+// part1 have round8(k1) + round8(k2) columns (u2's from round8(k1)).
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for a launch the
+// chosen kernel cannot do.
 extern "C" int nested_lowrank_launch(const void* x, const void* u, const void* v,
                                      const void* u2, const void* v2, void* y,
                                      float* part1, void* t, float* part2, int M,
                                      int K, int k1, int k2, int N, int s1, int c1,
                                      int s2, int c2, int dtype, int kernel, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (kernel == 1) {
+  if (kernel == 1 || kernel == 2) {
     if (dtype != kBF16) return (int)cudaErrorInvalidValue;
-    const int e = run_stream((const bf16*)x, (const bf16*)u, (const bf16*)v, (const bf16*)u2,
-                             (const bf16*)v2, (bf16*)y, part1, (bf16*)t, part2, M, K, k1, k2,
-                             N, s1, c1, s2, c2, st);
+    const int e = (kernel == 1 ? run_stream : run_mma)(
+        (const bf16*)x, (const bf16*)u, (const bf16*)v, (const bf16*)u2, (const bf16*)v2,
+        (bf16*)y, part1, (bf16*)t, part2, M, K, k1, k2, N, s1, c1, s2, c2, st);
     return e ? e : (int)cudaGetLastError();
   }
   if (kernel != 0) return (int)cudaErrorInvalidValue;

@@ -65,7 +65,8 @@ def _nested_checks(got, want, dtype):
 
 
 def _nested_counts():
-    return nlr_ops.launches, nlr_ops.stream_launches, nlr_ops.tile_launches
+    return (nlr_ops.launches, nlr_ops.stream_launches, nlr_ops.mma_launches,
+            nlr_ops.tile_launches)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -104,16 +105,74 @@ def test_nested_stream_kernel_edges(dev, m, k1, k2, k_in):
     u, u2 = _at_offset(mk(k_in, k1), 3), _at_offset(mk(k_in, k2), 5)
     assert u.data_ptr() % 16 and u2.data_ptr() % 16 and u.is_contiguous()
     assert nlr_ops.plan(m, torch.bfloat16, k_in, n, k1, k2, True).kernel == "stream"
-    n0, s0, t0 = _nested_counts()
+    n0, s0, a0, t0 = _nested_counts()
     got = nlr_ops.nested_lowrank_matmul(x, u, v, u2, v2)
     torch.cuda.synchronize()
-    assert _nested_counts() == (n0 + 1, s0 + 1, t0)
+    assert _nested_counts() == (n0 + 1, s0 + 1, a0, t0)
+    _nested_checks(got, nlr_ref.nested_lowrank_matmul_ref(x, u, v, u2, v2), torch.bfloat16)
+
+
+@pytest.mark.parametrize("k_in", [320, 200])
+@pytest.mark.parametrize("m", [17, 31, 64, 200, 512, 1024])
+def test_nested_mma_kernel_matches_plain(dev, m, k_in):
+    """The mma kernel at every row tile shape: 17 (the first mma row count),
+    31 and 200 (not multiples of 16), 64, 512 and 1024 (the gate); odd k1,
+    k2 < 8, N = 200 (not a multiple of the 128-column tile), K = 200 (not a
+    multiple of the 32-deep stage)."""
+    g = torch.Generator(device=dev).manual_seed(m + k_in)
+    mk = lambda *s: (torch.randn(s, generator=g, device=dev) * s[0] ** -0.5).to(torch.bfloat16)  # noqa: E731
+    x, u, v, u2, v2 = mk(m, k_in), mk(k_in, 61), mk(61, 200), mk(k_in, 3), mk(3, 200)
+    assert nlr_ops.plan(m, torch.bfloat16, k_in, 200, 61, 3, True).kernel == "mma"
+    n0, s0, a0, t0 = _nested_counts()
+    got = nlr_ops.nested_lowrank_matmul(x, u, v, u2, v2)
+    torch.cuda.synchronize()
+    assert _nested_counts() == (n0 + 1, s0, a0 + 1, t0)
+    _nested_checks(got, nlr_ref.nested_lowrank_matmul_ref(x, u, v, u2, v2), torch.bfloat16)
+
+
+@pytest.mark.parametrize("k_in", [328, 14336])
+@pytest.mark.parametrize("k1,k2", [(61, 3), (2421, 127), (8, 8), (1, 5), (130, 9)])
+@pytest.mark.parametrize("m", [17, 31, 200])
+def test_nested_mma_kernel_edges(dev, m, k1, k2, k_in):
+    """The mma kernel with u and u2 at odd element offsets (every row
+    shift, re-packed), odd and tiny ranks (a u2 tile of 3 to 127 columns,
+    a v2 K-range shorter than one stage), ragged last column tiles (N =
+    6 * 128 + 8), K 328 (ends mid-stage) and split-K over a long depth."""
+    n = 776
+    g = torch.Generator(device=dev).manual_seed(m * 1000 + k1 + k_in)
+    mk = lambda *s: (torch.randn(s, generator=g, device=dev) * s[0] ** -0.5).to(torch.bfloat16)  # noqa: E731
+    x, v, v2 = mk(m, k_in), mk(k1, n), mk(k2, n)
+    u, u2 = _at_offset(mk(k_in, k1), 3), _at_offset(mk(k_in, k2), 5)
+    assert u.data_ptr() % 16 and u2.data_ptr() % 16 and u.is_contiguous()
+    assert nlr_ops.plan(m, torch.bfloat16, k_in, n, k1, k2, True).kernel == "mma"
+    n0, s0, a0, t0 = _nested_counts()
+    got = nlr_ops.nested_lowrank_matmul(x, u, v, u2, v2)
+    torch.cuda.synchronize()
+    assert _nested_counts() == (n0 + 1, s0, a0 + 1, t0)
+    _nested_checks(got, nlr_ref.nested_lowrank_matmul_ref(x, u, v, u2, v2), torch.bfloat16)
+
+
+def test_nested_mma_kernel_takes_unaligned_x(dev):
+    """x at an odd element offset (a view): the wrapper hands the mma kernel
+    an aligned copy; the result is the same as from an aligned x."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    mk = lambda *s: (torch.randn(s, generator=g, device=dev) * s[0] ** -0.5).to(torch.bfloat16)  # noqa: E731
+    x, u, v, u2, v2 = mk(40, 320), mk(320, 61), mk(61, 200), mk(320, 3), mk(3, 200)
+    xo = _at_offset(x, 1)
+    assert xo.data_ptr() % 16
+    n0, s0, a0, t0 = _nested_counts()
+    got = nlr_ops.nested_lowrank_matmul(xo, u, v, u2, v2)
+    want = nlr_ops.nested_lowrank_matmul(x, u, v, u2, v2)
+    torch.cuda.synchronize()
+    assert _nested_counts() == (n0 + 2, s0, a0 + 2, t0)
+    assert torch.equal(got, want)
     _nested_checks(got, nlr_ref.nested_lowrank_matmul_ref(x, u, v, u2, v2), torch.bfloat16)
 
 
 def test_nested_gate_picks_kernel(dev):
-    """bf16 with <= 16 rows and aligned v/v2 rows runs the stream kernel;
-    N % 8 != 0, a misaligned v, fp32 and 17 rows run the tile kernel."""
+    """bf16 with aligned v/v2 rows runs the stream kernel at <= 16 rows and
+    the mma kernel at 17; N % 8 != 0, a misaligned v and fp32 run the tile
+    kernel."""
     g = torch.Generator(device=dev).manual_seed(17)
 
     def mk(*s, dtype=torch.bfloat16):
@@ -126,12 +185,15 @@ def test_nested_gate_picks_kernel(dev):
 
     for args, kernel in ((case(8, 200), "stream"), (case(8, 201), "tile"),
                          (case(8, 200, v_off=1), "tile"),
-                         (case(8, 200, dtype=torch.float32), "tile"), (case(17, 200), "tile")):
-        n0, s0, t0 = _nested_counts()
+                         (case(8, 200, dtype=torch.float32), "tile"), (case(17, 200), "mma"),
+                         (case(64, 201), "tile"), (case(64, 200, v_off=1), "tile"),
+                         (case(64, 200, dtype=torch.float32), "tile")):
+        n0, s0, a0, t0 = _nested_counts()
         got = nlr_ops.nested_lowrank_matmul(*args)
         torch.cuda.synchronize()
-        stream = kernel == "stream"
-        assert _nested_counts() == (n0 + 1, s0 + stream, t0 + (not stream)), kernel
+        want = (n0 + 1, s0 + (kernel == "stream"), a0 + (kernel == "mma"),
+                t0 + (kernel == "tile"))
+        assert _nested_counts() == want, kernel
         _nested_checks(got, nlr_ref.nested_lowrank_matmul_ref(*args), args[0].dtype)
 
 
@@ -154,6 +216,35 @@ def test_nested_stream_launch_refuses_what_it_cannot_do(dev):
     assert launch() == 0
     for bad in (dict(v_ptr=v.data_ptr() + 2), dict(dtype=0), dict(m=17), dict(c1=48),
                 dict(c2=1024)):
+        assert launch(**bad) != 0, bad
+        with pytest.raises(RuntimeError):
+            check_launch(launch(**bad), "nested_lowrank")
+    torch.cuda.synchronize()
+
+
+def test_nested_mma_launch_refuses_what_it_cannot_do(dev):
+    """The C launcher returns an error, and launches nothing, for an mma
+    launch outside its gate: fp32, 16 or 1025 rows, N % 8 != 0, K % 8 != 0,
+    a misaligned x, t or v, a chunk that is not a multiple of the stage
+    depth, splits that do not cover a depth."""
+    x = torch.zeros((1025 * 64 + 8,), dtype=torch.bfloat16, device=dev)
+    u, u2 = torch.zeros((64, 8), dtype=x.dtype, device=dev), torch.zeros((64, 8), dtype=x.dtype, device=dev)
+    v = torch.zeros((8 * 64 + 8,), dtype=x.dtype, device=dev)
+    y, t = torch.empty((1025, 64), dtype=x.dtype, device=dev), torch.empty((1025, 24), dtype=x.dtype, device=dev)
+    part = torch.empty((64, 1025, 64), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(m=32, k_in=64, n=64, x_ptr=x.data_ptr(), t_ptr=t.data_ptr(), v_ptr=v.data_ptr(),
+               dtype=1, c1=32, c2=32, s1=None):
+        s1 = -(-k_in // c1) if s1 is None else s1
+        return nlr_ops._launcher()(x_ptr, u.data_ptr(), v_ptr, u2.data_ptr(), v.data_ptr(),
+                                   y.data_ptr(), part.data_ptr(), t_ptr, part.data_ptr(), m,
+                                   k_in, 8, 8, n, s1, c1, 2 * -(-8 // c2), c2, dtype, 2, stream)
+    assert launch() == 0
+    torch.cuda.synchronize()
+    for bad in (dict(dtype=0), dict(m=16), dict(m=1025), dict(n=60), dict(k_in=60),
+                dict(x_ptr=x.data_ptr() + 2), dict(t_ptr=t.data_ptr() + 2),
+                dict(v_ptr=v.data_ptr() + 2), dict(c1=48), dict(c2=16), dict(s1=3)):
         assert launch(**bad) != 0, bad
         with pytest.raises(RuntimeError):
             check_launch(launch(**bad), "nested_lowrank")

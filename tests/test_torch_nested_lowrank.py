@@ -85,20 +85,33 @@ def test_split_k_covers_depth():
         assert c % ops.BK == 0 and (s - 1) * c < depth <= s * c
 
 
-# (rows, dtype, n, aligned) -> kernel: bf16 with 1..16 rows, n % 8 == 0 and
-# 16-byte aligned v/v2 streams; everything else takes the tile kernel.
+# (rows, dtype, n, aligned) -> kernel: bf16 with n % 8 == 0 and 16-byte
+# aligned v/v2 streams at 1..16 rows and runs the mma kernel at 17..1024;
+# everything else takes the tile kernel; above 1024 rows no kernel runs.
 @pytest.mark.parametrize("rows,dtype,n,aligned,kernel", [
     (1, torch.bfloat16, 4096, True, "stream"),
     (8, torch.bfloat16, 14336, True, "stream"),
     (16, torch.bfloat16, 1024, True, "stream"),
-    (17, torch.bfloat16, 4096, True, "tile"),
-    (512, torch.bfloat16, 4096, True, "tile"),
+    (17, torch.bfloat16, 4096, True, "mma"),
+    (200, torch.bfloat16, 4096, True, "mma"),
+    (512, torch.bfloat16, 4096, True, "mma"),
+    (1024, torch.bfloat16, 14336, True, "mma"),
+    (64, torch.float32, 4096, True, "tile"),
+    (64, torch.bfloat16, 4096, False, "tile"),
+    (64, torch.bfloat16, 4100, True, "tile"),
+    (1025, torch.bfloat16, 4096, True, "plain"),
     (8, torch.float32, 4096, True, "tile"),
     (8, torch.bfloat16, 4100, True, "tile"),
     (8, torch.bfloat16, 4096, False, "tile"),
 ])
 def test_plan_picks_kernel(rows, dtype, n, aligned, kernel):
     assert ops.plan(rows, dtype, 4096, n, 2421, 127, aligned).kernel == kernel
+
+
+def test_plan_mma_needs_k_in_multiple_of_8():
+    """x's rows are read 16 bytes at a time: K % 8 != 0 takes the tile kernel."""
+    assert ops.plan(64, torch.bfloat16, 4100, 4096, 2421, 127, True).kernel == "tile"
+    assert ops.plan(64, torch.bfloat16, 4104, 4096, 2421, 127, True).kernel == "mma"
 
 
 def _covers(s, c, depth, stage):
@@ -111,7 +124,9 @@ PLAN_SHAPES = [(8, 4096, 14336, 2421, 127), (1, 14336, 4096, 2421, 127),
                (16, 4096, 4096, 1556, 82), (8, 4096, 1024, 622, 33),
                (7, 320, 776, 61, 3), (9, 14336, 776, 1, 5), (8, 320, 200, 8, 8),
                (64, 4096, 14336, 2421, 127), (512, 2548, 4096, 2421, 127),
-               (8, 16, 8, 1, 0)]
+               (8, 16, 8, 1, 0), (17, 4096, 14336, 2421, 127),
+               (200, 14336, 4096, 2421, 127), (512, 4096, 1024, 622, 33),
+               (1024, 2048, 7168, 1210, 64), (31, 328, 776, 1, 5), (64, 16, 8, 1, 0)]
 
 
 @pytest.mark.parametrize("rows,k_in,n,k1,k2", PLAN_SHAPES)
@@ -125,8 +140,34 @@ def test_plan_splits_cover_each_depth(rows, k_in, n, k1, k2):
         assert (p.s1, p.c1) == ops.split_k(rows, k_in, k1 + k2)
         assert (p.s2, p.c2) == ops.split_k(rows, k1 + k2, n)
         return
-    stage = ops.STREAM_BK
-    assert p.c1 <= ops.STREAM_MAX_CHUNK and p.c2 <= ops.STREAM_MAX_CHUNK
+    if p.kernel == "mma":
+        stage = ops.MMA_BK
+        assert rows > ops.STREAM_ROWS
+    else:
+        stage = ops.STREAM_BK
+        assert p.c1 <= ops.STREAM_MAX_CHUNK and p.c2 <= ops.STREAM_MAX_CHUNK
     assert _covers(p.s1, p.c1, k_in, stage)
     sv = -(-k1 // p.c2)
     assert _covers(sv, p.c2, k1, stage) and _covers(p.s2 - sv, p.c2, k2, stage)
+
+
+@pytest.mark.parametrize("rows,waves", [(1, ops.TARGET_BLOCKS), (8, ops.TARGET_BLOCKS),
+                                        (9, ops.SM_COUNT), (16, ops.SM_COUNT)])
+def test_stream_chunk_uses_the_row_tiles_block_count(rows, waves):
+    """The stream kernel runs 2 blocks an SM with its 8-row tile and 1 with
+    its 16-row tile: the chunk plan sizes its waves by the tile that runs."""
+    assert ops.stream_wave(rows) == waves
+    k_in, n, k1, k2 = 4096, 14336, 2421, 127
+    p = ops.plan(rows, torch.bfloat16, k_in, n, k1, k2, True)
+    assert p.kernel == "stream"
+    bn = ops.STREAM_BN
+    assert p.c1 == ops.stream_chunk(-(-k1 // bn) + -(-k2 // bn), (k_in,), waves)
+    assert p.c2 == ops.stream_chunk(-(-n // bn), (k1, k2), waves)
+
+
+def test_mma_scratch_columns_are_aligned():
+    """The mma kernel's t puts u2's columns at k1 rounded up to 8 and pads
+    rows to a multiple of 8; the other kernels keep k1 + k2."""
+    assert ops.t_cols("mma", 2421, 127) == 2424 + 128
+    assert ops.t_cols("mma", 8, 8) == 16 and ops.t_cols("mma", 1, 5) == 16
+    assert ops.t_cols("stream", 2421, 127) == ops.t_cols("tile", 2421, 127) == 2548

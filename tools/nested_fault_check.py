@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Planted faults in the nested_lowrank stream kernel (bf16, <= 16 rows),
-against chip_smoke.py's two checks of it: the global one (max |kernel -
-plain| <= NESTED_TOL x max |plain|) and the per-element one
-(NESTED_ELEM_TOL, relative to |plain| plus the rms of the row).
+"""Planted faults in the nested_lowrank bf16 kernels -- the stream kernel
+(<= 16 rows) and the mma kernel (17-1024 rows) -- against chip_smoke.py's
+two checks of them: the global one (max |kernel - plain| <= NESTED_TOL x
+max |plain|) and the per-element one (NESTED_ELEM_TOL, relative to |plain|
+plus the rms of the row).
 
     python3 tools/nested_fault_check.py
 
 Needs one H100 and the CUDA toolkit.  Each fault is a one-line patch of
 ``csrc/nested_lowrank.cu`` in a temporary copy of ``repro_torch`` (the
 checkout is never touched), built and run in its own process on the nested
-phase's bf16 shapes at 1, 8 and 16 rows and on two card-test cases with u
-and u2 at odd element offsets.  Prints one line per fault and case, and
+phase's bf16 shapes at 1, 8 and 16 rows (stream) and 17, 64, 200 and 512
+rows (mma), and on two card-test cases of each kernel with u and u2 at odd
+element offsets.  Prints one line per fault and case, and
 exits non-zero unless the unpatched kernel passes both checks everywhere
 and every fault fails the per-element check somewhere.
 """
@@ -36,8 +38,18 @@ FAULTS = {
     # The first column tile of u2 (and, in phase 2, v2's first tile) reads u (v).
     "first_u2_tile_reads_u": ("const bf16* __restrict__ b = second ? s1.b : s0.b;",
                               "const bf16* __restrict__ b = second && tile > 0 ? s1.b : s0.b;"),
+    # mma: the last block stage drops its last 16-deep step.
+    "mma_last_k16_step_skipped": ("for (int kk = 0; kk < kMK / 16; ++kk) {",
+                                  "for (int kk = 0; kk < kMK / 16 - (st == nst - 1); ++kk) {"),
+    # mma: the re-pack ignores odd shifts (those rows read one element early).
+    "mma_odd_shift_ignored": ("if (sh & 1) word = __byte_perm(word, w[wl + 1], 0x5432);",
+                              "if (false) word = __byte_perm(word, w[wl + 1], 0x5432);"),
+    # mma: the second m16 tile of each pair (padded at 17 rows) is stored to
+    # the first one's rows.
+    "mma_second_m16_to_first_rows": ("const int row = wm * 64 + 16 * i + gid + 8 * h;",
+                                     "const int row = wm * 64 + 16 * (i & ~1) + gid + 8 * h;"),
 }
-ROWS = (1, 8, 16)
+ROWS = (1, 8, 16, 17, 64, 200, 512)
 
 
 def measure() -> list:
@@ -62,7 +74,8 @@ def measure() -> list:
         v, v2 = mk(gen, k1, n, s=r ** -0.5), mk(gen, r - k1, n, s=r ** -0.5)
         for m in ROWS:
             cases.append((f"phase {target} M={m}", mk(gen, m, k_in, s=1.0), u, v, u2, v2))
-    for m, k_in, k1, k2 in ((8, 320, 61, 3), (16, 14336, 2421, 127)):
+    for m, k_in, k1, k2 in ((8, 320, 61, 3), (16, 14336, 2421, 127), (17, 328, 61, 3),
+                            (200, 14336, 2421, 127)):
         g = torch.Generator(device="cuda").manual_seed(m * 1000 + k1 + k_in)
         x, v, v2 = (mk(g, m, k_in, s=k_in ** -0.5), mk(g, k1, 776, s=k1 ** -0.5),
                     mk(g, k2, 776, s=k2 ** -0.5))
@@ -71,12 +84,14 @@ def measure() -> list:
         cases.append((f"card M={m} K={k_in} k={k1}+{k2}", x, u, v, u2, v2))
     out = []
     for name, *args in cases:
-        before = ops.stream_launches
+        before = (ops.stream_launches, ops.mma_launches)
         got = ops.nested_lowrank_matmul(*args)
         want = ref.nested_lowrank_matmul_ref(*args)
         torch.cuda.synchronize()
-        if ops.stream_launches != before + 1:
-            raise RuntimeError(f"{name}: the stream kernel did not run")
+        stream = args[0].shape[0] <= ops.STREAM_ROWS
+        if (ops.stream_launches, ops.mma_launches) != (before[0] + stream,
+                                                       before[1] + (not stream)):
+            raise RuntimeError(f"{name}: the planned bf16 kernel did not run")
         glob = float((got.float() - want.float()).abs().max() / want.float().abs().max())
         out.append(dict(case=name, glob=glob, elem=chip_smoke.elem_err(torch, got, want),
                         finite=bool(torch.isfinite(got).all())))

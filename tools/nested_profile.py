@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Where a nested_lowrank call's device time goes, at chip_smoke.py's
-Mistral-7B shapes in bf16 with 1, 8 and 16 rows (the stream kernel).
+Mistral-7B shapes in bf16 with 1, 8 and 16 rows (the stream kernel) and 64
+and 512 rows (the mma kernel).
 
     python3 tools/nested_profile.py
 
@@ -11,10 +12,10 @@ L2 cache flushed before each (a decode step reads each factor once, after
 other layers' factors have evicted it) and without the flush; ``multi_dot``
 on the concatenated factors under the same flush; and the wrapper's host
 time per call (100 calls enqueued back to back).  Then every chunk depth of
-each phase at the gate and down shapes (8 rows) and the gate shape (16
-rows), the other phase at its planned chunk: how far ``ops.plan``'s chunk
-is from the fastest.  Prints one line per measurement and writes
-chiprun_out/nested_profile.json.
+each phase at the gate and down shapes (8, 64 and 512 rows) and the gate
+shape (16 rows), the other phase at its planned chunk: how far
+``ops.plan``'s chunk is from the fastest.  Prints one line per measurement
+and writes chiprun_out/nested_profile.json.
 """
 
 from __future__ import annotations
@@ -30,9 +31,13 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import chip_smoke  # noqa: E402
 
 REPS = 10
-ROWS = (1, 8, 16)
+ROWS = (1, 8, 16, 64, 512)
 FLUSH_BYTES = 160 * 2 ** 20  # past the H100's 50 MB L2
-SWEEP_CHUNKS = (64, 128, 192, 256, 320, 384, 512)
+SWEEP_CHUNKS = {"stream": (64, 128, 192, 256, 320, 384, 512),
+                "mma": (256, 384, 512, 768, 1024, 1536, 2048, 4096)}
+SWEPT = ((8, "gate"), (8, "down"), (16, "gate"), (64, "gate"), (64, "down"), (512, "gate"),
+         (512, "down"))
+KERNELS = ("stream_partial", "mma_partial")
 
 
 def device_ms(torch, fn, flush) -> dict:
@@ -53,7 +58,7 @@ def device_ms(torch, fn, flush) -> dict:
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0:
             continue
-        if "stream_partial" in ev.key:
+        if any(k in ev.key for k in KERNELS):
             part = "p1" if "true>" in ev.key else "p2"
         elif "reduce_partials" in ev.key:
             part = "reduce"
@@ -119,14 +124,14 @@ def main() -> int:
                   f"multi_dot cold {row['multi_dot_cold'] * 1e3:6.1f} us  host "
                   f"{row['host_us']:5.1f} us/call  plan s1={p.s1} c1={p.c1} s2={p.s2} c2={p.c2}",
                   flush=True)
-            if (m, target) not in ((8, "gate"), (8, "down"), (16, "gate")):
+            if (m, target) not in SWEPT:
                 continue
             for phase in (1, 2):
-                for c in SWEEP_CHUNKS:
+                for c in SWEEP_CHUNKS[p.kernel]:
                     if phase == 1:
-                        q = ops.Plan("stream", -(-k_in // c), c, p.s2, p.c2)
+                        q = ops.Plan(p.kernel, -(-k_in // c), c, p.s2, p.c2)
                     else:
-                        q = ops.Plan("stream", p.s1, p.c1, -(-k1 // c) + -(-k2 // c), c)
+                        q = ops.Plan(p.kernel, p.s1, p.c1, -(-k1 // c) + -(-k2 // c), c)
                     ops.plan = lambda *a, q=q: q
                     try:
                         t = device_ms(torch, call, flush)
