@@ -14,21 +14,26 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
      stream kernel at 1-16 bf16 rows, the mma kernel at 17-1024, the tile
      kernel for fp32 -- the device time of one call and of ``multi_dot``
      from torch.profiler, and at bf16 rows above 16 the device time of the
-     tile kernel that ran them before the mma kernel);
+     tile kernel that ran them before the mma kernel; gram: also a
+     per-element check, exact symmetry, which kernel ran -- mma for bf16,
+     FMA for fp32 -- the device time of one call and of the library call,
+     and for bf16 the device time of the FMA kernel on the same rows;
+     paged_attention: also the device time of one call and of SDPA);
   4. serve path: ``serve()`` on mistral-7b at full width (depth cut to 2
      layers, random weights from a seed): calibrate, NSVD-compress (nsvd1,
      ratio 0.2, bf16 factors) and serve 8 requests, with the kernels' launch
      counters read around the run (nested calls: every decode step's on the
      stream kernel, every 512-row prefill chunk's on the mma kernel, none on
-     the tile kernel); then one decode step's logits through the kernels
-     against the same step through the plain versions, and profiles of that
-     step and of one prefill chunk;
+     the tile kernel; gram calls: all on the mma kernel); then one decode
+     step's logits through the kernels against the same step through the
+     plain versions, and profiles of that step and of one prefill chunk;
   5. quality path: ``obs.quality_report.build_entry`` on the same model:
      calibrate (gram kernel), compress with telemetry, evaluate dense vs
      compressed perplexity on five domains at (4, 2048) tokens a batch
      (flash_attention kernel), logit KL, per-target attribution, activation
      similarity; launch counts read around it, and one eval batch's logits
-     through the kernels against the plain versions;
+     through the kernels against the plain versions; profiles of one eval
+     forward and of one steady calibration batch (the store already seeded);
   6. RWKV-6 serve path: ``serve()`` on rwkv6-1.6b at full width (depth cut to
      4 layers, random weights from a seed) on the dense recurrent-state slab:
      calibrate (gram, rwkv6), compress, serve the same 8 requests (each
@@ -85,10 +90,21 @@ NESTED_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 NESTED_ELEM_TOL = {"bfloat16": 2 ** -5, "float32": 1e-4}
 PAGED_TOL = 2e-2   # bf16 output; int8 pages dequantized in fp32 vs bf16
 STEP_LOGIT_TOL = 5e-2  # 2-layer model: kernel vs plain rounding through a step
-GRAM_SHAPES = ((2048, 4096), (2048, 14336))  # (rows, n): d_model and d_ff taps
+# (rows, n): the taps of a calibration batch (16 x 128 rows) at rwkv6-1.6b's
+# d_model, Mistral-7B's d_model, rwkv6-1.6b's d_ff and Mistral-7B's d_ff.
+GRAM_SHAPES = ((2048, 2048), (2048, 4096), (2048, 7168), (2048, 14336))
 # Max |kernel - plain| / max |plain|, for G and for sum |x|: both sum the
 # same exact products (bf16 x bf16 is exact in fp32) in another order.
 GRAM_TOL = 1e-5
+# And for every entry: |kernel - plain|_ij <= GRAM_ELEM_TOL * sqrt(plain_ii
+# plain_jj), which a fault in one off-diagonal tile cannot hide under the
+# outlier channels' max |G| (~8.8e5 here, against ~45 for an ordinary
+# entry).  sqrt(G_ii G_jj) bounds sum_k |x_ki x_kj| (Cauchy-Schwarz), so a
+# summation-order error over R rows is at most gamma_R of it: 1e-4 is
+# gamma_2048 in fp32 (measured on the H100: up to 4.5e-6 for the mma
+# kernel, 0 for the FMA kernel).  G must also equal G^T exactly, entry by
+# entry.
+GRAM_ELEM_TOL = 1e-4
 # (B, S, Hq, Hkv): calibration and evaluation batches at Mistral-7B's heads,
 # a ragged S, and G = 1.
 FLASH_SHAPES = ((16, 128, 32, 8), (4, 2048, 32, 8), (4, 1000, 32, 8), (4, 1000, 8, 8))
@@ -290,6 +306,14 @@ def paged_phase(torch, ops, ref):
         q4 = q[:, :, None, :]
         lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q4, kg, vg, attn_mask=mask), reps=20)
+        # Device time of one call (the events above include the wrapper's
+        # host time), the mean of DEVICE_REPS, for the kernel and for SDPA.
+        dev_ms = profile_step(torch, lambda: [ops.paged_attention(
+            q, kp, vp, bt, ln, ks, vs) for _ in range(DEVICE_REPS)], quiet=True)[
+            "device_busy_ms"] / DEVICE_REPS
+        lib_dev = profile_step(torch, lambda: [torch.nn.functional.scaled_dot_product_attention(
+            q4, kg, vg, attn_mask=mask) for _ in range(DEVICE_REPS)], quiet=True)[
+            "device_busy_ms"] / DEVICE_REPS
         el = kp.element_size()
         tokens = int(lens.sum())
         nbytes = (2 * q.numel() * q.element_size() + 2 * tokens * hkv * hd * el
@@ -300,14 +324,25 @@ def paged_phase(torch, ops, ref):
         row = dict(kernel="paged_attention", pool=pool, B=b, Hq=hq, Hkv=hkv,
                    hd=hd, bs=bs, lengths=lens.tolist(), max_abs_err=err,
                    ref_max_abs=scale, tol=PAGED_TOL * scale, dead_row_zero=dead_zero,
-                   ok=ok, ms=ms, plain_ms=plain, library_ms=lib, bytes=nbytes,
-                   flops=flops, bound_ms=bnd, bound_by=by)
+                   ok=ok, ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
+                   library_device_ms=lib_dev, bytes=nbytes, flops=flops, bound_ms=bnd,
+                   bound_by=by)
         rows.append(row)
         log(f"paged  pool={pool:8s} err={err:.3e} (tol {row['tol']:.3e}) "
             f"dead-row zeros={dead_zero} {'OK' if ok else 'FAIL'}  kernel "
-            f"{ms:.4f} ms  plain {plain:.4f} ms  library(sdpa) {lib:.4f} ms  "
+            f"{ms:.4f} ms (device {dev_ms:.4f})  plain {plain:.4f} ms  library(sdpa) "
+            f"{lib:.4f} ms (device {lib_dev:.4f})  "
             f"bound {bnd:.4f} ms ({by}, {nbytes / 1e6:.2f} MB)")
     return rows
+
+
+def gram_library(torch, x):
+    """One PyTorch call for the same Gram: bf16 rows through cuBLAS's
+    tensor cores with fp32 output (``torch.mm(..., out_dtype=float32)``),
+    fp32 rows through the fp32 ``matmul`` (TF32 off).  Returns (fn, name)."""
+    if x.dtype == torch.bfloat16:
+        return (lambda: torch.mm(x.T, x, out_dtype=torch.float32)), "mm(out_dtype=fp32)"
+    return (lambda: torch.matmul(x.T, x)), "fp32 matmul"
 
 
 def gram_phase(torch, ops, ref):
@@ -319,34 +354,57 @@ def gram_phase(torch, ops, ref):
             x = torch.randn((rows, n), generator=gen, device="cuda")
             x[:, ::97] *= 20.0  # outlier channels, as calibration taps have
             x = x.to(dt)
+            before = gram_split()
             got_g, got_a = ops.gram_accumulate(x)
             want_g, want_a = ref.gram_accumulate_ref(x)
             torch.cuda.synchronize()
+            after = gram_split()
+            ran = next((k for k in after if after[k] > before[k]), "none")
+            want_ran = "mma" if dname == "bfloat16" else "fma"
             err = float((got_g - want_g).abs().max())
             scale = float(want_g.abs().max())
             a_err = float((got_a - want_a).abs().max())
             a_scale = float(want_a.abs().max())
+            e_err = ref.gram_elem_err(got_g, want_g)
+            sym = bool(torch.equal(got_g, got_g.T))
             ok = (bool(torch.isfinite(got_g).all()) and err <= GRAM_TOL * scale
-                  and a_err <= GRAM_TOL * a_scale)
+                  and a_err <= GRAM_TOL * a_scale and e_err <= GRAM_ELEM_TOL and sym
+                  and ran == want_ran)
             del got_g, want_g
             ms = time_ms(lambda: ops.gram_accumulate(x), reps=5)
             plain = time_ms(lambda: ref.gram_accumulate_ref(x), reps=5)
-            flat = x.float()
-            lib = time_ms(lambda: torch.matmul(flat.T, flat), reps=5)
-            del flat
+            lib_fn, lib_name = gram_library(torch, x)
+            lib = time_ms(lib_fn, reps=5)
+            # Device time of one call (the mean of DEVICE_REPS), of the
+            # library call, and for bf16 of the FMA kernel that ran these
+            # rows before the mma kernel.
+            dev_ms = profile_step(torch, lambda: [ops.gram_accumulate(x) for _ in range(
+                DEVICE_REPS)], quiet=True)["device_busy_ms"] / DEVICE_REPS
+            lib_dev = profile_step(torch, lambda: [lib_fn() for _ in range(DEVICE_REPS)],
+                                   quiet=True)["device_busy_ms"] / DEVICE_REPS
+            fma_dev = None
+            if ran == "mma":
+                fma_dev = profile_step(torch, lambda: [ops.launch(x, "fma") for _ in range(
+                    DEVICE_REPS)], quiet=True)["device_busy_ms"] / DEVICE_REPS
             nbytes = x.numel() * x.element_size() + 4 * (n * n + n)
             flops = rows * n * (n + 1)  # upper triangle: products exact for bf16
             b, by = bound_ms(nbytes, flops, dname)
-            row = dict(kernel="gram", dtype=dname, rows=rows, n=n, max_abs_err=err,
+            row = dict(kernel="gram", dtype=dname, rows=rows, n=n, ran=ran, max_abs_err=err,
                        ref_max_abs=scale, tol=GRAM_TOL * scale, abs_sum_err=a_err,
-                       abs_sum_tol=GRAM_TOL * a_scale, ok=ok, ms=ms, plain_ms=plain,
-                       library_ms=lib, bytes=nbytes, flops=flops, bound_ms=b,
-                       bound_by=by)
+                       abs_sum_tol=GRAM_TOL * a_scale, elem_err=e_err,
+                       elem_tol=GRAM_ELEM_TOL, symmetric=sym, ok=ok, ms=ms,
+                       device_ms=dev_ms, plain_ms=plain, library=lib_name, library_ms=lib,
+                       library_device_ms=lib_dev, fma_device_ms=fma_dev, bytes=nbytes,
+                       flops=flops, bound_ms=b, bound_by=by,
+                       tflops=flops / dev_ms * 1e-9 if dev_ms > 0 else None)
             rows_out.append(row)
-            log(f"gram   {dname:8s} rows={rows} n={n:<5d} err={err:.3e} (tol "
-                f"{row['tol']:.3e}) |x| err={a_err:.3e} (tol {row['abs_sum_tol']:.3e}) "
-                f"{'OK' if ok else 'FAIL'}  kernel {ms:.3f} ms  plain {plain:.3f} ms  "
-                f"library(matmul) {lib:.3f} ms  bound {b:.3f} ms ({by})")
+            fma_txt = "" if fma_dev is None else f"  fma kernel device {fma_dev:.4f}"
+            log(f"gram   {dname:8s} rows={rows} n={n:<5d} {ran} err={err:.3e} (tol "
+                f"{row['tol']:.3e}) |x| err={a_err:.3e} (tol {row['abs_sum_tol']:.3e}) elem "
+                f"err {e_err:.3e} (tol {GRAM_ELEM_TOL:.0e}) symmetric={sym} "
+                f"{'OK' if ok else 'FAIL'}  kernel {ms:.3f} ms (device {dev_ms:.4f})  plain "
+                f"{plain:.3f} ms  library({lib_name}) {lib:.3f} ms (device {lib_dev:.4f})  "
+                f"bound {b:.3f} ms ({by}){fma_txt}")
     return rows_out
 
 
@@ -457,6 +515,8 @@ def reset_counts() -> None:
     fa.tensor_core_launches = fa.cuda_core_launches = 0
     nlr = _ops("nested_lowrank")
     nlr.stream_launches = nlr.mma_launches = nlr.tile_launches = 0
+    gram = _ops("gram")
+    gram.mma_launches = gram.fma_launches = 0
 
 
 def read_counts() -> dict:
@@ -478,8 +538,16 @@ def nested_split() -> dict:
             "tile": nlr.tile_launches}
 
 
-# Device kernels of one nested_lowrank call (both phases and reductions).
+def gram_split() -> dict:
+    """gram's launches by kernel since ``reset_counts``."""
+    gram = _ops("gram")
+    return {"mma": gram.mma_launches, "fma": gram.fma_launches}
+
+
+# Device kernels of one nested_lowrank call (both phases and reductions), and
+# of one gram call.
 NESTED_KERNEL_NAMES = ("stream_partial", "mma_partial", "gemm_partial", "reduce_partials")
+GRAM_KERNEL_NAMES = ("gram_mma", "gram_kernel")
 
 
 def profile_step(torch, fn, label: str = "decode step", quiet: bool = False) -> dict:
@@ -510,15 +578,16 @@ def profile_step(torch, fn, label: str = "decode step", quiet: bool = False) -> 
     top = sorted(per.items(), key=lambda kv: -kv[1][0])[:12]
     if quiet:
         return {"wall_ms": wall_ms, "device_busy_ms": busy}
-    nested = sum(ms for k, (ms, _) in per.items()
-                 if any(name in k for name in NESTED_KERNEL_NAMES))
+    nested, gram = (sum(ms for k, (ms, _) in per.items() if any(name in k for name in names))
+                    for names in (NESTED_KERNEL_NAMES, GRAM_KERNEL_NAMES))
     log(f"  profiled {label}: wall {wall_ms:.2f} ms (profiler off), device "
         f"busy {busy:.3f} ms ({busy / wall_ms:.1%} of wall), nested_lowrank "
-        f"{nested:.3f} ms ({nested / max(busy, 1e-9):.1%} of busy)")
+        f"{nested:.3f} ms ({nested / max(busy, 1e-9):.1%} of busy), gram {gram:.3f} ms "
+        f"({gram / max(busy, 1e-9):.1%})")
     for name, (ms, n) in top:
         log(f"    {ms:8.3f} ms  x{n:<4d} {name[:90]}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "nested_ms": nested,
-            "top": [{"name": k, "ms": ms, "count": n} for k, (ms, n) in top]}
+            "gram_ms": gram, "top": [{"name": k, "ms": ms, "count": n} for k, (ms, n) in top]}
 
 
 def factored_ratio(params, plan) -> float:
@@ -557,6 +626,8 @@ def serve_path(torch, np, cfg, mixer: str, taps_per_layer: int):
     counts = read_counts()
     split, split_ok = flash_split_ok(counts)
     nsplit = nested_split()
+    gsplit = gram_split()
+    gram_ok = gsplit == {"mma": counts["gram"], "fma": 0}  # every tap is bf16
     eng, model, params, plan = res["engine"], res["model"], res["params"], res["plan"]
     st = eng.stats()
     paged = eng.layout == "paged"
@@ -596,7 +667,7 @@ def serve_path(torch, np, cfg, mixer: str, taps_per_layer: int):
           and all(1 <= len(v) <= 32 for v in outs.values())
           and all(0 <= t < cfg.vocab_size for v in outs.values() for t in v)
           and syncs_ok and abs(ratio - plan.achieved_ratio) < 1e-9
-          and counts == expect and split_ok and nested_ok
+          and counts == expect and split_ok and nested_ok and gram_ok
           and expect["nested_lowrank"] > 0)
     log(f"serve path: {cfg.name} d_model={cfg.d_model} heads={cfg.num_heads}/"
         f"{cfg.num_kv_heads} hd={cfg.head_dim} d_ff={cfg.d_ff} vocab="
@@ -610,7 +681,8 @@ def serve_path(torch, np, cfg, mixer: str, taps_per_layer: int):
         f"{st['step_p50_s'] * 1e3:.2f} ms")
     log(f"  launches {counts} expected {expect}; flash_attention by kernel {split}; "
         f"nested_lowrank by kernel {nsplit} expected {nested_expect} "
-        f"{'OK' if nested_ok else 'FAIL'}; finish reasons "
+        f"{'OK' if nested_ok else 'FAIL'}; gram by kernel {gsplit} "
+        f"{'OK' if gram_ok else 'FAIL'}; finish reasons "
         f"{sorted(set(reasons.values()))}")
 
     toks = torch.as_tensor(np.stack([p[:15] for p in prompts]), device="cuda")
@@ -672,6 +744,7 @@ def serve_path(torch, np, cfg, mixer: str, taps_per_layer: int):
                    tokens=res["tokens"], tok_per_s=res["tok_per_s"], engine=st,
                    launches=counts, expected_launches=expect, flash_launches=split,
                    nested_launches=nsplit, expected_nested_launches=nested_expect,
+                   gram_launches=gsplit,
                    finish_reasons=reasons,
                    achieved_ratio=plan.achieved_ratio, factored_ratio=ratio,
                    step_logit_max_abs_err=step_err, step_logit_max_abs=step_scale,
@@ -689,6 +762,7 @@ def quality_path(torch, np, cfg, eval_n: int, taps_per_layer: int, mixer: str):
     import math
 
     from repro_torch import kernels
+    from repro_torch.calib.gram import accumulate_taps
     from repro_torch.calib.runner import calibration_batches, collect_grams
     from repro_torch.eval.perplexity import eval_batches
     from repro_torch.models import build_model
@@ -705,6 +779,8 @@ def quality_path(torch, np, cfg, eval_n: int, taps_per_layer: int, mixer: str):
                         calib_samples=256, attribution_batches=attr_n, params=params)
     counts = read_counts()
     split, split_ok = flash_split_ok(counts)
+    gsplit = gram_split()
+    gram_ok = gsplit == {"mma": counts["gram"], "fma": 0}  # every tap is bf16
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # Causal forwards: calibration, dense and compressed ppl per domain, the
     # two forwards of each KL batch (logit KL, then each target's patch), and
@@ -724,7 +800,7 @@ def quality_path(torch, np, cfg, eval_n: int, taps_per_layer: int, mixer: str):
                entry["activation_similarity"]["mean"], *tot.values()]
     finite = all(math.isfinite(float(x)) for x in numbers)
     ratio_ok = abs(tot["achieved_ratio"] - entry["achieved_ratio"]) < 1e-9
-    ok = (finite and ratio_ok and counts == expect and split_ok
+    ok = (finite and ratio_ok and counts == expect and split_ok and gram_ok
           and len(entry["attribution"]) == n_targets)
     log(f"quality path: {cfg.name} layers={cfg.num_layers} (depth cut), eval batches "
         f"{eval_n} x ({eval_b}, {eval_s}) per domain; peak device memory {peak_gb:.1f} GB")
@@ -738,7 +814,8 @@ def quality_path(torch, np, cfg, eval_n: int, taps_per_layer: int, mixer: str):
     log(f"  attribution top: {entry['attribution'][:2]}; activation similarity "
         f"{entry['activation_similarity']}")
     log(f"  launches {counts} expected {expect}; flash_attention by kernel {split}; "
-        f"all numbers finite: {finite}")
+        f"gram by kernel {gsplit} {'OK' if gram_ok else 'FAIL'}; all numbers finite: "
+        f"{finite}")
 
     # One eval batch's dense logits through the kernels vs the plain versions.
     toks = torch.as_tensor(next(eval_batches(cfg.vocab_size, "en_a", 1, eval_b, eval_s)),
@@ -756,16 +833,26 @@ def quality_path(torch, np, cfg, eval_n: int, taps_per_layer: int, mixer: str):
     log(f"  eval-batch logits kernels vs plain: max abs err {err:.4e} (max |logit| "
         f"{scale:.3f}, tol {EVAL_LOGIT_TOL * scale:.4e}), argmax agreement "
         f"{agree:.4f} {'OK' if logit_ok else 'FAIL'}")
-    # Where the quality path's time goes: one eval forward and one
-    # calibration batch (forward, gram launches, fp64 accumulation).
-    calib_toks = next(calibration_batches(cfg.vocab_size, "en_a", 16, 16, 128))
+    # Where the quality path's time goes: one eval forward and one steady
+    # calibration batch (forward, gram launches, fp64 adds into a store that
+    # already holds every key, as in 15 of the 16 batches).
+    calib_toks = list(calibration_batches(cfg.vocab_size, "en_a", 32, 16, 128))
     with torch.no_grad():
         prof_eval = profile_step(torch, lambda: model.apply(params, toks, mode="train"),
                                  f"eval forward ({eval_b} x {eval_s})")
-    prof_calib = profile_step(torch, lambda: collect_grams(model, params, [calib_toks]),
-                              "calibration batch (16 x 128)")
+    store = collect_grams(model, params, calib_toks[:1])
+    batch = torch.as_tensor(calib_toks[1], device="cuda")
+
+    @torch.no_grad()
+    def calib_batch():
+        taps = {}
+        model.apply(params, batch, mode="train", taps=taps)
+        accumulate_taps(store, taps)
+    prof_calib = profile_step(torch, calib_batch, "steady calibration batch (16 x 128)")
+    del store
     summary = dict(config=cfg.name, layers=cfg.num_layers, entry=entry, launches=counts,
-                   expected_launches=expect, flash_launches=split, peak_memory_gb=peak_gb,
+                   expected_launches=expect, flash_launches=split, gram_launches=gsplit,
+                   peak_memory_gb=peak_gb,
                    eval_profile=prof_eval, calib_profile=prof_calib,
                    eval_logit_max_abs_err=err, eval_logit_max_abs=scale,
                    eval_argmax_agreement=agree, ok=bool(ok and logit_ok))
@@ -843,11 +930,14 @@ def main() -> int:
     # One entry per kernel at its path's main shape: the gate projection
     # (largest factor bytes) in bf16 at 8 live decode rows (the nested
     # stream kernel) and at one 512-row prefill chunk (the nested mma
-    # kernel), and the bf16 page pools (serve path); the d_ff-wide tap in
-    # bf16 and the (4, 2048) eval batch in bf16 (quality path); the
-    # rwkv6-1.6b eval batch in fp32 (the model's dtype for the recurrence).
-    # Launches are each kernel's count on its own path (nested: by kernel on
-    # the Mistral serve path; rwkv6: the RWKV-6 serve path).
+    # kernel), and the bf16 page pools (serve path); the gram wrapper at the
+    # d_ff-wide bf16 tap and its mma kernel at the d_model-wide one (7 of a
+    # batch's 9 taps), and the (4, 2048) eval batch in bf16 (quality path);
+    # the rwkv6-1.6b eval batch in fp32 (the model's dtype for the
+    # recurrence).  Launches are each kernel's count on its own path (nested:
+    # by kernel on the Mistral serve path; gram: all of the wrapper's, then
+    # the mma kernel's, on the Mistral quality path; rwkv6: the RWKV-6 serve
+    # path).  The gram FMA kernel (fp32 taps) has no launch on the paths.
     nested_serve = summaries["serve"]["nested_launches"]
     nested_src = "src/repro_torch/csrc/nested_lowrank.cu"
     nested_tpu = "src/repro/kernels/nested_lowrank/nested_lowrank.py:84"
@@ -863,6 +953,9 @@ def main() -> int:
          "src/repro/kernels/paged_attention/paged_attention.py:243"),
         ("gram", next(r for r in grams if r["dtype"] == "bfloat16" and r["n"] == 14336),
          quality_counts["gram"], "src/repro_torch/csrc/gram.cu",
+         "src/repro/kernels/gram/gram.py:54"),
+        ("gram_mma", next(r for r in grams if r["dtype"] == "bfloat16" and r["n"] == 4096),
+         summaries["quality"]["gram_launches"]["mma"], "src/repro_torch/csrc/gram.cu",
          "src/repro/kernels/gram/gram.py:54"),
         ("flash_attention", next(r for r in flash if r["dtype"] == "bfloat16"
                                  and r["S"] == 2048),

@@ -3,7 +3,10 @@
 ``gram_accumulate(x)`` returns ``(G, abs_sum)``: the (n, n) fp32 Gram of
 the flattened rows of x (..., n) and the (n,) fp32 sum |x|.  On the CPU (or
 inside ``kernels.plain()``) it is the plain version in ``ref.py``; on a
-CUDA tensor it launches the kernel or raises.
+CUDA tensor it launches a kernel or raises.  ``route`` picks the kernel:
+the tensor-core (mma) kernel for bf16 rows whose width is a multiple of 8
+and whose data starts 16-byte aligned; the FMA kernel for everything else
+(fp32 above all: tensor cores would compute it in TF32).
 """
 
 from __future__ import annotations
@@ -15,17 +18,29 @@ import torch
 from .. import build, check_launch, use_plain
 from .ref import gram_accumulate_ref
 
-launches = 0  # kernel launches (one per wrapper call that runs the kernel)
+launches = 0  # kernel launches (one per wrapper call that runs a kernel)
+mma_launches = 0  # of which the mma kernel
+fma_launches = 0  # of which the FMA kernel
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNELS = {"fma": 0, "mma": 1}
 _fn = None
+
+
+def route(dtype: torch.dtype, n: int, data_ptr: int) -> str:
+    """The kernel that takes rows of ``dtype`` and width ``n`` starting at
+    address ``data_ptr``: "mma" (bf16, n % 8 == 0, 16-byte aligned, so
+    every row's 16-byte copies are aligned) or "fma"."""
+    if dtype == torch.bfloat16 and n % 8 == 0 and data_ptr % 16 == 0:
+        return "mma"
+    return "fma"
 
 
 def _launcher():
     global _fn
     if _fn is None:
         fn = build.load("gram").gram_launch
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -37,17 +52,27 @@ def gram_accumulate(x: torch.Tensor):
         return gram_accumulate_ref(x)
     if x.dtype not in _DTYPES:
         raise TypeError(f"gram: unsupported dtype {x.dtype}")
-    global launches
     n = x.shape[-1]
-    rows = x.numel() // max(1, n)
-    x2 = x.reshape(rows, n).contiguous()
-    g = torch.empty((n, n), dtype=torch.float32, device=x.device)
-    asum = torch.empty((n,), dtype=torch.float32, device=x.device)
+    x2 = x.reshape(x.numel() // max(1, n), n).contiguous()
+    return launch(x2, route(x2.dtype, n, x2.data_ptr()))
+
+
+def launch(x2: torch.Tensor, kernel: str):
+    """Run ``kernel`` ("mma" or "fma") on contiguous rows x2 (rows, n) on
+    the card; the kernel refuses (and this raises) what it does not take."""
+    global launches, mma_launches, fma_launches
+    rows, n = x2.shape
+    g = torch.empty((n, n), dtype=torch.float32, device=x2.device)
+    asum = torch.empty((n,), dtype=torch.float32, device=x2.device)
     if n == 0:
         return g, asum
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
     err = _launcher()(x2.data_ptr(), g.data_ptr(), asum.data_ptr(), rows, n,
-                      _DTYPES[x.dtype], stream)
+                      _DTYPES[x2.dtype], _KERNELS[kernel], stream)
     check_launch(err, "gram")
     launches += 1
+    if kernel == "mma":
+        mma_launches += 1
+    else:
+        fma_launches += 1
     return g, asum

@@ -1,6 +1,7 @@
 """Plain PyTorch version of the calibration Gram: fp32 ``X^T X`` over the
 flattened rows of x, plus the per-channel sum |x|.  Full fp32: TF32 must be
-off on the card (``calib.gram.calibration_precision``)."""
+off on the card (``calib.gram.calibration_precision``).  Also the scale of
+the per-element check that holds the kernels to it."""
 
 import torch
 
@@ -9,3 +10,18 @@ def gram_accumulate_ref(x: torch.Tensor):
     """x (..., n) -> (G (n, n) fp32, sum |x| (n,) fp32)."""
     flat = x.reshape(-1, x.shape[-1]).float()
     return flat.T @ flat, flat.abs().sum(0)
+
+
+def gram_elem_scale(g: torch.Tensor) -> torch.Tensor:
+    """sqrt(G_ii G_jj) for every (i, j): the natural scale of a Gram entry.
+    By Cauchy-Schwarz it bounds sum_k |x_ki x_kj|, so any summation-order
+    error of entry (i, j) over R rows is at most this times gamma_R."""
+    d = torch.diagonal(g).float().clamp_min(0).sqrt()
+    return d[:, None] * d[None, :]
+
+
+def gram_elem_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max over entries of |got - want| / sqrt(want_ii want_jj) (0 where
+    both are 0, as in a channel that is all zeros)."""
+    diff = (got.float() - want.float()).abs()
+    return float((diff / gram_elem_scale(want).clamp_min(1e-30)).max())

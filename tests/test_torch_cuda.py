@@ -7,6 +7,8 @@ repro, so it runs on the card's machine:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -293,11 +295,31 @@ def test_paged_kernel_matches_plain(dev, group, pool):
     assert (got[~live] == 0).all()  # a length-0 row reads nothing, writes 0
 
 
+# Gram tolerances (chip_smoke.py's GRAM_TOL and GRAM_ELEM_TOL): fp32 sums
+# of the same exact products (bf16 x bf16 is exact in fp32) in another
+# order, 1e-5 of the largest entry; and per entry 1e-4 (gamma_2048 in fp32)
+# of sqrt(G_ii G_jj), which bounds the entry's sum of |products|.
+GRAM_TOL = 1e-5
+GRAM_ELEM_TOL = 1e-4
+
+
+def _gram_checks(x, got_g, got_a):
+    want_g, want_a = gram_ref.gram_accumulate_ref(x)
+    assert bool(torch.isfinite(got_g).all())
+    assert _err(got_g, want_g) < GRAM_TOL
+    assert _err(got_a, want_a) < GRAM_TOL
+    assert gram_ref.gram_elem_err(got_g, want_g) <= GRAM_ELEM_TOL
+    assert torch.equal(got_g, got_g.T)
+
+
+def _gram_counts():
+    return gram_ops.launches, gram_ops.mma_launches, gram_ops.fma_launches
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,n", [(64, 128), (77, 200), (2048, 4096), (5, 1)])
 def test_gram_kernel_matches_plain(dev, rows, n, dtype):
-    """Ragged rows and n included.  Tolerance: fp32 sums in another order
-    (bf16 products are exact in fp32), 1e-5 of the largest entry."""
+    """Ragged rows and n included, against GRAM_TOL and GRAM_ELEM_TOL."""
     g = torch.Generator(device=dev).manual_seed(rows + n)
     x = torch.randn((rows, n), generator=g, device=dev).to(dtype)
     x[:, n // 2] *= 30.0  # an outlier channel
@@ -305,10 +327,39 @@ def test_gram_kernel_matches_plain(dev, rows, n, dtype):
     got_g, got_a = gram_ops.gram_accumulate(x.reshape(1, rows, n))
     torch.cuda.synchronize()
     assert gram_ops.launches == before + 1
-    want_g, want_a = gram_ref.gram_accumulate_ref(x)
-    assert _err(got_g, want_g) < 1e-5
-    assert _err(got_a, want_a) < 1e-5
-    assert torch.equal(got_g, got_g.T)
+    _gram_checks(x, got_g, got_a)
+
+
+@pytest.mark.parametrize("rows,n,offset", [
+    *[(r, n, 0) for r in (1, 31, 33, 2048, 4100) for n in (8, 128, 136, 2048, 4104)],
+    (2048, 7168, 0), (64, 136, 3)])
+def test_gram_mma_kernel_edges(dev, rows, n, offset):
+    """bf16 rows on the mma kernel: a single row, rows either side of a
+    32-row stage, ragged column tiles (136, 4104), RWKV's d_ff width; and a
+    tap viewed at an odd element offset, which goes to the FMA kernel."""
+    g = torch.Generator(device=dev).manual_seed(rows * 7 + n)
+    x = torch.randn((rows, n), generator=g, device=dev)
+    x[:, ::97] *= 20.0  # outlier channels
+    x = _at_offset(x.to(torch.bfloat16), offset) if offset else x.to(torch.bfloat16)
+    want = "fma" if offset else "mma"
+    assert gram_ops.route(x.dtype, n, x.data_ptr()) == want
+    before = _gram_counts()
+    got_g, got_a = gram_ops.gram_accumulate(x)
+    torch.cuda.synchronize()
+    assert _gram_counts() == (before[0] + 1, before[1] + (want == "mma"),
+                              before[2] + (want == "fma"))
+    _gram_checks(x, got_g, got_a)
+
+
+def test_gram_launch_refuses_what_mma_cannot_do(dev):
+    """The mma kernel takes bf16 only, n % 8 == 0, 16-byte-aligned rows."""
+    x = torch.zeros((4, 24), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(RuntimeError):
+        gram_ops.launch(x.float(), "mma")
+    with pytest.raises(RuntimeError):
+        gram_ops.launch(x[:, :12].contiguous(), "mma")
+    with pytest.raises(RuntimeError):
+        gram_ops.launch(x.reshape(-1)[3:3 + 64].view(4, 16), "mma")
 
 
 def _elem_err(got, want):
@@ -413,25 +464,42 @@ def test_flash_kernel_rejects_bad_head_dim(dev):
         fa_ops.flash_attention(q, q[:, :, :1].contiguous(), q[:, :, :1].contiguous())
 
 
-def test_calibration_runs_through_gram_and_flash(dev):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_calibration_runs_through_gram_and_flash(dev, dtype):
     """collect_grams on a CUDA model launches gram once per tap and batch
-    and flash_attention once per layer and batch, and its Grams match the
-    same calibration through the plain versions."""
-    cfg = small_lm("card-calib", MISTRAL_7B, num_layers=2, d_model=64, d_ff=96,
-                   vocab_size=128, num_heads=8)
+    (every launch on the mma kernel for bf16 taps, on the FMA kernel for
+    fp32) and flash_attention once per layer and batch.  fp32: its Grams
+    match the same calibration through the plain versions.  bf16 (where the
+    plain attention rounds the taps differently): each tap's Gram of one
+    more batch matches the plain Gram of the same tap."""
+    cfg = dataclasses.replace(small_lm("card-calib", MISTRAL_7B, num_layers=2, d_model=64,
+                                       d_ff=96, vocab_size=128, num_heads=8), dtype=dtype)
     model = build_model(cfg)
     params = model.init(0, dev)
     rng = np.random.default_rng(0)
     batches = [rng.integers(0, 128, (4, 40)).astype(np.int32) for _ in range(3)]
-    g0, f0 = gram_ops.launches, fa_ops.launches
+    g0, f0 = _gram_counts(), fa_ops.launches
     store = collect_grams(model, params, batches)
-    assert gram_ops.launches - g0 == 3 * (4 * cfg.num_layers + 1)
+    taps_per_batch = 4 * cfg.num_layers + 1
+    g1 = _gram_counts()
+    assert g1[0] - g0[0] == 3 * taps_per_batch
+    mma = dtype == "bfloat16"
+    assert (g1[1] - g0[1], g1[2] - g0[2]) == ((g1[0] - g0[0], 0) if mma else (0, g1[0] - g0[0]))
     assert fa_ops.launches - f0 == 3 * cfg.num_layers
-    with kernels.plain():
-        plain = collect_grams(model, params, batches)
-    assert set(store.keys()) == set(plain.keys())
-    for key in store.keys():
-        assert _err(store.gram(key), plain.gram(key)) < 1e-5
+    if not mma:
+        with kernels.plain():
+            plain = collect_grams(model, params, batches)
+        assert set(store.keys()) == set(plain.keys())
+        for key in store.keys():
+            assert _err(store.gram(key), plain.gram(key)) < 1e-5
+        return
+    taps = {}
+    with torch.no_grad():
+        model.apply(params, torch.as_tensor(batches[0], device=dev), mode="train", taps=taps)
+    assert len(taps) == taps_per_batch
+    for x in taps.values():
+        assert x.dtype == torch.bfloat16
+        _gram_checks(x.reshape(-1, x.shape[-1]), *gram_ops.gram_accumulate(x))
 
 
 def test_served_greedy_stream_kernels_vs_plain(dev):

@@ -22,6 +22,8 @@ from repro_torch.calib.gram import accumulate_taps, gram_update
 from repro_torch.calib.runner import collect_grams
 from repro_torch.models import build_model
 from repro_torch.core import GramStore
+from repro_torch.kernels.gram import ops as gram_ops
+from repro_torch.kernels.gram import ref as gram_ref
 from repro_torch.kernels.gram.ops import gram_accumulate
 from repro_torch.obs.compression import CompressionTelemetry
 
@@ -109,3 +111,33 @@ def test_collect_grams_key_sets_match_reference(family):
     for k in want.keys():
         assert got.count(k) == want.count(k)
         _close(got.gram(k).numpy(), want.gram(k))
+
+
+@pytest.mark.parametrize("offset", [0, 2, 8, 16, 48])
+@pytest.mark.parametrize("n", [8, 12, 2048, 4100, 14336])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gram_route(dtype, n, offset):
+    """bf16 rows of a width that is a multiple of 8, starting 16-byte
+    aligned, take the mma kernel; fp32 rows, other widths and misaligned
+    starts take the FMA kernel."""
+    want = "mma" if dtype == torch.bfloat16 and n % 8 == 0 and offset % 16 == 0 else "fma"
+    assert gram_ops.route(dtype, n, 0x7f0000000000 + offset) == want
+
+
+def test_gram_elem_scale_and_err_match_numpy():
+    """The per-element check's scale is sqrt(G_ii G_jj); its error is the
+    largest |got - want| over that scale, 0 where both are 0."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((40, 12)).astype(np.float32)
+    x[:, 3] *= 25.0
+    x[:, 7] = 0.0  # a channel that is all zeros
+    want = x.T.astype(np.float64) @ x
+    d = np.sqrt(np.diag(want))
+    np.testing.assert_allclose(gram_ref.gram_elem_scale(torch.as_tensor(want)).numpy(),
+                               np.outer(d, d), rtol=1e-6)
+    got = want.copy()
+    got[2, 5] += 1e-3
+    got[7, 7] = 0.0
+    err = gram_ref.gram_elem_err(torch.as_tensor(got), torch.as_tensor(want))
+    np.testing.assert_allclose(err, 1e-3 / (d[2] * d[5]), rtol=1e-4)
+    assert gram_ref.gram_elem_err(torch.as_tensor(want), torch.as_tensor(want)) == 0.0

@@ -1,16 +1,26 @@
 #!/usr/bin/env python3
-"""chip_smoke.py's nested phase on two trees of this repository, on one
-card, in turns: the other tree, this one, this one, the other.
+"""One phase of chip_smoke.py on two trees of this repository, on one card,
+in turns: the other tree, this one, this one, the other.
 
-    python3 tools/nested_ab.py OTHER_ROOT
+    python3 tools/nested_ab.py OTHER_ROOT [nested|gram|calibrate]
 
 OTHER_ROOT is another checkout (for example the parent commit, unpacked with
 ``git archive`` into a directory that .gitignore lists).  Each run is a
-process of its own that builds that tree's kernels and runs its
-``chip_smoke.nested_phase``.  Prints each row's profiled device ms in the
-four runs and the ratio of this tree's mean to the other's, for every
-(dtype, target, rows) both trees measure, and writes
-chiprun_out/nested_ab.json.  Needs one H100 and the CUDA toolkit.
+process of its own that builds that tree's kernels.  Phases:
+
+  nested     that tree's ``chip_smoke.nested_phase``: each row's profiled
+             device ms, for every (dtype, target, rows) both trees measure;
+  gram       that tree's ``gram_accumulate`` at this tree's gram shapes
+             (bf16 and fp32, chip_smoke's inputs), device ms of one call
+             from torch.profiler (the mean of 5), and whether it is within
+             GRAM_TOL of the plain version;
+  calibrate  that tree's whole ``chip_smoke.py``: the calibrate seconds of
+             its four paths (and each path's seconds), from the
+             chiprun_out/chip_smoke.json it writes.
+
+Prints each row's four readings and the ratio of this tree's mean to the
+other's, and writes chiprun_out/<phase>_ab.json.  Needs one H100 and the
+CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -21,20 +31,78 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-RUN = """
+sys.path.insert(0, ROOT)
+import chip_smoke  # noqa: E402
+
+RUN_NESTED = """
 import json, sys, torch
 sys.path[:0] = [{root!r}, {src!r}]
 import chip_smoke
 from repro_torch.kernels.nested_lowrank import ops, ref
 torch.backends.cuda.matmul.allow_tf32 = False
-print("RESULT " + json.dumps(chip_smoke.nested_phase(torch, ops, ref)), flush=True)
+rows = chip_smoke.nested_phase(torch, ops, ref)
+print("RESULT " + json.dumps([dict(key=[r["dtype"], r["target"], r["M"]], value=r["device_ms"],
+                                   ran=r["ran"], ok=r["ok"]) for r in rows]), flush=True)
 """
+RUN_GRAM = """
+import json, sys, torch
+sys.path[:0] = [{root!r}, {src!r}]
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.kernels.gram import ops, ref
+torch.backends.cuda.matmul.allow_tf32 = False
+
+def device_ms(fn, reps=5):
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+
+out = []
+gen = torch.Generator(device="cuda").manual_seed(2)
+for dname in ("bfloat16", "float32"):
+    for rows, n in {shapes!r}:
+        x = torch.randn((rows, n), generator=gen, device="cuda")
+        x[:, ::97] *= 20.0
+        x = x.to(getattr(torch, dname))
+        before = getattr(ops, "mma_launches", 0)
+        g, _ = ops.gram_accumulate(x)
+        w, _ = ref.gram_accumulate_ref(x)
+        ok = bool((g - w).abs().max() <= {tol!r} * w.abs().max())
+        ran = "mma" if getattr(ops, "mma_launches", 0) > before else "fma"
+        del g, w
+        out.append(dict(key=[dname, rows, n], value=device_ms(lambda: ops.gram_accumulate(x)),
+                        ran=ran, ok=ok))
+print("RESULT " + json.dumps(out), flush=True)
+"""
+PATHS = ("serve", "quality", "rwkv_serve", "rwkv_quality")
 
 
-def nested_rows(root: str) -> list:
-    root = os.path.abspath(root)
-    p = subprocess.run([sys.executable, "-c", RUN.format(root=root, src=os.path.join(root, "src"))],
-                       cwd=root, capture_output=True, text=True, timeout=900)
+def run_script(root: str, phase: str) -> list:
+    """[{key, value, ran, ok}] of ``phase`` on the tree at ``root``."""
+    if phase == "calibrate":
+        p = subprocess.run([sys.executable, "chip_smoke.py"], cwd=root, capture_output=True,
+                           text=True, timeout=1500)
+        with open(os.path.join(root, "chiprun_out", "chip_smoke.json")) as f:
+            res = json.load(f)
+        out = []
+        for path in PATHS:
+            summary = res[f"{path}_path"]
+            seconds = summary["seconds"] if "seconds" in summary else summary["entry"]["seconds"]
+            out.append(dict(key=[path, "calibrate_s"], value=seconds["calibrate"], ran="",
+                            ok=p.returncode == 0))
+            out.append(dict(key=[path, "path_s"], value=res["path_seconds"][path], ran="",
+                            ok=p.returncode == 0))
+        return out
+    template = RUN_NESTED if phase == "nested" else RUN_GRAM
+    code = template.format(root=root, src=os.path.join(root, "src"),
+                           shapes=list(chip_smoke.GRAM_SHAPES), tol=chip_smoke.GRAM_TOL)
+    p = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
+                       timeout=900)
     lines = [ln for ln in p.stdout.splitlines() if ln.startswith("RESULT ")]
     if p.returncode or not lines:
         raise RuntimeError(f"{root}: exit {p.returncode}\n{p.stdout[-2000:]}{p.stderr[-2000:]}")
@@ -42,34 +110,34 @@ def nested_rows(root: str) -> list:
 
 
 def main() -> int:
-    if len(sys.argv) != 2:
+    if len(sys.argv) not in (2, 3) or (sys.argv[2:] and sys.argv[2] not in
+                                       ("nested", "gram", "calibrate")):
         print(__doc__, file=sys.stderr)
         return 2
-    other = sys.argv[1]
+    other = os.path.abspath(sys.argv[1])
+    phase = sys.argv[2] if len(sys.argv) == 3 else "nested"
     order = (("other", other), ("this", ROOT), ("this", ROOT), ("other", other))
-    runs = [(name, nested_rows(root)) for name, root in order]
-    key = lambda r: (r["dtype"], r["target"], r["M"])  # noqa: E731
+    runs = [(name, run_script(root, phase)) for name, root in order]
     table = {}
     for i, (name, rows) in enumerate(runs):
         for r in rows:
-            table.setdefault(key(r), {}).setdefault(name, []).append(
-                dict(run=i, device_ms=r["device_ms"], ran=r["ran"], ok=r["ok"]))
+            table.setdefault(tuple(r["key"]), {}).setdefault(name, []).append(
+                dict(run=i, value=r["value"], ran=r["ran"], ok=r["ok"]))
     out = []
-    for k, by in sorted(table.items()):
+    for k, by in table.items():
         if set(by) != {"other", "this"}:
             continue
-        mean = {n: sum(x["device_ms"] for x in v) / len(v) for n, v in by.items()}
-        ratio = mean["this"] / mean["other"]
-        out.append(dict(dtype=k[0], target=k[1], M=k[2], other=by["other"], this=by["this"],
-                        ratio=ratio))
-        print(f"{k[0]:8s} {k[1]:4s} M={k[2]:<4d} other {by['other'][0]['ran']:6s} "
-              + " ".join(f"{x['device_ms']:.4f}" for x in by["other"])
-              + f"  this {by['this'][0]['ran']:6s} "
-              + " ".join(f"{x['device_ms']:.4f}" for x in by["this"])
+        mean = {n: sum(x["value"] for x in v) / len(v) for n, v in by.items()}
+        ratio = mean["this"] / mean["other"] if mean["other"] else float("nan")
+        out.append(dict(key=list(k), other=by["other"], this=by["this"], ratio=ratio))
+        print(" ".join(str(x) for x in k) + f"  other {by['other'][0]['ran']} "
+              + " ".join(f"{x['value']:.4f}" for x in by["other"])
+              + f"  this {by['this'][0]['ran']} "
+              + " ".join(f"{x['value']:.4f}" for x in by["this"])
               + f"  this/other {ratio:.3f}", flush=True)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "nested_ab.json"), "w") as f:
-        json.dump({"other": os.path.abspath(other), "rows": out,
+    with open(os.path.join(ROOT, "chiprun_out", f"{phase}_ab.json"), "w") as f:
+        json.dump({"other": other, "phase": phase, "rows": out,
                    "ok": all(x["ok"] for _, rows in runs for x in rows)}, f, indent=1)
     return 0
 
