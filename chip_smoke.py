@@ -18,13 +18,19 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
      per-element check, exact symmetry, which kernel ran -- mma for bf16,
      FMA for fp32 -- the device time of one call and of the library call,
      and for bf16 the device time of the FMA kernel on the same rows;
-     paged_attention: also the device time of one call and of SDPA);
+     paged_attention: also a per-element check and zeros on a length-0 row at
+     lengths 1-700, at eight rows of 512-8192 tokens, at one row of 32768
+     and at the serve path's decode step, bf16 and int8 pools, with the
+     split plan, which kernels ran, the device time of one call and of SDPA,
+     the achieved bytes/s, and the combine kernel alone against its plain
+     version on the split kernel's partials);
   4. serve path: ``serve()`` on mistral-7b at full width (depth cut to 2
      layers, random weights from a seed): calibrate, NSVD-compress (nsvd1,
      ratio 0.2, bf16 factors) and serve 8 requests, with the kernels' launch
      counters read around the run (nested calls: every decode step's on the
      stream kernel, every 512-row prefill chunk's on the mma kernel, none on
-     the tile kernel; gram calls: all on the mma kernel); then one decode
+     the tile kernel; gram calls: all on the mma kernel; paged combine
+     launches as plan_splits predicts for the table); then one decode
      step's logits through the kernels against the same step through the
      plain versions, and profiles of that step and of one prefill chunk;
   5. quality path: ``obs.quality_report.build_entry`` on the same model:
@@ -89,6 +95,24 @@ NESTED_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # four ulps allowed.  fp32: sum order only.
 NESTED_ELEM_TOL = {"bfloat16": 2 ** -5, "float32": 1e-4}
 PAGED_TOL = 2e-2   # bf16 output; int8 pages dequantized in fp32 vs bf16
+# And for every element of a live row: |kernel - plain| <= tol * (|plain| +
+# rms of that (row, head)'s output over hd), which a split dropped from a
+# long row (outputs ~0.04 there against ~3 for a length-1 row) cannot hide
+# under max |plain|.  bf16: the plain version rounds probabilities, and
+# int8's dequantized K/V, to bf16 while the kernel keeps them in fp32; the
+# output rounds once.  fp32: sum order only.
+PAGED_ELEM_TOL = {"bfloat16": 2 ** -5, "float32": 1e-4}
+# (case, lengths, table columns or None for the longest row's pages) at
+# Mistral-7B's heads (32/8, hd 128, block 16): page-edge lengths up to 700
+# and a dead row (5.29 MB of bf16 K/V, L2-resident across calls); eight long
+# rows, 30016 tokens (123 MB, beyond the 50 MB L2); one row at Mistral-7B's
+# max_seq (134 MB); and the serve path's decode step halfway through its 32
+# new tokens (its 8 prompts + 16, in its 16-column table: max_len 256,
+# block 16).
+PAGED_CASES = (("phase", (1, 15, 16, 17, 255, 256, 700, 0), None),
+               ("long8", (512, 1024, 2048, 3000, 4096, 5000, 6144, 8192), None),
+               ("one32k", (32768,), None),
+               ("serve", (189, 149, 126, 81, 88, 39, 45, 35), 16))
 STEP_LOGIT_TOL = 5e-2  # 2-layer model: kernel vs plain rounding through a step
 # (rows, n): the taps of a calibration batch (16 x 128 rows) at rwkv6-1.6b's
 # d_model, Mistral-7B's d_model, rwkv6-1.6b's d_ff and Mistral-7B's d_ff.
@@ -247,93 +271,159 @@ def nested_phase(torch, ops, ref):
     return rows
 
 
-def paged_phase(torch, ops, ref):
-    import numpy as np
-
-    rows = []
-    b, hq, hkv, hd, bs = 8, 32, 8, 128, 16
-    # Page-edge lengths up to 700, and one dead row (all -1, length 0).
-    lens = np.asarray([1, 15, 16, 17, 255, 256, 700, 0], np.int32)
+def paged_inputs(torch, np, lens, pool, cols=None):
+    """(q, k_pages, v_pages, k_scales, v_scales, block_tables, lengths) of a
+    paged case at Mistral-7B's heads: bf16 q; bf16 pools, or int8 with fp32
+    scales; each row's pages scattered over a shuffled pool, -1 past them in
+    a table of ``cols`` columns (default: the longest row's pages)."""
+    b, hq, hkv, hd, bs = len(lens), 32, 8, 128, 16
+    lens = np.asarray(lens, np.int32)
     pages = [-(-int(n) // bs) for n in lens]
-    m = max(pages)
     nb = sum(pages) + 8
-    perm = np.random.default_rng(0).permutation(nb)
-    table = np.full((b, m), -1, np.int32)
-    it = iter(perm)
+    perm = iter(np.random.default_rng(0).permutation(nb))
+    table = np.full((b, cols or max(pages)), -1, np.int32)
     for r, p in enumerate(pages):
         for j in range(p):
-            table[r, j] = next(it)
-    bt = torch.as_tensor(table, device="cuda")
-    ln = torch.as_tensor(lens, device="cuda")
-    live = torch.as_tensor(lens > 0, device="cuda")
+            table[r, j] = next(perm)
     gen = torch.Generator(device="cuda").manual_seed(1)
     q = (torch.randn((b, hq, hd), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
-    for pool in ("bfloat16", "int8"):
-        if pool == "int8":
-            kp = torch.randint(-127, 128, (nb, bs, hkv, hd), generator=gen,
-                               device="cuda", dtype=torch.int8)
-            vp = torch.randint(-127, 128, (nb, bs, hkv, hd), generator=gen,
-                               device="cuda", dtype=torch.int8)
-            ks = torch.rand((nb, bs, hkv), generator=gen, device="cuda") * 0.01
-            vs = torch.rand((nb, bs, hkv), generator=gen, device="cuda") * 0.01
-        else:
-            kp = torch.randn((nb, bs, hkv, hd), generator=gen, device="cuda").to(torch.bfloat16)
-            vp = torch.randn((nb, bs, hkv, hd), generator=gen, device="cuda").to(torch.bfloat16)
-            ks = vs = None
-        got = ops.paged_attention(q, kp, vp, bt, ln, ks, vs)
-        want = ref.paged_attention_ref(q, kp, vp, bt, ln, ks, vs)
-        torch.cuda.synchronize()
-        diff = (got.float() - want.float()).abs()[live]
-        err = float(diff.max())
-        scale = float(want.float().abs()[live].max())
-        dead_zero = bool((got[~live] == 0).all())
-        ok = bool(torch.isfinite(got).all()) and err <= PAGED_TOL * scale and dead_zero
-        ms = time_ms(lambda: ops.paged_attention(q, kp, vp, bt, ln, ks, vs), reps=20)
-        plain = time_ms(lambda: ref.paged_attention_ref(q, kp, vp, bt, ln, ks, vs))
-        # Library yardstick: SDPA over the pages gathered (outside the timing)
-        # into a padded (B, Hq, T, hd) view with a length mask.
-        kg = ref.gather_pages(kp, bt)
-        vg = ref.gather_pages(vp, bt)
-        if ks is not None:
-            kg = kg.float() * ref.gather_pages(ks, bt)[..., None]
-            vg = vg.float() * ref.gather_pages(vs, bt)[..., None]
-        g = hq // hkv
-        kg = kg.to(torch.bfloat16).transpose(1, 2).repeat_interleave(g, 1).contiguous()
-        vg = vg.to(torch.bfloat16).transpose(1, 2).repeat_interleave(g, 1).contiguous()
-        t = kg.shape[2]
-        mask = (torch.arange(t, device="cuda")[None, :] < ln[:, None].clamp(min=1))
-        mask = mask[:, None, None, :]
-        q4 = q[:, :, None, :]
-        lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q4, kg, vg, attn_mask=mask), reps=20)
-        # Device time of one call (the events above include the wrapper's
-        # host time), the mean of DEVICE_REPS, for the kernel and for SDPA.
-        dev_ms = profile_step(torch, lambda: [ops.paged_attention(
-            q, kp, vp, bt, ln, ks, vs) for _ in range(DEVICE_REPS)], quiet=True)[
-            "device_busy_ms"] / DEVICE_REPS
-        lib_dev = profile_step(torch, lambda: [torch.nn.functional.scaled_dot_product_attention(
-            q4, kg, vg, attn_mask=mask) for _ in range(DEVICE_REPS)], quiet=True)[
-            "device_busy_ms"] / DEVICE_REPS
-        el = kp.element_size()
-        tokens = int(lens.sum())
-        nbytes = (2 * q.numel() * q.element_size() + 2 * tokens * hkv * hd * el
-                  + (2 * tokens * hkv * 4 if ks is not None else 0)
-                  + table.nbytes + lens.nbytes)
-        flops = 4 * hq * hd * tokens
-        bnd, by = bound_ms(nbytes, flops, "bfloat16")
-        row = dict(kernel="paged_attention", pool=pool, B=b, Hq=hq, Hkv=hkv,
-                   hd=hd, bs=bs, lengths=lens.tolist(), max_abs_err=err,
-                   ref_max_abs=scale, tol=PAGED_TOL * scale, dead_row_zero=dead_zero,
-                   ok=ok, ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=lib,
-                   library_device_ms=lib_dev, bytes=nbytes, flops=flops, bound_ms=bnd,
-                   bound_by=by)
-        rows.append(row)
-        log(f"paged  pool={pool:8s} err={err:.3e} (tol {row['tol']:.3e}) "
-            f"dead-row zeros={dead_zero} {'OK' if ok else 'FAIL'}  kernel "
-            f"{ms:.4f} ms (device {dev_ms:.4f})  plain {plain:.4f} ms  library(sdpa) "
-            f"{lib:.4f} ms (device {lib_dev:.4f})  "
-            f"bound {bnd:.4f} ms ({by}, {nbytes / 1e6:.2f} MB)")
+    if pool == "int8":
+        kp, vp = (torch.randint(-127, 128, (nb, bs, hkv, hd), generator=gen, device="cuda",
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand((nb, bs, hkv), generator=gen, device="cuda") * 0.01
+                  for _ in range(2))
+    else:
+        kp, vp = (torch.randn((nb, bs, hkv, hd), generator=gen, device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        ks = vs = None
+    return (q, kp, vp, ks, vs, torch.as_tensor(table, device="cuda"),
+            torch.as_tensor(lens, device="cuda"))
+
+
+def paged_phase(torch, np, ops, ref):
+    rows = []
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for case, lens, cols in PAGED_CASES:
+        for pool in ("bfloat16", "int8"):
+            q, kp, vp, ks, vs, bt, ln = paged_inputs(torch, np, lens, pool, cols=cols)
+            b, hq, hd = q.shape
+            hkv, bs = kp.shape[2], kp.shape[1]
+            live = ln > 0
+            n_splits, pps = ops.plan_splits(b, hkv, bt.shape[1])
+            before = (ops.launches, ops.combine_launches)
+            got = ops.paged_attention(q, kp, vp, bt, ln, ks, vs)
+            want = ref.paged_attention_ref(q, kp, vp, bt, ln, ks, vs)
+            torch.cuda.synchronize()
+            counts = (ops.launches - before[0], ops.combine_launches - before[1])
+            err = float((got.float() - want.float()).abs()[live].max())
+            scale = float(want.float().abs()[live].max())
+            e_err = elem_err(torch, got[live], want[live])
+            dead_zero = bool((got[~live] == 0).all())
+            ok = (bool(torch.isfinite(got).all()) and err <= PAGED_TOL * scale
+                  and e_err <= PAGED_ELEM_TOL["bfloat16"] and dead_zero
+                  and counts == (1, int(n_splits > 1)))
+            del got, want
+            ms = time_ms(lambda: ops.paged_attention(q, kp, vp, bt, ln, ks, vs), reps=20)
+            plain = time_ms(lambda: ref.paged_attention_ref(q, kp, vp, bt, ln, ks, vs), reps=5)
+            # Device time of one call, split kernel plus combine (the events
+            # above include the wrapper's host time), the mean of DEVICE_REPS.
+            prof = profile_step(torch, lambda: [ops.paged_attention(
+                q, kp, vp, bt, ln, ks, vs) for _ in range(DEVICE_REPS)], quiet=True)
+            dev_ms = prof["device_busy_ms"] / DEVICE_REPS
+            combine_ms = sum(v for k, v in prof["kernels"].items()
+                             if "paged_combine" in k) / DEVICE_REPS
+            # Library yardstick: SDPA over the pages gathered (outside the
+            # timing) into a padded (B, Hq, T, hd) view with a length mask.
+            kg = ref.gather_pages(kp, bt)
+            vg = ref.gather_pages(vp, bt)
+            if ks is not None:
+                kg = kg.float() * ref.gather_pages(ks, bt)[..., None]
+                vg = vg.float() * ref.gather_pages(vs, bt)[..., None]
+            g = hq // hkv
+            kg = kg.to(torch.bfloat16).transpose(1, 2).repeat_interleave(g, 1).contiguous()
+            vg = vg.to(torch.bfloat16).transpose(1, 2).repeat_interleave(g, 1).contiguous()
+            t = kg.shape[2]
+            mask = (torch.arange(t, device="cuda")[None, :] < ln[:, None].clamp(min=1))
+            mask = mask[:, None, None, :]
+            q4 = q[:, :, None, :]
+            lib = time_ms(lambda: sdpa(q4, kg, vg, attn_mask=mask), reps=20)
+            lib_dev = profile_step(torch, lambda: [sdpa(q4, kg, vg, attn_mask=mask) for _ in range(
+                DEVICE_REPS)], quiet=True)["device_busy_ms"] / DEVICE_REPS
+            del kg, vg, mask
+            el = kp.element_size()
+            tokens = int(ln.sum())
+            nbytes = (2 * q.numel() * q.element_size() + 2 * tokens * hkv * hd * el
+                      + (2 * tokens * hkv * 4 if ks is not None else 0)
+                      + bt.numel() * 4 + ln.numel() * 4)
+            flops = 4 * hq * hd * tokens
+            bnd, by = bound_ms(nbytes, flops, "bfloat16")
+            row = dict(kernel="paged_attention", case=case, pool=pool, B=b, Hq=hq, Hkv=hkv,
+                       hd=hd, bs=bs, lengths=[int(x) for x in lens],
+                       table_cols=bt.shape[1], n_splits=n_splits, pps=pps,
+                       launches=counts[0], combine_launches=counts[1], max_abs_err=err,
+                       ref_max_abs=scale, tol=PAGED_TOL * scale, elem_err=e_err,
+                       elem_tol=PAGED_ELEM_TOL["bfloat16"], dead_row_zero=dead_zero,
+                       ok=ok, ms=ms, device_ms=dev_ms, combine_device_ms=combine_ms,
+                       plain_ms=plain, library_ms=lib, library_device_ms=lib_dev,
+                       bytes=nbytes, flops=flops, bound_ms=bnd, bound_by=by,
+                       tb_per_s=nbytes / dev_ms * 1e-9 if dev_ms > 0 else None,
+                       bound_share=bnd / dev_ms if dev_ms > 0 else None)
+            rows.append(row)
+            log(f"paged  {case:6s} pool={pool:8s} splits={n_splits}x{pps}p launches="
+                f"{counts} err={err:.3e} (tol {row['tol']:.3e}) elem err {e_err:.3e} (tol "
+                f"{row['elem_tol']:.3e}) dead-row zeros={dead_zero} {'OK' if ok else 'FAIL'}"
+                f"  kernel {ms:.4f} ms (device {dev_ms:.4f}, combine {combine_ms:.4f}; "
+                f"{nbytes / dev_ms * 1e-9 if dev_ms > 0 else 0:.2f} TB/s, "
+                f"{row['bound_share'] or 0:.1%} of bound)  plain {plain:.4f} ms  library(sdpa) "
+                f"{lib:.4f} ms (device {lib_dev:.4f})  bound {bnd:.4f} ms ({by}, "
+                f"{nbytes / 1e6:.2f} MB)")
+            if n_splits > 1:
+                rows.append(combine_row(torch, np, ops, ref, case, pool, q, kp, vp, ks, vs,
+                                        bt, ln, n_splits, pps))
+            del q, kp, vp, ks, vs
+            torch.cuda.empty_cache()
     return rows
+
+
+def combine_row(torch, np, ops, ref, case, pool, q, kp, vp, ks, vs, bt, ln, n_splits, pps):
+    """The combine kernel alone on the split kernel's partials of a paged
+    case, against its plain version on the same partials."""
+    b, hq, hd = q.shape
+    hkv, bs, cols = kp.shape[2], kp.shape[1], bt.shape[1]
+    acc, ml = ops.split_partials(q, kp, vp, bt, ln, ks, vs, None, n_splits, pps)
+    before = ops.combine_launches
+    got = ops.combine(acc, ml, ln, bs, cols, pps, q.dtype)
+    want = ref.combine_partials_ref(acc, ml, ln, bs, cols, pps, q.dtype)
+    torch.cuda.synchronize()
+    live = ln > 0
+    err = float((got.float() - want.float()).abs()[live].max())
+    scale = float(want.float().abs()[live].max())
+    e_err = elem_err(torch, got[live], want[live])
+    ok = (bool(torch.isfinite(got).all()) and err <= PAGED_TOL * scale
+          and e_err <= PAGED_ELEM_TOL["bfloat16"] and bool((got[~live] == 0).all())
+          and ops.combine_launches == before + 1)
+    ms = time_ms(lambda: ops.combine(acc, ml, ln, bs, cols, pps, q.dtype), reps=20)
+    plain = time_ms(lambda: ref.combine_partials_ref(acc, ml, ln, bs, cols, pps, q.dtype))
+    dev_ms = profile_step(torch, lambda: [ops.combine(acc, ml, ln, bs, cols, pps, q.dtype)
+                                          for _ in range(DEVICE_REPS)],
+                          quiet=True)["device_busy_ms"] / DEVICE_REPS
+    # Bytes: the partials of the splits each row's length reaches, the
+    # lengths, the output.
+    pages = -(-np.minimum(ln.cpu().numpy().astype(np.int64), cols * bs) // bs)
+    reached = int(np.minimum(-(-pages // pps), n_splits).sum()) * hkv
+    g = hq // hkv
+    nbytes = reached * g * (hd + 2) * 4 + b * 4 + q.numel() * q.element_size()
+    bnd, by = bound_ms(nbytes, reached * g * hd * 2, "float32")
+    row = dict(kernel="paged_combine", case=case, pool=pool, B=b, n_splits=n_splits, pps=pps,
+               reached_partials=reached, max_abs_err=err, ref_max_abs=scale,
+               tol=PAGED_TOL * scale, elem_err=e_err, elem_tol=PAGED_ELEM_TOL["bfloat16"],
+               ok=ok, ms=ms, device_ms=dev_ms, plain_ms=plain, library_ms=None,
+               bytes=nbytes, bound_ms=bnd, bound_by=by)
+    log(f"paged  {case:6s} pool={pool:8s} combine alone ({reached} partials of {n_splits} "
+        f"splits) err={err:.3e} elem err {e_err:.3e} {'OK' if ok else 'FAIL'}  kernel "
+        f"{ms:.4f} ms (device {dev_ms:.4f})  plain {plain:.4f} ms  library none  bound "
+        f"{bnd:.5f} ms ({by})")
+    return row
 
 
 def gram_library(torch, x):
@@ -517,6 +607,7 @@ def reset_counts() -> None:
     nlr.stream_launches = nlr.mma_launches = nlr.tile_launches = 0
     gram = _ops("gram")
     gram.mma_launches = gram.fma_launches = 0
+    _ops("paged_attention").combine_launches = 0
 
 
 def read_counts() -> dict:
@@ -544,10 +635,11 @@ def gram_split() -> dict:
     return {"mma": gram.mma_launches, "fma": gram.fma_launches}
 
 
-# Device kernels of one nested_lowrank call (both phases and reductions), and
-# of one gram call.
+# Device kernels of one nested_lowrank call (both phases and reductions), of
+# one gram call, and of one paged_attention call (split kernel and combine).
 NESTED_KERNEL_NAMES = ("stream_partial", "mma_partial", "gemm_partial", "reduce_partials")
 GRAM_KERNEL_NAMES = ("gram_mma", "gram_kernel")
+PAGED_KERNEL_NAMES = ("paged_split_kernel", "paged_combine_kernel")
 
 
 def profile_step(torch, fn, label: str = "decode step", quiet: bool = False) -> dict:
@@ -576,18 +668,22 @@ def profile_step(torch, fn, label: str = "decode step", quiet: bool = False) -> 
             per[ev.key] = (per.get(ev.key, (0.0, 0))[0] + dev_us / 1e3, ev.count)
     busy = sum(ms for ms, _ in per.values())
     top = sorted(per.items(), key=lambda kv: -kv[1][0])[:12]
+    kernels = {k: ms for k, (ms, _) in per.items()}
     if quiet:
-        return {"wall_ms": wall_ms, "device_busy_ms": busy}
-    nested, gram = (sum(ms for k, (ms, _) in per.items() if any(name in k for name in names))
-                    for names in (NESTED_KERNEL_NAMES, GRAM_KERNEL_NAMES))
+        return {"wall_ms": wall_ms, "device_busy_ms": busy, "kernels": kernels}
+    nested, gram, paged = (sum(ms for k, (ms, _) in per.items()
+                               if any(name in k for name in names))
+                           for names in (NESTED_KERNEL_NAMES, GRAM_KERNEL_NAMES,
+                                         PAGED_KERNEL_NAMES))
     log(f"  profiled {label}: wall {wall_ms:.2f} ms (profiler off), device "
         f"busy {busy:.3f} ms ({busy / wall_ms:.1%} of wall), nested_lowrank "
         f"{nested:.3f} ms ({nested / max(busy, 1e-9):.1%} of busy), gram {gram:.3f} ms "
-        f"({gram / max(busy, 1e-9):.1%})")
+        f"({gram / max(busy, 1e-9):.1%}), paged_attention {paged:.4f} ms")
     for name, (ms, n) in top:
         log(f"    {ms:8.3f} ms  x{n:<4d} {name[:90]}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "nested_ms": nested,
-            "gram_ms": gram, "top": [{"name": k, "ms": ms, "count": n} for k, (ms, n) in top]}
+            "gram_ms": gram, "paged_ms": paged,
+            "top": [{"name": k, "ms": ms, "count": n} for k, (ms, n) in top]}
 
 
 def factored_ratio(params, plan) -> float:
@@ -658,6 +754,15 @@ def serve_path(torch, np, cfg, mixer: str, taps_per_layer: int):
     nested_expect = {"stream": n_linear * (st["steps"] + len(prefill_rows) - long_calls),
                      "mma": n_linear * long_calls, "tile": 0}
     nested_ok = (nsplit == nested_expect and len(prefill_rows) == st["prefill_ticks"])
+    # Every paged decode step's attention also runs the combine when
+    # plan_splits gives its table (max_batch rows x the table's columns)
+    # more than one split.
+    pa = _ops("paged_attention")
+    n_splits = (pa.plan_splits(eng.kv.max_batch, cfg.num_kv_heads,
+                               eng.kv.max_blocks_per_row)[0] if paged else 1)
+    combine_expect = expect["paged_attention"] if n_splits > 1 else 0
+    combine = pa.combine_launches
+    combine_ok = combine == combine_expect
     reasons = {u: r.finish_reason for u, r in res["requests"].items()}
     outs = res["outputs"]
     ratio = factored_ratio(params, plan)
@@ -667,7 +772,7 @@ def serve_path(torch, np, cfg, mixer: str, taps_per_layer: int):
           and all(1 <= len(v) <= 32 for v in outs.values())
           and all(0 <= t < cfg.vocab_size for v in outs.values() for t in v)
           and syncs_ok and abs(ratio - plan.achieved_ratio) < 1e-9
-          and counts == expect and split_ok and nested_ok and gram_ok
+          and counts == expect and split_ok and nested_ok and gram_ok and combine_ok
           and expect["nested_lowrank"] > 0)
     log(f"serve path: {cfg.name} d_model={cfg.d_model} heads={cfg.num_heads}/"
         f"{cfg.num_kv_heads} hd={cfg.head_dim} d_ff={cfg.d_ff} vocab="
@@ -682,8 +787,9 @@ def serve_path(torch, np, cfg, mixer: str, taps_per_layer: int):
     log(f"  launches {counts} expected {expect}; flash_attention by kernel {split}; "
         f"nested_lowrank by kernel {nsplit} expected {nested_expect} "
         f"{'OK' if nested_ok else 'FAIL'}; gram by kernel {gsplit} "
-        f"{'OK' if gram_ok else 'FAIL'}; finish reasons "
-        f"{sorted(set(reasons.values()))}")
+        f"{'OK' if gram_ok else 'FAIL'}; paged combine launches {combine} "
+        f"expected {combine_expect} ({n_splits} splits) {'OK' if combine_ok else 'FAIL'}; "
+        f"finish reasons {sorted(set(reasons.values()))}")
 
     toks = torch.as_tensor(np.stack([p[:15] for p in prompts]), device="cuda")
     nxt = torch.as_tensor([[int(p[15])] for p in prompts], device="cuda")
@@ -744,7 +850,9 @@ def serve_path(torch, np, cfg, mixer: str, taps_per_layer: int):
                    tokens=res["tokens"], tok_per_s=res["tok_per_s"], engine=st,
                    launches=counts, expected_launches=expect, flash_launches=split,
                    nested_launches=nsplit, expected_nested_launches=nested_expect,
-                   gram_launches=gsplit,
+                   gram_launches=gsplit, paged_splits=n_splits,
+                   paged_combine_launches=combine,
+                   expected_paged_combine_launches=combine_expect,
                    finish_reasons=reasons,
                    achieved_ratio=plan.achieved_ratio, factored_ratio=ratio,
                    step_logit_max_abs_err=step_err, step_logit_max_abs=step_scale,
@@ -903,7 +1011,7 @@ def main() -> int:
                 log(f"  ptxas[{name}]: {line.strip()}")
 
     nested = nested_phase(torch, nlr_ops, nlr_ref)
-    paged = paged_phase(torch, pa_ops, pa_ref)
+    paged = paged_phase(torch, np, pa_ops, pa_ref)
     grams = gram_phase(torch, gram_ops, gram_ref)
     flash = flash_phase(torch, fa_ops, fa_ref)
     rwkv = rwkv6_phase(torch, rwkv_ops, rwkv_ref)
@@ -948,7 +1056,8 @@ def main() -> int:
     picks = (
         ("nested_lowrank", nested_pick(8), nested_serve["stream"], nested_src, nested_tpu),
         ("nested_lowrank_mma", nested_pick(512), nested_serve["mma"], nested_src, nested_tpu),
-        ("paged_attention", next(r for r in paged if r["pool"] == "bfloat16"),
+        ("paged_attention", next(r for r in paged if r["kernel"] == "paged_attention"
+                                 and r["pool"] == "bfloat16" and r["case"] == "phase"),
          serve_counts["paged_attention"], "src/repro_torch/csrc/paged_attention.cu",
          "src/repro/kernels/paged_attention/paged_attention.py:243"),
         ("gram", next(r for r in grams if r["dtype"] == "bfloat16" and r["n"] == 14336),
@@ -965,6 +1074,15 @@ def main() -> int:
          rwkv_serve_counts["rwkv6"], "src/repro_torch/csrc/rwkv6.cu",
          "src/repro/kernels/rwkv6/rwkv6.py:105"),
     )
+    # The combine runs on the Mistral serve path when plan_splits gives its
+    # decode step's table more than one split: its entry is the serve case's
+    # combine alone (bf16), with that path's combine launches.
+    if summaries["serve"]["paged_combine_launches"]:
+        picks += (("paged_combine", next(r for r in paged if r["kernel"] == "paged_combine"
+                                         and r["case"] == "serve" and r["pool"] == "bfloat16"),
+                   summaries["serve"]["paged_combine_launches"],
+                   "src/repro_torch/csrc/paged_attention.cu",
+                   "src/repro/kernels/paged_attention/paged_attention.py:243"),)
     entries = []
     for name, row, launches, src, replaces in picks:
         entries.append({"name": name, "route": "cuda", "source": src,

@@ -295,6 +295,108 @@ def test_paged_kernel_matches_plain(dev, group, pool):
     assert (got[~live] == 0).all()  # a length-0 row reads nothing, writes 0
 
 
+# Per-element paged tolerance (chip_smoke.py's PAGED_ELEM_TOL): |kernel -
+# plain| <= tol * (|plain| + rms of that (row, head)'s output over hd), on
+# live rows.  bf16: the plain version rounds probabilities (and int8's
+# dequantized K/V) to bf16, the kernel keeps them in fp32, and the output
+# rounds once; fp32: sum order only.
+PAGED_ELEM_TOL = {torch.bfloat16: 2 ** -5, torch.float32: 1e-4}
+
+
+def _paged_split_case(case):
+    """(b, hkv, hd, lens, cols) of a split-edge case: rows ending at k*pps*bs
+    and one token either side (pps from plan_splits for the table), a table
+    4x wider than any row, one row of 8192 tokens, hd 64 and 256; every case
+    has a length-0 row."""
+    bs = 16
+    hd = {"hd64": 64, "hd256": 256}.get(case, 128)
+    if case == "long":
+        return 2, 2, hd, [8192, 0], 512
+    if case == "wide":
+        return 4, 2, hd, [5, 40, 100, 0], 4 * -(-100 // bs)
+    b, hkv, cols = 9, 2, 48
+    _, pps = pa_ops.plan_splits(b, hkv, cols)
+    k = pps * bs
+    return b, hkv, hd, [k - 1, k, k + 1, 2 * k - 1, 2 * k, 2 * k + 1, cols * bs, 1, 0], cols
+
+
+@pytest.mark.parametrize("case", ["edges", "wide", "long", "hd64", "hd256"])
+@pytest.mark.parametrize("group", [1, 4, 16])
+@pytest.mark.parametrize("pool", [torch.float32, torch.bfloat16, torch.int8])
+def test_paged_split_edges(dev, pool, group, case):
+    """The split kernel and its combine at ragged split edges, -1 table
+    tails, a long row and hd 64/128/256, against PAGED_TOL-style global and
+    PAGED_ELEM_TOL per-element checks; a length-0 row writes zeros."""
+    b, hkv, hd, lens, cols = _paged_split_case(case)
+    bs = 16
+    rng = np.random.default_rng(len(lens) * 100 + group + hd)
+    lens = np.asarray(lens, np.int32)
+    pages = [-(-int(n) // bs) for n in lens]
+    n = sum(pages) + 4
+    bt = np.full((b, cols), -1, np.int32)
+    blocks = iter(rng.permutation(n))
+    for r, p in enumerate(pages):
+        for j in range(p):
+            bt[r, j] = next(blocks)
+    qd = torch.float32 if pool == torch.float32 else torch.bfloat16
+    q = torch.as_tensor(rng.standard_normal((b, hkv * group, hd)) * 0.5, device=dev).to(qd)
+    ks = vs = None
+    if pool == torch.int8:
+        kp = torch.as_tensor(rng.integers(-127, 128, (n, bs, hkv, hd)), device=dev).to(pool)
+        vp = torch.as_tensor(rng.integers(-127, 128, (n, bs, hkv, hd)), device=dev).to(pool)
+        ks = torch.as_tensor(rng.uniform(0.001, 0.01, (n, bs, hkv)), device=dev).float()
+        vs = torch.as_tensor(rng.uniform(0.001, 0.01, (n, bs, hkv)), device=dev).float()
+    else:
+        kp = torch.as_tensor(rng.standard_normal((n, bs, hkv, hd)), device=dev).to(pool)
+        vp = torch.as_tensor(rng.standard_normal((n, bs, hkv, hd)), device=dev).to(pool)
+    btt, ln = torch.as_tensor(bt, device=dev), torch.as_tensor(lens, device=dev)
+    n_splits, _ = pa_ops.plan_splits(b, hkv, cols)
+    before = (pa_ops.launches, pa_ops.combine_launches)
+    got = pa_ops.paged_attention(q, kp, vp, btt, ln, ks, vs)
+    torch.cuda.synchronize()
+    assert (pa_ops.launches, pa_ops.combine_launches) == (before[0] + 1,
+                                                          before[1] + (n_splits > 1))
+    want = pa_ref.paged_attention_ref(q, kp, vp, btt, ln, ks, vs)
+    live = ln > 0
+    assert bool(torch.isfinite(got).all())
+    assert _err(got[live], want[live]) < (1e-5 if pool == torch.float32 else 2e-2)
+    assert _elem_err(got[live], want[live]) <= PAGED_ELEM_TOL[qd]
+    assert (got[~live] == 0).all()  # a length-0 row reads nothing, writes 0
+
+
+@pytest.mark.parametrize("qd", [torch.float32, torch.bfloat16])
+def test_paged_combine_alone_matches_plain(dev, qd):
+    """The combine kernel on the split kernel's partials against its plain
+    version on the same partials (the splits past a row's length are never
+    written, and neither version reads them)."""
+    b, hkv, hd, lens, cols = _paged_split_case("edges")
+    n_splits, pps = pa_ops.plan_splits(b, hkv, cols)
+    assert n_splits > 1
+    rng = np.random.default_rng(7)
+    n = sum(-(-x // 16) for x in lens) + 4
+    bt = np.full((b, cols), -1, np.int32)
+    blocks = iter(rng.permutation(n))
+    for r, x in enumerate(lens):
+        for j in range(-(-x // 16)):
+            bt[r, j] = next(blocks)
+    q = torch.as_tensor(rng.standard_normal((b, hkv * 4, hd)), device=dev).to(qd)
+    kp, vp = (torch.as_tensor(rng.standard_normal((n, 16, hkv, hd)), device=dev).to(qd)
+              for _ in range(2))
+    btt = torch.as_tensor(bt, device=dev)
+    ln = torch.as_tensor(np.asarray(lens, np.int32), device=dev)
+    acc, ml = pa_ops.split_partials(q, kp, vp, btt, ln, None, None, None, n_splits, pps)
+    before = pa_ops.combine_launches
+    got = pa_ops.combine(acc, ml, ln, 16, cols, pps, qd)
+    torch.cuda.synchronize()
+    assert pa_ops.combine_launches == before + 1
+    want = pa_ref.combine_partials_ref(acc, ml, ln, 16, cols, pps, qd)
+    live = ln > 0
+    assert _err(got[live], want[live]) < (1e-6 if qd == torch.float32 else 1e-2)
+    assert (got[~live] == 0).all()
+    full = pa_ops.paged_attention(q, kp, vp, btt, ln)
+    assert torch.equal(full, got)  # the same kernels, in one call
+
+
 # Gram tolerances (chip_smoke.py's GRAM_TOL and GRAM_ELEM_TOL): fp32 sums
 # of the same exact products (bf16 x bf16 is exact in fp32) in another
 # order, 1e-5 of the largest entry; and per entry 1e-4 (gamma_2048 in fp32)

@@ -2,7 +2,7 @@
 """One phase of chip_smoke.py on two trees of this repository, on one card,
 in turns: the other tree, this one, this one, the other.
 
-    python3 tools/nested_ab.py OTHER_ROOT [nested|gram|calibrate]
+    python3 tools/nested_ab.py OTHER_ROOT [nested|gram|paged|calibrate]
 
 OTHER_ROOT is another checkout (for example the parent commit, unpacked with
 ``git archive`` into a directory that .gitignore lists).  Each run is a
@@ -14,6 +14,11 @@ process of its own that builds that tree's kernels.  Phases:
              (bf16 and fp32, chip_smoke's inputs), device ms of one call
              from torch.profiler (the mean of 5), and whether it is within
              GRAM_TOL of the plain version;
+  paged      that tree's ``paged_attention`` at this tree's paged cases
+             (chip_smoke's PAGED_CASES and inputs, bf16 and int8 pools),
+             device ms of one call from torch.profiler (the mean of 5,
+             every kernel the call launches), and whether it is within
+             PAGED_TOL of the plain version on live rows;
   calibrate  that tree's whole ``chip_smoke.py``: the calibrate seconds of
              its four paths (and each path's seconds), from the
              chiprun_out/chip_smoke.json it writes.
@@ -79,6 +84,26 @@ for dname in ("bfloat16", "float32"):
                         ran=ran, ok=ok))
 print("RESULT " + json.dumps(out), flush=True)
 """
+RUN_PAGED = """
+import json, sys, numpy as np, torch
+sys.path[:0] = [{src!r}, {this!r}]
+import chip_smoke
+from repro_torch.kernels.paged_attention import ops, ref
+out = []
+for case, lens, cols in chip_smoke.PAGED_CASES:
+    for pool in ("bfloat16", "int8"):
+        q, kp, vp, ks, vs, bt, ln = chip_smoke.paged_inputs(torch, np, lens, pool, cols=cols)
+        live = ln > 0
+        got = ops.paged_attention(q, kp, vp, bt, ln, ks, vs)[live].float()
+        want = ref.paged_attention_ref(q, kp, vp, bt, ln, ks, vs)[live].float()
+        ok = bool((got - want).abs().max() <= chip_smoke.PAGED_TOL * want.abs().max())
+        dev = chip_smoke.profile_step(torch, lambda: [ops.paged_attention(
+            q, kp, vp, bt, ln, ks, vs) for _ in range(5)], quiet=True)["device_busy_ms"] / 5
+        out.append(dict(key=[case, pool], value=dev, ran="", ok=ok))
+        del q, kp, vp, ks, vs, got, want
+        torch.cuda.empty_cache()
+print("RESULT " + json.dumps(out), flush=True)
+"""
 PATHS = ("serve", "quality", "rwkv_serve", "rwkv_quality")
 
 
@@ -98,8 +123,8 @@ def run_script(root: str, phase: str) -> list:
             out.append(dict(key=[path, "path_s"], value=res["path_seconds"][path], ran="",
                             ok=p.returncode == 0))
         return out
-    template = RUN_NESTED if phase == "nested" else RUN_GRAM
-    code = template.format(root=root, src=os.path.join(root, "src"),
+    template = {"nested": RUN_NESTED, "gram": RUN_GRAM, "paged": RUN_PAGED}[phase]
+    code = template.format(root=root, src=os.path.join(root, "src"), this=ROOT,
                            shapes=list(chip_smoke.GRAM_SHAPES), tol=chip_smoke.GRAM_TOL)
     p = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
                        timeout=900)
@@ -111,7 +136,7 @@ def run_script(root: str, phase: str) -> list:
 
 def main() -> int:
     if len(sys.argv) not in (2, 3) or (sys.argv[2:] and sys.argv[2] not in
-                                       ("nested", "gram", "calibrate")):
+                                       ("nested", "gram", "paged", "calibrate")):
         print(__doc__, file=sys.stderr)
         return 2
     other = os.path.abspath(sys.argv[1])
