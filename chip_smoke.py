@@ -23,7 +23,8 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
      and at the serve path's decode step, bf16 and int8 pools, with the
      split plan, which kernels ran, the device time of one call and of SDPA,
      the achieved bytes/s, and the combine kernel alone against its plain
-     version on the split kernel's partials);
+     version on the split kernel's partials; rwkv6: also a per-element check
+     of y and of the final state, and the device time of one call);
   4. serve path: ``serve()`` on mistral-7b at full width (depth cut to 2
      layers, random weights from a seed): calibrate, NSVD-compress (nsvd1,
      ratio 0.2, bf16 factors) and serve 8 requests, with the kernels' launch
@@ -45,9 +46,10 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
      calibrate (gram, rwkv6), compress, serve the same 8 requests (each
      admission one exact-length prefill through rwkv6 and, above 16 rows,
      the nested mma kernel; decode through the nested stream kernel), launch
-     counts read around it; then one dense decode step's logits through the
-     kernels against the plain versions, and profiles of that step and of
-     the longest prompt's admission;
+     counts read around it (every rwkv6 launch on 16-byte copies); then one
+     dense decode step's logits through the kernels against the plain
+     versions, and profiles of that step and of the longest prompt's
+     admission;
   7. RWKV-6 quality path: ``build_entry`` on the same model, one (4, 2048)
      eval batch per domain, every causal forward through rwkv6.
 Prints a JSON kernel summary, nvidia-smi's line, and as its last line
@@ -154,12 +156,26 @@ RWKV_SHAPES = (("eval", 128, 2048, 64, "float32", None),
                ("extreme", 32, 200, 64, "float32", 1e-6),
                ("eval", 128, 2048, 64, "bfloat16", None))
 # Max |kernel - plain| / max |plain| for y and for the fp32 final state.
-# fp32: the chunked form (exp of cumulated log-decays) vs the sequential
-# scan's running products, summed in another order.  bf16: inputs widen
-# exactly and both sides compute in fp32, then each rounds y to bf16 on its
-# own: one bf16 ulp (2^-8) of the output; the state keeps the fp32 bound.
+# fp32: the same recurrence, y summed over K in another order.  bf16:
+# inputs widen exactly and both sides compute in fp32, then each rounds y
+# to bf16 on its own: one bf16 ulp (2^-8) of the output; the state keeps
+# the fp32 bound.
 RWKV_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 RWKV_STATE_TOL = 1e-4
+# Per element, |kernel - plain| / (|plain| + rms of the row: y over its K
+# columns, the state over its V columns).  y, fp32: the two sum r.(S + u k
+# v) in other orders, and a row is small where that sum cancels -- at t = 0,
+# y_0 = (r.(u*k)) v_0, so the whole row scales with one dot product -- and
+# both sides then carry fp32 rounding of the uncancelled terms: at the calib
+# case the plain scan alone is 7.0e-5 from an fp64 scan and the kernel
+# 2.4e-5 (kernel vs plain 9.4e-5), and kernel vs plain reached 4.0e-4 on
+# other seeded inputs (H100 runs); 2e-3 allowed.  y, bf16: each side rounds
+# y to bf16 on its own, at most one ulp apart (2^-7 of |plain| where the
+# fp32 values straddle a rounding point); two allowed.  The state: the
+# kernel rounds each step as the plain scan does (0 measured); 1e-4, the
+# global bound, covers a plain version that fuses a multiply-add.
+RWKV_ELEM_TOL = {"float32": 2e-3, "bfloat16": 2 ** -6}
+RWKV_STATE_ELEM_TOL = 1e-4
 DEVICE_REPS = 5  # calls a nested row's profiled device time is the mean of
 
 
@@ -545,17 +561,22 @@ def flash_phase(torch, ops, ref):
     return rows_out
 
 
+def rwkv6_inputs(torch, gen, bh, t, k, dname, w_fixed):
+    """r, k, v, w (BH, T, K) in ``dname`` and u (BH, K) fp32, drawn from
+    ``gen``: decays uniform in (0.01, 0.999), or all ``w_fixed``."""
+    r, kk, v = (torch.randn((bh, t, k), generator=gen, device="cuda") * 0.5
+                for _ in range(3))
+    w = (torch.full((bh, t, k), w_fixed, device="cuda") if w_fixed is not None
+         else torch.rand((bh, t, k), generator=gen, device="cuda") * 0.989 + 0.01)
+    u = torch.randn((bh, k), generator=gen, device="cuda") * 0.5
+    return [x.to(getattr(torch, dname)) for x in (r, kk, v, w)] + [u]
+
+
 def rwkv6_phase(torch, ops, ref):
     rows_out = []
     gen = torch.Generator(device="cuda").manual_seed(4)
     for case, bh, t, k, dname, w_fixed in RWKV_SHAPES:
-        dt = getattr(torch, dname)
-        r, kk, v = (torch.randn((bh, t, k), generator=gen, device="cuda") * 0.5
-                    for _ in range(3))
-        w = (torch.full((bh, t, k), w_fixed, device="cuda") if w_fixed is not None
-             else torch.rand((bh, t, k), generator=gen, device="cuda") * 0.989 + 0.01)
-        u = torch.randn((bh, k), generator=gen, device="cuda") * 0.5
-        args = [x.to(dt) for x in (r, kk, v, w)] + [u]
+        args = rwkv6_inputs(torch, gen, bh, t, k, dname, w_fixed)
         got, got_s = ops.rwkv6_attention(*args, return_state=True)
         want, want_s = ref.rwkv6_scan_ref(*args, return_state=True)
         torch.cuda.synchronize()
@@ -563,30 +584,42 @@ def rwkv6_phase(torch, ops, ref):
         scale = float(want.float().abs().max())
         s_err = float((got_s - want_s).abs().max())
         s_scale = float(want_s.abs().max())
+        e_err = elem_err(torch, got, want)
+        s_e_err = elem_err(torch, got_s, want_s)
         ok = (bool(torch.isfinite(got).all()) and bool(torch.isfinite(got_s).all())
-              and err <= RWKV_TOL[dname] * scale and s_err <= RWKV_STATE_TOL * s_scale)
+              and err <= RWKV_TOL[dname] * scale and s_err <= RWKV_STATE_TOL * s_scale
+              and e_err <= RWKV_ELEM_TOL[dname] and s_e_err <= RWKV_STATE_ELEM_TOL)
         del got, want, got_s, want_s
         with_state = case == "prefill"  # as the path calls it
         ms = time_ms(lambda: ops.rwkv6_attention(*args, return_state=with_state))
         plain = time_ms(lambda: ref.rwkv6_scan_ref(*args, return_state=with_state), reps=3)
+        # Device time of one call (the event ms include the wrapper's host
+        # time), the mean of DEVICE_REPS.
+        dev = profile_step(torch, lambda: [ops.rwkv6_attention(
+            *args, return_state=with_state) for _ in range(DEVICE_REPS)],
+            quiet=True)["device_busy_ms"] / DEVICE_REPS
         el = args[0].element_size()
         nbytes = (5 * bh * t * k * el + 4 * bh * k
                   + (4 * bh * k * k if with_state else 0))
-        # As the chunked form executes it, per token: the cross and state
-        # products (2 K^2 each), the intra-chunk matrix and its product
-        # (2 L K each), the bonus (4 K).
-        flops = bh * t * (4 * k * k + 4 * ops.CHUNK * k + 4 * k)
+        # Per token: y = r (S + diag(u) k^T v) and S = diag(w) S + k^T v, a
+        # multiply-add each for every element of S (4 K^2), and the bonus
+        # r . (u * k) (4 K).
+        flops = bh * t * (4 * k * k + 4 * k)
         bnd, by = bound_ms(nbytes, flops, dname)
         row = dict(kernel="rwkv6", case=case, dtype=dname, BH=bh, T=t, K=k,
                    w=w_fixed, with_state=with_state, max_abs_err=err,
                    ref_max_abs=scale, tol=RWKV_TOL[dname] * scale,
-                   state_max_abs_err=s_err, state_tol=RWKV_STATE_TOL * s_scale, ok=ok,
-                   ms=ms, plain_ms=plain, library_ms=None, bytes=nbytes, flops=flops,
-                   bound_ms=bnd, bound_by=by)
+                   state_max_abs_err=s_err, state_tol=RWKV_STATE_TOL * s_scale,
+                   elem_err=e_err, state_elem_err=s_e_err, elem_tol=RWKV_ELEM_TOL[dname],
+                   state_elem_tol=RWKV_STATE_ELEM_TOL, ok=ok, ms=ms, device_ms=dev,
+                   plain_ms=plain, library_ms=None, bytes=nbytes, flops=flops,
+                   bound_ms=bnd, bound_by=by, bound_share=bnd / dev)
         rows_out.append(row)
         log(f"rwkv6  {dname:8s} {case:7s} BH={bh:<3d} T={t:<4d} K={k} err={err:.3e} (tol "
-            f"{row['tol']:.3e}) state err={s_err:.3e} (tol {row['state_tol']:.3e}) "
-            f"{'OK' if ok else 'FAIL'}  kernel {ms:.3f} ms  plain {plain:.3f} ms  "
+            f"{row['tol']:.3e}) state err={s_err:.3e} (tol {row['state_tol']:.3e}) elem err "
+            f"{e_err:.3e} state {s_e_err:.3e} (tol {RWKV_ELEM_TOL[dname]:.1e}/"
+            f"{RWKV_STATE_ELEM_TOL:.1e}) {'OK' if ok else 'FAIL'}  kernel {ms:.3f} ms, "
+            f"device {dev:.4f} ms ({bnd / dev:.1%} of bound)  plain {plain:.3f} ms  "
             f"library none  bound {bnd:.4f} ms ({by}, {nbytes / 1e6:.1f} MB)")
     return rows_out
 
@@ -608,6 +641,8 @@ def reset_counts() -> None:
     gram = _ops("gram")
     gram.mma_launches = gram.fma_launches = 0
     _ops("paged_attention").combine_launches = 0
+    rw = _ops("rwkv6")
+    rw.vec16_launches = rw.vec4_launches = 0
 
 
 def read_counts() -> dict:
@@ -620,6 +655,14 @@ def flash_split_ok(counts: dict) -> tuple:
     fa = _ops("flash_attention")
     split = {"tensor_core": fa.tensor_core_launches, "cuda_core": fa.cuda_core_launches}
     return split, split == {"tensor_core": counts["flash_attention"], "cuda_core": 0}
+
+
+def rwkv6_split_ok(counts: dict) -> tuple:
+    """rwkv6's launches by copy width since ``reset_counts``, and whether
+    every one took 16-byte copies (the model's permuted views are aligned)."""
+    rw = _ops("rwkv6")
+    split = {"vec16": rw.vec16_launches, "vec4": rw.vec4_launches}
+    return split, split == {"vec16": counts["rwkv6"], "vec4": 0}
 
 
 def nested_split() -> dict:
@@ -721,6 +764,7 @@ def serve_path(torch, np, cfg, mixer: str, taps_per_layer: int):
                 prompts=prompts)
     counts = read_counts()
     split, split_ok = flash_split_ok(counts)
+    rsplit, rsplit_ok = rwkv6_split_ok(counts)
     nsplit = nested_split()
     gsplit = gram_split()
     gram_ok = gsplit == {"mma": counts["gram"], "fma": 0}  # every tap is bf16
@@ -772,8 +816,8 @@ def serve_path(torch, np, cfg, mixer: str, taps_per_layer: int):
           and all(1 <= len(v) <= 32 for v in outs.values())
           and all(0 <= t < cfg.vocab_size for v in outs.values() for t in v)
           and syncs_ok and abs(ratio - plan.achieved_ratio) < 1e-9
-          and counts == expect and split_ok and nested_ok and gram_ok and combine_ok
-          and expect["nested_lowrank"] > 0)
+          and counts == expect and split_ok and rsplit_ok and nested_ok and gram_ok
+          and combine_ok and expect["nested_lowrank"] > 0)
     log(f"serve path: {cfg.name} d_model={cfg.d_model} heads={cfg.num_heads}/"
         f"{cfg.num_kv_heads} hd={cfg.head_dim} d_ff={cfg.d_ff} vocab="
         f"{cfg.vocab_size} layers={layers} (depth cut); cache layout {eng.layout}")
@@ -789,6 +833,7 @@ def serve_path(torch, np, cfg, mixer: str, taps_per_layer: int):
         f"{'OK' if nested_ok else 'FAIL'}; gram by kernel {gsplit} "
         f"{'OK' if gram_ok else 'FAIL'}; paged combine launches {combine} "
         f"expected {combine_expect} ({n_splits} splits) {'OK' if combine_ok else 'FAIL'}; "
+        f"rwkv6 by copy width {rsplit} {'OK' if rsplit_ok else 'FAIL'}; "
         f"finish reasons {sorted(set(reasons.values()))}")
 
     toks = torch.as_tensor(np.stack([p[:15] for p in prompts]), device="cuda")
@@ -849,6 +894,7 @@ def serve_path(torch, np, cfg, mixer: str, taps_per_layer: int):
                    prompt_lengths=plens.tolist(), seconds=res["seconds"],
                    tokens=res["tokens"], tok_per_s=res["tok_per_s"], engine=st,
                    launches=counts, expected_launches=expect, flash_launches=split,
+                   rwkv6_launches=rsplit,
                    nested_launches=nsplit, expected_nested_launches=nested_expect,
                    gram_launches=gsplit, paged_splits=n_splits,
                    paged_combine_launches=combine,
@@ -887,6 +933,7 @@ def quality_path(torch, np, cfg, eval_n: int, taps_per_layer: int, mixer: str):
                         calib_samples=256, attribution_batches=attr_n, params=params)
     counts = read_counts()
     split, split_ok = flash_split_ok(counts)
+    rsplit, rsplit_ok = rwkv6_split_ok(counts)
     gsplit = gram_split()
     gram_ok = gsplit == {"mma": counts["gram"], "fma": 0}  # every tap is bf16
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -908,7 +955,7 @@ def quality_path(torch, np, cfg, eval_n: int, taps_per_layer: int, mixer: str):
                entry["activation_similarity"]["mean"], *tot.values()]
     finite = all(math.isfinite(float(x)) for x in numbers)
     ratio_ok = abs(tot["achieved_ratio"] - entry["achieved_ratio"]) < 1e-9
-    ok = (finite and ratio_ok and counts == expect and split_ok and gram_ok
+    ok = (finite and ratio_ok and counts == expect and split_ok and rsplit_ok and gram_ok
           and len(entry["attribution"]) == n_targets)
     log(f"quality path: {cfg.name} layers={cfg.num_layers} (depth cut), eval batches "
         f"{eval_n} x ({eval_b}, {eval_s}) per domain; peak device memory {peak_gb:.1f} GB")
@@ -922,8 +969,8 @@ def quality_path(torch, np, cfg, eval_n: int, taps_per_layer: int, mixer: str):
     log(f"  attribution top: {entry['attribution'][:2]}; activation similarity "
         f"{entry['activation_similarity']}")
     log(f"  launches {counts} expected {expect}; flash_attention by kernel {split}; "
-        f"gram by kernel {gsplit} {'OK' if gram_ok else 'FAIL'}; all numbers finite: "
-        f"{finite}")
+        f"gram by kernel {gsplit} {'OK' if gram_ok else 'FAIL'}; rwkv6 by copy width "
+        f"{rsplit} {'OK' if rsplit_ok else 'FAIL'}; all numbers finite: {finite}")
 
     # One eval batch's dense logits through the kernels vs the plain versions.
     toks = torch.as_tensor(next(eval_batches(cfg.vocab_size, "en_a", 1, eval_b, eval_s)),
@@ -960,6 +1007,7 @@ def quality_path(torch, np, cfg, eval_n: int, taps_per_layer: int, mixer: str):
     del store
     summary = dict(config=cfg.name, layers=cfg.num_layers, entry=entry, launches=counts,
                    expected_launches=expect, flash_launches=split, gram_launches=gsplit,
+                   rwkv6_launches=rsplit,
                    peak_memory_gb=peak_gb,
                    eval_profile=prof_eval, calib_profile=prof_calib,
                    eval_logit_max_abs_err=err, eval_logit_max_abs=scale,

@@ -1,6 +1,6 @@
-// cp.async, ldmatrix and mma.sync helpers for the tensor-core kernels
-// (sm_90a).  flash_attention.cu and nested_lowrank.cu still carry their own
-// copies, whose signatures differ.
+// cp.async, ldmatrix and mma.sync helpers for the port's kernels (sm_90a).
+// flash_attention.cu and nested_lowrank.cu still carry their own copies,
+// whose signatures differ.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -14,6 +14,11 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool full) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(full ? 16 : 0));
+}
+// 4 bytes global -> shared (the path for rows not 16-byte aligned).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(full ? 4 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 // Wait until at most N of this thread's committed groups are in flight.

@@ -68,11 +68,6 @@ constexpr int STAGES = 2;
 constexpr int MAX_SMEM = 227 * 1024;
 constexpr int MAX_SPLITS = 1024;  // splits a row the combine takes
 
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool full) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(full ? 4 : 0));
-}
-
 // N (2, 4 or 8) consecutive elements of a shared-memory row, aligned to
 // N elements, widened to fp32.
 template <int N>

@@ -9,22 +9,75 @@ broadcast (B, H, K) view of the per-head bonus.
 
 On the CPU (or inside ``kernels.plain()``) both are the plain sequential
 scan in ``ref.py``; on a CUDA tensor they launch the kernel or raise.  The
-kernel masks a ragged T itself: nothing is padded here.
+kernel masks a ragged T itself: nothing is padded here.  ``plan`` is the
+launch the kernel makes (cluster, blocks, the rows and columns each block
+owns, the copy width), kept here as a pure function so that the CPU tests
+reach it.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
+from typing import Sequence
 
 import torch
 
 from .. import build, check_launch, use_plain
 from .ref import rwkv6_scan_ref
 
-CHUNK = 16  # tokens per chunk in the kernel (the TPU kernel's default)
 HEAD_DIMS = (8, 16, 32, 64)  # K the kernel instantiates
+SLICE = 16  # rows of S (and columns of y) one block owns
 
 launches = 0  # kernel launches (one per wrapper call that runs the kernel)
+vec16_launches = 0  # of those, with 16-byte cp.async copies
+vec4_launches = 0  # with 4-byte copies (other strides or bases)
+
+
+@dataclass(frozen=True)
+class Plan:
+    """The kernel's launch for one call (csrc/rwkv6.cu: ``Shape``, ``launch``)."""
+
+    kd: int  # K
+    cluster: int  # blocks a head, one cluster: K / 16, 1 for K <= 16
+    threads: int  # threads a block
+    vec: int  # bytes a cp.async copies: 16, 4, or 0 (inputs must be copied first)
+
+    @property
+    def rows(self) -> int:
+        """Rows of S (columns of r, k, w, u) a block owns; also the columns
+        of y it sums and writes."""
+        return self.kd // self.cluster
+
+    def blocks(self, heads: int) -> int:
+        return heads * self.cluster
+
+    def owned(self, block: int):
+        """(head, rows of S, columns of y) of block ``block`` of the grid."""
+        head, rank = divmod(block, self.cluster)
+        span = range(rank * self.rows, (rank + 1) * self.rows)
+        return head, span, span
+
+
+def plan(shape: Sequence[int], elsize: int, ptrs: Sequence[int],
+         strides: Sequence[int]) -> Plan:
+    """The launch for inputs of ``shape`` (B, H, T, K) with elements of
+    ``elsize`` bytes at ``ptrs``, sharing the element strides ``strides``
+    (b, h, t; unit along K): 16-byte copies when every base, and the stride
+    of every dimension longer than 1, is a multiple of 16 bytes; 4-byte ones
+    when of 4; else 0 (a bf16 view at an odd element offset or stride)."""
+    kd = shape[3]
+    if kd not in HEAD_DIMS:
+        raise ValueError(f"rwkv6: K={kd} (the kernel takes {HEAD_DIMS})")
+    bits = 0
+    for p in ptrs:
+        bits |= int(p)
+    for n, st in zip(shape[:3], strides[:3]):
+        if n > 1:
+            bits |= int(st) * elsize
+    vec = 16 if bits % 16 == 0 else 4 if bits % 4 == 0 else 0
+    return Plan(kd=kd, cluster=max(1, kd // SLICE), threads=128 if kd >= 32 else 4 * kd,
+                vec=vec)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
@@ -35,7 +88,7 @@ def _launcher():
     if _fn is None:
         fn = build.load("rwkv6").rwkv6_launch
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                       + [ctypes.c_longlong] * 8 + [ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_longlong] * 8 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -64,8 +117,6 @@ def rwkv6_heads(r, k, v, w, u, return_state: bool = False):
     if any(x.shape != r.shape for x in (k, v, w)) or u.shape != (b, h, kd):
         raise ValueError(f"rwkv6: r{tuple(r.shape)} k{tuple(k.shape)} v{tuple(v.shape)} "
                          f"w{tuple(w.shape)} u{tuple(u.shape)}")
-    if kd not in HEAD_DIMS:
-        raise ValueError(f"rwkv6: K={kd} (the kernel takes {HEAD_DIMS})")
     if r.dtype not in _DTYPES or any(x.dtype != r.dtype for x in (k, v, w)):
         raise TypeError(f"rwkv6: dtypes {r.dtype}/{k.dtype}/{v.dtype}/{w.dtype}")
     if any(x.device != r.device for x in (k, v, w, u)):
@@ -73,6 +124,10 @@ def rwkv6_heads(r, k, v, w, u, return_state: bool = False):
     ins = (r, k, v, w)
     if r.stride(-1) != 1 or any(x.stride() != r.stride() for x in ins):
         ins = tuple(x.contiguous() for x in ins)
+    launch = plan(r.shape, r.element_size(), [x.data_ptr() for x in ins], ins[0].stride())
+    if launch.vec == 0:  # rows not even 4-byte aligned: fresh (aligned) copies
+        ins = tuple(x.clone(memory_format=torch.contiguous_format) for x in ins)
+        launch = plan(r.shape, r.element_size(), [x.data_ptr() for x in ins], ins[0].stride())
     uf = u.float()
     if uf.stride(-1) != 1:
         uf = uf.contiguous()
@@ -83,12 +138,16 @@ def rwkv6_heads(r, k, v, w, u, return_state: bool = False):
         if state is not None:
             state.zero_()
         return (y, state) if return_state else y
-    global launches
+    global launches, vec16_launches, vec4_launches
     stream = torch.cuda.current_stream(r.device).cuda_stream
     err = _launcher()(*(x.data_ptr() for x in ins), uf.data_ptr(), y.data_ptr(),
                       None if state is None else state.data_ptr(), b, h, t_len, kd,
                       *ins[0].stride()[:3], *uf.stride()[:2], *y.stride()[:3],
-                      _DTYPES[r.dtype], stream)
+                      _DTYPES[r.dtype], launch.vec, stream)
     check_launch(err, "rwkv6")
     launches += 1
+    if launch.vec == 16:
+        vec16_launches += 1
+    else:
+        vec4_launches += 1
     return (y, state) if return_state else y

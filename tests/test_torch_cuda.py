@@ -672,20 +672,39 @@ def _rwkv_inputs(dev, bh, t, k, dtype, seed, w_value=None):
     return [x.to(dtype) for x in (r, kk, v, w)] + [u]
 
 
-# fp32: the chunked form sums in another order than the sequential scan
-# (exp of cumulated log-decays vs running products): 1e-4 of the largest
-# value.  bf16: inputs widen exactly and both sides compute in fp32, then
-# round y to bf16 on their own (one bf16 ulp, 2^-8 relative); the fp32
-# state keeps the fp32 tolerance.
+# fp32: the same recurrence as the sequential scan, y summed over K in
+# another order: 1e-4 of the largest value.  bf16: inputs widen exactly and
+# both sides compute in fp32, then round y to bf16 on their own (one bf16
+# ulp, 2^-8 relative); the fp32 state keeps the fp32 tolerance.
 RWKV_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# Per element (chip_smoke.py's RWKV_ELEM_TOL, RWKV_STATE_ELEM_TOL): |kernel
+# - plain| <= tol * (|plain| + rms of the row), for y over its K columns and
+# for the fp32 state over its V columns.  y, fp32: rows whose sums cancel
+# (y_0 scales with one dot product r.(u*k)) carry both sides' fp32 rounding
+# (measured up to 4.0e-4); bf16: each side rounds y to bf16 on its own (at
+# most one ulp, 2^-7 of |plain|, apart), two allowed.  State: each step
+# rounded as the plain scan rounds it.
+RWKV_ELEM_TOL = {torch.float32: 2e-3, torch.bfloat16: 2 ** -6}
+RWKV_STATE_ELEM_TOL = 1e-4
+
+
+def _rwkv_checks(y, s, wy, ws, dtype):
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+    assert _err(y, wy) < RWKV_TOL[dtype]
+    assert _err(s, ws) < 1e-4
+    assert _elem_err(y, wy) <= RWKV_ELEM_TOL[dtype]
+    assert _elem_err(s, ws) <= RWKV_STATE_ELEM_TOL
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bh,t,k", [(2, 40, 16), (1, 5, 8), (3, 37, 32), (32, 200, 64),
-                                    (4, 16, 64), (2, 1, 64)])
+                                    (4, 16, 64), (2, 1, 64), (3, 15, 8), (3, 17, 8),
+                                    (3, 31, 16), (3, 33, 16), (3, 15, 64), (3, 17, 64),
+                                    (3, 33, 64), (3, 100, 64)])
 def test_rwkv6_kernel_matches_plain(dev, bh, t, k, dtype):
-    """Ragged T (not a multiple of the 16-token chunk, and T < 16), every
-    instantiated K, y and the final state."""
+    """Ragged T (below one 16-token chunk and just past chunk boundaries),
+    every instantiated K (clusters of one block at K 8 and 16, of two and
+    four at 32 and 64), y and the final state, globally and per element."""
     args = _rwkv_inputs(dev, bh, t, k, dtype, seed=t * k)
     before = rwkv_ops.launches
     y, s = rwkv_ops.rwkv6_attention(*args, return_state=True)
@@ -693,8 +712,7 @@ def test_rwkv6_kernel_matches_plain(dev, bh, t, k, dtype):
     assert rwkv_ops.launches == before + 1
     assert y.dtype == dtype and s.dtype == torch.float32
     wy, ws = rwkv_ref.rwkv6_scan_ref(*args, return_state=True)
-    assert _err(y, wy) < RWKV_TOL[dtype]
-    assert _err(s, ws) < 1e-4
+    _rwkv_checks(y, s, wy, ws, dtype)
 
 
 def test_rwkv6_kernel_extreme_decay(dev):
@@ -702,9 +720,78 @@ def test_rwkv6_kernel_extreme_decay(dev):
     args = _rwkv_inputs(dev, 4, 64, 64, torch.float32, seed=9, w_value=1e-6)
     y, s = rwkv_ops.rwkv6_attention(*args, return_state=True)
     torch.cuda.synchronize()
-    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
     wy, ws = rwkv_ref.rwkv6_scan_ref(*args, return_state=True)
-    assert _err(y, wy) < 1e-4 and _err(s, ws) < 1e-4
+    _rwkv_checks(y, s, wy, ws, torch.float32)
+
+
+def _offset_views(args, offset):
+    """Copies of r, k, v, w that start ``offset`` elements into a buffer."""
+    views = []
+    for x in args[:4]:
+        buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+        view = buf[offset:].view(x.shape)
+        view.copy_(x)
+        views.append(view)
+    return views
+
+
+@pytest.mark.parametrize("k", [16, 32, 64])
+@pytest.mark.parametrize("dtype,offset", [(torch.float32, 1), (torch.float32, 2),
+                                          (torch.bfloat16, 2), (torch.bfloat16, 6)])
+def test_rwkv6_kernel_four_byte_copies(dev, dtype, offset, k):
+    """Bases 4-12 bytes off 16-byte alignment take the 4-byte copy path of
+    the same kernel (one launch, counted as such), with the same results."""
+    args = _rwkv_inputs(dev, 3, 45, k, dtype, seed=offset + k)
+    views = _offset_views(args, offset)
+    v4, n = rwkv_ops.vec4_launches, rwkv_ops.launches
+    y, s = rwkv_ops.rwkv6_attention(*views, args[4], return_state=True)
+    torch.cuda.synchronize()
+    assert (rwkv_ops.vec4_launches - v4, rwkv_ops.launches - n) == (1, 1)
+    wy, ws = rwkv_ref.rwkv6_scan_ref(*args, return_state=True)
+    _rwkv_checks(y, s, wy, ws, dtype)
+
+
+def test_rwkv6_kernel_four_byte_copies_odd_t_stride(dev):
+    """(B, T, H, K+1) storage sliced to K: the T stride is H (K + 1) floats,
+    not a multiple of 16 bytes, so the views are read by 4-byte copies."""
+    b, t, h, k = 2, 37, 3, 64
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = [torch.randn((b, t, h, k + 1), generator=g, device=dev)[..., :k] for _ in range(3)]
+    x.append((torch.rand((b, t, h, k + 1), generator=g, device=dev) * 0.9 + 0.05)[..., :k])
+    heads = [a.permute(0, 2, 1, 3) for a in x]
+    u = torch.randn((b, h, k), generator=g, device=dev)
+    v4 = rwkv_ops.vec4_launches
+    y, s = rwkv_ops.rwkv6_heads(*heads, u, return_state=True)
+    with kernels.plain():
+        wy, ws = rwkv_ops.rwkv6_heads(*heads, u, return_state=True)
+    torch.cuda.synchronize()
+    assert rwkv_ops.vec4_launches == v4 + 1
+    _rwkv_checks(y, s, wy, ws, torch.float32)
+
+
+def test_rwkv6_kernel_copies_odd_bf16_offset(dev):
+    """bf16 views at an odd element offset fit neither copy width: the
+    wrapper copies them into fresh tensors, then takes 16-byte copies."""
+    args = _rwkv_inputs(dev, 2, 40, 64, torch.bfloat16, seed=11)
+    views = _offset_views(args, 1)
+    v16 = rwkv_ops.vec16_launches
+    y, s = rwkv_ops.rwkv6_attention(*views, args[4], return_state=True)
+    torch.cuda.synchronize()
+    assert rwkv_ops.vec16_launches == v16 + 1
+    wy, ws = rwkv_ref.rwkv6_scan_ref(*args, return_state=True)
+    _rwkv_checks(y, s, wy, ws, torch.bfloat16)
+
+
+def test_rwkv6_kernel_raises_on_what_it_does_not_take(dev):
+    """K outside the instantiated set, or fp16, raise: no plain fallback."""
+    args = _rwkv_inputs(dev, 2, 20, 24, torch.float32, seed=1)
+    n = rwkv_ops.launches
+    with pytest.raises(ValueError):
+        rwkv_ops.rwkv6_attention(*args)
+    args = _rwkv_inputs(dev, 2, 20, 64, torch.float16, seed=1)
+    with pytest.raises(TypeError):
+        rwkv_ops.rwkv6_attention(*args)
+    assert rwkv_ops.launches == n
 
 
 def test_rwkv6_kernel_reads_model_layout_in_place(dev):
@@ -716,12 +803,14 @@ def test_rwkv6_kernel_reads_model_layout_in_place(dev):
     x.append(torch.rand((b, t, h, k), generator=g, device=dev) * 0.9 + 0.05)
     heads = [a.permute(0, 2, 1, 3) for a in x]
     u = torch.randn((h, k), generator=g, device=dev).expand(b, h, k)
+    v16 = rwkv_ops.vec16_launches
     y, s = rwkv_ops.rwkv6_heads(*heads, u, return_state=True)
     with kernels.plain():
         wy, ws = rwkv_ops.rwkv6_heads(*heads, u, return_state=True)
     torch.cuda.synchronize()
     assert y.stride() == heads[0].stride()
-    assert _err(y, wy) < 1e-4 and _err(s, ws) < 1e-4
+    assert rwkv_ops.vec16_launches == v16 + 1  # the model's views take 16-byte copies
+    _rwkv_checks(y, s, wy, ws, torch.float32)
 
 
 def _rwkv_card_model(dev):

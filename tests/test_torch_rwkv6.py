@@ -33,6 +33,7 @@ from repro_torch.calib.runner import collect_grams
 from repro_torch.configs import get_config
 from repro_torch.core import CompressionConfig, GramStore, build_plan, compress_params
 from repro_torch.core.lowrank import dense_equivalent
+from repro_torch.kernels.rwkv6 import ops as rwkv_ops
 from repro_torch.kernels.rwkv6.ops import rwkv6_attention, rwkv6_heads
 from repro_torch.kernels.rwkv6.ref import rwkv6_scan_ref
 from repro_torch.models import build_model, rwkv6
@@ -133,6 +134,79 @@ def test_heads_layout_reads_model_layout():
     flat = [x.permute(0, 2, 1, 3).reshape(b * h, t, k) for x in (r, kk, v, w)]
     wy, ws = rwkv6_scan_ref(*flat, bonus.repeat(b, 1), return_state=True)
     assert torch.equal(y.reshape(b * h, t, k), wy) and torch.equal(s.reshape(b * h, k, k), ws)
+
+
+# ------------------------------------------------------------ launch plan
+
+@pytest.mark.parametrize("heads", [1, 3])
+@pytest.mark.parametrize("k", rwkv_ops.HEAD_DIMS)
+def test_plan_covers_every_head_row_and_column_once(k, heads):
+    """Every (head, row of S) and every (head, column of y) belongs to
+    exactly one block; a head's blocks are one cluster of K/16 (one block
+    for K <= 16), consecutive in the grid, as the cluster launch groups
+    them."""
+    p = rwkv_ops.plan((1, heads, 40, k), 4, [0] * 4, [0, 40 * k, k])
+    assert p.cluster == max(1, k // 16) and p.blocks(heads) == heads * p.cluster
+    assert p.threads == (128 if k >= 32 else 4 * k) and p.threads % 32 == 0
+    rows, cols = {}, {}
+    for block in range(p.blocks(heads)):
+        head, own_rows, own_cols = p.owned(block)
+        assert head == block // p.cluster
+        for j in own_rows:
+            rows[(head, j)] = rows.get((head, j), 0) + 1
+        for c in own_cols:
+            cols[(head, c)] = cols.get((head, c), 0) + 1
+    every = {(hd, j) for hd in range(heads) for j in range(k)}
+    assert set(rows) == every and set(rows.values()) == {1}
+    assert set(cols) == every and set(cols.values()) == {1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [16, 64])
+def test_plan_model_layout_and_contiguous_take_16_byte_copies(k, dtype):
+    """The model's permuted (B, T, H, K) views (T stride H K) and contiguous
+    (B, H, T, K) tensors: 16-byte copies."""
+    b, t, h = 2, 37, 4
+    model = torch.zeros((b, t, h, k), dtype=dtype).permute(0, 2, 1, 3)
+    flat = torch.zeros((b, h, t, k), dtype=dtype)
+    for x in (model, flat, flat[:, :, 16:], flat[1:]):
+        p = rwkv_ops.plan(x.shape, x.element_size(), [x.data_ptr()] * 4, x.stride())
+        assert p.vec == 16, (x.shape, x.stride())
+
+
+@pytest.mark.parametrize("dtype,offset,vec", [
+    (torch.float32, 1, 4), (torch.float32, 3, 4), (torch.bfloat16, 2, 4),
+    (torch.bfloat16, 1, 0), (torch.bfloat16, 3, 0)])
+def test_plan_offset_view_takes_narrow_copies(dtype, offset, vec):
+    """A view ``offset`` elements into its storage: 4-byte copies when the
+    base is 4-byte aligned, else none (the wrapper copies the inputs)."""
+    buf = torch.zeros(2 * 3 * 20 * 64 + offset, dtype=dtype)
+    x = buf[offset:].view(2, 3, 20, 64)
+    p = rwkv_ops.plan(x.shape, x.element_size(), [x.data_ptr()] * 4, x.stride())
+    assert p.vec == vec
+
+
+@pytest.mark.parametrize("dtype,vec", [(torch.float32, 4), (torch.bfloat16, 0)])
+def test_plan_odd_t_stride_takes_narrow_copies(dtype, vec):
+    """(B, T, H, K + 1) storage sliced to K and permuted: an odd T (and H)
+    stride in elements."""
+    x = torch.zeros((2, 30, 3, 65), dtype=dtype)[..., :64].permute(0, 2, 1, 3)
+    p = rwkv_ops.plan(x.shape, x.element_size(), [x.data_ptr()] * 4, x.stride())
+    assert p.vec == vec
+
+
+def test_plan_ignores_strides_of_unit_dims():
+    """A stride the kernel never multiplies (a dimension of length 1) does
+    not narrow the copies; a misaligned base among the four does."""
+    p = rwkv_ops.plan((1, 1, 1, 64), 4, [64, 128, 192, 256], [7, 5, 3])
+    assert p.vec == 16
+    assert rwkv_ops.plan((1, 1, 2, 64), 4, [64, 128, 192, 256], [7, 5, 3]).vec == 4
+    assert rwkv_ops.plan((2, 1, 1, 64), 4, [64, 128, 192, 260], [64, 5, 3]).vec == 4
+
+
+def test_plan_rejects_other_head_dims():
+    with pytest.raises(ValueError):
+        rwkv_ops.plan((1, 1, 8, 24), 4, [0] * 4, [0, 0, 24])
 
 
 # ------------------------------------------------------------------ model

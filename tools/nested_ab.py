@@ -2,7 +2,7 @@
 """One phase of chip_smoke.py on two trees of this repository, on one card,
 in turns: the other tree, this one, this one, the other.
 
-    python3 tools/nested_ab.py OTHER_ROOT [nested|gram|paged|calibrate]
+    python3 tools/nested_ab.py OTHER_ROOT [nested|gram|paged|rwkv6|calibrate]
 
 OTHER_ROOT is another checkout (for example the parent commit, unpacked with
 ``git archive`` into a directory that .gitignore lists).  Each run is a
@@ -19,6 +19,11 @@ process of its own that builds that tree's kernels.  Phases:
              device ms of one call from torch.profiler (the mean of 5,
              every kernel the call launches), and whether it is within
              PAGED_TOL of the plain version on live rows;
+  rwkv6      that tree's ``rwkv6_attention`` at this tree's RWKV_SHAPES
+             (chip_smoke's inputs; the final state where the phase asks
+             for it, at prefill), device ms of one call from torch.profiler
+             (the mean of 5), and whether y and the state are within
+             RWKV_TOL and RWKV_STATE_TOL of the plain version;
   calibrate  that tree's whole ``chip_smoke.py``: the calibrate seconds of
              its four paths (and each path's seconds), from the
              chiprun_out/chip_smoke.json it writes.
@@ -104,6 +109,29 @@ for case, lens, cols in chip_smoke.PAGED_CASES:
         torch.cuda.empty_cache()
 print("RESULT " + json.dumps(out), flush=True)
 """
+RUN_RWKV = """
+import json, sys, torch
+sys.path[:0] = [{src!r}, {this!r}]
+import chip_smoke
+from repro_torch.kernels.rwkv6 import ops, ref
+out = []
+gen = torch.Generator(device="cuda").manual_seed(4)
+for case, bh, t, k, dname, w_fixed in chip_smoke.RWKV_SHAPES:
+    args = chip_smoke.rwkv6_inputs(torch, gen, bh, t, k, dname, w_fixed)
+    got, got_s = ops.rwkv6_attention(*args, return_state=True)
+    want, want_s = ref.rwkv6_scan_ref(*args, return_state=True)
+    ok = bool((got.float() - want.float()).abs().max()
+              <= chip_smoke.RWKV_TOL[dname] * want.float().abs().max()
+              and (got_s - want_s).abs().max() <= chip_smoke.RWKV_STATE_TOL * want_s.abs().max())
+    del got, want, got_s, want_s
+    with_state = case == "prefill"
+    dev = chip_smoke.profile_step(torch, lambda: [ops.rwkv6_attention(
+        *args, return_state=with_state) for _ in range(5)], quiet=True)["device_busy_ms"] / 5
+    out.append(dict(key=[case, dname], value=dev, ran="", ok=ok))
+    del args
+    torch.cuda.empty_cache()
+print("RESULT " + json.dumps(out), flush=True)
+"""
 PATHS = ("serve", "quality", "rwkv_serve", "rwkv_quality")
 
 
@@ -123,7 +151,8 @@ def run_script(root: str, phase: str) -> list:
             out.append(dict(key=[path, "path_s"], value=res["path_seconds"][path], ran="",
                             ok=p.returncode == 0))
         return out
-    template = {"nested": RUN_NESTED, "gram": RUN_GRAM, "paged": RUN_PAGED}[phase]
+    template = {"nested": RUN_NESTED, "gram": RUN_GRAM, "paged": RUN_PAGED,
+                "rwkv6": RUN_RWKV}[phase]
     code = template.format(root=root, src=os.path.join(root, "src"), this=ROOT,
                            shapes=list(chip_smoke.GRAM_SHAPES), tol=chip_smoke.GRAM_TOL)
     p = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
@@ -136,7 +165,8 @@ def run_script(root: str, phase: str) -> list:
 
 def main() -> int:
     if len(sys.argv) not in (2, 3) or (sys.argv[2:] and sys.argv[2] not in
-                                       ("nested", "gram", "paged", "calibrate")):
+                                       ("nested", "gram", "paged", "rwkv6",
+                                        "calibrate")):
         print(__doc__, file=sys.stderr)
         return 2
     other = os.path.abspath(sys.argv[1])
