@@ -51,7 +51,17 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
      versions, and profiles of that step and of the longest prompt's
      admission;
   7. RWKV-6 quality path: ``build_entry`` on the same model, one (4, 2048)
-     eval batch per domain, every causal forward through rwkv6.
+     eval batch per domain, every causal forward through rwkv6;
+  8. methods path (run after the Mistral quality path): mistral-7b at full
+     width cut to 1 layer; one calibration (gram, flash_attention), then
+     ``compress_model`` with each of the nine methods of ``ALL_METHODS``
+     (ratio 0.3, k1_frac 0.9, bf16 factors, per-target diagnostics) and
+     perplexity on one (1, 1024) batch of en_a and of jp (nested linears on
+     the mma kernel); Eckart-Young per target, equal achieved ratios, exact
+     launch counts; on the nid1 gate projection the residual's column ID
+     exact (C its columns, T the identity there, its error above the
+     rank-k2 SVD's) and the nested kernel per element against its plain
+     version on those bf16 factors at 8 and 512 rows.
 Prints a JSON kernel summary, nvidia-smi's line, and as its last line
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero; without a
 card (or outside the repository) it exits non-zero before printing results.
@@ -1015,6 +1025,225 @@ def quality_path(torch, np, cfg, eval_n: int, taps_per_layer: int, mixer: str):
     return summary, counts
 
 
+# Methods path: Table 4's ratio and its largest k2 (k1_frac 0.9), two eval
+# domains (in- and out-of-domain), one (1, 1024) batch each: 1024 rows, at
+# the nested kernel's gate, so every nested linear runs on the mma kernel.
+METHODS_RATIO, METHODS_K1_FRAC = 0.3, 0.9
+METHODS_DOMAINS = ("en_a", "jp")
+METHODS_EVAL_SEQ = 1024
+# Eckart-Young per target, on the fp64 factors' diagnostics: ASVD-I and
+# ASVD-II are the same rank-k optimum of the damped whitened loss (their
+# whitened errors agree to fp64 round-off of the eigen and Cholesky paths,
+# far inside 1e-6), and no other method with a Gram (svd has none, and no
+# whitened error) is below theirs by more than 1e-6 relative (the damping,
+# 1e-6 of the mean diagonal, is all that separates their optimum from the
+# undamped loss the diagnostics read); plain SVD's weight-space error is
+# the minimum to fp64 round-off (1e-9).
+EY_WHITENED_REL = 1e-6
+EY_PLAIN_REL = 1e-9
+
+
+def methods_path(torch, np, cfg, taps_per_layer: int):
+    """Every method of ``ALL_METHODS`` on one model, as the paper's tables
+    compare them: calibrate once (gram, flash_attention), then for each
+    method ``compress_model`` (ratio 0.3, k1_frac 0.9, telemetry recording
+    each target's diagnostics) and perplexity on an in-domain and an
+    out-of-domain batch (the same tokens for every method and the dense
+    model; nested linears on the mma kernel).  Checks Eckart-Young per
+    target, equal achieved ratios, exact launch counts; then, on the nid1
+    gate projection, that the residual's ID is exact and the nested kernel
+    agrees per element with its plain version on the NID factors."""
+    import math
+
+    from repro_torch.calib.runner import calibration_batches, collect_grams
+    from repro_torch.core import (ALL_METHODS, NESTED_METHODS, CompressionConfig,
+                                  asvd_compress, column_id, compress_model, id_compress,
+                                  make_whitener, split_rank, truncated_svd)
+    from repro_torch.eval.perplexity import eval_batches, evaluate_ppl
+    from repro_torch.kernels.nested_lowrank import ref as nlr_ref
+    from repro_torch.models import build_model
+    from repro_torch.obs.compression import CompressionTelemetry
+
+    def sync():
+        torch.cuda.synchronize()
+
+    model = build_model(cfg)
+    params = model.init(0, "cuda")
+    targets = model.compressible_targets()
+    batches = {d: next(eval_batches(cfg.vocab_size, d, 1, 1, METHODS_EVAL_SEQ))
+               for d in METHODS_DOMAINS}
+    sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    grams = collect_grams(model, params, calibration_batches(
+        cfg.vocab_size, "en_a", n_samples=256, batch=16, seq=128))
+    sync()
+    calib_s = time.perf_counter() - t0
+    dense_ppl = {d: evaluate_ppl(model, params, [batches[d]]) for d in METHODS_DOMAINS}
+    rows, nid_leaf, nid_plan = {}, None, None
+    gate = next(t for t in targets if t.path[-2:] == ("mlp", "wg"))
+    for method in ALL_METHODS:
+        tel = CompressionTelemetry(compare_plain=False)
+        sync()
+        t0 = time.perf_counter()
+        cparams, plan = compress_model(params, targets, grams, CompressionConfig(
+            method=method, ratio=METHODS_RATIO, k1_frac=METHODS_K1_FRAC, dtype=cfg.dtype),
+            telemetry=tel)
+        sync()
+        secs = time.perf_counter() - t0
+        ppl = {d: evaluate_ppl(model, cparams, [batches[d]]) for d in METHODS_DOMAINS}
+        eval_s = time.perf_counter() - t0 - secs
+        reps = tel.reports
+        rows[method] = dict(
+            compress_s=secs, eval_s=eval_s, ppl=ppl, achieved_ratio=plan.achieved_ratio,
+            factored_ratio=factored_ratio(cparams, plan),
+            k1k2={n: (r.k1, r.k2) for n, r in reps.items()},
+            whitened={n: r.whitened_rel_err for n, r in reps.items()},
+            plain={n: r.plain_rel_err for n, r in reps.items()},
+            target_s={n: r.seconds for n, r in reps.items()})
+        if method == "nid1":
+            nid_leaf, nid_plan = cparams, plan
+            for key in gate.path:
+                nid_leaf = nid_leaf[key]
+        del cparams
+        torch.cuda.empty_cache()
+    counts = read_counts()
+    split, split_ok = flash_split_ok(counts)
+    nsplit, gsplit = nested_split(), gram_split()
+
+    layers = cfg.num_layers
+    n_linear = sum(t.count for t in targets)  # nested linears a forward
+    calib_batches = 256 // 16
+    forwards = calib_batches + len(METHODS_DOMAINS) * (1 + len(ALL_METHODS))
+    nested_calls = len(NESTED_METHODS) * n_linear * len(METHODS_DOMAINS)
+    expect = {"nested_lowrank": nested_calls, "paged_attention": 0,
+              "gram": (taps_per_layer * layers + 1) * calib_batches,
+              "flash_attention": layers * forwards, "rwkv6": 0}
+    nested_expect = {"stream": 0, "mma": nested_calls, "tile": 0}
+    counts_ok = (counts == expect and split_ok and nsplit == nested_expect
+                 and gsplit == {"mma": expect["gram"], "fma": 0})
+
+    names = [t.name for t in targets]
+    numbers = [calib_s, *dense_ppl.values()]
+    for m, r in rows.items():
+        # svd runs without a Gram, so its whitened error is nan by design.
+        numbers += [r["compress_s"], *r["ppl"].values(), r["achieved_ratio"],
+                    *r["plain"].values(), *(r["whitened"].values() if m != "svd" else ())]
+    finite = all(math.isfinite(float(x)) for x in numbers)
+    ratios = {m: r["achieved_ratio"] for m, r in rows.items()}
+    ratio_ok = (len(set(ratios.values())) == 1
+                and all(abs(r["factored_ratio"] - r["achieved_ratio"]) < 1e-9
+                        for r in rows.values()))
+    ey = {}
+    for n in names:
+        w = {m: r["whitened"][n] for m, r in rows.items() if m != "svd"}
+        p = {m: r["plain"][n] for m, r in rows.items()}
+        best = min(w["asvd1"], w["asvd2"])
+        ey[n] = dict(
+            asvd12_rel=abs(w["asvd1"] - w["asvd2"]) / w["asvd2"],
+            whitened_margin=min(w[m] / best for m in w if m not in ("asvd1", "asvd2")) - 1.0,
+            plain_margin=min(p[m] / p["svd"] for m in p if m != "svd") - 1.0,
+            ok=(abs(w["asvd1"] - w["asvd2"]) <= EY_WHITENED_REL * w["asvd2"]
+                and all(max(w["asvd1"], w["asvd2"]) <= w[m] * (1 + EY_WHITENED_REL)
+                        for m in w)
+                and all(p["svd"] <= p[m] * (1 + EY_PLAIN_REL) for m in p)))
+    ey_ok = all(v["ok"] for v in ey.values())
+
+    # NID exactness on the gate projection: the nid1 residual recomputed
+    # from the same Gram (step (5a) by Cholesky whitening at k1), its column
+    # ID, and the rank-k2 SVD of the same residual.
+    if gate.stacked:
+        raise ValueError("the NID check reads one unstacked slice (depth 1)")
+    kernel = params
+    for key in gate.path:
+        kernel = kernel[key]
+    a = kernel["kernel"].to(torch.float64).T
+    k1, k2 = split_rank(nid_plan.rank_of(gate), METHODS_K1_FRAC)
+    whit = make_whitener("asvd1", gram=grams.gram(gate.gram_key), damp=nid_plan.config.damp)
+    first, _ = asvd_compress(a, k1, whit, use_randomized=nid_plan.config.use_randomized)
+    residual = a - first.matrix()
+    del whit, first
+    sync()
+    t0 = time.perf_counter()
+    cols, t = column_id(residual, k2)
+    sync()
+    id_s = time.perf_counter() - t0
+    f = id_compress(residual, k2)
+    eye = torch.eye(k2, dtype=torch.float64, device="cuda")
+    exact = (torch.equal(f.w, residual[:, cols]) and torch.equal(f.z[:, cols], eye)
+             and torch.equal(f.z, t))
+    id_err = float(torch.linalg.norm(residual - f.matrix()))
+    svd_err = float(torch.linalg.norm(residual - truncated_svd(residual, k2).matrix()))
+    # The path's own bf16 factors are this ID's, bit for bit: u2 = T^T and
+    # v2 = C^T (the card's Cholesky, SVD and products repeat exactly).
+    dt = nid_leaf["u2"].dtype
+    path_same = (torch.equal(nid_leaf["u2"], f.z.T.to(dt))
+                 and torch.equal(nid_leaf["v2"], f.w.T.to(dt)))
+    id_ok = exact and path_same and id_err >= svd_err * (1 - EY_PLAIN_REL)
+    del residual, f, t, a
+    # The nested kernel on those factors, per element against its plain
+    # version (outside the counted run).
+    nlr = _ops("nested_lowrank")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    kern_rows = []
+    for m in (8, 512):
+        x = torch.randn((m, gate.in_dim), generator=gen, device="cuda").to(dt)
+        fac = [nid_leaf[k] for k in ("u", "v", "u2", "v2")]
+        before = nested_split()
+        got = nlr.nested_lowrank_matmul(x, *fac)
+        want = nlr_ref.nested_lowrank_matmul_ref(x, *fac)
+        sync()
+        after = nested_split()
+        ran = next((k for k in after if after[k] > before[k]), "none")
+        e_err = elem_err(torch, got, want)
+        k_ok = (bool(torch.isfinite(got).all()) and e_err <= NESTED_ELEM_TOL["bfloat16"]
+                and ran == ("stream" if m <= nlr.STREAM_ROWS else "mma"))
+        kern_rows.append(dict(M=m, ran=ran, elem_err=e_err,
+                              elem_tol=NESTED_ELEM_TOL["bfloat16"], ok=k_ok))
+    kern_ok = all(r["ok"] for r in kern_rows)
+    del nid_leaf, grams
+
+    log(f"methods path: {cfg.name} layers={layers} (depth cut), ratio {METHODS_RATIO}, "
+        f"k1_frac {METHODS_K1_FRAC}, {len(targets)} targets; calibrate {calib_s:.2f} s; "
+        f"eval batches (1, {METHODS_EVAL_SEQ}) on {list(METHODS_DOMAINS)}; dense ppl "
+        + ", ".join(f"{d} {v:.3f}" for d, v in dense_ppl.items()))
+    for m, r in rows.items():
+        wm = sum(r["whitened"].values()) / len(names)
+        pm = sum(r["plain"].values()) / len(names)
+        log(f"  {m:6s} compress {r['compress_s']:6.2f} s  eval {r['eval_s']:.2f} s  ppl "
+            + " ".join(f"{d} {r['ppl'][d]:.3f}" for d in METHODS_DOMAINS)
+            + f"  whitened err mean {wm:.5f}  plain err mean {pm:.5f}  achieved ratio "
+            f"{r['achieved_ratio']:.6f}  target s: "
+            + ", ".join(f"{n.split('/')[-1]} {s:.2f}" for n, s in r["target_s"].items()))
+    for n, v in ey.items():
+        log(f"  Eckart-Young {n}: |asvd1 - asvd2| / asvd2 {v['asvd12_rel']:.2e} (tol "
+            f"{EY_WHITENED_REL:.0e}), least whitened margin {v['whitened_margin']:.3e}, least "
+            f"plain margin over svd {v['plain_margin']:.3e} {'OK' if v['ok'] else 'FAIL'}")
+    log(f"  nid1 {gate.name} ({gate.out_dim}x{gate.in_dim}, k1 {k1}, "
+        f"k2 {k2}): C = residual[:, cols] and T[:, cols] = I exactly: {exact}; ID error "
+        f"{id_err:.6e} >= rank-k2 SVD error {svd_err:.6e}; the path's bf16 factors are "
+        f"this ID's: {path_same}; column_id {id_s:.3f} s {'OK' if id_ok else 'FAIL'}")
+    for r in kern_rows:
+        log(f"  nested kernel on nid1 {gate.name} factors, M={r['M']}: {r['ran']} elem err "
+            f"{r['elem_err']:.3e} (tol {r['elem_tol']:.3e}) {'OK' if r['ok'] else 'FAIL'}")
+    log(f"  launches {counts} expected {expect}; flash_attention by kernel {split}; "
+        f"nested_lowrank by kernel {nsplit} expected {nested_expect}; gram by kernel "
+        f"{gsplit} {'OK' if counts_ok else 'FAIL'}; all numbers finite: {finite}; "
+        f"achieved ratios equal: {ratio_ok}")
+    summary = dict(config=cfg.name, layers=layers, ratio=METHODS_RATIO,
+                   k1_frac=METHODS_K1_FRAC, calibrate_s=calib_s, dense_ppl=dense_ppl,
+                   methods=rows, eckart_young=ey,
+                   nid_check=dict(target=gate.name, k1=k1, k2=k2, exact=exact,
+                                  id_err=id_err, svd_err=svd_err,
+                                  path_factors_identical=path_same, column_id_s=id_s),
+                   nid_kernel=kern_rows, launches=counts, expected_launches=expect,
+                   flash_launches=split, nested_launches=nsplit,
+                   expected_nested_launches=nested_expect, gram_launches=gsplit,
+                   ok=bool(finite and ratio_ok and ey_ok and id_ok and kern_ok
+                           and counts_ok))
+    return summary, counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1064,13 +1293,14 @@ def main() -> int:
     flash = flash_phase(torch, fa_ops, fa_ref)
     rwkv = rwkv6_phase(torch, rwkv_ops, rwkv_ref)
     kernels_ok = all(r["ok"] for r in nested + paged + grams + flash + rwkv)
-    # mistral-7b cut to 2 of 32 layers; rwkv6-1.6b cut to 4 of 24; widths
-    # untouched.  (path, function, args): the mixer kernel and the
+    # mistral-7b cut to 2 of 32 layers (1 on the methods path); rwkv6-1.6b
+    # cut to 4 of 24; widths untouched.  (path, function, args): the mixer kernel and the
     # calibration taps per layer of each model.
     mistral = dataclasses.replace(MISTRAL_7B, num_layers=2)
     rwkv6 = dataclasses.replace(RWKV6_1_6B, num_layers=4)
     runs = (("serve", serve_path, (mistral, "flash_attention", 4)),
             ("quality", quality_path, (mistral, 2, 4, "flash_attention")),
+            ("methods", methods_path, (dataclasses.replace(MISTRAL_7B, num_layers=1), 4)),
             ("rwkv_serve", serve_path, (rwkv6, "rwkv6", 9)),
             ("rwkv_quality", quality_path, (rwkv6, 1, 9, "rwkv6")))
     summaries, path_counts, path_s = {}, {}, {}

@@ -1,4 +1,4 @@
-"""Activation-aware SVD compressors (torch float64): SVD, ASVD-0/I/II.
+"""Activation-aware SVD compressors (torch float64): SVD, ASVD-0/I/II/III.
 
 Each maps (A, calibration stats, rank k) -> (W, Z) with A ~= W @ Z.
 """
@@ -9,6 +9,8 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+
+from repro_torch import torch_dtype
 
 from .svd import SVDResult, best_svd, truncated_svd
 from .whitening import Whitener, make_whitener
@@ -44,6 +46,14 @@ class LowRankFactors:
             a = a + self.w2 @ self.z2
         return a
 
+    def astype(self, dtype) -> "LowRankFactors":
+        """Every factor cast to ``dtype`` (a torch dtype or its name)."""
+        dt = torch_dtype(dtype)
+        return LowRankFactors(
+            self.w.to(dt), self.z.to(dt),
+            None if self.w2 is None else self.w2.to(dt),
+            None if self.z2 is None else self.z2.to(dt), self.method)
+
 
 def plain_svd_compress(a: torch.Tensor, k: int,
                        use_randomized: bool = True) -> LowRankFactors:
@@ -61,6 +71,12 @@ def asvd_compress(a: torch.Tensor, k: int, whitener: Whitener,
     w, z_whit = res.factors("sqrt")
     return LowRankFactors(w, whitener.unapply_right(z_whit),
                           method=whitener.method), res
+
+
+def activation_loss(a: torch.Tensor, approx: torch.Tensor, x: torch.Tensor) -> float:
+    """||(A - approx) X||_F, the quantity Theorems 2-4 bound."""
+    d = a.to(torch.float64) - approx.to(torch.float64)
+    return float(torch.linalg.norm(d @ x.to(torch.float64)))
 
 
 def gram_loss(a: torch.Tensor, approx: torch.Tensor, gram: torch.Tensor) -> float:

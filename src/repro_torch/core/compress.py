@@ -19,7 +19,7 @@ from repro_torch import Device, bridge, resolve_device
 
 from .lowrank import factors_to_params
 from .nsvd import decomposition_diagnostics, nested_compress
-from .plan import CompressionConfig, CompressionPlan
+from .plan import CompressionConfig, CompressionPlan, build_plan
 from .ratio import rank_for_ratio
 
 logger = logging.getLogger(__name__)
@@ -211,6 +211,14 @@ def compress_params(params: Mapping[str, Any], plan: CompressionPlan,
                 gram_fallback_slices=fallback_slices, seconds=dt)
         logger.info("compressed %s rank=%d in %.2fs", spec.name, rank, dt)
     return new_params
+
+
+def compress_model(params: Mapping[str, Any], targets, grams: GramStore,
+                   config: CompressionConfig, telemetry: Optional[Any] = None
+                   ) -> Tuple[Dict[str, Any], CompressionPlan]:
+    """Plan and execute in one call: (factored params, plan)."""
+    plan = build_plan(targets, config)
+    return compress_params(params, plan, grams, telemetry=telemetry), plan
 
 
 def _unravel(i: int, shape: Tuple[int, ...]) -> Tuple[int, ...]:

@@ -1,8 +1,9 @@
-"""NSVD — the paper's nested activation-aware decomposition (Eq. 5), torch.
+"""NSVD / NID — the paper's nested activation-aware decomposition (Eq. 5),
+torch.
 
 Step (5a): rank-k1 activation-aware truncation (ASVD-I or ASVD-II);
-step (5b): rank-k2 plain SVD of the residual.  O = W1 (Z1 x) + W2 (Z2 x).
-The column-ID residual (NID) is not ported yet.
+step (5b): rank-k2 approximation of the residual, by plain SVD (NSVD) or
+by column interpolative decomposition (NID).  O = W1 (Z1 x) + W2 (Z2 x).
 """
 
 from __future__ import annotations
@@ -12,9 +13,13 @@ from typing import Dict, Optional
 import torch
 
 from .asvd import LowRankFactors, asvd_compress, compress, gram_loss, plain_svd_compress
+from .nid import id_compress
 from .whitening import make_whitener
 
-NESTED_METHODS = ("nsvd1", "nsvd2")
+ALL_METHODS = (
+    "svd", "asvd0", "asvd1", "asvd2", "asvd3", "nsvd1", "nsvd2", "nid1", "nid2",
+)
+NESTED_METHODS = ("nsvd1", "nsvd2", "nid1", "nid2")
 
 
 def split_rank(k: int, k1_frac: float) -> tuple[int, int]:
@@ -29,19 +34,25 @@ def split_rank(k: int, k1_frac: float) -> tuple[int, int]:
 def nsvd_compress(a: torch.Tensor, k: int, gram: torch.Tensor,
                   k1_frac: float = 0.95, variant: str = "nsvd2",
                   damp: float = 1e-6, use_randomized: bool = True) -> LowRankFactors:
+    """variant: nsvd1 / nid1 whiten step (5a) by Cholesky (Thm 2), nsvd2 /
+    nid2 by eigen-SVD (Thm 3); nsvd* take step (5b) by SVD, nid* by
+    column ID."""
     v = variant.lower()
     if v not in NESTED_METHODS:
-        raise ValueError(f"nested variant {variant!r} is not ported")
+        raise ValueError(f"unknown nested variant {variant!r}")
     a = a.to(torch.float64)
     k1, k2 = split_rank(k, k1_frac)
     if k1 == 0:
         raise ValueError("rank budget must be >= 1")
-    whit = make_whitener("asvd1" if v == "nsvd1" else "asvd2", gram=gram, damp=damp)
+    whit = make_whitener("asvd1" if v.endswith("1") else "asvd2", gram=gram, damp=damp)
     first, _ = asvd_compress(a, k1, whit, use_randomized=use_randomized)
     if k2 == 0:
         return LowRankFactors(first.w, first.z, method=v)
-    second = plain_svd_compress(a - first.matrix(), k2,
-                                use_randomized=use_randomized)
+    residual = a - first.matrix()
+    if v.startswith("nid"):
+        second = id_compress(residual, k2)
+    else:
+        second = plain_svd_compress(residual, k2, use_randomized=use_randomized)
     return LowRankFactors(w=first.w, z=first.z, w2=second.w, z2=second.z,
                           method=v)
 
@@ -51,7 +62,7 @@ def nested_compress(a: torch.Tensor, k: int, method: str,
                     absmean: Optional[torch.Tensor] = None,
                     k1_frac: float = 0.95, damp: float = 1e-6,
                     use_randomized: bool = True) -> LowRankFactors:
-    """Façade over the ported compressors: svd, asvd0/1/2, nsvd1/2."""
+    """Façade over every compressor of the paper (ALL_METHODS)."""
     m = method.lower()
     if m in NESTED_METHODS:
         if gram is None:

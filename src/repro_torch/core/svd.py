@@ -115,3 +115,17 @@ def best_svd(a: torch.Tensor, k: int, randomized_threshold: int = 6144,
     if small > randomized_threshold and k < small // 4:
         return randomized_svd(a, k, seed=seed)
     return truncated_svd(a, k)
+
+
+def frobenius(a: torch.Tensor) -> float:
+    return float(torch.linalg.norm(a.to(torch.float64)))
+
+
+def low_rank_storage(m: int, n: int, k: int) -> int:
+    """Parameter count of a rank-k factorization of an (m, n) matrix."""
+    return (m + n) * k
+
+
+def max_rank_for_budget(m: int, n: int, budget: int) -> int:
+    """Largest k with (m + n) * k <= budget."""
+    return max(0, budget // (m + n))

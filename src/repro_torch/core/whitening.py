@@ -4,11 +4,13 @@
   ASVD-0   S = diag(mean_i |x_i|)
   ASVD-I   S = Cholesky factor of X X^T        (falls back to ASVD-II)
   ASVD-II  S = P Lambda^{1/2} from X X^T = P Lambda P^T
+  ASVD-III S = P * gamma, gamma = max sqrt(eig)  (Thm 4, the failure trial)
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -84,6 +86,20 @@ def make_eigen_whitener(gram: torch.Tensor, damp: float = 0.0,
                     diagonal=False, rank=int(keep.sum()), method=method)
 
 
+def make_gamma_whitener(gram: torch.Tensor, damp: float = 0.0) -> Whitener:
+    """ASVD-III (Thm 4): S = P * gamma with gamma = max(Lambda^{1/2}), a
+    rotation and a scalar scale; gamma = 1 for an all-zero Gram."""
+    g = _regularize(gram, damp)
+    lam, p = torch.linalg.eigh(g)  # ascending
+    lam = lam.flip(0).clamp(min=0.0)
+    p = p.flip(1)
+    top = float(lam[0])
+    gamma = math.sqrt(top) if top > 0.0 else 1.0
+    rank = int((lam > top * 1e-10).sum()) if top > 0.0 else 0
+    return Whitener(s=p * gamma, s_inv=p.T / gamma, diagonal=False, rank=rank,
+                    method="asvd3")
+
+
 def make_whitener(method: str, gram: Optional[torch.Tensor] = None,
                   absmean: Optional[torch.Tensor] = None,
                   damp: float = 1e-6) -> Whitener:
@@ -100,4 +116,6 @@ def make_whitener(method: str, gram: Optional[torch.Tensor] = None,
         return make_cholesky_whitener(gram, damp=damp)
     if m in ("asvd2", "eigen", "svd"):
         return make_eigen_whitener(gram, damp=damp)
-    raise ValueError(f"whitening method {method!r} is not ported")
+    if m in ("asvd3", "gamma"):
+        return make_gamma_whitener(gram, damp=damp)
+    raise ValueError(f"unknown whitening method {method!r}")

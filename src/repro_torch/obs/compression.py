@@ -356,3 +356,28 @@ def _json_safe(obj):
     if isinstance(obj, (np.floating, np.integer)):
         return _json_safe(obj.item())
     return obj
+
+
+class _NullCompressionTelemetry:
+    """Shared no-op twin (the default when no telemetry is supplied)."""
+
+    enabled = False
+    __slots__ = ()
+
+    def on_calib_batch(self, tap_rows):
+        pass
+
+    def on_calib_store(self, store):
+        pass
+
+    def on_gram_fallback(self, key, fallback, reason):
+        pass
+
+    def on_slice(self, target, slice_idx, diag):
+        pass
+
+    def on_target(self, **kw):
+        return None
+
+
+NULL_COMPRESSION_TELEMETRY = _NullCompressionTelemetry()

@@ -1,4 +1,4 @@
-"""Port parity: calibration Grams and NSVD/ASVD/SVD compression against the
+"""Port parity: calibration Grams and NSVD/NID/ASVD/SVD compression against the
 JAX reference, and GramStore files crossing between the two packages."""
 
 import os
@@ -80,7 +80,8 @@ def _leaves(tree, prefix=()):
         yield prefix, tree
 
 
-@pytest.mark.parametrize("method", ["nsvd1", "nsvd2", "asvd0", "asvd1", "asvd2", "svd"])
+@pytest.mark.parametrize("method", ["nsvd1", "nsvd2", "asvd0", "asvd1", "asvd2", "svd",
+                                    "asvd3", "nid1", "nid2"])
 def test_compress_params_match_reference(calibrated, method):
     """Same params and Grams in: equal plans (summary, ranks), equal k1/k2
     splits, and dense equivalents within 1e-5 relative.  Factors are not

@@ -891,3 +891,45 @@ def test_rwkv_dense_decode_dispatch_is_sync_free(dev):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+def test_column_id_on_card_matches_cpu_without_host_sync(dev):
+    """The truncated pivoted QR on the card picks the CPU's columns and
+    gives its T within 1e-10 (relative to max |T|), and queues all of its
+    steps without one host sync."""
+    from repro_torch.core.nid import column_id, id_compress
+
+    rng = np.random.default_rng(0)
+    a = torch.as_tensor(rng.standard_normal((2048, 1024)) * np.exp(-np.arange(1024) / 300.0))
+    want_cols, want_t = column_id(a, 64)
+    a_dev = a.to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cols, t = column_id(a_dev, 64)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(cols.cpu(), want_cols)
+    assert float((t.cpu() - want_t).abs().max()) <= 1e-10 * float(want_t.abs().max())
+    f = id_compress(a_dev, 64)
+    assert torch.equal(f.w, a_dev[:, cols])
+    assert torch.equal(f.z[:, cols], torch.eye(64, dtype=torch.float64, device=dev))
+
+
+def test_best_svd_randomized_on_card_matches_cpu(dev):
+    """Above the 6144 minor-dimension threshold best_svd takes the
+    randomized range finder (its test matrix drawn by numpy on both
+    devices): the card's rank-k truncation within 1e-9 of the CPU's."""
+    from repro_torch.core.svd import best_svd
+
+    rng = np.random.default_rng(1)
+    a = torch.as_tensor(rng.standard_normal((8192, 7168)) * np.exp(-np.arange(7168) / 400.0))
+    k = 1024
+    assert k < min(a.shape) // 4 and min(a.shape) > 6144  # the randomized branch
+    want = best_svd(a, k)
+    got = best_svd(a.to(dev), k)
+    assert got.rank == want.rank == k
+    wm = want.matrix()
+    rel = float(torch.linalg.norm(got.matrix().cpu() - wm) / torch.linalg.norm(wm))
+    assert rel <= 1e-9, rel
+    assert float((got.s.cpu() - want.s).abs().max()) <= 1e-9 * float(want.s[0])

@@ -28,7 +28,8 @@ from repro.obs.compression import gram_activation_stats as jax_gram_activation_s
 from repro.obs.metrics import MetricsRegistry as JaxMetricsRegistry
 from repro_torch.calib.runner import collect_grams
 from repro_torch.configs import MISTRAL_7B, small_lm
-from repro_torch.core import CompressionConfig, GramStore, build_plan, compress_params
+from repro_torch.core import (ALL_METHODS, CompressionConfig, GramStore, build_plan,
+                              compress_params)
 from repro_torch.core.nsvd import decomposition_diagnostics, nested_compress
 from repro_torch.models import build_model
 from repro_torch.obs import quality_report
@@ -46,7 +47,7 @@ def _matrix_and_gram(seed=0, m=16, n=24, rows=80):
 
 
 @pytest.mark.parametrize("with_gram", [True, False])
-@pytest.mark.parametrize("method", ["nsvd1", "nsvd2"])
+@pytest.mark.parametrize("method", ["nsvd1", "nsvd2", "nid1", "nid2"])
 def test_decomposition_diagnostics_match_reference(method, with_gram):
     """Same matrix and Gram; each side decomposes with its own SVD (signs
     differ, errors do not): fp64, within 1e-8 relative."""
@@ -218,3 +219,28 @@ def test_quality_report_cli_end_to_end_on_cpu(tmp_path, monkeypatch, capsys):
     rep = json.loads(report.read_text())
     assert len(rep["targets"]) == 7 and rep["calibration"]
     assert "quality entry ->" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("method", ALL_METHODS)
+def test_quality_report_cli_takes_every_method(tmp_path, monkeypatch, method):
+    """``--method`` reaches the compressor: an entry for each of the nine
+    methods on a tiny random model, every number finite, the plan's method
+    recorded."""
+    cfg = small_lm("tiny-mistral", MISTRAL_7B, num_layers=1, d_model=32, d_ff=48,
+                   vocab_size=64, num_heads=4)
+    monkeypatch.setattr(quality_report, "get_config", lambda name: cfg)
+    hist = tmp_path / "history.json"
+    quality_report.main(["--model", "tiny-mistral", "--no-reduced", "--device", "cpu",
+                         "--method", method, "--eval-batches", "1", "--eval-batch", "2",
+                         "--eval-seq", "24", "--calib-samples", "32", "--no-attribution",
+                         "--history", str(hist)])
+    (entry,) = json.loads(hist.read_text())["history"]
+    assert entry["meta"]["method"] == method
+    tot = dict(entry["decomposition"])
+    if method == "svd":  # no Gram: no whitened error, as in the reference
+        no_gram = ("whitened_rel_err_mean", "outlier_absorption_mean")
+        assert all(np.isnan(tot.pop(k)) for k in no_gram)
+    nums = [*entry["dense_ppl"].values(), *entry["compressed_ppl"].values(),
+            entry["logit_kl"], entry["achieved_ratio"], *tot.values()]
+    assert all(np.isfinite(float(v)) for v in nums)
+    assert tot["targets"] == 7
