@@ -72,6 +72,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -125,7 +126,12 @@ PAGED_CASES = (("phase", (1, 15, 16, 17, 255, 256, 700, 0), None),
                ("long8", (512, 1024, 2048, 3000, 4096, 5000, 6144, 8192), None),
                ("one32k", (32768,), None),
                ("serve", (189, 149, 126, 81, 88, 39, 45, 35), 16))
-STEP_LOGIT_TOL = 5e-2  # 2-layer model: kernel vs plain rounding through a step
+# Kernel vs plain rounding through a decode step (and below, one eval
+# batch), a few layers deep.  A MoE model's plain run takes the kernel run's
+# expert choices (models.moe.RoutingTrace): top-k routing flips at near-ties
+# on rounding-level differences (random routers have many), which moves a
+# token's logits by O(1) whatever the kernels' error.
+STEP_LOGIT_TOL = 5e-2
 # (rows, n): the taps of a calibration batch (16 x 128 rows) at rwkv6-1.6b's
 # d_model, Mistral-7B's d_model, rwkv6-1.6b's d_ff and Mistral-7B's d_ff.
 GRAM_SHAPES = ((2048, 2048), (2048, 4096), (2048, 7168), (2048, 14336))
@@ -155,7 +161,7 @@ FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # four ulps allowed (measured up to 1.33e-2 on the H100).  fp32: sum order
 # only (measured up to 7.4e-6).
 FLASH_ELEM_TOL = {"bfloat16": 2 ** -5, "float32": 1e-4}
-EVAL_LOGIT_TOL = 5e-2  # 2-layer bf16 model: flash vs naive rounding, one batch
+EVAL_LOGIT_TOL = 5e-2  # bf16 models: flash vs naive rounding, one batch
 # (case, BH, T, K, dtype, fixed w): an rwkv6-1.6b eval batch (4 x 32 heads,
 # 2048 tokens), one request's prefill (32 heads, ragged 200 tokens, with its
 # final state), a calibration batch (16 x 32 heads, 128 tokens), extreme
@@ -187,6 +193,21 @@ RWKV_STATE_TOL = 1e-4
 RWKV_ELEM_TOL = {"float32": 2e-3, "bfloat16": 2 ** -6}
 RWKV_STATE_ELEM_TOL = 1e-4
 DEVICE_REPS = 5  # calls a nested row's profiled device time is the mean of
+# The batched (per-expert) forms at moonshot-v1-16b-a3b's expert shapes:
+# 64 experts, rank 667 at ratio 0.2 (k1 634, k2 33 at k1_frac 0.95).
+# (case, capacity rows C, in K, out N, dtype, the route): a decode step's 8
+# rows (stream), an eval batch's 960 through the gate/up and down
+# projections (mma), and fp32 (the tile kernel).  Held to NESTED_TOL and
+# NESTED_ELEM_TOL, as the single form.
+MOE_EXPERTS, MOE_K1, MOE_K2 = 64, 634, 33
+NESTED_BATCHED_CASES = (("decode", 8, 2048, 1408, "bfloat16", "stream"),
+                        ("eval_gate", 960, 2048, 1408, "bfloat16", "mma"),
+                        ("eval_down", 960, 1408, 2048, "bfloat16", "mma"),
+                        ("fp32", 8, 2048, 1408, "float32", "tile"))
+# (E, C, n): a calibration batch's expert_buf and expert_mid taps (2048
+# tokens, top-6 of 64 experts at capacity factor 1.25: C 240), bf16, held to
+# GRAM_TOL and GRAM_ELEM_TOL with exact symmetry, expert by expert.
+GRAM_BATCHED_SHAPES = ((64, 240, 2048), (64, 240, 1408))
 
 
 def log(msg: str) -> None:
@@ -524,6 +545,129 @@ def gram_phase(torch, ops, ref):
     return rows_out
 
 
+def nested_batched_phase(torch, ops, ref):
+    """The batched nested form at the MoE expert shapes, one case per route,
+    per element against the batched plain version, beside two bmms over
+    the experts' concatenated factors (x [u|u2] [v;v2], the single form's
+    ``multi_dot`` counterpart) and the bound."""
+    rows_out = []
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    e, k1, k2 = MOE_EXPERTS, MOE_K1, MOE_K2
+    r = k1 + k2
+    for case, m, k_in, n, dname, route in NESTED_BATCHED_CASES:
+        dt = getattr(torch, dname)
+
+        def mk(*shape, s):
+            return (torch.randn(shape, generator=gen, device="cuda") * s).to(dt)
+        u, u2 = mk(e, k_in, k1, s=k_in ** -0.5), mk(e, k_in, k2, s=k_in ** -0.5)
+        v, v2 = mk(e, k1, n, s=r ** -0.5), mk(e, k2, n, s=r ** -0.5)
+        x = mk(e, m, k_in, s=1.0)
+        x[:, m - m // 8:] = 0  # capacity slots left empty
+        big_u, big_v = torch.cat([u, u2], 2), torch.cat([v, v2], 1)
+        before = (nested_split(), dict(_ops("nested_lowrank").batched_by_kernel))
+        got = ops.nested_lowrank_matmul_batched(x, u, v, u2, v2)
+        want = ref.nested_lowrank_matmul_batched_ref(x, u, v, u2, v2)
+        torch.cuda.synchronize()
+        after = (nested_split(), dict(_ops("nested_lowrank").batched_by_kernel))
+        ran = next((k for k in after[1] if after[1][k] > before[1][k]), "none")
+        single_ran = any(after[0][k] - before[0][k] != after[1][k] - before[1][k]
+                         for k in after[1])
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        e_err = elem_err(torch, got, want)
+        ok = (bool(torch.isfinite(got).all()) and err <= NESTED_TOL[dname] * scale
+              and e_err <= NESTED_ELEM_TOL[dname] and ran == route and not single_ran)
+        del got, want
+
+        def lib():
+            return torch.bmm(torch.bmm(x, big_u), big_v)
+        ms = time_ms(lambda: ops.nested_lowrank_matmul_batched(x, u, v, u2, v2))
+        plain = time_ms(lambda: ref.nested_lowrank_matmul_batched_ref(x, u, v, u2, v2))
+        lib_ms = time_ms(lib)
+        dev_ms = profile_step(torch, lambda: [ops.nested_lowrank_matmul_batched(
+            x, u, v, u2, v2) for _ in range(DEVICE_REPS)], quiet=True)["device_busy_ms"] / DEVICE_REPS
+        lib_dev = profile_step(torch, lambda: [lib() for _ in range(DEVICE_REPS)],
+                               quiet=True)["device_busy_ms"] / DEVICE_REPS
+        el = x.element_size()
+        nbytes = el * (x.numel() + u.numel() + v.numel() + u2.numel() + v2.numel() + e * m * n)
+        flops = 2 * e * m * (k_in * r + r * n)
+        b, by = bound_ms(nbytes, flops, dname)
+        row = dict(kernel="nested_lowrank_batched", case=case, dtype=dname, E=e, M=m, K=k_in,
+                   N=n, rank=r, k1=k1, k2=k2, ran=ran, max_abs_err=err, ref_max_abs=scale,
+                   tol=NESTED_TOL[dname] * scale, elem_err=e_err,
+                   elem_tol=NESTED_ELEM_TOL[dname], ok=ok, ms=ms, device_ms=dev_ms,
+                   plain_ms=plain, library="bmm(bmm(x, [u|u2]), [v;v2])", library_ms=lib_ms,
+                   library_device_ms=lib_dev, bytes=nbytes, flops=flops, bound_ms=b,
+                   bound_by=by)
+        rows_out.append(row)
+        log(f"nested batched {dname:8s} {case:9s} E={e} C={m:<3d} {k_in}->{n} {ran:6s} "
+            f"err={err:.3e} (tol {row['tol']:.3e}) elem err {e_err:.3e} (tol "
+            f"{row['elem_tol']:.3e}) {'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms (device "
+            f"{dev_ms:.4f})  plain {plain:.3f} ms  library {lib_ms:.4f} ms (device "
+            f"{lib_dev:.4f})  bound {b:.4f} ms ({by}, {nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.1f} GFLOP)")
+        del x, u, v, u2, v2, big_u, big_v
+    return rows_out
+
+
+def gram_batched_phase(torch, ops, ref):
+    """Per-expert Grams of zero-padded capacity buffers in one launch, each
+    expert per element and exactly symmetric."""
+    rows_out = []
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for e, rows, n in GRAM_BATCHED_SHAPES:
+        buf = torch.randn((e, rows, n), generator=gen, device="cuda")
+        buf[:, :, ::97] *= 20.0  # outlier channels
+        buf[:, rows - rows // 5:] = 0  # capacity slots left empty
+        buf = buf.to(torch.bfloat16)
+        before = (gram_split(), _ops("gram").batched_launches)
+        got_g, got_a = ops.gram_accumulate_batched(buf)
+        want_g, want_a = ref.gram_accumulate_batched_ref(buf)
+        torch.cuda.synchronize()
+        after = (gram_split(), _ops("gram").batched_launches)
+        ran = next((k for k in after[0] if after[0][k] > before[0][k]), "none")
+        err = float((got_g - want_g).abs().max())
+        scale = float(want_g.abs().max())
+        a_err = float((got_a - want_a).abs().max())
+        a_scale = float(want_a.abs().max())
+        e_err = ref.gram_elem_err(got_g, want_g)
+        sym = bool(torch.equal(got_g, got_g.transpose(1, 2)))
+        ok = (bool(torch.isfinite(got_g).all()) and err <= GRAM_TOL * scale
+              and a_err <= GRAM_TOL * a_scale and e_err <= GRAM_ELEM_TOL and sym
+              and ran == "mma" and after[1] == before[1] + 1)
+        del got_g, want_g
+        # One PyTorch call for the same Grams: cuBLAS's bf16 tensor cores
+        # with fp32 output.
+        bt = buf.transpose(1, 2)
+        lib_fn, lib_name = (lambda: torch.bmm(bt, buf, out_dtype=torch.float32),
+                            "bmm(out_dtype=fp32)")
+        ms = time_ms(lambda: ops.gram_accumulate_batched(buf), reps=5)
+        plain = time_ms(lambda: ref.gram_accumulate_batched_ref(buf), reps=5)
+        lib = time_ms(lib_fn, reps=5)
+        dev_ms = profile_step(torch, lambda: [ops.gram_accumulate_batched(buf) for _ in range(
+            DEVICE_REPS)], quiet=True)["device_busy_ms"] / DEVICE_REPS
+        lib_dev = profile_step(torch, lambda: [lib_fn() for _ in range(DEVICE_REPS)],
+                               quiet=True)["device_busy_ms"] / DEVICE_REPS
+        nbytes = buf.numel() * buf.element_size() + 4 * e * (n * n + n)
+        flops = e * rows * n * (n + 1)  # upper triangles: products exact for bf16
+        b, by = bound_ms(nbytes, flops, "bfloat16")
+        row = dict(kernel="gram_batched", dtype="bfloat16", E=e, rows=rows, n=n, ran=ran,
+                   max_abs_err=err, ref_max_abs=scale, tol=GRAM_TOL * scale,
+                   abs_sum_err=a_err, abs_sum_tol=GRAM_TOL * a_scale, elem_err=e_err,
+                   elem_tol=GRAM_ELEM_TOL, symmetric=sym, ok=ok, ms=ms, device_ms=dev_ms,
+                   plain_ms=plain, library=lib_name, library_ms=lib,
+                   library_device_ms=lib_dev, bytes=nbytes, flops=flops, bound_ms=b,
+                   bound_by=by)
+        rows_out.append(row)
+        log(f"gram batched E={e} rows={rows} n={n:<5d} {ran} err={err:.3e} (tol "
+            f"{row['tol']:.3e}) |x| err={a_err:.3e} elem err {e_err:.3e} (tol "
+            f"{GRAM_ELEM_TOL:.0e}) symmetric={sym} {'OK' if ok else 'FAIL'}  kernel {ms:.3f} "
+            f"ms (device {dev_ms:.4f})  plain {plain:.3f} ms  library({lib_name}) {lib:.3f} "
+            f"ms (device {lib_dev:.4f})  bound {b:.4f} ms ({by}, {nbytes / 1e6:.1f} MB)")
+        del buf
+    return rows_out
+
+
 def flash_phase(torch, ops, ref):
     rows_out = []
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -648,8 +792,9 @@ def reset_counts() -> None:
     fa.tensor_core_launches = fa.cuda_core_launches = 0
     nlr = _ops("nested_lowrank")
     nlr.stream_launches = nlr.mma_launches = nlr.tile_launches = 0
+    nlr.batched_by_kernel.update(stream=0, mma=0, tile=0)
     gram = _ops("gram")
-    gram.mma_launches = gram.fma_launches = 0
+    gram.mma_launches = gram.fma_launches = gram.batched_launches = 0
     _ops("paged_attention").combine_launches = 0
     rw = _ops("rwkv6")
     rw.vec16_launches = rw.vec4_launches = 0
@@ -686,6 +831,26 @@ def gram_split() -> dict:
     """gram's launches by kernel since ``reset_counts``."""
     gram = _ops("gram")
     return {"mma": gram.mma_launches, "fma": gram.fma_launches}
+
+
+def batched_split() -> dict:
+    """The batched forms' launches since ``reset_counts``: nested by kernel,
+    gram in all (every one of them is also in the per-kernel counts)."""
+    return {"nested": dict(_ops("nested_lowrank").batched_by_kernel),
+            "gram": _ops("gram").batched_launches}
+
+
+def nested_calls(model) -> tuple:
+    """Nested-linear calls of one forward: (single form, batched form).  A
+    target is one call per layer of its stack; a MoE layer's expert target
+    (stacked over experts too) is one batched call per layer."""
+    single = batched = 0
+    for t in model.compressible_targets():
+        if "experts" in t.path:
+            batched += math.prod(t.stacked[:-1])
+        else:
+            single += math.prod(t.stacked)
+    return single, batched
 
 
 # Device kernels of one nested_lowrank call (both phases and reductions), of
@@ -755,14 +920,18 @@ def factored_ratio(params, plan) -> float:
     return 1.0 - factored / dense
 
 
-def serve_path(torch, np, cfg, mixer: str, taps_per_layer: int):
+def serve_path(torch, np, cfg, mixer: str, gram_taps: tuple):
     """``serve()`` on ``cfg``: calibrate, compress (nsvd1, ratio 0.2) and
     serve 8 requests on the layout the model takes, with exact launch counts
-    (``mixer``: the kernel each calibration forward runs once per layer);
-    then one decode step's logits through the kernels against the plain
-    versions, on a cache prefilled with each prompt's first 15 tokens."""
+    (``mixer``: the kernel each calibration forward runs once per layer;
+    ``gram_taps``: a calibration batch's (single, batched) Gram taps); then
+    one decode step's logits through the kernels against the plain
+    versions, on a cache prefilled with each prompt's first 15 tokens, and
+    for a MoE model one eval batch's logits through its compressed experts
+    (the batched nested kernel at an eval batch's capacity)."""
     from repro_torch import kernels
     from repro_torch.launch.serve import serve
+    from repro_torch.models.moe import RoutingTrace, capacity_of
     from repro_torch.serving.kvcache import PagedKVCache
 
     rng = np.random.default_rng(0)
@@ -777,37 +946,47 @@ def serve_path(torch, np, cfg, mixer: str, taps_per_layer: int):
     rsplit, rsplit_ok = rwkv6_split_ok(counts)
     nsplit = nested_split()
     gsplit = gram_split()
+    bsplit = batched_split()
     gram_ok = gsplit == {"mma": counts["gram"], "fma": 0}  # every tap is bf16
     eng, model, params, plan = res["engine"], res["model"], res["params"], res["plan"]
     st = eng.stats()
     paged = eng.layout == "paged"
     layers = cfg.num_layers
-    n_linear = len(model.compressible_targets()) * layers
+    n_single, n_batched = nested_calls(model)
     # Calibration: 256 samples in batches of 16, each one causal forward
-    # (the mixer kernel once per layer, taps_per_layer taps per layer plus
-    # the final-norm tap).  Every compressed linear of every prefill call and
-    # decode step runs the nested kernel; paged decode steps run paged
-    # attention once per layer; dense admissions prefill each prompt at its
-    # exact length through rwkv6 (paged prefill chunks attend over gathered
-    # pages, as the reference, not through flash_attention).
+    # (the mixer kernel once per layer, gram_taps Gram taps).  Every
+    # compressed linear of every prefill call and decode step runs the
+    # nested kernel (a MoE layer's experts its batched form); paged decode
+    # steps run paged attention once per layer; dense admissions prefill
+    # each prompt at its exact length through the mixer (paged prefill
+    # chunks attend over gathered pages, as the reference, not through
+    # flash_attention).
     calib_batches = 256 // 16
-    expect = {"nested_lowrank": n_linear * (st["steps"] + st["prefill_ticks"]),
+    expect = {"nested_lowrank": (n_single + n_batched) * (st["steps"] + st["prefill_ticks"]),
               "paged_attention": layers * st["steps"] if paged else 0,
-              "gram": (taps_per_layer * layers + 1) * calib_batches,
+              "gram": sum(gram_taps) * calib_batches,
               "flash_attention": 0, "rwkv6": 0}
     expect[mixer] = layers * (calib_batches + (0 if paged else st["prefill_ticks"]))
-    # Every decode step's compressed linears (8 rows, bf16) run the stream
-    # kernel; a prefill call runs the stream kernel at <= 16 rows and the mma
-    # kernel above (paged: every chunk is max_batch x prefill_chunk = 512
-    # rows; dense: one call per prompt at its length); none runs the tile
-    # kernel.
+    # A decode step's compressed linears see the engine's 8 rows (bf16), a
+    # prefill call its rows (paged: every chunk is max_batch x prefill_chunk
+    # = 512 rows; dense: one call per prompt at its length), and a MoE
+    # layer's experts the call's capacity rows; <= 16 rows run the stream
+    # kernel, more the mma kernel, none the tile kernel.
     nlr = _ops("nested_lowrank")
     prefill_rows = ([8 * 64] * st["prefill_ticks"] if paged
                     else [len(p) for p in prompts])
-    long_calls = sum(r > nlr.STREAM_ROWS for r in prefill_rows)
-    nested_expect = {"stream": n_linear * (st["steps"] + len(prefill_rows) - long_calls),
-                     "mma": n_linear * long_calls, "tile": 0}
-    nested_ok = (nsplit == nested_expect and len(prefill_rows) == st["prefill_ticks"])
+    single_rows = [eng.max_batch] * st["steps"] + prefill_rows
+    expert_rows = ([capacity_of(r, cfg) for r in single_rows] if n_batched else [])
+    short = (sum(r <= nlr.STREAM_ROWS for r in single_rows),
+             sum(r <= nlr.STREAM_ROWS for r in expert_rows))
+    batched_expect = {"nested": {"stream": n_batched * short[1],
+                                 "mma": n_batched * (len(expert_rows) - short[1]), "tile": 0},
+                      "gram": gram_taps[1] * calib_batches}
+    nested_expect = {"stream": n_single * short[0] + batched_expect["nested"]["stream"],
+                     "mma": (n_single * (len(single_rows) - short[0])
+                             + batched_expect["nested"]["mma"]), "tile": 0}
+    nested_ok = (nsplit == nested_expect and bsplit == batched_expect
+                 and len(prefill_rows) == st["prefill_ticks"])
     # Every paged decode step's attention also runs the combine when
     # plan_splits gives its table (max_batch rows x the table's columns)
     # more than one split.
@@ -839,9 +1018,9 @@ def serve_path(torch, np, cfg, mixer: str, taps_per_layer: int):
         f"calls {st['prefill_ticks']}, host syncs {st['host_syncs']}, step p50 "
         f"{st['step_p50_s'] * 1e3:.2f} ms")
     log(f"  launches {counts} expected {expect}; flash_attention by kernel {split}; "
-        f"nested_lowrank by kernel {nsplit} expected {nested_expect} "
-        f"{'OK' if nested_ok else 'FAIL'}; gram by kernel {gsplit} "
-        f"{'OK' if gram_ok else 'FAIL'}; paged combine launches {combine} "
+        f"nested_lowrank by kernel {nsplit} expected {nested_expect}, batched forms "
+        f"{bsplit} expected {batched_expect} {'OK' if nested_ok else 'FAIL'}; gram by "
+        f"kernel {gsplit} {'OK' if gram_ok else 'FAIL'}; paged combine launches {combine} "
         f"expected {combine_expect} ({n_splits} splits) {'OK' if combine_ok else 'FAIL'}; "
         f"rwkv6 by copy width {rsplit} {'OK' if rsplit_ok else 'FAIL'}; "
         f"finish reasons {sorted(set(reasons.values()))}")
@@ -867,11 +1046,17 @@ def serve_path(torch, np, cfg, mixer: str, taps_per_layer: int):
             return ({k: clone(v) for k, v in tree.items()} if isinstance(tree, dict)
                     else tree.clone())
         saved = clone(cache)
-        lk = model.apply(params, nxt, mode="decode", cache=cache, cache_len=clen,
-                         **extra).float()
-        with kernels.plain():
+        # The plain run takes the kernel run's expert choices (a MoE model's
+        # top-k routing flips at near-ties on rounding-level differences;
+        # flips counts the routings it would have changed).
+        trace = RoutingTrace()
+        with trace.record():
+            lk = model.apply(params, nxt, mode="decode", cache=cache, cache_len=clen,
+                             **extra).float()
+        with kernels.plain(), trace.replay():
             lp = model.apply(params, nxt, mode="decode", cache=clone(saved),
                              cache_len=clen, **extra).float()
+        step_flips = trace.flips
         prof = profile_step(torch, lambda: model.apply(
             params, nxt, mode="decode", cache=clone(saved), cache_len=clen, **extra),
             f"{eng.layout} decode step (8 rows)")
@@ -899,37 +1084,73 @@ def serve_path(torch, np, cfg, mixer: str, taps_per_layer: int):
                and step_err <= STEP_LOGIT_TOL * step_scale)
     log(f"  decode-step logits kernels vs plain: max abs err {step_err:.4e} "
         f"(max |logit| {step_scale:.3f}, tol {STEP_LOGIT_TOL * step_scale:.4e}), "
-        f"argmax agreement {agree:.3f} {'OK' if step_ok else 'FAIL'}")
+        f"argmax agreement {agree:.3f}, expert routings pinned {step_flips} "
+        f"{'OK' if step_ok else 'FAIL'}")
+    eval_check = None
+    if n_batched:
+        # One (4, 2048) eval batch through the compressed model: every MoE
+        # layer's experts at capacity_of(8192) rows on the batched mma
+        # kernel (the dense and shared linears' 8192 rows are above the
+        # gate), against the plain versions.
+        etoks = torch.as_tensor(rng.integers(2, cfg.vocab_size // 2, size=(4, 2048)),
+                                device="cuda")
+        before = dict(_ops("nested_lowrank").batched_by_kernel)
+        trace = RoutingTrace()
+        with torch.no_grad():
+            with trace.record():
+                le = model.apply(params, etoks, mode="train")
+            torch.cuda.synchronize()
+            ran = {k: v - before[k] for k, v in _ops("nested_lowrank").batched_by_kernel.items()}
+            with kernels.plain(), trace.replay():
+                lpe = model.apply(params, etoks, mode="train")
+        e_err = float((le.float() - lpe.float()).abs().max())
+        e_scale = float(lpe.float().abs().max())
+        e_ok = (le.shape == (4, 2048, cfg.vocab_size) and bool(torch.isfinite(le).all())
+                and e_err <= EVAL_LOGIT_TOL * e_scale
+                and ran == {"stream": 0, "mma": n_batched, "tile": 0})
+        del le, lpe
+        eval_check = dict(capacity=capacity_of(4 * 2048, cfg), batched_launches=ran,
+                          max_abs_err=e_err, max_abs=e_scale, routings_pinned=trace.flips,
+                          ok=e_ok)
+        step_ok = step_ok and e_ok
+        log(f"  compressed eval-batch logits (4 x 2048; expert capacity "
+            f"{eval_check['capacity']} rows, batched launches {ran}) kernels vs plain: max "
+            f"abs err {e_err:.4e} (max |logit| {e_scale:.3f}, tol "
+            f"{EVAL_LOGIT_TOL * e_scale:.4e}), expert routings pinned {trace.flips} of "
+            f"{4 * 2048 * len(trace.choices)} {'OK' if e_ok else 'FAIL'}")
     summary = dict(config=cfg.name, layers=layers, layout=eng.layout,
                    prompt_lengths=plens.tolist(), seconds=res["seconds"],
                    tokens=res["tokens"], tok_per_s=res["tok_per_s"], engine=st,
                    launches=counts, expected_launches=expect, flash_launches=split,
                    rwkv6_launches=rsplit,
                    nested_launches=nsplit, expected_nested_launches=nested_expect,
-                   gram_launches=gsplit, paged_splits=n_splits,
+                   gram_launches=gsplit, batched_launches=bsplit,
+                   expected_batched_launches=batched_expect, eval_check=eval_check,
+                   paged_splits=n_splits,
                    paged_combine_launches=combine,
                    expected_paged_combine_launches=combine_expect,
                    finish_reasons=reasons,
                    achieved_ratio=plan.achieved_ratio, factored_ratio=ratio,
                    step_logit_max_abs_err=step_err, step_logit_max_abs=step_scale,
-                   step_argmax_agreement=agree, step_profile=prof,
+                   step_argmax_agreement=agree, step_routings_pinned=step_flips,
+                   step_profile=prof,
                    prefill_profile=prof_prefill,
                    ok=bool(ok and step_ok))
     return summary, counts
 
 
-def quality_path(torch, np, cfg, eval_n: int, taps_per_layer: int, mixer: str):
+def quality_path(torch, np, cfg, eval_n: int, gram_taps: tuple, mixer: str):
     """``build_entry`` on ``cfg`` with exact launch counts (``mixer``: the
     kernel every causal forward runs once per layer, flash_attention or
-    rwkv6), then one eval batch's logits through the kernels against the
+    rwkv6; ``gram_taps``: a calibration batch's (single, batched) Gram
+    taps), then one eval batch's logits through the kernels against the
     plain versions, and profiles of an eval forward and a calibration batch."""
-    import math
-
     from repro_torch import kernels
     from repro_torch.calib.gram import accumulate_taps
     from repro_torch.calib.runner import calibration_batches, collect_grams
     from repro_torch.eval.perplexity import eval_batches
     from repro_torch.models import build_model
+    from repro_torch.models.moe import RoutingTrace, capacity_of
     from repro_torch.obs.quality_report import EVAL_DOMAINS, build_entry
 
     model = build_model(cfg)
@@ -945,6 +1166,7 @@ def quality_path(torch, np, cfg, eval_n: int, taps_per_layer: int, mixer: str):
     split, split_ok = flash_split_ok(counts)
     rsplit, rsplit_ok = rwkv6_split_ok(counts)
     gsplit = gram_split()
+    nsplit, bsplit = nested_split(), batched_split()
     gram_ok = gsplit == {"mma": counts["gram"], "fma": 0}  # every tap is bf16
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # Causal forwards: calibration, dense and compressed ppl per domain, the
@@ -954,10 +1176,24 @@ def quality_path(torch, np, cfg, eval_n: int, taps_per_layer: int, mixer: str):
     forwards = (256 // 16 + 2 * len(EVAL_DOMAINS) * eval_n + 2 * eval_n
                 + 2 * n_targets * attr_n + 2 * 4)
     # Eval batches have 8192 rows, above the nested kernel's 1024-row gate
-    # (the reference's): compressed linears run as plain matmuls there.
-    expect = {"nested_lowrank": 0, "paged_attention": 0, "flash_attention": 0,
-              "rwkv6": 0, "gram": (taps_per_layer * cfg.num_layers + 1) * (256 // 16)}
+    # (the reference's): compressed linears run as plain matmuls there.  A
+    # MoE layer's experts see capacity_of(8192) rows each (960 at 64
+    # experts, top-6), under the gate: every compressed forward (ppl on each
+    # domain, the KL batches) runs them through the batched mma kernel, and
+    # each expert target's attribution patch runs that target alone.
+    _, n_batched = nested_calls(model)
+    expert_calls = 0
+    if n_batched and capacity_of(eval_b * eval_s, cfg) <= _ops("nested_lowrank").MAX_KERNEL_ROWS:
+        expert_calls = (n_batched * (len(EVAL_DOMAINS) + 1) * eval_n
+                        + sum(math.prod(t.stacked[:-1]) for t in model.compressible_targets()
+                              if "experts" in t.path) * attr_n)
+    expect = {"nested_lowrank": expert_calls, "paged_attention": 0, "flash_attention": 0,
+              "rwkv6": 0, "gram": sum(gram_taps) * (256 // 16)}
     expect[mixer] = cfg.num_layers * forwards
+    batched_expect = {"nested": {"stream": 0, "mma": expert_calls, "tile": 0},
+                      "gram": gram_taps[1] * (256 // 16)}
+    nested_ok = (nsplit == {"stream": 0, "mma": expert_calls, "tile": 0}
+                 and bsplit == batched_expect)
     tot = entry["decomposition"]
     numbers = [*entry["dense_ppl"].values(), *entry["compressed_ppl"].values(),
                *entry["ppl_ratio"].values(), entry["logit_kl"], entry["achieved_ratio"],
@@ -966,7 +1202,7 @@ def quality_path(torch, np, cfg, eval_n: int, taps_per_layer: int, mixer: str):
     finite = all(math.isfinite(float(x)) for x in numbers)
     ratio_ok = abs(tot["achieved_ratio"] - entry["achieved_ratio"]) < 1e-9
     ok = (finite and ratio_ok and counts == expect and split_ok and rsplit_ok and gram_ok
-          and len(entry["attribution"]) == n_targets)
+          and nested_ok and len(entry["attribution"]) == n_targets)
     log(f"quality path: {cfg.name} layers={cfg.num_layers} (depth cut), eval batches "
         f"{eval_n} x ({eval_b}, {eval_s}) per domain; peak device memory {peak_gb:.1f} GB")
     log("  phase seconds: " + ", ".join(f"{k}={v:.2f}" for k, v in entry["seconds"].items()))
@@ -979,15 +1215,19 @@ def quality_path(torch, np, cfg, eval_n: int, taps_per_layer: int, mixer: str):
     log(f"  attribution top: {entry['attribution'][:2]}; activation similarity "
         f"{entry['activation_similarity']}")
     log(f"  launches {counts} expected {expect}; flash_attention by kernel {split}; "
-        f"gram by kernel {gsplit} {'OK' if gram_ok else 'FAIL'}; rwkv6 by copy width "
-        f"{rsplit} {'OK' if rsplit_ok else 'FAIL'}; all numbers finite: {finite}")
+        f"gram by kernel {gsplit} {'OK' if gram_ok else 'FAIL'}; nested by kernel {nsplit}, "
+        f"batched forms {bsplit} expected {batched_expect} {'OK' if nested_ok else 'FAIL'}; "
+        f"rwkv6 by copy width {rsplit} {'OK' if rsplit_ok else 'FAIL'}; Gram-fallback "
+        f"slices {tot['gram_fallback_slices']}; all numbers finite: {finite}")
 
     # One eval batch's dense logits through the kernels vs the plain versions.
     toks = torch.as_tensor(next(eval_batches(cfg.vocab_size, "en_a", 1, eval_b, eval_s)),
                            device="cuda")
+    trace = RoutingTrace()  # the plain run routes as the kernel run (serve_path)
     with torch.no_grad():
-        lk = model.apply(params, toks, mode="train").float()
-        with kernels.plain():
+        with trace.record():
+            lk = model.apply(params, toks, mode="train").float()
+        with kernels.plain(), trace.replay():
             lp = model.apply(params, toks, mode="train").float()
     err = float((lk - lp).abs().max())
     scale = float(lp.abs().max())
@@ -997,7 +1237,8 @@ def quality_path(torch, np, cfg, eval_n: int, taps_per_layer: int, mixer: str):
     del lk, lp
     log(f"  eval-batch logits kernels vs plain: max abs err {err:.4e} (max |logit| "
         f"{scale:.3f}, tol {EVAL_LOGIT_TOL * scale:.4e}), argmax agreement "
-        f"{agree:.4f} {'OK' if logit_ok else 'FAIL'}")
+        f"{agree:.4f}, expert routings pinned {trace.flips} "
+        f"{'OK' if logit_ok else 'FAIL'}")
     # Where the quality path's time goes: one eval forward and one steady
     # calibration batch (forward, gram launches, fp64 adds into a store that
     # already holds every key, as in 15 of the 16 batches).
@@ -1017,10 +1258,13 @@ def quality_path(torch, np, cfg, eval_n: int, taps_per_layer: int, mixer: str):
     del store
     summary = dict(config=cfg.name, layers=cfg.num_layers, entry=entry, launches=counts,
                    expected_launches=expect, flash_launches=split, gram_launches=gsplit,
-                   rwkv6_launches=rsplit,
+                   nested_launches=nsplit, batched_launches=bsplit,
+                   expected_batched_launches=batched_expect,
+                   gram_fallback_slices=tot["gram_fallback_slices"], rwkv6_launches=rsplit,
                    peak_memory_gb=peak_gb,
                    eval_profile=prof_eval, calib_profile=prof_calib,
                    eval_logit_max_abs_err=err, eval_logit_max_abs=scale,
+                   eval_routings_pinned=trace.flips,
                    eval_argmax_agreement=agree, ok=bool(ok and logit_ok))
     return summary, counts
 
@@ -1260,7 +1504,7 @@ def main() -> int:
         from repro_torch.kernels.nested_lowrank import ops as nlr_ops, ref as nlr_ref
         from repro_torch.kernels.paged_attention import ops as pa_ops, ref as pa_ref
         from repro_torch.kernels.rwkv6 import ops as rwkv_ops, ref as rwkv_ref
-        from repro_torch.configs import MISTRAL_7B, RWKV6_1_6B
+        from repro_torch.configs import MISTRAL_7B, MOONSHOT_V1_16B_A3B, RWKV6_1_6B
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
         return 2
@@ -1288,21 +1532,32 @@ def main() -> int:
                 log(f"  ptxas[{name}]: {line.strip()}")
 
     nested = nested_phase(torch, nlr_ops, nlr_ref)
+    nested_b = nested_batched_phase(torch, nlr_ops, nlr_ref)
     paged = paged_phase(torch, np, pa_ops, pa_ref)
     grams = gram_phase(torch, gram_ops, gram_ref)
+    grams_b = gram_batched_phase(torch, gram_ops, gram_ref)
     flash = flash_phase(torch, fa_ops, fa_ref)
     rwkv = rwkv6_phase(torch, rwkv_ops, rwkv_ref)
-    kernels_ok = all(r["ok"] for r in nested + paged + grams + flash + rwkv)
+    kernels_ok = all(r["ok"] for r in nested + nested_b + paged + grams + grams_b + flash
+                     + rwkv)
     # mistral-7b cut to 2 of 32 layers (1 on the methods path); rwkv6-1.6b
-    # cut to 4 of 24; widths untouched.  (path, function, args): the mixer kernel and the
-    # calibration taps per layer of each model.
+    # cut to 4 of 24; moonshot-v1-16b-a3b cut to 3 of 48 (its dense first
+    # layer and two MoE layers); widths untouched.  (path, function, args):
+    # the mixer kernel and a calibration batch's (single, batched) Gram taps
+    # (4 a layer and the final norm's on Mistral, 9 a layer and the final
+    # norm's on RWKV-6; on moonshot 4 on the dense layer, and on each MoE
+    # layer attn.in, attn.out_in, router_in, shared_in, shared_mid and the
+    # batched expert_buf, expert_mid).
     mistral = dataclasses.replace(MISTRAL_7B, num_layers=2)
     rwkv6 = dataclasses.replace(RWKV6_1_6B, num_layers=4)
-    runs = (("serve", serve_path, (mistral, "flash_attention", 4)),
-            ("quality", quality_path, (mistral, 2, 4, "flash_attention")),
+    moonshot = dataclasses.replace(MOONSHOT_V1_16B_A3B, num_layers=3)
+    runs = (("serve", serve_path, (mistral, "flash_attention", (9, 0))),
+            ("quality", quality_path, (mistral, 2, (9, 0), "flash_attention")),
             ("methods", methods_path, (dataclasses.replace(MISTRAL_7B, num_layers=1), 4)),
-            ("rwkv_serve", serve_path, (rwkv6, "rwkv6", 9)),
-            ("rwkv_quality", quality_path, (rwkv6, 1, 9, "rwkv6")))
+            ("rwkv_serve", serve_path, (rwkv6, "rwkv6", (37, 0))),
+            ("rwkv_quality", quality_path, (rwkv6, 1, (37, 0), "rwkv6")),
+            ("moe_serve", serve_path, (moonshot, "flash_attention", (15, 4))),
+            ("moe_quality", quality_path, (moonshot, 2, (15, 4), "flash_attention")))
     summaries, path_counts, path_s = {}, {}, {}
     for name, fn, args in runs:
         t0 = time.perf_counter()
@@ -1361,6 +1616,19 @@ def main() -> int:
                    summaries["serve"]["paged_combine_launches"],
                    "src/repro_torch/csrc/paged_attention.cu",
                    "src/repro/kernels/paged_attention/paged_attention.py:243"),)
+    # The batched forms: the nested decode case (64 experts x 8 rows, stream)
+    # with the MoE paths' batched stream launches, the 960-row gate case
+    # (mma) with their batched mma launches, and the expert_buf-wide Gram
+    # with their batched gram launches.
+    moe_b = [summaries[k]["batched_launches"] for k in ("moe_serve", "moe_quality")]
+    picks += (
+        ("nested_lowrank_batched", next(r for r in nested_b if r["case"] == "decode"),
+         sum(b["nested"]["stream"] for b in moe_b), nested_src, nested_tpu),
+        ("nested_lowrank_batched_mma", next(r for r in nested_b if r["case"] == "eval_gate"),
+         sum(b["nested"]["mma"] for b in moe_b), nested_src, nested_tpu),
+        ("gram_batched", next(r for r in grams_b if r["n"] == 2048),
+         sum(b["gram"] for b in moe_b), "src/repro_torch/csrc/gram.cu",
+         "src/repro/kernels/gram/gram.py:54"))
     entries = []
     for name, row, launches, src, replaces in picks:
         entries.append({"name": name, "route": "cuda", "source": src,
@@ -1371,7 +1639,8 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": kind, "nvidia_smi": smi_line, "build_s": build_s,
-                   "nested": nested, "paged": paged, "gram": grams, "flash": flash,
+                   "nested": nested, "nested_batched": nested_b, "paged": paged,
+                   "gram": grams, "gram_batched": grams_b, "flash": flash,
                    "rwkv6": rwkv, **{f"{k}_path": v for k, v in summaries.items()},
                    "path_seconds": path_s, "kernels": entries}, f, indent=1)
     paths_ok = {k: v["ok"] for k, v in summaries.items()}

@@ -11,6 +11,14 @@ must stay off to match the reference's ``Precision.HIGHEST``
 Tap names from stacked groups look like "g0/rep3/sub0.mlp.in";
 ``normalize_tap`` rewrites them to the per-layer GramStore key
 "g0/sub0.mlp.in/3" (plus the shared key "g0/sub0.mlp.in" over all layers).
+
+A MoE layer's ``expert_buf`` / ``expert_mid`` taps are zero-padded (E, C,
+n) capacity buffers: each expert gets its own Gram, from the batched
+``gram`` kernel (one launch for all experts), under "{base}/{layer}/{e}"
+("{base}/{e}" unstacked), and the shared key ``base`` gets their sum, the
+fallback for an expert that saw too few tokens.  An expert's row count is
+the number of its rows with any non-zero element, as the reference counts
+it (a slot left empty is all zeros).
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.core.compress import GramStore
-from repro_torch.kernels.gram.ops import gram_accumulate
+from repro_torch.kernels.gram.ops import gram_accumulate, gram_accumulate_batched
 
 _REP_RE = re.compile(r"/rep(\d+)/")
 
@@ -57,6 +65,16 @@ def accumulate_taps(store: GramStore, taps: Dict[str, torch.Tensor],
     tap_rows: Dict[str, float] = {}
     for name, x in taps.items():
         base, suffix = normalize_tap(name)
+        if base.endswith(("expert_buf", "expert_mid")):
+            g, a = gram_accumulate_batched(x)
+            counts = (x != 0).any(-1).sum(1).tolist()  # one host copy per tap
+            store.update_stacked([f"{base}/{suffix}/{e}" if suffix else f"{base}/{e}"
+                                  for e in range(x.shape[0])], g, a, counts)
+            store.update(base, g.sum(0, dtype=torch.float64),
+                         a.sum(0, dtype=torch.float64), float(sum(counts)))
+            del g
+            tap_rows[base] = tap_rows.get(base, 0.0) + float(sum(counts))
+            continue
         g, a, c = gram_update(x)
         if suffix:
             store.update(f"{base}/{suffix}", g, a, c)

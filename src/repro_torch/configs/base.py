@@ -1,16 +1,28 @@
 """Model configuration: the subset of the reference config the port reads.
 
-The port serves the paper's dense families (LLaMA / OPT / Mistral) and the
-RWKV-6 family, so the frozen dataclass keeps the reference's field names and
-defaults for every field those families read; the other family sub-configs
-(MoE, MLA, Mamba) are not ported yet.  ``reduced()`` is the reference's
-smoke-test shrink.
+The port serves the paper's dense families (LLaMA / OPT / Mistral), the
+RWKV-6 family and the token-choice MoE family, so the frozen dataclass keeps
+the reference's field names and defaults for every field those families
+read; the other family sub-configs (MLA, Mamba) are not ported yet.
+``reduced()`` is the reference's smoke-test shrink.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    num_shared_experts: int = 0
+    first_k_dense: int = 0  # leading layers use the dense FFN
+    moe_every: int = 1  # MoE on layers with (i - first_k_dense) % moe_every == 0
+    capacity_factor: float = 1.25
+    router_dtype: str = "float32"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +53,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     mixer_pattern: Tuple[str, ...] = ("attn",)  # "attn" | "rwkv", cycled
 
+    moe: Optional[MoEConfig] = None
     rwkv: Optional[RWKVConfig] = None
 
     max_seq: int = 131072
@@ -51,12 +64,19 @@ class ModelConfig:
         if self.head_dim == 0 and self.num_heads > 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
 
+    def mixer_of(self, layer: int) -> str:
+        return self.mixer_pattern[layer % len(self.mixer_pattern)]
+
+    def ffn_of(self, layer: int) -> str:
+        if self.moe is None or layer < self.moe.first_k_dense:
+            return "mlp"
+        if (layer - self.moe.first_k_dense) % self.moe.moe_every == 0:
+            return "moe"
+        return "mlp"
+
     def layer_specs(self) -> Tuple[Tuple[str, str], ...]:
         """(mixer, ffn) per decoder layer — drives layer-stack grouping."""
-        return tuple(
-            (self.mixer_pattern[i % len(self.mixer_pattern)], "mlp")
-            for i in range(self.num_layers)
-        )
+        return tuple((self.mixer_of(i), self.ffn_of(i)) for i in range(self.num_layers))
 
     def reduced(self) -> "ModelConfig":
         """Smoke-test config: same family/topology, tiny dimensions."""
@@ -65,19 +85,34 @@ class ModelConfig:
         if self.num_kv_heads and self.num_heads % self.num_kv_heads == 0:
             group = self.num_heads // self.num_kv_heads
             kv = max(1, scale_heads // min(group, scale_heads))
+        n_layers = max(2 * len(self.mixer_pattern), 2)
+        moe = None
+        if self.moe is not None:
+            n_layers = max(n_layers, self.moe.first_k_dense + 2 * self.moe.moe_every)
+            moe = dataclasses.replace(
+                self.moe,
+                num_experts=min(self.moe.num_experts, 8),
+                top_k=min(self.moe.top_k, 2),
+                d_ff_expert=32,
+                num_shared_experts=min(self.moe.num_shared_experts, 1),
+                # Lossless capacity, so prefill + decode equals the full
+                # forward (dropping depends on the batch's composition).
+                capacity_factor=8.0,
+            )
         rwkv = None
         if self.rwkv is not None:
             rwkv = RWKVConfig(head_dim=8, decay_lora=8, mix_lora=4)
         return dataclasses.replace(
             self,
             name=self.name + "-reduced",
-            num_layers=max(2 * len(self.mixer_pattern), 2),
+            num_layers=n_layers,
             d_model=32,
             num_heads=scale_heads,
             num_kv_heads=kv,
             d_ff=64,
             vocab_size=256,
             head_dim=8,
+            moe=moe,
             rwkv=rwkv,
             max_seq=128,
             dtype="float32",

@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Dict
 
 from .base import ModelConfig
+from .moonshot_v1_16b_a3b import CONFIG as MOONSHOT_V1_16B_A3B
 from .paper_models import LLAMA_7B, MISTRAL_7B, OPT_6_7B, small_lm
 from .rwkv6_1_6b import CONFIG as RWKV6_1_6B
 
@@ -21,6 +22,7 @@ PAPER: Dict[str, ModelConfig] = {
 
 FAMILIES: Dict[str, ModelConfig] = {
     "rwkv6-1.6b": RWKV6_1_6B,
+    "moonshot-v1-16b-a3b": MOONSHOT_V1_16B_A3B,
 }
 
 SMALL_VOCAB = 512

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import logging
 import time
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -37,6 +37,8 @@ class GramStore:
         self._grams: Dict[str, torch.Tensor] = {}
         self._absmean: Dict[str, torch.Tensor] = {}
         self._counts: Dict[str, float] = {}
+        # keys -> the (E, n, n) and (E, n) sums whose slices they read
+        self._stacks: Dict[Tuple[str, ...], Tuple[torch.Tensor, torch.Tensor]] = {}
 
     def update(self, key: str, gram: torch.Tensor, absmean: torch.Tensor,
                count: float):
@@ -48,6 +50,27 @@ class GramStore:
             self._grams[key] = gram.to(torch.float64).clone()
             self._absmean[key] = absmean.to(torch.float64).clone()
             self._counts[key] = float(count)
+
+    def update_stacked(self, keys: Sequence[str], grams: torch.Tensor,
+                       absmeans: torch.Tensor, counts: Sequence[float]):
+        """``update(keys[e], grams[e], absmeans[e], counts[e])`` for every e,
+        with one fp64 add for all of them: keys first seen together read
+        slices of one (E, n, n) sum (a MoE layer's per-expert Grams)."""
+        keys = tuple(keys)
+        stack = self._stacks.get(keys)
+        if stack is None:
+            if any(k in self._grams for k in keys):
+                raise ValueError("update_stacked: keys already summed one by one")
+            stack = (grams.to(torch.float64).clone(), absmeans.to(torch.float64).clone())
+            self._stacks[keys] = stack
+            for e, k in enumerate(keys):
+                self._grams[k], self._absmean[k] = stack[0][e], stack[1][e]
+                self._counts[k] = float(counts[e])
+            return
+        stack[0].add_(grams)
+        stack[1].add_(absmeans)
+        for k, c in zip(keys, counts):
+            self._counts[k] += float(c)
 
     def _pick(self, key: str, fallback: Optional[str], min_count: int) -> str:
         if key in self._grams and self._counts[key] >= min_count:

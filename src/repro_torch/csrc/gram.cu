@@ -63,6 +63,12 @@
 // columns tx + 16 j: conflict-free shared-memory reads); row chunks of 32
 // staged in shared memory as fp32; fp32 FMA (bit-identical to the plain
 // fp32 matmul in every case measured on the H100).
+//
+// The batched form (a token-choice MoE layer's per-expert Grams, which the
+// reference computes with one einsum over the zero-padded (E, C, n)
+// capacity buffer): E taps of the same shape in one launch, the expert a
+// second grid index (blockIdx.y) that offsets x, G and sum |x|.  The
+// single form is E = 1.
 #include "common.cuh"
 #include "mma_sm90.cuh"
 
@@ -72,6 +78,16 @@ constexpr int TILE = 128;   // output tile edge
 constexpr int CHUNK = 32;   // rows staged per step
 constexpr int THREADS = 256;
 constexpr int PER = 8;      // register tile edge per thread (16 x 16 threads)
+
+// Element offsets of expert blockIdx.y's rows, Gram and sum |x| in a batch
+// of (rows, n) taps.
+struct ExpertOffsets {
+  size_t x, g, a;
+};
+__device__ __forceinline__ ExpertOffsets expert_offsets(int rows, int n) {
+  const size_t e = blockIdx.y;
+  return {e * rows * n, e * n * n, e * n};
+}
 
 // Map the linear block index onto the upper triangle (bi <= bj), row by row.
 __device__ __forceinline__ void tile_of(int ntiles, int& bi, int& bj) {
@@ -90,6 +106,8 @@ gram_kernel(const T* __restrict__ x, float* __restrict__ g, float* __restrict__ 
             int rows, int n, int ntiles) {
   __shared__ float xi[CHUNK][TILE];
   __shared__ float xj[CHUNK][TILE];
+  const ExpertOffsets eo = expert_offsets(rows, n);
+  x += eo.x, g += eo.g, asum += eo.a;
 
   int bi, bj;
   tile_of(ntiles, bi, bj);
@@ -187,6 +205,8 @@ gram_mma(const bf16* __restrict__ x, float* __restrict__ g, float* __restrict__ 
   float* tile = reinterpret_cast<float*>(smem_g);  // the epilogue's, after the ring
   // The running sums, one column of NACC per thread (conflict-free).
   float* sums = reinterpret_cast<float*>(smem_g + SUMS) + threadIdx.x;
+  const ExpertOffsets eo = expert_offsets(rows, n);
+  x += eo.x, g += eo.g, asum += eo.a;
 
   int bi, bj;
   tile_of(ntiles, bi, bj);
@@ -332,7 +352,7 @@ gram_mma(const bf16* __restrict__ x, float* __restrict__ g, float* __restrict__ 
 }
 
 int launch_mma(const void* x, float* g, float* asum, int rows, int n, int ntiles, int blocks,
-               cudaStream_t st) {
+               int batch, cudaStream_t st) {
   static bool configured = false;  // one attribute call
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(gram_mma, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -343,32 +363,36 @@ int launch_mma(const void* x, float* g, float* asum, int rows, int n, int ntiles
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  gram_mma<<<blocks, THREADS, MMA_SMEM, st>>>((const bf16*)x, g, asum, rows, n, ntiles);
+  gram_mma<<<dim3(blocks, batch), THREADS, MMA_SMEM, st>>>((const bf16*)x, g, asum, rows, n,
+                                                           ntiles);
   return 0;
 }
 
 }  // namespace
 
-// x (rows, n) contiguous, dtype 0 fp32 / 1 bf16; kernel 0 the FMA kernel,
-// 1 the mma kernel (bf16 only, n % 8 == 0, x 16-byte aligned); g (n, n)
-// fp32 and asum (n,) fp32 are written in full.  Returns cudaGetLastError(),
-// or cudaErrorInvalidValue for what the named kernel does not take.
-extern "C" int gram_launch(const void* x, float* g, float* asum, int rows, int n,
+// x (batch, rows, n) contiguous (the single form: batch 1), dtype 0 fp32 /
+// 1 bf16; kernel 0 the FMA kernel, 1 the mma kernel (bf16 only, n % 8 ==
+// 0, x 16-byte aligned); g (batch, n, n) fp32 and asum (batch, n) fp32 are
+// written in full.  Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for what the named kernel does not take.
+extern "C" int gram_launch(const void* x, float* g, float* asum, int rows, int n, int batch,
                            int dtype, int kernel, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int ntiles = (n + TILE - 1) / TILE;
   const int blocks = ntiles * (ntiles + 1) / 2;
+  if (batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(blocks, batch);
   if (kernel == 1) {
     if (dtype != kBF16 || n % 8 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)
       return (int)cudaErrorInvalidValue;
-    const int rc = launch_mma(x, g, asum, rows, n, ntiles, blocks, st);
+    const int rc = launch_mma(x, g, asum, rows, n, ntiles, blocks, batch, st);
     if (rc != 0) return rc;
   } else if (kernel != 0) {
     return (int)cudaErrorInvalidValue;
   } else if (dtype == kF32) {
-    gram_kernel<float><<<blocks, THREADS, 0, st>>>((const float*)x, g, asum, rows, n, ntiles);
+    gram_kernel<float><<<grid, THREADS, 0, st>>>((const float*)x, g, asum, rows, n, ntiles);
   } else if (dtype == kBF16) {
-    gram_kernel<bf16><<<blocks, THREADS, 0, st>>>((const bf16*)x, g, asum, rows, n, ntiles);
+    gram_kernel<bf16><<<grid, THREADS, 0, st>>>((const bf16*)x, g, asum, rows, n, ntiles);
   } else {
     return (int)cudaErrorInvalidValue;
   }

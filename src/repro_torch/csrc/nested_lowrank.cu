@@ -97,6 +97,15 @@
 //   the two bf16 kernels do not take: N % 8, unaligned v/v2, K % 8 above
 //   16 rows).  A (16, 128) or (64, 64) fp32-FMA
 //   tile, synchronous 16-deep loads, one element at a time.
+//
+// The batched form (the reference's vmap over a token-choice MoE layer's
+// experts): x (E, M, K), u (E, K, k1), v (E, k1, N), u2 (E, K, k2), v2 (E,
+// k2, N) and y (E, M, N), all E products in one launch of each phase.  The
+// expert is a grid index (blockIdx.y; the tile kernel folds it into
+// blockIdx.z beside the split-K slice) that offsets every operand by its
+// per-expert stride; split-K partials are laid out [slice][expert][row]
+// [column], so one reduction over E * M columns serves every expert, and t
+// (E, M, k) keeps each expert's rounding point.  The single form is E = 1.
 #include <algorithm>
 #include <climits>
 
@@ -116,7 +125,7 @@ template <typename TA, typename TB, int BM, int BN, int TM, int TN, bool SPLIT_C
 __global__ void __launch_bounds__(kThreads)
 gemm_partial(const TA* __restrict__ a, int lda, const TB* __restrict__ b0,
              const TB* __restrict__ b1, int split, float* __restrict__ part,
-             int M, int Kd, int N, int k_chunk) {
+             int M, int Kd, int N, int k_chunk, int E, int splits) {
   static_assert((BM / TM) * (BN / TN) == kThreads, "tile/thread mismatch");
   __shared__ float As[kBK][BM];
   __shared__ float Bs[kBK][BN];
@@ -124,7 +133,11 @@ gemm_partial(const TA* __restrict__ a, int lda, const TB* __restrict__ b0,
   const int tid = threadIdx.x;
   const int tx = tid % TX, ty = tid / TX;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int kbeg = blockIdx.z * k_chunk;
+  const int e = blockIdx.z / splits, zs = blockIdx.z % splits;  // expert, slice
+  a += (size_t)e * M * lda;
+  b0 += (size_t)e * (SPLIT_COLS ? (size_t)Kd * split : (size_t)split * N);
+  b1 += (size_t)e * (SPLIT_COLS ? (size_t)Kd * (N - split) : (size_t)(Kd - split) * N);
+  const int kbeg = zs * k_chunk;
   const int kend = min(Kd, kbeg + k_chunk);
 
   float acc[TM][TN];
@@ -170,7 +183,7 @@ gemm_partial(const TA* __restrict__ a, int lda, const TB* __restrict__ b0,
     __syncthreads();
   }
 
-  float* out = part + (size_t)blockIdx.z * M * N;
+  float* out = part + ((size_t)zs * E + e) * M * N;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int gm = m0 + ty * TM + i;
@@ -197,20 +210,20 @@ __global__ void reduce_partials(const float* __restrict__ part, TO* __restrict__
 
 template <bool SPLIT_COLS, typename TA, typename TB>
 void launch_gemm(const TA* a, int lda, const TB* b0, const TB* b1, int split,
-                 float* part, int M, int Kd, int N, int splits, int k_chunk,
+                 float* part, int M, int Kd, int N, int splits, int k_chunk, int E,
                  cudaStream_t stream) {
   // Skinny (decode-shaped) rows get a short, wide tile; the wrapper's split
   // heuristic mirrors this choice (SKINNY_ROWS / tile sizes in ops.py).
   if (M <= 16) {
     constexpr int BM = 16, BN = 128;
-    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
+    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits * E);
     gemm_partial<TA, TB, BM, BN, 2, 4, SPLIT_COLS><<<grid, kThreads, 0, stream>>>(
-        a, lda, b0, b1, split, part, M, Kd, N, k_chunk);
+        a, lda, b0, b1, split, part, M, Kd, N, k_chunk, E, splits);
   } else {
     constexpr int BM = 64, BN = 64;
-    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
+    dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits * E);
     gemm_partial<TA, TB, BM, BN, 4, 4, SPLIT_COLS><<<grid, kThreads, 0, stream>>>(
-        a, lda, b0, b1, split, part, M, Kd, N, k_chunk);
+        a, lda, b0, b1, split, part, M, Kd, N, k_chunk, E, splits);
   }
 }
 
@@ -226,12 +239,12 @@ void launch_reduce(const float* part, TO* out, int splits, size_t count,
 template <typename T>
 void run(const T* x, const T* u, const T* v, const T* u2, const T* v2, T* y,
          float* part1, T* t, float* part2, int M, int K, int k1, int k2, int N,
-         int s1, int c1, int s2, int c2, cudaStream_t stream) {
+         int s1, int c1, int s2, int c2, int E, cudaStream_t stream) {
   const int k = k1 + k2;
-  launch_gemm<true>(x, K, u, u2, k1, part1, M, K, k, s1, c1, stream);
-  launch_reduce<T>(part1, t, s1, (size_t)M * k, stream);
-  launch_gemm<false>(t, k, v, v2, k1, part2, M, k, N, s2, c2, stream);
-  launch_reduce<T>(part2, y, s2, (size_t)M * N, stream);
+  launch_gemm<true>(x, K, u, u2, k1, part1, M, K, k, s1, c1, E, stream);
+  launch_reduce<T>(part1, t, s1, (size_t)E * M * k, stream);
+  launch_gemm<false>(t, k, v, v2, k1, part2, M, k, N, s2, c2, E, stream);
+  launch_reduce<T>(part2, y, s2, (size_t)E * M * N, stream);
 }
 
 // ---- the stream kernel (bf16, M <= 16) ----
@@ -273,10 +286,14 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 __device__ __forceinline__ float bf_lo(uint32_t w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float bf_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+// Expert blockIdx.y's (kd, nc) factor in a batch of them, row-major.
+__device__ __forceinline__ const bf16* expert_factor(const bf16* b, int kd, int nc) {
+  return b + (size_t)blockIdx.y * kd * nc;
+}
 
-// One (segment, column tile, split-K slice) per block; 1-D grid over s0's
-// tiles x splits, then s1's.  Partials: part[z][m][out_col + col], row
-// stride out_ld, for m < M.
+// One (segment, column tile, split-K slice) per block; grid x over s0's
+// tiles x splits, then s1's, grid y over the batch's experts.  Partials:
+// part[z][expert][m][out_col + col], row stride out_ld, for m < M.
 template <int MT, int C, bool SHIFT>
 __global__ void __launch_bounds__(kThreads, MT == 8 ? 2 : 1)
 stream_partial(const bf16* __restrict__ a, int lda, Seg s0, Seg s1,
@@ -302,6 +319,8 @@ stream_partial(const bf16* __restrict__ a, int lda, Seg s0, Seg s1,
   const int tile = blk % tiles, split = blk / tiles;
   const bf16* __restrict__ b = second ? s1.b : s0.b;
   const int kd = second ? s1.kd : s0.kd, nc = second ? s1.nc : s0.nc;
+  b = expert_factor(b, kd, nc);
+  a += (size_t)blockIdx.y * M * lda;
   const int a_col = second ? s1.a_col : s0.a_col;
   const int out_col = second ? s1.out_col : s0.out_col;
   const int z = (second ? s1.z0 : s0.z0) + split;
@@ -415,7 +434,7 @@ stream_partial(const bf16* __restrict__ a, int lda, Seg s0, Seg s1,
       *reinterpret_cast<float2*>(red + (wk * MT + m) * kBN + 2 * (wcol + 32 * p)) =
           make_float2(acc[m][2 * p], acc[m][2 * p + 1]);
   __syncthreads();
-  float* out = part + (size_t)z * M * out_ld + out_col + n0;
+  float* out = part + ((size_t)z * gridDim.y + blockIdx.y) * M * out_ld + out_col + n0;
   for (int i = tid; i < M * kBN; i += kThreads) {
     const int m = i / kBN, c = i % kBN;
     if (c >= ncols) continue;
@@ -428,7 +447,7 @@ stream_partial(const bf16* __restrict__ a, int lda, Seg s0, Seg s1,
 
 template <int MT, int C, bool SHIFT>
 int launch_stream(const bf16* a, int lda, const Seg& s0, const Seg& s1, float* part,
-                  int M, int out_ld, int chunk, cudaStream_t stream) {
+                  int M, int out_ld, int chunk, int E, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(stream_partial<MT, C, SHIFT>,
@@ -440,8 +459,8 @@ int launch_stream(const bf16* a, int lda, const Seg& s0, const Seg& s1, float* p
   const int blocks = s0.tiles * s0.splits + s1.tiles * s1.splits;
   if (blocks == 0) return 0;
   const size_t smem = kRingBytes + (size_t)chunk * MT * 4;
-  stream_partial<MT, C, SHIFT><<<blocks, kThreads, smem, stream>>>(a, lda, s0, s1, part, M,
-                                                                 out_ld, chunk);
+  stream_partial<MT, C, SHIFT><<<dim3(blocks, E), kThreads, smem, stream>>>(a, lda, s0, s1, part,
+                                                                          M, out_ld, chunk);
   return (int)cudaGetLastError();
 }
 
@@ -454,7 +473,7 @@ int cdiv(int a, int b) { return (a + b - 1) / b; }
 // offsets pass 2^31.
 int run_stream(const bf16* x, const bf16* u, const bf16* v, const bf16* u2, const bf16* v2,
                bf16* y, float* part1, bf16* t, float* part2, int M, int K, int k1, int k2,
-               int N, int s1, int c1, int s2, int c2, cudaStream_t stream) {
+               int N, int s1, int c1, int s2, int c2, int E, cudaStream_t stream) {
   auto chunk_ok = [](int c) { return c > 0 && c % kSK == 0 && c <= kMaxChunk; };
   const int sv = cdiv(k1, c2), sv2 = cdiv(k2, c2);
   if (M < 1 || M > 16 || N % 8 || reinterpret_cast<uintptr_t>(v) % 16 ||
@@ -466,16 +485,16 @@ int run_stream(const bf16* x, const bf16* u, const bf16* v, const bf16* u2, cons
   const int k = k1 + k2;
   const Seg pu{u, K, k1, 0, 0, cdiv(k1, kBN), s1, 0};
   const Seg pu2{u2, K, k2, 0, k1, cdiv(k2, kBN), s1, 0};
-  int e = M <= 8 ? launch_stream<8, 8, true>(x, K, pu, pu2, part1, M, k, c1, stream)
-                 : launch_stream<16, 4, true>(x, K, pu, pu2, part1, M, k, c1, stream);
+  int e = M <= 8 ? launch_stream<8, 8, true>(x, K, pu, pu2, part1, M, k, c1, E, stream)
+                 : launch_stream<16, 4, true>(x, K, pu, pu2, part1, M, k, c1, E, stream);
   if (e) return e;
-  launch_reduce<bf16>(part1, t, s1, (size_t)M * k, stream);
+  launch_reduce<bf16>(part1, t, s1, (size_t)E * M * k, stream);
   const Seg pv{v, k1, N, 0, 0, cdiv(N, kBN), sv, 0};
   const Seg pv2{v2, k2, N, k1, 0, cdiv(N, kBN), sv2, sv};
-  e = M <= 8 ? launch_stream<8, 8, false>(t, k, pv, pv2, part2, M, N, c2, stream)
-             : launch_stream<16, 4, false>(t, k, pv, pv2, part2, M, N, c2, stream);
+  e = M <= 8 ? launch_stream<8, 8, false>(t, k, pv, pv2, part2, M, N, c2, E, stream)
+             : launch_stream<16, 4, false>(t, k, pv, pv2, part2, M, N, c2, E, stream);
   if (e) return e;
-  launch_reduce<bf16>(part2, y, s2, (size_t)M * N, stream);
+  launch_reduce<bf16>(part2, y, s2, (size_t)E * M * N, stream);
   return 0;
 }
 
@@ -517,9 +536,10 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One (segment, column tile, row tile, split-K slice) per block; 1-D grid,
-// row tiles fastest, over s0's tiles x splits, then s1's.  Partials:
-// part[z][m][out_col + col], row stride out_ld, for m < M.
+// One (segment, column tile, row tile, split-K slice) per block; grid x,
+// row tiles fastest, over s0's tiles x splits, then s1's, grid y over the
+// batch's experts.  Partials: part[z][expert][m][out_col + col], row stride
+// out_ld, for m < M.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 .bf16), lane = 4 * gid + tig:
 //   C {(gid, 2tig), (gid, 2tig+1), (gid+8, 2tig), (gid+8, 2tig+1)}.
@@ -553,8 +573,9 @@ mma_partial(const bf16* __restrict__ a, int lda, Seg s0, Seg s1, float* __restri
   blk /= mtiles;
   const int tiles = second ? s1.tiles : s0.tiles;
   const int tile = blk % tiles, split = blk / tiles;
-  const bf16* const __restrict__ b = second ? s1.b : s0.b;
   const int kd = second ? s1.kd : s0.kd, nc = second ? s1.nc : s0.nc;
+  const bf16* const __restrict__ b = expert_factor(second ? s1.b : s0.b, kd, nc);
+  a += (size_t)blockIdx.y * M * lda;
   const int a_col = second ? s1.a_col : s0.a_col;
   const int out_col = second ? s1.out_col : s0.out_col;
   const int z = (second ? s1.z0 : s0.z0) + split;
@@ -691,7 +712,7 @@ mma_partial(const bf16* __restrict__ a, int lda, Seg s0, Seg s1, float* __restri
   cp_async_wait<0>();
 
   const int gid = lane >> 2, tig = lane & 3;
-  float* out = part + (size_t)z * M * out_ld + out_col + n0;
+  float* out = part + ((size_t)z * gridDim.y + blockIdx.y) * M * out_ld + out_col + n0;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -713,7 +734,7 @@ mma_partial(const bf16* __restrict__ a, int lda, Seg s0, Seg s1, float* __restri
 
 template <bool SHIFT>
 int launch_mma(const bf16* a, int lda, const Seg& s0, const Seg& s1, float* part, int M,
-               int out_ld, int chunk, cudaStream_t stream) {
+               int out_ld, int chunk, int E, cudaStream_t stream) {
   constexpr int smem = mma_smem_bytes<SHIFT>();
   static bool configured = false;
   if (!configured) {
@@ -725,8 +746,8 @@ int launch_mma(const bf16* a, int lda, const Seg& s0, const Seg& s1, float* part
   const int mtiles = cdiv(M, kMM);
   const int blocks = mtiles * (s0.tiles * s0.splits + s1.tiles * s1.splits);
   if (blocks == 0) return 0;
-  mma_partial<SHIFT><<<blocks, kThreads, smem, stream>>>(a, lda, s0, s1, part, M, out_ld,
-                                                          chunk, mtiles);
+  mma_partial<SHIFT><<<dim3(blocks, E), kThreads, smem, stream>>>(a, lda, s0, s1, part, M,
+                                                                   out_ld, chunk, mtiles);
   return (int)cudaGetLastError();
 }
 
@@ -740,7 +761,7 @@ int round8(int n) { return (n + 7) / 8 * 8; }
 // pass 2^31.
 int run_mma(const bf16* x, const bf16* u, const bf16* v, const bf16* u2, const bf16* v2,
             bf16* y, float* part1, bf16* t, float* part2, int M, int K, int k1, int k2, int N,
-            int s1, int c1, int s2, int c2, cudaStream_t stream) {
+            int s1, int c1, int s2, int c2, int E, cudaStream_t stream) {
   auto chunk_ok = [](int c) { return c > 0 && c % kMK == 0; };
   auto al = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   if (!chunk_ok(c1) || !chunk_ok(c2)) return (int)cudaErrorInvalidValue;
@@ -753,23 +774,24 @@ int run_mma(const bf16* x, const bf16* u, const bf16* v, const bf16* u2, const b
   const int k1p = round8(k1), tld = k1p + round8(k2);
   const Seg pu{u, K, k1, 0, 0, cdiv(k1, kMN), s1, 0};
   const Seg pu2{u2, K, k2, 0, k1p, cdiv(k2, kMN), s1, 0};
-  int e = launch_mma<true>(x, K, pu, pu2, part1, M, tld, c1, stream);
+  int e = launch_mma<true>(x, K, pu, pu2, part1, M, tld, c1, E, stream);
   if (e) return e;
-  launch_reduce<bf16>(part1, t, s1, (size_t)M * tld, stream);
+  launch_reduce<bf16>(part1, t, s1, (size_t)E * M * tld, stream);
   const Seg pv{v, k1, N, 0, 0, cdiv(N, kMN), sv, 0};
   const Seg pv2{v2, k2, N, k1p, 0, cdiv(N, kMN), sv2, sv};
-  e = launch_mma<false>(t, tld, pv, pv2, part2, M, N, c2, stream);
+  e = launch_mma<false>(t, tld, pv, pv2, part2, M, N, c2, E, stream);
   if (e) return e;
-  launch_reduce<bf16>(part2, y, s2, (size_t)M * N, stream);
+  launch_reduce<bf16>(part2, y, s2, (size_t)E * M * N, stream);
   return 0;
 }
 
 }  // namespace
 
-// x (M, K), u (K, k1), v (k1, N), u2 (K, k2), v2 (k2, N), y (M, N), all of
-// one dtype (0 fp32, 1 bf16), row-major and contiguous.  Scratch: part1
-// fp32 (s1, M, k1+k2), t (M, k1+k2) in the factor dtype, part2 fp32
-// (s2, M, N).  kernel 0 (tile): c1/c2 are the split-K chunk depths
+// x (E, M, K), u (E, K, k1), v (E, k1, N), u2 (E, K, k2), v2 (E, k2, N),
+// y (E, M, N) for E = batch >= 1 (the single form: E = 1), all of one
+// dtype (0 fp32, 1 bf16), row-major and contiguous.  Scratch: part1 fp32
+// (s1, E, M, k1+k2), t (E, M, k1+k2) in the factor dtype, part2 fp32
+// (s2, E, M, N).  kernel 0 (tile): c1/c2 are the split-K chunk depths
 // (multiples of 16), s1 = ceil(K / c1), s2 = ceil((k1+k2) / c2).  kernel 1
 // (stream, bf16 only): chunks are multiples of 32 up to 512, s1 = ceil(K /
 // c1), s2 = ceil(k1 / c2) + ceil(k2 / c2).  kernel 2 (mma, bf16 only):
@@ -781,24 +803,27 @@ extern "C" int nested_lowrank_launch(const void* x, const void* u, const void* v
                                      const void* u2, const void* v2, void* y,
                                      float* part1, void* t, float* part2, int M,
                                      int K, int k1, int k2, int N, int s1, int c1,
-                                     int s2, int c2, int dtype, int kernel, void* stream) {
+                                     int s2, int c2, int batch, int dtype, int kernel,
+                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
   if (kernel == 1 || kernel == 2) {
     if (dtype != kBF16) return (int)cudaErrorInvalidValue;
     const int e = (kernel == 1 ? run_stream : run_mma)(
         (const bf16*)x, (const bf16*)u, (const bf16*)v, (const bf16*)u2, (const bf16*)v2,
-        (bf16*)y, part1, (bf16*)t, part2, M, K, k1, k2, N, s1, c1, s2, c2, st);
+        (bf16*)y, part1, (bf16*)t, part2, M, K, k1, k2, N, s1, c1, s2, c2, batch, st);
     return e ? e : (int)cudaGetLastError();
   }
-  if (kernel != 0) return (int)cudaErrorInvalidValue;
+  if (kernel != 0 || (long long)std::max(s1, s2) * batch > 65535)  // grid z: slices x experts
+    return (int)cudaErrorInvalidValue;
   if (dtype == kF32) {
     run<float>((const float*)x, (const float*)u, (const float*)v, (const float*)u2,
                (const float*)v2, (float*)y, part1, (float*)t, part2, M, K, k1, k2,
-               N, s1, c1, s2, c2, st);
+               N, s1, c1, s2, c2, batch, st);
   } else if (dtype == kBF16) {
     run<bf16>((const bf16*)x, (const bf16*)u, (const bf16*)v, (const bf16*)u2,
               (const bf16*)v2, (bf16*)y, part1, (bf16*)t, part2, M, K, k1, k2, N, s1, c1,
-              s2, c2, st);
+              s2, c2, batch, st);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -18,6 +18,7 @@ Domains:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Iterator
 
 import numpy as np
@@ -114,11 +115,18 @@ class MarkovSource:
         return self.vocab_slice[out]
 
 
+@functools.lru_cache(maxsize=16)
+def markov_source(spec: DomainSpec) -> MarkovSource:
+    """The source of ``spec``, built once per process.  Its tables depend
+    only on the spec (its seeds, and the vocabulary through its token
+    range), never on a sampler's seed, and sampling only reads them; at
+    vocab 163840 building a domain's tables takes seconds."""
+    return MarkovSource(spec)
+
+
 class DomainSampler:
     def __init__(self, vocab: int, seed: int = 0):
-        self.domains = {
-            k: MarkovSource(v) for k, v in default_domains(vocab).items()
-        }
+        self.domains = {k: markov_source(v) for k, v in default_domains(vocab).items()}
         self.rng = np.random.default_rng(seed)
 
     def batch(self, domain: str, batch: int, seq: int) -> np.ndarray:

@@ -11,6 +11,13 @@ decode rows (<= STREAM_ROWS) and the tensor-core (mma) kernel above them;
 the tile kernel for everything else (fp32 above all).  The reference's
 VMEM gate has no counterpart: every kernel streams its factors and has no
 rank limit.
+
+``nested_lowrank_matmul_batched(x, u, v, u2, v2)`` is the form the MoE
+expert FFN runs (the reference vmaps the single form over experts): x (E,
+C, K) with per-expert factors u (E, K, k1), v (E, k1, N), u2 (E, K, k2),
+v2 (E, k2, N), all E products in one launch.  The row gate and the kernel
+choice read C, the rows of one expert, as the reference's gate does inside
+its vmap; C above the gate runs plain batched matmuls.
 """
 
 from __future__ import annotations
@@ -22,7 +29,7 @@ from typing import NamedTuple
 import torch
 
 from .. import build, check_launch, use_plain
-from .ref import nested_lowrank_matmul_ref
+from .ref import nested_lowrank_matmul_batched_ref, nested_lowrank_matmul_ref
 
 MAX_KERNEL_ROWS = 1024
 SKINNY_ROWS = 16      # rows up to which the tile kernel uses its (16, 128) tile
@@ -58,6 +65,8 @@ launches = 0  # kernel launches (one per wrapper call that runs a kernel)
 stream_launches = 0  # of which the stream kernel
 mma_launches = 0  # of which the mma kernel
 tile_launches = 0  # of which the tile kernel
+# Of all launches, those of the batched (per-expert) form, by kernel.
+batched_by_kernel = {"stream": 0, "mma": 0, "tile": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNELS = {"tile": 0, "stream": 1, "mma": 2}
@@ -78,7 +87,7 @@ def _launcher():
     global _fn
     if _fn is None:
         fn = build.load("nested_lowrank").nested_lowrank_launch
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 12
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
@@ -89,12 +98,12 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def split_k(rows: int, depth: int, cols: int) -> tuple[int, int]:
+def split_k(rows: int, depth: int, cols: int, batch: int = 1) -> tuple[int, int]:
     """The tile kernel's (splits, chunk) for one phase: enough split-K
-    slices that the grid reaches ~2 blocks per SM, each slice at least
-    MIN_SPLIT_DEPTH deep."""
+    slices that the grid (``batch`` experts of tiles) reaches ~2 blocks per
+    SM, each slice at least MIN_SPLIT_DEPTH deep."""
     bm, bn = (16, 128) if rows <= SKINNY_ROWS else (64, 64)
-    tiles = _ceil(cols, bn) * _ceil(rows, bm)
+    tiles = _ceil(cols, bn) * _ceil(rows, bm) * batch
     s = max(1, min(_ceil(TARGET_BLOCKS, tiles), depth // MIN_SPLIT_DEPTH))
     chunk = _ceil(_ceil(depth, s), BK) * BK
     return _ceil(depth, chunk), chunk
@@ -152,9 +161,11 @@ def t_cols(kernel: str, k1: int, k2: int) -> int:
 
 @functools.lru_cache(maxsize=4096)
 def plan(rows: int, dtype: torch.dtype, k_in: int, n: int, k1: int, k2: int,
-         aligned: bool) -> Plan:
+         aligned: bool, batch: int = 1) -> Plan:
     """The kernel and both phases' split-K plans for x (rows, k_in), u (k_in,
-    k1), u2 (k_in, k2) and v/v2 (., n).  ``aligned``: v and v2 start on a
+    k1), u2 (k_in, k2) and v/v2 (., n), or ``batch`` such products at once
+    (the batched form: the grid holds ``batch`` x the blocks of one, so the
+    chunk plans count them all).  ``aligned``: v and v2 start on a
     16-byte boundary.  The bf16 kernels take n % 8 == 0 (so every v/v2 row
     is aligned too) and element offsets below 2^31, u and u2 at any
     address: the stream kernel 1..STREAM_ROWS rows, the mma kernel up to
@@ -169,22 +180,26 @@ def plan(rows: int, dtype: torch.dtype, k_in: int, n: int, k1: int, k2: int,
             and (max(k1, k2) + STREAM_BK) * n < _INT_MAX)
     if bf16 and 1 <= rows <= STREAM_ROWS:
         wave = stream_wave(rows)
-        c1 = stream_chunk(_ceil(k1, STREAM_BN) + _ceil(k2, STREAM_BN), (k_in,), wave)
-        c2 = stream_chunk(_ceil(n, STREAM_BN), (k1, k2), wave)
+        c1 = stream_chunk(batch * (_ceil(k1, STREAM_BN) + _ceil(k2, STREAM_BN)), (k_in,),
+                          wave)
+        c2 = stream_chunk(batch * _ceil(n, STREAM_BN), (k1, k2), wave)
         return Plan("stream", _ceil(k_in, c1), c1, _ceil(k1, c2) + _ceil(k2, c2), c2)
     if bf16 and rows > STREAM_ROWS and k_in % 8 == 0:
-        mt = _ceil(rows, MMA_BM)
+        mt = _ceil(rows, MMA_BM) * batch
         c1 = mma_chunk(mt * (_ceil(k1, MMA_BN) + _ceil(k2, MMA_BN)), (k_in,))
         c2 = mma_chunk(mt * _ceil(n, MMA_BN), (k1, k2))
         return Plan("mma", _ceil(k_in, c1), c1, _ceil(k1, c2) + _ceil(k2, c2), c2)
-    return Plan("tile", *split_k(rows, k_in, k), *split_k(rows, k, n))
+    return Plan("tile", *split_k(rows, k_in, k, batch), *split_k(rows, k, n, batch))
 
 
-def _check(x, u, v, u2, v2):
+def _check(x, u, v, u2, v2, lead=()):
+    """Shapes (``lead``: the batched form's (E,) on every operand), one
+    device and dtype, contiguous factors."""
     k_in, n = x.shape[-1], v.shape[-1]
     k1, k2 = u.shape[-1], u2.shape[-1]
-    if u.shape != (k_in, k1) or v.shape != (k1, n) or u2.shape != (k_in, k2) \
-            or v2.shape != (k2, n):
+    if (u.shape != (*lead, k_in, k1) or v.shape != (*lead, k1, n)
+            or u2.shape != (*lead, k_in, k2) or v2.shape != (*lead, k2, n)
+            or (lead and (x.ndim != 3 or x.shape[0] != lead[0]))):
         raise ValueError(f"nested_lowrank: bad shapes x{tuple(x.shape)} "
                          f"u{tuple(u.shape)} v{tuple(v.shape)} "
                          f"u2{tuple(u2.shape)} v2{tuple(v2.shape)}")
@@ -220,25 +235,50 @@ def nested_lowrank_matmul(x, u, v, u2, v2):
     return y.reshape(*x.shape[:-1], n)
 
 
+def nested_lowrank_matmul_batched(x, u, v, u2, v2):
+    """x (E, C, K) -> (E, C, N), expert e through its own factors u[e],
+    v[e], u2[e], v2[e]; see the module docstring for dispatch."""
+    if use_plain(x) or x.shape[1] > MAX_KERNEL_ROWS:
+        return nested_lowrank_matmul_batched_ref(x, u, v, u2, v2)
+    _check(x, u, v, u2, v2, lead=(u.shape[0],))
+    e, rows, k_in = x.shape
+    n, k1, k2 = v.shape[-1], u.shape[-1], u2.shape[-1]
+    x3 = x.contiguous()
+    y = torch.empty((e, rows, n), dtype=x.dtype, device=x.device)
+    if rows == 0 or e == 0:
+        return y
+    aligned = v.data_ptr() % 16 == 0 and v2.data_ptr() % 16 == 0
+    p = plan(rows, x.dtype, k_in, n, k1, k2, aligned, e)
+    if p.kernel == "mma" and x3.data_ptr() % 16:
+        x3 = x3.clone()  # a view at an odd offset: the mma kernel reads 16-byte rows
+    launch(x3, u, v, u2, v2, y, p)
+    return y
+
+
 def launch(x2, u, v, u2, v2, y, p: Plan) -> None:
     """Run plan ``p`` (any kernel, as ``plan`` or a caller timing one kernel
-    against another chose it) on x2 (rows, K) into y (rows, N), counting the
+    against another chose it) on x2 (rows, K) into y (rows, N), or on the
+    batched form's x2 (E, rows, K) into y (E, rows, N), counting the
     launch."""
     global launches, stream_launches, mma_launches, tile_launches
-    rows, k_in = x2.shape
+    batch = x2.shape[0] if x2.ndim == 3 else 1
+    rows, k_in = x2.shape[-2:]
     n, k1, k2 = v.shape[-1], u.shape[-1], u2.shape[-1]
     k = t_cols(p.kernel, k1, k2)
-    part1 = torch.empty((p.s1, rows, k), dtype=torch.float32, device=x2.device)
-    t = torch.empty((rows, k), dtype=x2.dtype, device=x2.device)
-    part2 = torch.empty((p.s2, rows, n), dtype=torch.float32, device=x2.device)
-    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    dev = x2.device
+    part1 = torch.empty((p.s1, batch, rows, k), dtype=torch.float32, device=dev)
+    t = torch.empty((batch, rows, k), dtype=x2.dtype, device=dev)
+    part2 = torch.empty((p.s2, batch, rows, n), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     err = _launcher()(
         x2.data_ptr(), u.data_ptr(), v.data_ptr(), u2.data_ptr(), v2.data_ptr(),
         y.data_ptr(), part1.data_ptr(), t.data_ptr(), part2.data_ptr(),
-        rows, k_in, k1, k2, n, p.s1, p.c1, p.s2, p.c2, _DTYPES[x2.dtype],
+        rows, k_in, k1, k2, n, p.s1, p.c1, p.s2, p.c2, batch, _DTYPES[x2.dtype],
         _KERNELS[p.kernel], stream)
     check_launch(err, "nested_lowrank")
     launches += 1
+    if x2.ndim == 3:
+        batched_by_kernel[p.kernel] += 1
     if p.kernel == "stream":
         stream_launches += 1
     elif p.kernel == "mma":

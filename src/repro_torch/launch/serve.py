@@ -1,13 +1,15 @@
 """Serving launcher: build (or load) a model, optionally calibrate and
 NSVD-compress it, and serve batched requests through the engine, on the
 cache layout the model takes (``models.api.cache_layout``): paged block
-pools for the attention families, the dense recurrent-state slab for
-RWKV-6.
+pools for the attention families, the dense slab for RWKV-6 (recurrent
+state) and the token-choice MoE family (attention K/V).
 
     python -m repro_torch.launch.serve --arch mistral-7b --no-reduced \\
         --compress 0.2 --requests 8 --max-new 32
     python -m repro_torch.launch.serve --arch rwkv6-1.6b --no-reduced \\
         --compress 0.2 --requests 8 --max-new 32 --max-batch 8
+    python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --no-reduced \\
+        --layers 3 --compress 0.2 --requests 8 --max-new 32 --max-batch 8
 
 ``small-*`` archs load the reference's trained checkpoint from
 ``experiments/models/<name>/`` (and its ``grams.npz`` when present); every
@@ -17,6 +19,7 @@ other arch starts from random weights drawn from ``--seed``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 from typing import Dict, List, Optional, Sequence
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch import Device, bridge, resolve_device
+from repro_torch.calib.gram import calibration_precision
 from repro_torch.calib.runner import calibration_batches, collect_grams
 from repro_torch.configs import ModelConfig, get_config
 from repro_torch.core import CompressionConfig, GramStore, build_plan, compress_params
@@ -61,8 +65,11 @@ def serve(cfg: ModelConfig, *, requests: int = 8, max_new: int = 16,
           params=None, device: Device = None) -> Dict:
     """Init (or take ``params``), calibrate + compress when ``compress`` is
     a ratio, then serve ``requests`` prompts.  Returns the outputs, the
-    finished requests, the seconds of each phase and the engine."""
+    finished requests, the seconds of each phase and the engine.  Matmuls
+    run in full fp32 on the card (no TF32): calibration needs it, and so
+    does the MoE router, whose top-k choices TF32 would change."""
     dev = resolve_device(device)
+    calibration_precision()
     model = build_model(cfg)
     seconds: Dict[str, float] = {}
 
@@ -132,6 +139,7 @@ def main(argv=None):
     ap.add_argument("--block-size", type=int, default=16, help="paged layout only")
     ap.add_argument("--num-blocks", type=int, default=None, help="paged layout only")
     ap.add_argument("--prefill-chunk", type=int, default=64, help="paged layout only")
+    ap.add_argument("--layers", type=int, default=None, help="cut the depth")
     ap.add_argument("--eos", type=int, default=None)
     ap.add_argument("--device", default=None, help="default: cuda")
     args = ap.parse_args(argv)
@@ -139,6 +147,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced and not args.arch.startswith("small-"):
         cfg = cfg.reduced()
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     res = serve(cfg, requests=args.requests, max_new=args.max_new,
                 max_batch=args.max_batch, max_len=args.max_len,
                 temperature=args.temperature, seed=args.seed,

@@ -1,7 +1,8 @@
 """Serving step builders, with batched sampling and device-side finish
 exits: the paged decode step and the paged prefill-chunk step (attention
-stacks), and the dense-slab decode step and prefill-admit step (recurrent
-stacks: RWKV-6).
+stacks), and the dense-slab decode step and prefill-admit step (the
+pad-sensitive stacks: RWKV-6's recurrent state, token-choice MoE's K/V
+slab).
 
 All per-slot state lives on the device: cache_len, last_token, budget,
 sampling keys and active flags.  A decode step samples every live row,
@@ -106,9 +107,9 @@ def make_decode_sample_step(model, max_len: int) -> Callable:
     return decode_sample_step
 
 
-# Dense-slab (recurrent) cache leaves: name -> ndim of one layer's leaf; a
-# stacked group adds a leading layer dim, so the batch axis is ndim - base.
-_CACHE_LEAF_NDIM = {"state": 4, "shift_t": 2, "shift_c": 2}
+# Dense-slab cache leaves: name -> ndim of one layer's leaf; a stacked group
+# adds a leading layer dim, so the batch axis is ndim - base.
+_CACHE_LEAF_NDIM = {"state": 4, "shift_t": 2, "shift_c": 2, "k": 4, "v": 4}
 
 
 def set_cache_rows(cache, rows, slots: torch.Tensor) -> None:
@@ -130,8 +131,9 @@ def make_prefill_admit_step(model, max_len: int) -> Callable:
     cache at ``slots`` (replacing any previous occupant's rows wholesale),
     set per-slot length / last token / budget / key / active, and sample
     each row's first token from its last position.  The engine calls it
-    with R = 1: a recurrent state folds in every position, so prompts of
-    other lengths cannot share a padded call."""
+    with R = 1: a recurrent state folds in every position, and MoE
+    capacity is budgeted over the call's tokens, so prompts of other
+    lengths cannot share a padded call."""
 
     @torch.no_grad()
     def prefill_admit_step(params, cache, tokens, slots, budgets, row_keys,

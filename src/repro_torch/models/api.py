@@ -44,11 +44,12 @@ def has_recurrent_cache(model: DecoderLM) -> bool:
 
 def prefill_pad_safe(model: DecoderLM) -> bool:
     """True when right-padding a prompt cannot change real positions'
-    outputs, i.e. the serving engine may bucket prompt lengths.  Recurrent
-    caches are pad-sensitive (the state folds in every input position);
-    the ported attention stacks have no MoE, the reference's other
-    pad-sensitive family."""
-    return not has_recurrent_cache(model)
+    outputs, i.e. the serving engine may bucket prompt lengths.  Two
+    families are pad-sensitive: recurrent caches (the state folds in every
+    input position) and token-choice MoE (expert capacity is budgeted over
+    the flattened token batch, so padding tokens compete for, and can evict
+    real tokens from, expert slots)."""
+    return not has_recurrent_cache(model) and model.cfg.moe is None
 
 
 def cache_layout(model: DecoderLM) -> str:
@@ -57,7 +58,8 @@ def cache_layout(model: DecoderLM) -> str:
     "paged": every cache leaf is per-position attention K/V (pure-GQA
     stacks), so the engine uses the block-table pools of ``serving/kvcache``
     with chunked prefill.  "dense": one (max_batch, ...) slab per leaf, for
-    recurrent caches (RWKV), which are pad-sensitive at prefill."""
+    the families that are pad-sensitive at prefill: recurrent caches (RWKV)
+    and token-choice MoE."""
     if not prefill_pad_safe(model):
         return "dense"
     if not cache_leaf_names(model) <= PAGEABLE_CACHE_LEAVES:

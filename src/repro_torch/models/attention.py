@@ -1,6 +1,8 @@
-"""GQA attention: causal train/prefill (the flash-attention kernel) and the
-paged decode / chunked-prefill path through a block table, with optional
-int8 KV quantization.
+"""GQA attention: causal train/prefill (the flash-attention kernel), the
+paged decode / chunked-prefill path through a block table (with optional
+int8 KV quantization), and the dense (batch, max_len) slab: a causal
+prefill that writes each row's K/V from position 0, and decode of S >= 1
+new positions per row.
 
 Conventions (the reference's):
   x          (B, S, D)
@@ -8,10 +10,15 @@ Conventions (the reference's):
   paged pools {"k", "v"[, "k_scale", "v_scale"]}: (N + 1, bs, Hkv, hd)
              blocks, the last one a write sink (``init_paged_kv_cache``)
   block_tables (B, M) int32, -1 = no block
+  dense slab {"k", "v"}: (B, max_len, Hkv, hd)
   cache_len  (B,) tokens already in each row's cache
 
-Pools are updated IN PLACE (the reference's donated buffers): a decode or
-prefill-chunk call writes its new K/V into the pool tensors it is given.
+Caches are updated IN PLACE (the reference's donated buffers): a decode,
+prefill or prefill-chunk call writes its new K/V into the tensors it is
+given.  The slab attends with plain torch ops under the reference's mask
+(``_naive_attention``, as the reference computes it outside any kernel);
+its int8 form (``k_scale``) is not ported, as the engine refuses
+``kv_quant`` on the dense layout.
 """
 
 from __future__ import annotations
@@ -41,9 +48,7 @@ def attention_init(gen, cfg: ModelConfig, dtype, device) -> Dict:
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> Dict:
-    """The reference's dense (batch, max_len) K/V slab.  The port decodes
-    attention through the paged pools only; this slab names the leaves
-    ``models.api.cache_layout`` reads."""
+    """The reference's dense (batch, max_len) K/V slab."""
     shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -156,6 +161,44 @@ def _paged_decode_attend(q, k, v, cache, cache_len, block_tables, scale):
     return _naive_attention(q, kg, vg, valid[:, None, None], scale)
 
 
+def _slab_only(cache: Dict) -> None:
+    if "k_scale" in cache:
+        raise ValueError("the int8 dense K/V slab is not ported (the engine refuses "
+                         "kv_quant on the dense layout)")
+
+
+def _slab_decode_attend(q, k, v, cache, cache_len, scale):
+    """Write the S new K/V positions of each row at cache_len.. of its slab
+    row (positions past max_len drop), then query i attends positions <=
+    cache_len + i.  Position i of every row is written in one indexed
+    store (distinct rows, so no index repeats); a dropped write stores the
+    slab's last position back as it is."""
+    _slab_only(cache)
+    b, s = q.shape[:2]
+    t_max = cache["k"].shape[1]
+    pos = cache_len.long()[:, None] + torch.arange(s, device=q.device)  # (B, S)
+    rows = torch.arange(b, device=q.device)
+    for i in range(s):
+        keep = (pos[:, i] < t_max)[:, None, None]
+        at = pos[:, i].clamp(max=t_max - 1)
+        for name, new in (("k", k), ("v", v)):
+            c = cache[name]
+            c[rows, at] = torch.where(keep, new[:, i].to(c.dtype), c[rows, at])
+    valid = torch.arange(t_max, device=q.device)[None, None, :] <= pos[:, :, None]
+    return _naive_attention(q, cache["k"], cache["v"], valid[:, None, None], scale)
+
+
+def _slab_prefill_write(cache, k, v) -> None:
+    """Each row's K/V at positions 0..S-1 of its slab row, zeros after (the
+    reference returns the prefill's K/V padded to max_len)."""
+    _slab_only(cache)
+    s = k.shape[1]
+    for name, new in (("k", k), ("v", v)):
+        c = cache[name]
+        c[:, :s] = new.to(c.dtype)
+        c[:, s:] = 0
+
+
 def attention_apply(
     params: Mapping[str, Any],
     x: torch.Tensor,
@@ -168,7 +211,8 @@ def attention_apply(
     taps: Optional[Dict] = None,
     tap_prefix: str = "",
 ) -> torch.Tensor:
-    """mode "causal" (train/prefill, no cache) or "decode" (paged)."""
+    """mode "causal" (train, or prefill writing the dense slab ``cache``) or
+    "decode" (paged with ``block_tables``, else the dense slab)."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     scale = 1.0 / math.sqrt(hd)
@@ -183,12 +227,16 @@ def attention_apply(
         k = apply_rope(k, positions, inv_freq)
 
     if mode == "decode":
-        if block_tables is None or cache is None or cache_len is None:
-            raise ValueError("decode needs a paged cache, cache_len and "
-                             "block_tables (the dense-slab decode is not ported)")
-        out = _paged_decode_attend(q, k, v, cache, cache_len, block_tables, scale)
+        if cache is None or cache_len is None:
+            raise ValueError("decode needs a cache and cache_len")
+        if block_tables is not None:
+            out = _paged_decode_attend(q, k, v, cache, cache_len, block_tables, scale)
+        else:
+            out = _slab_decode_attend(q, k, v, cache, cache_len, scale)
     elif mode == "causal":
         out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+        if cache is not None:
+            _slab_prefill_write(cache, k, v)
     else:
         raise ValueError(f"attention mode {mode!r} is not ported")
 

@@ -1,7 +1,9 @@
-"""Block assembly + layer stacking for (gqa, mlp) and (rwkv, cmix) layers.
+"""Block assembly + layer stacking for (gqa, mlp), (gqa, moe) and (rwkv,
+cmix) layers.
 
 A layer is pre-norm: x = x + mixer(norm1(x)); x = x + ffn(norm2(x)), with
-mixer/ffn one of (GQA attention, MLP) or (RWKV-6 time mix, channel mix).
+mixer/ffn one of (GQA attention, MLP), (GQA attention, token-choice MoE) or
+(RWKV-6 time mix, channel mix).
 Layers with identical specs are stacked exactly as the reference stacks
 them for ``lax.scan`` (params carry a leading repeats dim), so the param
 tree keys and shapes match a reference checkpoint; here the stack runs as a
@@ -18,6 +20,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 from . import attention as attn_mod
+from . import moe as moe_mod
 from . import rwkv6 as rwkv_mod
 from .layers import mlp_apply, mlp_init, norm_apply, norm_init
 
@@ -25,17 +28,17 @@ BlockSpec = Tuple[str, str]  # (mixer, ffn)
 
 
 def resolve_specs(cfg: ModelConfig) -> Tuple[BlockSpec, ...]:
-    """Config-level layer specs -> (mixer, ffn) pairs: ("gqa", "mlp") or
-    ("rwkv", "cmix"), the two ported layer kinds."""
+    """Config-level layer specs -> (mixer, ffn) pairs: ("gqa", "mlp"),
+    ("gqa", "moe") or ("rwkv", "cmix"), the three ported layer kinds."""
     out = []
     for mixer, ffn in cfg.layer_specs():
-        if mixer == "attn" and cfg.attention == "gqa" and ffn == "mlp":
-            out.append(("gqa", "mlp"))
+        if mixer == "attn" and cfg.attention == "gqa" and ffn in ("mlp", "moe"):
+            out.append(("gqa", ffn))
         elif mixer == "rwkv" and cfg.rwkv is not None:
             out.append(("rwkv", "cmix"))
         else:
-            raise ValueError(f"{cfg.name}: only (gqa, mlp) and (rwkv, cmix) layers "
-                             f"are ported, got ({mixer}/{cfg.attention}, {ffn})")
+            raise ValueError(f"{cfg.name}: only (gqa, mlp), (gqa, moe) and (rwkv, cmix) "
+                             f"layers are ported, got ({mixer}/{cfg.attention}, {ffn})")
     return tuple(out)
 
 
@@ -87,12 +90,14 @@ def block_init(gen, spec: BlockSpec, cfg: ModelConfig, dtype, device) -> Dict:
             "norm2": norm_init(cfg.norm, cfg.d_model, dtype, device),
             "rwkv_c": rwkv_mod.rwkv_channel_mix_init(gen, cfg, dtype, device),
         }
-    return {
-        "norm1": norm_init(cfg.norm, cfg.d_model, dtype, device),
-        "attn": attn_mod.attention_init(gen, cfg, dtype, device),
-        "norm2": norm_init(cfg.norm, cfg.d_model, dtype, device),
-        "mlp": mlp_init(gen, cfg.activation, cfg.d_model, cfg.d_ff, dtype, device),
-    }
+    p = {"norm1": norm_init(cfg.norm, cfg.d_model, dtype, device),
+         "attn": attn_mod.attention_init(gen, cfg, dtype, device),
+         "norm2": norm_init(cfg.norm, cfg.d_model, dtype, device)}
+    if spec[1] == "moe":
+        p["moe"] = moe_mod.moe_init(gen, cfg, dtype, device)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.activation, cfg.d_model, cfg.d_ff, dtype, device)
+    return p
 
 
 def _stack(trees: List[Dict]) -> Dict:
@@ -114,8 +119,7 @@ def group_init(gen, group: StackGroup, cfg: ModelConfig, dtype, device) -> Dict:
 def block_cache_init(spec: BlockSpec, cfg: ModelConfig, batch: int, max_len: int,
                      dtype, device) -> Dict:
     """One layer's dense-slab cache rows: the recurrent state for rwkv, the
-    (batch, max_len) K/V slab for gqa (allocated as the reference does;
-    attention decodes only through the paged pools here)."""
+    (batch, max_len) K/V slab for gqa."""
     if spec[0] == "rwkv":
         return {"rwkv": rwkv_mod.init_rwkv_cache(cfg, batch, dtype, device)}
     return {"attn": attn_mod.init_kv_cache(cfg, batch, max_len, dtype, device)}
@@ -157,7 +161,8 @@ def block_apply(params: Mapping, x: torch.Tensor, spec: BlockSpec, cfg: ModelCon
                 positions, mode: str, cache=None, cache_len=None,
                 block_tables=None, taps=None, tap_prefix: str = "") -> torch.Tensor:
     """mode "train" (causal, no cache), "prefill" (causal, writing a fresh
-    dense cache; rwkv only) or "decode"."""
+    dense cache) or "decode" (paged with ``block_tables``, else the dense
+    slab)."""
     if spec == ("rwkv", "cmix"):
         c = None if cache is None else cache["rwkv"]
         mixer_mode = "decode" if mode == "decode" else "causal"
@@ -169,9 +174,6 @@ def block_apply(params: Mapping, x: torch.Tensor, spec: BlockSpec, cfg: ModelCon
         return x + rwkv_mod.rwkv_channel_mix(params["rwkv_c"], h, cfg, mode=mixer_mode,
                                              cache=c, taps=taps,
                                              tap_prefix=f"{tap_prefix}.rwkv_c")
-    if mode == "prefill":
-        raise ValueError("prefill into a dense slab needs a recurrent mixer; "
-                         "attention prefills in chunks through the paged pools")
     h = norm_apply(params["norm1"], x)
     x = x + attn_mod.attention_apply(
         params["attn"], h, cfg, positions,
@@ -179,6 +181,11 @@ def block_apply(params: Mapping, x: torch.Tensor, spec: BlockSpec, cfg: ModelCon
         cache=None if cache is None else cache["attn"], cache_len=cache_len,
         block_tables=block_tables, taps=taps, tap_prefix=f"{tap_prefix}.attn")
     h = norm_apply(params["norm2"], x)
+    if spec[1] == "moe":
+        # The aux loss is read by training only (not ported).
+        y, _ = moe_mod.moe_apply(params["moe"], h, cfg, taps=taps,
+                                 tap_prefix=f"{tap_prefix}.moe")
+        return x + y
     return x + mlp_apply(params["mlp"], h, cfg.activation, taps,
                          f"{tap_prefix}.mlp")
 

@@ -1,5 +1,6 @@
-"""Decoder-only LM assembly for the dense (gqa, mlp) families and RWKV-6
-(rwkv, cmix)."""
+"""Decoder-only LM assembly for the dense (gqa, mlp) families, the
+token-choice MoE family (a dense first layer, then (gqa, moe) layers) and
+RWKV-6 (rwkv, cmix)."""
 
 from __future__ import annotations
 
@@ -33,10 +34,12 @@ class DecoderLM:
     """Functional decoder-only LM over plain dict param trees.
 
     apply modes: "train" (causal, no cache); "prefill" (causal, writing a
-    fresh dense row cache from ``init_cache``: recurrent state and shifts);
-    and "decode" (S new tokens per row at each row's cache_len, into a paged
-    cache for attention — S == 1 is a decode step, S > 1 a chunk of
-    streaming prefill — or one token per row into the dense recurrent cache).
+    fresh dense row cache from ``init_cache``: recurrent state and shifts,
+    or attention K/V from position 0); and "decode" (S new tokens per row
+    at each row's cache_len: into a paged cache for attention with
+    ``block_tables`` — S == 1 is a decode step, S > 1 a chunk of streaming
+    prefill — or into the dense slab: attention K/V at cache_len.., or one
+    token per row into the recurrent cache).
     """
 
     def __init__(self, cfg: ModelConfig):
@@ -119,12 +122,16 @@ class DecoderLM:
         d = cfg.d_model
         hq = cfg.num_heads * cfg.head_dim
         hkv = cfg.num_kv_heads * cfg.head_dim
+        attn = [
+            (("attn", "wq"), d, hq, "attn.in"),
+            (("attn", "wk"), d, hkv, "attn.in"),
+            (("attn", "wv"), d, hkv, "attn.in"),
+            (("attn", "wo"), hq, d, "attn.out_in"),
+        ]
+        # (path, in, out, Gram key, per expert: stacked over the experts too)
         layers = {
             ("gqa", "mlp"): [
-                (("attn", "wq"), d, hq, "attn.in"),
-                (("attn", "wk"), d, hkv, "attn.in"),
-                (("attn", "wv"), d, hkv, "attn.in"),
-                (("attn", "wo"), hq, d, "attn.out_in"),
+                *attn,
                 (("mlp", "wi"), d, cfg.d_ff, "mlp.in"),
                 *([(("mlp", "wg"), d, cfg.d_ff, "mlp.in")]
                   if cfg.activation == "swiglu" else []),
@@ -139,14 +146,26 @@ class DecoderLM:
                 (("rwkv_c", "wr"), d, d, "rwkv_c.r_in"),
             ],
         }
+        if cfg.moe is not None:
+            f, fs = cfg.moe.d_ff_expert, cfg.moe.d_ff_expert * cfg.moe.num_shared_experts
+            layers[("gqa", "moe")] = [
+                *attn,
+                (("moe", "experts", "wi"), d, f, "moe.expert_buf", True),
+                (("moe", "experts", "wg"), d, f, "moe.expert_buf", True),
+                (("moe", "experts", "wo"), f, d, "moe.expert_mid", True),
+                *([(("moe", "shared", "wi"), d, fs, "moe.shared_in"),
+                   (("moe", "shared", "wg"), d, fs, "moe.shared_in"),
+                   (("moe", "shared", "wo"), fs, d, "moe.shared_mid")] if fs else []),
+            ]
         targets = []
         for i, g in enumerate(self.groups):
             rep = (g.repeats,) if g.repeats > 1 else ()
             for j, spec in enumerate(g.period):
                 base, tap = (f"g{i}", f"sub{j}"), f"g{i}/sub{j}"
-                for path, in_dim, out_dim, key in layers[spec]:
+                for path, in_dim, out_dim, key, *per_expert in layers[spec]:
+                    stacked = rep + (cfg.moe.num_experts,) if per_expert else rep
                     targets.append(TargetSpec(path=base + path, in_dim=in_dim,
                                               out_dim=out_dim,
                                               gram_key=f"{tap}.{key}",
-                                              stacked=rep))
+                                              stacked=stacked))
         return targets

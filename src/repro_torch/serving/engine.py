@@ -6,10 +6,14 @@ admission — on either of the reference's cache layouts, chosen by
 * "paged" (attention stacks): requests are admitted into free slots and
   their prompts stream into reserved KV blocks ``prefill_chunk`` tokens per
   engine iteration (one fixed-shape chunk call for all prefilling rows).
-* "dense" (recurrent stacks: RWKV-6): one (max_batch, ...) slab per cache
-  leaf.  Each admission prefills ONE request at its exact length into a
-  fresh row cache that then replaces its slot's rows wholesale (a recurrent
-  state folds in every position, so prompts are never padded or bucketed).
+* "dense" (the pad-sensitive stacks: RWKV-6's recurrent state, and
+  token-choice MoE, whose attention K/V live in a (max_batch, max_len)
+  slab): one slab per cache leaf.  Each admission prefills ONE request at
+  its exact length into a fresh row cache that then replaces its slot's
+  rows wholesale (a recurrent state folds in every position, and MoE
+  capacity is budgeted over a call's tokens, so prompts are never padded
+  or bucketed).  ``paged=False`` puts a pure-attention stack on this
+  layout too; ``paged=True`` is refused for a model whose layout is dense.
 
 Every engine step decodes one token for all live rows, and finished rows
 free their slot (and blocks) immediately, so new requests join mid-flight.
@@ -21,10 +25,10 @@ device-to-host copy of the sampled token vector, from which the host
 learns every finish.  Admission reserves a request's worst case
 (prompt + max_new) up front, so a live row never runs out of blocks.
 
-Not ported yet (later slices): bucketed dense-slab admission (no ported
-dense-layout model is pad-safe), speculative decoding, meshes, on-demand
-block growth and preemption, fault injection, telemetry and the depth-K
-dispatch ring.
+Not ported yet (later slices): bucketed dense-slab admission (exact-length
+admission serves every dense-layout model), speculative decoding, meshes,
+on-demand block growth and preemption, fault injection, telemetry and the
+depth-K dispatch ring.
 """
 
 from __future__ import annotations
@@ -76,7 +80,8 @@ class ServingEngine:
     def __init__(self, model, params, max_batch: int = 8, max_len: int = 512,
                  seed: int = 0, block_size: int = 16,
                  num_blocks: Optional[int] = None, prefill_chunk: int = 64,
-                 eos_id: Optional[int] = None, kv_quant: bool = False):
+                 eos_id: Optional[int] = None, kv_quant: bool = False,
+                 paged: Optional[bool] = None):
         self.model = model
         self.params = params
         self.device = params["embed"]["table"].device
@@ -85,7 +90,12 @@ class ServingEngine:
         self.seed = seed
         self.eos_id = eos_id
         self.prefill_chunk = prefill_chunk
-        self.layout = cache_layout(model)
+        layout = cache_layout(model)
+        if paged and layout != "paged":
+            raise ValueError(
+                f"model {model.cfg.name!r} has cache layout {layout!r}; "
+                "paging requires a pure-attention cache (models.api.cache_layout)")
+        self.layout = "dense" if paged is False else layout
         if self.layout == "paged":
             self.kv = PagedKVCache(model, max_batch, max_len, block_size=block_size,
                                    num_blocks=num_blocks, kv_quant=kv_quant,
@@ -95,7 +105,7 @@ class ServingEngine:
         else:
             if kv_quant:
                 raise ValueError(f"{model.cfg.name}: kv_quant quantizes paged "
-                                 "attention K/V; this model's cache is recurrent")
+                                 "attention K/V; this engine's cache is the dense slab")
             self.kv = None
             self.cache = model.init_cache(max_batch, max_len, device=self.device)
             self._decode = make_decode_sample_step(model, max_len)

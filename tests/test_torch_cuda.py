@@ -16,7 +16,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels import check_launch
 from repro_torch.calib.runner import collect_grams
-from repro_torch.configs import MISTRAL_7B, RWKV6_1_6B, small_lm
+from repro_torch.configs import MISTRAL_7B, MOONSHOT_V1_16B_A3B, RWKV6_1_6B, small_lm
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.gram import ops as gram_ops
@@ -27,7 +27,7 @@ from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention import ref as pa_ref
 from repro_torch.kernels.rwkv6 import ops as rwkv_ops
 from repro_torch.kernels.rwkv6 import ref as rwkv_ref
-from repro_torch.models import build_model
+from repro_torch.models import build_model, moe
 from repro_torch.serving.engine import ServingEngine
 
 pytestmark = pytest.mark.cuda
@@ -214,7 +214,7 @@ def test_nested_stream_launch_refuses_what_it_cannot_do(dev):
         return nlr_ops._launcher()(x.data_ptr(), u.data_ptr(), v_ptr, u2.data_ptr(),
                                    v.data_ptr(), y.data_ptr(), part.data_ptr(), t.data_ptr(),
                                    part.data_ptr(), m, 64, 8, 8, 64, -(-64 // c1), c1,
-                                   2 * -(-8 // c2), c2, dtype, 1, stream)
+                                   2 * -(-8 // c2), c2, 1, dtype, 1, stream)
     assert launch() == 0
     for bad in (dict(v_ptr=v.data_ptr() + 2), dict(dtype=0), dict(m=17), dict(c1=48),
                 dict(c2=1024)):
@@ -241,7 +241,8 @@ def test_nested_mma_launch_refuses_what_it_cannot_do(dev):
         s1 = -(-k_in // c1) if s1 is None else s1
         return nlr_ops._launcher()(x_ptr, u.data_ptr(), v_ptr, u2.data_ptr(), v.data_ptr(),
                                    y.data_ptr(), part.data_ptr(), t_ptr, part.data_ptr(), m,
-                                   k_in, 8, 8, n, s1, c1, 2 * -(-8 // c2), c2, dtype, 2, stream)
+                                   k_in, 8, 8, n, s1, c1, 2 * -(-8 // c2), c2, 1, dtype, 2,
+                                   stream)
     assert launch() == 0
     torch.cuda.synchronize()
     for bad in (dict(dtype=0), dict(m=16), dict(m=1025), dict(n=60), dict(k_in=60),
@@ -258,6 +259,73 @@ def test_nested_rows_above_gate_use_plain_matmuls(dev):
     f = [torch.randn(s, device=dev) for s in ((64, 8), (8, 32), (64, 2), (2, 32))]
     before = nlr_ops.launches
     nlr_ops.nested_lowrank_matmul(x, *f)
+    assert nlr_ops.launches == before
+
+
+def _batched_factors(g, dev, e, k_in, n, k1, k2, dtype, u_offset=0):
+    """Per-expert factors (E, ...), u and u2 at ``u_offset`` elements into
+    their buffers (odd offsets: every row shift)."""
+    mk = lambda *s: (torch.randn(s, generator=g, device=dev) * s[-2] ** -0.5).to(dtype)  # noqa: E731
+    u, u2 = mk(e, k_in, k1), mk(e, k_in, k2)
+    if u_offset:
+        u, u2 = _at_offset(u, u_offset), _at_offset(u2, u_offset + 2)
+    return u, mk(e, k1, n), u2, mk(e, k2, n)
+
+
+@pytest.mark.parametrize("dtype,rows,kernel", [
+    (torch.bfloat16, 1, "stream"), (torch.bfloat16, 8, "stream"),
+    (torch.bfloat16, 16, "stream"), (torch.bfloat16, 17, "mma"),
+    (torch.bfloat16, 200, "mma"), (torch.bfloat16, 1024, "mma"),
+    (torch.float32, 8, "tile"), (torch.float32, 200, "tile")])
+@pytest.mark.parametrize("experts", [1, 5, 64])
+def test_nested_batched_matches_plain_by_route(dev, experts, rows, kernel, dtype):
+    """The batched form on each route, every expert's rows through its own
+    factors (odd ranks, u/u2 at odd offsets, N not a multiple of a tile),
+    per element against the batched plain version; one launch, counted as
+    batched and by kernel."""
+    g = torch.Generator(device=dev).manual_seed(experts * 100 + rows)
+    k_in, n, k1, k2 = 328, 200, 61, 3
+    u, v, u2, v2 = _batched_factors(g, dev, experts, k_in, n, k1, k2, dtype, u_offset=3)
+    x = torch.randn((experts, rows, k_in), generator=g, device=dev).to(dtype)
+    assert nlr_ops.plan(rows, dtype, k_in, n, k1, k2, True, experts).kernel == kernel
+    before = (*_nested_counts(), dict(nlr_ops.batched_by_kernel))
+    got = nlr_ops.nested_lowrank_matmul_batched(x, u, v, u2, v2)
+    torch.cuda.synchronize()
+    by = {"stream": 1, "mma": 2, "tile": 3}[kernel]
+    after = _nested_counts()
+    assert [a - b for a, b in zip(after, before)] == [1] + [int(i == by) for i in (1, 2, 3)]
+    assert {k: v - before[4][k] for k, v in nlr_ops.batched_by_kernel.items()} == {
+        k: int(k == kernel) for k in before[4]}
+    assert got.shape == (experts, rows, n)
+    _nested_checks(got, nlr_ref.nested_lowrank_matmul_batched_ref(x, u, v, u2, v2), dtype)
+
+
+@pytest.mark.parametrize("rows,k_in,n", [(8, 2048, 1408), (8, 1408, 2048), (24, 2048, 1408),
+                                         (960, 1408, 2048)])
+def test_nested_batched_expert_shapes(dev, rows, k_in, n):
+    """moonshot-v1-16b-a3b's expert projections at ratio 0.2 (rank 667, k1
+    634 + k2 33) for 64 experts: decode rows, an admission's and an eval
+    batch's capacity; each expert equals the single form on its slice to
+    the per-element tolerance."""
+    g = torch.Generator(device=dev).manual_seed(rows + k_in)
+    u, v, u2, v2 = _batched_factors(g, dev, 64, k_in, n, 634, 33, torch.bfloat16)
+    x = torch.randn((64, rows, k_in), generator=g, device=dev).to(torch.bfloat16)
+    x[5:9] = 0.0  # experts with empty capacity rows
+    got = nlr_ops.nested_lowrank_matmul_batched(x, u, v, u2, v2)
+    want = nlr_ref.nested_lowrank_matmul_batched_ref(x, u, v, u2, v2)
+    torch.cuda.synchronize()
+    assert not got[5:9].any()
+    for e in (0, 17, 63):
+        _nested_checks(got[e], want[e], torch.bfloat16)
+        single = nlr_ops.nested_lowrank_matmul(x[e], u[e], v[e], u2[e], v2[e])
+        assert _elem_err(got[e], single) <= NESTED_ELEM_TOL[torch.bfloat16]
+
+
+def test_nested_batched_rows_above_gate_use_plain_matmuls(dev):
+    x = torch.randn((3, 1025, 64), device=dev)
+    f = [torch.randn(s, device=dev) for s in ((3, 64, 8), (3, 8, 32), (3, 64, 2), (3, 2, 32))]
+    before = nlr_ops.launches
+    nlr_ops.nested_lowrank_matmul_batched(x, *f)
     assert nlr_ops.launches == before
 
 
@@ -451,6 +519,33 @@ def test_gram_mma_kernel_edges(dev, rows, n, offset):
     assert _gram_counts() == (before[0] + 1, before[1] + (want == "mma"),
                               before[2] + (want == "fma"))
     _gram_checks(x, got_g, got_a)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("experts,rows,n", [(1, 33, 136), (8, 12, 32), (64, 240, 2048),
+                                            (64, 240, 1408), (5, 1, 8)])
+def test_gram_batched_matches_plain(dev, experts, rows, n, dtype):
+    """Per-expert Grams of a zero-padded capacity buffer in one launch (mma
+    for bf16, FMA for fp32), each expert per element and exactly symmetric;
+    empty rows and an empty expert included."""
+    g = torch.Generator(device=dev).manual_seed(experts * rows + n)
+    buf = torch.randn((experts, rows, n), generator=g, device=dev)
+    buf[:, :, ::97] *= 20.0  # outlier channels
+    buf[:, rows - rows // 3:] = 0.0
+    buf[experts // 2] = 0.0
+    buf = buf.to(dtype)
+    before = (*_gram_counts(), gram_ops.batched_launches)
+    got_g, got_a = gram_ops.gram_accumulate_batched(buf)
+    torch.cuda.synchronize()
+    mma = dtype == torch.bfloat16
+    assert (*_gram_counts(), gram_ops.batched_launches) == (
+        before[0] + 1, before[1] + mma, before[2] + (not mma), before[3] + 1)
+    assert got_g.shape == (experts, n, n) and got_a.shape == (experts, n)
+    for e in range(experts):
+        if e == experts // 2:
+            assert not got_g[e].any() and not got_a[e].any()
+        else:
+            _gram_checks(buf[e], got_g[e], got_a[e])
 
 
 def test_gram_launch_refuses_what_mma_cannot_do(dev):
@@ -879,6 +974,78 @@ def test_rwkv_served_greedy_stream_kernels_vs_plain(dev):
 def test_rwkv_dense_decode_dispatch_is_sync_free(dev):
     model, params = _rwkv_card_model(dev)
     eng = ServingEngine(model, params, max_batch=4, max_len=64)
+    for n in (5, 9, 30):
+        eng.submit(np.arange(2, 2 + n), max_new_tokens=8)
+    eng._admit()
+    args = (eng.params, eng.cache, eng.last_token, eng.cache_len, eng.budget_dev,
+            eng.key_data, eng.active_dev, *eng._host_inputs())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._decode(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def _moe_card_model(dev):
+    """The reduced moonshot topology (a dense layer, two MoE layers of 8
+    experts, top-2, a shared expert) widened to d_model 128 in bf16, its
+    MoE layers' experts nested-factored (the batched kernel's routes)."""
+    base = MOONSHOT_V1_16B_A3B.reduced()
+    cfg = dataclasses.replace(base, d_model=128, d_ff=256, vocab_size=128, head_dim=32,
+                              dtype="bfloat16",
+                              moe=dataclasses.replace(base.moe, d_ff_expert=64))
+    model = build_model(cfg)
+    params = model.init(0, dev)
+    params["unembed"]["kernel"] *= 8.0
+    g = torch.Generator(device=dev).manual_seed(1)
+    experts = params["g1"]["sub0"]["moe"]["experts"]
+    for w in ("wi", "wg", "wo"):
+        k_in, k_out = experts[w]["kernel"].shape[-2:]
+        lead = experts[w]["kernel"].shape[:2]  # (layers, experts)
+        experts[w] = {k: (torch.randn((*lead, *shape), generator=g, device=dev)
+                          * shape[0] ** -0.5).to(torch.bfloat16)
+                      for k, shape in (("u", (k_in, 24)), ("v", (24, k_out)),
+                                       ("u2", (k_in, 8)), ("v2", (8, k_out)))}
+    return model, params
+
+
+def test_moe_dense_decode_step_kernels_vs_plain(dev):
+    """One dense-slab decode step after an exact-length prefill, through the
+    kernels (flash_attention at prefill, the batched nested kernel on every
+    MoE layer's experts) and through the plain versions routed as the
+    kernel run (``RoutingTrace``): logits within the decode-step gate (5% of
+    max |logit|, chip_smoke.py's STEP_LOGIT_TOL), and the experts' launches:
+    3 a layer a call, all batched."""
+    model, params = _moe_card_model(dev)
+    toks = torch.as_tensor(np.arange(3, 3 + 2 * 37).reshape(2, 37) % 128, device=dev)
+    nxt = toks[:, -1:]
+    clen = torch.full((2,), 37, dtype=torch.int32, device=dev)
+    out = []
+    trace = moe.RoutingTrace()  # the plain run takes the kernel run's experts
+    for plain in (False, True):
+        cache = model.init_cache(2, 64, device=dev)
+        b0, f0 = sum(nlr_ops.batched_by_kernel.values()), fa_ops.launches
+        with (kernels.plain() if plain else torch.no_grad()), torch.no_grad(), \
+                (trace.replay() if plain else trace.record()):
+            model.apply(params, toks, mode="prefill", cache=cache)
+            logits = model.apply(params, nxt, mode="decode", cache=cache, cache_len=clen)
+        torch.cuda.synchronize()
+        launched = (sum(nlr_ops.batched_by_kernel.values()) - b0, fa_ops.launches - f0)
+        assert launched == ((0, 0) if plain else (2 * 3 * 2, model.cfg.num_layers))
+        out.append(logits.float())
+    lk, lp = out
+    assert bool(torch.isfinite(lk).all())
+    assert float((lk - lp).abs().max()) <= 5e-2 * float(lp.abs().max())
+
+
+def test_moe_dense_decode_dispatch_is_sync_free(dev):
+    """Routing, dispatch, the batched experts, the combine and the slab
+    write make no host sync in a decode step."""
+    model, params = _moe_card_model(dev)
+    eng = ServingEngine(model, params, max_batch=4, max_len=64)
+    assert eng.layout == "dense"
     for n in (5, 9, 30):
         eng.submit(np.arange(2, 2 + n), max_new_tokens=8)
     eng._admit()

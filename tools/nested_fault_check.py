@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Planted faults in the nested_lowrank bf16 kernels -- the stream kernel
-(<= 16 rows) and the mma kernel (17-1024 rows) -- against chip_smoke.py's
-two checks of them: the global one (max |kernel - plain| <= NESTED_TOL x
-max |plain|) and the per-element one (NESTED_ELEM_TOL, relative to |plain|
-plus the rms of the row).
+(<= 16 rows) and the mma kernel (17-1024 rows), single and batched (per
+expert) -- against chip_smoke.py's two checks of them: the global one (max
+|kernel - plain| <= NESTED_TOL x max |plain|) and the per-element one
+(NESTED_ELEM_TOL, relative to |plain| plus the rms of the row).
 
     python3 tools/nested_fault_check.py
 
@@ -11,8 +11,10 @@ Needs one H100 and the CUDA toolkit.  Each fault is a one-line patch of
 ``csrc/nested_lowrank.cu`` in a temporary copy of ``repro_torch`` (the
 checkout is never touched), built and run in its own process on the nested
 phase's bf16 shapes at 1, 8 and 16 rows (stream) and 17, 64, 200 and 512
-rows (mma), and on two card-test cases of each kernel with u and u2 at odd
-element offsets.  Prints one line per fault and case, and
+rows (mma), on two card-test cases of each kernel with u and u2 at odd
+element offsets, and on the nested batched phase's bf16 cases (64 experts:
+8 rows on the stream kernel, 960 on the mma kernel).  Prints one line per
+fault and case, and
 exits non-zero unless the unpatched kernel passes both checks everywhere
 and every fault fails the per-element check somewhere.
 """
@@ -48,6 +50,10 @@ FAULTS = {
     # the first one's rows.
     "mma_second_m16_to_first_rows": ("const int row = wm * 64 + 16 * i + gid + 8 * h;",
                                      "const int row = wm * 64 + 16 * (i & ~1) + gid + 8 * h;"),
+    # Batched form, both bf16 kernels: the expert stride of every factor one
+    # row short (expert e reads its factors e rows early).
+    "expert_stride_off_by_one": ("  return b + (size_t)blockIdx.y * kd * nc;",
+                                 "  return b + (size_t)blockIdx.y * (kd - 1) * nc;"),
 }
 ROWS = (1, 8, 16, 17, 64, 200, 512)
 
@@ -82,13 +88,24 @@ def measure() -> list:
         u = at_offset(mk(g, k_in, k1, s=k_in ** -0.5), 3)
         u2 = at_offset(mk(g, k_in, k2, s=k_in ** -0.5), 5)
         cases.append((f"card M={m} K={k_in} k={k1}+{k2}", x, u, v, u2, v2))
+    e, k1, k2 = chip_smoke.MOE_EXPERTS, chip_smoke.MOE_K1, chip_smoke.MOE_K2
+    for case, m, k_in, n, dname, _ in chip_smoke.NESTED_BATCHED_CASES:
+        if dname != "bfloat16":
+            continue
+        g = torch.Generator(device="cuda").manual_seed(m + k_in)
+        cases.append((f"batched {case} E={e} C={m}", mk(g, e, m, k_in, s=1.0),
+                      mk(g, e, k_in, k1, s=k_in ** -0.5), mk(g, e, k1, n, s=(k1 + k2) ** -0.5),
+                      mk(g, e, k_in, k2, s=k_in ** -0.5), mk(g, e, k2, n, s=(k1 + k2) ** -0.5)))
     out = []
     for name, *args in cases:
         before = (ops.stream_launches, ops.mma_launches)
-        got = ops.nested_lowrank_matmul(*args)
-        want = ref.nested_lowrank_matmul_ref(*args)
+        batched = args[0].ndim == 3
+        fn, ref_fn = ((ops.nested_lowrank_matmul_batched, ref.nested_lowrank_matmul_batched_ref)
+                      if batched else (ops.nested_lowrank_matmul, ref.nested_lowrank_matmul_ref))
+        got = fn(*args)
+        want = ref_fn(*args)
         torch.cuda.synchronize()
-        stream = args[0].shape[0] <= ops.STREAM_ROWS
+        stream = args[0].shape[-2] <= ops.STREAM_ROWS
         if (ops.stream_launches, ops.mma_launches) != (before[0] + stream,
                                                        before[1] + (not stream)):
             raise RuntimeError(f"{name}: the planned bf16 kernel did not run")
