@@ -33,7 +33,26 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
      the tile kernel; gram calls: all on the mma kernel; paged combine
      launches as plan_splits predicts for the table); then one decode
      step's logits through the kernels against the same step through the
-     plain versions, and profiles of that step and of one prefill chunk;
+     plain versions, and profiles of that step and of one prefill chunk
+     (each profile the median of PROFILE_WINDOWS windows, of those that kept
+     every kernel); the engine there runs as before the scheduler
+     (worst-case admission, pipeline depth 1);
+  4b. sched_serve path: the reference engine's serving policy on the same
+     compressed model, 16 requests (prompts 16-200, 48 new tokens) in four
+     runs (SCHED_RUNS): A worst case at depth 1 in slot order (the engine
+     before the scheduler), B on demand at depth 2 with row order (and
+     B_unsorted without it), C on demand at depth 2 on a 56-block pool with
+     swap resume and defrag every 8 steps, D on demand at depth 4 on that
+     pool with re-prefill resume and two latency classes, 4 interactive
+     requests arriving after 10 steps.  B and C equal A token for token, as
+     does every request of D never preempted; a re-prefilled request first
+     differs from A, if at all, where A's top-2 logit margin (one
+     teacher-forced forward) is within 5% of max |logit|; C and D preempt
+     at least 3 times, C swaps and defrag moves blocks, D preempts for the
+     higher class; decode steps, prefill calls, preemptions and every
+     launch count as predicted (SCHED_PREDICTED); every dispatch runs under
+     sync-debug mode "error"; then the device timeline of two consecutive
+     decode steps at depths 1 and 2 (largest idle gap, idle share);
   5. quality path: ``obs.quality_report.build_entry`` on the same model:
      calibrate (gram kernel), compress with telemetry, evaluate dense vs
      compressed perplexity on five domains at (4, 2048) tokens a batch
@@ -860,9 +879,21 @@ GRAM_KERNEL_NAMES = ("gram_mma", "gram_kernel")
 PAGED_KERNEL_NAMES = ("paged_split_kernel", "paged_combine_kernel")
 
 
-def profile_step(torch, fn, label: str = "decode step", quiet: bool = False) -> dict:
+PROFILE_WINDOWS = 5  # profiler windows (and wall calls) a profile is the median of
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def profile_step(torch, fn, label: str = "decode step", quiet: bool = False,
+                 windows: int = PROFILE_WINDOWS) -> dict:
     """Device time by kernel name and device busy share of one call of
-    ``fn`` (after a warm-up call), from torch.profiler's CUDA trace.  Only
+    ``fn`` (after a warm-up call), from torch.profiler's CUDA trace: the
+    median over ``windows`` profiled calls, of the windows that kept every
+    kernel (the most device events; the profiler sometimes drops some),
+    beside the median wall of as many calls with the profiler off.  Only
     device events are summed: an aten op's row repeats its kernels' time.
     ``quiet``: log nothing."""
     from torch.autograd import DeviceType
@@ -870,25 +901,37 @@ def profile_step(torch, fn, label: str = "decode step", quiet: bool = False) -> 
 
     fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()  # the step's wall time, profiler off
-    fn()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    walls = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-    per = {}
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        dev_us = ev.self_device_time_total
-        if dev_us > 0:
-            per[ev.key] = (per.get(ev.key, (0.0, 0))[0] + dev_us / 1e3, ev.count)
-    busy = sum(ms for ms, _ in per.values())
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = _median(walls)
+    seen = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        per = {}
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            dev_us = ev.self_device_time_total
+            if dev_us > 0:
+                per[ev.key] = (per.get(ev.key, (0.0, 0))[0] + dev_us / 1e3, ev.count)
+        seen.append(per)
+    n_events = [sum(n for _, n in per.values()) for per in seen]
+    kept = [per for per, n in zip(seen, n_events) if n == max(n_events)]
+    per = {k: (_median([p.get(k, (0.0, 0))[0] for p in kept]),
+               max(p.get(k, (0.0, 0))[1] for p in kept))
+           for k in set().union(*kept)}
+    busy = _median([sum(ms for ms, _ in p.values()) for p in kept])
     top = sorted(per.items(), key=lambda kv: -kv[1][0])[:12]
     kernels = {k: ms for k, (ms, _) in per.items()}
+    used = {"windows": windows, "windows_used": len(kept)}
     if quiet:
-        return {"wall_ms": wall_ms, "device_busy_ms": busy, "kernels": kernels}
+        return {"wall_ms": wall_ms, "device_busy_ms": busy, "kernels": kernels, **used}
     nested, gram, paged = (sum(ms for k, (ms, _) in per.items()
                                if any(name in k for name in names))
                            for names in (NESTED_KERNEL_NAMES, GRAM_KERNEL_NAMES,
@@ -896,12 +939,13 @@ def profile_step(torch, fn, label: str = "decode step", quiet: bool = False) -> 
     log(f"  profiled {label}: wall {wall_ms:.2f} ms (profiler off), device "
         f"busy {busy:.3f} ms ({busy / wall_ms:.1%} of wall), nested_lowrank "
         f"{nested:.3f} ms ({nested / max(busy, 1e-9):.1%} of busy), gram {gram:.3f} ms "
-        f"({gram / max(busy, 1e-9):.1%}), paged_attention {paged:.4f} ms")
+        f"({gram / max(busy, 1e-9):.1%}), paged_attention {paged:.4f} ms; medians of "
+        f"{len(kept)} of {windows} windows")
     for name, (ms, n) in top:
         log(f"    {ms:8.3f} ms  x{n:<4d} {name[:90]}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "nested_ms": nested,
             "gram_ms": gram, "paged_ms": paged,
-            "top": [{"name": k, "ms": ms, "count": n} for k, (ms, n) in top]}
+            "top": [{"name": k, "ms": ms, "count": n} for k, (ms, n) in top], **used}
 
 
 def factored_ratio(params, plan) -> float:
@@ -920,7 +964,7 @@ def factored_ratio(params, plan) -> float:
     return 1.0 - factored / dense
 
 
-def serve_path(torch, np, cfg, mixer: str, gram_taps: tuple):
+def serve_path(torch, np, cfg, mixer: str, gram_taps: tuple, keep=None):
     """``serve()`` on ``cfg``: calibrate, compress (nsvd1, ratio 0.2) and
     serve 8 requests on the layout the model takes, with exact launch counts
     (``mixer``: the kernel each calibration forward runs once per layer;
@@ -928,7 +972,10 @@ def serve_path(torch, np, cfg, mixer: str, gram_taps: tuple):
     one decode step's logits through the kernels against the plain
     versions, on a cache prefilled with each prompt's first 15 tokens, and
     for a MoE model one eval batch's logits through its compressed experts
-    (the batched nested kernel at an eval batch's capacity)."""
+    (the batched nested kernel at an eval batch's capacity).  The engine
+    runs as before the scheduler (worst-case admission, pipeline depth 1),
+    so counts and times compare across PRs; ``keep`` (a dict) receives the
+    compressed model and params."""
     from repro_torch import kernels
     from repro_torch.launch.serve import serve
     from repro_torch.models.moe import RoutingTrace, capacity_of
@@ -940,7 +987,7 @@ def serve_path(torch, np, cfg, mixer: str, gram_taps: tuple):
     reset_counts()
     res = serve(cfg, requests=8, max_new=32, max_batch=8, max_len=256,
                 seed=0, compress=0.2, block_size=16, prefill_chunk=64,
-                prompts=prompts)
+                prompts=prompts, sched_policy="worst_case", pipeline_depth=1)
     counts = read_counts()
     split, split_ok = flash_split_ok(counts)
     rsplit, rsplit_ok = rwkv6_split_ok(counts)
@@ -949,6 +996,8 @@ def serve_path(torch, np, cfg, mixer: str, gram_taps: tuple):
     bsplit = batched_split()
     gram_ok = gsplit == {"mma": counts["gram"], "fma": 0}  # every tap is bf16
     eng, model, params, plan = res["engine"], res["model"], res["params"], res["plan"]
+    if keep is not None:
+        keep.update(model=model, params=params)
     st = eng.stats()
     paged = eng.layout == "paged"
     layers = cfg.num_layers
@@ -1137,6 +1186,255 @@ def serve_path(torch, np, cfg, mixer: str, gram_taps: tuple):
                    prefill_profile=prof_prefill,
                    ok=bool(ok and step_ok))
     return summary, counts
+
+
+# The sched_serve path: 16 requests (prompts of 16-200 tokens from seed 0,
+# 48 new tokens each) on the serve path's compressed model, max_batch 8,
+# max_len 256 (a 16-column table: plan_splits as on the serve path), block
+# 16, prefill chunk 64.  (run, SchedulerConfig fields, pipeline depth, pool
+# in blocks (None: 128, worst-case capacity for 8 rows), defrag every N
+# consumed steps, 4 requests interactive and submitted after 10 steps).
+# A is the engine as it was before the scheduler: worst case, depth 1, slot
+# order; B_unsorted is B without row order (the launches order adds).
+SCHED_REQUESTS, SCHED_MAX_NEW, SCHED_POOL = 16, 48, 56
+SCHED_LATE, SCHED_LATE_AFTER = 4, 10
+SCHED_RUNS = (("A", {"admission": "worst_case", "sort_decode_rows": False}, 1, None, 0, False),
+              ("B", {}, 2, None, 0, False),
+              ("B_unsorted", {"sort_decode_rows": False}, 2, None, 0, False),
+              ("C", {"resume": "swap"}, 2, SCHED_POOL, 8, False),
+              ("D", {"priority_classes": ("interactive", "batch")}, 4, SCHED_POOL, 0, True))
+# Each run's decode steps, prefill chunk calls and preemptions (priority
+# ones apart), from the engine's bookkeeping alone: no request has an eos,
+# so every count depends only on the prompt lengths (a CPU run of the same
+# engine at a tiny width gives them).  Launches follow from them.
+SCHED_PREDICTED = {"A": (99, 9, 0, 0), "B": (100, 8, 0, 0), "B_unsorted": (100, 8, 0, 0),
+                   "C": (151, 14, 13, 0), "D": (156, 36, 13, 7)}
+
+
+def ring_window(torch, eng, label: str, windows: int = PROFILE_WINDOWS) -> dict:
+    """Two consecutive ``step()`` calls of a serving engine with all its rows
+    decoding, profiled: the device's largest idle gap (the gap between the
+    two steps' work), its idle share of the span from the first device
+    event to the last, and device events a step; medians over the windows
+    that kept the most events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    seen = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            eng.step()
+            eng.step()
+            torch.cuda.synchronize()
+        iv = sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
+                    if ev.device_type == DeviceType.CUDA)  # kernels and copies
+        gaps, end = [], iv[0][1] if iv else 0.0
+        for a, b in iv[1:]:
+            if a > end:
+                gaps.append(a - end)
+            end = max(end, b)
+        span = end - iv[0][0] if iv else 0.0
+        seen.append((len(iv), max(gaps, default=0.0), sum(gaps), span))
+    most = max(n for n, *_ in seen)
+    kept = [w for w in seen if w[0] == most]
+    out = {"windows": windows, "windows_used": len(kept), "events_per_step": most / 2,
+           "largest_gap_ms": _median([w[1] for w in kept]) / 1e3,
+           "idle_ms": _median([w[2] for w in kept]) / 1e3,
+           "span_ms": _median([w[3] for w in kept]) / 1e3}
+    out["idle_share"] = out["idle_ms"] / max(out["span_ms"], 1e-9)
+    log(f"  ring window {label} (two decode steps, depth {eng.pipeline_depth}): largest "
+        f"device idle gap {out['largest_gap_ms']:.3f} ms, idle {out['idle_ms']:.3f} of "
+        f"{out['span_ms']:.3f} ms ({out['idle_share']:.1%}), {out['events_per_step']:.0f} "
+        f"device events a step; medians of {len(kept)} of {windows} windows")
+    return out
+
+
+def sched_run(torch, np, model, params, prompts, label, kw, depth, pool, defrag_every,
+              late) -> dict:
+    """One engine run of the sched_serve path, its launch counts read
+    around it; every dispatch runs under torch's sync-debug mode "error"."""
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.scheduler import SchedulerConfig
+
+    eng = ServingEngine(model, params, max_batch=8, max_len=256, seed=0, block_size=16,
+                        num_blocks=pool, prefill_chunk=64, pipeline_depth=depth,
+                        sched_config=SchedulerConfig(**kw))
+    checked = [0]
+    dispatch = eng._dispatch_decode
+
+    def dispatch_checked():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dispatch()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        checked[0] += 1
+
+    eng._dispatch_decode = dispatch_checked
+    n_late = SCHED_LATE if late else 0
+    cls = {"latency_class": "batch"} if late else {}
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    uids = [eng.submit(p, max_new_tokens=SCHED_MAX_NEW, **cls)
+            for p in prompts[:SCHED_REQUESTS - n_late]]
+    if late:
+        while len(eng.step_times) < SCHED_LATE_AFTER:
+            eng.run(max_steps=1)
+        uids += [eng.submit(p, max_new_tokens=SCHED_MAX_NEW, latency_class="interactive")
+                 for p in prompts[SCHED_REQUESTS - n_late:]]
+    moved = defrags = 0
+    next_defrag = defrag_every
+    for _ in range(100_000):
+        if len(eng.finished_requests) == SCHED_REQUESTS:
+            break
+        eng.run(max_steps=1)
+        if defrag_every and len(eng.step_times) >= next_defrag:
+            moved += eng.defrag()
+            defrags += 1
+            next_defrag += defrag_every
+    eng.drain()  # steps dispatched after the last finish
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, nsplit = read_counts(), nested_split()
+    combine = _ops("paged_attention").combine_launches
+    reqs = [eng.finished_requests.get(u) for u in uids]
+    st, sch = eng.stats(), eng.scheduler_stats()
+    n_tok = sum(len(r.generated) for r in reqs if r is not None)
+    return {"outputs": [r.generated if r else None for r in reqs],
+            "preempted": [bool(r and r.preemptions) for r in reqs],
+            "finished": all(r is not None and r.finish_reason == "stop"
+                            and len(r.generated) == SCHED_MAX_NEW for r in reqs),
+            "summary": dict(scheduler=dict(kw, pipeline_depth=depth, num_blocks=pool),
+                            seconds=wall, tokens=n_tok, tok_per_s=n_tok / wall, stats=st,
+                            scheduler_stats=sch, cache_stats=eng.cache_stats(),
+                            launches=counts, nested_launches=nsplit,
+                            paged_combine_launches=combine, checked_dispatches=checked[0],
+                            defrags=defrags, defrag_moved=moved)}
+
+
+def sched_serve_path(torch, np, model, params):
+    """The reference engine's serving policy at Mistral-7B width on the
+    serve path's compressed model: runs A-D (SCHED_RUNS) on the same 16
+    prompts; B, B_unsorted and C equal A token for token, as does every
+    request of D never preempted, and a re-prefilled one first differs
+    from A, if at all, where A's top-2 margin is within the step's gate;
+    C and D preempt at least 3 times, C swaps and defrag moves blocks, D
+    preempts for a higher class; launch counts as predicted; no dispatch
+    synchronises.  Then ring windows of two decode steps at depths 1
+    (A), 2 (B) and 2 without row order."""
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.scheduler import SchedulerConfig
+
+    cfg = model.cfg
+    rng = np.random.default_rng(0)
+    plens = rng.integers(16, 201, size=SCHED_REQUESTS)
+    prompts = [rng.integers(2, cfg.vocab_size // 2, size=int(n)) for n in plens]
+    n_single, _ = nested_calls(model)
+    layers = cfg.num_layers
+    runs, ok = {}, True
+    for label, kw, depth, pool, defrag_every, late in SCHED_RUNS:
+        r = sched_run(torch, np, model, params, prompts, label, kw, depth, pool,
+                      defrag_every, late)
+        sm, st, sch = r["summary"], r["summary"]["stats"], r["summary"]["scheduler_stats"]
+        steps, ticks = st["steps"], st["prefill_ticks"]
+        predicted = SCHED_PREDICTED[label]
+        got = (steps, ticks, sch["preempt_count"], sch["priority_preemptions"])
+        expect = {"nested_lowrank": n_single * (steps + ticks),
+                  "paged_attention": layers * steps, "gram": 0, "flash_attention": 0,
+                  "rwkv6": 0}
+        nested_expect = {"stream": n_single * steps, "mma": n_single * ticks, "tile": 0}
+        run_ok = (r["finished"] and got == predicted and sm["launches"] == expect
+                  and sm["nested_launches"] == nested_expect
+                  and sm["paged_combine_launches"] == layers * steps
+                  and sm["checked_dispatches"] == steps and st["decode_syncs"] == steps
+                  and st["swap_syncs"] == (sch["preempt_count"] if kw.get("resume") == "swap"
+                                           else 0)
+                  and sch["swap_fallbacks"] == 0)
+        sm.update(expected_launches=expect, expected_nested_launches=nested_expect,
+                  predicted=dict(zip(("steps", "prefill_ticks", "preemptions",
+                                      "priority_preemptions"), predicted)))
+        log(f"  run {label} ({sm['scheduler']}): {sm['tokens']} tokens in "
+            f"{sm['seconds']:.2f} s = {sm['tok_per_s']:.1f} tok/s; steps {steps}, prefill "
+            f"calls {ticks}, preemptions {sch['preempt_count']} (priority "
+            f"{sch['priority_preemptions']}), predicted {predicted}; resumes "
+            f"{sch['resumes']}, grown blocks {sch['grown_blocks']}, swap "
+            f"{sch['swap_bytes'] / 1e6:.2f} MB, defrag moved {sm['defrag_moved']} blocks in "
+            f"{sm['defrags']} calls, table uploads {sm['cache_stats']['table_uploads']}; "
+            f"host syncs {st['host_syncs']} (decode {st['decode_syncs']}, swap "
+            f"{st['swap_syncs']} apart), dispatches checked {sm['checked_dispatches']}; "
+            f"step p50 {st['step_p50_s'] * 1e3:.2f} p90 {st['step_p90_s'] * 1e3:.2f} ms = "
+            f"dispatch {st['step_dispatch_s'] * 1e3:.2f} + device wait "
+            f"{st['step_device_wait_s'] * 1e3:.2f} + host {st['step_host_s'] * 1e3:.2f} ms "
+            f"(means); launches {sm['launches']} nested {sm['nested_launches']} combine "
+            f"{sm['paged_combine_launches']} {'OK' if run_ok else 'FAIL'}")
+        ok = ok and run_ok
+        runs[label] = r
+    want = runs["A"]["outputs"]
+    exact = {k: runs[k]["outputs"] == want for k in ("B", "B_unsorted", "C")}
+    pressure = {"C": (runs["C"]["summary"]["scheduler_stats"]["preempt_count"] >= 3
+                      and runs["C"]["summary"]["scheduler_stats"]["swap_bytes"] > 0
+                      and runs["C"]["summary"]["defrag_moved"] > 0),
+                "D": (runs["D"]["summary"]["scheduler_stats"]["preempt_count"] >= 3
+                      and runs["D"]["summary"]["scheduler_stats"]["priority_preemptions"] >= 1)}
+    # D: never-preempted requests exact; re-prefilled ones by the margin rule
+    # on one teacher-forced forward of prompt + A's tokens.
+    d_rows = []
+    fa_before = _ops("flash_attention").launches
+    for i, (got, pre) in enumerate(zip(runs["D"]["outputs"], runs["D"]["preempted"])):
+        if not pre:
+            d_rows.append({"request": i, "preempted": False, "equal": got == want[i],
+                           "ok": got == want[i]})
+            continue
+        row = {"request": i, "preempted": True, "equal": got == want[i]}
+        if got != want[i]:
+            j = next(k for k, (a, b) in enumerate(zip(got, want[i])) if a != b)
+            seq = torch.as_tensor(np.concatenate([prompts[i], want[i][:-1]])[None],
+                                  device=params["embed"]["table"].device)
+            with torch.no_grad():
+                lg = model.apply(params, seq, mode="train")[0, len(prompts[i]) - 1 + j].float()
+            top2 = torch.topk(lg, 2).values
+            margin, gate = float(top2[0] - top2[1]), STEP_LOGIT_TOL * float(lg.abs().max())
+            row.update(first_diff=j, margin=margin, gate=gate, ok=margin <= gate)
+        else:
+            row["ok"] = True
+        d_rows.append(row)
+    margin_rows = [r for r in d_rows if r["preempted"] and not r["equal"]]
+    d_ok = all(r["ok"] for r in d_rows)
+    log(f"  exact against A: {exact}; pressure {pressure}; D: "
+        f"{sum(r['preempted'] for r in d_rows)} re-prefilled requests, "
+        f"{len(margin_rows)} differ from A, margins (first diff, margin, gate) "
+        f"{[(r['request'], r['first_diff'], round(r['margin'], 4), round(r['gate'], 4)) for r in margin_rows]}; "
+        f"never-preempted equal {all(r['equal'] for r in d_rows if not r['preempted'])}; "
+        f"teacher-forced forwards' flash launches "
+        f"{_ops('flash_attention').launches - fa_before} {'OK' if d_ok else 'FAIL'}")
+    # Ring windows: a fresh engine per setting with 8 rows decoding.
+    windows = {}
+    for label, kw, depth in (("A", SCHED_RUNS[0][1], 1), ("B", {}, 2),
+                             ("B_unsorted", {"sort_decode_rows": False}, 2)):
+        eng = ServingEngine(model, params, max_batch=8, max_len=256, seed=0, block_size=16,
+                            prefill_chunk=64, pipeline_depth=depth,
+                            sched_config=SchedulerConfig(**kw))
+        for p in prompts[:8]:
+            eng.submit(p, max_new_tokens=SCHED_MAX_NEW)
+        while eng.sched or eng._prefilling:
+            eng.run(max_steps=1)
+        eng.step()
+        windows[label] = ring_window(torch, eng, label)
+        windows[label]["step_p50_ms"] = runs[label]["summary"]["stats"]["step_p50_s"] * 1e3
+        eng.drain()
+    added = windows["B"]["events_per_step"] - windows["B_unsorted"]["events_per_step"]
+    log(f"  row order adds {added:.0f} device events a step; step p50 with it "
+        f"{windows['B']['step_p50_ms']:.2f} ms, without {windows['B_unsorted']['step_p50_ms']:.2f}")
+    summary = dict(config=cfg.name, layers=layers, prompt_lengths=plens.tolist(),
+                   runs={k: v["summary"] for k, v in runs.items()},
+                   preempted={k: v["preempted"] for k, v in runs.items()},
+                   exact_against_A=exact, pressure=pressure, reprefilled=d_rows,
+                   margin_rows=len(margin_rows), ring_windows=windows,
+                   row_order_added_events=added,
+                   ok=bool(ok and all(exact.values()) and all(pressure.values()) and d_ok))
+    return summary, runs["B"]["summary"]["launches"]
 
 
 def quality_path(torch, np, cfg, eval_n: int, gram_taps: tuple, mixer: str):
@@ -1551,7 +1849,10 @@ def main() -> int:
     mistral = dataclasses.replace(MISTRAL_7B, num_layers=2)
     rwkv6 = dataclasses.replace(RWKV6_1_6B, num_layers=4)
     moonshot = dataclasses.replace(MOONSHOT_V1_16B_A3B, num_layers=3)
-    runs = (("serve", serve_path, (mistral, "flash_attention", (9, 0))),
+    served = {}
+    runs = (("serve", serve_path, (mistral, "flash_attention", (9, 0), served)),
+            ("sched_serve", lambda torch, np: sched_serve_path(
+                torch, np, served.pop("model"), served.pop("params")), ()),
             ("quality", quality_path, (mistral, 2, (9, 0), "flash_attention")),
             ("methods", methods_path, (dataclasses.replace(MISTRAL_7B, num_layers=1), 4)),
             ("rwkv_serve", serve_path, (rwkv6, "rwkv6", (37, 0))),

@@ -11,6 +11,12 @@ state) and the token-choice MoE family (attention K/V).
     python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --no-reduced \\
         --layers 3 --compress 0.2 --requests 8 --max-new 32 --max-batch 8
 
+The engine schedules as the reference's does by default: on-demand block
+growth with preemption (re-prefill resume), one latency class, two decode
+steps in flight; ``--sched-policy``, ``--priority-classes``, ``--no-preempt``
+and ``--pipeline-depth`` change that, and ``serve(resume="swap")`` resumes
+preempted rows from host copies of their blocks.
+
 ``small-*`` archs load the reference's trained checkpoint from
 ``experiments/models/<name>/`` (and its ``grams.npz`` when present); every
 other arch starts from random weights drawn from ``--seed``.
@@ -34,6 +40,7 @@ from repro_torch.configs import ModelConfig, get_config
 from repro_torch.core import CompressionConfig, GramStore, build_plan, compress_params
 from repro_torch.models import build_model
 from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.scheduler import SchedulerConfig
 
 MODELS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                           "experiments", "models")
@@ -62,9 +69,14 @@ def serve(cfg: ModelConfig, *, requests: int = 8, max_new: int = 16,
           seed: int = 0, compress: Optional[float] = None, block_size: int = 16,
           num_blocks: Optional[int] = None, prefill_chunk: int = 64,
           eos: Optional[int] = None, prompts: Optional[Sequence] = None,
-          params=None, device: Device = None) -> Dict:
+          params=None, device: Device = None, sched_policy: str = "on_demand",
+          priority_classes: Sequence[str] = ("default",), preempt: bool = True,
+          resume: str = "reprefill", pipeline_depth: Optional[int] = None) -> Dict:
     """Init (or take ``params``), calibrate + compress when ``compress`` is
-    a ratio, then serve ``requests`` prompts.  Returns the outputs, the
+    a ratio, then serve ``requests`` prompts under the scheduling policy
+    (``sched_policy``, ``priority_classes``, ``preempt``, ``resume``; the
+    reference's defaults) at ``pipeline_depth`` (None: the engine's default,
+    2).  Every request goes to the lowest class.  Returns the outputs, the
     finished requests, the seconds of each phase and the engine.  Matmuls
     run in full fp32 on the card (no TF32): calibration needs it, and so
     does the MoE router, whose top-k choices TF32 would change."""
@@ -106,7 +118,11 @@ def serve(cfg: ModelConfig, *, requests: int = 8, max_new: int = 16,
 
     eng = ServingEngine(model, params, max_batch=max_batch, max_len=max_len,
                         seed=seed, block_size=block_size, num_blocks=num_blocks,
-                        prefill_chunk=prefill_chunk, eos_id=eos)
+                        prefill_chunk=prefill_chunk, eos_id=eos,
+                        pipeline_depth=pipeline_depth,
+                        sched_config=SchedulerConfig(
+                            admission=sched_policy, preempt=preempt, resume=resume,
+                            priority_classes=tuple(priority_classes)))
     if prompts is None:
         prompts = default_prompts(requests, cfg.vocab_size, seed)
     for p in prompts:
@@ -142,6 +158,20 @@ def main(argv=None):
     ap.add_argument("--layers", type=int, default=None, help="cut the depth")
     ap.add_argument("--eos", type=int, default=None)
     ap.add_argument("--device", default=None, help="default: cuda")
+    ap.add_argument("--sched-policy", choices=("on_demand", "worst_case"),
+                    default="on_demand", help="paged admission: on_demand "
+                    "reserves the prompt's blocks and grows at block boundaries; "
+                    "worst_case reserves prompt + max_new up front")
+    ap.add_argument("--priority-classes", default=None, metavar="A,B,...",
+                    help="latency classes, highest priority first (default: one "
+                    "'default' class, FIFO); requests here all land in the lowest")
+    ap.add_argument("--no-preempt", action="store_true",
+                    help="never evict a live row when the pool runs dry: a starved "
+                    "row stalls until blocks free, and a full-pool deadlock raises")
+    ap.add_argument("--pipeline-depth", type=int, default=None,
+                    help="in-flight decode steps (default 2, or "
+                    "REPRO_SERVING_PIPELINE_DEPTH); 1 waits for each step's tokens "
+                    "before the next dispatch; every depth gives the same tokens")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -154,7 +184,11 @@ def main(argv=None):
                 temperature=args.temperature, seed=args.seed,
                 compress=args.compress, block_size=args.block_size,
                 num_blocks=args.num_blocks, prefill_chunk=args.prefill_chunk,
-                eos=args.eos, device=args.device)
+                eos=args.eos, device=args.device, sched_policy=args.sched_policy,
+                priority_classes=tuple(c.strip() for c in args.priority_classes.split(",")
+                                       if c.strip()) if args.priority_classes
+                else ("default",),
+                preempt=not args.no_preempt, pipeline_depth=args.pipeline_depth)
     if res["plan"] is not None:
         print(f"serving NSVD-compressed weights "
               f"({res['plan'].achieved_ratio:.0%} removed)")
@@ -164,8 +198,19 @@ def main(argv=None):
                                          for k, v in res["seconds"].items()))
     s = res["engine"].stats()
     print(f"cache layout {res['engine'].layout}; prefill calls {s['prefill_ticks']}")
-    print(f"decode steps: {s['steps']}  p50={s['step_p50_s'] * 1e3:.2f}ms  "
-          f"p90={s['step_p90_s'] * 1e3:.2f}ms  host syncs={s['host_syncs']}")
+    print(f"decode steps: {s['steps']} (pipeline depth {s['pipeline_depth']})  "
+          f"p50={s['step_p50_s'] * 1e3:.2f}ms  p90={s['step_p90_s'] * 1e3:.2f}ms  "
+          f"[dispatch {s['step_dispatch_s'] * 1e3:.2f}ms + device wait "
+          f"{s['step_device_wait_s'] * 1e3:.2f}ms + host {s['step_host_s'] * 1e3:.2f}ms "
+          f"per step]  host syncs={s['host_syncs']}")
+    if res["engine"].layout == "paged":
+        sch = res["engine"].scheduler_stats()
+        occ = sch["occupancy_live_frac"]
+        occ_s = f"{occ:.0%}" if occ is not None else "n/a"
+        print(f"sched[{sch['admission_policy']}]: live/reserved {occ_s}, "
+              f"{sch['preempt_count']} preempts, {sch['resumes']} resumes, "
+              f"{sch['grown_blocks']} grown blocks, {sch['stalls']} stalls, "
+              f"swap {sch['swap_bytes'] / 1e6:.2f}MB")
 
 
 if __name__ == "__main__":

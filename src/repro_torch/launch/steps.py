@@ -160,17 +160,31 @@ def make_paged_decode_step(model, max_len: int) -> Callable:
     """One decode step over the paged cache for every slot.  Rows that are
     not effectively active get their table row forced to -1 (their cache
     writes drop: a freed slot's blocks may already belong to another
-    request) and their attention length to cache_len 0."""
+    request) and their attention length to cache_len 0.
+
+    The model runs its rows in the scheduler's ``row_order`` (a
+    permutation of the slots, int64; None keeps slot order); the logits
+    are put back in slot order before sampling, and every state tensor
+    stays in slot order.
+    Each row's arithmetic does not depend on its position, so the order
+    leaves every token unchanged."""
 
     @torch.no_grad()
     def paged_decode_step(params, pools, block_tables, last_token, cache_len,
-                          budget, key_data, active, host_keep, temps, eos):
+                          budget, key_data, active, host_keep, temps, eos,
+                          row_order):
         act = active & host_keep
         bt_eff = torch.where(act[:, None], block_tables,
                              torch.full_like(block_tables, -1))
         cl_eff = torch.where(act, cache_len, torch.zeros_like(cache_len))
-        logits = model.apply(params, last_token[:, None], mode="decode",
-                             cache=pools, cache_len=cl_eff, block_tables=bt_eff)
+        tok = last_token
+        if row_order is not None:
+            tok, cl_eff, bt_eff = (t.index_select(0, row_order)
+                                   for t in (last_token, cl_eff, bt_eff))
+        logits = model.apply(params, tok[:, None], mode="decode", cache=pools,
+                             cache_len=cl_eff, block_tables=bt_eff)
+        if row_order is not None:
+            logits = logits.index_select(0, torch.argsort(row_order))
         return _sample_advance_exit(logits, last_token, cache_len, budget,
                                     key_data, active, host_keep, temps, eos,
                                     max_len)

@@ -1,6 +1,6 @@
 """Paged KV-cache: host block allocator + device block pools."""
 
 from .allocator import BlockAllocator
-from .paged import PagedKVCache, resolve_num_blocks, upload
+from .paged import PagedKVCache, pool_leaves, resolve_num_blocks, upload
 
-__all__ = ["BlockAllocator", "PagedKVCache", "resolve_num_blocks", "upload"]
+__all__ = ["BlockAllocator", "PagedKVCache", "pool_leaves", "resolve_num_blocks", "upload"]

@@ -1100,3 +1100,150 @@ def test_best_svd_randomized_on_card_matches_cpu(dev):
     rel = float(torch.linalg.norm(got.matrix().cpu() - wm) / torch.linalg.norm(wm))
     assert rel <= 1e-9, rel
     assert float((got.s.cpu() - want.s).abs().max()) <= 1e-9 * float(want.s[0])
+
+
+# ------------------------------------------ the serving policy on the card
+
+
+def _paged_card_model(dev, dtype="bfloat16"):
+    """A 2-layer Mistral-shaped model (8/2 heads x 8, G 4) with spread logits
+    and its attention nested-factored in place (the stream kernel's rows)."""
+    cfg = dataclasses.replace(
+        small_lm("card-sched", MISTRAL_7B, num_layers=2, d_model=64, d_ff=96,
+                 vocab_size=128, num_heads=8), dtype=dtype)
+    model = build_model(cfg)
+    params = model.init(0, dev)
+    params["unembed"]["kernel"] *= 8.0
+    g = torch.Generator(device=dev).manual_seed(1)
+    wdt = params["unembed"]["kernel"].dtype
+    for layer in ("wq", "wk", "wv", "wo"):
+        k_in, k_out = params["g0"]["sub0"]["attn"][layer]["kernel"].shape[-2:]
+        params["g0"]["sub0"]["attn"][layer] = {
+            "u": (torch.randn((2, k_in, 16), generator=g, device=dev) * k_in ** -0.5).to(wdt),
+            "v": (torch.randn((2, 16, k_out), generator=g, device=dev) * 16 ** -0.5).to(wdt),
+            "u2": (torch.randn((2, k_in, 8), generator=g, device=dev) * k_in ** -0.5).to(wdt),
+            "v2": (torch.randn((2, 8, k_out), generator=g, device=dev) * 8 ** -0.5).to(wdt)}
+    return model, params
+
+
+def _sched_prompts(n=6):
+    rng = np.random.default_rng(21)
+    return [rng.integers(2, 120, size=int(rng.integers(4, 30))) for _ in range(n)]
+
+
+def _serve_card(model, params, prompts, max_new=20, **kw):
+    eng = ServingEngine(model, params, max_batch=3, max_len=64, block_size=8,
+                        prefill_chunk=16, **kw)
+    ids = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+    eng.run()
+    return [eng.finished_requests[u].generated for u in ids], eng
+
+
+def test_ring_dispatch_is_sync_free(dev):
+    """Every decode dispatch of an on-demand, depth-2 engine under pool
+    pressure (growth, table re-uploads, row order, preemption in between)
+    makes no host sync: the only syncs are the consumed token copies."""
+    from repro_torch.serving.scheduler import SchedulerConfig
+
+    model, params = _paged_card_model(dev)
+    for resume in ("reprefill", "swap"):
+        eng = ServingEngine(model, params, max_batch=3, max_len=64, block_size=8,
+                            num_blocks=10, prefill_chunk=16, pipeline_depth=2,
+                            sched_config=SchedulerConfig(resume=resume))
+        dispatch, n = eng._dispatch_decode, [0]
+
+        def checked(dispatch=dispatch, n=n):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                dispatch()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            n[0] += 1
+
+        eng._dispatch_decode = checked
+        for p in _sched_prompts():
+            eng.submit(p, max_new_tokens=20)
+        eng.run()
+        st = eng.stats()
+        assert len(eng.finished_requests) == 6 and n[0] == st["steps"] == st["decode_syncs"]
+        assert eng.scheduler_stats()["preempt_count"] > 0
+
+
+@pytest.mark.parametrize("layout", ["paged", "dense"])
+def test_depth2_streams_equal_depth1(dev, layout):
+    """The ring changes no token: depth 2 (and 3) against depth 1, on the
+    paged pools (bf16) and on RWKV-6's dense slab."""
+    model, params = (_paged_card_model(dev) if layout == "paged"
+                     else _rwkv_card_model(dev))
+    streams = [_serve_card(model, params, _sched_prompts(), pipeline_depth=d)[0]
+               for d in (1, 2, 3)]
+    assert streams[1] == streams[0] and streams[2] == streams[0]
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_swap_out_and_back_is_bit_exact(dev, kv_quant):
+    """Swapped blocks come back bit for bit (bf16 pools, and int8 pools
+    with their scales), and a swap-preempted run's streams equal a run
+    without pressure."""
+    from repro_torch.serving.kvcache import pool_leaves
+    from repro_torch.serving.scheduler import SchedulerConfig
+
+    model, params = _paged_card_model(dev)
+    base, _ = _serve_card(model, params, _sched_prompts(), kv_quant=kv_quant)
+    swapped, eng = _serve_card(model, params, _sched_prompts(), kv_quant=kv_quant,
+                               num_blocks=10, sched_config=SchedulerConfig(resume="swap"))
+    st = eng.scheduler_stats()
+    assert st["swap_bytes"] > 0 and st["swap_fallbacks"] == 0 and swapped == base
+    # One swap by hand: the payload equals the pages, and the resumed
+    # row's new pages equal the payload.
+    eng = ServingEngine(model, params, max_batch=2, max_len=64, block_size=8,
+                        num_blocks=24, prefill_chunk=16, kv_quant=kv_quant,
+                        sched_config=SchedulerConfig(resume="swap"))
+    uid = eng.submit(_sched_prompts()[1], max_new_tokens=30)
+    for _ in range(12):
+        eng.run(max_steps=1)
+    eng.drain()
+    req = next(r for r in eng.slots if r is not None and r.uid == uid)
+    slot, n_ctx = req.slot, int(eng._len_host[req.slot])
+
+    def pages(s, n_blocks):
+        ids = torch.as_tensor(eng.kv.alloc.owned_by(s)[:n_blocks], device=dev)
+        return [leaf.index_select(ax, ids) for _, ax, leaf in pool_leaves(eng.kv.pools)]
+
+    n_blocks = eng.kv.blocks_for(n_ctx)
+    old_ids = set(eng.kv.alloc.owned_by(slot)[:n_blocks])
+    before = pages(slot, n_blocks)
+    eng._preempt(slot, "pool_dry")
+    assert all(torch.equal(b.cpu(), p) for b, p in zip(before, req.swap.blocks))
+    eng.kv.alloc.alloc("decoy", n_blocks)  # the freed ids: the row must move
+    eng._admit()
+    assert req.swap is None and req.slot is not None
+    assert not old_ids & set(eng.kv.alloc.owned_by(req.slot)[:n_blocks])
+    assert all(torch.equal(a, b) for a, b in zip(pages(req.slot, n_blocks), before))
+
+
+def test_defrag_keeps_pages_bit_exact_on_card(dev):
+    """defrag's one gather per pool leaf on the card moves every live
+    row's pages bit for bit, bf16 and int8 pools."""
+    from repro_torch.serving.kvcache import PagedKVCache, pool_leaves
+
+    model, _ = _paged_card_model(dev)
+    for kv_quant in (False, True):
+        kv = PagedKVCache(model, 4, 64, block_size=8, num_blocks=20, kv_quant=kv_quant,
+                          device=dev)
+        g = torch.Generator(device=dev).manual_seed(2)
+        for _, _, leaf in pool_leaves(kv.pools):
+            leaf.copy_(torch.randint(-100, 100, leaf.shape, generator=g, device=dev)
+                       .to(leaf.dtype))
+        for op, *args in (("reserve", 0, 20), ("reserve", 1, 9), ("reserve", 2, 30),
+                          ("extend", 1, 30), ("free", 0), ("reserve", 3, 12),
+                          ("rollback", 2, 17), ("free", 3)):
+            getattr(kv, op)(*args)
+
+        def pages():
+            return [leaf.index_select(ax, torch.as_tensor(row[row >= 0], device=dev))
+                    for row in kv.table_np for _, ax, leaf in pool_leaves(kv.pools)]
+
+        before = pages()
+        assert kv.defrag()
+        assert all(torch.equal(a, b) for a, b in zip(before, pages()))

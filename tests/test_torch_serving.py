@@ -5,23 +5,13 @@ layout) and for RWKV-6 on the dense recurrent-state slab; device-side EOS
 exits; the temperature-stream invariant; and the allocator the port
 copies."""
 
-import functools
-
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from torch_parity import tiny_cfgs, to_t
+from torch_parity import tiny_cfgs, tiny_lm, tiny_rwkv
 
-from repro.calib.runner import collect_grams as jax_collect_grams
-from repro.configs import get_config as jax_get_config
-from repro.core import CompressionConfig as JaxCompressionConfig
-from repro.core import build_plan as jax_build_plan
-from repro.core import compress_params as jax_compress_params
-from repro.models import build_model as jax_build_model
 from repro.serving.engine import ServingEngine as JaxEngine
 from repro.serving.scheduler import SchedulerConfig
-from repro_torch.configs import get_config
 from repro_torch.models import build_model, cache_layout, prefill_pad_safe
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.kvcache import BlockAllocator
@@ -30,32 +20,14 @@ LOGIT_TOL = 1e-4  # fp32 logits agree to this (tests/test_torch_model.py)
 PROMPT_LENS = (3, 17, 9, 30, 12)
 
 
-@functools.lru_cache(maxsize=None)
-def _lm(kind):
-    jcfg, tcfg = tiny_cfgs("small-llama", d_model=32, d_ff=48, vocab=64)
-    jmodel = jax_build_model(jcfg)
-    jparams = jmodel.init(jax.random.key(0))
-    # Spread the logits so greedy choices are not near-ties (same weights on
-    # both sides; the margin is asserted below).
-    jparams["unembed"]["kernel"] = jparams["unembed"]["kernel"] * 8.0
-    if kind == "nsvd1":
-        rng = np.random.default_rng(3)
-        grams = jax_collect_grams(jmodel, jparams, [
-            {"tokens": jnp.asarray(rng.integers(0, 64, (4, 32)), jnp.int32)}])
-        plan = jax_build_plan(jmodel.compressible_targets(), JaxCompressionConfig(
-            method="nsvd1", ratio=0.3, dtype="float32", use_randomized=False))
-        jparams = jax_compress_params(jparams, plan, grams)
-    return jmodel, jparams, build_model(tcfg), to_t(jparams)
-
-
 @pytest.fixture(params=["dense", "nsvd1"])
 def lm(request):
-    return _lm(request.param)
+    return tiny_lm(request.param)
 
 
 @pytest.fixture
 def dense_lm():
-    return _lm("dense")
+    return tiny_lm("dense")
 
 
 def _prompts(seed=0):
@@ -197,23 +169,6 @@ def test_sampler_draws_the_softmax_distribution():
 # ------------------------------------------------- RWKV-6, dense slab
 
 
-@functools.lru_cache(maxsize=None)
-def _rwkv(kind):
-    jcfg = jax_get_config("rwkv6-1.6b").reduced()
-    jmodel = jax_build_model(jcfg)
-    jparams = jmodel.init(jax.random.key(0))
-    jparams["unembed"]["kernel"] = jparams["unembed"]["kernel"] * 8.0
-    if kind == "nsvd1":
-        rng = np.random.default_rng(3)
-        grams = jax_collect_grams(jmodel, jparams, [
-            {"tokens": jnp.asarray(rng.integers(0, 256, (4, 32)), jnp.int32)}])
-        plan = jax_build_plan(jmodel.compressible_targets(), JaxCompressionConfig(
-            method="nsvd1", ratio=0.3, dtype="float32", use_randomized=False))
-        jparams = jax_compress_params(jparams, plan, grams)
-    tmodel = build_model(get_config("rwkv6-1.6b").reduced())
-    return jmodel, jparams, tmodel, to_t(jparams)
-
-
 def _rwkv_prompts(seed=0):
     rng = np.random.default_rng(seed)
     return [rng.integers(2, 200, size=n) for n in PROMPT_LENS]
@@ -224,7 +179,7 @@ def test_rwkv_greedy_streams_match_reference_dense_engine(kind):
     """The reduced rwkv6-1.6b on the dense slab: the same greedy streams as
     the reference engine's dense path (3 slots for 5 requests, so slots are
     reused and every admission replaces a previous occupant's state)."""
-    jmodel, jparams, tmodel, tparams = _rwkv(kind)
+    jmodel, jparams, tmodel, tparams = tiny_rwkv(kind)
     kw = dict(max_batch=3, max_len=48)
     ref = JaxEngine(jmodel, jparams, pipeline_depth=1,
                     sched_config=SchedulerConfig(admission="worst_case"), **kw)
@@ -244,9 +199,9 @@ def test_rwkv_dense_layout_exact_length_admission_one_sync_per_step():
     prefills ONE request at its exact prompt length; the engine syncs with
     the host once per decode step and once per admission.  Attention
     models keep the paged layout."""
-    _, _, tmodel, tparams = _rwkv("dense")
+    _, _, tmodel, tparams = tiny_rwkv("dense")
     assert cache_layout(tmodel) == "dense" and not prefill_pad_safe(tmodel)
-    amodel = _lm("dense")[2]
+    amodel = tiny_lm("dense")[2]
     assert cache_layout(amodel) == "paged" and prefill_pad_safe(amodel)
     eng = ServingEngine(tmodel, tparams, max_batch=2, max_len=48)
     assert eng.kv is None
