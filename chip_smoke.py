@@ -47,12 +47,29 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
      requests arriving after 10 steps.  B and C equal A token for token, as
      does every request of D never preempted; a re-prefilled request first
      differs from A, if at all, where A's top-2 logit margin (one
-     teacher-forced forward) is within 5% of max |logit|; C and D preempt
+     teacher-forced forward a request, kept for 4c) is within 5% of max
+     |logit|; C and D preempt
      at least 3 times, C swaps and defrag moves blocks, D preempts for the
      higher class; decode steps, prefill calls, preemptions and every
      launch count as predicted (SCHED_PREDICTED); every dispatch runs under
      sync-debug mode "error"; then the device timeline of two consecutive
      decode steps at depths 1 and 2 (largest idle gap, idle share);
+  4c. fault_serve path: the serving engine's fault tolerance on the same
+     model, prompts and A's streams, on demand at depth 2 (FAULT_SPECS): F1
+     poisons one request twice (a re-prefill retry, then "error") and one
+     once (a retry that finishes), fails three block reservations and
+     stalls one token copy 0.05 s; F2 corrupts two swap payloads on the
+     56-block pool (each falls back to re-prefill); F3 sheds two requests
+     past their deadline, cancels a queued, a prefilling and a live request
+     (steps in flight), drains and closes; F4 arms a 0.2 s step timeout on
+     a warm engine and stalls one copy 0.3 s (ServingFault "step_timeout",
+     its snapshot JSON).  Untouched requests equal A token for token,
+     retried and preempted ones by the margin rule; every finish reason as
+     expected (FAULT_REASONS); fault_stats() reconciles with the plan;
+     counts and launches as predicted (FAULT_PREDICTED, from a CPU run:
+     tests/test_torch_faults.py runs this path at a tiny width); every
+     dispatch under sync-debug "error", the poisoned ones included; then
+     the finite check's device time alone and a profiled decode step;
   5. quality path: ``obs.quality_report.build_entry`` on the same model:
      calibrate (gram kernel), compress with telemetry, evaluate dense vs
      compressed perplexity on five domains at (4, 2048) tokens a batch
@@ -1314,7 +1331,39 @@ def sched_run(torch, np, model, params, prompts, label, kw, depth, pool, defrag_
                             defrags=defrags, defrag_moved=moved)}
 
 
-def sched_serve_path(torch, np, model, params):
+def teacher_margins(torch, np, model, params, prompts, streams) -> list:
+    """Per request, one teacher-forced forward over its prompt and
+    ``streams``' tokens: at each generated position, the top-2 logit margin
+    and the gate (STEP_LOGIT_TOL of max |logit|) the margin rule holds it
+    to.  Two flash_attention launches a forward."""
+    out = []
+    for p, s in zip(prompts, streams):
+        seq = torch.as_tensor(np.concatenate([p, s[:-1]])[None],
+                              device=params["embed"]["table"].device)
+        with torch.no_grad():
+            lg = model.apply(params, seq, mode="train")[0, len(p) - 1:].float()
+        top2 = torch.topk(lg, 2, dim=-1).values
+        out.append(((top2[:, 0] - top2[:, 1]).cpu().numpy(),
+                    (STEP_LOGIT_TOL * lg.abs().amax(-1)).cpu().numpy()))
+    return out
+
+
+def margin_row(got, want, margins) -> dict:
+    """A stream against the uninterrupted run's: equal (as far as ``got``
+    goes), or its first difference where that run's top-2 margin is within
+    the gate (a re-prefill recomputes the context's KV through the chunk
+    path, which rounds otherwise)."""
+    row = {"equal": got == want[:len(got)]}
+    if row["equal"]:
+        row["ok"] = True
+        return row
+    j = next(k for k, (a, b) in enumerate(zip(got, want)) if a != b)
+    margin, gate = float(margins[0][j]), float(margins[1][j])
+    row.update(first_diff=j, margin=margin, gate=gate, ok=margin <= gate)
+    return row
+
+
+def sched_serve_path(torch, np, served):
     """The reference engine's serving policy at Mistral-7B width on the
     serve path's compressed model: runs A-D (SCHED_RUNS) on the same 16
     prompts; B, B_unsorted and C equal A token for token, as does every
@@ -1323,10 +1372,12 @@ def sched_serve_path(torch, np, model, params):
     C and D preempt at least 3 times, C swaps and defrag moves blocks, D
     preempts for a higher class; launch counts as predicted; no dispatch
     synchronises.  Then ring windows of two decode steps at depths 1
-    (A), 2 (B) and 2 without row order."""
+    (A), 2 (B) and 2 without row order.  Hands the prompts, A's streams
+    and their teacher-forced margins on to the fault path in ``served``."""
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.scheduler import SchedulerConfig
 
+    model, params = served["model"], served["params"]
     cfg = model.cfg
     rng = np.random.default_rng(0)
     plens = rng.integers(16, 201, size=SCHED_REQUESTS)
@@ -1379,27 +1430,18 @@ def sched_serve_path(torch, np, model, params):
                 "D": (runs["D"]["summary"]["scheduler_stats"]["preempt_count"] >= 3
                       and runs["D"]["summary"]["scheduler_stats"]["priority_preemptions"] >= 1)}
     # D: never-preempted requests exact; re-prefilled ones by the margin rule
-    # on one teacher-forced forward of prompt + A's tokens.
-    d_rows = []
+    # on A's teacher-forced margins (one forward a request, kept for the
+    # fault path).
     fa_before = _ops("flash_attention").launches
+    margins = teacher_margins(torch, np, model, params, prompts, want)
+    d_rows = []
     for i, (got, pre) in enumerate(zip(runs["D"]["outputs"], runs["D"]["preempted"])):
         if not pre:
             d_rows.append({"request": i, "preempted": False, "equal": got == want[i],
                            "ok": got == want[i]})
-            continue
-        row = {"request": i, "preempted": True, "equal": got == want[i]}
-        if got != want[i]:
-            j = next(k for k, (a, b) in enumerate(zip(got, want[i])) if a != b)
-            seq = torch.as_tensor(np.concatenate([prompts[i], want[i][:-1]])[None],
-                                  device=params["embed"]["table"].device)
-            with torch.no_grad():
-                lg = model.apply(params, seq, mode="train")[0, len(prompts[i]) - 1 + j].float()
-            top2 = torch.topk(lg, 2).values
-            margin, gate = float(top2[0] - top2[1]), STEP_LOGIT_TOL * float(lg.abs().max())
-            row.update(first_diff=j, margin=margin, gate=gate, ok=margin <= gate)
         else:
-            row["ok"] = True
-        d_rows.append(row)
+            d_rows.append(dict(margin_row(got, want[i], margins[i]), request=i,
+                               preempted=True))
     margin_rows = [r for r in d_rows if r["preempted"] and not r["equal"]]
     d_ok = all(r["ok"] for r in d_rows)
     log(f"  exact against A: {exact}; pressure {pressure}; D: "
@@ -1407,8 +1449,9 @@ def sched_serve_path(torch, np, model, params):
         f"{len(margin_rows)} differ from A, margins (first diff, margin, gate) "
         f"{[(r['request'], r['first_diff'], round(r['margin'], 4), round(r['gate'], 4)) for r in margin_rows]}; "
         f"never-preempted equal {all(r['equal'] for r in d_rows if not r['preempted'])}; "
-        f"teacher-forced forwards' flash launches "
+        f"flash launches of the {len(margins)} teacher-forced forwards "
         f"{_ops('flash_attention').launches - fa_before} {'OK' if d_ok else 'FAIL'}")
+    served["sched"] = {"prompts": prompts, "outputs": want, "margins": margins}
     # Ring windows: a fresh engine per setting with 8 rows decoding.
     windows = {}
     for label, kw, depth in (("A", SCHED_RUNS[0][1], 1), ("B", {}, 2),
@@ -1435,6 +1478,289 @@ def sched_serve_path(torch, np, model, params):
                    row_order_added_events=added,
                    ok=bool(ok and all(exact.values()) and all(pressure.values()) and d_ok))
     return summary, runs["B"]["summary"]["launches"]
+
+
+# Phase 4c (fault_serve): runs F1-F4 on the sched_serve path's model, its
+# 16 prompts and 48 new tokens, on demand at depth 2 (max_batch 8, max_len
+# 256, block 16, chunk 64).  Each spec is (kind, step, uid, delay_s); the
+# steps and uids come from a CPU run of the same engine and plans at a tiny
+# width, so every spec finds its site: F1 (128 blocks, one retry with a
+# 2-step backoff) poisons request 3 twice (a retry, then "error") and
+# request 5 once (a retry that finishes), fails three reservations (the
+# first at admission) and stalls one token copy after the watchdog's 8
+# clean steps; F2 (56 blocks, swap resume) corrupts two swap payloads, the
+# second matched to its uid; F3 (FAULT_F3) sheds two requests past their
+# deadline, keeps one with an hour's, cancels a queued, a prefilling and a
+# live request, drains after FAULT_F3["drain_after"] steps and closes; F4
+# warms on two requests, then arms a 0.2 s step timeout and stalls one
+# copy 0.3 s.
+FAULT_STALL_S, FAULT_TIMEOUT_S, FAULT_TIMEOUT_STALL_S = 0.05, 0.2, 0.3
+FAULT_SPECS = {
+    "F1": (("poison_logits", 4, 3, 0.25), ("poison_logits", 20, 3, 0.25),
+           ("poison_logits", 8, 5, 0.25), ("alloc_fail", 0, None, 0.25),
+           ("alloc_fail", 12, None, 0.25), ("alloc_fail", 30, None, 0.25),
+           ("straggler", 10, None, FAULT_STALL_S)),
+    "F2": (("swap_corrupt", 0, None, 0.25), ("swap_corrupt", 60, 11, 0.25)),
+    "F3": (),
+    "F4": (("straggler", 60, None, FAULT_TIMEOUT_STALL_S),),
+}
+FAULT_F3 = {"deadline": (0, 1), "hour": 2, "queued": 15, "prefill": 9, "live": 4,
+            "live_after": 20, "drain_after": 40}
+FAULT_F4_WARM = 2  # requests served before the timeout is armed; 2 more follow
+# (dispatched decode steps, consumed steps, prefill chunk calls, preemptions)
+# and the finish reasons other than "stop", from the CPU run.
+FAULT_PREDICTED = {"F1": (104, 104, 15, 0), "F2": (151, 151, 21, 13),
+                   "F3": (71, 71, 7, 0), "F4": (60, 59, 5, 0)}
+FAULT_REASONS = {"F1": {3: "error"}, "F2": {},
+                 "F3": {0: "deadline", 1: "deadline", 4: "cancelled", 9: "cancelled",
+                        12: "shutdown", 13: "shutdown", 14: "shutdown", 15: "cancelled"},
+                 "F4": {2: "shutdown", 3: "shutdown"}}
+
+
+def fault_run(torch, np, model, params, prompts, label) -> dict:
+    """One run of the fault path on a fresh engine, its launch counts read
+    around it; on the card every dispatch runs under sync-debug "error"."""
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.faults import FaultPlan, FaultPolicy, FaultSpec, ServingFault
+    from repro_torch.serving.scheduler import SchedulerConfig
+
+    cuda = params["embed"]["table"].device.type == "cuda"
+    specs = [FaultSpec(kind, step, uid, delay) for kind, step, uid, delay in FAULT_SPECS[label]]
+    plan = FaultPlan(specs)
+    policy = FaultPolicy(max_retries=1, retry_backoff_steps=2) if label == "F1" else None
+    eng = ServingEngine(model, params, max_batch=8, max_len=256, seed=0, block_size=16,
+                        num_blocks=SCHED_POOL if label == "F2" else None,
+                        prefill_chunk=64, pipeline_depth=2,
+                        sched_config=SchedulerConfig(resume="swap" if label == "F2"
+                                                     else "reprefill"),
+                        faults=plan, fault_policy=policy)
+    checked = [0]
+    dispatch = eng._dispatch_decode
+
+    def dispatch_checked():
+        if cuda:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            dispatch()
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode("default")
+        checked[0] += 1
+
+    eng._dispatch_decode = dispatch_checked
+
+    def steps_to(n):
+        while len(eng.step_times) < n and (eng.sched or eng._prefilling or eng.active.any()):
+            eng.run(max_steps=1)
+
+    def submit(idx, **kw):
+        return [eng.submit(prompts[i], max_new_tokens=SCHED_MAX_NEW, **kw) for i in idx]
+
+    if cuda:
+        torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    log_ = {}
+    raised = None
+    if label in ("F1", "F2"):
+        uids = submit(range(SCHED_REQUESTS))
+        eng.run()
+    elif label == "F3":
+        f3 = FAULT_F3
+        uids = []
+        for i in range(SCHED_REQUESTS):
+            dl = (1e-3 if i in f3["deadline"] else 3600.0 if i == f3["hour"] else None)
+            uids += submit([i], deadline_s=dl)
+        log_["queued"] = eng.cancel(f3["queued"])
+        time.sleep(0.01)  # past the two short deadlines
+        eng.run(max_steps=1)
+        log_["prefilling"] = any(t.req.uid == f3["prefill"] for t in eng._prefilling)
+        log_["prefill"] = eng.cancel(f3["prefill"])
+        steps_to(f3["live_after"])
+        log_["ring_at_live_cancel"] = len(eng._ring)
+        log_["live"] = eng.cancel(f3["live"])
+        steps_to(f3["drain_after"])
+        eng.request_drain()
+        eng.run()
+        eng.close()
+        eng.close()
+        try:
+            eng.submit(prompts[0])
+            log_["submit_after_close"] = "accepted"
+        except RuntimeError:
+            log_["submit_after_close"] = "raised"
+    else:
+        uids = submit(range(FAULT_F4_WARM))
+        eng.run()
+        eng._fault_policy = dataclasses.replace(eng._fault_policy,
+                                                step_timeout_s=FAULT_TIMEOUT_S)
+        uids += submit(range(FAULT_F4_WARM, 2 * FAULT_F4_WARM))
+        try:
+            eng.run()
+        except ServingFault as e:
+            raised = e
+        eng.close()
+    eng.drain()
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, nsplit = read_counts(), nested_split()
+    reqs = [eng.finished_requests.get(u) for u in uids]
+    st, sch, fs = eng.stats(), eng.scheduler_stats(), eng.fault_stats()
+    if raised is not None:
+        # The raising step's tokens are never committed, and close() commits
+        # the steps still in flight after it (as the reference does), so a
+        # stream is held to A only as far as it went at the raise.
+        log_["raised"] = {"kind": raised.kind, "step": raised.step,
+                          "snapshot_json_bytes": len(json.dumps(raised.snapshot)),
+                          "committed": {s["uid"]: s["generated"]
+                                        for s in raised.snapshot["slots"] if s}}
+    return {"outputs": [r.generated if r else None for r in reqs],
+            "reasons": [r.finish_reason if r else None for r in reqs],
+            "retried": [bool(r and r.retries) for r in reqs],
+            "preempted": [bool(r and r.preemptions) for r in reqs],
+            "plan": plan, "log": log_,
+            "summary": dict(seconds=wall, stats=st, scheduler_stats=sch,
+                            fault_stats=fs, fired=[(sp.kind, sp.uid, step)
+                                                   for sp, step in plan.fired_log],
+                            outstanding=[sp.kind for sp in plan.outstanding()],
+                            dispatches=checked[0], launches=counts, nested_launches=nsplit,
+                            paged_combine_launches=_ops("paged_attention").combine_launches,
+                            lifecycle=log_)}
+
+
+def fault_check(label, r, want, margins) -> dict:
+    """F1-F4's checks but the launches: streams by the exact and margin
+    rules, finish reasons, the plan's accounting, the lifecycle calls' and
+    the timeout's results, and the predicted counts ("ok": all of them)."""
+    from repro_torch.serving.faults import FINISH_REASONS
+
+    sm, plan = r["summary"], r["plan"]
+    fs, st, sch = sm["fault_stats"], sm["stats"], sm["scheduler_stats"]
+    fired = plan.counts()
+    targeted = {sp.uid for sp, _ in plan.fired_log if sp.uid is not None}
+    cut = r["log"].get("raised", {}).get("committed", {})
+    rows = []
+    for i, (got, reason) in enumerate(zip(r["outputs"], r["reasons"])):
+        plain = not (i in targeted or r["retried"][i] or r["preempted"][i])
+        row = margin_row((got or [])[:cut.get(i)], want[i], margins[i])
+        if plain:
+            row["ok"] = row["equal"]
+        want_reason = FAULT_REASONS[label].get(i, "stop")
+        row.update(request=i, plain=plain, reason=reason,
+                   reason_ok=reason == want_reason and reason in FINISH_REASONS,
+                   length_ok=(len(got or []) == SCHED_MAX_NEW) == (reason == "stop"))
+        rows.append(row)
+    reasons = list(FAULT_REASONS[label].values())
+    accounting = {
+        "injected": fs["injected"] == fired,
+        "poison": fs["retried"] + fs["quarantined"] == fired.get("poison_logits", 0),
+        "swap": fs["swap_fallbacks"] == fired.get("swap_corrupt", 0),
+        "shed": fs["shed"] == reasons.count("deadline") + reasons.count("shutdown"),
+        "cancelled": fs["cancelled"] == reasons.count("cancelled"),
+        "outstanding": not plan.outstanding(),
+        "straggler": fs["straggler_slow"] >= (1 if "straggler" in fired else 0),
+    }
+    life = r["log"]
+    lifecycle_ok = {
+        "F3": (life.get("queued") is True and life.get("prefilling") is True
+               and life.get("prefill") is True and life.get("live") is True
+               and life.get("ring_at_live_cancel", 0) >= 1
+               and life.get("submit_after_close") == "raised"),
+        "F4": life.get("raised", {}).get("kind") == "step_timeout"}.get(label, True)
+    got = (sm["dispatches"], st["steps"], st["prefill_ticks"], sch["preempt_count"])
+    counts_ok = got == FAULT_PREDICTED[label]
+    return {"rows": rows, "accounting": accounting, "counts": got, "counts_ok": counts_ok,
+            "lifecycle_ok": lifecycle_ok,
+            "ok": (counts_ok and lifecycle_ok and all(accounting.values())
+                   and all(x["ok"] and x["reason_ok"] and x["length_ok"] for x in rows))}
+
+
+def fault_serve_path(torch, np, served):
+    """The serving engine's fault tolerance at Mistral-7B width (phase 4c):
+    runs F1-F4 (FAULT_SPECS) on the sched_serve path's compressed model and
+    prompts, held to its run A's streams and teacher-forced margins; every
+    finish reason, the plan's accounting, the predicted counts and launches,
+    no sync in any dispatch.  Then the finite check's device time alone on
+    the decode step's 8-row logits, and a profiled decode step."""
+    from repro_torch.launch.steps import POISON_TOKEN
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.scheduler import SchedulerConfig
+
+    model, params = served.pop("model"), served.pop("params")
+    base = served.pop("sched")
+    prompts, want, margins = base["prompts"], base["outputs"], base["margins"]
+    cfg = model.cfg
+    n_single, _ = nested_calls(model)
+    layers = cfg.num_layers
+    runs, ok = {}, True
+    for label in FAULT_SPECS:
+        r = fault_run(torch, np, model, params, prompts, label)
+        chk = fault_check(label, r, want, margins)
+        sm = r["summary"]
+        d, ticks = sm["dispatches"], chk["counts"][2]
+        expect = {"nested_lowrank": n_single * (d + ticks), "paged_attention": layers * d,
+                  "gram": 0, "flash_attention": 0, "rwkv6": 0}
+        nested_expect = {"stream": n_single * d, "mma": n_single * ticks, "tile": 0}
+        run_ok = (chk["ok"] and sm["launches"] == expect
+                  and sm["nested_launches"] == nested_expect
+                  and sm["paged_combine_launches"] == layers * d)
+        sm.update(check=chk, expected_launches=expect, expected_nested_launches=nested_expect,
+                  predicted=FAULT_PREDICTED[label], ok=run_ok)
+        margin_rows = [(x["request"], x["first_diff"], round(x["margin"], 4), round(x["gate"], 4))
+                       for x in chk["rows"] if not x["equal"]]
+        log(f"  run {label}: {sm['seconds']:.2f} s; dispatches / steps / prefill calls / "
+            f"preemptions {chk['counts']} predicted {FAULT_PREDICTED[label]}; fired "
+            f"{sm['fired']}; outstanding {sm['outstanding']}; faults "
+            f"{ {k: v for k, v in sm['fault_stats'].items() if k != 'degraded'} }; "
+            f"accounting {chk['accounting']}; reasons "
+            f"{ {i: x['reason'] for i, x in enumerate(chk['rows']) if x['reason'] != 'stop'} }; "
+            f"exact {sum(x['equal'] for x in chk['rows'])}/{len(chk['rows'])}, margin rows "
+            f"{margin_rows}; "
+            f"lifecycle {r['log']}; dispatches checked {sm['dispatches']}; step p50 "
+            f"{sm['stats']['step_p50_s'] * 1e3:.2f} ms; launches {sm['launches']} nested "
+            f"{sm['nested_launches']} combine {sm['paged_combine_launches']} "
+            f"{'OK' if run_ok else 'FAIL'}")
+        ok = ok and run_ok
+        runs[label] = r
+    # The always-on finite check alone (isfinite().all(-1) and the two
+    # wheres) on the decode step's 8-row logits, and a whole decode step of
+    # an engine with 8 rows live (depth 1), profiled.
+    dev = params["embed"]["table"].device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    logits = torch.randn((8, 1, cfg.vocab_size), generator=gen, device=dev).to(torch.bfloat16)
+    act = torch.ones(8, dtype=torch.bool, device=dev)
+    tok = torch.zeros(8, dtype=torch.int32, device=dev)
+
+    def finite_check():
+        bad = act & ~torch.isfinite(logits[:, 0]).all(-1)
+        return torch.where(bad, POISON_TOKEN, tok), act & ~bad
+
+    check = profile_step(torch, finite_check, quiet=True)
+    eng = ServingEngine(model, params, max_batch=8, max_len=256, seed=0, block_size=16,
+                        prefill_chunk=64, pipeline_depth=1,
+                        sched_config=SchedulerConfig(admission="worst_case",
+                                                     sort_decode_rows=False))
+    for p in prompts[:8]:
+        eng.submit(p, max_new_tokens=SCHED_MAX_NEW)
+    while eng.sched or eng._prefilling:
+        eng.run(max_steps=1)
+    state = (eng.cache_len.clone(), eng.budget_dev.clone(), eng.key_data.clone(),
+             eng.active_dev.clone(), *eng._host_inputs())
+    step = profile_step(torch, lambda: eng._decode(params, eng.kv.pools, eng.kv.table_device(),
+                                                   eng.last_token, *state),
+                        label="decode step (engine, finite check included)")
+    window = ring_window(torch, eng, "fault_serve (depth 1, worst case)")
+    eng.drain()
+    log(f"  finite check alone: device {check['device_busy_ms']:.4f} ms ({check['kernels']}); "
+        f"decode step: device {step['device_busy_ms']:.3f} ms, {window['events_per_step']:.0f} "
+        f"device events a step (measured earlier, in another call: the model's decode "
+        f"0.918 ms, 299 events a step)")
+    summary = dict(config=cfg.name, layers=layers,
+                   runs={k: v["summary"] for k, v in runs.items()},
+                   finite_check=check, decode_step=step, ring_window=window,
+                   seconds={k: v["summary"]["seconds"] for k, v in runs.items()}, ok=bool(ok))
+    return summary, runs["F1"]["summary"]["launches"]
 
 
 def quality_path(torch, np, cfg, eval_n: int, gram_taps: tuple, mixer: str):
@@ -1851,8 +2177,8 @@ def main() -> int:
     moonshot = dataclasses.replace(MOONSHOT_V1_16B_A3B, num_layers=3)
     served = {}
     runs = (("serve", serve_path, (mistral, "flash_attention", (9, 0), served)),
-            ("sched_serve", lambda torch, np: sched_serve_path(
-                torch, np, served.pop("model"), served.pop("params")), ()),
+            ("sched_serve", sched_serve_path, (served,)),
+            ("fault_serve", fault_serve_path, (served,)),
             ("quality", quality_path, (mistral, 2, (9, 0), "flash_attention")),
             ("methods", methods_path, (dataclasses.replace(MISTRAL_7B, num_layers=1), 4)),
             ("rwkv_serve", serve_path, (rwkv6, "rwkv6", (37, 0))),

@@ -17,6 +17,13 @@ steps in flight; ``--sched-policy``, ``--priority-classes``, ``--no-preempt``
 and ``--pipeline-depth`` change that, and ``serve(resume="swap")`` resumes
 preempted rows from host copies of their blocks.
 
+Faults (``serving/faults``): ``--chaos PLAN.json`` injects a seeded
+``FaultPlan`` (the reference's JSON), ``--max-retries`` lets a poisoned
+request re-prefill before it ends with "error", and ``--step-timeout``
+makes a slower step raise ``ServingFault`` with an engine snapshot.  A
+fault report prints at exit.  SIGTERM drains (the queue is shed, live rows
+finish), and the engine is closed on every exit.
+
 ``small-*`` archs load the reference's trained checkpoint from
 ``experiments/models/<name>/`` (and its ``grams.npz`` when present); every
 other arch starts from random weights drawn from ``--seed``.
@@ -27,6 +34,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import signal
+import threading
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -40,6 +49,7 @@ from repro_torch.configs import ModelConfig, get_config
 from repro_torch.core import CompressionConfig, GramStore, build_plan, compress_params
 from repro_torch.models import build_model
 from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.faults import FaultPlan, FaultPolicy
 from repro_torch.serving.scheduler import SchedulerConfig
 
 MODELS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
@@ -71,12 +81,17 @@ def serve(cfg: ModelConfig, *, requests: int = 8, max_new: int = 16,
           eos: Optional[int] = None, prompts: Optional[Sequence] = None,
           params=None, device: Device = None, sched_policy: str = "on_demand",
           priority_classes: Sequence[str] = ("default",), preempt: bool = True,
-          resume: str = "reprefill", pipeline_depth: Optional[int] = None) -> Dict:
+          resume: str = "reprefill", pipeline_depth: Optional[int] = None,
+          faults: Optional[FaultPlan] = None,
+          fault_policy: Optional[FaultPolicy] = None) -> Dict:
     """Init (or take ``params``), calibrate + compress when ``compress`` is
     a ratio, then serve ``requests`` prompts under the scheduling policy
     (``sched_policy``, ``priority_classes``, ``preempt``, ``resume``; the
     reference's defaults) at ``pipeline_depth`` (None: the engine's default,
-    2).  Every request goes to the lowest class.  Returns the outputs, the
+    2), with an optional fault plan and policy.  Every request goes to the
+    lowest class.  In the main thread SIGTERM drains the engine while it
+    runs; the engine is closed on every exit (a ``ServingFault`` still
+    raises).  Returns the outputs, the
     finished requests, the seconds of each phase and the engine.  Matmuls
     run in full fp32 on the card (no TF32): calibration needs it, and so
     does the MoE router, whose top-k choices TF32 would change."""
@@ -122,13 +137,22 @@ def serve(cfg: ModelConfig, *, requests: int = 8, max_new: int = 16,
                         pipeline_depth=pipeline_depth,
                         sched_config=SchedulerConfig(
                             admission=sched_policy, preempt=preempt, resume=resume,
-                            priority_classes=tuple(priority_classes)))
+                            priority_classes=tuple(priority_classes)),
+                        faults=faults, fault_policy=fault_policy)
     if prompts is None:
         prompts = default_prompts(requests, cfg.vocab_size, seed)
     for p in prompts:
         eng.submit(p, max_new_tokens=max_new, temperature=temperature)
+    main_thread = threading.current_thread() is threading.main_thread()
+    if main_thread:
+        prev = signal.signal(signal.SIGTERM, lambda *_: eng.request_drain())
     t0 = time.perf_counter()
-    out = eng.run()
+    try:
+        out = eng.run()
+    finally:
+        eng.close()
+        if main_thread:
+            signal.signal(signal.SIGTERM, prev)
     sync()
     seconds["serve"] = time.perf_counter() - t0
     n_tok = sum(len(v) for v in out.values())
@@ -172,7 +196,27 @@ def main(argv=None):
                     help="in-flight decode steps (default 2, or "
                     "REPRO_SERVING_PIPELINE_DEPTH); 1 waits for each step's tokens "
                     "before the next dispatch; every depth gives the same tokens")
+    fault_g = ap.add_argument_group(
+        "fault tolerance", "seeded chaos and the degradation policy "
+        "(repro_torch.serving.faults); off by default")
+    fault_g.add_argument("--chaos", default=None, metavar="PLAN.json",
+                         help='inject the FaultPlan in PLAN.json ({"faults": [{"kind": '
+                         '"straggler", "step": 4}, ...]}); a fault report prints at exit')
+    fault_g.add_argument("--max-retries", type=int, default=0,
+                         help="poisoned-request retries (re-prefill from the committed "
+                         "context, capped exponential backoff) before finish reason "
+                         "'error'")
+    fault_g.add_argument("--step-timeout", type=float, default=None, metavar="SECONDS",
+                         help="hard per-step limit: a slower step raises ServingFault "
+                         "with an engine snapshot")
     args = ap.parse_args(argv)
+    faults = fault_policy = None
+    if args.chaos is not None or args.max_retries or args.step_timeout is not None:
+        if args.chaos is not None:
+            faults = FaultPlan.from_json(args.chaos)
+            print(f"chaos: {len(faults)} seeded fault(s) from {args.chaos}")
+        fault_policy = FaultPolicy(max_retries=args.max_retries,
+                                   step_timeout_s=args.step_timeout)
 
     cfg = get_config(args.arch)
     if args.reduced and not args.arch.startswith("small-"):
@@ -188,7 +232,8 @@ def main(argv=None):
                 priority_classes=tuple(c.strip() for c in args.priority_classes.split(",")
                                        if c.strip()) if args.priority_classes
                 else ("default",),
-                preempt=not args.no_preempt, pipeline_depth=args.pipeline_depth)
+                preempt=not args.no_preempt, pipeline_depth=args.pipeline_depth,
+                faults=faults, fault_policy=fault_policy)
     if res["plan"] is not None:
         print(f"serving NSVD-compressed weights "
               f"({res['plan'].achieved_ratio:.0%} removed)")
@@ -211,6 +256,19 @@ def main(argv=None):
               f"{sch['preempt_count']} preempts, {sch['resumes']} resumes, "
               f"{sch['grown_blocks']} grown blocks, {sch['stalls']} stalls, "
               f"swap {sch['swap_bytes'] / 1e6:.2f}MB")
+    if fault_policy is not None:
+        fs = res["engine"].fault_stats()
+        inj = ", ".join(f"{k}={v}" for k, v in sorted(fs["injected"].items()))
+        reasons: Dict[str, int] = {}
+        for r in res["requests"].values():
+            reasons[r.finish_reason] = reasons.get(r.finish_reason, 0) + 1
+        print(f"faults: injected [{inj or 'none'}], quarantined={fs['quarantined']} "
+              f"retried={fs['retried']} shed={fs['shed']} cancelled={fs['cancelled']} "
+              f"swap_fallbacks={fs['swap_fallbacks']} straggler slow/trips="
+              f"{fs['straggler_slow']}/{fs['straggler_trips']}; finish reasons {reasons}")
+        if faults is not None and faults.outstanding():
+            kinds = [sp.kind for sp in faults.outstanding()]
+            print(f"faults: {len(kinds)} spec(s) never found an injection site: {kinds}")
 
 
 if __name__ == "__main__":

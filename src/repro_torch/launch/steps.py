@@ -8,7 +8,8 @@ All per-slot state lives on the device: cache_len, last_token, budget,
 sampling keys and active flags.  A decode step samples every live row,
 advances lengths and budgets, and clears ``active`` for a row that sampled
 its eos id, spent its budget, or reached the max_len-1 cache bound — on the
-device, in the same step.  The host learns of finishes from the one token
+device, in the same step — and a row whose logits are not all finite
+reports ``POISON_TOKEN`` in place of a token and retires itself too.  The host learns of finishes from the one token
 vector it copies per step.
 
 Sampling keys: greedy rows take the argmax, bit for bit the reference's.
@@ -70,19 +71,32 @@ def sample_tokens(key_data: torch.Tensor, logits: torch.Tensor,
     return new_kd, tok
 
 
+# The poison sentinel in the token word a decode step copies to the host.
+# Sampled ids are >= 0 and the disabled-eos sentinel is -1, so -2 is free:
+# a live row whose logits are not all finite reports POISON_TOKEN instead
+# of a token and clears its own active flag, so the host learns of it from
+# the copy it already makes (no extra transfer, no host check).
+POISON_TOKEN = -2
+
+
 def _sample_advance_exit(logits, last_token, cache_len, budget, key_data,
                          active, host_keep, temps, eos, max_len):
     """Sampling, inactive-row freezing, length advance and the device-side
-    finish update (EOS, exhausted budget, or the max_len-1 cache bound)."""
+    finish update (EOS, exhausted budget, or the max_len-1 cache bound),
+    with the always-on finite check: a live row with a NaN or Inf logit
+    reports ``POISON_TOKEN`` and retires itself.  Healthy rows take their
+    sampled values unchanged (the selects pass them through bit for bit)."""
     act = active & host_keep
+    bad = act & ~torch.isfinite(logits[:, 0]).all(-1)
     new_kd, sampled = sample_tokens(key_data, logits[:, 0], temps)
     sampled = torch.where(act, sampled, last_token)
+    sampled = torch.where(bad, POISON_TOKEN, sampled)
     key_data = torch.where(act[:, None], new_kd, key_data)
     adv = act.to(torch.int32)
     cache_len = cache_len + adv
     budget = budget - adv
     alive = (budget > 0) & (cache_len < max_len - 1)
-    new_active = act & (sampled != eos) & alive
+    new_active = act & (sampled != eos) & alive & ~bad
     active = torch.where(host_keep, new_active, active)
     return sampled, cache_len, budget, key_data, active
 
@@ -93,13 +107,19 @@ def make_decode_sample_step(model, max_len: int) -> Callable:
     rows; that is harmless because admission replaces a slot's rows
     wholesale (``set_cache_rows``), and it needs no data-dependent
     selection (which would sync with the host).  Their token, length,
-    budget and key stay frozen in ``_sample_advance_exit``."""
+    budget and key stay frozen in ``_sample_advance_exit``.
+
+    ``poison`` (optional, (B,) fp32) is added to the logits: the fault
+    harness's NaN row.  A zero vector leaves finite logits exactly as they
+    were (bf16 logits promote to fp32, which sampling uses anyway)."""
 
     @torch.no_grad()
     def decode_sample_step(params, cache, last_token, cache_len, budget, key_data,
-                           active, host_keep, temps, eos):
+                           active, host_keep, temps, eos, poison=None):
         logits = model.apply(params, last_token[:, None], mode="decode",
                              cache=cache, cache_len=cache_len)
+        if poison is not None:
+            logits = logits + poison[:, None, None]
         return _sample_advance_exit(logits, last_token, cache_len, budget,
                                     key_data, active, host_keep, temps, eos,
                                     max_len)
@@ -167,12 +187,13 @@ def make_paged_decode_step(model, max_len: int) -> Callable:
     are put back in slot order before sampling, and every state tensor
     stays in slot order.
     Each row's arithmetic does not depend on its position, so the order
-    leaves every token unchanged."""
+    leaves every token unchanged.  ``poison`` as in
+    ``make_decode_sample_step``, added in slot order."""
 
     @torch.no_grad()
     def paged_decode_step(params, pools, block_tables, last_token, cache_len,
                           budget, key_data, active, host_keep, temps, eos,
-                          row_order):
+                          row_order, poison=None):
         act = active & host_keep
         bt_eff = torch.where(act[:, None], block_tables,
                              torch.full_like(block_tables, -1))
@@ -185,6 +206,8 @@ def make_paged_decode_step(model, max_len: int) -> Callable:
                              cache_len=cl_eff, block_tables=bt_eff)
         if row_order is not None:
             logits = logits.index_select(0, torch.argsort(row_order))
+        if poison is not None:
+            logits = logits + poison[:, None, None]
         return _sample_advance_exit(logits, last_token, cache_len, budget,
                                     key_data, active, host_keep, temps, eos,
                                     max_len)

@@ -40,10 +40,23 @@ ring is full.  Depth 1 is the unpipelined engine; every depth gives the
 same tokens.  Admission, growth that must preempt, and defrag read a
 synced view of the host's bookkeeping, so they drain the ring first.
 
+Fault tolerance (``serving/faults``), as the reference's: every decode
+step checks its logits on the device, and a row that went NaN or Inf
+reports ``POISON_TOKEN`` in its token word; the host retires it and
+either parks it for a re-prefill retry from its committed context (capped
+backoff in engine steps) or finishes it with "error".  Queued requests
+past their deadline are shed ("deadline"); ``cancel`` ends a request
+wherever it is ("cancelled"); ``request_drain`` sheds the queue and lets
+live rows finish, and ``close`` ends everything ("shutdown").  A seeded
+``FaultPlan`` injects poisoned logits, failed block reservations,
+corrupted swap payloads and slow token copies at fixed engine steps;
+without a plan each injection site costs one ``is None`` check.  A
+step-time watchdog flags slow steps, and ``FaultPolicy.step_timeout_s``
+raises ``ServingFault`` with an engine snapshot.
+
 Not ported yet (later slices): bucketed dense-slab admission (exact-length
-admission serves every dense-layout model), speculative decoding, meshes,
-the poison finite-check, deadlines, cancel and drain-on-shutdown, fault
-injection, and the telemetry hooks.
+admission serves every dense-layout model), speculative decoding (and the
+``draft_kill`` fault with it), meshes, and the telemetry hooks.
 """
 
 from __future__ import annotations
@@ -54,12 +67,13 @@ import os
 import time
 import zlib
 from collections import deque
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.launch.steps import (
+    POISON_TOKEN,
     make_decode_sample_step,
     make_paged_decode_step,
     make_paged_prefill_chunk_step,
@@ -67,6 +81,13 @@ from repro_torch.launch.steps import (
     request_keys,
 )
 from repro_torch.models.api import cache_layout
+from repro_torch.runtime.straggler import StepTimeWatchdog
+from repro_torch.serving.faults import (
+    FaultPlan,
+    FaultPolicy,
+    ServingFault,
+    ServingFaultHandler,
+)
 from repro_torch.serving.kvcache import PagedKVCache, pool_leaves, upload
 from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
 
@@ -128,6 +149,10 @@ class Request:
     preemptions: int = 0
     prompt_absorbed: int = 0
     swap: Optional[_SwapPayload] = None
+    # Faults: the admission deadline (time.monotonic; a request still
+    # queued past it is shed) and the poison retries spent.
+    deadline: Optional[float] = None
+    retries: int = 0
 
     @property
     def done(self) -> bool:
@@ -167,7 +192,9 @@ class ServingEngine:
                  eos_id: Optional[int] = None, kv_quant: bool = False,
                  paged: Optional[bool] = None,
                  pipeline_depth: Optional[int] = None,
-                 sched_config: Optional[SchedulerConfig] = None):
+                 sched_config: Optional[SchedulerConfig] = None,
+                 faults: Optional[FaultPlan] = None,
+                 fault_policy: Optional[FaultPolicy] = None):
         if pipeline_depth is None:
             pipeline_depth = int(os.environ.get(_PIPELINE_DEPTH_ENV, "2"))
         if pipeline_depth < 1:
@@ -238,8 +265,28 @@ class ServingEngine:
         self.sched_events: Dict[str, int] = {
             "preemptions": 0, "swap_bytes": 0, "grown_blocks": 0,
             "resumes": 0, "stalls": 0}
-        self.swap_fallbacks = 0
         self.priority_preemptions = 0
+
+        # Faults (serving/faults): the plan is consumed at the injection
+        # sites; the handler decides retry or quarantine; the watchdog
+        # (only with a plan or a policy) classifies step times.  The decode
+        # steps take the poison input only when the plan can poison.
+        self._faults = faults
+        self._fault_policy = fault_policy if fault_policy is not None else FaultPolicy()
+        self._handler = ServingFaultHandler(self._fault_policy)
+        self._watchdog = (StepTimeWatchdog(self._fault_policy.straggler)
+                          if faults is not None or fault_policy is not None else None)
+        self._chaos = faults is not None and faults.has("poison_logits")
+        self._poison_zero = None
+        self._step_idx = 0  # dispatched decode steps
+        self._parked: List[Tuple[int, Request]] = []  # (ready step, poison retry)
+        self._has_deadlines = False
+        self._draining = False
+        self._closed = False
+        self.fault_events: Dict[str, int] = {
+            "quarantined": 0, "retried": 0, "shed": 0, "cancelled": 0,
+            "swap_fallbacks": 0, "draft_kills": 0, "draft_reenables": 0,
+            "straggler_slow": 0, "straggler_trips": 0}
         self._occ_live_frac_sum = 0.0
         self._occ_samples = 0
         self._occ_rows_sum = 0
@@ -265,9 +312,15 @@ class ServingEngine:
 
     def submit(self, prompt, max_new_tokens: int = 32, temperature: float = 0.0,
                eos_id: Optional[int] = None,
-               latency_class: Optional[str] = None) -> int:
+               latency_class: Optional[str] = None,
+               deadline_s: Optional[float] = None) -> int:
         """Queue one request; returns its uid.  ``latency_class`` names one
-        of the scheduler's priority classes (None: the lowest)."""
+        of the scheduler's priority classes (None: the lowest).
+        ``deadline_s`` is a relative admission deadline: a request still
+        queued when it expires is shed (finish reason "deadline"); an
+        admitted row runs to its end."""
+        if self._closed:
+            raise RuntimeError("submit() on a closed engine")
         prompt = np.asarray(prompt, np.int32)
         if len(prompt) == 0:
             raise ValueError("empty prompt")
@@ -287,6 +340,11 @@ class ServingEngine:
         req = Request(next(self._uid), prompt, max_new_tokens, temperature,
                       eos_id if eos_id is not None else self.eos_id,
                       class_idx=self.sched.class_index(latency_class))
+        if deadline_s is not None:
+            if deadline_s <= 0:
+                raise ValueError(f"deadline_s must be positive, got {deadline_s}")
+            req.deadline = time.monotonic() + deadline_s
+            self._has_deadlines = True
         self.sched.submit(req)
         return req.uid
 
@@ -302,7 +360,13 @@ class ServingEngine:
                 finished[req.uid] = req.generated
 
         for _ in range(max_steps):
-            take(self._pop_finished())
+            if self._parked:
+                self._unpark()
+            if self._draining:
+                self._shed_shutdown()
+            if self._has_deadlines and self.sched:
+                self._shed_expired()
+            take(self._pop_finished())  # shed and cancelled requests too
             if self._admission_could_progress():
                 take(self._admit())
             if not (self.active & ~self._stalled).any():
@@ -315,7 +379,13 @@ class ServingEngine:
                 if not (self.active & ~self._stalled).any():
                     if not self.active.any():
                         if not self.sched and not self._prefilling:
-                            break
+                            if not self._parked:
+                                break
+                            # Only parked retries remain and the device is
+                            # idle: skip to the earliest one's ready step
+                            # (the loop top requeues it).
+                            self._step_idx = max(self._step_idx,
+                                                 min(s for s, _ in self._parked))
                         continue
                     if self._prefilling or self._admission_could_progress():
                         continue
@@ -334,6 +404,7 @@ class ServingEngine:
         if self.kv is not None and self.sched.on_demand:
             self._ensure_coverage()
         self._dispatch_decode()
+        self._step_idx += 1
         if len(self._ring) >= self.pipeline_depth:
             self._consume_one()
         return self._pop_finished()
@@ -408,6 +479,11 @@ class ServingEngine:
             req = self.sched.head()
             if req is None:
                 break
+            if self._take_fault("alloc_fail") is not None:
+                # An injected reservation failure backs off this round like
+                # a dry pool (never the idle-pool error a real undersized
+                # pool raises) and retries the next.
+                break
             if req.swap is not None and _swap_checksum(req.swap.blocks) != req.swap.checksum:
                 # A corrupted payload is never scattered: the request
                 # re-prefills its committed prefix.  Checked before the
@@ -415,7 +491,7 @@ class ServingEngine:
                 # token more than the swapped context).
                 req.swap = None
                 self._fold_generated(req)
-                self.swap_fallbacks += 1
+                self.fault_events["swap_fallbacks"] += 1
             need = self.sched.admit_tokens(req, self.max_len)
             free = self._free_slots(busy)
             if not free:
@@ -545,11 +621,19 @@ class ServingEngine:
             self.slots[slot] = req
             self.active[slot] = True
 
-    def _mark_finished(self, req: Request) -> None:
-        """Every normal exit (eos, budget, max_len) is finish reason "stop",
-        as in the reference."""
-        req.finish_reason = "stop"
+    def _mark_finished(self, req: Request, reason: str = "stop") -> None:
+        """Stamp the finish reason (the first writer wins; every normal
+        exit is "stop") and record the request: every exit path comes
+        through here."""
+        if req.finish_reason is None:
+            req.finish_reason = reason
         self.finished_requests[req.uid] = req
+
+    def _abort(self, req: Request, reason: str) -> None:
+        """End a request outside the commit paths (shed, cancel, shutdown);
+        the next public call returns it."""
+        self._mark_finished(req, reason)
+        self._pending_finished.append(req)
 
     def _retire_slot(self, slot: int) -> None:
         """Free a slot and its blocks at once (every finish path)."""
@@ -617,7 +701,10 @@ class ServingEngine:
         return True  # the drain retired the row; nothing left to cover
 
     def _extend(self, slot: int, target: int) -> bool:
-        """Extend slot's coverage to ``target`` tokens; False on a dry pool."""
+        """Extend slot's coverage to ``target`` tokens; False on a dry pool
+        (or an injected ``alloc_fail``: the caller stalls or evicts)."""
+        if self._take_fault("alloc_fail") is not None:
+            return False
         added = self.kv.extend(slot, target)
         if added is None:
             return False
@@ -678,7 +765,9 @@ class ServingEngine:
     def _swap_out(self, slot: int, n_ctx: int) -> _SwapPayload:
         """Copy the blocks covering slot's committed context (one gather
         per pool leaf) and its key state to pinned host memory, with one
-        wait for the copies (counted in ``swap_syncs``), and checksum them."""
+        wait for the copies (counted in ``swap_syncs``), and checksum them.
+        An injected ``swap_corrupt`` flips one byte of a private copy of the
+        first leaf after the checksum, so the mismatch shows at resume."""
         n_blocks = self.kv.blocks_for(max(1, n_ctx))
         ids = upload(np.asarray(self.kv.alloc.owned_by(slot)[:n_blocks], np.int64),
                      self.device)
@@ -689,8 +778,12 @@ class ServingEngine:
             ready.synchronize()  # after every copy above, on one stream
         self.swap_syncs += 1
         blocks = [b for b, _ in copies]
+        checksum = _swap_checksum(blocks)
+        if self._take_fault("swap_corrupt", uid=self.slots[slot].uid) is not None:
+            blocks[0] = blocks[0].clone()
+            blocks[0].view(torch.uint8).view(-1)[0] ^= 0xFF
         return _SwapPayload(n_ctx=n_ctx, n_blocks=n_blocks, blocks=blocks,
-                            key_row=key_row, checksum=_swap_checksum(blocks))
+                            key_row=key_row, checksum=checksum)
 
     def _resume_swap(self, req: Request, slot: int) -> None:
         """Scatter a swapped request's blocks (their CRC checked at
@@ -718,6 +811,184 @@ class ServingEngine:
         self._dev_len[slot] = pay.n_ctx
         self._host_dirty = True
 
+    # ------------------------------------------------------- fault tolerance
+
+    def _take_fault(self, kind: str, uid: Optional[int] = None):
+        """A due injected fault of ``kind`` (None without a plan)."""
+        if self._faults is None:
+            return None
+        return self._faults.take(kind, self._step_idx, uid=uid)
+
+    def _poison_args(self):
+        """The decode step's trailing poison input: () when the plan cannot
+        poison; else a NaN at each live slot whose poison spec fires this
+        dispatch, or the cached zero vector (an exact identity on finite
+        logits).  Both go up through pinned staging, so no dispatch syncs."""
+        if not self._chaos:
+            return ()
+        vec = None
+        for slot in np.flatnonzero(self.active & ~self._stalled).tolist():
+            req = self.slots[slot]
+            if req is None or self._take_fault("poison_logits", uid=req.uid) is None:
+                continue
+            if vec is None:
+                vec = np.zeros(self.max_batch, np.float32)
+            vec[slot] = np.nan
+        if vec is not None:
+            return (upload(vec, self.device),)
+        if self._poison_zero is None:
+            self._poison_zero = upload(np.zeros(self.max_batch, np.float32), self.device)
+        return (self._poison_zero,)
+
+    def _quarantine(self, slot: int, req: Request, finished: List[Request]) -> None:
+        """A row reported ``POISON_TOKEN``: free its slot at once, then park
+        it for a re-prefill retry from its committed context (the poison
+        token was never appended) or finish it with "error"."""
+        action, backoff = self._handler.disposition(req)
+        self._retire_slot(slot)
+        req.slot = None
+        if action == "retry":
+            self._fold_generated(req)
+            self._parked.append((self._step_idx + backoff, req))
+            self.fault_events["retried"] += 1
+        else:
+            self.fault_events["quarantined"] += 1
+            self._mark_finished(req, "error")
+            finished.append(req)
+
+    def _unpark(self) -> None:
+        """Requeue parked retries whose backoff has elapsed (at the front of
+        their class, like preemption resumes)."""
+        due = [r for s, r in self._parked if s <= self._step_idx]
+        if due:
+            self._parked = [(s, r) for s, r in self._parked if s > self._step_idx]
+            for req in due:
+                self.sched.requeue(req)
+
+    def _shed_expired(self) -> None:
+        """Shed queued requests whose deadline passed before admission."""
+        now = time.monotonic()
+        for req in [r for r in self.sched.queued()
+                    if r.deadline is not None and r.deadline <= now]:
+            self.sched.remove(req.uid)
+            self.fault_events["shed"] += 1
+            self._abort(req, "deadline")
+
+    def _shed_shutdown(self) -> None:
+        """Shed every queued and parked request as "shutdown" (live rows
+        decode to their end)."""
+        for req in list(self.sched.queued()):
+            self.sched.remove(req.uid)
+            self.fault_events["shed"] += 1
+            self._abort(req, "shutdown")
+        for _, req in self._parked:
+            self.fault_events["shed"] += 1
+            self._abort(req, "shutdown")
+        self._parked = []
+
+    def cancel(self, uid: int) -> bool:
+        """End request ``uid`` with "cancelled" wherever it is: queued or
+        parked (dropped), mid-prefill (its reservation freed) or live (the
+        ring drains first, since in-flight steps may still write its
+        blocks; a row that finished during the drain keeps its reason).
+        True iff it was found and cancelled."""
+        req = self.sched.remove(uid)
+        if req is not None:
+            self._finish_cancel(req)
+            return True
+        for i, (_, parked) in enumerate(self._parked):
+            if parked.uid == uid:
+                del self._parked[i]
+                self._finish_cancel(parked)
+                return True
+        for task in self._prefilling:
+            if task.req.uid == uid:
+                self._prefilling.remove(task)
+                self.kv.free(task.slot)
+                self._freed_at[task.slot] = next(self._free_clock)
+                self._finish_cancel(task.req)
+                return True
+        for slot, live in enumerate(self.slots):
+            if live is not None and live.uid == uid:
+                self._drain_ring()
+                if self.slots[slot] is not live:
+                    return False
+                self._retire_slot(slot)
+                self._finish_cancel(live)
+                return True
+        return False
+
+    def _finish_cancel(self, req: Request) -> None:
+        self.fault_events["cancelled"] += 1
+        self._abort(req, "cancelled")
+
+    def request_drain(self) -> None:
+        """Graceful shutdown (the serve CLI's SIGTERM): ``run`` stops
+        admitting and sheds queued and parked requests as "shutdown"; live
+        rows decode to their end."""
+        self._draining = True
+
+    def close(self) -> None:
+        """Drain the ring, then end everything still inside (queued, parked,
+        prefilling, live) with "shutdown"; requests that finished in the
+        drain keep "stop".  Idempotent; ``submit`` raises afterwards."""
+        if self._closed:
+            return
+        self._draining = True
+        self._drain_ring()
+        self._shed_shutdown()
+        for task in self._prefilling:
+            self.kv.free(task.slot)
+            self.fault_events["shed"] += 1
+            self._abort(task.req, "shutdown")
+        self._prefilling = []
+        for slot, req in enumerate(self.slots):
+            if req is not None:
+                self._retire_slot(slot)
+                self.fault_events["shed"] += 1
+                self._abort(req, "shutdown")
+        self._closed = True
+
+    def fault_stats(self) -> Dict[str, object]:
+        """Injected faults by kind (the plan's fired log) and the engine's
+        degradation counters."""
+        injected = self._faults.counts() if self._faults is not None else {}
+        out: Dict[str, object] = {"injected": injected,
+                                  "injected_total": int(sum(injected.values())),
+                                  "parked": len(self._parked),
+                                  "degraded": self.degraded_components()}
+        out.update(self.fault_events)
+        return out
+
+    def degraded_components(self) -> Dict[str, object]:
+        """Components degraded now (empty when healthy): stalled slots and
+        draining."""
+        out: Dict[str, object] = {}
+        stalled = np.flatnonzero(self._stalled).tolist()
+        if stalled:
+            out["stalled_slots"] = [int(s) for s in stalled]
+        if self._draining:
+            out["draining"] = True
+        return out
+
+    def engine_snapshot(self) -> Dict[str, object]:
+        """JSON-serialisable engine state (``ServingFault``'s post-mortem)."""
+        return {
+            "step": self._step_idx,
+            "ring_depth": len(self._ring),
+            "pipeline_depth": self.pipeline_depth,
+            "slots": [None if r is None else {
+                "uid": r.uid, "generated": len(r.generated),
+                "len": int(self._len_host[s]), "stalled": bool(self._stalled[s])}
+                for s, r in enumerate(self.slots)],
+            "queued": len(self.sched),
+            "parked": len(self._parked),
+            "prefilling": len(self._prefilling),
+            "pool_free_blocks": self.kv.alloc.free_blocks() if self.kv is not None else None,
+            "degraded": self.degraded_components(),
+            "faults": self.fault_stats(),
+        }
+
     # ---------------------------------------------------------------- decode
 
     def _host_inputs(self):
@@ -744,7 +1015,7 @@ class ServingEngine:
         t0 = time.perf_counter()
         mask = self.active & ~self._stalled
         state = (self.cache_len, self.budget_dev, self.key_data, self.active_dev,
-                 *self._host_inputs())
+                 *self._host_inputs(), *self._poison_args())
         if self.kv is None:
             out = self._decode(self.params, self.cache, self.last_token, *state)
         else:
@@ -771,17 +1042,38 @@ class ServingEngine:
 
     def _consume_one(self) -> None:
         """Wait for the oldest in-flight step's token copy (the step's one
-        host sync) and run its emission and finish bookkeeping."""
+        host sync) and run its emission and finish bookkeeping.  The
+        watchdog sees dispatch + wait (an injected ``straggler`` sleeps
+        before the wait and counts in it); past ``step_timeout_s`` the step
+        raises ``ServingFault``."""
         entry = self._ring.popleft()
+        sp = self._take_fault("straggler")
+        if sp is not None:
+            time.sleep(sp.delay_s)  # a hung transfer
         t0 = time.perf_counter()
         if entry.ready is not None:
             entry.ready.synchronize()
         toks = entry.tokens.numpy()
         t_wait = time.perf_counter() - t0
+        if sp is not None:
+            t_wait += sp.delay_s
         self.host_syncs += 1
         self.decode_syncs += 1
+        dur = entry.dispatch_s + t_wait
+        if self._watchdog is not None:
+            verdict = self._watchdog.observe(dur)
+            if verdict != "ok":
+                self.fault_events["straggler_slow"] += 1
+                self.fault_events["straggler_trips"] += verdict == "trip"
+        timeout = self._fault_policy.step_timeout_s
+        if timeout is not None and dur > timeout:
+            raise ServingFault(
+                f"engine step exceeded hard timeout: {dur:.3f}s > {timeout}s "
+                f"(dispatch {entry.dispatch_s:.3f}s + sync {t_wait:.3f}s)",
+                kind="step_timeout", step=self._step_idx, snapshot=self.engine_snapshot())
+        t1 = time.perf_counter()
         self._pending_finished.extend(self._commit_decode(entry, toks))
-        t_host = time.perf_counter() - t0 - t_wait
+        t_host = time.perf_counter() - t1
         self._dispatch_s.append(entry.dispatch_s)
         self._wait_s.append(t_wait)
         self._host_s.append(t_host)
@@ -798,6 +1090,9 @@ class ServingEngine:
             if req is None or not adv[slot]:
                 continue
             tok = int(toks[slot])
+            if tok == POISON_TOKEN:
+                self._quarantine(slot, req, finished)  # never emitted
+                continue
             req.generated.append(tok)
             if (req.done or self._len_host[slot] >= self.max_len - 1
                     or tok == self._eos[slot]):
@@ -852,7 +1147,7 @@ class ServingEngine:
             "grown_blocks": self.sched_events["grown_blocks"],
             "resumes": self.sched_events["resumes"],
             "stalls": self.sched_events["stalls"],
-            "swap_fallbacks": self.swap_fallbacks,
+            "swap_fallbacks": self.fault_events["swap_fallbacks"],
             "occupancy_live_frac": occ,
             "mean_live_rows": rows,
             "queued": len(self.sched),

@@ -1247,3 +1247,91 @@ def test_defrag_keeps_pages_bit_exact_on_card(dev):
         before = pages()
         assert kv.defrag()
         assert all(torch.equal(a, b) for a, b in zip(before, pages()))
+
+
+# ------------------------------------------------------ faults on the card
+
+
+def test_poison_input_on_bf16_logits_is_sync_free(dev):
+    """The bf16 paged decode step with the poison input: a zero vector
+    leaves every token and flag as without it; a NaN row reports
+    POISON_TOKEN and clears its own active flag, the other rows unchanged,
+    and neither call synchronises (sync-debug "error")."""
+    from repro_torch.launch.steps import POISON_TOKEN
+    from repro_torch.serving.kvcache import upload
+
+    model, params = _paged_card_model(dev)
+    eng = ServingEngine(model, params, max_batch=3, max_len=64, block_size=8,
+                        prefill_chunk=16, pipeline_depth=1)
+    for p in _sched_prompts(3):
+        eng.submit(p, max_new_tokens=20)
+    while eng.sched or eng._prefilling:
+        eng.run(max_steps=1)
+    state = (eng.cache_len, eng.budget_dev, eng.key_data, eng.active_dev, *eng._host_inputs())
+
+    def clone(tree):
+        return ({k: clone(v) for k, v in tree.items()} if isinstance(tree, dict)
+                else tree.clone())
+
+    def step(*poison):
+        pools = clone(eng.kv.pools)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return eng._decode(params, pools, eng.kv.table_device(), eng.last_token, *state,
+                               *poison)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    nan = np.zeros(3, np.float32)
+    nan[1] = np.nan
+    plain, zero = step(), step(torch.zeros(3, device=dev))
+    hit = step(upload(nan, dev))
+    assert all(torch.equal(a, z) for a, z in zip(plain, zero))
+    assert int(hit[0][1]) == POISON_TOKEN and not bool(hit[4][1])
+    keep = torch.tensor([True, False, True], device=dev)
+    assert torch.equal(hit[0][keep], plain[0][keep]) and torch.equal(hit[4][keep], plain[4][keep])
+
+
+def test_finite_check_on_an_inf_row(dev):
+    """An Inf logit in one live row retires that row with POISON_TOKEN; a
+    host-masked Inf row stays frozen and active."""
+    from repro_torch.launch.steps import POISON_TOKEN, _sample_advance_exit
+
+    b, v = 4, 256
+    g = torch.Generator(device=dev).manual_seed(0)
+    logits = torch.randn((b, 1, v), generator=g, device=dev).to(torch.bfloat16)
+    logits[1, 0, 17] = float("inf")
+    logits[2, 0, 3] = float("-inf")
+    logits[3, 0, 5] = float("inf")
+    keep = torch.tensor([True, True, True, False], device=dev)
+    last = torch.arange(b, dtype=torch.int32, device=dev)
+    out = _sample_advance_exit(
+        logits, last, torch.full((b,), 5, dtype=torch.int32, device=dev),
+        torch.full((b,), 9, dtype=torch.int32, device=dev),
+        torch.zeros((b, 2), dtype=torch.int64, device=dev),
+        torch.ones(b, dtype=torch.bool, device=dev), keep, torch.zeros(b, device=dev),
+        torch.full((b,), -1, dtype=torch.int32, device=dev), 64)
+    tok, act = out[0].cpu().tolist(), out[4].cpu().tolist()
+    assert tok[1] == tok[2] == POISON_TOKEN and act == [True, False, False, True]
+    assert tok[0] == int(logits[0, 0].float().argmax()) and tok[3] == 3
+
+
+def test_cancel_live_row_at_depth2_on_card(dev):
+    """A live row cancelled with a step in flight: the ring drains first,
+    the row ends "cancelled" with a prefix of its uninterrupted stream, its
+    blocks free, and the other streams are unchanged."""
+    model, params = _paged_card_model(dev)
+    base, _ = _serve_card(model, params, _sched_prompts(3), pipeline_depth=2)
+    eng = ServingEngine(model, params, max_batch=3, max_len=64, block_size=8,
+                        prefill_chunk=16, pipeline_depth=2)
+    ids = [eng.submit(p, max_new_tokens=20) for p in _sched_prompts(3)]
+    while len(eng.step_times) < 6:
+        eng.run(max_steps=1)
+    assert len(eng._ring) == 1 and any(r is not None and r.uid == ids[1] for r in eng.slots)
+    assert eng.cancel(ids[1])
+    eng.run()
+    got = [eng.finished_requests[u] for u in ids]
+    assert [r.finish_reason for r in got] == ["stop", "cancelled", "stop"]
+    assert got[0].generated == base[0] and got[2].generated == base[2]
+    assert 0 < len(got[1].generated) < 20 and got[1].generated == base[1][:len(got[1].generated)]
+    assert eng.kv.alloc.in_use() == 0 and eng.fault_stats()["cancelled"] == 1
