@@ -70,6 +70,22 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
      tests/test_torch_faults.py runs this path at a tiny width); every
      dispatch under sync-debug "error", the poisoned ones included; then
      the finite check's device time alone and a profiled decode step;
+  4d. spec_serve path: self-speculative decoding on *Serve*'s
+     configuration and prompts (SPEC_RUNS): S1 ``serve()`` with the target
+     at nsvd1 0.2 and a draft at nsvd1 0.6 from the same Grams, k = 4,
+     worst case at depth 1 (as the serve path); S2 on demand at depth 2;
+     S3 the dense slab; S4 dynamic k; S5 a draft kill (4 plain steps of
+     cool-down) and one poisoned row (retried); S6 the target as its own
+     draft.  Streams by the margin rule against the serve path's (its
+     teacher-forced margins); every request "stop" with 32 tokens; prefill
+     calls, first-token syncs and plain steps as predicted
+     (SPEC_PREDICTED, from a CPU run); one sync a step and none in a
+     dispatch (sync-debug "error"); launches exact from each run's spec
+     steps (nested: 14 x (k+1) stream and 14 mma a spec step, 2 x 14 mma a
+     chunk call; paged: 2 x (k+1) split and combine launches a spec step;
+     tile 0); S5's fault_stats() against its plan and the degraded view;
+     S6's rejections only at margins inside the gate.  Then one spec step
+     profiled: the draft root, the verify root and both;
   5. quality path: ``obs.quality_report.build_entry`` on the same model:
      calibrate (gram kernel), compress with telemetry, evaluate dense vs
      compressed perplexity on five domains at (4, 2048) tokens a batch
@@ -105,6 +121,7 @@ card (or outside the repository) it exits non-zero before printing results.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -1014,7 +1031,9 @@ def serve_path(torch, np, cfg, mixer: str, gram_taps: tuple, keep=None):
     gram_ok = gsplit == {"mma": counts["gram"], "fma": 0}  # every tap is bf16
     eng, model, params, plan = res["engine"], res["model"], res["params"], res["plan"]
     if keep is not None:
-        keep.update(model=model, params=params)
+        keep.update(model=model, params=params, prompts=prompts,
+                    outputs=[res["outputs"][u] for u in sorted(res["outputs"])],
+                    serve_stats=eng.stats(), serve_tok_per_s=res["tok_per_s"])
     st = eng.stats()
     paged = eng.layout == "paged"
     layers = cfg.num_layers
@@ -1267,6 +1286,38 @@ def ring_window(torch, eng, label: str, windows: int = PROFILE_WINDOWS) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def dispatches_checked(torch, counts: dict):
+    """Count every plain and spec decode dispatch of every engine in the
+    block (``counts`` by method name); on the card each runs under torch's
+    sync-debug mode "error", so a host sync inside one raises."""
+    from repro_torch.serving.engine import ServingEngine
+
+    saved = {n: getattr(ServingEngine, n) for n in ("_dispatch_spec", "_dispatch_decode")}
+
+    def wrap(name, fn):
+        def checked(self):
+            cuda = self.device.type == "cuda"
+            prev = torch.cuda.get_sync_debug_mode() if cuda else None
+            if cuda:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(self)
+            finally:
+                if cuda:
+                    torch.cuda.set_sync_debug_mode(prev)
+                counts[name] = counts.get(name, 0) + 1
+        return checked
+
+    for name, fn in saved.items():
+        setattr(ServingEngine, name, wrap(name, fn))
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(ServingEngine, name, fn)
+
+
 def sched_run(torch, np, model, params, prompts, label, kw, depth, pool, defrag_every,
               late) -> dict:
     """One engine run of the sched_serve path, its launch counts read
@@ -1277,41 +1328,31 @@ def sched_run(torch, np, model, params, prompts, label, kw, depth, pool, defrag_
     eng = ServingEngine(model, params, max_batch=8, max_len=256, seed=0, block_size=16,
                         num_blocks=pool, prefill_chunk=64, pipeline_depth=depth,
                         sched_config=SchedulerConfig(**kw))
-    checked = [0]
-    dispatch = eng._dispatch_decode
-
-    def dispatch_checked():
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            dispatch()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        checked[0] += 1
-
-    eng._dispatch_decode = dispatch_checked
+    checked = {}
     n_late = SCHED_LATE if late else 0
     cls = {"latency_class": "batch"} if late else {}
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    uids = [eng.submit(p, max_new_tokens=SCHED_MAX_NEW, **cls)
-            for p in prompts[:SCHED_REQUESTS - n_late]]
-    if late:
-        while len(eng.step_times) < SCHED_LATE_AFTER:
+    with dispatches_checked(torch, checked):
+        uids = [eng.submit(p, max_new_tokens=SCHED_MAX_NEW, **cls)
+                for p in prompts[:SCHED_REQUESTS - n_late]]
+        if late:
+            while len(eng.step_times) < SCHED_LATE_AFTER:
+                eng.run(max_steps=1)
+            uids += [eng.submit(p, max_new_tokens=SCHED_MAX_NEW, latency_class="interactive")
+                     for p in prompts[SCHED_REQUESTS - n_late:]]
+        moved = defrags = 0
+        next_defrag = defrag_every
+        for _ in range(100_000):
+            if len(eng.finished_requests) == SCHED_REQUESTS:
+                break
             eng.run(max_steps=1)
-        uids += [eng.submit(p, max_new_tokens=SCHED_MAX_NEW, latency_class="interactive")
-                 for p in prompts[SCHED_REQUESTS - n_late:]]
-    moved = defrags = 0
-    next_defrag = defrag_every
-    for _ in range(100_000):
-        if len(eng.finished_requests) == SCHED_REQUESTS:
-            break
-        eng.run(max_steps=1)
-        if defrag_every and len(eng.step_times) >= next_defrag:
-            moved += eng.defrag()
-            defrags += 1
-            next_defrag += defrag_every
-    eng.drain()  # steps dispatched after the last finish
+            if defrag_every and len(eng.step_times) >= next_defrag:
+                moved += eng.defrag()
+                defrags += 1
+                next_defrag += defrag_every
+        eng.drain()  # steps dispatched after the last finish
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts, nsplit = read_counts(), nested_split()
@@ -1327,24 +1368,50 @@ def sched_run(torch, np, model, params, prompts, label, kw, depth, pool, defrag_
                             seconds=wall, tokens=n_tok, tok_per_s=n_tok / wall, stats=st,
                             scheduler_stats=sch, cache_stats=eng.cache_stats(),
                             launches=counts, nested_launches=nsplit,
-                            paged_combine_launches=combine, checked_dispatches=checked[0],
+                            paged_combine_launches=combine,
+                            checked_dispatches=checked.get("_dispatch_decode", 0),
                             defrags=defrags, defrag_moved=moved)}
 
 
+def _forced_logits(torch, np, model, params, prompt, stream):
+    """One teacher-forced forward over ``prompt`` and ``stream``'s tokens:
+    the fp32 logits that predict each of ``stream``'s tokens, and the gate
+    (STEP_LOGIT_TOL of max |logit|) at each.  Two flash_attention launches
+    a forward."""
+    seq = torch.as_tensor(np.concatenate([prompt, stream[:-1]])[None],
+                          device=params["embed"]["table"].device)
+    with torch.no_grad():
+        lg = model.apply(params, seq, mode="train")[0, len(prompt) - 1:].float()
+    return lg, STEP_LOGIT_TOL * lg.abs().amax(-1)
+
+
 def teacher_margins(torch, np, model, params, prompts, streams) -> list:
-    """Per request, one teacher-forced forward over its prompt and
-    ``streams``' tokens: at each generated position, the top-2 logit margin
-    and the gate (STEP_LOGIT_TOL of max |logit|) the margin rule holds it
-    to.  Two flash_attention launches a forward."""
+    """Per request, teacher-forced on ``streams``: at each generated
+    position, the top-2 logit margin and the gate the margin rule holds it
+    to."""
     out = []
     for p, s in zip(prompts, streams):
-        seq = torch.as_tensor(np.concatenate([p, s[:-1]])[None],
-                              device=params["embed"]["table"].device)
-        with torch.no_grad():
-            lg = model.apply(params, seq, mode="train")[0, len(p) - 1:].float()
+        lg, gate = _forced_logits(torch, np, model, params, p, s)
         top2 = torch.topk(lg, 2, dim=-1).values
-        out.append(((top2[:, 0] - top2[:, 1]).cpu().numpy(),
-                    (STEP_LOGIT_TOL * lg.abs().amax(-1)).cpu().numpy()))
+        out.append(((top2[:, 0] - top2[:, 1]).cpu().numpy(), gate.cpu().numpy()))
+    return out
+
+
+def forced_gaps(torch, np, model, params, prompts, streams) -> list:
+    """Per request, teacher-forced on its own greedy stream: at each
+    generated position, how far the committed token's logit lies below the
+    argmax (0 where it is the argmax), and the gate.  A greedy stream holds
+    when every gap is within its gate, at every position, whatever stream
+    another run gave."""
+    out = []
+    for p, s in zip(prompts, streams):
+        if not s:
+            out.append((np.zeros(0), np.zeros(0)))
+            continue
+        lg, gate = _forced_logits(torch, np, model, params, p, s)
+        idx = torch.as_tensor(s, device=lg.device)[:, None]
+        gap = lg.amax(-1) - lg.gather(-1, idx)[:, 0]
+        out.append((gap.cpu().numpy(), gate.cpu().numpy()))
     return out
 
 
@@ -1534,20 +1601,7 @@ def fault_run(torch, np, model, params, prompts, label) -> dict:
                         sched_config=SchedulerConfig(resume="swap" if label == "F2"
                                                      else "reprefill"),
                         faults=plan, fault_policy=policy)
-    checked = [0]
-    dispatch = eng._dispatch_decode
-
-    def dispatch_checked():
-        if cuda:
-            torch.cuda.set_sync_debug_mode("error")
-        try:
-            dispatch()
-        finally:
-            if cuda:
-                torch.cuda.set_sync_debug_mode("default")
-        checked[0] += 1
-
-    eng._dispatch_decode = dispatch_checked
+    checked = {}
 
     def steps_to(n):
         while len(eng.step_times) < n and (eng.sched or eng._prefilling or eng.active.any()):
@@ -1562,45 +1616,46 @@ def fault_run(torch, np, model, params, prompts, label) -> dict:
     t0 = time.perf_counter()
     log_ = {}
     raised = None
-    if label in ("F1", "F2"):
-        uids = submit(range(SCHED_REQUESTS))
-        eng.run()
-    elif label == "F3":
-        f3 = FAULT_F3
-        uids = []
-        for i in range(SCHED_REQUESTS):
-            dl = (1e-3 if i in f3["deadline"] else 3600.0 if i == f3["hour"] else None)
-            uids += submit([i], deadline_s=dl)
-        log_["queued"] = eng.cancel(f3["queued"])
-        time.sleep(0.01)  # past the two short deadlines
-        eng.run(max_steps=1)
-        log_["prefilling"] = any(t.req.uid == f3["prefill"] for t in eng._prefilling)
-        log_["prefill"] = eng.cancel(f3["prefill"])
-        steps_to(f3["live_after"])
-        log_["ring_at_live_cancel"] = len(eng._ring)
-        log_["live"] = eng.cancel(f3["live"])
-        steps_to(f3["drain_after"])
-        eng.request_drain()
-        eng.run()
-        eng.close()
-        eng.close()
-        try:
-            eng.submit(prompts[0])
-            log_["submit_after_close"] = "accepted"
-        except RuntimeError:
-            log_["submit_after_close"] = "raised"
-    else:
-        uids = submit(range(FAULT_F4_WARM))
-        eng.run()
-        eng._fault_policy = dataclasses.replace(eng._fault_policy,
-                                                step_timeout_s=FAULT_TIMEOUT_S)
-        uids += submit(range(FAULT_F4_WARM, 2 * FAULT_F4_WARM))
-        try:
+    with dispatches_checked(torch, checked):
+        if label in ("F1", "F2"):
+            uids = submit(range(SCHED_REQUESTS))
             eng.run()
-        except ServingFault as e:
-            raised = e
-        eng.close()
-    eng.drain()
+        elif label == "F3":
+            f3 = FAULT_F3
+            uids = []
+            for i in range(SCHED_REQUESTS):
+                dl = (1e-3 if i in f3["deadline"] else 3600.0 if i == f3["hour"] else None)
+                uids += submit([i], deadline_s=dl)
+            log_["queued"] = eng.cancel(f3["queued"])
+            time.sleep(0.01)  # past the two short deadlines
+            eng.run(max_steps=1)
+            log_["prefilling"] = any(t.req.uid == f3["prefill"] for t in eng._prefilling)
+            log_["prefill"] = eng.cancel(f3["prefill"])
+            steps_to(f3["live_after"])
+            log_["ring_at_live_cancel"] = len(eng._ring)
+            log_["live"] = eng.cancel(f3["live"])
+            steps_to(f3["drain_after"])
+            eng.request_drain()
+            eng.run()
+            eng.close()
+            eng.close()
+            try:
+                eng.submit(prompts[0])
+                log_["submit_after_close"] = "accepted"
+            except RuntimeError:
+                log_["submit_after_close"] = "raised"
+        else:
+            uids = submit(range(FAULT_F4_WARM))
+            eng.run()
+            eng._fault_policy = dataclasses.replace(eng._fault_policy,
+                                                    step_timeout_s=FAULT_TIMEOUT_S)
+            uids += submit(range(FAULT_F4_WARM, 2 * FAULT_F4_WARM))
+            try:
+                eng.run()
+            except ServingFault as e:
+                raised = e
+            eng.close()
+        eng.drain()
     if cuda:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1624,7 +1679,7 @@ def fault_run(torch, np, model, params, prompts, label) -> dict:
                             fault_stats=fs, fired=[(sp.kind, sp.uid, step)
                                                    for sp, step in plan.fired_log],
                             outstanding=[sp.kind for sp in plan.outstanding()],
-                            dispatches=checked[0], launches=counts, nested_launches=nsplit,
+                            dispatches=checked.get("_dispatch_decode", 0), launches=counts, nested_launches=nsplit,
                             paged_combine_launches=_ops("paged_attention").combine_launches,
                             lifecycle=log_)}
 
@@ -1687,7 +1742,7 @@ def fault_serve_path(torch, np, served):
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.scheduler import SchedulerConfig
 
-    model, params = served.pop("model"), served.pop("params")
+    model, params = served["model"], served["params"]
     base = served.pop("sched")
     prompts, want, margins = base["prompts"], base["outputs"], base["margins"]
     cfg = model.cfg
@@ -1761,6 +1816,396 @@ def fault_serve_path(torch, np, served):
                    finite_check=check, decode_step=step, ring_window=window,
                    seconds={k: v["summary"]["seconds"] for k, v in runs.items()}, ok=bool(ok))
     return summary, runs["F1"]["summary"]["launches"]
+
+
+# Phase 4d (spec_serve): self-speculative decoding on the serve path's
+# configuration: mistral-7b at full width, 2 layers, bf16; *Serve*'s 8
+# prompts (16-200 tokens, seed 0), 32 new tokens, max_batch 8, max_len 256,
+# block 16, chunk 64; target nsvd1 at 0.2 (k1_frac 0.95), draft nsvd1 at 0.6
+# from the same Grams, k = 4 (the reference benchmark's draft_ratio and
+# spec_k).  Runs: (label, SchedulerConfig fields, pipeline depth, paged,
+# draft ("nsvd" or "target": the perfect draft), dynamic_k, faults).  S1
+# goes through serve() at *Serve*'s worst case and depth 1, so its counts
+# compare with *Serve*'s; S2-S6 reuse S1's target and draft.  S5 kills the
+# draft at step 2 (SPEC_COOLDOWN plain steps follow) and poisons the
+# shortest prompt's request (uid 7, 19 tokens: its re-prefill fits one
+# chunk) at step 8, with one retry.
+SPEC_K, SPEC_RATIO, SPEC_COOLDOWN = 4, 0.6, 4
+SPEC_RUNS = (("S1", {"admission": "worst_case"}, 1, True, "nsvd", False, ()),
+             ("S2", {}, 2, True, "nsvd", False, ()),
+             ("S3", {}, 2, False, "nsvd", False, ()),
+             ("S4", {}, 2, True, "nsvd", True, ()),
+             ("S5", {}, 2, True, "nsvd", False,
+              (("draft_kill", 2, None), ("poison_logits", 8, 7))),
+             ("S6", {"admission": "worst_case"}, 1, True, "target", False, ()))
+# (prefill calls, their first-token host syncs, plain decode steps) of each
+# run: they depend only on the prompt lengths and the plan, not on
+# acceptance (tests/test_torch_spec.py runs this path at a tiny width on
+# the CPU).  Every other count follows from the spec steps a run took.
+SPEC_PREDICTED = {"S1": (3, 3, 0), "S2": (3, 3, 0), "S3": (8, 8, 0), "S4": (3, 3, 0),
+                  "S5": (4, 4, SPEC_COOLDOWN), "S6": (3, 3, 0)}
+
+
+def spec_run(torch, np, label, cfg, prompts, device, base=None) -> dict:
+    """One run of the spec_serve path with its launch counts read around it:
+    S1 through ``serve()`` (calibrate, compress, build the draft), the
+    others on an engine over ``base`` (S1's run: its model, target and
+    draft).  Records each step's degraded view and, for the perfect draft,
+    every rejection (uid, index of the rejected token in the stream)."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.faults import FaultPlan, FaultPolicy, FaultSpec
+    from repro_torch.serving.scheduler import SchedulerConfig
+    from repro_torch.serving.spec import SpecConfig
+
+    _, kw, depth, paged, draft, dynamic_k, faults = next(r for r in SPEC_RUNS if r[0] == label)
+    cuda = torch.device(device).type == "cuda"
+    plan = FaultPlan([FaultSpec(kind, step, uid) for kind, step, uid in faults]) if faults else None
+    policy = (FaultPolicy(max_retries=1, retry_backoff_steps=2,
+                          draft_cooldown_steps=SPEC_COOLDOWN) if faults else None)
+    counted = {}
+    if cuda:
+        torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    views, rejections = [], []
+    with dispatches_checked(torch, counted):
+        if base is None:
+            res = serve(cfg, requests=8, max_new=32, max_batch=8, max_len=256, seed=0,
+                        compress=0.2, block_size=16, prefill_chunk=64, prompts=prompts,
+                        device=device, sched_policy=kw["admission"], pipeline_depth=depth,
+                        spec_ratio=SPEC_RATIO, spec_k=SPEC_K)
+            eng, model, params = res["engine"], res["model"], res["params"]
+            uids = sorted(res["outputs"])
+            seconds = res["seconds"]
+        else:
+            model, params = base["model"], base["params"]
+            dparams = params if draft == "target" else base["draft"]
+            eng = ServingEngine(model, params, max_batch=8, max_len=256, seed=0, block_size=16,
+                                prefill_chunk=64, paged=paged, pipeline_depth=depth,
+                                sched_config=SchedulerConfig(**kw), faults=plan,
+                                fault_policy=policy,
+                                spec_config=SpecConfig(dparams, k=SPEC_K, dynamic_k=dynamic_k))
+            if draft == "target":
+                commit = eng._commit_spec
+
+                def commit_logged(entry, toks):
+                    before = {s: (r.uid, len(r.generated)) for s, r in enumerate(eng.slots)
+                              if r is not None and entry.mask[s]}
+                    out = commit(entry, toks)
+                    for s, (uid, n) in before.items():
+                        m, n_commit = int(toks[s, SPEC_K + 2]), int(toks[s, SPEC_K + 1])
+                        if n_commit >= 0 and m < int(entry.k_row[s]) and n + m < 32:
+                            rejections.append((uid, n + m))
+                    return out
+
+                eng._commit_spec = commit_logged
+            uids = [eng.submit(p, max_new_tokens=32) for p in prompts]
+            while eng.sched or eng._prefilling or eng.active.any() or eng._parked:
+                eng.run(max_steps=1)
+                views.append(eng.degraded_components().get("draft"))
+            eng.drain()
+            seconds = {}
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    reqs = [eng.finished_requests.get(u) for u in uids]
+    st, ss = eng.stats(), eng.spec_stats()
+    n_tok = sum(len(r.generated) for r in reqs if r is not None)
+    serve_s = seconds.get("serve", wall)
+    return {"engine": eng, "model": model, "params": params, "plan": plan,
+            "outputs": [r.generated if r else None for r in reqs],
+            "reasons": [r.finish_reason if r else None for r in reqs],
+            "retried": [bool(r and r.retries) for r in reqs],
+            "views": views, "rejections": rejections,
+            "summary": dict(run=label, scheduler=dict(kw, pipeline_depth=depth),
+                            layout=eng.layout, draft=draft, dynamic_k=dynamic_k,
+                            seconds=wall, phase_seconds=seconds, tokens=n_tok,
+                            tok_per_s=n_tok / serve_s, stats=st, spec_stats=ss,
+                            fault_stats=eng.fault_stats() if plan else None,
+                            outstanding=[sp.kind for sp in plan.outstanding()] if plan else [],
+                            dispatches=dict(counted), launches=read_counts(),
+                            nested_launches=nested_split(), gram_launches=gram_split(),
+                            paged_combine_launches=_ops("paged_attention").combine_launches,
+                            degraded_steps=sum(v is not None for v in views),
+                            rejections=rejections)}
+
+
+def spec_check(label, r, want, margins, forced, model, n_splits, cuda) -> dict:
+    """S1-S6's checks: every stream by the margin rule against *Serve*'s
+    and, teacher-forced on its own tokens through the target (``forced``:
+    ``forced_gaps``), every committed token within the gate of the argmax,
+    every request finished ("stop"), the predicted calls and syncs, one
+    sync a spec or plain step and none in a dispatch, the launch counts
+    from the run's own spec steps (on the card), the fault accounting
+    (S5) and the perfect draft's rejections (S6: each at a margin inside
+    the gate)."""
+    sm = r["summary"]
+    st, ss = sm["stats"], sm["spec_stats"]
+    rows = []
+    for i, got in enumerate(r["outputs"]):
+        row = dict(margin_row(got or [], want[i], margins[i]), request=i,
+                   reason=r["reasons"][i], retried=r["retried"][i])
+        gap, gate = forced[i]
+        row.update(forced_worst=float((gap - gate).max()) if len(gap) else None,
+                   forced_outside=int((gap > gate).sum()))
+        row["ok"] = (row["ok"] and row["reason"] == "stop" and len(got or []) == 32
+                     and len(gap) == 32 and row["forced_outside"] == 0)
+        rows.append(row)
+    spec_steps, steps = ss["steps"], st["steps"]
+    plain = steps - spec_steps
+    d = sm["dispatches"]
+    kills = sm["fault_stats"]["draft_kills"] if sm["fault_stats"] else 0
+    got = (st["prefill_ticks"], st["host_syncs"] - st["decode_syncs"], plain)
+    counts_ok = (got == SPEC_PREDICTED[label] and st["decode_syncs"] == steps
+                 and d.get("_dispatch_spec", 0) == spec_steps + kills
+                 and d.get("_dispatch_decode", 0) == plain)
+    layers, (n_single, _) = model.cfg.num_layers, nested_calls(model)
+    paged = sm["layout"] == "paged"
+    ticks = st["prefill_ticks"]
+    forwards = (SPEC_K + 1) * spec_steps + plain  # 8-row decodes (stream kernel)
+    # Chunk calls (paged: 512 rows, target and draft) or exact-length
+    # admissions (dense: target and draft at the prompt's rows; all above
+    # 16 rows) on the mma kernel, and the 40-row verify chunks.
+    expect = {"nested_lowrank": n_single * (forwards + spec_steps + 2 * ticks),
+              "paged_attention": layers * forwards if paged else 0,
+              "gram": 9 * 16 if label == "S1" else 0,
+              "flash_attention": (layers * 16 if label == "S1" else 0)
+              + (0 if paged else 2 * layers * ticks), "rwkv6": 0}
+    nested_expect = {"stream": n_single * forwards,
+                     "mma": n_single * (spec_steps + 2 * ticks), "tile": 0}
+    combine_expect = expect["paged_attention"] if n_splits > 1 else 0
+    launches_ok = (not cuda or (sm["launches"] == expect
+                                and sm["nested_launches"] == nested_expect
+                                and sm["gram_launches"]["fma"] == 0
+                                and sm["paged_combine_launches"] == combine_expect))
+    accounting = {}
+    if sm["fault_stats"] is not None:
+        fs, fired = sm["fault_stats"], r["plan"].counts()
+        accounting = {"injected": fs["injected"] == fired == {"draft_kill": 1,
+                                                              "poison_logits": 1},
+                      "draft": fs["draft_kills"] == fs["draft_reenables"] == 1,
+                      "poison": fs["retried"] == 1 and fs["quarantined"] == 0,
+                      "degraded": sm["degraded_steps"] >= 1 and r["views"][-1] is None,
+                      "outstanding": not sm["outstanding"]}
+    s6 = []
+    if label == "S6":
+        for uid, j in r["rejections"]:
+            row = rows[uid]
+            if row["equal"] or j <= row["first_diff"]:  # later ones follow a diff
+                s6.append({"request": uid, "index": j, "margin": float(margins[uid][0][j]),
+                           "gate": float(margins[uid][1][j]),
+                           "ok": bool(margins[uid][0][j] <= margins[uid][1][j])})
+    ok = (counts_ok and launches_ok and all(accounting.values())
+          and all(x["ok"] for x in rows) and all(x["ok"] for x in s6)
+          and 0.0 <= ss["acceptance_rate"] <= 1.0 and ss["committed_per_row_step"] >= 1.0)
+    worst = [x["forced_worst"] for x in rows if x["forced_worst"] is not None]
+    return {"rows": rows, "forced_outside": sum(x["forced_outside"] for x in rows),
+            "forced_worst": max(worst, default=float("nan")),
+            "counts": got, "counts_ok": counts_ok, "expected_launches": expect,
+            "expected_nested_launches": nested_expect, "expected_combine": combine_expect,
+            "launches_ok": launches_ok, "accounting": accounting, "s6_rejections": s6,
+            "ok": bool(ok)}
+
+
+def spec_logits_check(torch, np, model, params, dparams, device) -> dict:
+    """The spec path's own kernel shapes held against the plain versions on
+    the same inputs, as the serve path's decode-step check: on paged caches
+    of 8 rows, the draft's prefill chunk (8 x 64 = 512 rows, the mma kernel
+    at the draft's ranks), then one draft decode (8 rows, the stream kernel
+    at the draft's ranks, paged attention) and the target's verify chunk
+    (8 x (k+1) = 40 rows, the mma kernel at the target's ranks) after 64
+    tokens of context; each call's logits within STEP_LOGIT_TOL of its max
+    |logit|, and on the card each call's compressed linears on the nested
+    kernel named."""
+    from repro_torch import kernels
+    from repro_torch.serving.kvcache import PagedKVCache
+
+    cfg, ctx = model.cfg, 64
+    n_single = nested_calls(model)[0]
+    rng = np.random.default_rng(1)
+
+    def tokens(n):
+        return torch.as_tensor(rng.integers(2, cfg.vocab_size // 2, size=(8, n)), device=device)
+
+    def pools():
+        kv = PagedKVCache(model, 8, 256, block_size=16, device=device)
+        for slot in range(8):
+            kv.reserve(slot, ctx + SPEC_K + 1)
+        return kv
+
+    def clone(tree):
+        return ({k: clone(v) for k, v in tree.items()} if isinstance(tree, dict)
+                else tree.clone())
+
+    def held(name, p, kv, x, start, kernel):
+        saved = clone(kv.pools)
+        before = nested_split()
+        with torch.no_grad():
+            lk = model.apply(p, x, mode="decode", cache=kv.pools, cache_len=start,
+                             block_tables=kv.table_device()).float()
+            ran = {k: v - before[k] for k, v in nested_split().items()}
+            with kernels.plain():
+                lp = model.apply(p, x, mode="decode", cache=saved, cache_len=start,
+                                 block_tables=kv.table_device()).float()
+        err, scale = float((lk - lp).abs().max()), float(lp.abs().max())
+        want = {"stream": 0, "mma": 0, "tile": 0}
+        want[kernel] = n_single
+        ok = (lk.shape == (8, x.shape[1], cfg.vocab_size) and bool(torch.isfinite(lk).all())
+              and err <= STEP_LOGIT_TOL * scale
+              and (torch.device(device).type != "cuda" or ran == want))
+        return dict(call=name, rows=x.numel(), nested_launches=ran, expected=want,
+                    max_abs_err=err, max_abs=scale, ok=bool(ok))
+
+    zero = torch.zeros(8, dtype=torch.int32, device=device)
+    clen = torch.full((8,), ctx, dtype=torch.int32, device=device)
+    ctx_toks, nxt = tokens(ctx), tokens(SPEC_K + 1)
+    draft_kv, target_kv = pools(), pools()
+    checks = [held("draft prefill chunk", dparams, draft_kv, ctx_toks, zero, "mma"),
+              held("draft decode", dparams, draft_kv, nxt[:, :1], clen, "stream")]
+    with torch.no_grad():  # the target's context, through the kernels
+        model.apply(params, ctx_toks, mode="decode", cache=target_kv.pools, cache_len=zero,
+                    block_tables=target_kv.table_device())
+    checks.append(held("verify chunk", params, target_kv, nxt, clen, "mma"))
+    return {"calls": checks, "ok": all(c["ok"] for c in checks)}
+
+
+def spec_serve_path(torch, np, served):
+    """Self-speculative decoding at Mistral-7B width (phase 4d): runs S1-S6
+    (SPEC_RUNS) on *Serve*'s prompts, held to *Serve*'s streams by the
+    margin rule (teacher-forced on *Serve*'s params), with the predicted
+    calls and syncs, exact launches, no sync in a dispatch, S5's fault
+    accounting and S6's rejections.  Reports acceptance, committed tokens a
+    row-step, the draft cache's bytes, S1's tok/s and step p50 beside
+    *Serve*'s, and one profiled spec step split into its draft and verify
+    roots."""
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.scheduler import SchedulerConfig
+    from repro_torch.serving.spec import SpecConfig
+
+    model, params = served.pop("model"), served.pop("params")
+    prompts, want = served.pop("prompts"), served.pop("outputs")
+    serve_st = served.pop("serve_stats")
+    cfg = model.cfg
+    margins = teacher_margins(torch, np, model, params, prompts, want)
+    pa = _ops("paged_attention")
+    n_splits = pa.plan_splits(8, cfg.num_kv_heads, -(-256 // 16))[0]
+    runs, ok, base = {}, True, None
+    for label, *_ in SPEC_RUNS:
+        r = spec_run(torch, np, label, cfg, prompts, "cuda", base)
+        if base is None:
+            eng = r["engine"]
+            base = {"model": r["model"], "params": r["params"], "draft": eng.draft.params}
+            # S2-S6 reuse S1's target against margins taken on Serve's.
+            same = all(torch.equal(a, b) for a, b in zip(_tensors(r["params"]), _tensors(params)))
+            r["summary"]["target_bit_equal_serve"] = same
+            ok = ok and same
+        forced = forced_gaps(torch, np, base["model"], base["params"], prompts, r["outputs"])
+        chk = spec_check(label, r, want, margins, forced, model, n_splits, True)
+        sm = r["summary"]
+        sm.update(check=chk)
+        ss, st = sm["spec_stats"], sm["stats"]
+        diff = [(x["request"], x["first_diff"], round(x["margin"], 4), round(x["gate"], 4))
+                for x in chk["rows"] if not x["equal"]]
+        log(f"  run {label} ({sm['layout']}, {sm['scheduler']}, draft {sm['draft']}"
+            f"{', dynamic k' if sm['dynamic_k'] else ''}): {sm['tokens']} tokens, "
+            f"{sm['tok_per_s']:.1f} tok/s; steps {st['steps']} (spec {ss['steps']}), prefill "
+            f"calls / first-token syncs / plain steps {chk['counts']} predicted "
+            f"{SPEC_PREDICTED[label]}; acceptance {ss['acceptance_rate']:.4f}, committed "
+            f"{ss['committed_per_row_step']:.4f} a row-step (k+1 = {SPEC_K + 1}); draft cache "
+            f"{ss['draft_hbm_bytes'] / 1e6:.2f} MB; host syncs {st['host_syncs']} (decode "
+            f"{st['decode_syncs']}); dispatches checked {sm['dispatches']}; teacher-forced "
+            f"tokens outside the gate {chk['forced_outside']}, worst gap - gate "
+            f"{chk['forced_worst']:.4f}; step p50 "
+            f"{st['step_p50_s'] * 1e3:.2f} p90 {st['step_p90_s'] * 1e3:.2f} ms = dispatch "
+            f"{st['step_dispatch_s'] * 1e3:.2f} + wait {st['step_device_wait_s'] * 1e3:.2f} + "
+            f"host {st['step_host_s'] * 1e3:.2f} (means); streams equal {sum(x['equal'] for x in chk['rows'])}"
+            f"/8, margin rows {diff}; launches {sm['launches']} expected "
+            f"{chk['expected_launches']}, nested {sm['nested_launches']} expected "
+            f"{chk['expected_nested_launches']}, combine {sm['paged_combine_launches']} expected "
+            f"{chk['expected_combine']}; accounting {chk['accounting']}; S6 rejections "
+            f"{chk['s6_rejections']} {'OK' if chk['ok'] else 'FAIL'}")
+        if label == "S1":
+            log(f"  S1 phase seconds {sm['phase_seconds']}; target params bit-equal to "
+                f"Serve's: {sm['target_bit_equal_serve']}; Serve: "
+                f"{served['serve_tok_per_s']:.1f} tok/s, step p50 "
+                f"{serve_st['step_p50_s'] * 1e3:.2f} ms, {serve_st['steps']} steps")
+        ok = ok and chk["ok"]
+        runs[label] = r
+    # How often the draft's greedy choice is the target's, teacher-forced on
+    # *Serve*'s streams (every generated position of the 8 requests): what
+    # bounds a greedy row's acceptance.
+    agree = []
+    with torch.no_grad():
+        for p, w in zip(prompts, want):
+            seq = torch.as_tensor(np.concatenate([p, w[:-1]])[None], device="cuda")
+            lt, ld = (base["model"].apply(t, seq, mode="train")[0, len(p) - 1:].argmax(-1)
+                      for t in (base["params"], base["draft"]))
+            agree.append((lt == ld).float().cpu().numpy())
+    agreement = float(np.concatenate(agree).mean())
+    log(f"  draft's greedy choice = target's at {agreement:.4f} of the {sum(map(len, agree))} "
+        f"teacher-forced positions of Serve's streams (nsvd {SPEC_RATIO} against 0.2, "
+        f"random weights)")
+    logits = spec_logits_check(torch, np, base["model"], base["params"], base["draft"], "cuda")
+    for c in logits["calls"]:
+        log(f"  {c['call']} ({c['rows']} rows) logits kernels vs plain: max abs err "
+            f"{c['max_abs_err']:.4e} (max |logit| {c['max_abs']:.3f}, tol "
+            f"{STEP_LOGIT_TOL * c['max_abs']:.4e}), nested {c['nested_launches']} expected "
+            f"{c['expected']} {'OK' if c['ok'] else 'FAIL'}")
+    ok = ok and logits["ok"]
+    # One spec step of a worst-case engine with its 8 rows live, profiled:
+    # the draft root (5 decodes), the verify root (a 40-row chunk) and both.
+    eng = ServingEngine(base["model"], base["params"], max_batch=8, max_len=256, seed=0,
+                        block_size=16, prefill_chunk=64, pipeline_depth=1,
+                        sched_config=SchedulerConfig(admission="worst_case"),
+                        spec_config=SpecConfig(base["draft"], k=SPEC_K))
+    for p in prompts:
+        eng.submit(p, max_new_tokens=32)
+    while eng.sched or eng._prefilling:
+        eng.run(max_steps=1)
+    keep, temps, eos = eng._host_inputs()[:3]
+    d = eng.draft
+
+    def draft_root():
+        return eng._spec_draft(d.params, d.pools, d.table_device(), eng.last_token,
+                               eng.cache_len, d.key_data, eng.active_dev, keep, temps)
+
+    def verify_root(proposals, q):
+        return eng._spec_verify(eng.params, eng.kv.pools, eng.kv.table_device(),
+                                eng.last_token, proposals, q, eng.cache_len, eng.budget_dev,
+                                eng.key_data, eng.active_dev, keep, temps, eos, eng._k_row_dev)
+
+    proposals, q, _ = draft_root()
+    prof = {"draft": profile_step(torch, draft_root, f"spec draft root ({SPEC_K + 1} decodes "
+                                  "x 8 rows)"),
+            "verify": profile_step(torch, lambda: verify_root(proposals, q),
+                                   f"spec verify root (8 x {SPEC_K + 1} = 40 rows)"),
+            "step": profile_step(torch, lambda: verify_root(*draft_root()[:2]),
+                                 "spec step (draft + verify roots)")}
+    eng.drain()
+    s1 = runs["S1"]["summary"]
+    log(f"  spec step: wall {prof['step']['wall_ms']:.2f} ms, device "
+        f"{prof['step']['device_busy_ms']:.3f} ms = draft root "
+        f"{prof['draft']['device_busy_ms']:.3f} + verify root "
+        f"{prof['verify']['device_busy_ms']:.3f} (profiled apart); S1 {s1['tok_per_s']:.1f} "
+        f"tok/s, step p50 {s1['stats']['step_p50_s'] * 1e3:.2f} ms against Serve's "
+        f"{served['serve_tok_per_s']:.1f} tok/s, {serve_st['step_p50_s'] * 1e3:.2f} ms")
+    summary = dict(config=cfg.name, layers=cfg.num_layers, k=SPEC_K, draft_ratio=SPEC_RATIO,
+                   prompt_lengths=[len(p) for p in prompts],
+                   runs={k: v["summary"] for k, v in runs.items()}, profile=prof,
+                   draft_target_agreement=agreement, logits_check=logits,
+                   serve_tok_per_s=served["serve_tok_per_s"], serve_stats=serve_st,
+                   ok=bool(ok))
+    return summary, runs["S1"]["summary"]["launches"]
+
+
+def _tensors(tree):
+    for key in sorted(tree):
+        v = tree[key]
+        if isinstance(v, dict):
+            yield from _tensors(v)
+        else:
+            yield v
 
 
 def quality_path(torch, np, cfg, eval_n: int, gram_taps: tuple, mixer: str):
@@ -2179,6 +2624,7 @@ def main() -> int:
     runs = (("serve", serve_path, (mistral, "flash_attention", (9, 0), served)),
             ("sched_serve", sched_serve_path, (served,)),
             ("fault_serve", fault_serve_path, (served,)),
+            ("spec_serve", spec_serve_path, (served,)),
             ("quality", quality_path, (mistral, 2, (9, 0), "flash_attention")),
             ("methods", methods_path, (dataclasses.replace(MISTRAL_7B, num_layers=1), 4)),
             ("rwkv_serve", serve_path, (rwkv6, "rwkv6", (37, 0))),

@@ -17,6 +17,15 @@ steps in flight; ``--sched-policy``, ``--priority-classes``, ``--no-preempt``
 and ``--pipeline-depth`` change that, and ``serve(resume="swap")`` resumes
 preempted rows from host copies of their blocks.
 
+Speculative decoding (``serving/spec``): ``--spec-ratio R`` builds a
+draft of the same weights at NSVD ratio R (above ``--compress``) from the
+same calibration Grams, and each engine step drafts ``--spec-k`` tokens
+and verifies them in one target call (``--spec-dynamic-k``: per-row
+windows); a ``spec[k=...]`` line prints the acceptance.
+
+    python -m repro_torch.launch.serve --arch mistral-7b --no-reduced \\
+        --layers 2 --compress 0.2 --spec-ratio 0.6 --spec-k 4 --max-batch 8
+
 Faults (``serving/faults``): ``--chaos PLAN.json`` injects a seeded
 ``FaultPlan`` (the reference's JSON), ``--max-retries`` lets a poisoned
 request re-prefill before it ends with "error", and ``--step-timeout``
@@ -48,9 +57,11 @@ from repro_torch.calib.runner import calibration_batches, collect_grams
 from repro_torch.configs import ModelConfig, get_config
 from repro_torch.core import CompressionConfig, GramStore, build_plan, compress_params
 from repro_torch.models import build_model
+from repro_torch.models.api import build_draft_params
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.faults import FaultPlan, FaultPolicy
 from repro_torch.serving.scheduler import SchedulerConfig
+from repro_torch.serving.spec import SpecConfig
 
 MODELS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                           "experiments", "models")
@@ -83,9 +94,13 @@ def serve(cfg: ModelConfig, *, requests: int = 8, max_new: int = 16,
           priority_classes: Sequence[str] = ("default",), preempt: bool = True,
           resume: str = "reprefill", pipeline_depth: Optional[int] = None,
           faults: Optional[FaultPlan] = None,
-          fault_policy: Optional[FaultPolicy] = None) -> Dict:
+          fault_policy: Optional[FaultPolicy] = None,
+          spec_ratio: Optional[float] = None, spec_k: int = 4,
+          spec_dynamic_k: bool = False) -> Dict:
     """Init (or take ``params``), calibrate + compress when ``compress`` is
-    a ratio, then serve ``requests`` prompts under the scheduling policy
+    a ratio, build a speculative draft at ``spec_ratio`` (from the
+    uncompressed params and the same Grams, drafting ``spec_k`` tokens a
+    step), then serve ``requests`` prompts under the scheduling policy
     (``sched_policy``, ``priority_classes``, ``preempt``, ``resume``; the
     reference's defaults) at ``pipeline_depth`` (None: the engine's default,
     2), with an optional fault plan and policy.  Every request goes to the
@@ -111,8 +126,8 @@ def serve(cfg: ModelConfig, *, requests: int = 8, max_new: int = 16,
     sync()
     seconds["init"] = time.perf_counter() - t0
 
-    plan = None
-    if compress is not None:
+    plan = spec = None
+    if compress is not None or spec_ratio is not None:
         t0 = time.perf_counter()
         gram_path = os.path.join(MODELS_DIR, cfg.name, "grams.npz")
         if cfg.name.startswith("small-") and os.path.exists(gram_path):
@@ -122,14 +137,22 @@ def serve(cfg: ModelConfig, *, requests: int = 8, max_new: int = 16,
                 cfg.vocab_size, "en_a", n_samples=256, batch=16, seq=128))
         sync()
         seconds["calibrate"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        plan = build_plan(model.compressible_targets(), CompressionConfig(
-            method="nsvd1", ratio=compress, dtype=cfg.dtype,
-            use_randomized=False))
-        params = compress_params(params, plan, grams)
-        del grams
-        sync()
-        seconds["compress"] = time.perf_counter() - t0
+        base = params
+        if compress is not None:
+            t0 = time.perf_counter()
+            plan = build_plan(model.compressible_targets(), CompressionConfig(
+                method="nsvd1", ratio=compress, dtype=cfg.dtype,
+                use_randomized=False))
+            params = compress_params(base, plan, grams)
+            sync()
+            seconds["compress"] = time.perf_counter() - t0
+        if spec_ratio is not None:
+            t0 = time.perf_counter()
+            spec = SpecConfig(draft_params=build_draft_params(model, base, grams, spec_ratio),
+                              k=spec_k, dynamic_k=spec_dynamic_k, draft_ratio=spec_ratio)
+            sync()
+            seconds["draft"] = time.perf_counter() - t0
+        del grams, base
 
     eng = ServingEngine(model, params, max_batch=max_batch, max_len=max_len,
                         seed=seed, block_size=block_size, num_blocks=num_blocks,
@@ -138,7 +161,7 @@ def serve(cfg: ModelConfig, *, requests: int = 8, max_new: int = 16,
                         sched_config=SchedulerConfig(
                             admission=sched_policy, preempt=preempt, resume=resume,
                             priority_classes=tuple(priority_classes)),
-                        faults=faults, fault_policy=fault_policy)
+                        faults=faults, fault_policy=fault_policy, spec_config=spec)
     if prompts is None:
         prompts = default_prompts(requests, cfg.vocab_size, seed)
     for p in prompts:
@@ -196,6 +219,16 @@ def main(argv=None):
                     help="in-flight decode steps (default 2, or "
                     "REPRO_SERVING_PIPELINE_DEPTH); 1 waits for each step's tokens "
                     "before the next dispatch; every depth gives the same tokens")
+    spec_g = ap.add_argument_group(
+        "speculative decoding", "a higher-ratio NSVD draft of the same weights "
+        "(repro_torch.serving.spec); off by default")
+    spec_g.add_argument("--spec-ratio", type=float, default=None,
+                        help="enable self-speculative decoding with a draft compressed "
+                        "at this (higher) NSVD ratio")
+    spec_g.add_argument("--spec-k", type=int, default=4,
+                        help="speculation window: draft tokens per step")
+    spec_g.add_argument("--spec-dynamic-k", action="store_true",
+                        help="per-row adaptive speculation windows")
     fault_g = ap.add_argument_group(
         "fault tolerance", "seeded chaos and the degradation policy "
         "(repro_torch.serving.faults); off by default")
@@ -233,10 +266,14 @@ def main(argv=None):
                                        if c.strip()) if args.priority_classes
                 else ("default",),
                 preempt=not args.no_preempt, pipeline_depth=args.pipeline_depth,
-                faults=faults, fault_policy=fault_policy)
+                faults=faults, fault_policy=fault_policy, spec_ratio=args.spec_ratio,
+                spec_k=args.spec_k, spec_dynamic_k=args.spec_dynamic_k)
     if res["plan"] is not None:
         print(f"serving NSVD-compressed weights "
               f"({res['plan'].achieved_ratio:.0%} removed)")
+    if args.spec_ratio is not None:
+        print(f"speculative decoding: nsvd-{args.spec_ratio:.0%} draft, k={args.spec_k}"
+              + (" (dynamic per-row)" if args.spec_dynamic_k else ""))
     print(f"{len(res['outputs'])} requests, {res['tokens']} tokens, "
           f"{res['tok_per_s']:.1f} tok/s")
     print("phase seconds: " + ", ".join(f"{k}={v:.2f}"
@@ -256,6 +293,11 @@ def main(argv=None):
               f"{sch['preempt_count']} preempts, {sch['resumes']} resumes, "
               f"{sch['grown_blocks']} grown blocks, {sch['stalls']} stalls, "
               f"swap {sch['swap_bytes'] / 1e6:.2f}MB")
+    ss = res["engine"].spec_stats()
+    if ss:
+        print(f"spec[k={ss['k']}]: acceptance {ss['acceptance_rate']:.0%}, "
+              f"{ss['committed_per_row_step']:.2f} committed tok/row-step, "
+              f"draft cache {ss['draft_hbm_bytes'] / 1e6:.2f}MB")
     if fault_policy is not None:
         fs = res["engine"].fault_stats()
         inj = ", ".join(f"{k}={v}" for k, v in sorted(fs["injected"].items()))
@@ -265,7 +307,8 @@ def main(argv=None):
         print(f"faults: injected [{inj or 'none'}], quarantined={fs['quarantined']} "
               f"retried={fs['retried']} shed={fs['shed']} cancelled={fs['cancelled']} "
               f"swap_fallbacks={fs['swap_fallbacks']} straggler slow/trips="
-              f"{fs['straggler_slow']}/{fs['straggler_trips']}; finish reasons {reasons}")
+              f"{fs['straggler_slow']}/{fs['straggler_trips']} draft kills/re-enables="
+              f"{fs['draft_kills']}/{fs['draft_reenables']}; finish reasons {reasons}")
         if faults is not None and faults.outstanding():
             kinds = [sp.kind for sp in faults.outstanding()]
             print(f"faults: {len(kinds)} spec(s) never found an injection site: {kinds}")

@@ -1,8 +1,9 @@
 """Serving step builders, with batched sampling and device-side finish
 exits: the paged decode step and the paged prefill-chunk step (attention
-stacks), and the dense-slab decode step and prefill-admit step (the
+stacks), the dense-slab decode step and prefill-admit step (the
 pad-sensitive stacks: RWKV-6's recurrent state, token-choice MoE's K/V
-slab).
+slab), and speculative decoding's draft and verify roots with the draft's
+two prefill twins.
 
 All per-slot state lives on the device: cache_len, last_token, budget,
 sampling keys and active flags.  A decode step samples every live row,
@@ -248,3 +249,157 @@ def make_paged_prefill_chunk_step(model) -> Callable:
                 put(active, torch.ones_like(fslots, dtype=torch.bool)))
 
     return paged_prefill_chunk_step
+
+
+# ------------------------------------------------- speculative decoding
+#
+# Self-speculative roots (serving/spec): the draft root runs k+1 sequential
+# S=1 decodes of the DRAFT model over the draft's cache in one call (no
+# host round trip: the proposals and draft probs stay on the device and
+# flow into the verify root), and the verify root feeds the proposals
+# through the target's S>1 chunk-decode path, accepts or resamples on the
+# device (serving/spec/verify.py) and advances each row's length by what
+# it committed.  The length IS the cache rollback: entries past cache_len
+# are invisible to attention and overwritten by the next chunk.  Both roots
+# take ``block_tables=None`` for the dense slab (its decode path takes
+# S >= 1 chunks).
+
+
+def make_spec_draft_step(model, k: int) -> Callable:
+    """Draft root: k+1 sequential single-token decodes of the DRAFT model
+    (feed t0, sample d_1; ... feed d_{k-1}, sample d_k; feed d_k to cache
+    it), returning the (B, k) proposals and the (B, k, V) fp32 draft probs
+    the verifier needs.  Feeding all k+1 tokens keeps the draft cache a
+    superset of every committable prefix, so draft and target lengths stay
+    equal and no catch-up chunk exists.  The last forward only writes the
+    cache (``output="hidden"``: no unembed, no sample), so a row's draft
+    key advances k draws a step.  Inactive rows' paged writes drop through
+    the -1-forced table; their dense writes land at the head of their own
+    slab row, which admission rewrites wholesale.  The draft cache is
+    written in place."""
+
+    @torch.no_grad()
+    def spec_draft_step(params, pools, block_tables, last_token, cache_len,
+                        key_data, active, host_keep, temps):
+        act = active & host_keep
+        bt_eff = None
+        if block_tables is not None:
+            bt_eff = torch.where(act[:, None], block_tables,
+                                 torch.full_like(block_tables, -1))
+        # Dead rows attend at length 0 and their key chain freezes.
+        cl_eff = torch.where(act, cache_len, torch.zeros_like(cache_len))
+        tok, kd = last_token, key_data
+        toks, qs = [], []
+        for i in range(k + 1):
+            out = model.apply(params, tok[:, None], mode="decode", cache=pools,
+                              cache_len=cl_eff + i, block_tables=bt_eff,
+                              output="logits" if i < k else "hidden")
+            if i == k:
+                break
+            lg = out[:, 0]
+            qs.append(torch.softmax(lg.float() / temps.clamp(min=1e-6)[:, None], dim=-1))
+            kd, tok = sample_tokens(kd, lg, temps)
+            toks.append(tok)
+        key_data = torch.where(act[:, None], kd, key_data)
+        return torch.stack(toks, dim=1), torch.stack(qs, dim=1), key_data
+
+    return spec_draft_step
+
+
+def make_spec_verify_step(model, k: int, max_len: int) -> Callable:
+    """Verify root: the target on [t0, d_1..d_k] (one S=k+1 chunk decode:
+    the paged S>1 path over gathered pages, or the slab's chunk), the
+    always-on finite check, accept/resample on the device (greedy = exact
+    prefix match; temperature = Leviathan accept u < p/q with residual
+    resample), each row's cache_len advanced by the m+1 committed entries
+    [t0, d_1..d_m] (the cache-rollback contract), and the finish scan over
+    the committed tokens (EOS, exhausted ``budget``, or the max_len-1
+    bound, as the plain decode root), so pipelined spec steps stay
+    depth-invariant.  ``poison`` as in ``make_decode_sample_step``.
+
+    Returns one packed int32 matrix for the step's ONE device-to-host copy,
+    ``[out_tokens (k+1) | n_commit | m]`` per row: out_tokens is [d_1..d_m,
+    t_new, fill], n_commit truncates at the first committed EOS (-1: the
+    row's logits were not all finite; it commits nothing and retires
+    itself), and m is the raw acceptance count for the accounting.  Then
+    cache_len, the new last token, budget, key_data and active."""
+    from repro_torch.serving.spec.verify import verify_tail
+
+    @torch.no_grad()
+    def spec_verify_step(params, pools, block_tables, last_token, proposals,
+                         q_probs, cache_len, budget, key_data, active,
+                         host_keep, temps, eos, k_row, poison=None):
+        act = active & host_keep
+        bt_eff = None
+        if block_tables is not None:
+            bt_eff = torch.where(act[:, None], block_tables,
+                                 torch.full_like(block_tables, -1))
+        chunk = torch.cat([last_token[:, None], proposals], dim=1)
+        logits = model.apply(params, chunk, mode="decode", cache=pools,
+                             cache_len=cache_len, block_tables=bt_eff)
+        if poison is not None:
+            logits = logits + poison[:, None, None]
+        bad = act & ~torch.isfinite(logits).flatten(1).all(dim=1)
+        new_kd, m, t_new, out_tokens = verify_tail(key_data, logits, q_probs,
+                                                   proposals, temps, k_row)
+        # Dead rows freeze their keys, so extra pipelined dispatches cannot
+        # perturb a reused slot's chain.
+        key_data = torch.where(act[:, None], new_kd, key_data)
+        t_new = torch.where(act, t_new, last_token)
+        n_raw = torch.where(act, m + 1, torch.zeros_like(m))
+        cache_len = cache_len + n_raw
+        idx = torch.arange(k + 1, device=chunk.device)[None, :]
+        is_eos = (out_tokens == eos[:, None]) & (idx < n_raw[:, None])
+        any_eos = is_eos.any(dim=1)
+        first_eos = torch.argmax(is_eos.to(torch.int32), dim=1).to(torch.int32) + 1
+        n_commit = torch.where(any_eos, first_eos, n_raw)
+        # Poisoned rows commit nothing: the budget freezes and the pack
+        # carries -1 in place of a commit count.
+        budget = budget - torch.where(bad, torch.zeros_like(n_commit), n_commit)
+        n_commit = torch.where(bad, torch.full_like(n_commit, -1), n_commit)
+        alive = (budget > 0) & (cache_len < max_len - 1)
+        # A host-masked (stalled) row keeps its active flag frozen.
+        new_active = act & ~any_eos & alive & ~bad
+        active = torch.where(host_keep, new_active, active)
+        m_out = torch.where(act & ~bad, m, torch.zeros_like(m))
+        pack = torch.cat([out_tokens, n_commit[:, None], m_out[:, None]], dim=1)
+        return pack, cache_len, t_new, budget, key_data, active
+
+    return spec_verify_step
+
+
+def make_paged_draft_prefill_step(model) -> Callable:
+    """Draft twin of the paged prefill-chunk root: stream the SAME token
+    chunk into the draft pools through the draft's table rows
+    (``output="hidden"``: no unembed, no sampling), and set finishing rows'
+    draft keys to their requests' own chains (``fslots`` as in the chunk
+    root: >= the slot count drops).  Writes past a row's draft reservation
+    drop on -1 table entries."""
+
+    @torch.no_grad()
+    def paged_draft_prefill_step(params, pools, bt_rows, tokens, starts, fslots,
+                                 key_data, row_keys):
+        model.apply(params, tokens, mode="decode", cache=pools, cache_len=starts,
+                    block_tables=bt_rows, output="hidden")
+        n = key_data.shape[0]
+        ext = torch.cat([key_data, key_data[:1]])
+        ext[fslots.long().clamp(max=n)] = row_keys
+        return ext[:n]
+
+    return paged_draft_prefill_step
+
+
+def make_dense_draft_prefill_step(model, max_len: int) -> Callable:
+    """Draft twin of the dense prefill-admit root: prefill the request
+    through the DRAFT params into a fresh row cache, write its rows into
+    the draft slab at ``slots``, and set the admitted rows' draft keys to
+    their requests' chains."""
+
+    @torch.no_grad()
+    def dense_draft_prefill_step(params, cache, tokens, slots, key_data, row_keys):
+        row_cache = model.init_cache(tokens.shape[0], max_len, device=tokens.device)
+        model.apply(params, tokens, mode="prefill", cache=row_cache, output="hidden")
+        set_cache_rows(cache, row_cache, slots)
+        return key_data.index_copy(0, slots.long(), row_keys)
+
+    return dense_draft_prefill_step

@@ -65,3 +65,22 @@ def cache_layout(model: DecoderLM) -> str:
     if not cache_leaf_names(model) <= PAGEABLE_CACHE_LEAVES:
         return "dense"
     return "paged"
+
+
+def build_draft_params(model: DecoderLM, params, grams, ratio: float,
+                       method: str = "nsvd1"):
+    """The self-speculative draft: ``params`` factored at a HIGHER
+    compression ratio than the serving target (same architecture, cheaper
+    matmuls; the factored leaves dispatch through ``linear_apply``).  One
+    more ``build_plan`` + ``compress_params`` over the Grams the target's
+    compression already collected.  The factors take the model's dtype, as
+    ``launch.serve`` builds its target: bf16 factors keep the draft's
+    decodes on the nested stream and mma kernels.  Pass the result as
+    ``SpecConfig(draft_params=...)`` (serving/spec)."""
+    from repro_torch.core import CompressionConfig, build_plan, compress_params
+
+    if not 0.0 < ratio < 1.0:
+        raise ValueError(f"draft compression ratio must be in (0, 1), got {ratio}")
+    plan = build_plan(model.compressible_targets(), CompressionConfig(
+        method=method, ratio=ratio, dtype=model.cfg.dtype, use_randomized=False))
+    return compress_params(params, plan, grams)

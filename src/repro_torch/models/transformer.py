@@ -87,9 +87,11 @@ class DecoderLM:
               mode: str = "train", cache: Optional[Dict] = None,
               cache_len: Optional[torch.Tensor] = None,
               block_tables: Optional[torch.Tensor] = None,
-              taps: Optional[Dict] = None) -> torch.Tensor:
-        """Logits (B, S, V).  In "prefill" and "decode" mode the ``cache``
-        tensors are written in place."""
+              taps: Optional[Dict] = None, output: str = "logits") -> torch.Tensor:
+        """Logits (B, S, V), or with ``output="hidden"`` the final-norm
+        hidden states (B, S, d_model) without the unembed (the draft's
+        prefills, which need only the cache writes).  In "prefill" and
+        "decode" mode the ``cache`` tensors are written in place."""
         cfg = self.cfg
         b, s = tokens.shape
         x = embed(params["embed"], tokens).to(self.dtype)
@@ -111,6 +113,10 @@ class DecoderLM:
         x = norm_apply(params["final_norm"], x)
         if taps is not None:
             taps["final.out_in"] = x
+        if output == "hidden":
+            return x
+        if output != "logits":
+            raise ValueError(f"output {output!r}: 'logits' or 'hidden'")
         return unembed(params.get("unembed", params["embed"]), x)
 
     def compressible_targets(self):

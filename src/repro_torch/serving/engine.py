@@ -54,15 +54,29 @@ without a plan each injection site costs one ``is None`` check.  A
 step-time watchdog flags slow steps, and ``FaultPolicy.step_timeout_s``
 raises ``ServingFault`` with an engine snapshot.
 
+Self-speculative decoding (``spec_config``, serving/spec), as the
+reference's: a higher-compression NSVD twin of the weights drafts ``k``
+tokens a step (k+1 S=1 decodes over the draft's own paged pools or dense
+slab, reserved, grown, rolled back and freed in lockstep with the
+target's), the target verifies them in one S=k+1 chunk call, and batched
+accept/resample on the device commits the accepted prefix plus one token;
+greedy streams are those of plain decoding.  A spec step still copies one
+packed matrix to the host.  ``dynamic_k`` adapts each row's window (the
+ring then runs at depth 1).  A failed draft dispatch (``draft_kill``)
+degrades to plain decode until ``FaultPolicy.draft_cooldown_steps`` pass.
+Speculation needs a pure-attention model (a recurrent or MoE layout is
+refused) and re-prefill resume (swap is refused).
+
 Not ported yet (later slices): bucketed dense-slab admission (exact-length
-admission serves every dense-layout model), speculative decoding (and the
-``draft_kill`` fault with it), meshes, and the telemetry hooks.
+admission serves every dense-layout model), meshes, and the telemetry
+hooks.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import logging
 import os
 import time
 import zlib
@@ -75,9 +89,13 @@ import torch
 from repro_torch.launch.steps import (
     POISON_TOKEN,
     make_decode_sample_step,
+    make_dense_draft_prefill_step,
     make_paged_decode_step,
+    make_paged_draft_prefill_step,
     make_paged_prefill_chunk_step,
     make_prefill_admit_step,
+    make_spec_draft_step,
+    make_spec_verify_step,
     request_keys,
 )
 from repro_torch.models.api import cache_layout
@@ -90,8 +108,10 @@ from repro_torch.serving.faults import (
 )
 from repro_torch.serving.kvcache import PagedKVCache, pool_leaves, upload
 from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
+from repro_torch.serving.spec import DraftState, SpecConfig
 
 _PIPELINE_DEPTH_ENV = "REPRO_SERVING_PIPELINE_DEPTH"
+logger = logging.getLogger(__name__)
 
 
 def _swap_checksum(blocks) -> int:
@@ -153,6 +173,9 @@ class Request:
     # queued past it is shed) and the poison retries spent.
     deadline: Optional[float] = None
     retries: int = 0
+    # Speculative decoding: draft tokens proposed and accepted.
+    spec_proposed: int = 0
+    spec_accepted: int = 0
 
     @property
     def done(self) -> bool:
@@ -175,14 +198,17 @@ class _PrefillTask:
 @dataclasses.dataclass
 class _InFlight:
     """One dispatched, unconsumed decode step: the host tensor its token
-    vector lands in, the event to wait on (None on the CPU), and the host's
-    view of the live rows at dispatch.  FIFO consumption keeps the
-    reference's invariant: a row live on the host at consume time was
-    device-active at this entry's dispatch."""
+    vector (a spec step: its packed [tokens | n_commit | m] matrix) lands
+    in, the event to wait on (None on the CPU), the host's view of the live
+    rows at dispatch, and a spec step's per-row windows.  FIFO consumption
+    keeps the reference's invariant: a row live on the host at consume time
+    was device-active at this entry's dispatch."""
     tokens: torch.Tensor
     ready: Optional[torch.cuda.Event]
     mask: np.ndarray
     dispatch_s: float
+    spec: bool = False
+    k_row: Optional[np.ndarray] = None
 
 
 class ServingEngine:
@@ -194,7 +220,8 @@ class ServingEngine:
                  pipeline_depth: Optional[int] = None,
                  sched_config: Optional[SchedulerConfig] = None,
                  faults: Optional[FaultPlan] = None,
-                 fault_policy: Optional[FaultPolicy] = None):
+                 fault_policy: Optional[FaultPolicy] = None,
+                 spec_config: Optional[SpecConfig] = None):
         if pipeline_depth is None:
             pipeline_depth = int(os.environ.get(_PIPELINE_DEPTH_ENV, "2"))
         if pipeline_depth < 1:
@@ -215,6 +242,16 @@ class ServingEngine:
                 f"model {model.cfg.name!r} has cache layout {layout!r}; "
                 "paging requires a pure-attention cache (models.api.cache_layout)")
         self.layout = "dense" if paged is False else layout
+        self.spec = spec_config
+        if spec_config is not None and layout != "paged":
+            raise ValueError(
+                f"model {model.cfg.name!r} has cache layout {layout!r}; speculative "
+                "decoding needs pure-attention caches (chunk verification and "
+                "length rollback have no recurrent or MoE form)")
+        if spec_config is not None and self.sched.resume_mode == "swap":
+            raise ValueError(
+                "resume='swap' is unsupported with speculative decoding (the draft "
+                "pool's swapped prefix has no catch-up path); use resume='reprefill'")
         if self.layout == "paged":
             self.kv = PagedKVCache(model, max_batch, max_len, block_size=block_size,
                                    num_blocks=num_blocks, kv_quant=kv_quant,
@@ -236,6 +273,24 @@ class ServingEngine:
         self.budget_dev = torch.zeros(max_batch, dtype=torch.int32, device=dev)
         self.key_data = torch.zeros((max_batch, 2), dtype=torch.int64, device=dev)
         self.active_dev = torch.zeros(max_batch, dtype=torch.bool, device=dev)
+
+        self.draft = None
+        if spec_config is not None:
+            paged_spec = self.layout == "paged"
+            self.draft = DraftState(model, spec_config.draft_params, max_batch, max_len,
+                                    paged=paged_spec, block_size=block_size,
+                                    num_blocks=num_blocks, kv_quant=kv_quant,
+                                    seed=spec_config.seed, device=dev)
+            self._spec_draft = make_spec_draft_step(model, spec_config.k)
+            self._spec_verify = make_spec_verify_step(model, spec_config.k, max_len)
+            self._draft_prefill = (make_paged_draft_prefill_step(model) if paged_spec
+                                   else make_dense_draft_prefill_step(model, max_len))
+            # Per-row speculation windows (all k unless dynamic_k shrinks them).
+            self._k_row = np.full(max_batch, spec_config.k, np.int32)
+            self._k_row_dev = None
+            self.spec_proposed = self.spec_accepted = self.spec_committed = 0
+            self.spec_step_rows = 0
+            self.spec_steps = 0  # consumed spec steps
 
         # Host mirrors for scheduling, updated from bookkeeping and the one
         # token vector each step copies.  ``_dev_len`` mirrors each row's
@@ -278,7 +333,9 @@ class ServingEngine:
                           if faults is not None or fault_policy is not None else None)
         self._chaos = faults is not None and faults.has("poison_logits")
         self._poison_zero = None
-        self._step_idx = 0  # dispatched decode steps
+        self._step_idx = 0  # dispatched decode steps (plain or spec)
+        self._draft_dead = False  # a killed draft path, off until the step below
+        self._draft_off_until = 0
         self._parked: List[Tuple[int, Request]] = []  # (ready step, poison retry)
         self._has_deadlines = False
         self._draining = False
@@ -400,10 +457,28 @@ class ServingEngine:
     def step(self) -> List[Request]:
         """Dispatch one decode step for every live row, then consume the
         oldest in-flight step once the ring holds ``pipeline_depth``;
-        returns the requests finished."""
+        returns the requests finished.  With ``spec_config`` the step is a
+        speculative one (draft + verify), or a plain decode while a killed
+        draft cools down."""
+        if self._draft_dead and self._step_idx >= self._draft_off_until:
+            # The cool-down is over: stale draft-cache entries only lower
+            # acceptance (verify is an exact check), never change a token.
+            # The ring drains first, as the reference's does, so the switch
+            # happens at the same step in both engines.
+            self._drain_ring()
+            self._draft_dead = False
+            self.fault_events["draft_reenables"] += 1
+        use_spec = self.spec is not None and not self._draft_dead
+        if use_spec and self.spec.dynamic_k and self._ring:
+            # Step N+1's windows depend on step N's acceptance: dynamic-k
+            # speculation runs the ring at depth 1.
+            self._drain_ring()
         if self.kv is not None and self.sched.on_demand:
             self._ensure_coverage()
-        self._dispatch_decode()
+        if use_spec:
+            self._dispatch_spec()
+        else:
+            self._dispatch_decode()
         self._step_idx += 1
         if len(self._ring) >= self.pipeline_depth:
             self._consume_one()
@@ -417,12 +492,16 @@ class ServingEngine:
 
     def defrag(self) -> int:
         """Compact live blocks to the lowest pool ids (paged only); returns
-        the blocks moved.  Drains the ring first: the move map comes from
-        the allocator, which must have seen every in-flight step's frees."""
+        the blocks moved (target and draft pools).  Drains the ring first:
+        the move map comes from the allocator, which must have seen every
+        in-flight step's frees."""
         if self.kv is None:
             return 0
         self._drain_ring()
-        return len(self.kv.defrag())
+        moved = len(self.kv.defrag())
+        if self.draft is not None:
+            moved += len(self.draft.kv.defrag())
+        return moved
 
     def _drain_ring(self) -> None:
         while self._ring:
@@ -442,7 +521,8 @@ class ServingEngine:
     def _admission_could_progress(self) -> bool:
         """A prefill is mid-flight, or the scheduler's head could land in a
         free slot on today's free blocks, or a priority preemption could
-        make room.  A blocked round ages the waiting class heads."""
+        make room (with a draft: in both pools).  A blocked round ages the
+        waiting class heads."""
         if self._prefilling:
             return True
         head = self.sched.head()
@@ -450,8 +530,10 @@ class ServingEngine:
             return False
         blocked = bool(self.active.all())
         if not blocked and self.kv is not None:
-            blocked = self.kv.alloc.free_blocks() < self.kv.blocks_for(
-                self.sched.admit_tokens(head, self.max_len))
+            need = self.kv.blocks_for(self.sched.admit_tokens(head, self.max_len))
+            blocked = self.kv.alloc.free_blocks() < need
+            if not blocked and self.draft is not None:
+                blocked = self.draft.kv.alloc.free_blocks() < need
         if not blocked:
             return True
         if self.kv is not None and self.sched.preempt and self._outranked_victims(head):
@@ -504,8 +586,13 @@ class ServingEngine:
             slot = None
             for cand in self.sched.slot_order(free, self.kv, self._freed_at):
                 if self.kv.reserve(cand, need):
-                    slot = cand
-                    break
+                    if self.draft is None or self.draft.reserve(cand, need):
+                        slot = cand
+                        break
+                    # The draft pool reserves in lockstep: on failure the
+                    # target's reservation rolls back.
+                    self.kv.free(cand)
+                    continue
                 if self.kv.alloc.in_use() == 0:
                     raise RuntimeError(f"request {req.uid} needs "
                                        f"{self.kv.blocks_for(need)} blocks but the "
@@ -540,12 +627,17 @@ class ServingEngine:
             if not free:
                 break
             req, slot = self.sched.pop_head(), free[0]
+            tokens, slots = t(req.prompt[None]), t([slot])
             (first, self.cache_len, self.last_token, self.budget_dev, self.key_data,
              self.active_dev) = self._prefill(
-                self.params, self.cache, t(req.prompt[None]), t([slot]),
+                self.params, self.cache, tokens, slots,
                 t([max(0, req.max_new_tokens - 1)]), request_keys(self.seed, [req.uid], dev),
                 self.cache_len, self.last_token, self.budget_dev, self.key_data,
                 t(np.asarray([req.temperature], np.float32)), self.active_dev)
+            if self.draft is not None:
+                d = self.draft
+                d.key_data = self._draft_prefill(d.params, d.cache, tokens, slots,
+                                                 d.key_data, d.request_keys([req.uid]))
             self.prefill_ticks += 1
             tok = int(first.cpu()[0])
             self.host_syncs += 1
@@ -581,16 +673,28 @@ class ServingEngine:
                                  - len(task.req.generated) - 1)
                 fin.append((r, task))
         rkeys = torch.zeros((r_rows, 2), dtype=torch.int64, device=dev)
+        dkeys = torch.zeros((r_rows, 2), dtype=torch.int64, device=dev)
         if fin:
-            rkeys[[r for r, _ in fin]] = request_keys(
-                self.seed, [t.req.uid for _, t in fin], dev)
+            rows, uids = [r for r, _ in fin], [t.req.uid for _, t in fin]
+            rkeys[rows] = request_keys(self.seed, uids, dev)
+            if self.draft is not None:
+                dkeys[rows] = self.draft.request_keys(uids)
         t = lambda a: upload(a, dev)  # noqa: E731
+        tokens_d, starts_d, fslots_d = t(tokens), t(starts), t(fslots)
         (first, self.cache_len, self.last_token, self.budget_dev, self.key_data,
          self.active_dev) = self._chunk_step(
-            self.params, self.kv.pools, t(bt_rows), t(tokens), t(starts),
-            t(nvalid), t(fslots), t(budgets), rkeys, self.cache_len,
+            self.params, self.kv.pools, t(bt_rows), tokens_d, starts_d,
+            t(nvalid), fslots_d, t(budgets), rkeys, self.cache_len,
             self.last_token, self.budget_dev, self.key_data, t(temps),
             self.active_dev)
+        if self.draft is not None:
+            # The same chunk into the draft pools through the draft's table
+            # rows (lengths and last tokens are shared with the target).
+            d = self.draft
+            d_rows = np.full_like(bt_rows, -1)
+            d_rows[:len(tasks)] = d.kv.table_np[[task.slot for task in tasks]]
+            d.key_data = self._draft_prefill(d.params, d.pools, t(d_rows), tokens_d,
+                                             starts_d, fslots_d, d.key_data, dkeys)
         self.prefill_ticks += 1
         finished: List[Request] = []
         if fin:
@@ -612,6 +716,8 @@ class ServingEngine:
         self._dev_len[slot] = len(req.prompt)
         self._stalled[slot] = False
         self._host_dirty = True
+        if self.spec is not None:
+            self._k_row[slot] = self.spec.k  # a fresh speculation window
         if (req.done or self._len_host[slot] >= self.max_len - 1
                 or tok == self._eos[slot]):
             finished.append(req)
@@ -645,21 +751,25 @@ class ServingEngine:
         self._freed_at[slot] = next(self._free_clock)
         if self.kv is not None:
             self.kv.free(slot)
+        if self.draft is not None:
+            self.draft.free(slot)
 
     # ------------------------------------------- on-demand growth, preemption
 
     def _ensure_coverage(self) -> None:
-        """Grow every live row's reservation to cover its next dispatch.
-        Growth only appends table entries (the table re-uploads at the next
-        dispatch), so it is safe with steps in flight.  A row the pool
-        cannot grow stalls (preemption off) or evicts a victim."""
+        """Grow every live row's reservation (and the draft's, in
+        lockstep) to cover its next dispatch: one token, or the k+1 of a
+        spec step.  Growth only appends table entries (the table re-uploads
+        at the next dispatch), so it is safe with steps in flight.  A row
+        the pool cannot grow stalls (preemption off) or evicts a victim."""
         if self.kv is None or not self.sched.on_demand:
             return
+        look = self.spec.k + 1 if self.spec is not None else 1
         bs = self.kv.block_size
         for slot in np.flatnonzero(self.active).tolist():
             if not self.active[slot]:
                 continue  # preempted by an earlier row's growth
-            target = min(int(self._dev_len[slot]) + 1, self.max_len)
+            target = min(int(self._dev_len[slot]) + look, self.max_len)
             covered = len(self.kv.alloc.owned_by(slot)) * bs
             if target <= covered:
                 ok = True
@@ -701,13 +811,21 @@ class ServingEngine:
         return True  # the drain retired the row; nothing left to cover
 
     def _extend(self, slot: int, target: int) -> bool:
-        """Extend slot's coverage to ``target`` tokens; False on a dry pool
-        (or an injected ``alloc_fail``: the caller stalls or evicts)."""
+        """Extend slot's coverage to ``target`` tokens in the target pool
+        and the draft's; False when either is dry (or on an injected
+        ``alloc_fail``: the caller stalls or evicts).  A target extension
+        the draft cannot match is kept (an over-reservation the retire path
+        frees) and the whole call is retried later, as the reference's."""
         if self._take_fault("alloc_fail") is not None:
             return False
         added = self.kv.extend(slot, target)
         if added is None:
             return False
+        if self.draft is not None:
+            d_added = self.draft.extend(slot, target)
+            if d_added is None:
+                return False
+            added += d_added
         self.sched_events["grown_blocks"] += added
         return True
 
@@ -738,6 +856,8 @@ class ServingEngine:
         else:
             self._fold_generated(req)
         self.kv.rollback(slot, 0)
+        if self.draft is not None:
+            self.draft.rollback(slot, 0)
         self.slots[slot] = None
         self.active[slot] = False
         self._stalled[slot] = False
@@ -905,6 +1025,8 @@ class ServingEngine:
             if task.req.uid == uid:
                 self._prefilling.remove(task)
                 self.kv.free(task.slot)
+                if self.draft is not None:
+                    self.draft.free(task.slot)
                 self._freed_at[task.slot] = next(self._free_clock)
                 self._finish_cancel(task.req)
                 return True
@@ -939,6 +1061,8 @@ class ServingEngine:
         self._shed_shutdown()
         for task in self._prefilling:
             self.kv.free(task.slot)
+            if self.draft is not None:
+                self.draft.free(task.slot)
             self.fault_events["shed"] += 1
             self._abort(task.req, "shutdown")
         self._prefilling = []
@@ -961,9 +1085,11 @@ class ServingEngine:
         return out
 
     def degraded_components(self) -> Dict[str, object]:
-        """Components degraded now (empty when healthy): stalled slots and
-        draining."""
+        """Components degraded now (empty when healthy): a killed draft
+        path (until its cool-down ends), stalled slots and draining."""
         out: Dict[str, object] = {}
+        if self.spec is not None and self._draft_dead:
+            out["draft"] = {"off_until_step": self._draft_off_until}
         stalled = np.flatnonzero(self._stalled).tolist()
         if stalled:
             out["stalled_slots"] = [int(s) for s in stalled]
@@ -992,7 +1118,8 @@ class ServingEngine:
     # ---------------------------------------------------------------- decode
 
     def _host_inputs(self):
-        """Device copies of (host_keep, temps, eos[, row order]), rebuilt
+        """Device copies of (host_keep, temps, eos[, row order]) and, with
+        a draft, of the speculation windows (``_k_row_dev``), rebuilt
         only after bookkeeping changed them.  Each rebuild uploads fresh
         pinned buffers, so no in-flight copy reads a buffer the host
         rewrites.  Stalled rows are live but drop out of host_keep, which
@@ -1007,6 +1134,8 @@ class ServingEngine:
                 order = self.sched.row_order(self._dev_len, keep, self.max_batch, 1)
                 self._host_dev += (None if order is None
                                    else upload(order.astype(np.int64), dev),)
+            if self.spec is not None:
+                self._k_row_dev = upload(self._k_row, dev)
             self._host_dirty = False
         return self._host_dev
 
@@ -1027,6 +1156,57 @@ class ServingEngine:
         host, ready = _to_host(sampled)
         self._note_occupancy(mask)
         self._ring.append(_InFlight(host, ready, mask, time.perf_counter() - t0))
+
+    def _dispatch_spec(self) -> None:
+        """Launch one speculative step (the draft root, then the verify
+        root) and ring its packed matrix's copy; no host sync.  A draft
+        dispatch that fails (or an injected ``draft_kill``, raised before
+        the draft root runs) degrades this and the next steps to plain
+        decode: greedy streams are unchanged, since verify was always an
+        exact argmax check.  On the card a failure that was not injected
+        raises: no fallback may hide a kernel's launch failure."""
+        t0 = time.perf_counter()
+        mask = self.active & ~self._stalled
+        keep, temps, eos = self._host_inputs()[:3]
+        d = self.draft
+        killed = self._take_fault("draft_kill") is not None
+        if not killed:
+            try:
+                proposals, q_probs, d.key_data = self._spec_draft(
+                    d.params, d.pools, d.table_device(), self.last_token, self.cache_len,
+                    d.key_data, self.active_dev, keep, temps)
+            except RuntimeError:
+                if self.device.type == "cuda":
+                    raise
+                logger.exception("draft dispatch failed: plain decode for %d steps",
+                                 self._fault_policy.draft_cooldown_steps)
+                killed = True
+        if killed:
+            self._degrade_draft()
+            self._dispatch_decode()
+            return
+        cache, table = ((self.kv.pools, self.kv.table_device()) if self.kv is not None
+                        else (self.cache, None))
+        (pack, self.cache_len, self.last_token, self.budget_dev, self.key_data,
+         self.active_dev) = self._spec_verify(
+            self.params, cache, table, self.last_token, proposals, q_probs,
+            self.cache_len, self.budget_dev, self.key_data, self.active_dev, keep,
+            temps, eos, self._k_row_dev, *self._poison_args())
+        if self.kv is not None:
+            # Conservative: verify writes all k+1 entries before the length
+            # rolls back to the accepted prefix; _commit_spec reconciles.
+            self._dev_len += (self.spec.k + 1) * mask
+        host, ready = _to_host(pack)
+        self._note_occupancy(mask)
+        self._ring.append(_InFlight(host, ready, mask, time.perf_counter() - t0,
+                                    spec=True, k_row=self._k_row.copy()))
+
+    def _degrade_draft(self) -> None:
+        """The draft dispatch failed: plain decode until the cool-down's
+        steps pass (``step`` re-enables it)."""
+        self._draft_dead = True
+        self._draft_off_until = self._step_idx + self._fault_policy.draft_cooldown_steps
+        self.fault_events["draft_kills"] += 1
 
     def _note_occupancy(self, mask: np.ndarray) -> None:
         """Live rows per step, and live committed tokens over reserved pool
@@ -1072,7 +1252,8 @@ class ServingEngine:
                 f"(dispatch {entry.dispatch_s:.3f}s + sync {t_wait:.3f}s)",
                 kind="step_timeout", step=self._step_idx, snapshot=self.engine_snapshot())
         t1 = time.perf_counter()
-        self._pending_finished.extend(self._commit_decode(entry, toks))
+        commit = self._commit_spec if entry.spec else self._commit_decode
+        self._pending_finished.extend(commit(entry, toks))
         t_host = time.perf_counter() - t1
         self._dispatch_s.append(entry.dispatch_s)
         self._wait_s.append(t_wait)
@@ -1101,6 +1282,54 @@ class ServingEngine:
                 self._retire_slot(slot)
         return finished
 
+    def _commit_spec(self, entry: _InFlight, toks: np.ndarray) -> List[Request]:
+        """Emit a spec step's committed tokens row by row, with the finish
+        semantics of sequential decoding (the device retired the same rows
+        in the same step)."""
+        k = self.spec.k
+        n_commit, m_acc = toks[:, k + 1], toks[:, k + 2]
+        self.spec_steps += 1
+        finished: List[Request] = []
+        for slot, req in enumerate(self.slots):
+            if req is None or not entry.mask[slot]:
+                continue
+            if int(n_commit[slot]) < 0:
+                # The verify's finite check: this row's logits were not all
+                # finite; its budget was not charged.  Quarantine before any
+                # speculative accounting.
+                self._quarantine(slot, req, finished)
+                continue
+            m, k_eff = int(m_acc[slot]), int(entry.k_row[slot])
+            req.spec_proposed += k_eff
+            req.spec_accepted += m
+            self.spec_proposed += k_eff
+            self.spec_accepted += m
+            self.spec_step_rows += 1
+            self._len_host[slot] += m + 1  # entries committed to the cache
+            if self.kv is not None:
+                # The dispatch advanced _dev_len by k+1; the cache kept m+1.
+                self._dev_len[slot] -= k - m
+            if self.spec.dynamic_k:
+                if m == k_eff:
+                    self._k_row[slot] = min(k, k_eff + 1)
+                elif m == 0:
+                    self._k_row[slot] = max(1, k_eff - 1)
+                self._host_dirty = True
+            base_len = self._len_host[slot] - (m + 1)
+            for j in range(int(n_commit[slot])):
+                tok = int(toks[slot, j])
+                req.generated.append(tok)
+                self.spec_committed += 1
+                # Sequential finish semantics: the cached length after this
+                # token is base_len + j + 1.
+                if (req.done or base_len + j + 1 >= self.max_len - 1
+                        or tok == self._eos[slot]):
+                    finished.append(req)
+                    self._mark_finished(req)
+                    self._retire_slot(slot)
+                    break
+        return finished
+
     # ----------------------------------------------------------------- stats
 
     def stats(self) -> Dict[str, float]:
@@ -1125,6 +1354,24 @@ class ServingEngine:
             "step_dispatch_s": mean(self._dispatch_s),
             "step_device_wait_s": mean(self._wait_s),
             "step_host_s": mean(self._host_s),
+        }
+
+    def spec_stats(self) -> Dict[str, object]:
+        """Speculative-decoding accounting ({} without a draft): acceptance
+        rate and committed tokens per live row-step (the reference's keys),
+        the draft cache's bytes, and the spec steps consumed."""
+        if self.spec is None:
+            return {}
+        return {
+            "k": self.spec.k,
+            "dynamic_k": bool(self.spec.dynamic_k),
+            "proposed": self.spec_proposed,
+            "accepted": self.spec_accepted,
+            "committed": self.spec_committed,
+            "acceptance_rate": self.spec_accepted / max(1, self.spec_proposed),
+            "committed_per_row_step": self.spec_committed / max(1, self.spec_step_rows),
+            "draft_hbm_bytes": self.draft.hbm_bytes(),
+            "steps": self.spec_steps,
         }
 
     def scheduler_stats(self) -> Dict[str, object]:
@@ -1165,6 +1412,8 @@ class ServingEngine:
                  "per_device_cache_hbm_bytes": slab}
         s["mesh"] = {"dp": 1, "tp": 1, "devices": 1}
         s["live_tokens"] = live
+        if self.draft is not None:
+            s["draft_hbm_bytes"] = self.draft.hbm_bytes()
         return s
 
 

@@ -22,9 +22,9 @@ Fault kinds
     Add a NaN to the targeted request's logits at the chosen step, via
     the decode step's trailing poison input.  The device-side finite
     check folds the verdict into the token word the step already copies
-    (``POISON_TOKEN``; the reference's spec verify uses
-    ``n_commit == -1``, and speculative decoding is not ported yet),
-    so detection needs no extra transfer.  Requires ``uid``.  Fires at
+    (``POISON_TOKEN``; a speculative verify step reports
+    ``n_commit == -1`` in its packed matrix), so detection needs no extra
+    transfer.  Requires ``uid``.  Fires at
     the first dispatch at/after ``step`` where the row is live and
     unstalled; a uid that never reaches the device leaves the spec
     unfired (see :meth:`FaultPlan.outstanding`).
@@ -42,10 +42,9 @@ Fault kinds
 ``draft_kill``
     Raise inside the next speculative draft dispatch at/after ``step``;
     the engine degrades to plain decode and re-enables the draft after
-    a cool-down.  Its only site is the speculative dispatch, which the
-    port does not have yet: the spec never fires and stays in
-    :meth:`FaultPlan.outstanding`, as in the reference engine without a
-    speculative config.
+    a cool-down.  Its only site is the speculative dispatch: on an engine
+    without a speculative config the spec never fires and stays in
+    :meth:`FaultPlan.outstanding`, as in the reference engine.
 """
 
 from __future__ import annotations

@@ -1335,3 +1335,123 @@ def test_cancel_live_row_at_depth2_on_card(dev):
     assert got[0].generated == base[0] and got[2].generated == base[2]
     assert 0 < len(got[1].generated) < 20 and got[1].generated == base[1][:len(got[1].generated)]
     assert eng.kv.alloc.in_use() == 0 and eng.fault_stats()["cancelled"] == 1
+
+
+# ------------------------------------------------ speculative decoding
+
+
+class _FixedLogits:
+    """A model stand-in whose every forward returns the same logits, so a
+    verify root's tail (accept, finish scan, pack) runs on identical logits
+    on both devices."""
+
+    def __init__(self, logits):
+        self.logits = logits
+
+    def apply(self, params, tokens, **kw):
+        return self.logits.to(tokens.device)
+
+
+def test_spec_verify_root_on_card_equals_cpu(dev):
+    """The verify root's tail on the card equals the same root on the CPU
+    for greedy rows on identical logits (accepted counts, commit counts
+    cut at an eos, the poisoned row's -1, lengths, budgets, active flags,
+    last tokens), and its call makes no host sync."""
+    from repro_torch.launch.steps import make_spec_verify_step
+
+    b, k, v = 8, 4, 512
+    g = torch.Generator().manual_seed(0)
+    logits = torch.randn((b, k + 1, v), generator=g) * 4
+    greedy = logits.argmax(-1).to(torch.int32)
+    proposals = torch.randint(0, v, (b, k), generator=g, dtype=torch.int32)
+    for r in range(b):
+        proposals[r, :r % (k + 1)] = greedy[r, :r % (k + 1)]
+    logits[5, 1, 7] = float("nan")  # row 5 poisoned
+    q = torch.softmax(torch.randn((b, k, v), generator=g), -1)
+    eos = torch.full((b,), -1, dtype=torch.int32)
+    eos[4] = int(greedy[4, 1])
+    args = dict(last_token=torch.arange(b, dtype=torch.int32), proposals=proposals, q_probs=q,
+                cache_len=torch.full((b,), 20, dtype=torch.int32),
+                budget=torch.tensor([9, 9, 2, 9, 9, 9, 9, 1], dtype=torch.int32),
+                key_data=torch.zeros((b, 2), dtype=torch.int64),
+                active=torch.ones(b, dtype=torch.bool),
+                host_keep=torch.tensor([True] * 6 + [False, True]),
+                temps=torch.zeros(b), eos=eos,
+                k_row=torch.tensor([k, k, 2, k, k, k, k, 1], dtype=torch.int32))
+
+    def run(device):
+        root = make_spec_verify_step(_FixedLogits(logits.to(device)), k, 64)
+        kw = {n: t.to(device) for n, t in args.items()}
+        if device.type == "cuda":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = root(None, None, None, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return [t.cpu() for t in out]
+
+    cpu, card = run(torch.device("cpu")), run(dev)
+    for got, want in zip(card, cpu):
+        assert torch.equal(got, want)
+    pack = cpu[0]
+    assert pack[5, k + 1] == -1 and pack[4, k + 1] <= 2 and pack[6, k + 1] == 0
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_spec_step_dispatch_is_sync_free(dev, paged):
+    """A speculative engine step's dispatch (the draft root's k+1 decodes on
+    the nested stream kernel and, paged, the paged kernel; the verify
+    root's 40-row chunk on the mma kernel) makes no host sync, on the paged
+    pools and on the dense slab, and the engine then serves every request
+    to its end.  (Greedy streams are held to plain decoding's on the CPU,
+    tests/test_torch_spec.py, and on the card by chip_smoke's margin rule:
+    the bf16 verify chunk and the plain decode step round differently, so
+    they may part at a near-tie.)"""
+    from repro_torch.serving.spec import SpecConfig
+
+    model, params = _paged_card_model(dev)
+    prompts = _sched_prompts(3)
+    eng = ServingEngine(model, params, max_batch=8, max_len=64, block_size=8,
+                        prefill_chunk=16, pipeline_depth=1, paged=paged,
+                        spec_config=SpecConfig(params, k=4))
+    ids = [eng.submit(p, max_new_tokens=20) for p in prompts]
+    while eng.sched or eng._prefilling:
+        eng.run(max_steps=1)
+    before = (nlr_ops.stream_launches, nlr_ops.mma_launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._dispatch_spec()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    calls = 4 * model.cfg.num_layers  # the nested attention projections of a forward
+    assert (nlr_ops.stream_launches - before[0],
+            nlr_ops.mma_launches - before[1]) == (5 * calls, calls)
+    eng.drain()
+    eng.run()
+    got = [eng.finished_requests[u] for u in ids]
+    assert all(r.finish_reason == "stop" and len(r.generated) == 20 for r in got)
+    assert eng.spec_stats()["steps"] >= 1 and eng.spec_stats()["acceptance_rate"] > 0.5
+
+
+def test_spec_draft_failure_raises_on_card(dev):
+    """A draft root that fails on the card (not an injected ``draft_kill``)
+    raises out of the step: no fallback to plain decode hides a kernel's
+    launch failure there (on the CPU the engine degrades as the
+    reference's does)."""
+    from repro_torch.serving.spec import SpecConfig
+
+    model, params = _paged_card_model(dev)
+    eng = ServingEngine(model, params, max_batch=8, max_len=64, block_size=8,
+                        prefill_chunk=16, pipeline_depth=1, spec_config=SpecConfig(params, k=4))
+    for p in _sched_prompts(2):
+        eng.submit(p, max_new_tokens=8)
+    while eng.sched or eng._prefilling:
+        eng.run(max_steps=1)
+
+    def failing(*args):
+        raise RuntimeError("draft launch failed")
+
+    eng._spec_draft = failing
+    with pytest.raises(RuntimeError, match="draft launch failed"):
+        eng._dispatch_spec()
+    assert eng.fault_stats()["draft_kills"] == 0
