@@ -86,6 +86,29 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
      tile 0); S5's fault_stats() against its plan and the degraded view;
      S6's rejections only at margins inside the gate.  Then one spec step
      profiled: the draft root, the verify root and both;
+  4e. obs_serve path: serving observability on *Serve*'s compressed model,
+     prompts and spec_serve's draft (nothing compressed again): O1
+     *Serve*'s plan (worst case, depth 1) with telemetry off, O2t with a
+     ``Telemetry`` (its hooks timed directly) and O2 with a ``Telemetry``
+     and a ``MetricsServer`` on port 0 scraped over HTTP from a thread
+     during the run and, in the first O2, a ``ProfileCapture`` of 8 steps,
+     in turn OBS_PAIRS times; O3 sched_serve C's plan with F1's fault plan
+     and O4 spec_serve S5, each off and on.  Gates: O2t's and O2's
+     streams bit-identical to O1's with equal launches of every kernel;
+     O3's and O4's tokens equal off and on; the counters reconciled with
+     ``stats()``, ``scheduler_stats()``, ``fault_stats()`` and
+     ``spec_stats()`` (spec rows by (k, accepted), the acceptance rate of
+     ``bench_block()``); every request's events in lifecycle order;
+     ``/healthz`` 503 naming ``draft`` during O4's cool-down, 200 after;
+     no sync in a dispatch (sync-debug "error"); the captured Chrome trace
+     holding ``serving_root.paged_decode`` ranges and the stream_partial,
+     paged_split_kernel and paged_combine_kernel kernels.  Prints TTFT
+     p50/p99, TPOT p50 and queue wait p50 from ``bench_block()``, step p50
+     and tok/s off, with the hooks and with the scraped server, the hooks'
+     own host time a step, ``wrap_root``'s µs a root call, and a profiled
+     engine step's wall off and on.  Device times and idle gaps of every
+     profile leave out the card-side mirrors of ``record_function`` ranges
+     (``device_work``);
   5. quality path: ``obs.quality_report.build_entry`` on the same model:
      calibrate (gram kernel), compress with telemetry, evaluate dense vs
      compressed perplexity on five domains at (4, 2048) tokens a batch
@@ -921,6 +944,15 @@ def _median(xs):
     return xs[len(xs) // 2]
 
 
+def device_work(ev, cuda) -> bool:
+    """A profiler event of work on the card (a kernel or a copy), not the
+    card-side mirror of a host ``record_function`` range (the engine's
+    ``serving_root.*`` and ``serving.*`` spans), which spans its kernels
+    and the gaps between them."""
+    return (ev.device_type == cuda and not getattr(ev, "is_user_annotation", False)
+            and not ev.key.startswith(("serving_root.", "serving.")))
+
+
 def profile_step(torch, fn, label: str = "decode step", quiet: bool = False,
                  windows: int = PROFILE_WINDOWS) -> dict:
     """Device time by kernel name and device busy share of one call of
@@ -949,7 +981,7 @@ def profile_step(torch, fn, label: str = "decode step", quiet: bool = False,
             torch.cuda.synchronize()
         per = {}
         for ev in prof.key_averages():
-            if ev.device_type != DeviceType.CUDA:
+            if not device_work(ev, DeviceType.CUDA):
                 continue
             dev_us = ev.self_device_time_total
             if dev_us > 0:
@@ -1264,7 +1296,7 @@ def ring_window(torch, eng, label: str, windows: int = PROFILE_WINDOWS) -> dict:
             eng.step()
             torch.cuda.synchronize()
         iv = sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
-                    if ev.device_type == DeviceType.CUDA)  # kernels and copies
+                    if device_work(ev, DeviceType.CUDA))  # kernels and copies
         gaps, end = [], iv[0][1] if iv else 0.0
         for a, b in iv[1:]:
             if a > end:
@@ -1574,6 +1606,28 @@ FAULT_SPECS = {
 FAULT_F3 = {"deadline": (0, 1), "hour": 2, "queued": 15, "prefill": 9, "live": 4,
             "live_after": 20, "drain_after": 40}
 FAULT_F4_WARM = 2  # requests served before the timeout is armed; 2 more follow
+# The seconds of F1's stall, F3's short deadlines (and the sleep past them)
+# and F4's timeout and stall, as the card runs them.
+FAULT_TIMING = {"stall": FAULT_STALL_S, "deadline": 1e-3, "timeout": FAULT_TIMEOUT_S,
+                "timeout_stall": FAULT_TIMEOUT_STALL_S}
+
+
+def scaled_fault_timing(step_times) -> dict:
+    """FAULT_TIMING for a host whose clean engine steps took ``step_times``
+    (seconds, a clean run's): each time at least its card value, and more
+    where the host is slower, so a slow or loaded host keeps the path's
+    meaning.  The stall is 25 median steps (the watchdog flags 2.5 times
+    its median, so the host may slow 10-fold mid-run); the timeout is 100
+    median steps and 10 of the slowest (no clean step, spikes of a loaded
+    host included, reaches it), and its stall outlasts it by the card's
+    0.1 s."""
+    med, slowest = sorted(step_times)[len(step_times) // 2], max(step_times)
+    timeout = max(FAULT_TIMEOUT_S, 100 * med, 10 * slowest)
+    return {"stall": max(FAULT_STALL_S, 25 * med), "deadline": max(1e-3, med),
+            "timeout": timeout,
+            "timeout_stall": timeout + FAULT_TIMEOUT_STALL_S - FAULT_TIMEOUT_S}
+
+
 # (dispatched decode steps, consumed steps, prefill chunk calls, preemptions)
 # and the finish reasons other than "stop", from the CPU run.
 FAULT_PREDICTED = {"F1": (104, 104, 15, 0), "F2": (151, 151, 21, 13),
@@ -1584,15 +1638,20 @@ FAULT_REASONS = {"F1": {3: "error"}, "F2": {},
                  "F4": {2: "shutdown", 3: "shutdown"}}
 
 
-def fault_run(torch, np, model, params, prompts, label) -> dict:
+def fault_run(torch, np, model, params, prompts, label, timing=None) -> dict:
     """One run of the fault path on a fresh engine, its launch counts read
-    around it; on the card every dispatch runs under sync-debug "error"."""
+    around it; on the card every dispatch runs under sync-debug "error".
+    ``timing``: the run's seconds (default FAULT_TIMING)."""
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.faults import FaultPlan, FaultPolicy, FaultSpec, ServingFault
     from repro_torch.serving.scheduler import SchedulerConfig
 
     cuda = params["embed"]["table"].device.type == "cuda"
-    specs = [FaultSpec(kind, step, uid, delay) for kind, step, uid, delay in FAULT_SPECS[label]]
+    timing = FAULT_TIMING if timing is None else timing
+    specs = [FaultSpec(kind, step, uid,
+                       timing["timeout_stall" if label == "F4" else "stall"]
+                       if kind == "straggler" else delay)
+             for kind, step, uid, delay in FAULT_SPECS[label]]
     plan = FaultPlan(specs)
     policy = FaultPolicy(max_retries=1, retry_backoff_steps=2) if label == "F1" else None
     eng = ServingEngine(model, params, max_batch=8, max_len=256, seed=0, block_size=16,
@@ -1624,10 +1683,11 @@ def fault_run(torch, np, model, params, prompts, label) -> dict:
             f3 = FAULT_F3
             uids = []
             for i in range(SCHED_REQUESTS):
-                dl = (1e-3 if i in f3["deadline"] else 3600.0 if i == f3["hour"] else None)
+                dl = (timing["deadline"] if i in f3["deadline"]
+                      else 3600.0 if i == f3["hour"] else None)
                 uids += submit([i], deadline_s=dl)
             log_["queued"] = eng.cancel(f3["queued"])
-            time.sleep(0.01)  # past the two short deadlines
+            time.sleep(10 * timing["deadline"])  # past the two short deadlines
             eng.run(max_steps=1)
             log_["prefilling"] = any(t.req.uid == f3["prefill"] for t in eng._prefilling)
             log_["prefill"] = eng.cancel(f3["prefill"])
@@ -1648,7 +1708,7 @@ def fault_run(torch, np, model, params, prompts, label) -> dict:
             uids = submit(range(FAULT_F4_WARM))
             eng.run()
             eng._fault_policy = dataclasses.replace(eng._fault_policy,
-                                                    step_timeout_s=FAULT_TIMEOUT_S)
+                                                    step_timeout_s=timing["timeout"])
             uids += submit(range(FAULT_F4_WARM, 2 * FAULT_F4_WARM))
             try:
                 eng.run()
@@ -1743,7 +1803,7 @@ def fault_serve_path(torch, np, served):
     from repro_torch.serving.scheduler import SchedulerConfig
 
     model, params = served["model"], served["params"]
-    base = served.pop("sched")
+    base = served["sched"]  # the obs path takes it on
     prompts, want, margins = base["prompts"], base["outputs"], base["margins"]
     cfg = model.cfg
     n_single, _ = nested_calls(model)
@@ -2083,8 +2143,8 @@ def spec_serve_path(torch, np, served):
     from repro_torch.serving.scheduler import SchedulerConfig
     from repro_torch.serving.spec import SpecConfig
 
-    model, params = served.pop("model"), served.pop("params")
-    prompts, want = served.pop("prompts"), served.pop("outputs")
+    model, params = served["model"], served["params"]  # the obs path takes them on
+    prompts, want = served["prompts"], served.pop("outputs")
     serve_st = served.pop("serve_stats")
     cfg = model.cfg
     margins = teacher_margins(torch, np, model, params, prompts, want)
@@ -2183,6 +2243,7 @@ def spec_serve_path(torch, np, served):
             "step": profile_step(torch, lambda: verify_root(*draft_root()[:2]),
                                  "spec step (draft + verify roots)")}
     eng.drain()
+    served["draft"] = base["draft"]
     s1 = runs["S1"]["summary"]
     log(f"  spec step: wall {prof['step']['wall_ms']:.2f} ms, device "
         f"{prof['step']['device_busy_ms']:.3f} ms = draft root "
@@ -2197,6 +2258,449 @@ def spec_serve_path(torch, np, served):
                    serve_tok_per_s=served["serve_tok_per_s"], serve_stats=serve_st,
                    ok=bool(ok))
     return summary, runs["S1"]["summary"]["launches"]
+
+
+# Phase 4e (obs_serve): serving observability on *Serve*'s compressed model
+# and spec_serve's 0.6 draft, nothing compressed again.  Runs: O1 *Serve*'s
+# plan (8 prompts, 32 new tokens, worst case, depth 1) with telemetry off;
+# O2t the same with a Telemetry (the hooks alone); O2 with a Telemetry and
+# a MetricsServer on port 0 scraped over HTTP from a thread every
+# OBS_SCRAPE_S while it runs, and in its first run a ProfileCapture of
+# OBS_PROFILE_STEPS steps (O1, O2t and O2 in turn, OBS_PAIRS times); O3
+# sched_serve C's plan (16 prompts, 48 new tokens, on demand at depth 2, a
+# 56-block pool, swap resume, defrag every 8 steps) with F1's fault plan,
+# off and on; O4 spec_serve S5 (a draft kill, a poisoned row) off and on,
+# /healthz read between its steps.  The scrape interval is a stress
+# setting (a Prometheus scrape is typically every 15 s), so that a run of
+# under a second sees several.
+OBS_PAIRS, OBS_PROFILE_STEPS, OBS_SCRAPE_S = 6, 8, 0.1
+OBS_PROFILE_DIR = os.path.join(OUT_DIR, "obs_profile")
+OBS_TRACE_KEEP_BYTES = 8 << 20  # a larger captured trace is summarised, then removed
+
+
+class Scraper:
+    """GET /metrics, /metrics.json and /healthz of a MetricsServer from a
+    thread, at once and then every OBS_SCRAPE_S seconds until ``stop()``;
+    counts the answers and keeps the last /metrics body."""
+
+    def __init__(self, port: int):
+        import threading
+
+        self.base = f"http://127.0.0.1:{port}"
+        self.ok = self.failed = 0
+        self.last = ""
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._loop, name="scraper", daemon=True)
+        self._thread.start()
+
+    def _loop(self):
+        import urllib.error
+        import urllib.request
+
+        while True:  # the first scrape at once, the next every OBS_SCRAPE_S
+            for path in ("/metrics", "/metrics.json", "/healthz"):
+                try:
+                    with urllib.request.urlopen(self.base + path, timeout=5) as r:
+                        body = r.read().decode()
+                    if path == "/metrics":
+                        self.last = body
+                    self.ok += 1
+                except urllib.error.HTTPError:
+                    self.ok += 1  # /healthz answers 503 while degraded
+                except OSError:
+                    self.failed += 1
+            if self._done.wait(OBS_SCRAPE_S):
+                return
+
+    def stop(self) -> dict:
+        self._done.set()
+        self._thread.join(timeout=10)
+        return {"scrapes_ok": self.ok, "scrapes_failed": self.failed,
+                "last_metrics_lines": self.last.count("\n")}
+
+
+def timed_telemetry():
+    """A Telemetry whose ``on_*`` hooks add their own host seconds to
+    ``hook_s`` and their calls to ``hook_calls``: the hooks' cost read
+    directly, apart from the host's run-to-run noise."""
+    from repro_torch.obs import Telemetry
+
+    tel = Telemetry()
+    tel.hook_s, tel.hook_calls = 0.0, 0
+    for name in [n for n in dir(Telemetry) if n.startswith("on_")]:
+        def timed(*args, _fn=getattr(tel, name), **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kw)
+            finally:
+                tel.hook_s += time.perf_counter() - t0
+                tel.hook_calls += 1
+        setattr(tel, name, timed)
+    return tel
+
+
+def root_range_us(n: int = 20000) -> float:
+    """Host µs that ``wrap_root``'s range adds to one root call (a wrapped
+    no-op against the bare one), with telemetry on or off alike."""
+    from repro_torch.obs import wrap_root
+
+    def noop():
+        return None
+
+    walls = []
+    for fn in (noop, wrap_root(noop, "bench")):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        walls.append((time.perf_counter() - t0) / n * 1e6)
+    return walls[1] - walls[0]
+
+
+def healthz(port: int) -> tuple:
+    """(status, JSON body or text) of one GET /healthz."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=5) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def lifecycle(tel) -> dict:
+    """Each request's lifecycle events (pid PID_REQUESTS, cat "request") in
+    the order they were traced: submit, then admit, first_chunk,
+    first_token and commits once, then per re-prefill (preemption or
+    retry) admit, first_chunk, first_token and commits again, or per swap
+    resume admit and commits, then finish; timestamps never go back."""
+    import re
+
+    code = {"submit": "S", "admit": "A", "first_chunk": "C", "first_token": "F",
+            "commit": "K", "finish": "E"}
+    seq, ts = {}, {}
+    for e in tel.tracer.events():
+        if e.cat == "request" and e.name in code:
+            seq[e.tid] = seq.get(e.tid, "") + code[e.name]
+            ts.setdefault(e.tid, []).append(e.ts_us)
+    bad = {uid: s for uid, s in seq.items()
+           if not re.fullmatch("SACFK*(A(CF)?K*)*E", s) or ts[uid] != sorted(ts[uid])}
+    return {"requests": len(seq), "simple": sum(bool(re.fullmatch("SACFK*E", s))
+                                                 for s in seq.values()),
+            "out_of_order": bad, "ok": not bad and tel.tracer.dropped == 0}
+
+
+def reconcile(tel, eng) -> dict:
+    """The telemetry's counters against the engine's own accounts."""
+    st, sch, fs, ss = eng.stats(), eng.scheduler_stats(), eng.fault_stats(), eng.spec_stats()
+    reqs = eng.finished_requests.values()
+    events = tel.tracer.events()
+    sheds = [e.args["reason"] for e in events if e.name == "shed"]
+    preempts = {labels["reason"]: c.value for labels, c in tel.preempts.series()}
+    faults = {labels["kind"]: c.value for labels, c in tel.faults.series()}
+    out = {
+        "submitted": tel.requests_submitted.value == len(eng.finished_requests),
+        "finished": tel.requests_finished.value == len(eng.finished_requests),
+        "tokens": tel.tokens_emitted.value == sum(len(r.generated) for r in reqs),
+        "steps": tel.steps_dispatched.value == st["steps"] == eng._step_idx,
+        "preemptions": (sum(preempts.values()) == sch["preempt_count"]
+                        and preempts.get("priority", 0) == sch["priority_preemptions"]),
+        "swap_bytes": tel.swap_bytes.value == sch["swap_bytes"],
+        "faults": faults == {k: float(v) for k, v in fs["injected"].items() if v},
+        "retries": tel.retries.value == fs["retried"],
+        "shed": (len([r for r in sheds if r != "cancelled"]) == fs["shed"]
+                 and tel.deadline_shed.value == sheds.count("deadline")
+                 and sheds.count("cancelled") == fs["cancelled"]),
+    }
+    if ss:
+        rows = [(int(lb["k"]), int(lb["accepted"]), c.value) for lb, c in tel.spec_rows.series()]
+        block = tel.bench_block()["spec"]
+        out["spec_rows"] = (sum(n for *_, n in rows) == eng.spec_step_rows
+                            and sum(k * n for k, _, n in rows) == ss["proposed"]
+                            and sum(a * n for _, a, n in rows) == ss["accepted"]
+                            and block["acceptance_rate"] == ss["acceptance_rate"])
+    return out
+
+
+def obs_run(torch, np, label, served, telemetry: bool, capture: bool = False,
+            server: bool = False) -> dict:
+    """One run of the obs_serve path (O1/O2 on *Serve*'s plan, O3, O4) on a
+    fresh engine, its launch counts read around it and every dispatch
+    under sync-debug "error"; with ``telemetry`` a Telemetry (with a
+    capture: a ProfileCapture into OBS_PROFILE_DIR) and, with ``server``, a
+    MetricsServer scraped from a thread (O4: /healthz read between steps,
+    its answers per degraded view)."""
+    import shutil
+
+    from repro_torch.obs import MetricsServer, Telemetry
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.faults import FaultPlan, FaultPolicy, FaultSpec
+    from repro_torch.serving.scheduler import SchedulerConfig
+    from repro_torch.serving.spec import SpecConfig
+
+    model, params = served["model"], served["params"]
+    cuda = params["embed"]["table"].device.type == "cuda"
+    kw = dict(max_batch=8, max_len=256, seed=0, block_size=16, prefill_chunk=64)
+    plan = policy = spec = None
+    defrag_every, max_new = 0, 32
+    prompts = served["prompts"]
+    if label in ("O1", "O2t", "O2"):
+        kw.update(pipeline_depth=1, sched_config=SchedulerConfig(admission="worst_case"))
+    elif label == "O3":
+        prompts, max_new, defrag_every = served["sched"]["prompts"], SCHED_MAX_NEW, 8
+        plan = FaultPlan([FaultSpec(*sp) for sp in FAULT_SPECS["F1"]])
+        policy = FaultPolicy(max_retries=1, retry_backoff_steps=2)
+        kw.update(pipeline_depth=2, num_blocks=SCHED_POOL,
+                  sched_config=SchedulerConfig(resume="swap"))
+    else:
+        faults = next(r for r in SPEC_RUNS if r[0] == "S5")[6]
+        plan = FaultPlan([FaultSpec(kind, step, uid) for kind, step, uid in faults])
+        policy = FaultPolicy(max_retries=1, retry_backoff_steps=2,
+                             draft_cooldown_steps=SPEC_COOLDOWN)
+        spec = SpecConfig(served["draft"], k=SPEC_K, draft_ratio=SPEC_RATIO)
+        kw.update(pipeline_depth=2, paged=True, sched_config=SchedulerConfig())
+    tel = None
+    if telemetry:
+        if capture:
+            shutil.rmtree(OBS_PROFILE_DIR, ignore_errors=True)
+        tel = (Telemetry(profile_dir=OBS_PROFILE_DIR if capture else None,
+                         profile_steps=OBS_PROFILE_STEPS) if label != "O2t"
+               else timed_telemetry())
+    eng = ServingEngine(model, params, faults=plan, fault_policy=policy, spec_config=spec,
+                        telemetry=tel, **kw)
+    srv = MetricsServer(tel.metrics, port=0, health=eng.degraded_components) if server else None
+    scraper = Scraper(srv.port) if srv is not None and label != "O4" else None
+    checked, health = {}, []
+    if cuda:
+        torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with dispatches_checked(torch, checked):
+        uids = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+        next_defrag = defrag_every
+        while eng.sched or eng._prefilling or eng.active.any() or eng._parked:
+            eng.run(max_steps=1)
+            if defrag_every and len(eng.step_times) >= next_defrag:
+                eng.defrag()
+                next_defrag += defrag_every
+            if label == "O4" and srv is not None:
+                view = eng.degraded_components()
+                if "draft" in view or (health and health[-1][0] == 503):
+                    health.append(healthz(srv.port) + (view.get("draft"),))
+        eng.drain()
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(read_counts(), nested=nested_split(),
+                  paged_combine=_ops("paged_attention").combine_launches)
+    scrape = scraper.stop() if scraper is not None else None
+    if srv is not None:
+        srv.close()
+    if tel is not None and tel.profile is not None:
+        tel.profile.stop()
+    reqs = [eng.finished_requests.get(u) for u in uids]
+    n_tok = sum(len(r.generated) for r in reqs if r is not None)
+    st = eng.stats()
+    out = {"outputs": [r.generated if r else None for r in reqs], "telemetry": tel,
+           "engine": eng, "health": health,
+           "summary": dict(run=label, telemetry=telemetry, capture=capture, server=server,
+                           seconds=wall, tokens=n_tok, tok_per_s=n_tok / wall,
+                           step_p50_ms=st["step_p50_s"] * 1e3,
+                           step_p90_ms=st["step_p90_s"] * 1e3, stats=st, launches=counts,
+                           dispatches=dict(checked), scrape=scrape,
+                           scrape_count=scrape["scrapes_ok"] if scrape else 0,
+                           reasons=sorted({r.finish_reason for r in reqs if r is not None}))}
+    if tel is not None:
+        out["summary"].update(bench=tel.bench_block(), reconcile=reconcile(tel, eng),
+                              lifecycle=lifecycle(tel), events=len(tel.tracer),
+                              dropped=tel.tracer.dropped)
+        if label == "O2t":
+            out["summary"].update(hook_ms_per_step=tel.hook_s * 1e3 / st["steps"],
+                                  hook_calls_per_step=tel.hook_calls / st["steps"])
+    return out
+
+
+def profile_trace_check(tel, cuda: bool = True) -> dict:
+    """The capture's Chrome trace: its serving_root.paged_decode ranges and,
+    on the card, the decode step's kernels (nested stream, paged split and
+    combine)."""
+    prof = tel.profile
+    out = {"error": None if prof.error is None else repr(prof.error), "path": prof.trace_path}
+    if prof.error is not None or prof.trace_path is None:
+        return dict(out, ok=False)
+    size = os.path.getsize(prof.trace_path)
+    with open(prof.trace_path) as f:
+        evs = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in evs]
+    kernels = [e.get("name", "") for e in evs if e.get("cat") == "kernel"]
+    found = {"serving_root.paged_decode": names.count("serving_root.paged_decode"),
+             **{k: sum(k in n for n in kernels)
+                for k in (("stream_partial", "paged_split_kernel", "paged_combine_kernel")
+                          if cuda else ())}}
+    if size > OBS_TRACE_KEEP_BYTES:
+        os.remove(prof.trace_path)
+    return dict(out, bytes=size, events=len(evs), kernel_events=len(kernels), found=found,
+                kept=size <= OBS_TRACE_KEEP_BYTES, ok=all(v > 0 for v in found.values()))
+
+
+def obs_runs(torch, np, served, pairs: int = OBS_PAIRS) -> tuple:
+    """O1, O2t and O2 ``pairs`` times in turn (O2's first with the
+    capture), then O3 and O4 off and on: (O1 runs, O2t runs, O2 runs, O3
+    pair, O4 pair)."""
+    offs, hooks, ons = [], [], []
+    for i in range(pairs):
+        offs.append(obs_run(torch, np, "O1", served, telemetry=False))
+        hooks.append(obs_run(torch, np, "O2t", served, telemetry=True))
+        ons.append(obs_run(torch, np, "O2", served, telemetry=True, capture=i == 0,
+                           server=True))
+    o3 = [obs_run(torch, np, "O3", served, telemetry=t) for t in (False, True)]
+    o4 = [obs_run(torch, np, "O4", served, telemetry=t, server=t) for t in (False, True)]
+    return offs, hooks, ons, o3, o4
+
+
+def obs_gates(offs, hooks, ons, o3, o4, n_prompts: int, cuda: bool) -> tuple:
+    """The obs_serve path's gates over its runs: (gates, O2's capture
+    check, O4's /healthz answers)."""
+    runs = offs + hooks + ons
+    gates = {"O2_streams": all(r["outputs"] == offs[0]["outputs"] for r in runs),
+             "O2_launches": all(r["summary"]["launches"] == offs[0]["summary"]["launches"]
+                                for r in runs)}
+    trace = profile_trace_check(ons[0]["telemetry"], cuda)
+    gates["O2_trace"] = trace["ok"]
+    gates["O2_scraped"] = all(r["summary"]["scrape"]["scrapes_ok"] > 0
+                              and r["summary"]["scrape"]["scrapes_failed"] == 0 for r in ons)
+    gates["O3_streams"] = o3[1]["outputs"] == o3[0]["outputs"]
+    gates["O4_streams"] = o4[1]["outputs"] == o4[0]["outputs"]
+    health = o4[1]["health"]
+    during = [h for h in health if h[2] is not None]
+    after = [h for h in health if h[2] is None]
+    gates["O4_healthz"] = (bool(during) and all(c == 503 and "draft" in b["components"]
+                                                for c, b, _ in during)
+                           and bool(after) and after[-1][0] == 200)
+    for name, r in (("O2t", hooks[0]), ("O2", ons[0]), ("O3", o3[1]), ("O4", o4[1])):
+        sm = r["summary"]
+        gates[f"{name}_reconcile"] = all(sm["reconcile"].values())
+        gates[f"{name}_lifecycle"] = sm["lifecycle"]["ok"]
+    gates["O2_lifecycle_simple"] = all(r["summary"]["lifecycle"]["simple"] == n_prompts
+                                       for r in hooks + ons)
+    gates["no_sync_in_dispatch"] = all(
+        sum(r["summary"]["dispatches"].values()) == r["summary"]["stats"]["steps"]
+        + r["engine"].fault_events["draft_kills"] for r in runs + o3 + o4)
+    return gates, trace, health
+
+
+def obs_serve_path(torch, np, served):
+    """Serving observability at Mistral-7B width (phase 4e): runs O1-O4 on
+    *Serve*'s compressed model and spec_serve's draft.  Gates: O2's streams
+    bit-identical to O1's with equal launches of every kernel, O3's and
+    O4's to their runs without telemetry; the counters reconciled with
+    ``stats()``, ``scheduler_stats()``, ``fault_stats()`` and
+    ``spec_stats()``; every request's events in lifecycle order; /healthz
+    503 naming the draft during O4's cool-down and 200 after it; no sync
+    in any dispatch; O2's captured trace holding serving_root.paged_decode
+    ranges and the decode step's kernels.  Prints TTFT, TPOT and queue wait
+    from bench_block(), and step p50 and tok/s with telemetry off and on,
+    with the same pair for a profiled engine step's wall."""
+    from repro_torch.obs import Telemetry
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.scheduler import SchedulerConfig
+
+    model = served["model"]
+    cfg = model.cfg
+    offs, hooks, ons, o3, o4 = obs_runs(torch, np, served)
+    gates, trace, health = obs_gates(offs, hooks, ons, o3, o4, len(served["prompts"]),
+                                     cuda=True)
+    for name, r in (("O1", offs[0]), ("O2t", hooks[0]), ("O2", ons[0]), ("O2", ons[1]),
+                    ("O3 off", o3[0]), ("O3", o3[1]), ("O4 off", o4[0]), ("O4", o4[1])):
+        sm = r["summary"]
+        line = (f"  run {name}: {sm['tokens']} tokens in {sm['seconds']:.3f} s = "
+                f"{sm['tok_per_s']:.1f} tok/s; steps {sm['stats']['steps']}, step p50 "
+                f"{sm['step_p50_ms']:.3f} p90 {sm['step_p90_ms']:.3f} ms; reasons "
+                f"{sm['reasons']}; launches {sm['launches']}")
+        if sm["telemetry"]:
+            bb = sm["bench"]
+            line += (f"; TTFT p50 {bb['ttft_s']['p50'] * 1e3:.2f} p99 "
+                     f"{bb['ttft_s']['p99'] * 1e3:.2f} ms, TPOT p50 "
+                     f"{bb['tpot_s']['p50'] * 1e3:.3f} ms, queue wait p50 "
+                     f"{bb['queue_wait_s']['p50'] * 1e3:.2f} ms ({bb['ttft_s']['count']} "
+                     f"requests); events {sm['events']} (dropped {sm['dropped']}); "
+                     f"reconcile {sm['reconcile']}; lifecycle {sm['lifecycle']}; "
+                     f"scrape {sm['scrape']}")
+        log(line)
+    log(f"  O4 /healthz: {[(c, h) for c, _, h in health]}")
+    log(f"  O2 capture ({OBS_PROFILE_STEPS} steps): {trace}")
+
+    def med(rs, key):
+        return _median([r["summary"][key] for r in rs])
+
+    def bench(rs, key, stat):
+        return _median([r["summary"]["bench"][key][stat] for r in rs])
+    on_runs = {"O2t": hooks[0], "O2": ons[0], "O3": o3[1], "O4": o4[1]}
+    # Overhead: the hooks alone (O2t), and with a scraped server (O2 but
+    # the first, which writes a trace in the middle of its steps).
+    scraped = ons[1:]
+    overhead = {"step_p50_ms_off": med(offs, "step_p50_ms"),
+                "step_p50_ms_on": med(hooks, "step_p50_ms"),
+                "step_p50_ms_scraped": med(scraped, "step_p50_ms"),
+                "tok_per_s_off": med(offs, "tok_per_s"), "tok_per_s_on": med(hooks, "tok_per_s"),
+                "tok_per_s_scraped": med(scraped, "tok_per_s"),
+                "scrape_gets_per_run": med(scraped, "scrape_count"),
+                "step_p50_ms_on_capture": ons[0]["summary"]["step_p50_ms"],
+                "tok_per_s_on_capture": ons[0]["summary"]["tok_per_s"],
+                "hook_ms_per_step": med(hooks, "hook_ms_per_step"),
+                "hook_calls_per_step": med(hooks, "hook_calls_per_step"),
+                "root_range_us": root_range_us()}
+    # One engine step (depth 1, 8 rows decoding) profiled, off and on.
+    walls = {}
+    for name, tel in (("off", None), ("on", Telemetry())):
+        eng = ServingEngine(model, served["params"], max_batch=8, max_len=256, seed=0,
+                            block_size=16, prefill_chunk=64, pipeline_depth=1,
+                            sched_config=SchedulerConfig(admission="worst_case"), telemetry=tel)
+        for p in served["prompts"]:
+            eng.submit(p, max_new_tokens=32)
+        while eng.sched or eng._prefilling:
+            eng.run(max_steps=1)
+        walls[name] = profile_step(torch, eng.step, quiet=True)
+        eng.drain()
+    overhead.update(step_wall_ms_off=walls["off"]["wall_ms"], step_wall_ms_on=walls["on"]["wall_ms"],
+                    step_device_ms_off=walls["off"]["device_busy_ms"],
+                    step_device_ms_on=walls["on"]["device_busy_ms"])
+    overhead["step_p50_added_ms"] = overhead["step_p50_ms_on"] - overhead["step_p50_ms_off"]
+    overhead["step_wall_added_ms"] = overhead["step_wall_ms_on"] - overhead["step_wall_ms_off"]
+    latency = {f"{key}_{stat}_ms": bench(hooks, key, stat) * 1e3
+               for key, stat in (("ttft_s", "p50"), ("ttft_s", "p99"), ("tpot_s", "p50"),
+                                 ("queue_wait_s", "p50"))}
+    log(f"  telemetry overhead (medians of {OBS_PAIRS} runs each; O2 without its capture "
+        f"run): step p50 off {overhead['step_p50_ms_off']:.3f}, hooks "
+        f"{overhead['step_p50_ms_on']:.3f} ({overhead['step_p50_added_ms']:+.3f}), hooks + "
+        f"server scraped every {OBS_SCRAPE_S} s {overhead['step_p50_ms_scraped']:.3f} ms "
+        f"({overhead['scrape_gets_per_run']:.0f} GETs a run); tok/s "
+        f"{overhead['tok_per_s_off']:.1f} / {overhead['tok_per_s_on']:.1f} / "
+        f"{overhead['tok_per_s_scraped']:.1f}; with the capture "
+        f"{overhead['step_p50_ms_on_capture']:.3f} ms, {overhead['tok_per_s_on_capture']:.1f} "
+        f"tok/s; profiled engine step wall {overhead['step_wall_ms_off']:.3f} -> "
+        f"{overhead['step_wall_ms_on']:.3f} ms ({overhead['step_wall_added_ms']:+.3f}), device "
+        f"{overhead['step_device_ms_off']:.3f} / {overhead['step_device_ms_on']:.3f} ms")
+    log(f"  hooks read directly (O2t): {overhead['hook_ms_per_step'] * 1e3:.1f} us a step in "
+        f"{overhead['hook_calls_per_step']:.1f} hook calls; wrap_root's range "
+        f"{overhead['root_range_us']:.2f} us a root call (telemetry on or off)")
+    log(f"  Serve's plan with telemetry (O2t, medians of {OBS_PAIRS} runs): TTFT p50 "
+        f"{latency['ttft_s_p50_ms']:.2f} ms, p99 {latency['ttft_s_p99_ms']:.2f} ms, TPOT p50 "
+        f"{latency['tpot_s_p50_ms']:.3f} ms, queue wait p50 "
+        f"{latency['queue_wait_s_p50_ms']:.3f} ms")
+    ok = all(gates.values())
+    log(f"  gates {gates} {'OK' if ok else 'FAIL'}")
+    for k in ("model", "params", "prompts", "draft", "sched"):
+        served.pop(k, None)
+    summary = dict(config=cfg.name, layers=cfg.num_layers, pairs=OBS_PAIRS,
+                   runs={f"{r['summary']['run']}_{i}": r["summary"]
+                         for i, r in enumerate(offs + hooks + ons + o3 + o4)},
+                   latency=latency,
+                   o4_healthz=[(c, h) for c, _, h in health], profile_trace=trace,
+                   overhead=overhead, profiled_step={"off": walls["off"], "on": walls["on"]},
+                   bench={k: r["summary"]["bench"] for k, r in on_runs.items()},
+                   gates=gates, ok=bool(ok))
+    return summary, {k: ons[0]["summary"]["launches"][k] for k in KERNELS}
 
 
 def _tensors(tree):
@@ -2625,6 +3129,7 @@ def main() -> int:
             ("sched_serve", sched_serve_path, (served,)),
             ("fault_serve", fault_serve_path, (served,)),
             ("spec_serve", spec_serve_path, (served,)),
+            ("obs_serve", obs_serve_path, (served,)),
             ("quality", quality_path, (mistral, 2, (9, 0), "flash_attention")),
             ("methods", methods_path, (dataclasses.replace(MISTRAL_7B, num_layers=1), 4)),
             ("rwkv_serve", serve_path, (rwkv6, "rwkv6", (37, 0))),

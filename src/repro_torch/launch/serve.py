@@ -33,6 +33,19 @@ makes a slower step raise ``ServingFault`` with an engine snapshot.  A
 fault report prints at exit.  SIGTERM drains (the queue is shed, live rows
 finish), and the engine is closed on every exit.
 
+Observability (``repro_torch.obs``): any of ``--metrics-port``,
+``--metrics-json``, ``--trace-jsonl``, ``--trace-chrome`` or ``--profile-dir``
+turns on the engine's telemetry (compression reports into the same
+registry) and prints a ``telemetry:`` line (TTFT, TPOT, events) at exit;
+``--metrics-port`` serves /metrics, /metrics.json and /healthz while the
+run lasts, and ``--profile-dir`` writes a torch.profiler Chrome trace of
+``--profile-steps`` engine steps.  ``--transfer-guard`` runs every dispatch
+under torch's sync-debug mode "error" (the card only), and ``--paged``
+picks the cache layout (auto: the model's own).
+
+    python -m repro_torch.launch.serve --arch mistral-7b --no-reduced --layers 2 \\
+        --compress 0.2 --metrics-json m.json --trace-chrome t.json --profile-dir prof
+
 ``small-*`` archs load the reference's trained checkpoint from
 ``experiments/models/<name>/`` (and its ``grams.npz`` when present); every
 other arch starts from random weights drawn from ``--seed``.
@@ -46,7 +59,7 @@ import os
 import signal
 import threading
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -58,6 +71,7 @@ from repro_torch.configs import ModelConfig, get_config
 from repro_torch.core import CompressionConfig, GramStore, build_plan, compress_params
 from repro_torch.models import build_model
 from repro_torch.models.api import build_draft_params
+from repro_torch.obs import CompressionTelemetry, MetricsServer, Telemetry, write_metrics_json
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.faults import FaultPlan, FaultPolicy
 from repro_torch.serving.scheduler import SchedulerConfig
@@ -96,20 +110,26 @@ def serve(cfg: ModelConfig, *, requests: int = 8, max_new: int = 16,
           faults: Optional[FaultPlan] = None,
           fault_policy: Optional[FaultPolicy] = None,
           spec_ratio: Optional[float] = None, spec_k: int = 4,
-          spec_dynamic_k: bool = False) -> Dict:
+          spec_dynamic_k: bool = False, paged: Optional[bool] = None,
+          telemetry: Optional[Telemetry] = None, transfer_guard: bool = False,
+          on_engine: Optional[Callable[[ServingEngine], None]] = None) -> Dict:
     """Init (or take ``params``), calibrate + compress when ``compress`` is
     a ratio, build a speculative draft at ``spec_ratio`` (from the
     uncompressed params and the same Grams, drafting ``spec_k`` tokens a
     step), then serve ``requests`` prompts under the scheduling policy
     (``sched_policy``, ``priority_classes``, ``preempt``, ``resume``; the
     reference's defaults) at ``pipeline_depth`` (None: the engine's default,
-    2), with an optional fault plan and policy.  Every request goes to the
-    lowest class.  In the main thread SIGTERM drains the engine while it
-    runs; the engine is closed on every exit (a ``ServingFault`` still
-    raises).  Returns the outputs, the
-    finished requests, the seconds of each phase and the engine.  Matmuls
-    run in full fp32 on the card (no TF32): calibration needs it, and so
-    does the MoE router, whose top-k choices TF32 would change."""
+    2), with an optional fault plan and policy, on the cache layout ``paged``
+    picks (None: the model's own).  ``telemetry`` observes the engine, and
+    compression reports into its registry; ``transfer_guard`` runs every
+    dispatch under sync-debug "error"; ``on_engine`` is called with the
+    engine once it is built.  Every request goes to the lowest class.  In
+    the main thread SIGTERM drains the engine while it runs; the engine is
+    closed on every exit (a ``ServingFault`` still raises).  Returns the
+    outputs, the finished requests, the seconds of each phase and the
+    engine.  Matmuls run in full fp32 on the card (no TF32): calibration
+    needs it, and so does the MoE router, whose top-k choices TF32 would
+    change."""
     dev = resolve_device(device)
     calibration_precision()
     model = build_model(cfg)
@@ -143,7 +163,9 @@ def serve(cfg: ModelConfig, *, requests: int = 8, max_new: int = 16,
             plan = build_plan(model.compressible_targets(), CompressionConfig(
                 method="nsvd1", ratio=compress, dtype=cfg.dtype,
                 use_randomized=False))
-            params = compress_params(base, plan, grams)
+            params = compress_params(base, plan, grams, telemetry=(
+                None if telemetry is None
+                else CompressionTelemetry(registry=telemetry.metrics)))
             sync()
             seconds["compress"] = time.perf_counter() - t0
         if spec_ratio is not None:
@@ -161,7 +183,10 @@ def serve(cfg: ModelConfig, *, requests: int = 8, max_new: int = 16,
                         sched_config=SchedulerConfig(
                             admission=sched_policy, preempt=preempt, resume=resume,
                             priority_classes=tuple(priority_classes)),
-                        faults=faults, fault_policy=fault_policy, spec_config=spec)
+                        faults=faults, fault_policy=fault_policy, spec_config=spec,
+                        paged=paged, telemetry=telemetry, transfer_guard=transfer_guard)
+    if on_engine is not None:
+        on_engine(eng)
     if prompts is None:
         prompts = default_prompts(requests, cfg.vocab_size, seed)
     for p in prompts:
@@ -176,6 +201,8 @@ def serve(cfg: ModelConfig, *, requests: int = 8, max_new: int = 16,
         eng.close()
         if main_thread:
             signal.signal(signal.SIGTERM, prev)
+        if telemetry is not None and telemetry.profile is not None:
+            telemetry.profile.stop()
     sync()
     seconds["serve"] = time.perf_counter() - t0
     n_tok = sum(len(v) for v in out.values())
@@ -183,6 +210,36 @@ def serve(cfg: ModelConfig, *, requests: int = 8, max_new: int = 16,
             "seconds": seconds, "tokens": n_tok,
             "tok_per_s": n_tok / max(seconds["serve"], 1e-9), "engine": eng,
             "params": params, "model": model}
+
+
+def report_telemetry(telemetry: Telemetry, eng: ServingEngine, args) -> None:
+    """The ``telemetry:`` line, and the files the observability flags name.
+    A profiler capture that failed is printed, never passed over."""
+    bb = telemetry.bench_block()
+    print(f"telemetry: ttft p50={bb['ttft_s']['p50'] * 1e3:.1f}ms "
+          f"p99={bb['ttft_s']['p99'] * 1e3:.1f}ms  tpot p50={bb['tpot_s']['p50'] * 1e3:.2f}ms  "
+          f"queue wait p50={bb['queue_wait_s']['p50'] * 1e3:.1f}ms  "
+          f"{len(telemetry.tracer)} events ({telemetry.tracer.dropped} dropped)")
+    if args.metrics_json:
+        write_metrics_json(telemetry.metrics, args.metrics_json,
+                           extra={"engine": {"stats": eng.stats(), "cache": eng.cache_stats(),
+                                             "spec": eng.spec_stats()},
+                                  "telemetry": bb})
+        print(f"metrics snapshot -> {args.metrics_json}")
+    if args.trace_jsonl:
+        telemetry.tracer.export_jsonl(args.trace_jsonl)
+        print(f"event trace (jsonl) -> {args.trace_jsonl}")
+    if args.trace_chrome:
+        telemetry.tracer.export_chrome(args.trace_chrome)
+        print(f"chrome trace -> {args.trace_chrome}")
+    prof = telemetry.profile
+    if prof is not None:
+        if prof.error is not None:
+            print(f"profile capture FAILED: {prof.error!r}")
+        elif prof.trace_path is not None:
+            print(f"torch.profiler trace -> {prof.trace_path}")
+        else:
+            print(f"profile capture: no step dispatched, nothing written to {args.profile_dir}")
 
 
 def main(argv=None):
@@ -215,6 +272,14 @@ def main(argv=None):
     ap.add_argument("--no-preempt", action="store_true",
                     help="never evict a live row when the pool runs dry: a starved "
                     "row stalls until blocks free, and a full-pool deadlock raises")
+    ap.add_argument("--paged", choices=("auto", "on", "off"), default="auto",
+                    help="cache layout: auto takes the model's own (paged for "
+                    "pure-attention stacks), off the dense slab; on refuses a model "
+                    "whose layout is dense")
+    ap.add_argument("--transfer-guard", action="store_true",
+                    help="run every dispatch under torch's sync-debug mode 'error': "
+                    "a host sync inside one raises instead of stalling the ring "
+                    "(the card only: refused with --device cpu)")
     ap.add_argument("--pipeline-depth", type=int, default=None,
                     help="in-flight decode steps (default 2, or "
                     "REPRO_SERVING_PIPELINE_DEPTH); 1 waits for each step's tokens "
@@ -242,7 +307,29 @@ def main(argv=None):
     fault_g.add_argument("--step-timeout", type=float, default=None, metavar="SECONDS",
                          help="hard per-step limit: a slower step raises ServingFault "
                          "with an engine snapshot")
+    obs_g = ap.add_argument_group(
+        "observability", "host-side telemetry (repro_torch.obs): any flag here turns "
+        "on the tracer and the metrics registry; all are off by default")
+    obs_g.add_argument("--metrics-port", type=int, default=None,
+                       help="serve Prometheus text at :PORT/metrics, a JSON snapshot at "
+                       ":PORT/metrics.json and a health probe at :PORT/healthz while "
+                       "the run lasts (0 picks a free port)")
+    obs_g.add_argument("--metrics-json", default=None, metavar="PATH",
+                       help="write a final JSON metrics snapshot here")
+    obs_g.add_argument("--trace-jsonl", default=None, metavar="PATH",
+                       help="export the event ring as JSONL")
+    obs_g.add_argument("--trace-chrome", default=None, metavar="PATH",
+                       help="export the event ring as a Chrome trace (Perfetto, "
+                       "chrome://tracing)")
+    obs_g.add_argument("--profile-dir", default=None, metavar="DIR",
+                       help="write a torch.profiler Chrome trace of the first "
+                       "--profile-steps engine steps into DIR")
+    obs_g.add_argument("--profile-steps", type=int, default=8,
+                       help="steps to profile with --profile-dir")
     args = ap.parse_args(argv)
+    if args.transfer_guard and resolve_device(args.device).type != "cuda":
+        ap.error("--transfer-guard checks dispatches for host syncs on the card; "
+                 f"--device {args.device} has none to check")
     faults = fault_policy = None
     if args.chaos is not None or args.max_retries or args.step_timeout is not None:
         if args.chaos is not None:
@@ -251,23 +338,44 @@ def main(argv=None):
         fault_policy = FaultPolicy(max_retries=args.max_retries,
                                    step_timeout_s=args.step_timeout)
 
+    telemetry = server = None
+    engine_ref: Dict[str, ServingEngine] = {}
+    if any(v is not None for v in (args.metrics_port, args.metrics_json, args.trace_jsonl,
+                                   args.trace_chrome, args.profile_dir)):
+        telemetry = Telemetry(profile_dir=args.profile_dir, profile_steps=args.profile_steps)
+        if args.metrics_port is not None:
+            # Up before compression, which reports into the same registry;
+            # /healthz reads the engine once it exists.
+            server = MetricsServer(telemetry.metrics, port=args.metrics_port,
+                                   health=lambda: (engine_ref["eng"].degraded_components()
+                                                   if "eng" in engine_ref else {}))
+            print(f"metrics: {server.url} (+ /metrics.json, /healthz)")
+
     cfg = get_config(args.arch)
     if args.reduced and not args.arch.startswith("small-"):
         cfg = cfg.reduced()
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
-    res = serve(cfg, requests=args.requests, max_new=args.max_new,
-                max_batch=args.max_batch, max_len=args.max_len,
-                temperature=args.temperature, seed=args.seed,
-                compress=args.compress, block_size=args.block_size,
-                num_blocks=args.num_blocks, prefill_chunk=args.prefill_chunk,
-                eos=args.eos, device=args.device, sched_policy=args.sched_policy,
-                priority_classes=tuple(c.strip() for c in args.priority_classes.split(",")
-                                       if c.strip()) if args.priority_classes
-                else ("default",),
-                preempt=not args.no_preempt, pipeline_depth=args.pipeline_depth,
-                faults=faults, fault_policy=fault_policy, spec_ratio=args.spec_ratio,
-                spec_k=args.spec_k, spec_dynamic_k=args.spec_dynamic_k)
+    try:
+        res = serve(cfg, requests=args.requests, max_new=args.max_new,
+                    max_batch=args.max_batch, max_len=args.max_len,
+                    temperature=args.temperature, seed=args.seed,
+                    compress=args.compress, block_size=args.block_size,
+                    num_blocks=args.num_blocks, prefill_chunk=args.prefill_chunk,
+                    eos=args.eos, device=args.device, sched_policy=args.sched_policy,
+                    priority_classes=tuple(c.strip()
+                                           for c in args.priority_classes.split(",")
+                                           if c.strip()) if args.priority_classes
+                    else ("default",),
+                    preempt=not args.no_preempt, pipeline_depth=args.pipeline_depth,
+                    faults=faults, fault_policy=fault_policy, spec_ratio=args.spec_ratio,
+                    spec_k=args.spec_k, spec_dynamic_k=args.spec_dynamic_k,
+                    paged={"auto": None, "on": True, "off": False}[args.paged],
+                    telemetry=telemetry, transfer_guard=args.transfer_guard,
+                    on_engine=lambda eng: engine_ref.update(eng=eng))
+    finally:
+        if server is not None:
+            server.close()
     if res["plan"] is not None:
         print(f"serving NSVD-compressed weights "
               f"({res['plan'].achieved_ratio:.0%} removed)")
@@ -312,6 +420,9 @@ def main(argv=None):
         if faults is not None and faults.outstanding():
             kinds = [sp.kind for sp in faults.outstanding()]
             print(f"faults: {len(kinds)} spec(s) never found an injection site: {kinds}")
+
+    if telemetry is not None:
+        report_telemetry(telemetry, res["engine"], args)
 
 
 if __name__ == "__main__":

@@ -19,6 +19,11 @@ row instead draws Gumbel noise from a counter-based hash of (request key,
 draw counter, vocab id), where the request key hashes (engine seed, uid).
 So a stream depends only on (seed, uid, prompt) — not on slot, batch or
 admission timing — which is the invariant the reference pins.
+
+Every root a ``make_*`` function returns is wrapped in
+``obs.profiler.wrap_root`` under the reference's root name
+(``serving_root.paged_decode``, ...), so a profiler timeline names the
+root each launch came from.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+
+from repro_torch.obs.profiler import wrap_root
 
 _M32 = 0xFFFFFFFF
 
@@ -125,7 +132,7 @@ def make_decode_sample_step(model, max_len: int) -> Callable:
                                     key_data, active, host_keep, temps, eos,
                                     max_len)
 
-    return decode_sample_step
+    return wrap_root(decode_sample_step, "decode")
 
 
 # Dense-slab cache leaves: name -> ndim of one layer's leaf; a stacked group
@@ -174,7 +181,7 @@ def make_prefill_admit_step(model, max_len: int) -> Callable:
                 put(budget, budgets), put(key_data, row_keys),
                 put(active, torch.ones_like(idx, dtype=torch.bool)))
 
-    return prefill_admit_step
+    return wrap_root(prefill_admit_step, "prefill_admit")
 
 
 def make_paged_decode_step(model, max_len: int) -> Callable:
@@ -213,7 +220,7 @@ def make_paged_decode_step(model, max_len: int) -> Callable:
                                     key_data, active, host_keep, temps, eos,
                                     max_len)
 
-    return paged_decode_step
+    return wrap_root(paged_decode_step, "paged_decode")
 
 
 def make_paged_prefill_chunk_step(model) -> Callable:
@@ -248,7 +255,7 @@ def make_paged_prefill_chunk_step(model) -> Callable:
                 put(budget, budgets), put(key_data, row_keys),
                 put(active, torch.ones_like(fslots, dtype=torch.bool)))
 
-    return paged_prefill_chunk_step
+    return wrap_root(paged_prefill_chunk_step, "paged_prefill_chunk")
 
 
 # ------------------------------------------------- speculative decoding
@@ -303,7 +310,7 @@ def make_spec_draft_step(model, k: int) -> Callable:
         key_data = torch.where(act[:, None], kd, key_data)
         return torch.stack(toks, dim=1), torch.stack(qs, dim=1), key_data
 
-    return spec_draft_step
+    return wrap_root(spec_draft_step, "spec_draft")
 
 
 def make_spec_verify_step(model, k: int, max_len: int) -> Callable:
@@ -365,7 +372,7 @@ def make_spec_verify_step(model, k: int, max_len: int) -> Callable:
         pack = torch.cat([out_tokens, n_commit[:, None], m_out[:, None]], dim=1)
         return pack, cache_len, t_new, budget, key_data, active
 
-    return spec_verify_step
+    return wrap_root(spec_verify_step, "spec_verify")
 
 
 def make_paged_draft_prefill_step(model) -> Callable:
@@ -386,7 +393,7 @@ def make_paged_draft_prefill_step(model) -> Callable:
         ext[fslots.long().clamp(max=n)] = row_keys
         return ext[:n]
 
-    return paged_draft_prefill_step
+    return wrap_root(paged_draft_prefill_step, "draft_prefill")
 
 
 def make_dense_draft_prefill_step(model, max_len: int) -> Callable:
@@ -402,4 +409,4 @@ def make_dense_draft_prefill_step(model, max_len: int) -> Callable:
         set_cache_rows(cache, row_cache, slots)
         return key_data.index_copy(0, slots.long(), row_keys)
 
-    return dense_draft_prefill_step
+    return wrap_root(dense_draft_prefill_step, "draft_prefill")

@@ -1,24 +1,36 @@
 """Dependency-free metrics registry: counters, gauges and histograms as
-labelled families, with a plain-JSON ``snapshot()`` and Prometheus text
-exposition (``prometheus_text()``).
+labelled families, with two export surfaces:
 
-A copy of the part of the reference's ``obs/metrics.py`` that compression
-telemetry uses; the scrape server waits for the serving-observability
-slice.  Histograms keep fixed cumulative buckets for the exposition plus a
-bounded window of raw samples for exact percentiles in snapshots.
+  * ``MetricsRegistry.snapshot()`` -- a plain-JSON dict (the file-based
+    scrape ``launch/serve.py --metrics-json`` writes with
+    ``write_metrics_json``);
+  * ``MetricsRegistry.prometheus_text()`` -- Prometheus text exposition, served
+    with the snapshot and a health probe by ``MetricsServer`` for
+    ``--metrics-port``.
+
+The port's copy of the reference's ``obs/metrics.py``, fed by compression
+telemetry and the serving engine's host-side bookkeeping alike.
+Histograms keep fixed cumulative buckets for the exposition plus a bounded
+window of raw samples for exact percentiles in snapshots.
 """
 
 from __future__ import annotations
 
 import bisect
+import http.server
+import json
+import os
+import tempfile
+import threading
 from collections import deque
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 # Default bucket ladders (seconds / counts).  Powers-of-~3 keep the ladder
 # short while spanning CPU-emulation steps (ms) and real accelerator steps
 # (tens of us).
 TIME_BUCKETS = (1e-4, 3e-4, 1e-3, 3e-3, 1e-2, 3e-2, 0.1, 0.3, 1.0, 3.0, 10.0)
 COUNT_BUCKETS = (0, 1, 2, 4, 8, 16, 32, 64, 128)
+FRACTION_BUCKETS = (0.1, 0.25, 0.5, 0.75, 0.9, 0.95, 1.0)
 
 
 class Counter:
@@ -265,3 +277,80 @@ def _labels(labels: Dict[str, str], **extra) -> str:
 def _escape(v: str) -> str:
     return str(v).replace("\\", r"\\").replace('"', r"\"").replace(
         "\n", r"\n")
+
+
+class MetricsServer:
+    """Minimal scrape endpoint on a daemon thread: ``GET /metrics`` serves
+    the Prometheus text exposition, ``GET /metrics.json`` the snapshot and
+    ``GET /healthz`` a readiness probe; ``port=0`` binds a free port
+    (``.port`` reports it).
+
+    ``health`` is an optional zero-argument callable naming the components
+    degraded now (``engine.degraded_components``): while it returns a
+    non-empty dict, /healthz answers 503 with that dict in a JSON body
+    instead of 200 "ok"."""
+
+    def __init__(self, source, port: int = 0, host: str = "127.0.0.1", health=None):
+        snapshot, prometheus = source.snapshot, source.prometheus_text
+
+        class _Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):  # noqa: N802 (http.server API)
+                code = 200
+                if self.path.startswith("/metrics.json"):
+                    body, ctype = json.dumps(snapshot()).encode(), "application/json"
+                elif self.path.startswith("/metrics"):
+                    body = prometheus().encode()
+                    ctype = "text/plain; version=0.0.4; charset=utf-8"
+                elif self.path.startswith("/healthz"):
+                    degraded = health() if health is not None else {}
+                    if degraded:
+                        code = 503
+                        body = json.dumps({"status": "degraded",
+                                           "components": degraded}).encode()
+                        ctype = "application/json"
+                    else:
+                        body, ctype = b"ok\n", "text/plain; charset=utf-8"
+                else:
+                    self.send_error(404)
+                    return
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *a):  # keep the serving stdout clean
+                pass
+
+        self._httpd = http.server.ThreadingHTTPServer((host, port), _Handler)
+        self.port = int(self._httpd.server_address[1])
+        self.host = host
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        name="repro-metrics", daemon=True)
+        self._thread.start()
+
+    @property
+    def url(self) -> str:
+        return f"http://{self.host}:{self.port}/metrics"
+
+    def close(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        self._thread.join(timeout=5)
+
+
+def write_metrics_json(source, path: str, extra: Optional[Dict] = None) -> None:
+    """File-based scrape: ``{"metrics": source.snapshot(), **extra}``,
+    written to a temporary file beside ``path`` and renamed over it, so a
+    poller never reads half a file."""
+    doc = {"metrics": source.snapshot()}
+    if extra:
+        doc.update(extra)
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(os.path.abspath(path)), suffix=".tmp")
+    try:
+        with os.fdopen(fd, "w") as f:
+            json.dump(doc, f, indent=1)
+        os.replace(tmp, path)
+    except BaseException:
+        os.unlink(tmp)
+        raise

@@ -67,13 +67,19 @@ degrades to plain decode until ``FaultPolicy.draft_cooldown_steps`` pass.
 Speculation needs a pure-attention model (a recurrent or MoE layout is
 refused) and re-prefill resume (swap is refused).
 
+Observability (``telemetry=``, repro_torch.obs), as the reference's: the
+hooks read host bookkeeping and the one copy a step already makes, never an
+extra device sync, and every per-row hook sits behind ``self.obs.enabled``,
+so the default ``NULL_TELEMETRY`` does no work.  ``transfer_guard`` runs
+every dispatch under torch's sync-debug mode "error" (a CUDA engine only).
+
 Not ported yet (later slices): bucketed dense-slab admission (exact-length
-admission serves every dense-layout model), meshes, and the telemetry
-hooks.
+admission serves every dense-layout model) and meshes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import logging
@@ -99,6 +105,7 @@ from repro_torch.launch.steps import (
     request_keys,
 )
 from repro_torch.models.api import cache_layout
+from repro_torch.obs import NULL_TELEMETRY
 from repro_torch.runtime.straggler import StepTimeWatchdog
 from repro_torch.serving.faults import (
     FaultPlan,
@@ -112,6 +119,19 @@ from repro_torch.serving.spec import DraftState, SpecConfig
 
 _PIPELINE_DEPTH_ENV = "REPRO_SERVING_PIPELINE_DEPTH"
 logger = logging.getLogger(__name__)
+
+
+_NULLCTX = contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def _sync_error_mode():
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
 
 
 def _swap_checksum(blocks) -> int:
@@ -176,6 +196,10 @@ class Request:
     # Speculative decoding: draft tokens proposed and accepted.
     spec_proposed: int = 0
     spec_accepted: int = 0
+    # Telemetry timestamps (time.perf_counter; set only with telemetry on).
+    t_submit: float = 0.0
+    t_first: float = 0.0
+    t_last: float = 0.0
 
     @property
     def done(self) -> bool:
@@ -221,7 +245,15 @@ class ServingEngine:
                  sched_config: Optional[SchedulerConfig] = None,
                  faults: Optional[FaultPlan] = None,
                  fault_policy: Optional[FaultPolicy] = None,
-                 spec_config: Optional[SpecConfig] = None):
+                 spec_config: Optional[SpecConfig] = None,
+                 telemetry=None, transfer_guard: bool = False):
+        # Observability (repro_torch.obs.Telemetry, or the shared no-op).
+        self.obs = telemetry if telemetry is not None else NULL_TELEMETRY
+        self._obs_blocked: set = set()  # uids flagged preempt_ready while blocked
+        if self.obs.enabled and spec_config is not None:
+            self.obs.spec_meta.setdefault("k", spec_config.k)
+            if spec_config.draft_ratio is not None:
+                self.obs.spec_meta.setdefault("draft_ratio", spec_config.draft_ratio)
         if pipeline_depth is None:
             pipeline_depth = int(os.environ.get(_PIPELINE_DEPTH_ENV, "2"))
         if pipeline_depth < 1:
@@ -231,6 +263,10 @@ class ServingEngine:
         self.model = model
         self.params = params
         self.device = params["embed"]["table"].device
+        if transfer_guard and self.device.type != "cuda":
+            raise ValueError("transfer_guard checks for host syncs on the card; a "
+                             f"{self.device.type} engine has nothing to guard")
+        self.transfer_guard = transfer_guard
         self.max_batch = max_batch
         self.max_len = max_len
         self.seed = seed
@@ -402,6 +438,9 @@ class ServingEngine:
                 raise ValueError(f"deadline_s must be positive, got {deadline_s}")
             req.deadline = time.monotonic() + deadline_s
             self._has_deadlines = True
+        if self.obs.enabled:
+            req.t_submit = time.perf_counter()
+            self.obs.on_submit(req.uid, len(prompt), max_new_tokens)
         self.sched.submit(req)
         return req.uid
 
@@ -468,6 +507,8 @@ class ServingEngine:
             self._drain_ring()
             self._draft_dead = False
             self.fault_events["draft_reenables"] += 1
+            if self.obs.enabled:
+                self.obs.on_degraded("draft", False)
         use_spec = self.spec is not None and not self._draft_dead
         if use_spec and self.spec.dynamic_k and self._ring:
             # Step N+1's windows depend on step N's acceptance: dynamic-k
@@ -501,9 +542,18 @@ class ServingEngine:
         moved = len(self.kv.defrag())
         if self.draft is not None:
             moved += len(self.draft.kv.defrag())
+        if self.obs.enabled:
+            self.obs.on_defrag(moved)
         return moved
 
+    def telemetry_snapshot(self) -> Dict:
+        """The telemetry's snapshot (metrics, trace size, engine stats);
+        {} when the engine runs without telemetry."""
+        return self.obs.snapshot(self) if self.obs.enabled else {}
+
     def _drain_ring(self) -> None:
+        if self.obs.enabled and self._ring:
+            self.obs.on_drain(len(self._ring))
         while self._ring:
             self._consume_one()
 
@@ -600,17 +650,33 @@ class ServingEngine:
             if slot is None:
                 victim = (self.sched.pick_victim(self._outranked_victims(req))
                           if self.sched.preempt else None)
-                if victim is None:
-                    break  # backpressure: wait for blocks to free
-                self._preempt(victim, "priority")
-                continue
+                if victim is not None:
+                    self._preempt(victim, "priority")
+                    continue
+                if self.obs.enabled and req.uid not in self._obs_blocked:
+                    # Backpressure: flag the row holding the most blocks (the
+                    # victim pool-dry preemption would pick), once per
+                    # blocked request.
+                    self._obs_blocked.add(req.uid)
+                    owners = {t.slot: t.req for t in self._prefilling}
+                    owners.update({s: r for s, r in enumerate(self.slots) if r is not None})
+                    cand = max(owners, key=lambda s: len(self.kv.alloc.owned_by(s)),
+                               default=None)
+                    if cand is not None:
+                        self.obs.on_preempt_ready(owners[cand].uid, cand)
+                break  # backpressure: wait for blocks to free
             self.sched.pop_head()
+            self._obs_blocked.discard(req.uid)
             busy.add(slot)
+            if self.obs.enabled:
+                self.obs.on_admit(req.uid, slot, time.perf_counter() - req.t_submit)
             if req.swap is not None:
                 self._resume_swap(req, slot)
             else:
                 if req.preemptions:
                     self.sched_events["resumes"] += 1
+                    if self.obs.enabled:
+                        self.obs.on_resume(req.uid, slot, "reprefill")
                 self._prefilling.append(_PrefillTask(req, slot))
         return self._prefill_tick() if self._prefilling else []
 
@@ -627,6 +693,8 @@ class ServingEngine:
             if not free:
                 break
             req, slot = self.sched.pop_head(), free[0]
+            if self.obs.enabled:
+                self.obs.on_admit(req.uid, slot, time.perf_counter() - req.t_submit)
             tokens, slots = t(req.prompt[None]), t([slot])
             (first, self.cache_len, self.last_token, self.budget_dev, self.key_data,
              self.active_dev) = self._prefill(
@@ -659,6 +727,8 @@ class ServingEngine:
         for r, task in enumerate(tasks):
             p = task.req.prompt
             n = min(len(p) - task.pos, c)
+            if self.obs.enabled and task.pos == 0:
+                self.obs.on_first_chunk(task.req.uid, task.slot)
             tokens[r, :n] = p[task.pos:task.pos + n]
             starts[r] = task.pos
             nvalid[r] = n
@@ -710,6 +780,10 @@ class ServingEngine:
                             finished: List[Request]) -> None:
         req.slot = slot
         req.generated.append(tok)
+        if self.obs.enabled:
+            req.t_first = req.t_last = time.perf_counter()
+            self.obs.on_first_token(req.uid, slot, req.t_first - req.t_submit
+                                    if req.t_submit else 0.0)
         self.temps[slot] = req.temperature
         self._eos[slot] = -1 if req.eos_id is None else req.eos_id
         self._len_host[slot] = len(req.prompt)
@@ -723,9 +797,19 @@ class ServingEngine:
             finished.append(req)
             self._mark_finished(req)
             self._retire_slot(slot)
+            if self.obs.enabled:
+                self._obs_finish(req)
         else:
             self.slots[slot] = req
             self.active[slot] = True
+
+    def _obs_finish(self, req: Request) -> None:
+        """Report one finished request: TTFT and TPOT from its timestamps."""
+        n = len(req.generated)
+        ttft = req.t_first - req.t_submit if req.t_submit else 0.0
+        tpot = ((req.t_last - req.t_first) / (n - 1)
+                if n > 1 and req.t_last > req.t_first else 0.0)
+        self.obs.on_finish(req.uid, n, ttft, tpot)
 
     def _mark_finished(self, req: Request, reason: str = "stop") -> None:
         """Stamp the finish reason (the first writer wins; every normal
@@ -740,9 +824,14 @@ class ServingEngine:
         the next public call returns it."""
         self._mark_finished(req, reason)
         self._pending_finished.append(req)
+        if self.obs.enabled:
+            self._obs_finish(req)
 
     def _retire_slot(self, slot: int) -> None:
         """Free a slot and its blocks at once (every finish path)."""
+        req = self.slots[slot]
+        if req is not None:
+            self._obs_blocked.discard(req.uid)  # a retired uid may block again
         self.slots[slot] = None
         self.active[slot] = False
         self._stalled[slot] = False
@@ -826,7 +915,12 @@ class ServingEngine:
             if d_added is None:
                 return False
             added += d_added
-        self.sched_events["grown_blocks"] += added
+        if added:
+            self.sched_events["grown_blocks"] += added
+            if self.obs.enabled:
+                req = self.slots[slot]
+                self.obs.on_grow(req.uid if req is not None else -1, slot, added,
+                                 self.kv.alloc.in_use())
         return True
 
     def _victim_candidates(self):
@@ -849,6 +943,10 @@ class ServingEngine:
         class."""
         req = self.slots[slot]
         n_ctx = int(self._len_host[slot])
+        blocks = len(self.kv.alloc.owned_by(slot))
+        if self.obs.enabled:
+            # The preempt_ready flag and the eviction name the same victim.
+            self.obs.on_preempt_ready(req.uid, slot)
         swap_bytes = 0
         if self.sched.resume_mode == "swap":
             req.swap = self._swap_out(slot, n_ctx)
@@ -871,6 +969,8 @@ class ServingEngine:
         self.sched_events["preemptions"] += 1
         self.priority_preemptions += reason == "priority"
         self.sched_events["swap_bytes"] += swap_bytes
+        if self.obs.enabled:
+            self.obs.on_preempt(req.uid, slot, reason, blocks, swap_bytes)
 
     @staticmethod
     def _fold_generated(req: Request) -> None:
@@ -930,14 +1030,21 @@ class ServingEngine:
         self._len_host[slot] = pay.n_ctx
         self._dev_len[slot] = pay.n_ctx
         self._host_dirty = True
+        if self.obs.enabled:
+            self.obs.on_resume(req.uid, slot, "swap")
 
     # ------------------------------------------------------- fault tolerance
 
     def _take_fault(self, kind: str, uid: Optional[int] = None):
-        """A due injected fault of ``kind`` (None without a plan)."""
+        """A due injected fault of ``kind`` (None without a plan).  Fires
+        the telemetry fault event for kinds whose injection is the fault;
+        a poison reports where the host detects it (``_quarantine``)."""
         if self._faults is None:
             return None
-        return self._faults.take(kind, self._step_idx, uid=uid)
+        sp = self._faults.take(kind, self._step_idx, uid=uid)
+        if sp is not None and self.obs.enabled and kind != "poison_logits":
+            self.obs.on_fault(kind, -1 if uid is None else uid, self._step_idx)
+        return sp
 
     def _poison_args(self):
         """The decode step's trailing poison input: () when the plan cannot
@@ -964,6 +1071,8 @@ class ServingEngine:
         """A row reported ``POISON_TOKEN``: free its slot at once, then park
         it for a re-prefill retry from its committed context (the poison
         token was never appended) or finish it with "error"."""
+        if self.obs.enabled:
+            self.obs.on_fault("poison_logits", req.uid, self._step_idx)
         action, backoff = self._handler.disposition(req)
         self._retire_slot(slot)
         req.slot = None
@@ -971,10 +1080,14 @@ class ServingEngine:
             self._fold_generated(req)
             self._parked.append((self._step_idx + backoff, req))
             self.fault_events["retried"] += 1
+            if self.obs.enabled:
+                self.obs.on_retry(req.uid, req.retries, backoff)
         else:
             self.fault_events["quarantined"] += 1
             self._mark_finished(req, "error")
             finished.append(req)
+            if self.obs.enabled:
+                self._obs_finish(req)
 
     def _unpark(self) -> None:
         """Requeue parked retries whose backoff has elapsed (at the front of
@@ -993,6 +1106,8 @@ class ServingEngine:
             self.sched.remove(req.uid)
             self.fault_events["shed"] += 1
             self._abort(req, "deadline")
+            if self.obs.enabled:
+                self.obs.on_shed(req.uid, "deadline")
 
     def _shed_shutdown(self) -> None:
         """Shed every queued and parked request as "shutdown" (live rows
@@ -1001,9 +1116,13 @@ class ServingEngine:
             self.sched.remove(req.uid)
             self.fault_events["shed"] += 1
             self._abort(req, "shutdown")
+            if self.obs.enabled:
+                self.obs.on_shed(req.uid, "shutdown")
         for _, req in self._parked:
             self.fault_events["shed"] += 1
             self._abort(req, "shutdown")
+            if self.obs.enabled:
+                self.obs.on_shed(req.uid, "shutdown")
         self._parked = []
 
     def cancel(self, uid: int) -> bool:
@@ -1043,6 +1162,8 @@ class ServingEngine:
     def _finish_cancel(self, req: Request) -> None:
         self.fault_events["cancelled"] += 1
         self._abort(req, "cancelled")
+        if self.obs.enabled:
+            self.obs.on_shed(req.uid, "cancelled")
 
     def request_drain(self) -> None:
         """Graceful shutdown (the serve CLI's SIGTERM): ``run`` stops
@@ -1065,12 +1186,16 @@ class ServingEngine:
                 self.draft.free(task.slot)
             self.fault_events["shed"] += 1
             self._abort(task.req, "shutdown")
+            if self.obs.enabled:
+                self.obs.on_shed(task.req.uid, "shutdown")
         self._prefilling = []
         for slot, req in enumerate(self.slots):
             if req is not None:
                 self._retire_slot(slot)
                 self.fault_events["shed"] += 1
                 self._abort(req, "shutdown")
+                if self.obs.enabled:
+                    self.obs.on_shed(req.uid, "shutdown")
         self._closed = True
 
     def fault_stats(self) -> Dict[str, object]:
@@ -1139,23 +1264,32 @@ class ServingEngine:
             self._host_dirty = False
         return self._host_dev
 
+    def _guard(self):
+        """With ``transfer_guard``, a dispatch runs under torch's sync-debug
+        mode "error": a host sync inside it raises instead of stalling the
+        ring."""
+        return _sync_error_mode() if self.transfer_guard else _NULLCTX
+
     def _dispatch_decode(self) -> None:
         """Launch one decode step and ring its token copy; no host sync."""
         t0 = time.perf_counter()
         mask = self.active & ~self._stalled
-        state = (self.cache_len, self.budget_dev, self.key_data, self.active_dev,
-                 *self._host_inputs(), *self._poison_args())
-        if self.kv is None:
-            out = self._decode(self.params, self.cache, self.last_token, *state)
-        else:
-            out = self._decode(self.params, self.kv.pools, self.kv.table_device(),
-                               self.last_token, *state)
-            self._dev_len += mask  # each dispatched row writes one entry
-        sampled, self.cache_len, self.budget_dev, self.key_data, self.active_dev = out
-        self.last_token = sampled
-        host, ready = _to_host(sampled)
+        with self._guard(), self.obs.span("serving.dispatch.decode"):
+            state = (self.cache_len, self.budget_dev, self.key_data, self.active_dev,
+                     *self._host_inputs(), *self._poison_args())
+            if self.kv is None:
+                out = self._decode(self.params, self.cache, self.last_token, *state)
+            else:
+                out = self._decode(self.params, self.kv.pools, self.kv.table_device(),
+                                   self.last_token, *state)
+                self._dev_len += mask  # each dispatched row writes one entry
+            sampled, self.cache_len, self.budget_dev, self.key_data, self.active_dev = out
+            self.last_token = sampled
+            host, ready = _to_host(sampled)
         self._note_occupancy(mask)
         self._ring.append(_InFlight(host, ready, mask, time.perf_counter() - t0))
+        if self.obs.enabled:
+            self._obs_dispatch("decode", mask)
 
     def _dispatch_spec(self) -> None:
         """Launch one speculative step (the draft root, then the verify
@@ -1169,37 +1303,41 @@ class ServingEngine:
         mask = self.active & ~self._stalled
         keep, temps, eos = self._host_inputs()[:3]
         d = self.draft
-        killed = self._take_fault("draft_kill") is not None
-        if not killed:
-            try:
-                proposals, q_probs, d.key_data = self._spec_draft(
-                    d.params, d.pools, d.table_device(), self.last_token, self.cache_len,
-                    d.key_data, self.active_dev, keep, temps)
-            except RuntimeError:
-                if self.device.type == "cuda":
-                    raise
-                logger.exception("draft dispatch failed: plain decode for %d steps",
-                                 self._fault_policy.draft_cooldown_steps)
-                killed = True
+        with self._guard(), self.obs.span("serving.dispatch.spec_draft"):
+            killed = self._take_fault("draft_kill") is not None
+            if not killed:
+                try:
+                    proposals, q_probs, d.key_data = self._spec_draft(
+                        d.params, d.pools, d.table_device(), self.last_token,
+                        self.cache_len, d.key_data, self.active_dev, keep, temps)
+                except RuntimeError:
+                    if self.device.type == "cuda":
+                        raise
+                    logger.exception("draft dispatch failed: plain decode for %d steps",
+                                     self._fault_policy.draft_cooldown_steps)
+                    killed = True
         if killed:
             self._degrade_draft()
             self._dispatch_decode()
             return
         cache, table = ((self.kv.pools, self.kv.table_device()) if self.kv is not None
                         else (self.cache, None))
-        (pack, self.cache_len, self.last_token, self.budget_dev, self.key_data,
-         self.active_dev) = self._spec_verify(
-            self.params, cache, table, self.last_token, proposals, q_probs,
-            self.cache_len, self.budget_dev, self.key_data, self.active_dev, keep,
-            temps, eos, self._k_row_dev, *self._poison_args())
+        with self._guard(), self.obs.span("serving.dispatch.spec_verify"):
+            (pack, self.cache_len, self.last_token, self.budget_dev, self.key_data,
+             self.active_dev) = self._spec_verify(
+                self.params, cache, table, self.last_token, proposals, q_probs,
+                self.cache_len, self.budget_dev, self.key_data, self.active_dev, keep,
+                temps, eos, self._k_row_dev, *self._poison_args())
+            host, ready = _to_host(pack)
         if self.kv is not None:
             # Conservative: verify writes all k+1 entries before the length
             # rolls back to the accepted prefix; _commit_spec reconciles.
             self._dev_len += (self.spec.k + 1) * mask
-        host, ready = _to_host(pack)
         self._note_occupancy(mask)
         self._ring.append(_InFlight(host, ready, mask, time.perf_counter() - t0,
                                     spec=True, k_row=self._k_row.copy()))
+        if self.obs.enabled:
+            self._obs_dispatch("spec", mask)
 
     def _degrade_draft(self) -> None:
         """The draft dispatch failed: plain decode until the cool-down's
@@ -1207,6 +1345,8 @@ class ServingEngine:
         self._draft_dead = True
         self._draft_off_until = self._step_idx + self._fault_policy.draft_cooldown_steps
         self.fault_events["draft_kills"] += 1
+        if self.obs.enabled:
+            self.obs.on_degraded("draft", True)
 
     def _note_occupancy(self, mask: np.ndarray) -> None:
         """Live rows per step, and live committed tokens over reserved pool
@@ -1220,6 +1360,20 @@ class ServingEngine:
             self._occ_live_frac_sum += int(self._len_host[mask].sum()) / reserved
             self._occ_samples += 1
 
+    def _obs_dispatch(self, kind: str, mask: np.ndarray) -> None:
+        """Step-dispatch telemetry: ring depth, live rows, pool occupancy
+        and live over reserved tokens -- host ints the engine tracks."""
+        pool = per_shard = live_tok = reserved_tok = None
+        if self.kv is not None:
+            alloc = self.kv.alloc
+            pool = [alloc.in_use(s) for s in range(alloc.num_shards)]
+            per_shard = self.kv.blocks_per_shard
+            reserved_tok = alloc.in_use() * self.kv.block_size
+            live_tok = int(self._len_host[mask].sum())
+        self.obs.on_step_dispatch(kind, len(self._ring), int(mask.sum()),
+                                  self._ring[-1].dispatch_s, pool, per_shard,
+                                  live_tok, reserved_tok)
+
     def _consume_one(self) -> None:
         """Wait for the oldest in-flight step's token copy (the step's one
         host sync) and run its emission and finish bookkeeping.  The
@@ -1231,9 +1385,10 @@ class ServingEngine:
         if sp is not None:
             time.sleep(sp.delay_s)  # a hung transfer
         t0 = time.perf_counter()
-        if entry.ready is not None:
-            entry.ready.synchronize()
-        toks = entry.tokens.numpy()
+        with self.obs.span("serving.ring_sync"):
+            if entry.ready is not None:
+                entry.ready.synchronize()
+            toks = entry.tokens.numpy()
         t_wait = time.perf_counter() - t0
         if sp is not None:
             t_wait += sp.delay_s
@@ -1245,6 +1400,8 @@ class ServingEngine:
             if verdict != "ok":
                 self.fault_events["straggler_slow"] += 1
                 self.fault_events["straggler_trips"] += verdict == "trip"
+                if self.obs.enabled:
+                    self.obs.on_straggler(verdict, dur)
         timeout = self._fault_policy.step_timeout_s
         if timeout is not None and dur > timeout:
             raise ServingFault(
@@ -1259,6 +1416,8 @@ class ServingEngine:
         self._wait_s.append(t_wait)
         self._host_s.append(t_host)
         self.step_times.append(entry.dispatch_s + t_wait + t_host)
+        if self.obs.enabled:
+            self.obs.on_step_consume("spec" if entry.spec else "decode", t_wait, t_host)
 
     def _commit_decode(self, entry: _InFlight, toks: np.ndarray) -> List[Request]:
         # A slot live in entry.mask whose request was retired by an OLDER
@@ -1267,6 +1426,7 @@ class ServingEngine:
         adv = entry.mask & live
         self._len_host += adv
         finished: List[Request] = []
+        now = time.perf_counter() if self.obs.enabled else 0.0
         for slot, req in enumerate(self.slots):
             if req is None or not adv[slot]:
                 continue
@@ -1275,11 +1435,16 @@ class ServingEngine:
                 self._quarantine(slot, req, finished)  # never emitted
                 continue
             req.generated.append(tok)
+            if self.obs.enabled:
+                req.t_last = now
+                self.obs.on_commit(req.uid, slot, 1)
             if (req.done or self._len_host[slot] >= self.max_len - 1
                     or tok == self._eos[slot]):
                 finished.append(req)
                 self._mark_finished(req)
                 self._retire_slot(slot)
+                if self.obs.enabled:
+                    self._obs_finish(req)
         return finished
 
     def _commit_spec(self, entry: _InFlight, toks: np.ndarray) -> List[Request]:
@@ -1290,6 +1455,7 @@ class ServingEngine:
         n_commit, m_acc = toks[:, k + 1], toks[:, k + 2]
         self.spec_steps += 1
         finished: List[Request] = []
+        now = time.perf_counter() if self.obs.enabled else 0.0
         for slot, req in enumerate(self.slots):
             if req is None or not entry.mask[slot]:
                 continue
@@ -1305,6 +1471,8 @@ class ServingEngine:
             self.spec_proposed += k_eff
             self.spec_accepted += m
             self.spec_step_rows += 1
+            if self.obs.enabled:
+                self.obs.on_spec_row(k_eff, m)
             self._len_host[slot] += m + 1  # entries committed to the cache
             if self.kv is not None:
                 # The dispatch advanced _dev_len by k+1; the cache kept m+1.
@@ -1316,18 +1484,27 @@ class ServingEngine:
                     self._k_row[slot] = max(1, k_eff - 1)
                 self._host_dirty = True
             base_len = self._len_host[slot] - (m + 1)
+            done, appended = False, 0
             for j in range(int(n_commit[slot])):
                 tok = int(toks[slot, j])
                 req.generated.append(tok)
                 self.spec_committed += 1
+                appended += 1
                 # Sequential finish semantics: the cached length after this
                 # token is base_len + j + 1.
                 if (req.done or base_len + j + 1 >= self.max_len - 1
                         or tok == self._eos[slot]):
-                    finished.append(req)
-                    self._mark_finished(req)
-                    self._retire_slot(slot)
+                    done = True
                     break
+            if self.obs.enabled and appended:
+                req.t_last = now
+                self.obs.on_commit(req.uid, slot, appended)
+            if done:
+                finished.append(req)
+                self._mark_finished(req)
+                self._retire_slot(slot)
+                if self.obs.enabled:
+                    self._obs_finish(req)
         return finished
 
     # ----------------------------------------------------------------- stats

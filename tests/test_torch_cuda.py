@@ -1455,3 +1455,45 @@ def test_spec_draft_failure_raises_on_card(dev):
     with pytest.raises(RuntimeError, match="draft launch failed"):
         eng._dispatch_spec()
     assert eng.fault_stats()["draft_kills"] == 0
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_telemetry_on_off_streams_bit_identical_on_card(dev, depth):
+    """Telemetry observes without perturbing: the same greedy streams and
+    kernel launches with it on and off, every dispatch of the telemetry run
+    under the engine's transfer guard (sync-debug "error"), and its token
+    counter equal to the tokens served."""
+    from repro_torch.obs import Telemetry
+
+    model, params = _paged_card_model(dev)
+    runs = []
+    for tel in (None, Telemetry()):
+        before = (nlr_ops.stream_launches, nlr_ops.mma_launches, pa_ops.launches)
+        out, eng = _serve_card(model, params, _sched_prompts(), pipeline_depth=depth,
+                               telemetry=tel, transfer_guard=tel is not None)
+        launched = (nlr_ops.stream_launches - before[0], nlr_ops.mma_launches - before[1],
+                    pa_ops.launches - before[2])
+        runs.append((out, launched))
+    assert runs[1] == runs[0]
+    assert tel.tokens_emitted.value == sum(len(s) for s in runs[1][0])
+    assert tel.steps_dispatched.value == eng.stats()["steps"]
+
+
+def test_profile_capture_holds_cuda_kernels(dev, tmp_path):
+    """A ProfileCapture of 4 steps on the card writes a Chrome trace with
+    the decode root's ranges and its kernels (nested stream, paged split)."""
+    import json
+
+    from repro_torch.obs import Telemetry
+
+    model, params = _paged_card_model(dev)
+    tel = Telemetry(profile_dir=str(tmp_path), profile_steps=4)
+    _serve_card(model, params, _sched_prompts(), pipeline_depth=1, telemetry=tel)
+    prof = tel.profile
+    assert prof.error is None and prof.trace_path is not None
+    with open(prof.trace_path) as f:
+        evs = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in evs if e.get("cat") == "kernel"]
+    assert any(e.get("name") == "serving_root.paged_decode" for e in evs)
+    assert any("stream_partial" in k for k in kernels)
+    assert any("paged_split_kernel" in k for k in kernels)

@@ -22,6 +22,12 @@ from repro_torch.configs import get_config
 from repro_torch.configs import paper_models as torch_paper
 from repro_torch.models import build_model
 
+# The parity tests run tiny shapes, several test workers at a time: torch's
+# intra-op pool (a thread a core in every worker) then oversubscribes the
+# host, and each test runs 20-50x slower than alone.  One thread a worker is
+# as fast at these sizes and keeps the suite inside its time limit.
+torch.set_num_threads(1)
+
 FAMILIES = {"small-llama": "LLAMA_7B", "small-opt": "OPT_6_7B",
             "small-mistral": "MISTRAL_7B"}
 
