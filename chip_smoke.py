@@ -20,7 +20,8 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
      and for bf16 the device time of the FMA kernel on the same rows;
      paged_attention: also a per-element check and zeros on a length-0 row at
      lengths 1-700, at eight rows of 512-8192 tokens, at one row of 32768
-     and at the serve path's decode step, bf16 and int8 pools, with the
+     and at the serve path's decode step, and that step at chatglm3-6b's
+     32/2 heads (G 16, the glm_serve path's), bf16 and int8 pools, with the
      split plan, which kernels ran, the device time of one call and of SDPA,
      the achieved bytes/s, and the combine kernel alone against its plain
      version on the split kernel's partials; rwkv6: also a per-element check
@@ -136,7 +137,26 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
      launch counts; on the nid1 gate projection the residual's column ID
      exact (C its columns, T the identity there, its error above the
      rank-k2 SVD's) and the nested kernel per element against its plain
-     version on those bf16 factors at 8 and 512 rows.
+     version on those bf16 factors at 8 and 512 rows;
+  9. glm_serve path (after the MoE paths): the serve path on chatglm3-6b at
+     full width cut to 2 of 28 layers (32/2 heads x 128: paged_attention at
+     G 16 with its combine, flash at G 16 in calibration, gram at n 4096
+     and 13696), its exact counts held against GLM_PREDICTED, one 512-row
+     prefill chunk's logits through the kernels against the plain versions
+     beside the decode step's, and paged_attention's device ms a call, its
+     split count and the combine's share, K/V bytes a token against
+     Mistral-7B's;
+ 10. mla_serve path: the serve path on minicpm3-4b at full width cut to 4
+     of 62 layers (Multi-head Latent Attention on the dense latent slab,
+     bucketed admission: buckets 16-256 at max_len 256, one call a
+     bucket's group at its size rounded up to a power of two, the padding
+     rows' writes dropped; naive prefill, absorbed decode with wkv_b built
+     by dense_kernel, so 8 nested calls a layer at prefill and 7 at decode,
+     none above the 1024-row gate), its exact counts held against
+     MLA_PREDICTED, its largest admission's logits (512 rows) through the
+     kernels against the plain versions, admission calls by
+     bucket, host syncs, and the latent slab's bytes a token against a GQA
+     slab of its heads.
 Prints a JSON kernel summary, nvidia-smi's line, and as its last line
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero; without a
 card (or outside the repository) it exits non-zero before printing results.
@@ -153,6 +173,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
@@ -171,6 +192,26 @@ NESTED_SHAPES = (  # (target, in K, out N, rank) at ratio 0.2 on Mistral-7B
 # RWKV admission, not a multiple of 16) and 512 (a paged prefill chunk of 8
 # x 64) the mma kernel.  fp32: the tile kernel at every row count.
 NESTED_ROWS = (1, 8, 16, 17, 64, 200, 512)
+# The narrower and wider shapes of the glm_serve and mla_serve paths, bf16
+# only (their models' dtype), at ratio 0.2: chatglm3-6b's wk (wv alike; N
+# 256 from 2 KV heads) and its d_ff 13696 (wi, wg alike, and wo back);
+# minicpm3-4b's every compressed linear (wq_a, wq_b, wkv_a with N 288 =
+# kv_lora 256 + rope 32, wkv_b with K 256, wo, wi and wg, wo back).  Rows: a
+# decode step's 8 (stream), and 512 and 1024 (mma: a paged chunk, an
+# admission call, the gate's edge).
+NESTED_PATH_SHAPES = (
+    ("glm_wk", 4096, 256, 192),
+    ("glm_wi", 4096, 13696, 2522),
+    ("glm_wo_ff", 13696, 4096, 2522),
+    ("mla_wq_a", 2560, 768, 472),
+    ("mla_wq_b", 768, 3840, 512),
+    ("mla_wkv_a", 2560, 288, 207),
+    ("mla_wkv_b", 256, 5120, 195),
+    ("mla_wo", 2560, 2560, 1024),
+    ("mla_wi", 2560, 6400, 1462),
+    ("mla_wo_ff", 6400, 2560, 1462),
+)
+NESTED_PATH_ROWS = (8, 512, 1024)
 # Max |kernel - plain| / max |plain| allowed.  bf16: the kernel and the plain
 # version round the rank-width intermediate and the output to bf16 at the
 # same points but sum in different orders (a few bf16 ulps of the output);
@@ -191,17 +232,20 @@ PAGED_TOL = 2e-2   # bf16 output; int8 pages dequantized in fp32 vs bf16
 # int8's dequantized K/V, to bf16 while the kernel keeps them in fp32; the
 # output rounds once.  fp32: sum order only.
 PAGED_ELEM_TOL = {"bfloat16": 2 ** -5, "float32": 1e-4}
-# (case, lengths, table columns or None for the longest row's pages) at
-# Mistral-7B's heads (32/8, hd 128, block 16): page-edge lengths up to 700
+# (case, lengths, table columns or None for the longest row's pages, (query,
+# KV) heads), hd 128, block 16; at Mistral-7B's heads (32/8): page-edge
+# lengths up to 700
 # and a dead row (5.29 MB of bf16 K/V, L2-resident across calls); eight long
 # rows, 30016 tokens (123 MB, beyond the 50 MB L2); one row at Mistral-7B's
 # max_seq (134 MB); and the serve path's decode step halfway through its 32
 # new tokens (its 8 prompts + 16, in its 16-column table: max_len 256,
-# block 16).
-PAGED_CASES = (("phase", (1, 15, 16, 17, 255, 256, 700, 0), None),
-               ("long8", (512, 1024, 2048, 3000, 4096, 5000, 6144, 8192), None),
-               ("one32k", (32768,), None),
-               ("serve", (189, 149, 126, 81, 88, 39, 45, 35), 16))
+# block 16); and that step at chatglm3-6b's heads (32/2, G 16: the glm_serve
+# path's decode step, 16 (row, head) pairs for plan_splits to spread).
+PAGED_CASES = (("phase", (1, 15, 16, 17, 255, 256, 700, 0), None, (32, 8)),
+               ("long8", (512, 1024, 2048, 3000, 4096, 5000, 6144, 8192), None, (32, 8)),
+               ("one32k", (32768,), None, (32, 8)),
+               ("serve", (189, 149, 126, 81, 88, 39, 45, 35), 16, (32, 8)),
+               ("glm", (189, 149, 126, 81, 88, 39, 45, 35), 16, (32, 2)))
 # Kernel vs plain rounding through a decode step (and below, one eval
 # batch), a few layers deep.  A MoE model's plain run takes the kernel run's
 # expert choices (models.moe.RoutingTrace): top-k routing flips at near-ties
@@ -209,8 +253,11 @@ PAGED_CASES = (("phase", (1, 15, 16, 17, 255, 256, 700, 0), None),
 # token's logits by O(1) whatever the kernels' error.
 STEP_LOGIT_TOL = 5e-2
 # (rows, n): the taps of a calibration batch (16 x 128 rows) at rwkv6-1.6b's
-# d_model, Mistral-7B's d_model, rwkv6-1.6b's d_ff and Mistral-7B's d_ff.
-GRAM_SHAPES = ((2048, 2048), (2048, 4096), (2048, 7168), (2048, 14336))
+# d_model, Mistral-7B's d_model, rwkv6-1.6b's d_ff and Mistral-7B's d_ff;
+# and at minicpm3-4b's kv_lora (256), q_lora (768), d_model (2560) and d_ff
+# (6400), and chatglm3-6b's d_ff (13696).
+GRAM_SHAPES = ((2048, 256), (2048, 768), (2048, 2048), (2048, 2560), (2048, 4096),
+               (2048, 6400), (2048, 7168), (2048, 13696), (2048, 14336))
 # Max |kernel - plain| / max |plain|, for G and for sum |x|: both sum the
 # same exact products (bf16 x bf16 is exact in fp32) in another order.
 GRAM_TOL = 1e-5
@@ -324,9 +371,11 @@ def elem_err(torch, got, want) -> float:
 def nested_phase(torch, ops, ref):
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for dname in ("bfloat16", "float32"):
+    cases = [(d, NESTED_SHAPES, NESTED_ROWS) for d in ("bfloat16", "float32")]
+    cases.append(("bfloat16", NESTED_PATH_SHAPES, NESTED_PATH_ROWS))
+    for dname, shapes, row_counts in cases:
         dt = getattr(torch, dname)
-        for target, k_in, n, r in NESTED_SHAPES:
+        for target, k_in, n, r in shapes:
             k1 = int(round(0.95 * r))
             k2 = r - k1
 
@@ -335,7 +384,7 @@ def nested_phase(torch, ops, ref):
             u, u2 = mk(k_in, k1, s=k_in ** -0.5), mk(k_in, k2, s=k_in ** -0.5)
             v, v2 = mk(k1, n, s=r ** -0.5), mk(k2, n, s=r ** -0.5)
             big_u, big_v = torch.cat([u, u2], 1), torch.cat([v, v2], 0)
-            for m in NESTED_ROWS:
+            for m in row_counts:
                 x = mk(m, k_in, s=1.0)
                 kernel = ops.plan(m, dt, k_in, n, k1, k2, True).kernel
                 before = nested_split()
@@ -394,12 +443,13 @@ def nested_phase(torch, ops, ref):
     return rows
 
 
-def paged_inputs(torch, np, lens, pool, cols=None):
+def paged_inputs(torch, np, lens, pool, cols=None, heads=(32, 8)):
     """(q, k_pages, v_pages, k_scales, v_scales, block_tables, lengths) of a
-    paged case at Mistral-7B's heads: bf16 q; bf16 pools, or int8 with fp32
-    scales; each row's pages scattered over a shuffled pool, -1 past them in
-    a table of ``cols`` columns (default: the longest row's pages)."""
-    b, hq, hkv, hd, bs = len(lens), 32, 8, 128, 16
+    paged case at ``heads`` (query, KV; default Mistral-7B's), hd 128: bf16
+    q; bf16 pools, or int8 with fp32 scales; each row's pages scattered over
+    a shuffled pool, -1 past them in a table of ``cols`` columns (default:
+    the longest row's pages)."""
+    (hq, hkv), b, hd, bs = heads, len(lens), 128, 16
     lens = np.asarray(lens, np.int32)
     pages = [-(-int(n) // bs) for n in lens]
     nb = sum(pages) + 8
@@ -426,9 +476,10 @@ def paged_inputs(torch, np, lens, pool, cols=None):
 def paged_phase(torch, np, ops, ref):
     rows = []
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for case, lens, cols in PAGED_CASES:
+    for case, lens, cols, heads in PAGED_CASES:
         for pool in ("bfloat16", "int8"):
-            q, kp, vp, ks, vs, bt, ln = paged_inputs(torch, np, lens, pool, cols=cols)
+            q, kp, vp, ks, vs, bt, ln = paged_inputs(torch, np, lens, pool, cols=cols,
+                                                     heads=heads)
             b, hq, hd = q.shape
             hkv, bs = kp.shape[2], kp.shape[1]
             live = ln > 0
@@ -916,12 +967,16 @@ def batched_split() -> dict:
             "gram": _ops("gram").batched_launches}
 
 
-def nested_calls(model) -> tuple:
+def nested_calls(model, decode: bool = False) -> tuple:
     """Nested-linear calls of one forward: (single form, batched form).  A
     target is one call per layer of its stack; a MoE layer's expert target
-    (stacked over experts too) is one batched call per layer."""
+    (stacked over experts too) is one batched call per layer.  ``decode``:
+    a decode step's, where MLA builds ``wkv_b`` with ``dense_kernel`` (plain
+    matmuls) instead of calling it."""
     single = batched = 0
     for t in model.compressible_targets():
+        if decode and model.cfg.attention == "mla" and t.path[-1] == "wkv_b":
+            continue
         if "experts" in t.path:
             batched += math.prod(t.stacked[:-1])
         else:
@@ -1009,8 +1064,9 @@ def profile_step(torch, fn, label: str = "decode step", quiet: bool = False,
         f"{len(kept)} of {windows} windows")
     for name, (ms, n) in top:
         log(f"    {ms:8.3f} ms  x{n:<4d} {name[:90]}")
+    combine = sum(ms for k, (ms, _) in per.items() if "paged_combine" in k)
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "nested_ms": nested,
-            "gram_ms": gram, "paged_ms": paged,
+            "gram_ms": gram, "paged_ms": paged, "combine_ms": combine,
             "top": [{"name": k, "ms": ms, "count": n} for k, (ms, n) in top], **used}
 
 
@@ -1030,20 +1086,126 @@ def factored_ratio(params, plan) -> float:
     return 1.0 - factored / dense
 
 
-def serve_path(torch, np, cfg, mixer: str, gram_taps: tuple, keep=None):
+def cache_bytes_per_token(model) -> int:
+    """Bytes one token takes in the model's decode cache over all layers
+    (a one-row, one-position slab on the meta device: K/V, or MLA's
+    latents; the paged pools hold the same bytes a token)."""
+    def walk(tree):
+        return sum(walk(v) if isinstance(v, dict) else v.numel() * v.element_size()
+                   for v in tree.values())
+    return walk(model.init_cache(1, 1, device="meta"))
+
+
+# The glm_serve and mla_serve paths (PR 28): serve_path on chatglm3-6b cut
+# to 2 of 28 layers (paged, 32/2 heads: G 16) and on minicpm3-4b cut to 4 of
+# 62 (MLA's latent slab, bucketed admission), *Serve*'s plan and prompts
+# (worst case, depth 1, max_batch 8, max_len 256, block 16, chunk 64).
+# Their exact counts, entered before the first chip run.  glm: *Serve*'s
+# schedule (33 steps, 3 chunk calls, 36 syncs); 14 nested calls a forward,
+# on the stream kernel at 8 rows and on mma at 512; paged_attention once a
+# layer a step, plan_splits(8, 2, 16) = 4 splits, so every call runs the
+# combine; 9 taps x 16 batches of gram, flash once a layer a calibration
+# batch.  MLA: the 8 prompts (173, 133, 110, 65, 72, 23, 29, 19 tokens) in
+# buckets 256 (2), 128 (3) and 32 (3), three admission calls in one
+# admission round, of 2, 4 and 4 rows (a group's size rounded up to a
+# power of two: 512, 512 and 128 nested rows), then 31 decode steps: 34
+# syncs; 8 nested calls a layer at prefill, all on mma, 7 at decode (wkv_b
+# through dense_kernel); 25 taps x 16 batches of gram, no mixer kernel, no
+# paged_attention.
+GLM_PREDICTED = dict(
+    steps=33, prefill_calls=3, host_syncs=36, admissions={}, splits=4, combine=66,
+    launches={"nested_lowrank": 504, "paged_attention": 66, "gram": 144,
+              "flash_attention": 32, "rwkv6": 0},
+    nested={"stream": 462, "mma": 42, "tile": 0})
+MLA_PREDICTED = dict(
+    steps=31, prefill_calls=3, host_syncs=34, admissions={32: 1, 128: 1, 256: 1},
+    splits=1, combine=0,
+    launches={"nested_lowrank": 964, "paged_attention": 0, "gram": 400,
+              "flash_attention": 0, "rwkv6": 0},
+    nested={"stream": 868, "mma": 96, "tile": 0})
+
+
+def admission_calls(plens, pad_safe: bool, max_batch: int = 8, max_len: int = 256) -> list:
+    """(width, rows) of each dense admission call when the prompts of
+    ``plens`` are all queued into as many free slots: a pad-sensitive
+    model's one call a prompt at its exact length; a pad-safe model's one
+    call a prompt-length bucket (16, doubling up to max_len), its rows the
+    group's size rounded up to a power of two (at most max_batch)."""
+    if not pad_safe:
+        return [(int(n), 1) for n in plens]
+    groups: dict = {}
+    for n in plens:
+        b = 16
+        while b < min(n, max_len):
+            b *= 2
+        b = min(b, max_len)
+        groups[b] = groups.get(b, 0) + 1
+    return [(b, min(max_batch, 1 << (g - 1).bit_length())) for b, g in sorted(groups.items())]
+
+
+def serve_report(cfg, eng, st, res, prof, layers: int, cache_bytes: int) -> dict:
+    """The glm_serve and mla_serve paths' own readings.  Paged: the decode
+    step's wall and device time, paged_attention's device ms a call, its
+    split count and the combine's share, and the K/V bytes a token against
+    Mistral-7B's (8 KV heads).  Slab: admission calls by bucket, host syncs
+    (one an admission group and one a step), the latent slab's bytes a token
+    against the K (nope + rope) and V a GQA slab of its heads would hold.
+    Both: step p50 and tok/s."""
+    from repro_torch.configs import MISTRAL_7B
+
+    out = dict(step_p50_ms=st["step_p50_s"] * 1e3, tok_per_s=res["tok_per_s"],
+               decode_wall_ms=prof["wall_ms"], decode_device_ms=prof["device_busy_ms"],
+               cache_bytes_per_token=cache_bytes)
+    if eng.layout == "paged":
+        pa = _ops("paged_attention")
+        per_call = prof["paged_ms"] / layers
+        mistral = layers * 2 * MISTRAL_7B.num_kv_heads * MISTRAL_7B.head_dim * 2
+        out.update(paged_ms_per_call=per_call,
+                   paged_splits=pa.plan_splits(eng.max_batch, cfg.num_kv_heads,
+                                               eng.kv.max_blocks_per_row)[0],
+                   combine_share=prof["combine_ms"] / prof["paged_ms"] if prof["paged_ms"] else None,
+                   mistral_cache_bytes_per_token=mistral)
+        log(f"  G {cfg.num_heads // cfg.num_kv_heads}: decode step wall {prof['wall_ms']:.3f} ms, "
+            f"device {prof['device_busy_ms']:.4f}; paged_attention {per_call:.4f} ms a call "
+            f"({out['paged_splits']} splits, combine {out['combine_share'] or 0:.1%} of it); "
+            f"K/V {cache_bytes} B a token against Mistral-7B's {mistral} at {layers} layers; "
+            f"step p50 {out['step_p50_ms']:.3f} ms, {out['tok_per_s']:.1f} tok/s")
+    else:
+        m = cfg.mla
+        gqa = layers * cfg.num_heads * (m.qk_nope_head_dim + m.qk_rope_head_dim
+                                        + m.v_head_dim) * 2 if m else None
+        out.update(admissions_by_width=dict(eng.admissions_by_width),
+                   host_syncs=st["host_syncs"], gqa_cache_bytes_per_token=gqa)
+        log(f"  slab: admission calls by bucket {dict(eng.admissions_by_width)}, host syncs "
+            f"{st['host_syncs']} = {st['prefill_ticks']} admissions + {st['steps']} steps; "
+            f"{cache_bytes} B a token ({eng.max_batch} x {eng.max_len} slab: "
+            f"{cache_bytes * eng.max_batch * eng.max_len / 2 ** 20:.2f} MiB) against {gqa} B "
+            f"for a GQA slab of its {cfg.num_heads} heads; step p50 {out['step_p50_ms']:.3f} "
+            f"ms, {out['tok_per_s']:.1f} tok/s; decode step wall {prof['wall_ms']:.3f} ms, "
+            f"device {prof['device_busy_ms']:.4f}")
+    return out
+
+
+def serve_path(torch, np, cfg, mixer, gram_taps: tuple, keep=None, predicted=None):
     """``serve()`` on ``cfg``: calibrate, compress (nsvd1, ratio 0.2) and
     serve 8 requests on the layout the model takes, with exact launch counts
-    (``mixer``: the kernel each calibration forward runs once per layer;
-    ``gram_taps``: a calibration batch's (single, batched) Gram taps); then
-    one decode step's logits through the kernels against the plain
-    versions, on a cache prefilled with each prompt's first 15 tokens, and
-    for a MoE model one eval batch's logits through its compressed experts
-    (the batched nested kernel at an eval batch's capacity).  The engine
-    runs as before the scheduler (worst-case admission, pipeline depth 1),
-    so counts and times compare across PRs; ``keep`` (a dict) receives the
-    compressed model and params."""
+    (``mixer``: the kernel each calibration forward runs once per layer,
+    None for MLA, whose attention is plain torch; ``gram_taps``: a
+    calibration batch's (single, batched) Gram taps); then one decode step's
+    logits through the kernels against the plain versions, on a cache
+    prefilled with each prompt's first 15 tokens, and for a MoE model one
+    eval batch's logits through its compressed experts (the batched nested
+    kernel at an eval batch's capacity).  The engine runs as before the
+    scheduler (worst-case admission, pipeline depth 1), so counts and times
+    compare across PRs; ``keep`` (a dict) receives the compressed model and
+    params.  ``predicted`` (GLM_PREDICTED, MLA_PREDICTED): the path's exact
+    counts, held beside the ones derived from the run's own steps, and one
+    prefill call's logits through the kernels against the plain versions
+    (a 64-token chunk of 8 rows on the pages, the admission call with the
+    most rows under the nested gate on the slab)."""
     from repro_torch import kernels
     from repro_torch.launch.serve import serve
+    from repro_torch.models.api import prefill_pad_safe
     from repro_torch.models.moe import RoutingTrace, capacity_of
     from repro_torch.serving.kvcache import PagedKVCache
 
@@ -1070,40 +1232,46 @@ def serve_path(torch, np, cfg, mixer: str, gram_taps: tuple, keep=None):
     paged = eng.layout == "paged"
     layers = cfg.num_layers
     n_single, n_batched = nested_calls(model)
+    n_decode = nested_calls(model, decode=True)[0]
     # Calibration: 256 samples in batches of 16, each one causal forward
     # (the mixer kernel once per layer, gram_taps Gram taps).  Every
     # compressed linear of every prefill call and decode step runs the
-    # nested kernel (a MoE layer's experts its batched form); paged decode
-    # steps run paged attention once per layer; dense admissions prefill
-    # each prompt at its exact length through the mixer (paged prefill
-    # chunks attend over gathered pages, as the reference, not through
-    # flash_attention).
+    # nested kernel (a MoE layer's experts its batched form; at an MLA
+    # decode step all but wkv_b) unless the call's rows are above its gate;
+    # paged decode steps run paged attention once per layer; dense
+    # admissions prefill through the mixer (paged prefill chunks attend
+    # over gathered pages, as the reference, not through flash_attention).
     calib_batches = 256 // 16
-    expect = {"nested_lowrank": (n_single + n_batched) * (st["steps"] + st["prefill_ticks"]),
+    # A decode step's compressed linears see the engine's 8 rows (bf16), a
+    # prefill call its rows (paged: every chunk is max_batch x prefill_chunk
+    # = 512 rows; dense: each admission call's, from the prompt lengths by
+    # admission_calls), and a MoE layer's experts the call's capacity rows;
+    # <= 16 rows run the stream kernel, more the mma kernel up to the gate
+    # (1024 rows; above it plain matmuls), none the tile kernel.
+    nlr = _ops("nested_lowrank")
+    gate = nlr.MAX_KERNEL_ROWS
+    admits = [] if paged else admission_calls(plens, prefill_pad_safe(model))
+    admits_ok = paged or eng.admissions_by_width == Counter(w for w, _ in admits)
+    prefill_rows = [8 * 64] * st["prefill_ticks"] if paged else [w * r for w, r in admits]
+    calls = [(eng.max_batch, n_decode)] * st["steps"] + [(r, n_single) for r in prefill_rows]
+    expert_rows = [capacity_of(r, cfg) for r, _ in calls] if n_batched else []
+    batched_expect = {"nested": {
+        "stream": n_batched * sum(c <= nlr.STREAM_ROWS for c in expert_rows),
+        "mma": n_batched * sum(nlr.STREAM_ROWS < c <= gate for c in expert_rows),
+        "tile": 0}, "gram": gram_taps[1] * calib_batches}
+    nested_expect = {
+        "stream": (sum(n for r, n in calls if r <= nlr.STREAM_ROWS)
+                   + batched_expect["nested"]["stream"]),
+        "mma": (sum(n for r, n in calls if nlr.STREAM_ROWS < r <= gate)
+                + batched_expect["nested"]["mma"]), "tile": 0}
+    expect = {"nested_lowrank": nested_expect["stream"] + nested_expect["mma"],
               "paged_attention": layers * st["steps"] if paged else 0,
               "gram": sum(gram_taps) * calib_batches,
               "flash_attention": 0, "rwkv6": 0}
-    expect[mixer] = layers * (calib_batches + (0 if paged else st["prefill_ticks"]))
-    # A decode step's compressed linears see the engine's 8 rows (bf16), a
-    # prefill call its rows (paged: every chunk is max_batch x prefill_chunk
-    # = 512 rows; dense: one call per prompt at its length), and a MoE
-    # layer's experts the call's capacity rows; <= 16 rows run the stream
-    # kernel, more the mma kernel, none the tile kernel.
-    nlr = _ops("nested_lowrank")
-    prefill_rows = ([8 * 64] * st["prefill_ticks"] if paged
-                    else [len(p) for p in prompts])
-    single_rows = [eng.max_batch] * st["steps"] + prefill_rows
-    expert_rows = ([capacity_of(r, cfg) for r in single_rows] if n_batched else [])
-    short = (sum(r <= nlr.STREAM_ROWS for r in single_rows),
-             sum(r <= nlr.STREAM_ROWS for r in expert_rows))
-    batched_expect = {"nested": {"stream": n_batched * short[1],
-                                 "mma": n_batched * (len(expert_rows) - short[1]), "tile": 0},
-                      "gram": gram_taps[1] * calib_batches}
-    nested_expect = {"stream": n_single * short[0] + batched_expect["nested"]["stream"],
-                     "mma": (n_single * (len(single_rows) - short[0])
-                             + batched_expect["nested"]["mma"]), "tile": 0}
+    if mixer is not None:
+        expect[mixer] = layers * (calib_batches + (0 if paged else st["prefill_ticks"]))
     nested_ok = (nsplit == nested_expect and bsplit == batched_expect
-                 and len(prefill_rows) == st["prefill_ticks"])
+                 and len(prefill_rows) == st["prefill_ticks"] and admits_ok)
     # Every paged decode step's attention also runs the combine when
     # plan_splits gives its table (max_batch rows x the table's columns)
     # more than one split.
@@ -1116,14 +1284,24 @@ def serve_path(torch, np, cfg, mixer: str, gram_taps: tuple, keep=None):
     reasons = {u: r.finish_reason for u, r in res["requests"].items()}
     outs = res["outputs"]
     ratio = factored_ratio(params, plan)
+    # Dense: one sync a step and one an admission call (a bucket's group, or
+    # one exact-length prompt).
     syncs_ok = (st["host_syncs"] <= st["steps"] + st["prefill_ticks"] if paged else
-                st["prefill_ticks"] == 8 and st["host_syncs"] == st["steps"] + 8)
+                st["host_syncs"] == st["steps"] + st["prefill_ticks"]
+                and st["prefill_ticks"] == len(admits))
+    pred_ok, pred_got = True, None
+    if predicted is not None:
+        pred_got = dict(steps=st["steps"], prefill_calls=st["prefill_ticks"],
+                        host_syncs=st["host_syncs"], launches=counts, nested=nsplit,
+                        combine=combine, splits=n_splits,
+                        admissions=dict(eng.admissions_by_width))
+        pred_ok = pred_got == predicted
     ok = (len(outs) == 8 and all(reasons.get(u) for u in outs)
           and all(1 <= len(v) <= 32 for v in outs.values())
           and all(0 <= t < cfg.vocab_size for v in outs.values() for t in v)
           and syncs_ok and abs(ratio - plan.achieved_ratio) < 1e-9
           and counts == expect and split_ok and rsplit_ok and nested_ok and gram_ok
-          and combine_ok and expect["nested_lowrank"] > 0)
+          and combine_ok and expect["nested_lowrank"] > 0 and pred_ok)
     log(f"serve path: {cfg.name} d_model={cfg.d_model} heads={cfg.num_heads}/"
         f"{cfg.num_kv_heads} hd={cfg.head_dim} d_ff={cfg.d_ff} vocab="
         f"{cfg.vocab_size} layers={layers} (depth cut); cache layout {eng.layout}")
@@ -1141,6 +1319,11 @@ def serve_path(torch, np, cfg, mixer: str, gram_taps: tuple, keep=None):
         f"expected {combine_expect} ({n_splits} splits) {'OK' if combine_ok else 'FAIL'}; "
         f"rwkv6 by copy width {rsplit} {'OK' if rsplit_ok else 'FAIL'}; "
         f"finish reasons {sorted(set(reasons.values()))}")
+    cache_bytes = cache_bytes_per_token(model)
+    if predicted is not None:
+        log(f"  predicted {predicted}\n  got       {pred_got} {'OK' if pred_ok else 'FAIL'}")
+        log(f"  cache bytes a token: {cache_bytes} ({cache_bytes // layers} a layer; "
+            f"{eng.layout}); admission calls by width {dict(eng.admissions_by_width)}")
 
     toks = torch.as_tensor(np.stack([p[:15] for p in prompts]), device="cuda")
     nxt = torch.as_tensor([[int(p[15])] for p in prompts], device="cuda")
@@ -1179,20 +1362,57 @@ def serve_path(torch, np, cfg, mixer: str, gram_taps: tuple, keep=None):
             f"{eng.layout} decode step (8 rows)")
         # One prefill call as the engine makes it: paged, a chunk of 64
         # tokens for each of the 8 rows (512 nested rows; rewriting the same
-        # positions each time); dense, the longest prompt's admission into a
-        # fresh row cache.
+        # positions each time); dense and bucketed, the run's admission call
+        # with the most rows under the nested gate; dense and exact-length,
+        # the longest prompt's admission into a fresh row cache.
         if paged:
             ptoks = torch.as_tensor(rng.integers(2, cfg.vocab_size // 2, size=(8, 64)),
                                     device="cuda")
-            prof_prefill = profile_step(torch, lambda: model.apply(
-                params, ptoks, mode="decode", cache=cache, cache_len=torch.zeros_like(clen),
-                **extra), "paged prefill chunk (8 x 64 = 512 rows)")
+
+            def prefill_call(c):
+                return model.apply(params, ptoks, mode="decode", cache=c,
+                                   cache_len=torch.zeros_like(clen), **extra)
+
+            def fresh():
+                return clone(saved)
+            pre_label = "paged prefill chunk (8 x 64 = 512 rows)"
         else:
-            longest = max(prompts, key=len)
-            ptoks = torch.as_tensor(longest[None], device="cuda")
-            prof_prefill = profile_step(torch, lambda: model.apply(
-                params, ptoks, mode="prefill", cache=model.init_cache(1, 256, device="cuda")),
-                f"dense admission prefill ({len(longest)} rows)")
+            if prefill_pad_safe(model):
+                width, n_rows = max((c for c in admits if c[0] * c[1] <= gate),
+                                    key=lambda c: c[0] * c[1])
+                ptoks = torch.as_tensor(rng.integers(2, cfg.vocab_size // 2,
+                                                     size=(n_rows, width)), device="cuda")
+                pre_label = (f"dense bucketed admission prefill ({n_rows} x {width} = "
+                             f"{n_rows * width} rows)")
+            else:
+                longest = max(prompts, key=len)
+                ptoks = torch.as_tensor(longest[None], device="cuda")
+                pre_label = f"dense admission prefill ({len(longest)} rows)"
+
+            def prefill_call(c):
+                return model.apply(params, ptoks, mode="prefill", cache=c)
+
+            def fresh():
+                return model.init_cache(ptoks.shape[0], 256, device="cuda")
+        prof_prefill = profile_step(torch, lambda: prefill_call(cache if paged else fresh()),
+                                    pre_label)
+        prefill_check = None
+        if predicted is not None:
+            before = dict(nested_split())
+            pk = prefill_call(fresh()).float()
+            torch.cuda.synchronize()
+            ran = {k: v - before[k] for k, v in nested_split().items()}
+            with kernels.plain():
+                pp = prefill_call(fresh()).float()
+            p_err, p_scale = float((pk - pp).abs().max()), float(pp.abs().max())
+            prefill_check = dict(label=pre_label, rows=int(ptoks.numel()), nested_launches=ran,
+                                 max_abs_err=p_err, max_abs=p_scale,
+                                 ok=bool(torch.isfinite(pk).all()) and ran["mma"] > 0
+                                 and p_err <= STEP_LOGIT_TOL * p_scale)
+            del pk, pp
+            log(f"  {pre_label} logits kernels vs plain: max abs err {p_err:.4e} (max |logit| "
+                f"{p_scale:.3f}, tol {STEP_LOGIT_TOL * p_scale:.4e}), nested launches {ran} "
+                f"{'OK' if prefill_check['ok'] else 'FAIL'}")
     torch.cuda.synchronize()
     step_err = float((lk - lp).abs().max())
     step_scale = float(lp.abs().max())
@@ -1235,7 +1455,13 @@ def serve_path(torch, np, cfg, mixer: str, gram_taps: tuple, keep=None):
             f"abs err {e_err:.4e} (max |logit| {e_scale:.3f}, tol "
             f"{EVAL_LOGIT_TOL * e_scale:.4e}), expert routings pinned {trace.flips} of "
             f"{4 * 2048 * len(trace.choices)} {'OK' if e_ok else 'FAIL'}")
+    report = None
+    if predicted is not None:
+        step_ok = step_ok and prefill_check["ok"]
+        report = serve_report(cfg, eng, st, res, prof, layers, cache_bytes)
     summary = dict(config=cfg.name, layers=layers, layout=eng.layout,
+                   predicted=predicted, predicted_got=pred_got, prefill_check=prefill_check,
+                   report=report,
                    prompt_lengths=plens.tolist(), seconds=res["seconds"],
                    tokens=res["tokens"], tok_per_s=res["tok_per_s"], engine=st,
                    launches=counts, expected_launches=expect, flash_launches=split,
@@ -1902,7 +2128,10 @@ SPEC_RUNS = (("S1", {"admission": "worst_case"}, 1, True, "nsvd", False, ()),
 # run: they depend only on the prompt lengths and the plan, not on
 # acceptance (tests/test_torch_spec.py runs this path at a tiny width on
 # the CPU).  Every other count follows from the spec steps a run took.
-SPEC_PREDICTED = {"S1": (3, 3, 0), "S2": (3, 3, 0), "S3": (8, 8, 0), "S4": (3, 3, 0),
+# S3's admissions are bucketed on the slab (PR 28): the 8 prompts fall in
+# three buckets (256: 173 and 133 tokens; 128: 110, 65, 72; 32: 23, 29, 19),
+# one call and one sync each (8 before, one exact-length call a prompt).
+SPEC_PREDICTED = {"S1": (3, 3, 0), "S2": (3, 3, 0), "S3": (3, 3, 0), "S4": (3, 3, 0),
                   "S5": (4, 4, SPEC_COOLDOWN), "S6": (3, 3, 0)}
 
 
@@ -1974,6 +2203,7 @@ def spec_run(torch, np, label, cfg, prompts, device, base=None) -> dict:
     n_tok = sum(len(r.generated) for r in reqs if r is not None)
     serve_s = seconds.get("serve", wall)
     return {"engine": eng, "model": model, "params": params, "plan": plan,
+            "plens": [len(p) for p in prompts],
             "outputs": [r.generated if r else None for r in reqs],
             "reasons": [r.finish_reason if r else None for r in reqs],
             "retried": [bool(r and r.retries) for r in reqs],
@@ -1985,6 +2215,7 @@ def spec_run(torch, np, label, cfg, prompts, device, base=None) -> dict:
                             fault_stats=eng.fault_stats() if plan else None,
                             outstanding=[sp.kind for sp in plan.outstanding()] if plan else [],
                             dispatches=dict(counted), launches=read_counts(),
+                            admissions=dict(eng.admissions_by_width),
                             nested_launches=nested_split(), gram_launches=gram_split(),
                             paged_combine_launches=_ops("paged_attention").combine_launches,
                             degraded_steps=sum(v is not None for v in views),
@@ -2024,16 +2255,21 @@ def spec_check(label, r, want, margins, forced, model, n_splits, cuda) -> dict:
     paged = sm["layout"] == "paged"
     ticks = st["prefill_ticks"]
     forwards = (SPEC_K + 1) * spec_steps + plain  # 8-row decodes (stream kernel)
-    # Chunk calls (paged: 512 rows, target and draft) or exact-length
-    # admissions (dense: target and draft at the prompt's rows; all above
-    # 16 rows) on the mma kernel, and the 40-row verify chunks.
-    expect = {"nested_lowrank": n_single * (forwards + spec_steps + 2 * ticks),
+    # Chunk calls (paged: 512 rows, target and draft) or bucketed admissions
+    # (dense: target and draft, each call's rows from the prompt lengths by
+    # admission_calls) on the mma kernel, but for an admission above the
+    # nested gate (plain matmuls), and the 40-row verify chunks.
+    gate = _ops("nested_lowrank").MAX_KERNEL_ROWS
+    admits = [] if paged else admission_calls(r["plens"], True)
+    kernel_ticks = ticks if paged else sum(w * n <= gate for w, n in admits)
+    counts_ok = counts_ok and (paged or sm["admissions"] == Counter(w for w, _ in admits))
+    expect = {"nested_lowrank": n_single * (forwards + spec_steps + 2 * kernel_ticks),
               "paged_attention": layers * forwards if paged else 0,
               "gram": 9 * 16 if label == "S1" else 0,
               "flash_attention": (layers * 16 if label == "S1" else 0)
               + (0 if paged else 2 * layers * ticks), "rwkv6": 0}
     nested_expect = {"stream": n_single * forwards,
-                     "mma": n_single * (spec_steps + 2 * ticks), "tile": 0}
+                     "mma": n_single * (spec_steps + 2 * kernel_ticks), "tile": 0}
     combine_expect = expect["paged_attention"] if n_splits > 1 else 0
     launches_ok = (not cuda or (sm["launches"] == expect
                                 and sm["nested_launches"] == nested_expect
@@ -3061,6 +3297,21 @@ def methods_path(torch, np, cfg, taps_per_layer: int):
     return summary, counts
 
 
+def ptxas_report(build_log: dict) -> list:
+    """ptxas's register and spill lines of every kernel, each after the end
+    of its mangled name (the template arguments: the paged kernel's KV
+    type, G and DPL, ...; the anonymous namespace's prefix cut)."""
+    out = []
+    for name, text in build_log.items():
+        fn = ""
+        for line in text.splitlines():
+            if "Function properties for " in line:
+                fn = line.split("Function properties for ", 1)[1].strip()
+            elif "registers" in line or "spill" in line:
+                out.append(f"  ptxas[{name}] ...{fn[-56:]}: {line.strip()}")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3077,7 +3328,8 @@ def main() -> int:
         from repro_torch.kernels.nested_lowrank import ops as nlr_ops, ref as nlr_ref
         from repro_torch.kernels.paged_attention import ops as pa_ops, ref as pa_ref
         from repro_torch.kernels.rwkv6 import ops as rwkv_ops, ref as rwkv_ref
-        from repro_torch.configs import MISTRAL_7B, MOONSHOT_V1_16B_A3B, RWKV6_1_6B
+        from repro_torch.configs import (CHATGLM3_6B, MINICPM3_4B, MISTRAL_7B,
+                                         MOONSHOT_V1_16B_A3B, RWKV6_1_6B)
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
         return 2
@@ -3099,10 +3351,8 @@ def main() -> int:
     t0 = time.perf_counter()
     build_s = build.build_all()
     log(f"build: {build_s:.1f} s for {list(build.SOURCES)} (wall {time.perf_counter() - t0:.1f} s)")
-    for name, text in build.build_log.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas[{name}]: {line.strip()}")
+    for line in ptxas_report(build.build_log):
+        log(line)
 
     nested = nested_phase(torch, nlr_ops, nlr_ref)
     nested_b = nested_batched_phase(torch, nlr_ops, nlr_ref)
@@ -3115,15 +3365,20 @@ def main() -> int:
                      + rwkv)
     # mistral-7b cut to 2 of 32 layers (1 on the methods path); rwkv6-1.6b
     # cut to 4 of 24; moonshot-v1-16b-a3b cut to 3 of 48 (its dense first
-    # layer and two MoE layers); widths untouched.  (path, function, args):
-    # the mixer kernel and a calibration batch's (single, batched) Gram taps
-    # (4 a layer and the final norm's on Mistral, 9 a layer and the final
+    # layer and two MoE layers); chatglm3-6b cut to 2 of 28; minicpm3-4b cut
+    # to 4 of 62; widths untouched.  (path, function, args): the mixer kernel
+    # and a calibration batch's (single, batched) Gram taps (4 a layer and
+    # the final norm's on Mistral and chatglm3, 9 a layer and the final
     # norm's on RWKV-6; on moonshot 4 on the dense layer, and on each MoE
     # layer attn.in, attn.out_in, router_in, shared_in, shared_mid and the
-    # batched expert_buf, expert_mid).
+    # batched expert_buf, expert_mid; on minicpm3 attn.in, attn.q_lora_in,
+    # attn.kv_lora_in, attn.out_in, mlp.in and mlp.mid a layer, no mixer
+    # kernel: MLA attention is plain torch).
     mistral = dataclasses.replace(MISTRAL_7B, num_layers=2)
     rwkv6 = dataclasses.replace(RWKV6_1_6B, num_layers=4)
     moonshot = dataclasses.replace(MOONSHOT_V1_16B_A3B, num_layers=3)
+    glm = dataclasses.replace(CHATGLM3_6B, num_layers=2)
+    minicpm3 = dataclasses.replace(MINICPM3_4B, num_layers=4)
     served = {}
     runs = (("serve", serve_path, (mistral, "flash_attention", (9, 0), served)),
             ("sched_serve", sched_serve_path, (served,)),
@@ -3135,7 +3390,9 @@ def main() -> int:
             ("rwkv_serve", serve_path, (rwkv6, "rwkv6", (37, 0))),
             ("rwkv_quality", quality_path, (rwkv6, 1, (37, 0), "rwkv6")),
             ("moe_serve", serve_path, (moonshot, "flash_attention", (15, 4))),
-            ("moe_quality", quality_path, (moonshot, 2, (15, 4), "flash_attention")))
+            ("moe_quality", quality_path, (moonshot, 2, (15, 4), "flash_attention")),
+            ("glm_serve", serve_path, (glm, "flash_attention", (9, 0), None, GLM_PREDICTED)),
+            ("mla_serve", serve_path, (minicpm3, None, (25, 0), None, MLA_PREDICTED)))
     summaries, path_counts, path_s = {}, {}, {}
     for name, fn, args in runs:
         t0 = time.perf_counter()
@@ -3198,6 +3455,20 @@ def main() -> int:
     # with the MoE paths' batched stream launches, the 960-row gate case
     # (mma) with their batched mma launches, and the expert_buf-wide Gram
     # with their batched gram launches.
+    # The G 16 paged step (glm_serve's decode step at chatglm3-6b's 32/2
+    # heads): the split kernel with glm_serve's launches, and its combine
+    # alone with glm_serve's combine launches.
+    glm_counts = path_counts["glm_serve"]
+    picks += (
+        ("paged_attention_g16", next(r for r in paged if r["kernel"] == "paged_attention"
+                                     and r["pool"] == "bfloat16" and r["case"] == "glm"),
+         glm_counts["paged_attention"], "src/repro_torch/csrc/paged_attention.cu",
+         "src/repro/kernels/paged_attention/paged_attention.py:243"),
+        ("paged_combine_g16", next(r for r in paged if r["kernel"] == "paged_combine"
+                                   and r["case"] == "glm" and r["pool"] == "bfloat16"),
+         summaries["glm_serve"]["paged_combine_launches"],
+         "src/repro_torch/csrc/paged_attention.cu",
+         "src/repro/kernels/paged_attention/paged_attention.py:243"))
     moe_b = [summaries[k]["batched_launches"] for k in ("moe_serve", "moe_quality")]
     picks += (
         ("nested_lowrank_batched", next(r for r in nested_b if r["case"] == "decode"),

@@ -1,9 +1,10 @@
 """Model configuration: the subset of the reference config the port reads.
 
 The port serves the paper's dense families (LLaMA / OPT / Mistral), the
-RWKV-6 family and the token-choice MoE family, so the frozen dataclass keeps
-the reference's field names and defaults for every field those families
-read; the other family sub-configs (MLA, Mamba) are not ported yet.
+dense GQA archs, Multi-head Latent Attention, the RWKV-6 family and the
+token-choice MoE family, so the frozen dataclass keeps the reference's field
+names and defaults for every field those families read; the Mamba
+sub-config is not ported yet.
 ``reduced()`` is the reference's smoke-test shrink.
 """
 
@@ -26,6 +27,15 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+
+
+@dataclasses.dataclass(frozen=True)
 class RWKVConfig:
     head_dim: int = 64
     decay_lora: int = 64
@@ -44,7 +54,7 @@ class ModelConfig:
     vocab_size: int
     head_dim: int = 0  # 0 => d_model // num_heads
 
-    attention: str = "gqa"
+    attention: str = "gqa"  # gqa | mla
     pos_emb: str = "rope"  # rope | learned | none
     rotary_pct: float = 1.0
     rope_theta: float = 10000.0
@@ -54,6 +64,7 @@ class ModelConfig:
     mixer_pattern: Tuple[str, ...] = ("attn",)  # "attn" | "rwkv", cycled
 
     moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     rwkv: Optional[RWKVConfig] = None
 
     max_seq: int = 131072
@@ -99,6 +110,10 @@ class ModelConfig:
                 # forward (dropping depends on the batch's composition).
                 capacity_factor=8.0,
             )
+        mla = None
+        if self.mla is not None:
+            mla = MLAConfig(q_lora_rank=16, kv_lora_rank=8, qk_nope_head_dim=8,
+                            qk_rope_head_dim=4, v_head_dim=8)
         rwkv = None
         if self.rwkv is not None:
             rwkv = RWKVConfig(head_dim=8, decay_lora=8, mix_lora=4)
@@ -113,6 +128,7 @@ class ModelConfig:
             vocab_size=256,
             head_dim=8,
             moe=moe,
+            mla=mla,
             rwkv=rwkv,
             max_seq=128,
             dtype="float32",

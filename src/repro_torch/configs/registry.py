@@ -10,7 +10,11 @@ from __future__ import annotations
 from typing import Dict
 
 from .base import ModelConfig
+from .chatglm3_6b import CONFIG as CHATGLM3_6B
+from .deepseek_67b import CONFIG as DEEPSEEK_67B
+from .minicpm3_4b import CONFIG as MINICPM3_4B
 from .moonshot_v1_16b_a3b import CONFIG as MOONSHOT_V1_16B_A3B
+from .phi3_medium_14b import CONFIG as PHI3_MEDIUM_14B
 from .paper_models import LLAMA_7B, MISTRAL_7B, OPT_6_7B, small_lm
 from .rwkv6_1_6b import CONFIG as RWKV6_1_6B
 
@@ -21,6 +25,10 @@ PAPER: Dict[str, ModelConfig] = {
 }
 
 FAMILIES: Dict[str, ModelConfig] = {
+    "chatglm3-6b": CHATGLM3_6B,
+    "phi3-medium-14b": PHI3_MEDIUM_14B,
+    "deepseek-67b": DEEPSEEK_67B,
+    "minicpm3-4b": MINICPM3_4B,
     "rwkv6-1.6b": RWKV6_1_6B,
     "moonshot-v1-16b-a3b": MOONSHOT_V1_16B_A3B,
 }

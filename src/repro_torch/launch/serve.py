@@ -1,11 +1,17 @@
 """Serving launcher: build (or load) a model, optionally calibrate and
 NSVD-compress it, and serve batched requests through the engine, on the
 cache layout the model takes (``models.api.cache_layout``): paged block
-pools for the attention families, the dense slab for RWKV-6 (recurrent
-state) and the token-choice MoE family (attention K/V).
+pools for the attention families (the paper's, chatglm3-6b, phi3-medium-14b,
+deepseek-67b), the dense slab for RWKV-6 (recurrent state), the token-choice
+MoE family (attention K/V) and MLA (minicpm3-4b: its latents, admitted in
+prompt-length buckets).
 
     python -m repro_torch.launch.serve --arch mistral-7b --no-reduced \\
         --compress 0.2 --requests 8 --max-new 32
+    python -m repro_torch.launch.serve --arch chatglm3-6b --no-reduced \\
+        --layers 2 --compress 0.2 --requests 8 --max-new 32 --max-batch 8
+    python -m repro_torch.launch.serve --arch minicpm3-4b --no-reduced \\
+        --layers 4 --compress 0.2 --requests 8 --max-new 32 --max-batch 8
     python -m repro_torch.launch.serve --arch rwkv6-1.6b --no-reduced \\
         --compress 0.2 --requests 8 --max-new 32 --max-batch 8
     python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --no-reduced \\

@@ -1,9 +1,9 @@
 """Serving step builders, with batched sampling and device-side finish
 exits: the paged decode step and the paged prefill-chunk step (attention
-stacks), the dense-slab decode step and prefill-admit step (the
-pad-sensitive stacks: RWKV-6's recurrent state, token-choice MoE's K/V
-slab), and speculative decoding's draft and verify roots with the draft's
-two prefill twins.
+stacks), the dense-slab decode step and prefill-admit step (RWKV-6's
+recurrent state, token-choice MoE's K/V slab, MLA's latent slab, and any
+attention stack served with ``paged=False``), and speculative decoding's
+draft and verify roots with the draft's two prefill twins.
 
 All per-slot state lives on the device: cache_len, last_token, budget,
 sampling keys and active flags.  A decode step samples every live row,
@@ -137,49 +137,70 @@ def make_decode_sample_step(model, max_len: int) -> Callable:
 
 # Dense-slab cache leaves: name -> ndim of one layer's leaf; a stacked group
 # adds a leading layer dim, so the batch axis is ndim - base.
-_CACHE_LEAF_NDIM = {"state": 4, "shift_t": 2, "shift_c": 2, "k": 4, "v": 4}
+_CACHE_LEAF_NDIM = {"state": 4, "shift_t": 2, "shift_c": 2, "k": 4, "v": 4,
+                    "c_kv": 3, "k_rope": 3}
 
 
-def set_cache_rows(cache, rows, slots: torch.Tensor) -> None:
-    """Write R per-row cache slices ``rows`` into batch rows ``slots`` (R,)
-    of ``cache``, in place, one index_copy_ per leaf.  Every slot must be a
-    real row: the port admits dense-layout requests one at a time, so it
-    has no padding rows to drop."""
-    idx = slots.long()
+def _drop_pad_rows(slots: torch.Tensor, n: int):
+    """(dst, src) int64 index vectors that write row r of an admission's
+    R rows to slot ``slots[r]``, and drop the rows whose slot is >= n (the
+    reference's mode="drop" for padding rows): a padding row writes the
+    first real row's values to that row's slot again, so a duplicate index
+    always stores equal values and no selection depends on the data (which
+    would sync with the host).  At least one row must be real."""
+    real = slots.long() < n
+    first = torch.argmax(real.to(torch.int32))
+    rows = torch.arange(slots.shape[0], device=slots.device)
+    src = torch.where(real, rows, first)
+    return slots.long().index_select(0, src), src
+
+
+def set_cache_rows(cache, rows, dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Write row ``src[i]`` of the per-row cache slices ``rows`` into batch
+    row ``dst[i]`` of ``cache``, in place, one index_copy_ per leaf (the
+    index pair of ``_drop_pad_rows``)."""
     for name, c in cache.items():
         if isinstance(c, dict):
-            set_cache_rows(c, rows[name], slots)
+            set_cache_rows(c, rows[name], dst, src)
         else:
-            c.index_copy_(c.ndim - _CACHE_LEAF_NDIM[name], idx, rows[name].to(c.dtype))
+            ax = c.ndim - _CACHE_LEAF_NDIM[name]
+            c.index_copy_(ax, dst, rows[name].index_select(ax, src).to(c.dtype))
 
 
 def make_prefill_admit_step(model, max_len: int) -> Callable:
-    """Admission of R requests in one call: prefill R prompts of one exact
-    length (R, P) into a FRESH row cache, write its rows into the engine
-    cache at ``slots`` (replacing any previous occupant's rows wholesale),
-    set per-slot length / last token / budget / key / active, and sample
-    each row's first token from its last position.  The engine calls it
-    with R = 1: a recurrent state folds in every position, and MoE
-    capacity is budgeted over the call's tokens, so prompts of other
-    lengths cannot share a padded call."""
+    """Admission of R requests in one call: prefill R prompts right-padded
+    to a shared length P (``tokens`` (R, P), ``plens`` (R,) their real
+    lengths) into a FRESH row cache, write its rows into the engine cache at
+    ``slots`` (replacing any previous occupant's rows wholesale), set
+    per-slot length (``plens``) / last token / budget / key / active, and
+    sample each row's first token from its last REAL position.  Rows whose
+    slot is >= the slot count are padding: every write of theirs drops, so
+    a pad-safe model's admissions keep one (max_batch, P) shape per prompt
+    bucket.  Padding positions are written into the slab but lie at or past
+    cache_len, where attention masks them and the next decode overwrites
+    them.  The engine calls a pad-sensitive model (a recurrent state folds
+    in every position, MoE capacity is budgeted over the call's tokens)
+    with one exact-length request a call."""
 
     @torch.no_grad()
-    def prefill_admit_step(params, cache, tokens, slots, budgets, row_keys,
+    def prefill_admit_step(params, cache, tokens, plens, slots, budgets, row_keys,
                            cache_len, last_token, budget, key_data, temps,
                            active):
-        r, plen = tokens.shape
+        r = tokens.shape[0]
         row_cache = model.init_cache(r, max_len, device=tokens.device)
         logits = model.apply(params, tokens, mode="prefill", cache=row_cache)
-        row_keys, first = sample_tokens(row_keys, logits[:, -1], temps)
-        set_cache_rows(cache, row_cache, slots)
-        idx = slots.long()
+        rows = torch.arange(r, device=tokens.device)
+        last = logits[rows, (plens.long() - 1).clamp(min=0)]
+        row_keys, first = sample_tokens(row_keys, last, temps)
+        dst, src = _drop_pad_rows(slots, cache_len.shape[0])
+        set_cache_rows(cache, row_cache, dst, src)
 
         def put(state, vals):
-            return state.index_copy(0, idx, vals.to(state.dtype))
+            return state.index_copy(0, dst, vals.index_select(0, src).to(state.dtype))
 
-        return (first, put(cache_len, torch.full_like(idx, plen)), put(last_token, first),
+        return (first, put(cache_len, plens), put(last_token, first),
                 put(budget, budgets), put(key_data, row_keys),
-                put(active, torch.ones_like(idx, dtype=torch.bool)))
+                put(active, torch.ones_like(slots, dtype=torch.bool)))
 
     return wrap_root(prefill_admit_step, "prefill_admit")
 
@@ -397,16 +418,19 @@ def make_paged_draft_prefill_step(model) -> Callable:
 
 
 def make_dense_draft_prefill_step(model, max_len: int) -> Callable:
-    """Draft twin of the dense prefill-admit root: prefill the request
-    through the DRAFT params into a fresh row cache, write its rows into
-    the draft slab at ``slots``, and set the admitted rows' draft keys to
-    their requests' chains."""
+    """Draft twin of the dense prefill-admit root: prefill the same padded
+    (R, P) prompt batch through the DRAFT params into a fresh row cache,
+    write its rows into the draft slab at ``slots``, and set the admitted
+    rows' draft keys to their requests' chains; padding rows (slot >= the
+    slot count) drop every write, as in admission.  Padding positions lie
+    past the row's length, which the target's cache_len (shared) masks."""
 
     @torch.no_grad()
     def dense_draft_prefill_step(params, cache, tokens, slots, key_data, row_keys):
         row_cache = model.init_cache(tokens.shape[0], max_len, device=tokens.device)
         model.apply(params, tokens, mode="prefill", cache=row_cache, output="hidden")
-        set_cache_rows(cache, row_cache, slots)
-        return key_data.index_copy(0, slots.long(), row_keys)
+        dst, src = _drop_pad_rows(slots, key_data.shape[0])
+        set_cache_rows(cache, row_cache, dst, src)
+        return key_data.index_copy(0, dst, row_keys.index_select(0, src))
 
     return wrap_root(dense_draft_prefill_step, "draft_prefill")

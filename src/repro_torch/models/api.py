@@ -17,7 +17,8 @@ def build_model(cfg: ModelConfig) -> DecoderLM:
 RECURRENT_CACHE_LEAVES = frozenset({"h", "conv", "state", "shift_t", "shift_c"})
 
 # Cache leaves a block-pool (paged) layout can host: per-position attention
-# K/V plus their int8 dequant scales.  Anything else keeps the dense slab.
+# K/V plus their int8 dequant scales.  Anything else (recurrent state, MLA's
+# latents c_kv and k_rope) keeps the dense slab.
 PAGEABLE_CACHE_LEAVES = frozenset({"k", "v", "k_scale", "v_scale"})
 
 
@@ -58,8 +59,10 @@ def cache_layout(model: DecoderLM) -> str:
     "paged": every cache leaf is per-position attention K/V (pure-GQA
     stacks), so the engine uses the block-table pools of ``serving/kvcache``
     with chunked prefill.  "dense": one (max_batch, ...) slab per leaf, for
-    the families that are pad-sensitive at prefill: recurrent caches (RWKV)
-    and token-choice MoE."""
+    the families that are pad-sensitive at prefill (recurrent caches (RWKV)
+    and token-choice MoE: exact-length admission) and for MLA, whose latent
+    leaves are not paged K/V but which is pad-safe (bucketed admission,
+    ``prefill_pad_safe``)."""
     if not prefill_pad_safe(model):
         return "dense"
     if not cache_leaf_names(model) <= PAGEABLE_CACHE_LEAVES:

@@ -1,9 +1,9 @@
-"""Block assembly + layer stacking for (gqa, mlp), (gqa, moe) and (rwkv,
-cmix) layers.
+"""Block assembly + layer stacking for (gqa, mlp), (gqa, moe), (mla, mlp)
+and (rwkv, cmix) layers.
 
 A layer is pre-norm: x = x + mixer(norm1(x)); x = x + ffn(norm2(x)), with
-mixer/ffn one of (GQA attention, MLP), (GQA attention, token-choice MoE) or
-(RWKV-6 time mix, channel mix).
+mixer/ffn one of (GQA attention, MLP), (GQA attention, token-choice MoE),
+(Multi-head Latent Attention, MLP) or (RWKV-6 time mix, channel mix).
 Layers with identical specs are stacked exactly as the reference stacks
 them for ``lax.scan`` (params carry a leading repeats dim), so the param
 tree keys and shapes match a reference checkpoint; here the stack runs as a
@@ -20,6 +20,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 from . import attention as attn_mod
+from . import mla as mla_mod
 from . import moe as moe_mod
 from . import rwkv6 as rwkv_mod
 from .layers import mlp_apply, mlp_init, norm_apply, norm_init
@@ -29,16 +30,21 @@ BlockSpec = Tuple[str, str]  # (mixer, ffn)
 
 def resolve_specs(cfg: ModelConfig) -> Tuple[BlockSpec, ...]:
     """Config-level layer specs -> (mixer, ffn) pairs: ("gqa", "mlp"),
-    ("gqa", "moe") or ("rwkv", "cmix"), the three ported layer kinds."""
+    ("gqa", "moe"), ("mla", "mlp") or ("rwkv", "cmix"), the four ported
+    layer kinds ("attn" resolves to "mla" when the config's attention is
+    MLA, as the reference's)."""
     out = []
     for mixer, ffn in cfg.layer_specs():
         if mixer == "attn" and cfg.attention == "gqa" and ffn in ("mlp", "moe"):
             out.append(("gqa", ffn))
+        elif mixer == "attn" and cfg.attention == "mla" and ffn == "mlp":
+            out.append(("mla", "mlp"))
         elif mixer == "rwkv" and cfg.rwkv is not None:
             out.append(("rwkv", "cmix"))
         else:
-            raise ValueError(f"{cfg.name}: only (gqa, mlp), (gqa, moe) and (rwkv, cmix) "
-                             f"layers are ported, got ({mixer}/{cfg.attention}, {ffn})")
+            raise ValueError(f"{cfg.name}: only (gqa, mlp), (gqa, moe), (mla, mlp) and "
+                             f"(rwkv, cmix) layers are ported, got "
+                             f"({mixer}/{cfg.attention}, {ffn})")
     return tuple(out)
 
 
@@ -90,8 +96,9 @@ def block_init(gen, spec: BlockSpec, cfg: ModelConfig, dtype, device) -> Dict:
             "norm2": norm_init(cfg.norm, cfg.d_model, dtype, device),
             "rwkv_c": rwkv_mod.rwkv_channel_mix_init(gen, cfg, dtype, device),
         }
+    mixer_init = mla_mod.mla_init if spec[0] == "mla" else attn_mod.attention_init
     p = {"norm1": norm_init(cfg.norm, cfg.d_model, dtype, device),
-         "attn": attn_mod.attention_init(gen, cfg, dtype, device),
+         "attn": mixer_init(gen, cfg, dtype, device),
          "norm2": norm_init(cfg.norm, cfg.d_model, dtype, device)}
     if spec[1] == "moe":
         p["moe"] = moe_mod.moe_init(gen, cfg, dtype, device)
@@ -119,9 +126,12 @@ def group_init(gen, group: StackGroup, cfg: ModelConfig, dtype, device) -> Dict:
 def block_cache_init(spec: BlockSpec, cfg: ModelConfig, batch: int, max_len: int,
                      dtype, device) -> Dict:
     """One layer's dense-slab cache rows: the recurrent state for rwkv, the
-    (batch, max_len) K/V slab for gqa."""
+    (batch, max_len) latent slab (c_kv, k_rope) for mla, the (batch,
+    max_len) K/V slab for gqa."""
     if spec[0] == "rwkv":
         return {"rwkv": rwkv_mod.init_rwkv_cache(cfg, batch, dtype, device)}
+    if spec[0] == "mla":
+        return {"attn": mla_mod.init_mla_cache(cfg, batch, max_len, dtype, device)}
     return {"attn": attn_mod.init_kv_cache(cfg, batch, max_len, dtype, device)}
 
 
@@ -175,11 +185,20 @@ def block_apply(params: Mapping, x: torch.Tensor, spec: BlockSpec, cfg: ModelCon
                                              cache=c, taps=taps,
                                              tap_prefix=f"{tap_prefix}.rwkv_c")
     h = norm_apply(params["norm1"], x)
-    x = x + attn_mod.attention_apply(
-        params["attn"], h, cfg, positions,
-        mode="decode" if mode == "decode" else "causal",
-        cache=None if cache is None else cache["attn"], cache_len=cache_len,
-        block_tables=block_tables, taps=taps, tap_prefix=f"{tap_prefix}.attn")
+    mixer_mode = "decode" if mode == "decode" else "causal"
+    c = None if cache is None else cache["attn"]
+    if spec[0] == "mla":
+        if block_tables is not None:
+            raise ValueError("MLA's latent cache has no paged form; see "
+                             "models.api.cache_layout")
+        x = x + mla_mod.mla_apply(params["attn"], h, cfg, positions, mode=mixer_mode,
+                                  cache=c, cache_len=cache_len, taps=taps,
+                                  tap_prefix=f"{tap_prefix}.attn")
+    else:
+        x = x + attn_mod.attention_apply(
+            params["attn"], h, cfg, positions, mode=mixer_mode, cache=c,
+            cache_len=cache_len, block_tables=block_tables, taps=taps,
+            tap_prefix=f"{tap_prefix}.attn")
     h = norm_apply(params["norm2"], x)
     if spec[1] == "moe":
         # The aux loss is read by training only (not ported).

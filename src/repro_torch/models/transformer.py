@@ -1,6 +1,6 @@
-"""Decoder-only LM assembly for the dense (gqa, mlp) families, the
-token-choice MoE family (a dense first layer, then (gqa, moe) layers) and
-RWKV-6 (rwkv, cmix)."""
+"""Decoder-only LM assembly for the dense (gqa, mlp) families, Multi-head
+Latent Attention (mla, mlp), the token-choice MoE family (a dense first
+layer, then (gqa, moe) layers) and RWKV-6 (rwkv, cmix)."""
 
 from __future__ import annotations
 
@@ -35,11 +35,12 @@ class DecoderLM:
 
     apply modes: "train" (causal, no cache); "prefill" (causal, writing a
     fresh dense row cache from ``init_cache``: recurrent state and shifts,
-    or attention K/V from position 0); and "decode" (S new tokens per row
-    at each row's cache_len: into a paged cache for attention with
-    ``block_tables`` — S == 1 is a decode step, S > 1 a chunk of streaming
-    prefill — or into the dense slab: attention K/V at cache_len.., or one
-    token per row into the recurrent cache).
+    attention K/V or MLA's latents from position 0); and "decode" (S new
+    tokens per row at each row's cache_len: into a paged cache for
+    attention with ``block_tables`` — S == 1 is a decode step, S > 1 a
+    chunk of streaming prefill — or into the dense slab: attention K/V at
+    cache_len.., or one token per row into the recurrent cache or MLA's
+    latent slab).
     """
 
     def __init__(self, cfg: ModelConfig):
@@ -135,14 +136,14 @@ class DecoderLM:
             (("attn", "wo"), hq, d, "attn.out_in"),
         ]
         # (path, in, out, Gram key, per expert: stacked over the experts too)
+        mlp = [
+            (("mlp", "wi"), d, cfg.d_ff, "mlp.in"),
+            *([(("mlp", "wg"), d, cfg.d_ff, "mlp.in")]
+              if cfg.activation == "swiglu" else []),
+            (("mlp", "wo"), cfg.d_ff, d, "mlp.mid"),
+        ]
         layers = {
-            ("gqa", "mlp"): [
-                *attn,
-                (("mlp", "wi"), d, cfg.d_ff, "mlp.in"),
-                *([(("mlp", "wg"), d, cfg.d_ff, "mlp.in")]
-                  if cfg.activation == "swiglu" else []),
-                (("mlp", "wo"), cfg.d_ff, d, "mlp.mid"),
-            ],
+            ("gqa", "mlp"): [*attn, *mlp],
             ("rwkv", "cmix"): [
                 *((("rwkv_t", w), d, d, f"rwkv_t.{t}_in")
                   for w, t in (("wr", "r"), ("wk", "k"), ("wv", "v"), ("wg", "g"))),
@@ -152,6 +153,18 @@ class DecoderLM:
                 (("rwkv_c", "wr"), d, d, "rwkv_c.r_in"),
             ],
         }
+        if cfg.mla is not None:
+            m, h = cfg.mla, cfg.num_heads
+            qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+            layers[("mla", "mlp")] = [
+                (("attn", "wq_a"), d, m.q_lora_rank, "attn.in"),
+                (("attn", "wq_b"), m.q_lora_rank, h * qk, "attn.q_lora_in"),
+                (("attn", "wkv_a"), d, m.kv_lora_rank + m.qk_rope_head_dim, "attn.in"),
+                (("attn", "wkv_b"), m.kv_lora_rank,
+                 h * (m.qk_nope_head_dim + m.v_head_dim), "attn.kv_lora_in"),
+                (("attn", "wo"), h * m.v_head_dim, d, "attn.out_in"),
+                *mlp,
+            ]
         if cfg.moe is not None:
             f, fs = cfg.moe.d_ff_expert, cfg.moe.d_ff_expert * cfg.moe.num_shared_experts
             layers[("gqa", "moe")] = [

@@ -18,14 +18,22 @@ of the reference's cache layouts, chosen by ``models.api.cache_layout``:
   reserves prompt + max_new up front instead.  Decode rows run in the
   scheduler's order (longest first; ``sort_decode_rows``), which leaves
   every token unchanged.  ``defrag()`` compacts live blocks.
-* "dense" (the pad-sensitive stacks: RWKV-6's recurrent state, and
-  token-choice MoE, whose attention K/V live in a (max_batch, max_len)
-  slab): one slab per cache leaf.  Each admission prefills ONE request at
-  its exact length into a fresh row cache that then replaces its slot's
-  rows wholesale (a recurrent state folds in every position, and MoE
-  capacity is budgeted over a call's tokens, so prompts are never padded
-  or bucketed).  ``paged=False`` puts a pure-attention stack on this
-  layout too; ``paged=True`` is refused for a model whose layout is dense.
+* "dense" (RWKV-6's recurrent state; token-choice MoE, whose attention
+  K/V live in a (max_batch, max_len) slab; MLA's latents c_kv and k_rope):
+  one slab per cache leaf.  An admission prefills into a fresh row cache
+  whose rows then replace their slots' rows wholesale.  A pad-safe model
+  (``models.api.prefill_pad_safe``: MLA, or an attention stack served with
+  ``paged=False``) is admitted in buckets, as the reference's: up to as
+  many queued requests as there are free slots, whose prompt lengths share
+  the head's power-of-two bucket (``BUCKET_MIN`` up, then max_len), go in
+  one call of (rows, bucket), right-padded: rows is the group's size
+  rounded up to a power of two (at most max_batch; the reference pads every
+  group to max_batch), the padding rows' writes dropped; one host sync
+  reads the group's first tokens.  A
+  pad-sensitive model (a recurrent state folds in every position, MoE
+  capacity is budgeted over a call's tokens) is admitted one request a
+  call at its exact length.  ``paged=True`` is refused for a model whose
+  layout is dense.
 
 Every engine step decodes one token for all live rows, and finished rows
 free their slot (and blocks) immediately, so new requests join mid-flight.
@@ -64,8 +72,8 @@ greedy streams are those of plain decoding.  A spec step still copies one
 packed matrix to the host.  ``dynamic_k`` adapts each row's window (the
 ring then runs at depth 1).  A failed draft dispatch (``draft_kill``)
 degrades to plain decode until ``FaultPolicy.draft_cooldown_steps`` pass.
-Speculation needs a pure-attention model (a recurrent or MoE layout is
-refused) and re-prefill resume (swap is refused).
+Speculation needs a pure-attention model (a recurrent, MoE or MLA layout
+is refused) and re-prefill resume (swap is refused).
 
 Observability (``telemetry=``, repro_torch.obs), as the reference's: the
 hooks read host bookkeeping and the one copy a step already makes, never an
@@ -73,8 +81,7 @@ extra device sync, and every per-row hook sits behind ``self.obs.enabled``,
 so the default ``NULL_TELEMETRY`` does no work.  ``transfer_guard`` runs
 every dispatch under torch's sync-debug mode "error" (a CUDA engine only).
 
-Not ported yet (later slices): bucketed dense-slab admission (exact-length
-admission serves every dense-layout model) and meshes.
+Not ported yet (later slices): meshes.
 """
 
 from __future__ import annotations
@@ -104,7 +111,7 @@ from repro_torch.launch.steps import (
     make_spec_verify_step,
     request_keys,
 )
-from repro_torch.models.api import cache_layout
+from repro_torch.models.api import cache_layout, prefill_pad_safe
 from repro_torch.obs import NULL_TELEMETRY
 from repro_torch.runtime.straggler import StepTimeWatchdog
 from repro_torch.serving.faults import (
@@ -118,6 +125,9 @@ from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
 from repro_torch.serving.spec import DraftState, SpecConfig
 
 _PIPELINE_DEPTH_ENV = "REPRO_SERVING_PIPELINE_DEPTH"
+# The smallest prompt-length bucket of a bucketed dense admission; buckets
+# double from it up to max_len.
+BUCKET_MIN = 16
 logger = logging.getLogger(__name__)
 
 
@@ -283,7 +293,7 @@ class ServingEngine:
             raise ValueError(
                 f"model {model.cfg.name!r} has cache layout {layout!r}; speculative "
                 "decoding needs pure-attention caches (chunk verification and "
-                "length rollback have no recurrent or MoE form)")
+                "length rollback have no recurrent, MoE or MLA form)")
         if spec_config is not None and self.sched.resume_mode == "swap":
             raise ValueError(
                 "resume='swap' is unsupported with speculative decoding (the draft "
@@ -302,6 +312,11 @@ class ServingEngine:
             self.cache = model.init_cache(max_batch, max_len, device=self.device)
             self._decode = make_decode_sample_step(model, max_len)
             self._prefill = make_prefill_admit_step(model, max_len)
+            self._buckets = self._make_buckets(max_len)
+        self._bucketed = prefill_pad_safe(model)
+        # Dense admission calls by their prompt width (a bucket, or a
+        # pad-sensitive model's exact length).
+        self.admissions_by_width: Dict[int, int] = {}
 
         dev = self.device
         self.cache_len = torch.zeros(max_batch, dtype=torch.int32, device=dev)
@@ -680,11 +695,35 @@ class ServingEngine:
                 self._prefilling.append(_PrefillTask(req, slot))
         return self._prefill_tick() if self._prefilling else []
 
+    @staticmethod
+    def _make_buckets(max_len: int) -> List[int]:
+        buckets, b = [], BUCKET_MIN
+        while b < max_len:
+            buckets.append(b)
+            b *= 2
+        return buckets + [max_len]
+
+    def _bucket(self, plen: int) -> int:
+        return next((b for b in self._buckets if plen <= b), self.max_len)
+
+    def _take_group(self, max_r: int) -> List[Request]:
+        """Up to ``max_r`` queued requests sharing the scheduler head's
+        prompt-length bucket (FIFO within the bucket and class), or the head
+        alone for a pad-sensitive model."""
+        if not self.sched:
+            return []
+        if not self._bucketed:
+            return [self.sched.pop_head()]
+        return self.sched.take_bucket(max_r, lambda req: self._bucket(len(req.prompt)))
+
     def _admit_dense(self) -> List[Request]:
-        """The scheduler's head into a free slot, one request per
-        prefill-admit call at the prompt's exact length; each call's first
-        token is read back at once (one host sync per admission, as the
-        reference's dense admission)."""
+        """Free slots filled by admission groups (``_take_group``), one
+        prefill-admit call each: a pad-safe model's group right-padded to
+        (rows, bucket), rows its size rounded up to a power of two (at most
+        max_batch; the padding rows drop their writes), a pad-sensitive
+        model's one request at its exact length.  Each call's
+        first tokens are read back at once: one host sync per admission
+        group, as the reference's dense admission."""
         dev = self.device
         t = lambda a: upload(np.asarray(a), dev)  # noqa: E731
         finished: List[Request] = []
@@ -692,24 +731,48 @@ class ServingEngine:
             free = self._free_slots()
             if not free:
                 break
-            req, slot = self.sched.pop_head(), free[0]
-            if self.obs.enabled:
-                self.obs.on_admit(req.uid, slot, time.perf_counter() - req.t_submit)
-            tokens, slots = t(req.prompt[None]), t([slot])
+            group = self._take_group(len(free))
+            if not group:
+                break
+            if self._bucketed:
+                width = self._bucket(max(len(r.prompt) for r in group))
+                rows = min(self.max_batch, 1 << (len(group) - 1).bit_length())
+            else:
+                width, rows = len(group[0].prompt), 1
+            tokens = np.zeros((rows, width), np.int32)
+            plens = np.ones(rows, np.int32)
+            slots = np.full(rows, self.max_batch, np.int32)  # pad = dropped
+            budgets = np.zeros(rows, np.int32)
+            temps = np.zeros(rows, np.float32)
+            for r, req in enumerate(group):
+                tokens[r, :len(req.prompt)] = req.prompt
+                plens[r] = len(req.prompt)
+                slots[r] = free[r]
+                budgets[r] = max(0, req.max_new_tokens - 1)
+                temps[r] = req.temperature
+                if self.obs.enabled:
+                    self.obs.on_admit(req.uid, free[r], time.perf_counter() - req.t_submit)
+            uids = [req.uid for req in group]
+            rkeys = torch.zeros((rows, 2), dtype=torch.int64, device=dev)
+            rkeys[:len(group)] = request_keys(self.seed, uids, dev)
+            tokens_d, slots_d = t(tokens), t(slots)
             (first, self.cache_len, self.last_token, self.budget_dev, self.key_data,
              self.active_dev) = self._prefill(
-                self.params, self.cache, tokens, slots,
-                t([max(0, req.max_new_tokens - 1)]), request_keys(self.seed, [req.uid], dev),
+                self.params, self.cache, tokens_d, t(plens), slots_d, t(budgets), rkeys,
                 self.cache_len, self.last_token, self.budget_dev, self.key_data,
-                t(np.asarray([req.temperature], np.float32)), self.active_dev)
+                t(temps), self.active_dev)
             if self.draft is not None:
                 d = self.draft
-                d.key_data = self._draft_prefill(d.params, d.cache, tokens, slots,
-                                                 d.key_data, d.request_keys([req.uid]))
+                dkeys = torch.zeros((rows, 2), dtype=torch.int64, device=dev)
+                dkeys[:len(group)] = d.request_keys(uids)
+                d.key_data = self._draft_prefill(d.params, d.cache, tokens_d, slots_d,
+                                                 d.key_data, dkeys)
             self.prefill_ticks += 1
-            tok = int(first.cpu()[0])
+            self.admissions_by_width[width] = self.admissions_by_width.get(width, 0) + 1
+            toks = first.cpu().numpy()
             self.host_syncs += 1
-            self._finish_or_activate(req, slot, tok, finished)
+            for r, req in enumerate(group):
+                self._finish_or_activate(req, free[r], int(toks[r]), finished)
         return finished
 
     def _prefill_tick(self) -> List[Request]:

@@ -8,6 +8,8 @@ repro, so it runs on the card's machine:
 """
 
 import dataclasses
+import subprocess
+import time
 
 import numpy as np
 import pytest
@@ -16,7 +18,9 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels import check_launch
 from repro_torch.calib.runner import collect_grams
-from repro_torch.configs import MISTRAL_7B, MOONSHOT_V1_16B_A3B, RWKV6_1_6B, small_lm
+from repro_torch.configs import (MISTRAL_7B, MOONSHOT_V1_16B_A3B, RWKV6_1_6B, get_config,
+                                 small_lm)
+from repro_torch.core import CompressionConfig, build_plan, compress_params
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.gram import ops as gram_ops
@@ -1497,3 +1501,71 @@ def test_profile_capture_holds_cuda_kernels(dev, tmp_path):
     assert any(e.get("name") == "serving_root.paged_decode" for e in evs)
     assert any("stream_partial" in k for k in kernels)
     assert any("paged_split_kernel" in k for k in kernels)
+
+
+# ------------------------------------------------ the widest dense GQA archs
+
+@pytest.mark.parametrize("arch", ["phi3-medium-14b", "deepseek-67b"])
+def test_full_width_gqa_arch_compressed_kernels_vs_plain(dev, arch):
+    """phi3-medium-14b (d_model 5120, 40/10 heads, vocab 100352) and
+    deepseek-67b (d_model 8192, 64/8 heads, d_ff 22016: gram at n 22016 and
+    nested at K 22016, the widest shapes of any path) at full width, cut to
+    one layer, random bf16 weights: one calibration batch (16 x 128; gram on
+    its mma kernel for every tap, flash once), nsvd1 at 0.2, then a 64-token
+    prefill chunk of 8 rows through the paged pools (512 nested rows, the
+    mma kernel) and one paged decode step (8 rows: the stream kernel and
+    paged_attention) through the kernels and through the plain versions:
+    logits within 5% of max |logit| (chip_smoke.py's STEP_LOGIT_TOL).
+    Prints the seconds and the peak device memory beside nvidia-smi's name
+    and power limit."""
+    from repro_torch.serving.kvcache import PagedKVCache
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(0, dev)
+    rng = np.random.default_rng(0)
+    batch = rng.integers(2, cfg.vocab_size // 2, (16, 128)).astype(np.int32)
+    g0, f0 = (gram_ops.launches, gram_ops.mma_launches), fa_ops.launches
+    store = collect_grams(model, params, [batch])
+    assert (gram_ops.launches - g0[0], gram_ops.mma_launches - g0[1]) == (5, 5)
+    assert fa_ops.launches - f0 == 1
+    plan = build_plan(model.compressible_targets(), CompressionConfig(
+        method="nsvd1", ratio=0.2, dtype=cfg.dtype, use_randomized=False))
+    params = compress_params(params, plan, store)
+    del store
+    calib_s = time.perf_counter() - t0
+    toks = torch.as_tensor(rng.integers(2, cfg.vocab_size // 2, (8, 64)), device=dev)
+    nxt = torch.as_tensor(rng.integers(2, cfg.vocab_size // 2, (8, 1)), device=dev)
+    clen = torch.full((8,), 64, dtype=torch.int32, device=dev)
+    out = []
+    for plain in (False, True):
+        kv = PagedKVCache(model, 8, 128, block_size=16, device=dev)
+        for slot in range(8):
+            kv.reserve(slot, 65)
+        bt = kv.table_device()
+        n0, p0 = _nested_counts(), pa_ops.launches
+        with (kernels.plain() if plain else torch.no_grad()), torch.no_grad():
+            pre = model.apply(params, toks, mode="decode", cache=kv.pools,
+                              cache_len=torch.zeros_like(clen), block_tables=bt).float()
+            step = model.apply(params, nxt, mode="decode", cache=kv.pools, cache_len=clen,
+                               block_tables=bt).float()
+        torch.cuda.synchronize()
+        n1 = _nested_counts()
+        launched = (n1[1] - n0[1], n1[2] - n0[2], n1[3] - n0[3], pa_ops.launches - p0)
+        assert launched == ((0, 0, 0, 0) if plain else (7, 7, 0, 1))
+        out.append((pre, step))
+        del kv
+    (pk, sk), (pp, sp) = out
+    for got, want in ((pk, pp), (sk, sp)):
+        assert got.shape[-1] == cfg.vocab_size and bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) <= 5e-2 * float(want.abs().max())
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    print(f"\n{arch} (1 layer, full width): calibrate + compress {calib_s:.1f} s, total "
+          f"{time.perf_counter() - t0:.1f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; prefill err "
+          f"{float((pk - pp).abs().max()):.4e} of {float(pp.abs().max()):.3f}, decode err "
+          f"{float((sk - sp).abs().max()):.4e} of {float(sp.abs().max()):.3f}; {smi}")

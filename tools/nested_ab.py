@@ -2,7 +2,7 @@
 """One phase of chip_smoke.py on two trees of this repository, on one card,
 in turns: the other tree, this one, this one, the other.
 
-    python3 tools/nested_ab.py OTHER_ROOT [nested|gram|paged|rwkv6|calibrate]
+    python3 tools/nested_ab.py OTHER_ROOT [nested|gram|paged|rwkv6|admit|calibrate]
 
 OTHER_ROOT is another checkout (for example the parent commit, unpacked with
 ``git archive`` into a directory that .gitignore lists).  Each run is a
@@ -24,6 +24,16 @@ process of its own that builds that tree's kernels.  Phases:
              for it, at prefill), device ms of one call from torch.profiler
              (the mean of 5), and whether y and the state are within
              RWKV_TOL and RWKV_STATE_TOL of the plain version;
+  admit      that tree's dense-slab admission on chip_smoke's spec_serve
+             S3 (Mistral-7B width, 2 layers, bf16, *Serve*'s 8 prompts,
+             target nsvd1 0.2 and draft 0.6 from one calibration, k 4,
+             ``paged=False``, max_batch 8, max_len 256, depth 2): over
+             ADMIT_REPS fresh engines each, one admission round's device
+             ms (torch.profiler, every kernel of the target's and the
+             draft's prefill calls), its wall ms, and TTFT (submit to first
+             token, mean and max over the 8 requests, the engine's own
+             stamps with telemetry on) of a whole run; the
+             admission calls and their nested launches by kernel;
   calibrate  that tree's whole ``chip_smoke.py``: the calibrate seconds of
              its four paths (and each path's seconds), from the
              chiprun_out/chip_smoke.json it writes.
@@ -95,9 +105,10 @@ sys.path[:0] = [{src!r}, {this!r}]
 import chip_smoke
 from repro_torch.kernels.paged_attention import ops, ref
 out = []
-for case, lens, cols in chip_smoke.PAGED_CASES:
+for case, lens, cols, heads in chip_smoke.PAGED_CASES:
     for pool in ("bfloat16", "int8"):
-        q, kp, vp, ks, vs, bt, ln = chip_smoke.paged_inputs(torch, np, lens, pool, cols=cols)
+        q, kp, vp, ks, vs, bt, ln = chip_smoke.paged_inputs(torch, np, lens, pool,
+                                                            cols=cols, heads=heads)
         live = ln > 0
         got = ops.paged_attention(q, kp, vp, bt, ln, ks, vs)[live].float()
         want = ref.paged_attention_ref(q, kp, vp, bt, ln, ks, vs)[live].float()
@@ -132,6 +143,73 @@ for case, bh, t, k, dname, w_fixed in chip_smoke.RWKV_SHAPES:
     torch.cuda.empty_cache()
 print("RESULT " + json.dumps(out), flush=True)
 """
+RUN_ADMIT = """
+import dataclasses, json, statistics, sys, time, numpy as np, torch
+sys.path[:0] = [{src!r}, {this!r}]
+import chip_smoke
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.configs import MISTRAL_7B
+from repro_torch.kernels import build
+from repro_torch.kernels.nested_lowrank import ops as nlr
+from repro_torch.launch.serve import serve
+from repro_torch.obs import Telemetry
+from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.spec import SpecConfig
+build.build_all(("nested_lowrank", "gram", "flash_attention"))
+cfg = dataclasses.replace(MISTRAL_7B, num_layers=2)
+rng = np.random.default_rng(0)
+plens = rng.integers(16, 201, size=8)
+prompts = [rng.integers(2, cfg.vocab_size // 2, size=int(n)) for n in plens]
+res = serve(cfg, requests=8, max_new=32, max_batch=8, max_len=256, seed=0, compress=0.2,
+            block_size=16, prefill_chunk=64, prompts=prompts, device="cuda",
+            pipeline_depth=2, spec_ratio=0.6, spec_k=4, paged=False)
+model, params, draft = res["model"], res["params"], res["engine"].draft.params
+
+def engine(telemetry=None):
+    eng = ServingEngine(model, params, max_batch=8, max_len=256, seed=0, block_size=16,
+                        prefill_chunk=64, paged=False, pipeline_depth=2,
+                        spec_config=SpecConfig(draft, k=4), telemetry=telemetry)
+    for p in prompts:
+        eng.submit(p, max_new_tokens=32)
+    torch.cuda.synchronize()
+    return eng
+
+dev, wall, ttft_mean, ttft_max = [], [], [], []
+for rep in range({reps} + 1):
+    eng = engine(Telemetry())  # stamps submit and first-token times
+    eng.run()
+    torch.cuda.synchronize()
+    ttft = [(r.t_first - r.t_submit) * 1e3 for r in eng.finished_requests.values()]
+    eng.close()
+    eng = engine()
+    before = (nlr.stream_launches, nlr.mma_launches, nlr.tile_launches)
+    t0 = time.perf_counter()
+    eng._admit_dense()
+    torch.cuda.synchronize()
+    w = (time.perf_counter() - t0) * 1e3
+    launches = [a - b for a, b in zip((nlr.stream_launches, nlr.mma_launches,
+                                       nlr.tile_launches), before)]
+    calls = eng.stats()["prefill_ticks"]
+    eng.close()
+    eng = engine()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng._admit_dense()
+        torch.cuda.synchronize()
+    eng.close()
+    d = sum(e.self_device_time_total for e in prof.key_averages()
+            if chip_smoke.device_work(e, DeviceType.CUDA)) / 1e3
+    if rep:  # the first round warms up
+        dev.append(d); wall.append(w)
+        ttft_mean.append(statistics.mean(ttft)); ttft_max.append(max(ttft))
+ran = f"calls={{calls}} nested(stream,mma,tile)={{launches}}"
+out = [dict(key=["admit_device_ms"], value=statistics.median(dev), ran=ran, ok=True),
+       dict(key=["admit_wall_ms"], value=statistics.median(wall), ran=ran, ok=True),
+       dict(key=["ttft_mean_ms"], value=statistics.median(ttft_mean), ran=ran, ok=True),
+       dict(key=["ttft_max_ms"], value=statistics.median(ttft_max), ran=ran, ok=True)]
+print("RESULT " + json.dumps(out), flush=True)
+"""
+ADMIT_REPS = 5
 PATHS = ("serve", "quality", "rwkv_serve", "rwkv_quality")
 
 
@@ -152,9 +230,10 @@ def run_script(root: str, phase: str) -> list:
                             ok=p.returncode == 0))
         return out
     template = {"nested": RUN_NESTED, "gram": RUN_GRAM, "paged": RUN_PAGED,
-                "rwkv6": RUN_RWKV}[phase]
+                "rwkv6": RUN_RWKV, "admit": RUN_ADMIT}[phase]
     code = template.format(root=root, src=os.path.join(root, "src"), this=ROOT,
-                           shapes=list(chip_smoke.GRAM_SHAPES), tol=chip_smoke.GRAM_TOL)
+                           shapes=list(chip_smoke.GRAM_SHAPES), tol=chip_smoke.GRAM_TOL,
+                           reps=ADMIT_REPS)
     p = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
                        timeout=900)
     lines = [ln for ln in p.stdout.splitlines() if ln.startswith("RESULT ")]
@@ -166,7 +245,7 @@ def run_script(root: str, phase: str) -> list:
 def main() -> int:
     if len(sys.argv) not in (2, 3) or (sys.argv[2:] and sys.argv[2] not in
                                        ("nested", "gram", "paged", "rwkv6",
-                                        "calibrate")):
+                                        "admit", "calibrate")):
         print(__doc__, file=sys.stderr)
         return 2
     other = os.path.abspath(sys.argv[1])

@@ -10,7 +10,9 @@ output).
 Needs one H100 and the CUDA toolkit.  Each fault is a one-line patch of
 ``csrc/paged_attention.cu`` in a temporary copy of ``repro_torch`` (the
 checkout is never touched), built and run in its own process on the paged
-phase's lengths 1-700 and long8 cases, bf16 and int8 pools.  Prints one
+phase's lengths 1-700 and long8 cases (Mistral-7B's 32/8 heads) and its
+glm case (chatglm3-6b's 32/2 heads: G 16, the glm_serve decode step), bf16
+and int8 pools.  Prints one
 line per fault and case, and exits non-zero unless the unpatched kernel
 passes both checks everywhere and every fault fails the per-element check
 somewhere.
@@ -48,9 +50,11 @@ def measure() -> list:
     from repro_torch.kernels.paged_attention import ops, ref
 
     out = []
-    for case, lens, cols in chip_smoke.PAGED_CASES[:2]:
+    cases = [c for c in chip_smoke.PAGED_CASES if c[0] in ("phase", "long8", "glm")]
+    for case, lens, cols, heads in cases:
         for pool in ("bfloat16", "int8"):
-            q, kp, vp, ks, vs, bt, ln = chip_smoke.paged_inputs(torch, np, lens, pool, cols=cols)
+            q, kp, vp, ks, vs, bt, ln = chip_smoke.paged_inputs(torch, np, lens, pool,
+                                                                cols=cols, heads=heads)
             live = ln > 0
             got = ops.paged_attention(q, kp, vp, bt, ln, ks, vs)[live]
             want = ref.paged_attention_ref(q, kp, vp, bt, ln, ks, vs)[live]

@@ -48,9 +48,10 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}", flush=True)
     out = []
-    for case, lens, cols in chip_smoke.PAGED_CASES:
+    for case, lens, cols, heads in chip_smoke.PAGED_CASES:
         for pool in ("bfloat16", "int8"):
-            q, kp, vp, ks, vs, bt, ln = chip_smoke.paged_inputs(torch, np, lens, pool, cols=cols)
+            q, kp, vp, ks, vs, bt, ln = chip_smoke.paged_inputs(torch, np, lens, pool,
+                                                                cols=cols, heads=heads)
             b, hkv, m = q.shape[0], kp.shape[2], bt.shape[1]
             plan = ops.plan_splits(b, hkv, m)
             plans = {plan}
