@@ -156,8 +156,25 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
      MLA_PREDICTED, its largest admission's logits (512 rows) through the
      kernels against the plain versions, admission calls by
      bucket, host syncs, and the latent slab's bytes a token against a GQA
-     slab of its heads.
-Prints a JSON kernel summary, nvidia-smi's line, and as its last line
+     slab of its heads;
+ 11. dsv3_serve path: the serve path on deepseek-v3-671b at full width cut
+     to 4 of 61 layers (its 3 dense (mla, mlp) layers and 1 (mla, moe)
+     layer) and to 16 of 256 experts (top-8 kept: the calibration's fp64
+     Grams of 256 experts would not fit), Multi-head Latent Attention over
+     the token-choice MoE on the dense latent slab with exact-length
+     admission (the MoE is pad-sensitive), its exact counts held against
+     DSV3_PREDICTED, the longest admission's and a decode step's logits
+     through the kernels against the plain versions with the expert
+     choices pinned, and a (1, 1536) eval batch through the compressed
+     experts (capacity 960: the batched mma kernel).  The kernel phase
+     holds the single nested form at each of its linears' shapes and
+     served ranks (8, 173 and 512 rows), the gram at its tap widths, the
+     batched nested form at deepseek-v3's expert shapes over 16 experts
+     (decode, the widest admission capacity) and over all 256 (with the
+     experts a top-8 decode step fills), and the batched gram at its
+     calibration capacity (16, 1280, n).
+Prints each path's seconds and peak device memory, a JSON kernel summary,
+nvidia-smi's line, and as its last line
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero; without a
 card (or outside the repository) it exits non-zero before printing results.
 """
@@ -212,6 +229,25 @@ NESTED_PATH_SHAPES = (
     ("mla_wo_ff", 6400, 2560, 1462),
 )
 NESTED_PATH_ROWS = (8, 512, 1024)
+# deepseek-v3-671b's single-form linears on the dsv3_serve path, at the
+# served ranks (nsvd1 at 0.2): wq_a, wq_b (N 24576 = 128 heads x qk 192),
+# wkv_a (N 576 = kv_lora 512 + rope 64), wkv_b (K 512, N 32768 = 128 x
+# (nope 128 + v 128); the widest N on any path, at prefill), wo (K 16384),
+# the dense layers' MLP (wi, wg alike, and wo back at 18432) and the
+# shared expert (7168 <-> 2048).  Rows: a decode step's 8 (stream), the
+# longest admission's 173 and a 512-row call (mma).
+DSV3_PATH_SHAPES = (
+    ("dsv3_wq_a", 7168, 1536, 1011),
+    ("dsv3_wq_b", 1536, 24576, 1156),
+    ("dsv3_wkv_a", 7168, 576, 426),
+    ("dsv3_wkv_b", 512, 32768, 403),
+    ("dsv3_wo", 16384, 7168, 3989),
+    ("dsv3_wi", 7168, 18432, 4128),
+    ("dsv3_wo_ff", 18432, 7168, 4128),
+    ("dsv3_shared_wi", 7168, 2048, 1274),
+    ("dsv3_shared_wo", 2048, 7168, 1274),
+)
+DSV3_PATH_ROWS = (8, 173, 512)
 # Max |kernel - plain| / max |plain| allowed.  bf16: the kernel and the plain
 # version round the rank-width intermediate and the output to bf16 at the
 # same points but sum in different orders (a few bf16 ulps of the output);
@@ -255,9 +291,12 @@ STEP_LOGIT_TOL = 5e-2
 # (rows, n): the taps of a calibration batch (16 x 128 rows) at rwkv6-1.6b's
 # d_model, Mistral-7B's d_model, rwkv6-1.6b's d_ff and Mistral-7B's d_ff;
 # and at minicpm3-4b's kv_lora (256), q_lora (768), d_model (2560) and d_ff
-# (6400), and chatglm3-6b's d_ff (13696).
-GRAM_SHAPES = ((2048, 256), (2048, 768), (2048, 2048), (2048, 2560), (2048, 4096),
-               (2048, 6400), (2048, 7168), (2048, 13696), (2048, 14336))
+# (6400), chatglm3-6b's d_ff (13696), and deepseek-v3-671b's kv_lora (512),
+# q_lora (1536), attention output (16384 = 128 heads x v 128) and d_ff
+# (18432; its d_model is Mistral-7B's 7168).
+GRAM_SHAPES = ((2048, 256), (2048, 512), (2048, 768), (2048, 1536), (2048, 2048),
+               (2048, 2560), (2048, 4096), (2048, 6400), (2048, 7168), (2048, 13696),
+               (2048, 14336), (2048, 16384), (2048, 18432))
 # Max |kernel - plain| / max |plain|, for G and for sum |x|: both sum the
 # same exact products (bf16 x bf16 is exact in fp32) in another order.
 GRAM_TOL = 1e-5
@@ -317,20 +356,40 @@ RWKV_ELEM_TOL = {"float32": 2e-3, "bfloat16": 2 ** -6}
 RWKV_STATE_ELEM_TOL = 1e-4
 DEVICE_REPS = 5  # calls a nested row's profiled device time is the mean of
 # The batched (per-expert) forms at moonshot-v1-16b-a3b's expert shapes:
-# 64 experts, rank 667 at ratio 0.2 (k1 634, k2 33 at k1_frac 0.95).
-# (case, capacity rows C, in K, out N, dtype, the route): a decode step's 8
-# rows (stream), an eval batch's 960 through the gate/up and down
-# projections (mma), and fp32 (the tile kernel).  Held to NESTED_TOL and
+# 64 experts, rank 667 at ratio 0.2 (k1 634, k2 33 at k1_frac 0.95), and at
+# deepseek-v3-671b's: rank 1274 (k1 1210, k2 64) over 16 experts (the
+# dsv3_serve cut) and over all 256.  (case, experts E, capacity rows C, in
+# K, out N, k1, k2, dtype, the route, routed): a decode step's 8 rows
+# (stream), an eval batch's capacity rows through the gate/up and down
+# projections (mma: 960, moonshot's (4, 2048) batch and deepseek-v3's (1,
+# 1536) one; a calibration batch's 1280 rows are above the 1024-row gate,
+# where the wrapper runs plain matmuls), dsv3_serve's widest admission
+# capacity (109 rows, the 173-token prompt; mma), and fp32 (the tile
+# kernel).  A
+# routed case fills its rows by a top-8 dispatch of the tokens whose
+# capacity is C (8 tokens at decode; ``routed_rows``), so an expert no token
+# chose keeps empty rows; the others leave their last C / 8 rows empty.  Held to NESTED_TOL and
 # NESTED_ELEM_TOL, as the single form.
 MOE_EXPERTS, MOE_K1, MOE_K2 = 64, 634, 33
-NESTED_BATCHED_CASES = (("decode", 8, 2048, 1408, "bfloat16", "stream"),
-                        ("eval_gate", 960, 2048, 1408, "bfloat16", "mma"),
-                        ("eval_down", 960, 1408, 2048, "bfloat16", "mma"),
-                        ("fp32", 8, 2048, 1408, "float32", "tile"))
+DSV3_K1, DSV3_K2 = 1210, 64
+NESTED_BATCHED_CASES = (
+    ("decode", 64, 8, 2048, 1408, MOE_K1, MOE_K2, "bfloat16", "stream", False),
+    ("eval_gate", 64, 960, 2048, 1408, MOE_K1, MOE_K2, "bfloat16", "mma", False),
+    ("eval_down", 64, 960, 1408, 2048, MOE_K1, MOE_K2, "bfloat16", "mma", False),
+    ("fp32", 64, 8, 2048, 1408, MOE_K1, MOE_K2, "float32", "tile", False),
+    ("dsv3_decode_gate", 16, 8, 7168, 2048, DSV3_K1, DSV3_K2, "bfloat16", "stream", True),
+    ("dsv3_decode_down", 16, 8, 2048, 7168, DSV3_K1, DSV3_K2, "bfloat16", "stream", True),
+    ("dsv3_eval_gate", 16, 960, 7168, 2048, DSV3_K1, DSV3_K2, "bfloat16", "mma", True),
+    ("dsv3_admit_gate", 16, 109, 7168, 2048, DSV3_K1, DSV3_K2, "bfloat16", "mma", True),
+    ("dsv3_256_decode_gate", 256, 8, 7168, 2048, DSV3_K1, DSV3_K2, "bfloat16", "stream",
+     True),
+    ("dsv3_256_decode_down", 256, 8, 2048, 7168, DSV3_K1, DSV3_K2, "bfloat16", "stream",
+     True))
 # (E, C, n): a calibration batch's expert_buf and expert_mid taps (2048
-# tokens, top-6 of 64 experts at capacity factor 1.25: C 240), bf16, held to
-# GRAM_TOL and GRAM_ELEM_TOL with exact symmetry, expert by expert.
-GRAM_BATCHED_SHAPES = ((64, 240, 2048), (64, 240, 1408))
+# tokens; top-6 of 64 experts at capacity factor 1.25: C 240 (moonshot);
+# top-8 of 16: C 1280 (the dsv3_serve cut)), bf16, held to GRAM_TOL and
+# GRAM_ELEM_TOL with exact symmetry, expert by expert.
+GRAM_BATCHED_SHAPES = ((64, 240, 2048), (64, 240, 1408), (16, 1280, 7168), (16, 1280, 2048))
 
 
 def log(msg: str) -> None:
@@ -373,6 +432,7 @@ def nested_phase(torch, ops, ref):
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [(d, NESTED_SHAPES, NESTED_ROWS) for d in ("bfloat16", "float32")]
     cases.append(("bfloat16", NESTED_PATH_SHAPES, NESTED_PATH_ROWS))
+    cases.append(("bfloat16", DSV3_PATH_SHAPES, DSV3_PATH_ROWS))
     for dname, shapes, row_counts in cases:
         dt = getattr(torch, dname)
         for target, k_in, n, r in shapes:
@@ -672,6 +732,21 @@ def gram_phase(torch, ops, ref):
     return rows_out
 
 
+def routed_rows(torch, gen, e: int, cap: int, top_k: int = 8):
+    """(E, C) bool: the capacity slots a top-``top_k`` dispatch fills, of
+    the tokens whose capacity at factor 1.25 is ``cap`` (a decode step's 8
+    tokens at the floor of 8), their experts drawn by random router logits.
+    Slots past an expert's tokens stay empty, as ``models.moe``'s dispatch
+    leaves them."""
+    from repro_torch.models.moe import _dispatch
+
+    n = 8 if cap <= 8 else round(cap * e / (top_k * 1.25))
+    logits = torch.randn((n, e), generator=gen, device="cuda")
+    top_w, top_i = torch.topk(torch.softmax(logits, -1), top_k, dim=-1)
+    ones = torch.ones((n, 1), device="cuda")
+    return _dispatch(ones, top_w, top_i, e, cap).buf[..., 0] != 0
+
+
 def nested_batched_phase(torch, ops, ref):
     """The batched nested form at the MoE expert shapes, one case per route,
     per element against the batched plain version, beside two bmms over
@@ -679,17 +754,20 @@ def nested_batched_phase(torch, ops, ref):
     ``multi_dot`` counterpart) and the bound."""
     rows_out = []
     gen = torch.Generator(device="cuda").manual_seed(5)
-    e, k1, k2 = MOE_EXPERTS, MOE_K1, MOE_K2
-    r = k1 + k2
-    for case, m, k_in, n, dname, route in NESTED_BATCHED_CASES:
+    for case, e, m, k_in, n, k1, k2, dname, route, routed in NESTED_BATCHED_CASES:
         dt = getattr(torch, dname)
+        r = k1 + k2
 
         def mk(*shape, s):
             return (torch.randn(shape, generator=gen, device="cuda") * s).to(dt)
         u, u2 = mk(e, k_in, k1, s=k_in ** -0.5), mk(e, k_in, k2, s=k_in ** -0.5)
         v, v2 = mk(e, k1, n, s=r ** -0.5), mk(e, k2, n, s=r ** -0.5)
         x = mk(e, m, k_in, s=1.0)
-        x[:, m - m // 8:] = 0  # capacity slots left empty
+        if routed:
+            x *= routed_rows(torch, gen, e, m)[..., None].to(dt)
+        else:
+            x[:, m - m // 8:] = 0  # capacity slots left empty
+        held = int((x != 0).any(-1).any(-1).sum())
         big_u, big_v = torch.cat([u, u2], 2), torch.cat([v, v2], 1)
         before = (nested_split(), dict(_ops("nested_lowrank").batched_by_kernel))
         got = ops.nested_lowrank_matmul_batched(x, u, v, u2, v2)
@@ -715,24 +793,33 @@ def nested_batched_phase(torch, ops, ref):
             x, u, v, u2, v2) for _ in range(DEVICE_REPS)], quiet=True)["device_busy_ms"] / DEVICE_REPS
         lib_dev = profile_step(torch, lambda: [lib() for _ in range(DEVICE_REPS)],
                                quiet=True)["device_busy_ms"] / DEVICE_REPS
+        # The bound counts what this run's data needs: the factors of the
+        # experts holding a row, and the products of the rows held (an
+        # empty capacity row is all zeros); beside it the bound with every
+        # expert's factors read, as the kernel reads them.
         el = x.element_size()
-        nbytes = el * (x.numel() + u.numel() + v.numel() + u2.numel() + v2.numel() + e * m * n)
-        flops = 2 * e * m * (k_in * r + r * n)
+        factor_bytes = el * (u.numel() + v.numel() + u2.numel() + v2.numel())
+        rows_held = int((x != 0).any(-1).sum())
+        nbytes = el * (x.numel() + e * m * n) + factor_bytes * held // e
+        flops = 2 * rows_held * (k_in * r + r * n)
         b, by = bound_ms(nbytes, flops, dname)
+        b_all = bound_ms(el * (x.numel() + e * m * n) + factor_bytes, flops, dname)[0]
         row = dict(kernel="nested_lowrank_batched", case=case, dtype=dname, E=e, M=m, K=k_in,
-                   N=n, rank=r, k1=k1, k2=k2, ran=ran, max_abs_err=err, ref_max_abs=scale,
+                   N=n, rank=r, k1=k1, k2=k2, experts_with_rows=held, rows_held=rows_held,
+                   bound_all_experts_ms=b_all, ran=ran, max_abs_err=err, ref_max_abs=scale,
                    tol=NESTED_TOL[dname] * scale, elem_err=e_err,
                    elem_tol=NESTED_ELEM_TOL[dname], ok=ok, ms=ms, device_ms=dev_ms,
                    plain_ms=plain, library="bmm(bmm(x, [u|u2]), [v;v2])", library_ms=lib_ms,
                    library_device_ms=lib_dev, bytes=nbytes, flops=flops, bound_ms=b,
                    bound_by=by)
         rows_out.append(row)
-        log(f"nested batched {dname:8s} {case:9s} E={e} C={m:<3d} {k_in}->{n} {ran:6s} "
+        log(f"nested batched {dname:8s} {case:9s} E={e} ({held} holding rows) C={m:<3d} "
+            f"{k_in}->{n} rank {r} {ran:6s} "
             f"err={err:.3e} (tol {row['tol']:.3e}) elem err {e_err:.3e} (tol "
             f"{row['elem_tol']:.3e}) {'OK' if ok else 'FAIL'}  kernel {ms:.4f} ms (device "
             f"{dev_ms:.4f})  plain {plain:.3f} ms  library {lib_ms:.4f} ms (device "
             f"{lib_dev:.4f})  bound {b:.4f} ms ({by}, {nbytes / 1e6:.1f} MB, "
-            f"{flops / 1e9:.1f} GFLOP)")
+            f"{flops / 1e9:.1f} GFLOP; every expert's factors {b_all:.4f} ms)")
         del x, u, v, u2, v2, big_u, big_v
     return rows_out
 
@@ -776,7 +863,8 @@ def gram_batched_phase(torch, ops, ref):
         lib_dev = profile_step(torch, lambda: [lib_fn() for _ in range(DEVICE_REPS)],
                                quiet=True)["device_busy_ms"] / DEVICE_REPS
         nbytes = buf.numel() * buf.element_size() + 4 * e * (n * n + n)
-        flops = e * rows * n * (n + 1)  # upper triangles: products exact for bf16
+        # Upper triangles (products exact for bf16), of the rows held.
+        flops = int((buf != 0).any(-1).sum()) * n * (n + 1)
         b, by = bound_ms(nbytes, flops, "bfloat16")
         row = dict(kernel="gram_batched", dtype="bfloat16", E=e, rows=rows, n=n, ran=ran,
                    max_abs_err=err, ref_max_abs=scale, tol=GRAM_TOL * scale,
@@ -1125,6 +1213,59 @@ MLA_PREDICTED = dict(
     nested={"stream": 868, "mma": 96, "tile": 0})
 
 
+# The dsv3_serve path: serve_path on deepseek-v3-671b cut to 4 of
+# 61 layers (its 3 dense layers and 1 MoE layer) and to 16 of 256 experts,
+# every width kept, *Serve*'s plan and prompts on the dense latent slab.
+# Its exact counts, entered before the first chip run.  (mla, moe) is
+# pad-sensitive, so the 8 prompts (173, 133, 110, 65, 72, 23, 29, 19
+# tokens) go in 8 exact-length admission calls, then 31 decode steps: 39
+# syncs.  A forward's nested calls: 32 single (5 MLA a layer, 3 MLP on a
+# dense layer, 3 shared-expert on the MoE layer) and 3 batched; at decode
+# 28 single (wkv_b through dense_kernel) and 3 batched.  Admissions: 8 x 32
+# single on mma (19-173 rows); the experts' capacities ceil(L * 8 * 5 / 64)
+# = 109, 84, 69, 41, 45, 15, 19, 12 rows, so 2 calls on the batched stream
+# kernel and 6 on its mma, x 3.  Decode: 31 x 28 single and 31 x 3 batched
+# (capacity max(8, 5) = 8 rows), all stream.  Calibration: 26 single Gram
+# taps (6 a dense layer, 7 on the MoE layer: 4 attention, router_in,
+# shared_in, shared_mid; the final norm's) and 2 batched a batch, x 16.
+DSV3_PREDICTED = dict(
+    steps=31, prefill_calls=8, host_syncs=39,
+    admissions={173: 1, 133: 1, 110: 1, 65: 1, 72: 1, 23: 1, 29: 1, 19: 1},
+    splits=1, combine=0,
+    launches={"nested_lowrank": 1241, "paged_attention": 0, "gram": 448,
+              "flash_attention": 0, "rwkv6": 0},
+    nested={"stream": 967, "mma": 274, "tile": 0})
+
+
+def nested_expect_of(cfg, model, steps: int, prefill_rows, max_batch: int = 8) -> tuple:
+    """(nested launches by kernel, of them the batched form's) of ``steps``
+    decode steps of ``max_batch`` rows and one prefill call of each
+    ``prefill_rows``: a call's compressed linears see its rows, a MoE
+    layer's experts the call's capacity rows; <= 16 rows run the stream
+    kernel, more the mma kernel up to the gate (1024 rows; above it plain
+    matmuls), none the tile kernel (the models are bf16)."""
+    from repro_torch.models.moe import capacity_of
+
+    nlr = _ops("nested_lowrank")
+    gate = nlr.MAX_KERNEL_ROWS
+    n_single, n_batched = nested_calls(model)
+    n_decode = nested_calls(model, decode=True)[0]
+    calls = [(max_batch, n_decode)] * steps + [(r, n_single) for r in prefill_rows]
+    expert_rows = [capacity_of(r, cfg) for r, _ in calls] if n_batched else []
+    batched = {"stream": n_batched * sum(c <= nlr.STREAM_ROWS for c in expert_rows),
+               "mma": n_batched * sum(nlr.STREAM_ROWS < c <= gate for c in expert_rows),
+               "tile": 0}
+    nested = {"stream": sum(n for r, n in calls if r <= nlr.STREAM_ROWS) + batched["stream"],
+              "mma": (sum(n for r, n in calls if nlr.STREAM_ROWS < r <= gate)
+                      + batched["mma"]), "tile": 0}
+    return nested, batched
+
+
+# A MoE serve path's eval batch: the first shape whose expert capacity is
+# under the nested gate.
+EVAL_SHAPES = ((4, 2048), (1, 1536))
+
+
 def admission_calls(plens, pad_safe: bool, max_batch: int = 8, max_len: int = 256) -> list:
     """(width, rows) of each dense admission call when the prompts of
     ``plens`` are all queued into as many free slots: a pad-sensitive
@@ -1231,8 +1372,7 @@ def serve_path(torch, np, cfg, mixer, gram_taps: tuple, keep=None, predicted=Non
     st = eng.stats()
     paged = eng.layout == "paged"
     layers = cfg.num_layers
-    n_single, n_batched = nested_calls(model)
-    n_decode = nested_calls(model, decode=True)[0]
+    n_batched = nested_calls(model)[1]
     # Calibration: 256 samples in batches of 16, each one causal forward
     # (the mixer kernel once per layer, gram_taps Gram taps).  Every
     # compressed linear of every prefill call and decode step runs the
@@ -1245,25 +1385,14 @@ def serve_path(torch, np, cfg, mixer, gram_taps: tuple, keep=None, predicted=Non
     # A decode step's compressed linears see the engine's 8 rows (bf16), a
     # prefill call its rows (paged: every chunk is max_batch x prefill_chunk
     # = 512 rows; dense: each admission call's, from the prompt lengths by
-    # admission_calls), and a MoE layer's experts the call's capacity rows;
-    # <= 16 rows run the stream kernel, more the mma kernel up to the gate
-    # (1024 rows; above it plain matmuls), none the tile kernel.
-    nlr = _ops("nested_lowrank")
-    gate = nlr.MAX_KERNEL_ROWS
+    # admission_calls); nested_expect_of splits them by kernel.
+    gate = _ops("nested_lowrank").MAX_KERNEL_ROWS
     admits = [] if paged else admission_calls(plens, prefill_pad_safe(model))
     admits_ok = paged or eng.admissions_by_width == Counter(w for w, _ in admits)
     prefill_rows = [8 * 64] * st["prefill_ticks"] if paged else [w * r for w, r in admits]
-    calls = [(eng.max_batch, n_decode)] * st["steps"] + [(r, n_single) for r in prefill_rows]
-    expert_rows = [capacity_of(r, cfg) for r, _ in calls] if n_batched else []
-    batched_expect = {"nested": {
-        "stream": n_batched * sum(c <= nlr.STREAM_ROWS for c in expert_rows),
-        "mma": n_batched * sum(nlr.STREAM_ROWS < c <= gate for c in expert_rows),
-        "tile": 0}, "gram": gram_taps[1] * calib_batches}
-    nested_expect = {
-        "stream": (sum(n for r, n in calls if r <= nlr.STREAM_ROWS)
-                   + batched_expect["nested"]["stream"]),
-        "mma": (sum(n for r, n in calls if nlr.STREAM_ROWS < r <= gate)
-                + batched_expect["nested"]["mma"]), "tile": 0}
+    nested_expect, batched_nested = nested_expect_of(cfg, model, st["steps"], prefill_rows,
+                                                     eng.max_batch)
+    batched_expect = {"nested": batched_nested, "gram": gram_taps[1] * calib_batches}
     expect = {"nested_lowrank": nested_expect["stream"] + nested_expect["mma"],
               "paged_attention": layers * st["steps"] if paged else 0,
               "gram": sum(gram_taps) * calib_batches,
@@ -1398,20 +1527,25 @@ def serve_path(torch, np, cfg, mixer, gram_taps: tuple, keep=None, predicted=Non
                                     pre_label)
         prefill_check = None
         if predicted is not None:
+            # Routings pinned as at the decode step (a MoE model's prefill
+            # has near-ties too: dsv3_serve's 173-token admission).
             before = dict(nested_split())
-            pk = prefill_call(fresh()).float()
+            trace = RoutingTrace()
+            with trace.record():
+                pk = prefill_call(fresh()).float()
             torch.cuda.synchronize()
             ran = {k: v - before[k] for k, v in nested_split().items()}
-            with kernels.plain():
+            with kernels.plain(), trace.replay():
                 pp = prefill_call(fresh()).float()
             p_err, p_scale = float((pk - pp).abs().max()), float(pp.abs().max())
             prefill_check = dict(label=pre_label, rows=int(ptoks.numel()), nested_launches=ran,
-                                 max_abs_err=p_err, max_abs=p_scale,
+                                 max_abs_err=p_err, max_abs=p_scale, routings_pinned=trace.flips,
                                  ok=bool(torch.isfinite(pk).all()) and ran["mma"] > 0
                                  and p_err <= STEP_LOGIT_TOL * p_scale)
             del pk, pp
             log(f"  {pre_label} logits kernels vs plain: max abs err {p_err:.4e} (max |logit| "
-                f"{p_scale:.3f}, tol {STEP_LOGIT_TOL * p_scale:.4e}), nested launches {ran} "
+                f"{p_scale:.3f}, tol {STEP_LOGIT_TOL * p_scale:.4e}), nested launches {ran}, "
+                f"expert routings pinned {trace.flips} "
                 f"{'OK' if prefill_check['ok'] else 'FAIL'}")
     torch.cuda.synchronize()
     step_err = float((lk - lp).abs().max())
@@ -1425,11 +1559,14 @@ def serve_path(torch, np, cfg, mixer, gram_taps: tuple, keep=None, predicted=Non
         f"{'OK' if step_ok else 'FAIL'}")
     eval_check = None
     if n_batched:
-        # One (4, 2048) eval batch through the compressed model: every MoE
-        # layer's experts at capacity_of(8192) rows on the batched mma
-        # kernel (the dense and shared linears' 8192 rows are above the
-        # gate), against the plain versions.
-        etoks = torch.as_tensor(rng.integers(2, cfg.vocab_size // 2, size=(4, 2048)),
+        # One eval batch through the compressed model, the first of
+        # EVAL_SHAPES whose expert capacity is under the nested gate ((4,
+        # 2048) on moonshot: 960 rows; (1, 1536) at deepseek-v3's top-8 of
+        # 16: 960): every MoE layer's experts on the batched mma kernel (the
+        # dense and shared linears' rows are above the gate), against the
+        # plain versions.
+        eb, es = next(sh for sh in EVAL_SHAPES if capacity_of(sh[0] * sh[1], cfg) <= gate)
+        etoks = torch.as_tensor(rng.integers(2, cfg.vocab_size // 2, size=(eb, es)),
                                 device="cuda")
         before = dict(_ops("nested_lowrank").batched_by_kernel)
         trace = RoutingTrace()
@@ -1442,19 +1579,20 @@ def serve_path(torch, np, cfg, mixer, gram_taps: tuple, keep=None, predicted=Non
                 lpe = model.apply(params, etoks, mode="train")
         e_err = float((le.float() - lpe.float()).abs().max())
         e_scale = float(lpe.float().abs().max())
-        e_ok = (le.shape == (4, 2048, cfg.vocab_size) and bool(torch.isfinite(le).all())
+        e_ok = (le.shape == (eb, es, cfg.vocab_size) and bool(torch.isfinite(le).all())
                 and e_err <= EVAL_LOGIT_TOL * e_scale
                 and ran == {"stream": 0, "mma": n_batched, "tile": 0})
         del le, lpe
-        eval_check = dict(capacity=capacity_of(4 * 2048, cfg), batched_launches=ran,
+        eval_check = dict(shape=[eb, es], capacity=capacity_of(eb * es, cfg),
+                          batched_launches=ran,
                           max_abs_err=e_err, max_abs=e_scale, routings_pinned=trace.flips,
                           ok=e_ok)
         step_ok = step_ok and e_ok
-        log(f"  compressed eval-batch logits (4 x 2048; expert capacity "
+        log(f"  compressed eval-batch logits ({eb} x {es}; expert capacity "
             f"{eval_check['capacity']} rows, batched launches {ran}) kernels vs plain: max "
             f"abs err {e_err:.4e} (max |logit| {e_scale:.3f}, tol "
             f"{EVAL_LOGIT_TOL * e_scale:.4e}), expert routings pinned {trace.flips} of "
-            f"{4 * 2048 * len(trace.choices)} {'OK' if e_ok else 'FAIL'}")
+            f"{eb * es * len(trace.choices)} {'OK' if e_ok else 'FAIL'}")
     report = None
     if predicted is not None:
         step_ok = step_ok and prefill_check["ok"]
@@ -3328,8 +3466,8 @@ def main() -> int:
         from repro_torch.kernels.nested_lowrank import ops as nlr_ops, ref as nlr_ref
         from repro_torch.kernels.paged_attention import ops as pa_ops, ref as pa_ref
         from repro_torch.kernels.rwkv6 import ops as rwkv_ops, ref as rwkv_ref
-        from repro_torch.configs import (CHATGLM3_6B, MINICPM3_4B, MISTRAL_7B,
-                                         MOONSHOT_V1_16B_A3B, RWKV6_1_6B)
+        from repro_torch.configs import (CHATGLM3_6B, DEEPSEEK_V3_671B, MINICPM3_4B,
+                                         MISTRAL_7B, MOONSHOT_V1_16B_A3B, RWKV6_1_6B)
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
         return 2
@@ -3373,12 +3511,24 @@ def main() -> int:
     # layer attn.in, attn.out_in, router_in, shared_in, shared_mid and the
     # batched expert_buf, expert_mid; on minicpm3 attn.in, attn.q_lora_in,
     # attn.kv_lora_in, attn.out_in, mlp.in and mlp.mid a layer, no mixer
-    # kernel: MLA attention is plain torch).
+    # kernel: MLA attention is plain torch; on deepseek-v3 those six on each
+    # dense layer, and on the MoE layer its 4 attention taps, router_in,
+    # shared_in, shared_mid and the batched expert_buf, expert_mid).
+    # deepseek-v3-671b takes two cuts, no width: 4 of 61 layers (its 3 dense
+    # layers and 1 MoE layer) and 16 of 256 experts, top-8 kept.  The
+    # calibration keeps an fp64 Gram an expert on the card (411 MB at d_model
+    # 7168), so 256 experts would hold 105 GB of Grams in one MoE layer; 16
+    # leave the weights (9.1 GB) and every Gram (28.5 GB) room for the
+    # compression's own fp64 work.  Fewer than 16 would not do: top-8 of 8
+    # routes every token to every expert.  The kernel phase runs the
+    # batched nested form at all 256 experts.
     mistral = dataclasses.replace(MISTRAL_7B, num_layers=2)
     rwkv6 = dataclasses.replace(RWKV6_1_6B, num_layers=4)
     moonshot = dataclasses.replace(MOONSHOT_V1_16B_A3B, num_layers=3)
     glm = dataclasses.replace(CHATGLM3_6B, num_layers=2)
     minicpm3 = dataclasses.replace(MINICPM3_4B, num_layers=4)
+    dsv3 = dataclasses.replace(DEEPSEEK_V3_671B, num_layers=4, moe=dataclasses.replace(
+        DEEPSEEK_V3_671B.moe, num_experts=16))
     served = {}
     runs = (("serve", serve_path, (mistral, "flash_attention", (9, 0), served)),
             ("sched_serve", sched_serve_path, (served,)),
@@ -3392,14 +3542,18 @@ def main() -> int:
             ("moe_serve", serve_path, (moonshot, "flash_attention", (15, 4))),
             ("moe_quality", quality_path, (moonshot, 2, (15, 4), "flash_attention")),
             ("glm_serve", serve_path, (glm, "flash_attention", (9, 0), None, GLM_PREDICTED)),
-            ("mla_serve", serve_path, (minicpm3, None, (25, 0), None, MLA_PREDICTED)))
-    summaries, path_counts, path_s = {}, {}, {}
+            ("mla_serve", serve_path, (minicpm3, None, (25, 0), None, MLA_PREDICTED)),
+            ("dsv3_serve", serve_path, (dsv3, None, (26, 2), None, DSV3_PREDICTED)))
+    summaries, path_counts, path_s, path_peak = {}, {}, {}, {}
     for name, fn, args in runs:
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         summaries[name], path_counts[name] = fn(torch, np, *args)
         path_s[name] = time.perf_counter() - t0
+        path_peak[name] = torch.cuda.max_memory_allocated() / 2 ** 30
         torch.cuda.empty_cache()
     log("path seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in path_s.items()))
+    log("path peak GiB allocated: " + ", ".join(f"{k} {v:.2f}" for k, v in path_peak.items()))
     serve_counts, quality_counts = path_counts["serve"], path_counts["quality"]
     rwkv_serve_counts = path_counts["rwkv_serve"]
 
@@ -3478,6 +3632,26 @@ def main() -> int:
         ("gram_batched", next(r for r in grams_b if r["n"] == 2048),
          sum(b["gram"] for b in moe_b), "src/repro_torch/csrc/gram.cu",
          "src/repro/kernels/gram/gram.py:54"))
+    # deepseek-v3's expert shapes (rank 1274): the 16-expert decode gate case
+    # (stream) with dsv3_serve's batched stream launches; its 256-expert
+    # twin, the same kernel at the real expert count, which no path runs (0
+    # launches: the path serves 16 experts); the 109-row admission gate case
+    # (mma) with its batched mma launches; the expert_buf-wide Gram (16,
+    # 1280, 7168) with its batched gram launches.
+    dsv3_b = summaries["dsv3_serve"]["batched_launches"]
+    picks += (
+        ("nested_lowrank_batched_dsv3", next(r for r in nested_b
+                                             if r["case"] == "dsv3_decode_gate"),
+         dsv3_b["nested"]["stream"], nested_src, nested_tpu),
+        ("nested_lowrank_batched_dsv3_256", next(r for r in nested_b
+                                                 if r["case"] == "dsv3_256_decode_gate"),
+         0, nested_src, nested_tpu),
+        ("nested_lowrank_batched_mma_dsv3", next(r for r in nested_b
+                                                 if r["case"] == "dsv3_admit_gate"),
+         dsv3_b["nested"]["mma"], nested_src, nested_tpu),
+        ("gram_batched_dsv3", next(r for r in grams_b if r["n"] == 7168),
+         dsv3_b["gram"], "src/repro_torch/csrc/gram.cu",
+         "src/repro/kernels/gram/gram.py:54"))
     entries = []
     for name, row, launches, src, replaces in picks:
         entries.append({"name": name, "route": "cuda", "source": src,
@@ -3491,7 +3665,8 @@ def main() -> int:
                    "nested": nested, "nested_batched": nested_b, "paged": paged,
                    "gram": grams, "gram_batched": grams_b, "flash": flash,
                    "rwkv6": rwkv, **{f"{k}_path": v for k, v in summaries.items()},
-                   "path_seconds": path_s, "kernels": entries}, f, indent=1)
+                   "path_seconds": path_s, "path_peak_gib": path_peak,
+                   "kernels": entries}, f, indent=1)
     paths_ok = {k: v["ok"] for k, v in summaries.items()}
     if not (kernels_ok and all(paths_ok.values())):
         log(f"chip_smoke: FAILED (kernels ok={kernels_ok}, paths ok={paths_ok})")

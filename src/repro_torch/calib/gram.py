@@ -24,7 +24,7 @@ it (a slot left empty is all zeros).
 from __future__ import annotations
 
 import re
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -32,6 +32,7 @@ from repro_torch.core.compress import GramStore
 from repro_torch.kernels.gram.ops import gram_accumulate, gram_accumulate_batched
 
 _REP_RE = re.compile(r"/rep(\d+)/")
+EXPERT_TAPS = ("expert_buf", "expert_mid")  # (E, C, n) capacity buffers
 
 
 def calibration_precision() -> None:
@@ -46,6 +47,17 @@ def normalize_tap(name: str) -> Tuple[str, str]:
     if not m:
         return name, ""
     return _REP_RE.sub("/", name), m.group(1)
+
+
+def gram_keys(name: str, x: torch.Tensor) -> Tuple[str, List[str]]:
+    """A tap's GramStore keys: (the shared key, its own keys).  An expert
+    tap owns one key an expert, a stacked tap one for its layer, an
+    unstacked tap none (only the shared key)."""
+    base, suffix = normalize_tap(name)
+    layer = f"{base}/{suffix}" if suffix else base
+    if base.endswith(EXPERT_TAPS):
+        return base, [f"{layer}/{e}" for e in range(x.shape[0])]
+    return base, [layer] if suffix else []
 
 
 def gram_update(x: torch.Tensor):
@@ -64,20 +76,19 @@ def accumulate_taps(store: GramStore, taps: Dict[str, torch.Tensor],
     (``runner.collect_grams``)."""
     tap_rows: Dict[str, float] = {}
     for name, x in taps.items():
-        base, suffix = normalize_tap(name)
-        if base.endswith(("expert_buf", "expert_mid")):
+        base, own = gram_keys(name, x)
+        if base.endswith(EXPERT_TAPS):
             g, a = gram_accumulate_batched(x)
             counts = (x != 0).any(-1).sum(1).tolist()  # one host copy per tap
-            store.update_stacked([f"{base}/{suffix}/{e}" if suffix else f"{base}/{e}"
-                                  for e in range(x.shape[0])], g, a, counts)
+            store.update_stacked(own, g, a, counts)
             store.update(base, g.sum(0, dtype=torch.float64),
                          a.sum(0, dtype=torch.float64), float(sum(counts)))
             del g
             tap_rows[base] = tap_rows.get(base, 0.0) + float(sum(counts))
             continue
         g, a, c = gram_update(x)
-        if suffix:
-            store.update(f"{base}/{suffix}", g, a, c)
+        for key in own:
+            store.update(key, g, a, c)
         store.update(base, g, a, c)
         del g  # an fp32 Gram of a 14336-wide tap is 822 MB
         tap_rows[base] = tap_rows.get(base, 0.0) + c

@@ -1,10 +1,11 @@
 """Model configuration: the subset of the reference config the port reads.
 
 The port serves the paper's dense families (LLaMA / OPT / Mistral), the
-dense GQA archs, Multi-head Latent Attention, the RWKV-6 family and the
-token-choice MoE family, so the frozen dataclass keeps the reference's field
-names and defaults for every field those families read; the Mamba
-sub-config is not ported yet.
+dense GQA archs, Multi-head Latent Attention (minicpm3, and deepseek-v3
+over a token-choice MoE), the RWKV-6 family and the token-choice MoE
+family, so the frozen dataclass keeps the reference's field names and
+defaults for every field those families read; the Mamba sub-config is not
+ported yet.
 ``reduced()`` is the reference's smoke-test shrink.
 """
 

@@ -49,7 +49,8 @@ def prefill_pad_safe(model: DecoderLM) -> bool:
     families are pad-sensitive: recurrent caches (the state folds in every
     input position) and token-choice MoE (expert capacity is budgeted over
     the flattened token batch, so padding tokens compete for, and can evict
-    real tokens from, expert slots)."""
+    real tokens from, expert slots), whatever the mixer: deepseek-v3's
+    (mla, moe) layers make it pad-sensitive although MLA alone is not."""
     return not has_recurrent_cache(model) and model.cfg.moe is None
 
 
@@ -62,7 +63,10 @@ def cache_layout(model: DecoderLM) -> str:
     the families that are pad-sensitive at prefill (recurrent caches (RWKV)
     and token-choice MoE: exact-length admission) and for MLA, whose latent
     leaves are not paged K/V but which is pad-safe (bucketed admission,
-    ``prefill_pad_safe``)."""
+    ``prefill_pad_safe``).  deepseek-v3's (mla, moe) stack takes the dense
+    latent slab with exact-length admission (its MoE layers are
+    pad-sensitive); like minicpm3 it has no paged or int8 form, so the
+    engine refuses ``paged=True`` and ``kv_quant``."""
     if not prefill_pad_safe(model):
         return "dense"
     if not cache_leaf_names(model) <= PAGEABLE_CACHE_LEAVES:

@@ -1,13 +1,16 @@
-"""Block assembly + layer stacking for (gqa, mlp), (gqa, moe), (mla, mlp)
-and (rwkv, cmix) layers.
+"""Block assembly + layer stacking for the ported layer kinds: (gqa, mlp),
+(gqa, moe), (mla, mlp), (mla, moe) and (rwkv, cmix).
 
-A layer is pre-norm: x = x + mixer(norm1(x)); x = x + ffn(norm2(x)), with
-mixer/ffn one of (GQA attention, MLP), (GQA attention, token-choice MoE),
-(Multi-head Latent Attention, MLP) or (RWKV-6 time mix, channel mix).
-Layers with identical specs are stacked exactly as the reference stacks
-them for ``lax.scan`` (params carry a leading repeats dim), so the param
-tree keys and shapes match a reference checkpoint; here the stack runs as a
-Python loop over layer slices.
+A layer is pre-norm: x = x + mixer(norm1(x)); x = x + ffn(norm2(x)), the
+mixer one of GQA attention, Multi-head Latent Attention or the RWKV-6 time
+mix, the ffn an MLP, a token-choice MoE or the RWKV-6 channel mix.  The
+mixer and the ffn are resolved and built independently, as the
+reference's: (mla, moe) is deepseek-v3's MoE layer (MLA's latent slab and
+taps ``…attn.*`` beside the MoE's ``…moe.*``).  Layers with identical specs
+are stacked exactly as the reference stacks them for ``lax.scan`` (params
+carry a leading repeats dim), so the param tree keys and shapes match a
+reference checkpoint; here the stack runs as a Python loop over layer
+slices.
 """
 
 from __future__ import annotations
@@ -29,22 +32,20 @@ BlockSpec = Tuple[str, str]  # (mixer, ffn)
 
 
 def resolve_specs(cfg: ModelConfig) -> Tuple[BlockSpec, ...]:
-    """Config-level layer specs -> (mixer, ffn) pairs: ("gqa", "mlp"),
-    ("gqa", "moe"), ("mla", "mlp") or ("rwkv", "cmix"), the four ported
-    layer kinds ("attn" resolves to "mla" when the config's attention is
-    MLA, as the reference's)."""
+    """Config-level layer specs -> (mixer, ffn) pairs, the mixer and the ffn
+    resolved independently as the reference's: "attn" is "mla" when the
+    config's attention is MLA, else "gqa", over an "mlp" or "moe" ffn (so
+    deepseek-v3 gives (mla, mlp) x 3 then (mla, moe)); "rwkv" takes the
+    channel mix.  Mamba is not ported."""
     out = []
     for mixer, ffn in cfg.layer_specs():
-        if mixer == "attn" and cfg.attention == "gqa" and ffn in ("mlp", "moe"):
-            out.append(("gqa", ffn))
-        elif mixer == "attn" and cfg.attention == "mla" and ffn == "mlp":
-            out.append(("mla", "mlp"))
+        if mixer == "attn" and cfg.attention in ("gqa", "mla") and ffn in ("mlp", "moe"):
+            out.append((cfg.attention, ffn))
         elif mixer == "rwkv" and cfg.rwkv is not None:
             out.append(("rwkv", "cmix"))
         else:
-            raise ValueError(f"{cfg.name}: only (gqa, mlp), (gqa, moe), (mla, mlp) and "
-                             f"(rwkv, cmix) layers are ported, got "
-                             f"({mixer}/{cfg.attention}, {ffn})")
+            raise ValueError(f"{cfg.name}: only (gqa|mla, mlp|moe) and (rwkv, cmix) "
+                             f"layers are ported, got ({mixer}/{cfg.attention}, {ffn})")
     return tuple(out)
 
 

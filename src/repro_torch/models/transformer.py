@@ -1,6 +1,7 @@
 """Decoder-only LM assembly for the dense (gqa, mlp) families, Multi-head
-Latent Attention (mla, mlp), the token-choice MoE family (a dense first
-layer, then (gqa, moe) layers) and RWKV-6 (rwkv, cmix)."""
+Latent Attention (mla, mlp), the token-choice MoE family (dense first
+layers, then (gqa, moe) layers, or deepseek-v3's (mla, moe)) and RWKV-6
+(rwkv, cmix)."""
 
 from __future__ import annotations
 
@@ -51,9 +52,10 @@ class DecoderLM:
 
     def init(self, seed: int = 0, device: Device = None) -> Dict:
         """Random weights drawn from a ``torch.Generator`` seeded with
-        ``seed`` on ``device`` (default: the card)."""
+        ``seed`` on ``device`` (default: the card); ``device="meta"`` gives
+        the param tree's leaves without allocating (sizing a cut)."""
         cfg, dev = self.cfg, resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
         params: Dict[str, Any] = {
             "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model, self.dtype, dev)}
         if cfg.pos_emb == "learned":
@@ -122,53 +124,49 @@ class DecoderLM:
 
     def compressible_targets(self):
         """TargetSpecs for every factorizable matrix (reference names and
-        Gram keys)."""
+        Gram keys), built as the reference builds them: a layer's list is
+        its mixer's (gqa, mla or rwkv time mix) followed by its ffn's (mlp,
+        moe or channel mix), so every (mixer, ffn) pair, deepseek-v3's
+        (mla, moe) among them, gets its targets in the reference's order.
+        A MoE layer's expert targets are stacked over the experts too."""
         from repro_torch.core.plan import TargetSpec
 
         cfg = self.cfg
         d = cfg.d_model
-        hq = cfg.num_heads * cfg.head_dim
-        hkv = cfg.num_kv_heads * cfg.head_dim
-        attn = [
+        # (path, in, out, Gram key, per expert: stacked over the experts too)
+        mixers, ffns = {}, {}
+        hq, hkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+        mixers["gqa"] = [
             (("attn", "wq"), d, hq, "attn.in"),
             (("attn", "wk"), d, hkv, "attn.in"),
             (("attn", "wv"), d, hkv, "attn.in"),
             (("attn", "wo"), hq, d, "attn.out_in"),
         ]
-        # (path, in, out, Gram key, per expert: stacked over the experts too)
-        mlp = [
-            (("mlp", "wi"), d, cfg.d_ff, "mlp.in"),
-            *([(("mlp", "wg"), d, cfg.d_ff, "mlp.in")]
-              if cfg.activation == "swiglu" else []),
-            (("mlp", "wo"), cfg.d_ff, d, "mlp.mid"),
-        ]
-        layers = {
-            ("gqa", "mlp"): [*attn, *mlp],
-            ("rwkv", "cmix"): [
-                *((("rwkv_t", w), d, d, f"rwkv_t.{t}_in")
-                  for w, t in (("wr", "r"), ("wk", "k"), ("wv", "v"), ("wg", "g"))),
-                (("rwkv_t", "wo"), d, d, "rwkv_t.out_in"),
-                (("rwkv_c", "wk"), d, cfg.d_ff, "rwkv_c.k_in"),
-                (("rwkv_c", "wv"), cfg.d_ff, d, "rwkv_c.mid"),
-                (("rwkv_c", "wr"), d, d, "rwkv_c.r_in"),
-            ],
-        }
         if cfg.mla is not None:
             m, h = cfg.mla, cfg.num_heads
             qk = m.qk_nope_head_dim + m.qk_rope_head_dim
-            layers[("mla", "mlp")] = [
+            mixers["mla"] = [
                 (("attn", "wq_a"), d, m.q_lora_rank, "attn.in"),
                 (("attn", "wq_b"), m.q_lora_rank, h * qk, "attn.q_lora_in"),
                 (("attn", "wkv_a"), d, m.kv_lora_rank + m.qk_rope_head_dim, "attn.in"),
                 (("attn", "wkv_b"), m.kv_lora_rank,
                  h * (m.qk_nope_head_dim + m.v_head_dim), "attn.kv_lora_in"),
                 (("attn", "wo"), h * m.v_head_dim, d, "attn.out_in"),
-                *mlp,
             ]
+        mixers["rwkv"] = [
+            *((("rwkv_t", w), d, d, f"rwkv_t.{t}_in")
+              for w, t in (("wr", "r"), ("wk", "k"), ("wv", "v"), ("wg", "g"))),
+            (("rwkv_t", "wo"), d, d, "rwkv_t.out_in"),
+        ]
+        ffns["mlp"] = [
+            (("mlp", "wi"), d, cfg.d_ff, "mlp.in"),
+            *([(("mlp", "wg"), d, cfg.d_ff, "mlp.in")]
+              if cfg.activation == "swiglu" else []),
+            (("mlp", "wo"), cfg.d_ff, d, "mlp.mid"),
+        ]
         if cfg.moe is not None:
             f, fs = cfg.moe.d_ff_expert, cfg.moe.d_ff_expert * cfg.moe.num_shared_experts
-            layers[("gqa", "moe")] = [
-                *attn,
+            ffns["moe"] = [
                 (("moe", "experts", "wi"), d, f, "moe.expert_buf", True),
                 (("moe", "experts", "wg"), d, f, "moe.expert_buf", True),
                 (("moe", "experts", "wo"), f, d, "moe.expert_mid", True),
@@ -176,12 +174,17 @@ class DecoderLM:
                    (("moe", "shared", "wg"), d, fs, "moe.shared_in"),
                    (("moe", "shared", "wo"), fs, d, "moe.shared_mid")] if fs else []),
             ]
+        ffns["cmix"] = [
+            (("rwkv_c", "wk"), d, cfg.d_ff, "rwkv_c.k_in"),
+            (("rwkv_c", "wv"), cfg.d_ff, d, "rwkv_c.mid"),
+            (("rwkv_c", "wr"), d, d, "rwkv_c.r_in"),
+        ]
         targets = []
         for i, g in enumerate(self.groups):
             rep = (g.repeats,) if g.repeats > 1 else ()
-            for j, spec in enumerate(g.period):
+            for j, (mixer, ffn) in enumerate(g.period):
                 base, tap = (f"g{i}", f"sub{j}"), f"g{i}/sub{j}"
-                for path, in_dim, out_dim, key, *per_expert in layers[spec]:
+                for path, in_dim, out_dim, key, *per_expert in mixers[mixer] + ffns[ffn]:
                     stacked = rep + (cfg.moe.num_experts,) if per_expert else rep
                     targets.append(TargetSpec(path=base + path, in_dim=in_dim,
                                               out_dim=out_dim,

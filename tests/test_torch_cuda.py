@@ -7,6 +7,7 @@ repro, so it runs on the card's machine:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import contextlib
 import dataclasses
 import subprocess
 import time
@@ -1569,3 +1570,94 @@ def test_full_width_gqa_arch_compressed_kernels_vs_plain(dev, arch):
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; prefill err "
           f"{float((pk - pp).abs().max()):.4e} of {float(pp.abs().max()):.3f}, decode err "
           f"{float((sk - sp).abs().max()):.4e} of {float(sp.abs().max()):.3f}; {smi}")
+
+
+# ------------------------------------------ deepseek-v3's MoE layer, 256 experts
+
+def test_full_width_dsv3_moe_layer_256_experts_kernels_vs_plain(dev):
+    """One deepseek-v3-671b (mla, moe) layer at full width with all 256
+    experts (d_model 7168, 128 heads, kv_lora 512, top-8, 1 shared expert,
+    vocab 129280), every target factored with random factors at the served
+    plan's ranks (nsvd1 at 0.2: the experts at 1210 + 64) and no
+    calibration (256 experts' fp64 Grams would be 105 GB): a 512-row
+    prefill (8 x 64 on the latent slab: the single form on mma, the
+    experts at capacity 20 on the batched mma kernel) and a decode step of
+    8 rows (stream; the experts at capacity 8) through the kernels and
+    through the plain versions, the plain runs pinned to the kernel runs'
+    expert choices; logits within 5% of max |logit| (chip_smoke.py's
+    STEP_LOGIT_TOL).  Prints how many of the 256 experts hold a row at the
+    decode step (at most 8 x 8 = 64), the peak device memory and
+    nvidia-smi's name and power limit."""
+    from repro_torch.launch.compress_shapes import compressed_param_shapes
+
+    base = get_config("deepseek-v3-671b")
+    cfg = dataclasses.replace(base, num_layers=1, moe=dataclasses.replace(
+        base.moe, first_k_dense=0))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    shapes = compressed_param_shapes(model, model.init(device="meta"), 0.2, k1_frac=0.95,
+                                     multiple_of=1)
+    # The non-expert leaves from a one-expert twin's init; every factor and
+    # the 256-expert router random.
+    real = build_model(dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, num_experts=1))).init(0, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def fill(meta, have, path=()):
+        if isinstance(meta, dict):
+            return {k: fill(v, have.get(k, {}) if isinstance(have, dict) else {}, path + (k,))
+                    for k, v in meta.items()}
+        if isinstance(have, torch.Tensor) and have.shape == meta.shape:
+            return have
+        fan_in = meta.shape[-2]
+        return (torch.randn(meta.shape, generator=gen, device=dev) * fan_in ** -0.5).to(
+            meta.dtype)
+    params = fill(shapes, real)
+    del real
+    wi = params["g0"]["sub0"]["moe"]["experts"]["wi"]
+    assert tuple(wi["u"].shape) == (256, 7168, 1210) and tuple(wi["u2"].shape) == (
+        256, 7168, 64)
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(2, cfg.vocab_size // 2, (8, 64)), device=dev)
+    nxt = torch.as_tensor(rng.integers(2, cfg.vocab_size // 2, (8, 1)), device=dev)
+    clen = torch.full((8,), 64, dtype=torch.int32, device=dev)
+    out, traces = [], [moe.RoutingTrace(), moe.RoutingTrace()]
+    for plain in (False, True):
+        cache = model.init_cache(8, 128, device=dev)
+        n0, b0 = _nested_counts(), dict(nlr_ops.batched_by_kernel)
+        with torch.no_grad():
+            with (kernels.plain() if plain else contextlib.nullcontext()), \
+                    (traces[0].replay() if plain else traces[0].record()):
+                pre = model.apply(params, toks, mode="prefill", cache=cache).float()
+            with (kernels.plain() if plain else contextlib.nullcontext()), \
+                    (traces[1].replay() if plain else traces[1].record()):
+                step = model.apply(params, nxt, mode="decode", cache=cache,
+                                   cache_len=clen).float()
+        torch.cuda.synchronize()
+        n1, b1 = _nested_counts(), nlr_ops.batched_by_kernel
+        launched = (n1[1] - n0[1], n1[2] - n0[2], n1[3] - n0[3],
+                    b1["stream"] - b0["stream"], b1["mma"] - b0["mma"])
+        # Prefill: 5 MLA + 3 shared on mma, 3 batched on mma (capacity 20);
+        # decode: 4 MLA (wkv_b through dense_kernel) + 3 shared and 3 batched
+        # on stream.
+        assert launched == ((0, 0, 0, 0, 0) if plain else (10, 11, 0, 3, 3))
+        out.append((pre, step))
+        del cache
+    (pk, sk), (pp, sp) = out
+    assert moe.capacity_of(512, cfg) == 20 and moe.capacity_of(8, cfg) == 8
+    for got, want in ((pk, pp), (sk, sp)):
+        assert got.shape[-1] == cfg.vocab_size and bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) <= 5e-2 * float(want.abs().max())
+    held = int(torch.unique(traces[1].choices[0]).numel())
+    assert 8 <= held <= 64
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    print(f"\ndeepseek-v3-671b (mla, moe) layer, 256 experts (full width, random factors): "
+          f"{time.perf_counter() - t0:.1f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; experts holding a decode "
+          f"row {held} of 256; routings pinned {traces[0].flips} (prefill) "
+          f"{traces[1].flips} (decode); prefill err {float((pk - pp).abs().max()):.4e} of "
+          f"{float(pp.abs().max()):.3f}, decode err {float((sk - sp).abs().max()):.4e} of "
+          f"{float(sp.abs().max()):.3f}; {smi}")
