@@ -172,7 +172,24 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
      batched nested form at deepseek-v3's expert shapes over 16 experts
      (decode, the widest admission capacity) and over all 256 (with the
      experts a top-8 decode step fills), and the batched gram at its
-     calibration capacity (16, 1280, n).
+     calibration capacity (16, 1280, n);
+ 12. jamba_serve path: the serve path on jamba-v0.1-52b at full width cut
+     to 5 of 32 layers ((mamba, mlp), (mamba, moe), (mamba, mlp), (mamba,
+     moe), (gqa, mlp): the fewest that hold every kind of layer in its
+     period of 8) and to 8 of 16 experts (top-2 kept; the calibration's
+     fp64 Grams of 16 experts would not fit beside the weights), the Mamba
+     layers' recurrent state and the attention layer's K/V in one dense
+     slab, one exact-length admission a prompt (pad-sensitive twice over),
+     its exact counts held against JAMBA_PREDICTED, the longest
+     admission's and a decode step's logits and a (1, 1536) eval batch's
+     (capacity 480: the batched mma kernel) through the kernels against the
+     plain versions with the expert choices pinned, and the device time of
+     the selective scan and the causal conv (plain torch) within a decode
+     step and the 173-token admission.  The kernel phase holds the single
+     nested form at in_proj, x_proj, dt_proj and out_proj (8 and 173 rows),
+     the batched nested form at jamba's experts (4096 <-> 14336) over 8 and
+     all 16 experts x 8 rows and 8 x 55 rows, and the batched gram at its
+     calibration capacity (8, 640, n).
 Prints each path's seconds and peak device memory, a JSON kernel summary,
 nvidia-smi's line, and as its last line
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero; without a
@@ -248,6 +265,18 @@ DSV3_PATH_SHAPES = (
     ("dsv3_shared_wo", 2048, 7168, 1274),
 )
 DSV3_PATH_ROWS = (8, 173, 512)
+# jamba-v0.1-52b's Mamba linears on the jamba_serve path at the served ranks
+# (nsvd1 at 0.2): in_proj (4096 -> 16384 = 2 x d_inner), x_proj (8192 ->
+# 288 = dt_rank 256 + 2 x d_state 16), dt_proj (K 256, the narrowest K on
+# any path) and out_proj.  Rows: a decode step's 8 (stream) and the longest
+# admission's 173 (mma).
+JAMBA_PATH_SHAPES = (
+    ("jamba_in_proj", 4096, 16384, 2621),
+    ("jamba_x_proj", 8192, 288, 222),
+    ("jamba_dt_proj", 256, 8192, 198),
+    ("jamba_out_proj", 8192, 4096, 2184),
+)
+JAMBA_PATH_ROWS = (8, 173)
 # Max |kernel - plain| / max |plain| allowed.  bf16: the kernel and the plain
 # version round the rank-width intermediate and the output to bf16 at the
 # same points but sum in different orders (a few bf16 ulps of the output);
@@ -358,38 +387,50 @@ DEVICE_REPS = 5  # calls a nested row's profiled device time is the mean of
 # The batched (per-expert) forms at moonshot-v1-16b-a3b's expert shapes:
 # 64 experts, rank 667 at ratio 0.2 (k1 634, k2 33 at k1_frac 0.95), and at
 # deepseek-v3-671b's: rank 1274 (k1 1210, k2 64) over 16 experts (the
-# dsv3_serve cut) and over all 256.  (case, experts E, capacity rows C, in
-# K, out N, k1, k2, dtype, the route, routed): a decode step's 8 rows
+# dsv3_serve cut) and over all 256; and at jamba-v0.1-52b's: rank 2548 (k1
+# 2421, k2 127) at 4096 <-> 14336 over 8 experts (the jamba_serve cut) and
+# all 16.  (case, experts E, capacity rows C, in K, out N, k1, k2, dtype,
+# the route, routed top-k or 0): a decode step's 8 rows
 # (stream), an eval batch's capacity rows through the gate/up and down
 # projections (mma: 960, moonshot's (4, 2048) batch and deepseek-v3's (1,
 # 1536) one; a calibration batch's 1280 rows are above the 1024-row gate,
 # where the wrapper runs plain matmuls), dsv3_serve's widest admission
-# capacity (109 rows, the 173-token prompt; mma), and fp32 (the tile
-# kernel).  A
-# routed case fills its rows by a top-8 dispatch of the tokens whose
+# capacity (109 rows, the 173-token prompt; mma), jamba_serve's (55 rows;
+# mma), and fp32 (the tile kernel).  A
+# routed case fills its rows by a top-k dispatch of the tokens whose
 # capacity is C (8 tokens at decode; ``routed_rows``), so an expert no token
 # chose keeps empty rows; the others leave their last C / 8 rows empty.  Held to NESTED_TOL and
 # NESTED_ELEM_TOL, as the single form.
 MOE_EXPERTS, MOE_K1, MOE_K2 = 64, 634, 33
 DSV3_K1, DSV3_K2 = 1210, 64
+JAMBA_K1, JAMBA_K2 = 2421, 127
 NESTED_BATCHED_CASES = (
-    ("decode", 64, 8, 2048, 1408, MOE_K1, MOE_K2, "bfloat16", "stream", False),
-    ("eval_gate", 64, 960, 2048, 1408, MOE_K1, MOE_K2, "bfloat16", "mma", False),
-    ("eval_down", 64, 960, 1408, 2048, MOE_K1, MOE_K2, "bfloat16", "mma", False),
-    ("fp32", 64, 8, 2048, 1408, MOE_K1, MOE_K2, "float32", "tile", False),
-    ("dsv3_decode_gate", 16, 8, 7168, 2048, DSV3_K1, DSV3_K2, "bfloat16", "stream", True),
-    ("dsv3_decode_down", 16, 8, 2048, 7168, DSV3_K1, DSV3_K2, "bfloat16", "stream", True),
-    ("dsv3_eval_gate", 16, 960, 7168, 2048, DSV3_K1, DSV3_K2, "bfloat16", "mma", True),
-    ("dsv3_admit_gate", 16, 109, 7168, 2048, DSV3_K1, DSV3_K2, "bfloat16", "mma", True),
+    ("decode", 64, 8, 2048, 1408, MOE_K1, MOE_K2, "bfloat16", "stream", 0),
+    ("eval_gate", 64, 960, 2048, 1408, MOE_K1, MOE_K2, "bfloat16", "mma", 0),
+    ("eval_down", 64, 960, 1408, 2048, MOE_K1, MOE_K2, "bfloat16", "mma", 0),
+    ("fp32", 64, 8, 2048, 1408, MOE_K1, MOE_K2, "float32", "tile", 0),
+    ("dsv3_decode_gate", 16, 8, 7168, 2048, DSV3_K1, DSV3_K2, "bfloat16", "stream", 8),
+    ("dsv3_decode_down", 16, 8, 2048, 7168, DSV3_K1, DSV3_K2, "bfloat16", "stream", 8),
+    ("dsv3_eval_gate", 16, 960, 7168, 2048, DSV3_K1, DSV3_K2, "bfloat16", "mma", 8),
+    ("dsv3_admit_gate", 16, 109, 7168, 2048, DSV3_K1, DSV3_K2, "bfloat16", "mma", 8),
     ("dsv3_256_decode_gate", 256, 8, 7168, 2048, DSV3_K1, DSV3_K2, "bfloat16", "stream",
-     True),
+     8),
     ("dsv3_256_decode_down", 256, 8, 2048, 7168, DSV3_K1, DSV3_K2, "bfloat16", "stream",
-     True))
+     8),
+    ("jamba_decode_gate", 8, 8, 4096, 14336, JAMBA_K1, JAMBA_K2, "bfloat16", "stream", 2),
+    ("jamba_decode_down", 8, 8, 14336, 4096, JAMBA_K1, JAMBA_K2, "bfloat16", "stream", 2),
+    ("jamba_16_decode_gate", 16, 8, 4096, 14336, JAMBA_K1, JAMBA_K2, "bfloat16", "stream",
+     2),
+    ("jamba_16_decode_down", 16, 8, 14336, 4096, JAMBA_K1, JAMBA_K2, "bfloat16", "stream",
+     2),
+    ("jamba_admit_gate", 8, 55, 4096, 14336, JAMBA_K1, JAMBA_K2, "bfloat16", "mma", 2))
 # (E, C, n): a calibration batch's expert_buf and expert_mid taps (2048
 # tokens; top-6 of 64 experts at capacity factor 1.25: C 240 (moonshot);
-# top-8 of 16: C 1280 (the dsv3_serve cut)), bf16, held to GRAM_TOL and
-# GRAM_ELEM_TOL with exact symmetry, expert by expert.
-GRAM_BATCHED_SHAPES = ((64, 240, 2048), (64, 240, 1408), (16, 1280, 7168), (16, 1280, 2048))
+# top-8 of 16: C 1280 (the dsv3_serve cut); top-2 of 8: C 640 (the
+# jamba_serve cut, whose (8, 14336, 14336) fp32 output is 6.6 GB)), bf16,
+# held to GRAM_TOL and GRAM_ELEM_TOL with exact symmetry, expert by expert.
+GRAM_BATCHED_SHAPES = ((64, 240, 2048), (64, 240, 1408), (16, 1280, 7168), (16, 1280, 2048),
+                       (8, 640, 14336), (8, 640, 4096))
 
 
 def log(msg: str) -> None:
@@ -433,6 +474,7 @@ def nested_phase(torch, ops, ref):
     cases = [(d, NESTED_SHAPES, NESTED_ROWS) for d in ("bfloat16", "float32")]
     cases.append(("bfloat16", NESTED_PATH_SHAPES, NESTED_PATH_ROWS))
     cases.append(("bfloat16", DSV3_PATH_SHAPES, DSV3_PATH_ROWS))
+    cases.append(("bfloat16", JAMBA_PATH_SHAPES, JAMBA_PATH_ROWS))
     for dname, shapes, row_counts in cases:
         dt = getattr(torch, dname)
         for target, k_in, n, r in shapes:
@@ -732,7 +774,7 @@ def gram_phase(torch, ops, ref):
     return rows_out
 
 
-def routed_rows(torch, gen, e: int, cap: int, top_k: int = 8):
+def routed_rows(torch, gen, e: int, cap: int, top_k: int):
     """(E, C) bool: the capacity slots a top-``top_k`` dispatch fills, of
     the tokens whose capacity at factor 1.25 is ``cap`` (a decode step's 8
     tokens at the floor of 8), their experts drawn by random router logits.
@@ -764,7 +806,7 @@ def nested_batched_phase(torch, ops, ref):
         v, v2 = mk(e, k1, n, s=r ** -0.5), mk(e, k2, n, s=r ** -0.5)
         x = mk(e, m, k_in, s=1.0)
         if routed:
-            x *= routed_rows(torch, gen, e, m)[..., None].to(dt)
+            x *= routed_rows(torch, gen, e, m, routed)[..., None].to(dt)
         else:
             x[:, m - m // 8:] = 0  # capacity slots left empty
         held = int((x != 0).any(-1).any(-1).sum())
@@ -1008,8 +1050,10 @@ def reset_counts() -> None:
     nlr = _ops("nested_lowrank")
     nlr.stream_launches = nlr.mma_launches = nlr.tile_launches = 0
     nlr.batched_by_kernel.update(stream=0, mma=0, tile=0)
+    nlr.shape_launches.clear()
     gram = _ops("gram")
     gram.mma_launches = gram.fma_launches = gram.batched_launches = 0
+    gram.shape_launches.clear()
     _ops("paged_attention").combine_launches = 0
     rw = _ops("rwkv6")
     rw.vec16_launches = rw.vec4_launches = 0
@@ -1042,10 +1086,42 @@ def nested_split() -> dict:
             "tile": nlr.tile_launches}
 
 
+def shape_split() -> dict:
+    """nested_lowrank's launches since ``reset_counts`` by "kernel KxN" of
+    the single form (the linear that ran), the batched form's apart."""
+    return {f"{k}{' batched' if b else ''} {k_in}x{n}": c for (k, k_in, n, b), c
+            in sorted(_ops("nested_lowrank").shape_launches.items())}
+
+
+def mixer_layers(model, mixer) -> int:
+    """Layers whose mixer runs the kernel ``mixer`` (flash_attention: the
+    gqa layers; rwkv6: the rwkv ones; jamba has one gqa layer in 5)."""
+    kind = {"flash_attention": "gqa", "rwkv6": "rwkv"}[mixer]
+    return sum(m == kind for m, _ in model.specs)
+
+
 def gram_split() -> dict:
     """gram's launches by kernel since ``reset_counts``."""
     gram = _ops("gram")
     return {"mma": gram.mma_launches, "fma": gram.fma_launches}
+
+
+def gram_shape_split() -> dict:
+    """gram's launches since ``reset_counts`` by "n" of the single form and
+    "batched n" of the batched form (n: the tap's width)."""
+    return {f"{'batched ' if b else ''}{n}": c for (n, b), c
+            in sorted(_ops("gram").shape_launches.items())}
+
+
+def batched_gram_expect(cfg, model, batches: int) -> dict:
+    """The batched gram's launches by "batched n" of ``batches`` calibration
+    batches: each MoE layer's expert_buf (d_model wide) and expert_mid
+    (d_ff_expert wide) taps, once a batch."""
+    out: dict = {}
+    moe_layers = sum(f == "moe" for _, f in model.specs)
+    for n in ((cfg.d_model, cfg.moe.d_ff_expert) if moe_layers else ()):
+        out[f"batched {n}"] = out.get(f"batched {n}", 0) + moe_layers * batches
+    return out
 
 
 def batched_split() -> dict:
@@ -1097,16 +1173,19 @@ def device_work(ev, cuda) -> bool:
 
 
 def profile_step(torch, fn, label: str = "decode step", quiet: bool = False,
-                 windows: int = PROFILE_WINDOWS) -> dict:
+                 windows: int = PROFILE_WINDOWS, ranges=None) -> dict:
     """Device time by kernel name and device busy share of one call of
     ``fn`` (after a warm-up call), from torch.profiler's CUDA trace: the
     median over ``windows`` profiled calls, of the windows that kept every
     kernel (the most device events; the profiler sometimes drops some),
     beside the median wall of as many calls with the profiler off.  Only
     device events are summed: an aten op's row repeats its kernels' time.
-    ``quiet``: log nothing."""
+    ``quiet``: log nothing.  ``ranges`` (module, function names): while
+    profiled, each of those functions of the module runs inside a
+    ``record_function`` range, and ``ranges_ms`` gives each range's device
+    total (the kernels launched inside it) over the same kept windows."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
     torch.cuda.synchronize()
@@ -1117,28 +1196,49 @@ def profile_step(torch, fn, label: str = "decode step", quiet: bool = False,
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     wall_ms = _median(walls)
-    seen = []
-    for _ in range(windows):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        per = {}
-        for ev in prof.key_averages():
-            if not device_work(ev, DeviceType.CUDA):
-                continue
-            dev_us = ev.self_device_time_total
-            if dev_us > 0:
-                per[ev.key] = (per.get(ev.key, (0.0, 0))[0] + dev_us / 1e3, ev.count)
-        seen.append(per)
+    module, names = ranges or (None, ())
+    saved = {name: getattr(module, name) for name in names}
+
+    def ranged(name, f):
+        def wrapped(*a, **k):
+            with record_function(f"range.{name}"):
+                return f(*a, **k)
+        return wrapped
+    for name, f in saved.items():
+        setattr(module, name, ranged(name, f))
+    seen, seen_ranges = [], []
+    try:
+        for _ in range(windows):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            per, in_range = {}, dict.fromkeys(names, 0.0)
+            for ev in prof.key_averages():
+                name = ev.key[len("range."):]
+                if (ev.key.startswith("range.") and name in in_range
+                        and ev.device_type != DeviceType.CUDA):  # the host range
+                    in_range[name] += ev.device_time_total / 1e3
+                if not device_work(ev, DeviceType.CUDA):
+                    continue
+                dev_us = ev.self_device_time_total
+                if dev_us > 0:
+                    per[ev.key] = (per.get(ev.key, (0.0, 0))[0] + dev_us / 1e3, ev.count)
+            seen.append(per)
+            seen_ranges.append(in_range)
+    finally:
+        for name, f in saved.items():
+            setattr(module, name, f)
     n_events = [sum(n for _, n in per.values()) for per in seen]
-    kept = [per for per, n in zip(seen, n_events) if n == max(n_events)]
+    kept_at = [i for i, n in enumerate(n_events) if n == max(n_events)]
+    kept = [seen[i] for i in kept_at]
+    ranges_ms = {name: _median([seen_ranges[i][name] for i in kept_at]) for name in names}
     per = {k: (_median([p.get(k, (0.0, 0))[0] for p in kept]),
                max(p.get(k, (0.0, 0))[1] for p in kept))
            for k in set().union(*kept)}
     busy = _median([sum(ms for ms, _ in p.values()) for p in kept])
     top = sorted(per.items(), key=lambda kv: -kv[1][0])[:12]
     kernels = {k: ms for k, (ms, _) in per.items()}
-    used = {"windows": windows, "windows_used": len(kept)}
+    used = {"windows": windows, "windows_used": len(kept), "ranges_ms": ranges_ms}
     if quiet:
         return {"wall_ms": wall_ms, "device_busy_ms": busy, "kernels": kernels, **used}
     nested, gram, paged = (sum(ms for k, (ms, _) in per.items()
@@ -1174,14 +1274,24 @@ def factored_ratio(params, plan) -> float:
     return 1.0 - factored / dense
 
 
+def _tree_bytes(tree) -> int:
+    return sum(_tree_bytes(v) if isinstance(v, dict) else v.numel() * v.element_size()
+               for v in tree.values())
+
+
 def cache_bytes_per_token(model) -> int:
     """Bytes one token takes in the model's decode cache over all layers
-    (a one-row, one-position slab on the meta device: K/V, or MLA's
-    latents; the paged pools hold the same bytes a token)."""
-    def walk(tree):
-        return sum(walk(v) if isinstance(v, dict) else v.numel() * v.element_size()
-                   for v in tree.values())
-    return walk(model.init_cache(1, 1, device="meta"))
+    (what a one-row slab on the meta device grows by from one position to
+    two: K/V, or MLA's latents; the paged pools hold the same bytes a
+    token)."""
+    return (_tree_bytes(model.init_cache(1, 2, device="meta"))
+            - _tree_bytes(model.init_cache(1, 1, device="meta")))
+
+
+def cache_bytes_per_row(model) -> int:
+    """Bytes of a row's cache that do not grow with its length: a recurrent
+    state (jamba's Mamba ``h`` and conv tail)."""
+    return _tree_bytes(model.init_cache(1, 1, device="meta")) - cache_bytes_per_token(model)
 
 
 # The glm_serve and mla_serve paths (PR 28): serve_path on chatglm3-6b cut
@@ -1237,6 +1347,33 @@ DSV3_PREDICTED = dict(
     nested={"stream": 967, "mma": 274, "tile": 0})
 
 
+# The jamba_serve path: serve_path on jamba-v0.1-52b cut to 5 of 32 layers
+# ((mamba, mlp), (mamba, moe), (mamba, mlp), (mamba, moe), (gqa, mlp)) and
+# to 8 of 16 experts, every width kept, *Serve*'s plan and prompts on the
+# dense slab (the Mamba layers' h and conv, the attention layer's K/V).
+# Its exact counts, entered before the first chip run.  Pad-sensitive (a
+# recurrent state and a MoE), so the 8 prompts (173, 133, 110, 65, 72, 23,
+# 29, 19 tokens) go in 8 exact-length admission calls, then 31 decode
+# steps: 39 syncs.  A forward's nested calls: 29 single (4 a Mamba layer,
+# 4 on the attention layer, 3 an MLP on layers 0, 2, 4) and 6 batched (3 a
+# MoE layer), the same at decode.  Admissions: 8 x 29 single on mma (19-173
+# rows); the experts' capacities max(8, ceil(L * 2 * 5 / 32)) = 55, 42,
+# 35, 21, 23, 8, 10, 8 rows, so 3 calls on the batched stream kernel and 5
+# on its mma, x 6.  Decode: 31 x 29 single and 31 x 6 batched (capacity
+# max(8, 3) = 8 rows), all stream.  Calibration: 27 single Gram taps (4 a
+# Mamba layer, attn.in and attn.out_in, mlp.in and mlp.mid on each MLP,
+# router_in on each MoE layer, the final norm's) and 4 batched (expert_buf
+# and expert_mid a MoE layer) a batch, x 16; flash on the one attention
+# layer, once a calibration batch and once an admission.
+JAMBA_PREDICTED = dict(
+    steps=31, prefill_calls=8, host_syncs=39,
+    admissions={173: 1, 133: 1, 110: 1, 65: 1, 72: 1, 23: 1, 29: 1, 19: 1},
+    splits=1, combine=0,
+    launches={"nested_lowrank": 1365, "paged_attention": 0, "gram": 496,
+              "flash_attention": 24, "rwkv6": 0},
+    nested={"stream": 1103, "mma": 262, "tile": 0})
+
+
 def nested_expect_of(cfg, model, steps: int, prefill_rows, max_batch: int = 8) -> tuple:
     """(nested launches by kernel, of them the batched form's) of ``steps``
     decode steps of ``max_batch`` rows and one prefill call of each
@@ -1284,14 +1421,16 @@ def admission_calls(plens, pad_safe: bool, max_batch: int = 8, max_len: int = 25
     return [(b, min(max_batch, 1 << (g - 1).bit_length())) for b, g in sorted(groups.items())]
 
 
-def serve_report(cfg, eng, st, res, prof, layers: int, cache_bytes: int) -> dict:
+def serve_report(cfg, eng, st, res, prof, layers: int, cache_bytes: int,
+                 state_bytes: int = 0) -> dict:
     """The glm_serve and mla_serve paths' own readings.  Paged: the decode
     step's wall and device time, paged_attention's device ms a call, its
     split count and the combine's share, and the K/V bytes a token against
     Mistral-7B's (8 KV heads).  Slab: admission calls by bucket, host syncs
     (one an admission group and one a step), the latent slab's bytes a token
-    against the K (nope + rope) and V a GQA slab of its heads would hold.
-    Both: step p50 and tok/s."""
+    against the K (nope + rope) and V a GQA slab of its heads would hold,
+    and a recurrent state's bytes a row (jamba's Mamba layers).  Both: step
+    p50 and tok/s."""
     from repro_torch.configs import MISTRAL_7B
 
     out = dict(step_p50_ms=st["step_p50_s"] * 1e3, tok_per_s=res["tok_per_s"],
@@ -1316,15 +1455,37 @@ def serve_report(cfg, eng, st, res, prof, layers: int, cache_bytes: int) -> dict
         gqa = layers * cfg.num_heads * (m.qk_nope_head_dim + m.qk_rope_head_dim
                                         + m.v_head_dim) * 2 if m else None
         out.update(admissions_by_width=dict(eng.admissions_by_width),
-                   host_syncs=st["host_syncs"], gqa_cache_bytes_per_token=gqa)
+                   host_syncs=st["host_syncs"], gqa_cache_bytes_per_token=gqa,
+                   state_bytes_per_row=state_bytes)
         log(f"  slab: admission calls by bucket {dict(eng.admissions_by_width)}, host syncs "
             f"{st['host_syncs']} = {st['prefill_ticks']} admissions + {st['steps']} steps; "
             f"{cache_bytes} B a token ({eng.max_batch} x {eng.max_len} slab: "
-            f"{cache_bytes * eng.max_batch * eng.max_len / 2 ** 20:.2f} MiB) against {gqa} B "
-            f"for a GQA slab of its {cfg.num_heads} heads; step p50 {out['step_p50_ms']:.3f} "
+            f"{cache_bytes * eng.max_batch * eng.max_len / 2 ** 20:.2f} MiB)"
+            + (f" against {gqa} B for a GQA slab of its {cfg.num_heads} heads" if gqa else "")
+            + (f"; {state_bytes} B of recurrent state a row" if state_bytes else "")
+            + f"; step p50 {out['step_p50_ms']:.3f} "
             f"ms, {out['tok_per_s']:.1f} tok/s; decode step wall {prof['wall_ms']:.3f} ms, "
             f"device {prof['device_busy_ms']:.4f}")
     return out
+
+
+MAMBA_PARTS = ("chunk_scan", "ssm_step", "causal_conv")
+
+
+def mamba_share(prof: dict, label: str) -> dict:
+    """The selective scan's (``chunk_scan`` at prefill, ``ssm_step`` at
+    decode) and the causal conv's device ms and share of the busy time in
+    one ``profile_step`` with ``ranges=(models.mamba, MAMBA_PARTS)``, all
+    Mamba layers together."""
+    parts, busy = prof["ranges_ms"], prof["device_busy_ms"]
+    scan = parts["chunk_scan"] + parts["ssm_step"]
+    log(f"  {label}: device busy {busy:.3f} ms; selective scan {scan:.4f} ms "
+        f"({scan / max(busy, 1e-9):.1%}), causal conv {parts['causal_conv']:.4f} ms "
+        f"({parts['causal_conv'] / max(busy, 1e-9):.1%}); medians of "
+        f"{prof['windows_used']} of {prof['windows']} windows")
+    return dict(device_busy_ms=busy, scan_ms=scan, conv_ms=parts["causal_conv"],
+                scan_share=scan / max(busy, 1e-9),
+                conv_share=parts["causal_conv"] / max(busy, 1e-9), **parts)
 
 
 def serve_path(torch, np, cfg, mixer, gram_taps: tuple, keep=None, predicted=None):
@@ -1345,7 +1506,7 @@ def serve_path(torch, np, cfg, mixer, gram_taps: tuple, keep=None, predicted=Non
     (a 64-token chunk of 8 rows on the pages, the admission call with the
     most rows under the nested gate on the slab)."""
     from repro_torch import kernels
-    from repro_torch.launch.serve import serve
+    from repro_torch.launch.serve import run_bytes, serve
     from repro_torch.models.api import prefill_pad_safe
     from repro_torch.models.moe import RoutingTrace, capacity_of
     from repro_torch.serving.kvcache import PagedKVCache
@@ -1357,14 +1518,26 @@ def serve_path(torch, np, cfg, mixer, gram_taps: tuple, keep=None, predicted=Non
     res = serve(cfg, requests=8, max_new=32, max_batch=8, max_len=256,
                 seed=0, compress=0.2, block_size=16, prefill_chunk=64,
                 prompts=prompts, sched_policy="worst_case", pipeline_depth=1)
+    # What the serve CLI's memory check reckons the run holds at most, beside
+    # the peak it reached (calibration, compression and serving; the caller
+    # reset the peak just before).
+    fit_need, fit_what = run_bytes(cfg, [0.2])
+    run_peak = torch.cuda.max_memory_allocated()
     counts = read_counts()
     split, split_ok = flash_split_ok(counts)
     rsplit, rsplit_ok = rwkv6_split_ok(counts)
     nsplit = nested_split()
     gsplit = gram_split()
     bsplit = batched_split()
-    gram_ok = gsplit == {"mma": counts["gram"], "fma": 0}  # every tap is bf16
+    shapes = shape_split()
+    gshapes = gram_shape_split()
     eng, model, params, plan = res["engine"], res["model"], res["params"], res["plan"]
+    # Every tap is bf16 (the mma kernel); the batched form ran at each MoE
+    # layer's two expert tap widths, once a calibration batch each.
+    gshapes_expect = batched_gram_expect(cfg, model, 256 // 16)
+    gram_ok = (gsplit == {"mma": counts["gram"], "fma": 0}
+               and {k: c for k, c in gshapes.items() if k.startswith("batched")}
+               == gshapes_expect)
     if keep is not None:
         keep.update(model=model, params=params, prompts=prompts,
                     outputs=[res["outputs"][u] for u in sorted(res["outputs"])],
@@ -1398,7 +1571,8 @@ def serve_path(torch, np, cfg, mixer, gram_taps: tuple, keep=None, predicted=Non
               "gram": sum(gram_taps) * calib_batches,
               "flash_attention": 0, "rwkv6": 0}
     if mixer is not None:
-        expect[mixer] = layers * (calib_batches + (0 if paged else st["prefill_ticks"]))
+        expect[mixer] = mixer_layers(model, mixer) * (
+            calib_batches + (0 if paged else st["prefill_ticks"]))
     nested_ok = (nsplit == nested_expect and bsplit == batched_expect
                  and len(prefill_rows) == st["prefill_ticks"] and admits_ok)
     # Every paged decode step's attention also runs the combine when
@@ -1430,13 +1604,17 @@ def serve_path(torch, np, cfg, mixer, gram_taps: tuple, keep=None, predicted=Non
           and all(0 <= t < cfg.vocab_size for v in outs.values() for t in v)
           and syncs_ok and abs(ratio - plan.achieved_ratio) < 1e-9
           and counts == expect and split_ok and rsplit_ok and nested_ok and gram_ok
-          and combine_ok and expect["nested_lowrank"] > 0 and pred_ok)
+          and combine_ok and expect["nested_lowrank"] > 0 and pred_ok
+          and run_peak <= fit_need)
     log(f"serve path: {cfg.name} d_model={cfg.d_model} heads={cfg.num_heads}/"
         f"{cfg.num_kv_heads} hd={cfg.head_dim} d_ff={cfg.d_ff} vocab="
         f"{cfg.vocab_size} layers={layers} (depth cut); cache layout {eng.layout}")
     log(f"  prompt lengths {plens.tolist()}; plan achieved ratio "
         f"{plan.achieved_ratio:.4f} (counted from the factors: {ratio:.4f})")
     log("  phase seconds: " + ", ".join(f"{k}={v:.2f}" for k, v in res["seconds"].items()))
+    log(f"  serve CLI's memory reckoning {fit_need / 2 ** 30:.2f} GiB ({fit_what} GB) "
+        f"against the run's peak {run_peak / 2 ** 30:.2f} GiB "
+        f"{'OK' if run_peak <= fit_need else 'FAIL'}")
     log(f"  {res['tokens']} tokens in {res['seconds']['serve']:.2f} s = "
         f"{res['tok_per_s']:.1f} tok/s; decode steps {st['steps']}, prefill "
         f"calls {st['prefill_ticks']}, host syncs {st['host_syncs']}, step p50 "
@@ -1444,15 +1622,18 @@ def serve_path(torch, np, cfg, mixer, gram_taps: tuple, keep=None, predicted=Non
     log(f"  launches {counts} expected {expect}; flash_attention by kernel {split}; "
         f"nested_lowrank by kernel {nsplit} expected {nested_expect}, batched forms "
         f"{bsplit} expected {batched_expect} {'OK' if nested_ok else 'FAIL'}; gram by "
-        f"kernel {gsplit} {'OK' if gram_ok else 'FAIL'}; paged combine launches {combine} "
+        f"kernel {gsplit}, by width {gshapes} (batched expected {gshapes_expect}) "
+        f"{'OK' if gram_ok else 'FAIL'}; paged combine launches {combine} "
         f"expected {combine_expect} ({n_splits} splits) {'OK' if combine_ok else 'FAIL'}; "
         f"rwkv6 by copy width {rsplit} {'OK' if rsplit_ok else 'FAIL'}; "
         f"finish reasons {sorted(set(reasons.values()))}")
     cache_bytes = cache_bytes_per_token(model)
     if predicted is not None:
         log(f"  predicted {predicted}\n  got       {pred_got} {'OK' if pred_ok else 'FAIL'}")
-        log(f"  cache bytes a token: {cache_bytes} ({cache_bytes // layers} a layer; "
-            f"{eng.layout}); admission calls by width {dict(eng.admissions_by_width)}")
+        kv_layers = sum(m in ("gqa", "mla") for m, _ in model.specs)
+        log(f"  cache bytes a token: {cache_bytes} ({cache_bytes // kv_layers} a layer of "
+            f"{kv_layers}; {eng.layout}); admission calls by width "
+            f"{dict(eng.admissions_by_width)}")
 
     toks = torch.as_tensor(np.stack([p[:15] for p in prompts]), device="cuda")
     nxt = torch.as_tensor([[int(p[15])] for p in prompts], device="cuda")
@@ -1486,9 +1667,14 @@ def serve_path(torch, np, cfg, mixer, gram_taps: tuple, keep=None, predicted=Non
             lp = model.apply(params, nxt, mode="decode", cache=clone(saved),
                              cache_len=clen, **extra).float()
         step_flips = trace.flips
+        # A Mamba model's scan and conv run inside profiler ranges.
+        ranges = None
+        if cfg.mamba is not None:
+            from repro_torch.models import mamba as mamba_mod
+            ranges = (mamba_mod, MAMBA_PARTS)
         prof = profile_step(torch, lambda: model.apply(
             params, nxt, mode="decode", cache=clone(saved), cache_len=clen, **extra),
-            f"{eng.layout} decode step (8 rows)")
+            f"{eng.layout} decode step (8 rows)", ranges=ranges)
         # One prefill call as the engine makes it: paged, a chunk of 64
         # tokens for each of the 8 rows (512 nested rows; rewriting the same
         # positions each time); dense and bucketed, the run's admission call
@@ -1524,7 +1710,10 @@ def serve_path(torch, np, cfg, mixer, gram_taps: tuple, keep=None, predicted=Non
             def fresh():
                 return model.init_cache(ptoks.shape[0], 256, device="cuda")
         prof_prefill = profile_step(torch, lambda: prefill_call(cache if paged else fresh()),
-                                    pre_label)
+                                    pre_label, ranges=ranges)
+        mamba_time = None if ranges is None else {
+            "decode": mamba_share(prof, "Mamba share of the decode step (8 rows)"),
+            "admission": mamba_share(prof_prefill, f"Mamba share of the {pre_label}")}
         prefill_check = None
         if predicted is not None:
             # Routings pinned as at the decode step (a MoE model's prefill
@@ -1596,16 +1785,20 @@ def serve_path(torch, np, cfg, mixer, gram_taps: tuple, keep=None, predicted=Non
     report = None
     if predicted is not None:
         step_ok = step_ok and prefill_check["ok"]
-        report = serve_report(cfg, eng, st, res, prof, layers, cache_bytes)
+        report = serve_report(cfg, eng, st, res, prof, layers, cache_bytes,
+                              cache_bytes_per_row(model))
     summary = dict(config=cfg.name, layers=layers, layout=eng.layout,
                    predicted=predicted, predicted_got=pred_got, prefill_check=prefill_check,
                    report=report,
                    prompt_lengths=plens.tolist(), seconds=res["seconds"],
+                   fit_need_gib=fit_need / 2 ** 30, run_peak_gib=run_peak / 2 ** 30,
                    tokens=res["tokens"], tok_per_s=res["tok_per_s"], engine=st,
                    launches=counts, expected_launches=expect, flash_launches=split,
                    rwkv6_launches=rsplit,
                    nested_launches=nsplit, expected_nested_launches=nested_expect,
-                   gram_launches=gsplit, batched_launches=bsplit,
+                   nested_shape_launches=shapes, mamba_time=mamba_time,
+                   gram_launches=gsplit, gram_shape_launches=gshapes,
+                   batched_launches=bsplit,
                    expected_batched_launches=batched_expect, eval_check=eval_check,
                    paged_splits=n_splits,
                    paged_combine_launches=combine,
@@ -3112,9 +3305,12 @@ def quality_path(torch, np, cfg, eval_n: int, gram_taps: tuple, mixer: str):
     counts = read_counts()
     split, split_ok = flash_split_ok(counts)
     rsplit, rsplit_ok = rwkv6_split_ok(counts)
-    gsplit = gram_split()
+    gsplit, gshapes = gram_split(), gram_shape_split()
     nsplit, bsplit = nested_split(), batched_split()
-    gram_ok = gsplit == {"mma": counts["gram"], "fma": 0}  # every tap is bf16
+    gshapes_expect = batched_gram_expect(cfg, model, 256 // 16)
+    gram_ok = (gsplit == {"mma": counts["gram"], "fma": 0}  # every tap is bf16
+               and {k: c for k, c in gshapes.items() if k.startswith("batched")}
+               == gshapes_expect)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # Causal forwards: calibration, dense and compressed ppl per domain, the
     # two forwards of each KL batch (logit KL, then each target's patch), and
@@ -3205,6 +3401,7 @@ def quality_path(torch, np, cfg, eval_n: int, gram_taps: tuple, mixer: str):
     del store
     summary = dict(config=cfg.name, layers=cfg.num_layers, entry=entry, launches=counts,
                    expected_launches=expect, flash_launches=split, gram_launches=gsplit,
+                   gram_shape_launches=gshapes,
                    nested_launches=nsplit, batched_launches=bsplit,
                    expected_batched_launches=batched_expect,
                    gram_fallback_slices=tot["gram_fallback_slices"], rwkv6_launches=rsplit,
@@ -3466,8 +3663,9 @@ def main() -> int:
         from repro_torch.kernels.nested_lowrank import ops as nlr_ops, ref as nlr_ref
         from repro_torch.kernels.paged_attention import ops as pa_ops, ref as pa_ref
         from repro_torch.kernels.rwkv6 import ops as rwkv_ops, ref as rwkv_ref
-        from repro_torch.configs import (CHATGLM3_6B, DEEPSEEK_V3_671B, MINICPM3_4B,
-                                         MISTRAL_7B, MOONSHOT_V1_16B_A3B, RWKV6_1_6B)
+        from repro_torch.configs import (CHATGLM3_6B, DEEPSEEK_V3_671B, JAMBA_V0_1_52B,
+                                         MINICPM3_4B, MISTRAL_7B, MOONSHOT_V1_16B_A3B,
+                                         RWKV6_1_6B)
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
         return 2
@@ -3521,7 +3719,17 @@ def main() -> int:
     # leave the weights (9.1 GB) and every Gram (28.5 GB) room for the
     # compression's own fp64 work.  Fewer than 16 would not do: top-8 of 8
     # routes every token to every expert.  The kernel phase runs the
-    # batched nested form at all 256 experts.
+    # batched nested form at all 256 experts.  jamba-v0.1-52b takes two
+    # cuts, no width: 5 of 32 layers ((mamba, mlp), (mamba, moe), (mamba,
+    # mlp), (mamba, moe), (gqa, mlp): the fewest that hold every kind of
+    # layer in its period of 8, the attention layer at index 4 as in the
+    # model) and 8 of 16 experts, top-2 kept.  An expert's expert_mid Gram
+    # is 1.64 GB of fp64 at d_ff_expert 14336: 16 experts would hold 71.3
+    # GB of Grams beside 14.3 GB of weights, 8 hold 42.9 GB beside 8.7
+    # (``calibration_bytes``), which leaves the compression's fp64 work
+    # room (``launch.serve.run_bytes``: 65.95 GiB at most, held against
+    # the run's peak).  The kernel phase runs the batched nested form at
+    # all 16.
     mistral = dataclasses.replace(MISTRAL_7B, num_layers=2)
     rwkv6 = dataclasses.replace(RWKV6_1_6B, num_layers=4)
     moonshot = dataclasses.replace(MOONSHOT_V1_16B_A3B, num_layers=3)
@@ -3529,6 +3737,8 @@ def main() -> int:
     minicpm3 = dataclasses.replace(MINICPM3_4B, num_layers=4)
     dsv3 = dataclasses.replace(DEEPSEEK_V3_671B, num_layers=4, moe=dataclasses.replace(
         DEEPSEEK_V3_671B.moe, num_experts=16))
+    jamba = dataclasses.replace(JAMBA_V0_1_52B, num_layers=5, moe=dataclasses.replace(
+        JAMBA_V0_1_52B.moe, num_experts=8))
     served = {}
     runs = (("serve", serve_path, (mistral, "flash_attention", (9, 0), served)),
             ("sched_serve", sched_serve_path, (served,)),
@@ -3543,7 +3753,9 @@ def main() -> int:
             ("moe_quality", quality_path, (moonshot, 2, (15, 4), "flash_attention")),
             ("glm_serve", serve_path, (glm, "flash_attention", (9, 0), None, GLM_PREDICTED)),
             ("mla_serve", serve_path, (minicpm3, None, (25, 0), None, MLA_PREDICTED)),
-            ("dsv3_serve", serve_path, (dsv3, None, (26, 2), None, DSV3_PREDICTED)))
+            ("dsv3_serve", serve_path, (dsv3, None, (26, 2), None, DSV3_PREDICTED)),
+            ("jamba_serve", serve_path, (jamba, "flash_attention", (27, 4), None,
+                                         JAMBA_PREDICTED)))
     summaries, path_counts, path_s, path_peak = {}, {}, {}, {}
     for name, fn, args in runs:
         torch.cuda.reset_peak_memory_stats()
@@ -3608,7 +3820,7 @@ def main() -> int:
     # The batched forms: the nested decode case (64 experts x 8 rows, stream)
     # with the MoE paths' batched stream launches, the 960-row gate case
     # (mma) with their batched mma launches, and the expert_buf-wide Gram
-    # with their batched gram launches.
+    # with their batched gram launches at its width (2048).
     # The G 16 paged step (glm_serve's decode step at chatglm3-6b's 32/2
     # heads): the split kernel with glm_serve's launches, and its combine
     # alone with glm_serve's combine launches.
@@ -3630,14 +3842,15 @@ def main() -> int:
         ("nested_lowrank_batched_mma", next(r for r in nested_b if r["case"] == "eval_gate"),
          sum(b["nested"]["mma"] for b in moe_b), nested_src, nested_tpu),
         ("gram_batched", next(r for r in grams_b if r["n"] == 2048),
-         sum(b["gram"] for b in moe_b), "src/repro_torch/csrc/gram.cu",
+         sum(summaries[k]["gram_shape_launches"].get("batched 2048", 0)
+             for k in ("moe_serve", "moe_quality")), "src/repro_torch/csrc/gram.cu",
          "src/repro/kernels/gram/gram.py:54"))
     # deepseek-v3's expert shapes (rank 1274): the 16-expert decode gate case
     # (stream) with dsv3_serve's batched stream launches; its 256-expert
     # twin, the same kernel at the real expert count, which no path runs (0
     # launches: the path serves 16 experts); the 109-row admission gate case
     # (mma) with its batched mma launches; the expert_buf-wide Gram (16,
-    # 1280, 7168) with its batched gram launches.
+    # 1280, 7168) with its batched gram launches at that width.
     dsv3_b = summaries["dsv3_serve"]["batched_launches"]
     picks += (
         ("nested_lowrank_batched_dsv3", next(r for r in nested_b
@@ -3650,8 +3863,37 @@ def main() -> int:
                                                  if r["case"] == "dsv3_admit_gate"),
          dsv3_b["nested"]["mma"], nested_src, nested_tpu),
         ("gram_batched_dsv3", next(r for r in grams_b if r["n"] == 7168),
-         dsv3_b["gram"], "src/repro_torch/csrc/gram.cu",
+         summaries["dsv3_serve"]["gram_shape_launches"].get("batched 7168", 0),
+         "src/repro_torch/csrc/gram.cu",
          "src/repro/kernels/gram/gram.py:54"))
+    # jamba's shapes: each Mamba linear's single form at 8 rows (stream) and
+    # 173 (mma) with jamba_serve's launches of that kernel at its K x N; the
+    # experts' batched form over 8 experts x 8 rows (stream, gate and down)
+    # with its batched stream launches at that K x N, over all 16 (0: the
+    # path serves 8), 8 x 55 rows (mma, the widest admission) with its
+    # batched mma launches at 4096 x 14336; the batched gram at (8, 640,
+    # 14336) and (8, 640, 4096) with its batched gram launches at that width.
+    jamba_shapes = summaries["jamba_serve"]["nested_shape_launches"]
+    jamba_gshapes = summaries["jamba_serve"]["gram_shape_launches"]
+    for target, k_in, n, _ in JAMBA_PATH_SHAPES:
+        for m, kern in ((8, "stream"), (173, "mma")):
+            picks += ((f"nested_lowrank_{target}_{m}", next(
+                r for r in nested if r["target"] == target and r["M"] == m),
+                jamba_shapes.get(f"{kern} {k_in}x{n}", 0), nested_src, nested_tpu),)
+    for case, kern, k_in, n in (("jamba_decode_gate", "stream", 4096, 14336),
+                                ("jamba_decode_down", "stream", 14336, 4096),
+                                ("jamba_16_decode_gate", None, 4096, 14336),
+                                ("jamba_16_decode_down", None, 14336, 4096),
+                                ("jamba_admit_gate", "mma", 4096, 14336)):
+        picks += ((f"nested_lowrank_batched_{case}", next(
+            r for r in nested_b if r["case"] == case),
+            jamba_shapes.get(f"{kern} batched {k_in}x{n}", 0) if kern else 0,
+            nested_src, nested_tpu),)
+    for n in (14336, 4096):
+        picks += ((f"gram_batched_jamba_{n}", next(
+            r for r in grams_b if r["n"] == n and r["E"] == 8),
+            jamba_gshapes.get(f"batched {n}", 0), "src/repro_torch/csrc/gram.cu",
+            "src/repro/kernels/gram/gram.py:54"),)
     entries = []
     for name, row, launches, src, replaces in picks:
         entries.append({"name": name, "route": "cuda", "source": src,

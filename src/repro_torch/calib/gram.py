@@ -81,9 +81,14 @@ def accumulate_taps(store: GramStore, taps: Dict[str, torch.Tensor],
             g, a = gram_accumulate_batched(x)
             counts = (x != 0).any(-1).sum(1).tolist()  # one host copy per tap
             store.update_stacked(own, g, a, counts)
-            store.update(base, g.sum(0, dtype=torch.float64),
-                         a.sum(0, dtype=torch.float64), float(sum(counts)))
-            del g
+            # The shared key's fp64 sum over experts, one expert at a time:
+            # sum(dtype=float64) would first cast all of g ((E, n, n): 12.3
+            # GiB for 8 experts at n 14336).
+            g_all = g[0].to(torch.float64, copy=True)
+            for g_e in g[1:]:
+                g_all += g_e
+            store.update(base, g_all, a.sum(0, dtype=torch.float64), float(sum(counts)))
+            del g, g_all
             tap_rows[base] = tap_rows.get(base, 0.0) + float(sum(counts))
             continue
         g, a, c = gram_update(x)

@@ -2,10 +2,10 @@
 
 The port serves the paper's dense families (LLaMA / OPT / Mistral), the
 dense GQA archs, Multi-head Latent Attention (minicpm3, and deepseek-v3
-over a token-choice MoE), the RWKV-6 family and the token-choice MoE
-family, so the frozen dataclass keeps the reference's field names and
-defaults for every field those families read; the Mamba sub-config is not
-ported yet.
+over a token-choice MoE), the RWKV-6 family, the token-choice MoE family
+and the Mamba / attention hybrid (jamba over a top-2 MoE), so the frozen
+dataclass keeps the reference's field names and defaults for every field
+those families read.  The encoder-decoder and vision fields are not ported.
 ``reduced()`` is the reference's smoke-test shrink.
 """
 
@@ -37,6 +37,14 @@ class MLAConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MambaConfig:
+    d_inner: int
+    d_state: int = 16
+    d_conv: int = 4
+    dt_rank: int = 0  # 0 => ceil(d_model / 16)
+
+
+@dataclasses.dataclass(frozen=True)
 class RWKVConfig:
     head_dim: int = 64
     decay_lora: int = 64
@@ -62,10 +70,11 @@ class ModelConfig:
     norm: str = "rmsnorm"  # rmsnorm | layernorm
     activation: str = "swiglu"  # swiglu | gelu
     tie_embeddings: bool = False
-    mixer_pattern: Tuple[str, ...] = ("attn",)  # "attn" | "rwkv", cycled
+    mixer_pattern: Tuple[str, ...] = ("attn",)  # "attn" | "mamba" | "rwkv", cycled
 
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
+    mamba: Optional[MambaConfig] = None
     rwkv: Optional[RWKVConfig] = None
 
     max_seq: int = 131072
@@ -115,6 +124,9 @@ class ModelConfig:
         if self.mla is not None:
             mla = MLAConfig(q_lora_rank=16, kv_lora_rank=8, qk_nope_head_dim=8,
                             qk_rope_head_dim=4, v_head_dim=8)
+        mamba = None
+        if self.mamba is not None:
+            mamba = MambaConfig(d_inner=64, d_state=4, d_conv=4, dt_rank=4)
         rwkv = None
         if self.rwkv is not None:
             rwkv = RWKVConfig(head_dim=8, decay_lora=8, mix_lora=4)
@@ -130,6 +142,7 @@ class ModelConfig:
             head_dim=8,
             moe=moe,
             mla=mla,
+            mamba=mamba,
             rwkv=rwkv,
             max_seq=128,
             dtype="float32",

@@ -13,6 +13,7 @@ from .base import ModelConfig
 from .chatglm3_6b import CONFIG as CHATGLM3_6B
 from .deepseek_67b import CONFIG as DEEPSEEK_67B
 from .deepseek_v3_671b import CONFIG as DEEPSEEK_V3_671B
+from .jamba_v0_1_52b import CONFIG as JAMBA_V0_1_52B
 from .minicpm3_4b import CONFIG as MINICPM3_4B
 from .moonshot_v1_16b_a3b import CONFIG as MOONSHOT_V1_16B_A3B
 from .phi3_medium_14b import CONFIG as PHI3_MEDIUM_14B
@@ -33,6 +34,7 @@ FAMILIES: Dict[str, ModelConfig] = {
     "rwkv6-1.6b": RWKV6_1_6B,
     "moonshot-v1-16b-a3b": MOONSHOT_V1_16B_A3B,
     "deepseek-v3-671b": DEEPSEEK_V3_671B,
+    "jamba-v0.1-52b": JAMBA_V0_1_52B,
 }
 
 SMALL_VOCAB = 512

@@ -47,8 +47,8 @@ class GramStore:
             self._absmean[key] += absmean
             self._counts[key] += count
         else:
-            self._grams[key] = gram.to(torch.float64).clone()
-            self._absmean[key] = absmean.to(torch.float64).clone()
+            self._grams[key] = gram.to(torch.float64, copy=True)
+            self._absmean[key] = absmean.to(torch.float64, copy=True)
             self._counts[key] = float(count)
 
     def update_stacked(self, keys: Sequence[str], grams: torch.Tensor,
@@ -61,7 +61,7 @@ class GramStore:
         if stack is None:
             if any(k in self._grams for k in keys):
                 raise ValueError("update_stacked: keys already summed one by one")
-            stack = (grams.to(torch.float64).clone(), absmeans.to(torch.float64).clone())
+            stack = (grams.to(torch.float64, copy=True), absmeans.to(torch.float64, copy=True))
             self._stacks[keys] = stack
             for e, k in enumerate(keys):
                 self._grams[k], self._absmean[k] = stack[0][e], stack[1][e]
@@ -169,9 +169,11 @@ def compress_matrix(kernel: torch.Tensor, rank: int, config: CompressionConfig,
 
 def compress_params(params: Mapping[str, Any], plan: CompressionPlan,
                     grams: GramStore, telemetry: Optional[Any] = None) -> Dict[str, Any]:
-    """A new param tree with every planned target factored; other leaves are
-    passed through by reference.  Stacked kernels (L, in, out) compress
-    slice by slice against f"{gram_key}/{i}" (falling back to gram_key).
+    """A new param tree with every planned target factored (its kernel
+    replaced by the factors, a sibling leaf such as Mamba's ``dt_proj``
+    bias kept beside them); other leaves are passed through by reference.
+    Stacked kernels (L, in, out) compress slice by slice against
+    f"{gram_key}/{i}" (falling back to gram_key).
 
     ``telemetry`` observes the pass without affecting it: one report per
     target (errors, tail mass, k1/k2, absorption, achieved-vs-requested
@@ -218,7 +220,10 @@ def compress_params(params: Mapping[str, Any], plan: CompressionPlan,
                 a = grams.absmean(spec.gram_key)
             factored = compress_matrix(kernel, rank, cfg, g, a,
                                        telemetry=telemetry, target=spec.name)
-        _set_subtree(new_params, spec.path, factored)
+        # The target's sibling leaves stay beside its factors (dt_proj's
+        # bias; no other target has one).
+        _set_subtree(new_params, spec.path,
+                     {**{k: v for k, v in leaf.items() if k != "kernel"}, **factored})
         dt = time.time() - t0
         if observing:
             m, n = spec.out_dim, spec.in_dim

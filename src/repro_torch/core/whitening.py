@@ -59,6 +59,7 @@ def make_cholesky_whitener(gram: torch.Tensor, damp: float = 1e-6) -> Whitener:
     g = _regularize(gram, damp)
     l, info = torch.linalg.cholesky_ex(g)
     if int(info) != 0:
+        del g, l  # two (n, n) fp64 the fallback does not need beside its own
         return make_eigen_whitener(gram, damp=damp, method="asvd1_fallback")
     eye = torch.eye(g.shape[0], dtype=g.dtype, device=g.device)
     s_inv = torch.linalg.solve_triangular(l, eye, upper=False)

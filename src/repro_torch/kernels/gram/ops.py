@@ -26,6 +26,8 @@ launches = 0  # kernel launches (one per wrapper call that runs a kernel)
 mma_launches = 0  # of which the mma kernel
 fma_launches = 0  # of which the FMA kernel
 batched_launches = 0  # of all launches, those of the batched (per-expert) form
+# All launches by (n, batched): which tap's width ran in which form.
+shape_launches: dict = {}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNELS = {"fma": 0, "mma": 1}
@@ -91,6 +93,8 @@ def launch(x2: torch.Tensor, kernel: str):
                       x2.shape[0] if lead else 1, _DTYPES[x2.dtype], _KERNELS[kernel], stream)
     check_launch(err, "gram")
     launches += 1
+    key = (n, bool(lead))
+    shape_launches[key] = shape_launches.get(key, 0) + 1
     if lead:
         batched_launches += 1
     if kernel == "mma":

@@ -67,6 +67,8 @@ mma_launches = 0  # of which the mma kernel
 tile_launches = 0  # of which the tile kernel
 # Of all launches, those of the batched (per-expert) form, by kernel.
 batched_by_kernel = {"stream": 0, "mma": 0, "tile": 0}
+# All launches by (kernel, K, N, batched): which linear of a model ran where.
+shape_launches: dict = {}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNELS = {"tile": 0, "stream": 1, "mma": 2}
@@ -277,6 +279,8 @@ def launch(x2, u, v, u2, v2, y, p: Plan) -> None:
         _KERNELS[p.kernel], stream)
     check_launch(err, "nested_lowrank")
     launches += 1
+    key = (p.kernel, k_in, n, x2.ndim == 3)
+    shape_launches[key] = shape_launches.get(key, 0) + 1
     if x2.ndim == 3:
         batched_by_kernel[p.kernel] += 1
     if p.kernel == "stream":

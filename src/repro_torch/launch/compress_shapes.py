@@ -7,7 +7,9 @@ input leaves may be real or meta tensors (only their shapes and dtypes are
 read), and every factored leaf comes back as a meta tensor holding no
 memory.  Nested methods (nsvd*, nid*) split each rank by ``split_rank``.
 ``calibration_bytes`` sizes what a calibration holds on the device (the
-weights and the fp64 GramStore) from one tapped forward on meta tensors.
+weights and the fp64 GramStore) from one tapped forward on meta tensors;
+``compression_bytes`` what compressing adds to it (the factored leaves and
+the widest target's fp64 decomposition), from the plan alone.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Any, Dict, Mapping
 
 import torch
 
+from repro_torch import torch_dtype
 from repro_torch.core.nsvd import split_rank
 from repro_torch.core.plan import CompressionConfig, build_plan
 
@@ -29,7 +32,8 @@ def _meta(tree):
 def compressed_param_shapes(model, params, ratio: float, method: str = "nsvd1",
                             k1_frac: float = 0.95, multiple_of: int = 128) -> Dict[str, Any]:
     """Every leaf as a meta tensor, each compressible kernel replaced by
-    its factors {"u", "v"[, "u2", "v2"]} in the kernel's dtype."""
+    its factors {"u", "v"[, "u2", "v2"]} in the kernel's dtype, its sibling
+    leaves kept (``dt_proj``'s bias), as ``compress_params`` keeps them."""
     plan = build_plan(model.compressible_targets(), CompressionConfig(
         method=method, ratio=ratio, k1_frac=k1_frac, multiple_of=multiple_of))
     out = _meta(params)
@@ -38,7 +42,8 @@ def compressed_param_shapes(model, params, ratio: float, method: str = "nsvd1",
         node = out
         for p in spec.path[:-1]:
             node = node[p]
-        dtype = node[spec.path[-1]]["kernel"].dtype
+        leaf = node[spec.path[-1]]
+        dtype = leaf["kernel"].dtype
         k = plan.rank_of(spec)
         k1, k2 = split_rank(k, k1_frac) if nested else (k, 0)
         lead = tuple(spec.stacked)
@@ -49,7 +54,8 @@ def compressed_param_shapes(model, params, ratio: float, method: str = "nsvd1",
         if k2 > 0:
             factored["u2"] = meta(spec.in_dim, k2)
             factored["v2"] = meta(k2, spec.out_dim)
-        node[spec.path[-1]] = factored
+        node[spec.path[-1]] = {**{k: v for k, v in leaf.items() if k != "kernel"},
+                               **factored}
     return out
 
 
@@ -64,9 +70,10 @@ def calibration_bytes(model) -> Dict[str, int]:
     """What calibrating ``model`` holds on the device, from one tapped
     forward on meta tensors (no memory): ``weights``, the param tree;
     ``grams``, the fp64 GramStore its taps leave (``calib.gram.gram_keys``,
-    each key an (n, n) Gram and an (n,) absmean); ``batch_gram``, the
-    largest fp32 Gram one tap makes and drops (a batched tap's (E, n, n)).
-    None of them depends on the calibration batch's shape: a Gram's width
+    each key an (n, n) Gram and an (n,) absmean); ``batch_gram``, the most
+    one tap makes and drops (its fp32 Gram; a batched tap's (E, n, n) and
+    the (n, n) fp64 sum over experts its shared key takes).  None of them
+    depends on the calibration batch's shape: a Gram's width
     is its tap's last dim, a batched tap's expert count its first."""
     from repro_torch import kernels
     from repro_torch.calib.gram import EXPERT_TAPS, gram_keys
@@ -82,8 +89,71 @@ def calibration_bytes(model) -> Dict[str, int]:
         base, own = gram_keys(name, x)
         n = x.shape[-1]
         widths.update(dict.fromkeys([base, *own], n))
-        experts = x.shape[0] if base.endswith(EXPERT_TAPS) else 1
-        batch_gram = max(batch_gram, 4 * experts * n * n)
+        if base.endswith(EXPERT_TAPS):
+            batch_gram = max(batch_gram, 4 * x.shape[0] * n * n + 8 * n * n)
+        else:
+            batch_gram = max(batch_gram, 4 * n * n)
     return {"weights": tree_bytes(params),
             "grams": sum(8 * (n * n + n) for n in widths.values()),
             "batch_gram": batch_gram}
+
+
+# The fp64 decomposition's working set on the H100 (torch.linalg on
+# cuSOLVER), in multiples of the kernel's fp64 bytes A, its Gram's N and
+# the smaller square's K: one SVD (its input's copy, U, V^T and gesvda's
+# workspace) SVD_A A + SVD_K K; a matrix whitener's build WHITEN_N N (the
+# eigen one's; a Cholesky whitener takes less, but falls back to it on a
+# Gram Cholesky cannot factor, as a rank-deficient expert's Gram can be).
+# ``tools/compress_memory.py`` measures every case within 2% of these, or
+# under them (a Cholesky whitener that succeeds; a plain SVD).
+SVD_A, SVD_K = 3.875, 5.875
+WHITEN_N = 6.125
+_MATRIX_WHITENED = ("asvd1", "asvd2", "asvd3", "nsvd1", "nsvd2", "nid1", "nid2")
+
+
+def decomposition_bytes(in_dim: int, out_dim: int, method: str = "nsvd1") -> int:
+    """The most device bytes one (in_dim, out_dim) kernel's decomposition
+    (``core.compress.compress_matrix``: fp64, a full thin SVD) holds at
+    once beside the kernel and the Gram it reads, with A = 8 in out, N = 8
+    in^2 and K = 8 min(in, out)^2: the fp64 kernel (A); a matrix-whitened
+    method's whitener while it is built (WHITEN_N N), then S and S^-1 (2 N)
+    through one SVD of A S (A S: A, the SVD: SVD_A A + SVD_K K); nested,
+    a second SVD of the residual (A) while the first's U and V^T (A + K)
+    are still held."""
+    a = 8 * in_dim * out_dim
+    n = 8 * in_dim * in_dim
+    k = 8 * min(in_dim, out_dim) ** 2
+    svd = int(SVD_A * a + SVD_K * k)
+    if method in ("svd", "plain"):
+        return a + svd
+    matrix = method in _MATRIX_WHITENED
+    first = 2 * a + (2 * n if matrix else 16 * in_dim) + svd
+    build = a + int(WHITEN_N * n) if matrix else 0
+    if not method.startswith(("nsvd", "nid")):
+        return max(build, first)
+    return max(build, first + a + k)
+
+
+def compression_bytes(model, config) -> Dict[str, int]:
+    """What compressing ``model`` under ``config`` (a CompressionConfig, as
+    ``launch.serve`` builds it) adds on the device to what its calibration
+    holds (``calibration_bytes``), from the plan on meta tensors:
+    ``factors``, the factored leaves the new tree holds beside the dense
+    one; ``work``, the most one target adds at once while it is compressed:
+    its kernel cast to fp32, a stacked target's slice factors before they
+    are stacked, and one slice's decomposition (``decomposition_bytes``)."""
+    params = model.init(device="meta")
+    plan = build_plan(model.compressible_targets(), config)
+    out_size = torch.empty((), dtype=torch_dtype(config.dtype)).element_size()
+    factors = work = 0
+    for spec in plan.targets:
+        leaf = params
+        for p in spec.path:
+            leaf = leaf[p]
+        dense = spec.count * spec.in_dim * spec.out_dim
+        own = spec.count * (spec.in_dim + spec.out_dim) * plan.rank_of(spec) * out_size
+        factors += own
+        fp32 = 4 * dense if leaf["kernel"].dtype != torch.float32 else 0
+        work = max(work, fp32 + (own if spec.stacked else 0)
+                   + decomposition_bytes(spec.in_dim, spec.out_dim, config.method))
+    return {"factors": factors, "work": work}

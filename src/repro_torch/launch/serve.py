@@ -3,7 +3,8 @@ NSVD-compress it, and serve batched requests through the engine, on the
 cache layout the model takes (``models.api.cache_layout``): paged block
 pools for the attention families (the paper's, chatglm3-6b, phi3-medium-14b,
 deepseek-67b), the dense slab for RWKV-6 (recurrent state), the token-choice
-MoE family (attention K/V) and MLA (minicpm3-4b: its latents, admitted in
+MoE family (attention K/V), jamba (the Mamba layers' state beside the
+attention layer's K/V) and MLA (minicpm3-4b: its latents, admitted in
 prompt-length buckets).
 
     python -m repro_torch.launch.serve --arch mistral-7b --no-reduced \\
@@ -16,6 +17,15 @@ prompt-length buckets).
         --compress 0.2 --requests 8 --max-new 32 --max-batch 8
     python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --no-reduced \\
         --layers 3 --compress 0.2 --requests 8 --max-new 32 --max-batch 8
+    python -m repro_torch.launch.serve --arch jamba-v0.1-52b --no-reduced \\
+        --layers 5 --requests 8 --max-new 32 --max-batch 8
+
+On the card the CLI first sizes what the run will hold (the weights, and
+when it compresses the calibration's fp64 Grams and a batched tap's Gram:
+``launch.compress_shapes.calibration_bytes``, on meta tensors) against the
+card's free memory, and refuses a run that does not fit before it
+allocates anything (jamba-v0.1-52b's 32 layers are 103 GB of bf16 weights;
+a 5-layer cut with all 16 experts still holds 71 GB of Grams).
 
 The engine schedules as the reference's does by default: on-demand block
 growth with preemption (re-prefill resume), one latency class, two decode
@@ -218,6 +228,44 @@ def serve(cfg: ModelConfig, *, requests: int = 8, max_new: int = 16,
             "params": params, "model": model}
 
 
+def run_bytes(cfg: ModelConfig, ratios: Sequence[float]) -> tuple:
+    """(bytes, what they are) that a run of ``cfg`` holds on the device at
+    most: the weights; when it compresses (at each of ``ratios``: the
+    served model's, a draft's) the calibration's fp64 GramStore too, and
+    on top of that the larger of what a calibration batch's tap makes and
+    drops and compression's own bytes (every ratio's factored leaves and
+    the most one target's fp64 decomposition adds); all sized on meta
+    tensors (``calibration_bytes``, ``compression_bytes``).  A calibration
+    batch's activations are not counted: on the served cuts the
+    compression's bytes are larger."""
+    from repro_torch.launch.compress_shapes import (calibration_bytes, compression_bytes,
+                                                    tree_bytes)
+
+    model = build_model(cfg)
+    if not ratios:
+        return tree_bytes(model.init(device="meta")), "weights"
+    calib = calibration_bytes(model)
+    comp = [compression_bytes(model, CompressionConfig(
+        method="nsvd1", ratio=r, dtype=cfg.dtype, use_randomized=False)) for r in ratios]
+    extra = max(calib["batch_gram"], sum(c["factors"] for c in comp)
+                + max(c["work"] for c in comp))
+    return (calib["weights"] + calib["grams"] + extra,
+            f"weights {calib['weights'] / 1e9:.2f} + calibration Grams "
+            f"{calib['grams'] / 1e9:.2f} + compression {extra / 1e9:.2f}")
+
+
+def fit_error(cfg: ModelConfig, ratios: Sequence[float], free_bytes: int) -> Optional[str]:
+    """Why a run of ``cfg`` compressing at ``ratios`` cannot fit
+    ``free_bytes`` of device memory (both numbers, ``run_bytes``), or None
+    when it fits."""
+    need, what = run_bytes(cfg, ratios)
+    if need <= free_bytes:
+        return None
+    return (f"{cfg.name} at {cfg.num_layers} layers needs {need / 1e9:.2f} GB "
+            f"({what}) but the card has {free_bytes / 1e9:.2f} GB free; cut it with "
+            "--layers")
+
+
 def report_telemetry(telemetry: Telemetry, eng: ServingEngine, args) -> None:
     """The ``telemetry:`` line, and the files the observability flags name.
     A profiler capture that failed is printed, never passed over."""
@@ -362,6 +410,13 @@ def main(argv=None):
         cfg = cfg.reduced()
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    if resolve_device(args.device).type == "cuda":
+        err = fit_error(cfg, [r for r in (args.compress, args.spec_ratio) if r is not None],
+                        torch.cuda.mem_get_info()[0])
+        if err is not None:
+            if server is not None:
+                server.close()
+            ap.error(err)
     try:
         res = serve(cfg, requests=args.requests, max_new=args.max_new,
                     max_batch=args.max_batch, max_len=args.max_len,

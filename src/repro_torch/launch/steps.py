@@ -137,8 +137,8 @@ def make_decode_sample_step(model, max_len: int) -> Callable:
 
 # Dense-slab cache leaves: name -> ndim of one layer's leaf; a stacked group
 # adds a leading layer dim, so the batch axis is ndim - base.
-_CACHE_LEAF_NDIM = {"state": 4, "shift_t": 2, "shift_c": 2, "k": 4, "v": 4,
-                    "c_kv": 3, "k_rope": 3}
+_CACHE_LEAF_NDIM = {"state": 4, "shift_t": 2, "shift_c": 2, "h": 3, "conv": 3,
+                    "k": 4, "v": 4, "c_kv": 3, "k_rope": 3}
 
 
 def _drop_pad_rows(slots: torch.Tensor, n: int):
@@ -180,7 +180,9 @@ def make_prefill_admit_step(model, max_len: int) -> Callable:
     cache_len, where attention masks them and the next decode overwrites
     them.  The engine calls a pad-sensitive model (a recurrent state folds
     in every position, MoE capacity is budgeted over the call's tokens)
-    with one exact-length request a call."""
+    with one exact-length request a call.  One cache tree may mix both
+    kinds of leaf (jamba: the Mamba layers' ``h`` and ``conv`` beside the
+    attention layer's ``k`` and ``v``); each is written by its own rank."""
 
     @torch.no_grad()
     def prefill_admit_step(params, cache, tokens, plens, slots, budgets, row_keys,

@@ -50,7 +50,9 @@ def prefill_pad_safe(model: DecoderLM) -> bool:
     input position) and token-choice MoE (expert capacity is budgeted over
     the flattened token batch, so padding tokens compete for, and can evict
     real tokens from, expert slots), whatever the mixer: deepseek-v3's
-    (mla, moe) layers make it pad-sensitive although MLA alone is not."""
+    (mla, moe) layers make it pad-sensitive although MLA alone is not, and
+    jamba is so twice over (the Mamba layers' ``h`` and ``conv``, and its
+    MoE layers)."""
     return not has_recurrent_cache(model) and model.cfg.moe is None
 
 
@@ -66,7 +68,11 @@ def cache_layout(model: DecoderLM) -> str:
     ``prefill_pad_safe``).  deepseek-v3's (mla, moe) stack takes the dense
     latent slab with exact-length admission (its MoE layers are
     pad-sensitive); like minicpm3 it has no paged or int8 form, so the
-    engine refuses ``paged=True`` and ``kv_quant``."""
+    engine refuses ``paged=True`` and ``kv_quant``.  jamba's cache tree
+    mixes the Mamba layers' recurrent ``{h, conv}`` with its attention
+    layer's (max_batch, max_len) K/V slab: dense, one exact-length
+    admission a prompt; ``paged=True``, ``kv_quant`` and speculative
+    decoding are refused, as for RWKV-6."""
     if not prefill_pad_safe(model):
         return "dense"
     if not cache_leaf_names(model) <= PAGEABLE_CACHE_LEAVES:

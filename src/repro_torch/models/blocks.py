@@ -1,12 +1,16 @@
 """Block assembly + layer stacking for the ported layer kinds: (gqa, mlp),
-(gqa, moe), (mla, mlp), (mla, moe) and (rwkv, cmix).
+(gqa, moe), (mla, mlp), (mla, moe), (mamba, mlp), (mamba, moe) and (rwkv,
+cmix).
 
 A layer is pre-norm: x = x + mixer(norm1(x)); x = x + ffn(norm2(x)), the
-mixer one of GQA attention, Multi-head Latent Attention or the RWKV-6 time
-mix, the ffn an MLP, a token-choice MoE or the RWKV-6 channel mix.  The
-mixer and the ffn are resolved and built independently, as the
-reference's: (mla, moe) is deepseek-v3's MoE layer (MLA's latent slab and
-taps ``…attn.*`` beside the MoE's ``…moe.*``).  Layers with identical specs
+mixer one of GQA attention, Multi-head Latent Attention, the Mamba (S6)
+mixer or the RWKV-6 time mix, the ffn an MLP, a token-choice MoE or the
+RWKV-6 channel mix.  The mixer and the ffn are resolved and built
+independently, as the reference's: (mla, moe) is deepseek-v3's MoE layer
+(MLA's latent slab and taps ``…attn.*`` beside the MoE's ``…moe.*``), and
+jamba's period of 8 holds (mamba, mlp), (mamba, moe) and one (gqa, mlp)
+layer whose K/V slab sits in the same cache tree as the Mamba layers'
+recurrent ``{h, conv}`` (key ``"mamba"``).  Layers with identical specs
 are stacked exactly as the reference stacks them for ``lax.scan`` (params
 carry a leading repeats dim), so the param tree keys and shapes match a
 reference checkpoint; here the stack runs as a Python loop over layer
@@ -23,6 +27,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 from . import attention as attn_mod
+from . import mamba as mamba_mod
 from . import mla as mla_mod
 from . import moe as moe_mod
 from . import rwkv6 as rwkv_mod
@@ -35,16 +40,19 @@ def resolve_specs(cfg: ModelConfig) -> Tuple[BlockSpec, ...]:
     """Config-level layer specs -> (mixer, ffn) pairs, the mixer and the ffn
     resolved independently as the reference's: "attn" is "mla" when the
     config's attention is MLA, else "gqa", over an "mlp" or "moe" ffn (so
-    deepseek-v3 gives (mla, mlp) x 3 then (mla, moe)); "rwkv" takes the
-    channel mix.  Mamba is not ported."""
+    deepseek-v3 gives (mla, mlp) x 3 then (mla, moe)); "mamba" keeps its
+    ffn (jamba: (mamba, mlp), (mamba, moe) and (gqa, mlp) in its period);
+    "rwkv" takes the channel mix."""
     out = []
     for mixer, ffn in cfg.layer_specs():
         if mixer == "attn" and cfg.attention in ("gqa", "mla") and ffn in ("mlp", "moe"):
             out.append((cfg.attention, ffn))
+        elif mixer == "mamba" and cfg.mamba is not None and ffn in ("mlp", "moe"):
+            out.append(("mamba", ffn))
         elif mixer == "rwkv" and cfg.rwkv is not None:
             out.append(("rwkv", "cmix"))
         else:
-            raise ValueError(f"{cfg.name}: only (gqa|mla, mlp|moe) and (rwkv, cmix) "
+            raise ValueError(f"{cfg.name}: only (gqa|mla|mamba, mlp|moe) and (rwkv, cmix) "
                              f"layers are ported, got ({mixer}/{cfg.attention}, {ffn})")
     return tuple(out)
 
@@ -97,9 +105,11 @@ def block_init(gen, spec: BlockSpec, cfg: ModelConfig, dtype, device) -> Dict:
             "norm2": norm_init(cfg.norm, cfg.d_model, dtype, device),
             "rwkv_c": rwkv_mod.rwkv_channel_mix_init(gen, cfg, dtype, device),
         }
-    mixer_init = mla_mod.mla_init if spec[0] == "mla" else attn_mod.attention_init
+    key, mixer_init = {"mla": ("attn", mla_mod.mla_init),
+                       "gqa": ("attn", attn_mod.attention_init),
+                       "mamba": ("mamba", mamba_mod.mamba_init)}[spec[0]]
     p = {"norm1": norm_init(cfg.norm, cfg.d_model, dtype, device),
-         "attn": mixer_init(gen, cfg, dtype, device),
+         key: mixer_init(gen, cfg, dtype, device),
          "norm2": norm_init(cfg.norm, cfg.d_model, dtype, device)}
     if spec[1] == "moe":
         p["moe"] = moe_mod.moe_init(gen, cfg, dtype, device)
@@ -126,11 +136,14 @@ def group_init(gen, group: StackGroup, cfg: ModelConfig, dtype, device) -> Dict:
 
 def block_cache_init(spec: BlockSpec, cfg: ModelConfig, batch: int, max_len: int,
                      dtype, device) -> Dict:
-    """One layer's dense-slab cache rows: the recurrent state for rwkv, the
-    (batch, max_len) latent slab (c_kv, k_rope) for mla, the (batch,
-    max_len) K/V slab for gqa."""
+    """One layer's dense-slab cache rows: the recurrent state for rwkv and
+    mamba (``h`` and the conv tail, whatever ``max_len``), the (batch,
+    max_len) latent slab (c_kv, k_rope) for mla, the (batch, max_len) K/V
+    slab for gqa."""
     if spec[0] == "rwkv":
         return {"rwkv": rwkv_mod.init_rwkv_cache(cfg, batch, dtype, device)}
+    if spec[0] == "mamba":
+        return {"mamba": mamba_mod.init_mamba_cache(cfg, batch, dtype, device)}
     if spec[0] == "mla":
         return {"attn": mla_mod.init_mla_cache(cfg, batch, max_len, dtype, device)}
     return {"attn": attn_mod.init_kv_cache(cfg, batch, max_len, dtype, device)}
@@ -187,17 +200,25 @@ def block_apply(params: Mapping, x: torch.Tensor, spec: BlockSpec, cfg: ModelCon
                                              tap_prefix=f"{tap_prefix}.rwkv_c")
     h = norm_apply(params["norm1"], x)
     mixer_mode = "decode" if mode == "decode" else "causal"
-    c = None if cache is None else cache["attn"]
-    if spec[0] == "mla":
+    if spec[0] == "mamba":
+        if block_tables is not None:
+            raise ValueError("Mamba's recurrent state has no paged form; see "
+                             "models.api.cache_layout")
+        x = x + mamba_mod.mamba_apply(params["mamba"], h, cfg, mode=mixer_mode,
+                                      cache=None if cache is None else cache["mamba"],
+                                      taps=taps, tap_prefix=f"{tap_prefix}.mamba")
+    elif spec[0] == "mla":
         if block_tables is not None:
             raise ValueError("MLA's latent cache has no paged form; see "
                              "models.api.cache_layout")
         x = x + mla_mod.mla_apply(params["attn"], h, cfg, positions, mode=mixer_mode,
-                                  cache=c, cache_len=cache_len, taps=taps,
+                                  cache=None if cache is None else cache["attn"],
+                                  cache_len=cache_len, taps=taps,
                                   tap_prefix=f"{tap_prefix}.attn")
     else:
         x = x + attn_mod.attention_apply(
-            params["attn"], h, cfg, positions, mode=mixer_mode, cache=c,
+            params["attn"], h, cfg, positions, mode=mixer_mode,
+            cache=None if cache is None else cache["attn"],
             cache_len=cache_len, block_tables=block_tables, taps=taps,
             tap_prefix=f"{tap_prefix}.attn")
     h = norm_apply(params["norm2"], x)

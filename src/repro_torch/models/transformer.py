@@ -1,7 +1,8 @@
 """Decoder-only LM assembly for the dense (gqa, mlp) families, Multi-head
 Latent Attention (mla, mlp), the token-choice MoE family (dense first
-layers, then (gqa, moe) layers, or deepseek-v3's (mla, moe)) and RWKV-6
-(rwkv, cmix)."""
+layers, then (gqa, moe) layers, or deepseek-v3's (mla, moe)), jamba's
+Mamba / attention hybrid ((mamba, mlp), (mamba, moe) and (gqa, mlp) in a
+period of 8) and RWKV-6 (rwkv, cmix)."""
 
 from __future__ import annotations
 
@@ -29,14 +30,16 @@ from .layers import (
     norm_init,
     unembed,
 )
+from .mamba import dt_rank_of
 
 
 class DecoderLM:
     """Functional decoder-only LM over plain dict param trees.
 
     apply modes: "train" (causal, no cache); "prefill" (causal, writing a
-    fresh dense row cache from ``init_cache``: recurrent state and shifts,
-    attention K/V or MLA's latents from position 0); and "decode" (S new
+    fresh dense row cache from ``init_cache``: recurrent state and shifts
+    (RWKV-6; Mamba's state and conv tail), attention K/V or MLA's latents
+    from position 0); and "decode" (S new
     tokens per row at each row's cache_len: into a paged cache for
     attention with ``block_tables`` — S == 1 is a decode step, S > 1 a
     chunk of streaming prefill — or into the dense slab: attention K/V at
@@ -125,9 +128,10 @@ class DecoderLM:
     def compressible_targets(self):
         """TargetSpecs for every factorizable matrix (reference names and
         Gram keys), built as the reference builds them: a layer's list is
-        its mixer's (gqa, mla or rwkv time mix) followed by its ffn's (mlp,
-        moe or channel mix), so every (mixer, ffn) pair, deepseek-v3's
-        (mla, moe) among them, gets its targets in the reference's order.
+        its mixer's (gqa, mla, mamba or rwkv time mix) followed by its
+        ffn's (mlp, moe or channel mix), so every (mixer, ffn) pair,
+        deepseek-v3's (mla, moe) and jamba's (mamba, moe) among them, gets
+        its targets in the reference's order.
         A MoE layer's expert targets are stacked over the experts too."""
         from repro_torch.core.plan import TargetSpec
 
@@ -152,6 +156,14 @@ class DecoderLM:
                 (("attn", "wkv_b"), m.kv_lora_rank,
                  h * (m.qk_nope_head_dim + m.v_head_dim), "attn.kv_lora_in"),
                 (("attn", "wo"), h * m.v_head_dim, d, "attn.out_in"),
+            ]
+        if cfg.mamba is not None:
+            di, dt_rank = cfg.mamba.d_inner, dt_rank_of(cfg)
+            mixers["mamba"] = [
+                (("mamba", "in_proj"), d, 2 * di, "mamba.in"),
+                (("mamba", "x_proj"), di, dt_rank + 2 * cfg.mamba.d_state, "mamba.ssm_in"),
+                (("mamba", "dt_proj"), dt_rank, di, "mamba.dt_in"),
+                (("mamba", "out_proj"), di, d, "mamba.out_in"),
             ]
         mixers["rwkv"] = [
             *((("rwkv_t", w), d, d, f"rwkv_t.{t}_in")

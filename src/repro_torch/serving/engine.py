@@ -19,7 +19,8 @@ of the reference's cache layouts, chosen by ``models.api.cache_layout``:
   scheduler's order (longest first; ``sort_decode_rows``), which leaves
   every token unchanged.  ``defrag()`` compacts live blocks.
 * "dense" (RWKV-6's recurrent state; token-choice MoE, whose attention
-  K/V live in a (max_batch, max_len) slab; MLA's latents c_kv and k_rope):
+  K/V live in a (max_batch, max_len) slab; MLA's latents c_kv and k_rope;
+  jamba's Mamba state ``h`` and conv tail beside its attention layer's K/V):
   one slab per cache leaf.  An admission prefills into a fresh row cache
   whose rows then replace their slots' rows wholesale.  A pad-safe model
   (``models.api.prefill_pad_safe``: MLA, or an attention stack served with

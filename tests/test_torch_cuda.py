@@ -1661,3 +1661,173 @@ def test_full_width_dsv3_moe_layer_256_experts_kernels_vs_plain(dev):
           f"{traces[1].flips} (decode); prefill err {float((pk - pp).abs().max()):.4e} of "
           f"{float(pp.abs().max()):.3f}, decode err {float((sk - sp).abs().max()):.4e} of "
           f"{float(sp.abs().max()):.3f}; {smi}")
+
+
+def test_full_width_jamba_mamba_moe_layer_16_experts_kernels_vs_plain(dev):
+    """One jamba-v0.1-52b (mamba, moe) layer at full width with all 16
+    experts (d_model 4096, d_inner 8192, d_state 16, dt_rank 256, experts
+    4096 <-> 14336 top-2, vocab 65536), every target factored with random
+    factors at the served plan's ranks (nsvd1 at 0.2: in_proj 2490 + 131,
+    x_proj 211 + 11, dt_proj 188 + 10, out_proj 2075 + 109, the experts
+    2421 + 127) and no calibration (16 experts' fp64 Grams would be 71 GB
+    with the other layers'): a 512-row prefill (8 x 64 on the dense slab:
+    the Mamba linears on mma, the experts at capacity 80 on the batched mma
+    kernel) and a decode step of 8 rows (stream; the experts at capacity
+    8) through the kernels and through the plain versions, the plain runs
+    pinned to the kernel runs' expert choices; logits within 5% of max
+    |logit| (chip_smoke.py's STEP_LOGIT_TOL).  Then the selective scan at
+    full width (S 2048, d_inner 8192, d_state 16) against an fp64
+    sequential recurrence, output and final state within 1e-4 of their max.
+    Prints the seconds, the peak device memory and nvidia-smi's name and
+    power limit."""
+    from repro_torch.launch.compress_shapes import compressed_param_shapes
+    from repro_torch.models import mamba
+
+    base = get_config("jamba-v0.1-52b")
+    cfg = dataclasses.replace(base, num_layers=1, mixer_pattern=("mamba",),
+                              moe=dataclasses.replace(base.moe, first_k_dense=0,
+                                                      moe_every=1))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    assert model.specs == (("mamba", "moe"),)
+    shapes = compressed_param_shapes(model, model.init(device="meta"), 0.2, k1_frac=0.95,
+                                     multiple_of=1)
+    # The non-factored leaves (dt_proj's bias, a_log, the conv, ...) from a
+    # one-expert twin's init; every factor and the 16-expert router random.
+    real = build_model(dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, num_experts=1))).init(0, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def fill(meta, have):
+        if isinstance(meta, dict):
+            return {k: fill(v, have.get(k, {}) if isinstance(have, dict) else {})
+                    for k, v in meta.items()}
+        if isinstance(have, torch.Tensor) and have.shape == meta.shape:
+            return have
+        fan_in = meta.shape[-2]
+        return (torch.randn(meta.shape, generator=gen, device=dev) * fan_in ** -0.5).to(
+            meta.dtype)
+    params = fill(shapes, real)
+    del real
+    mp = params["g0"]["sub0"]["mamba"]
+    assert [(tuple(mp[t]["u"].shape), tuple(mp[t]["u2"].shape)) for t in (
+        "in_proj", "x_proj", "dt_proj", "out_proj")] == [
+        ((4096, 2490), (4096, 131)), ((8192, 211), (8192, 11)), ((256, 188), (256, 10)),
+        ((8192, 2075), (8192, 109))]
+    assert tuple(mp["dt_proj"]["bias"].shape) == (8192,)
+    wi = params["g0"]["sub0"]["moe"]["experts"]["wi"]
+    assert tuple(wi["u"].shape) == (16, 4096, 2421) and tuple(wi["u2"].shape) == (
+        16, 4096, 127)
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(2, cfg.vocab_size // 2, (8, 64)), device=dev)
+    nxt = torch.as_tensor(rng.integers(2, cfg.vocab_size // 2, (8, 1)), device=dev)
+    clen = torch.full((8,), 64, dtype=torch.int32, device=dev)
+    out, traces = [], [moe.RoutingTrace(), moe.RoutingTrace()]
+    for plain in (False, True):
+        cache = model.init_cache(8, 128, device=dev)
+        n0, b0 = _nested_counts(), dict(nlr_ops.batched_by_kernel)
+        with torch.no_grad():
+            with (kernels.plain() if plain else contextlib.nullcontext()), \
+                    (traces[0].replay() if plain else traces[0].record()):
+                pre = model.apply(params, toks, mode="prefill", cache=cache).float()
+            with (kernels.plain() if plain else contextlib.nullcontext()), \
+                    (traces[1].replay() if plain else traces[1].record()):
+                step = model.apply(params, nxt, mode="decode", cache=cache,
+                                   cache_len=clen).float()
+        torch.cuda.synchronize()
+        n1, b1 = _nested_counts(), nlr_ops.batched_by_kernel
+        launched = (n1[1] - n0[1], n1[2] - n0[2], n1[3] - n0[3],
+                    b1["stream"] - b0["stream"], b1["mma"] - b0["mma"])
+        # Prefill: 4 Mamba linears and 3 batched on mma (capacity 80);
+        # decode: 4 and 3 on stream.
+        assert launched == ((0, 0, 0, 0, 0) if plain else (7, 7, 0, 3, 3))
+        out.append((pre, step))
+        del cache
+    (pk, sk), (pp, sp) = out
+    assert moe.capacity_of(512, cfg) == 80 and moe.capacity_of(8, cfg) == 8
+    for got, want in ((pk, pp), (sk, sp)):
+        assert got.shape[-1] == cfg.vocab_size and bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) <= 5e-2 * float(want.abs().max())
+    held = int(torch.unique(traces[1].choices[0]).numel())
+    assert 2 <= held <= 16
+    layer_s = time.perf_counter() - t0
+    del params, out, pk, sk, pp, sp
+
+    # The scan at full width against an fp64 sequential recurrence.
+    s, di, ns = 2048, 8192, 16
+    g = torch.Generator(device=dev).manual_seed(2)
+    dt = torch.nn.functional.softplus(torch.randn((1, s, di), generator=g, device=dev)
+                                      * 0.5 - 4.6)
+    a = -torch.arange(1, ns + 1, dtype=torch.float32, device=dev).repeat(di, 1)
+    b_mat = torch.randn((1, s, ns), generator=g, device=dev)
+    c_mat = torch.randn((1, s, ns), generator=g, device=dev)
+    xc = torch.nn.functional.silu(torch.randn((1, s, di), generator=g, device=dev))
+    h0 = torch.zeros((1, di, ns), device=dev)
+    t1 = time.perf_counter()
+    y, h = mamba.chunk_scan(dt, a, b_mat, c_mat, xc, h0)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t1
+    d64, a64, b64, c64, x64 = (t.double() for t in (dt, a, b_mat, c_mat, xc))
+    h64 = h0.double()
+    ys = []
+    for t in range(s):
+        h64 = torch.exp(d64[:, t, :, None] * a64) * h64 + (
+            d64[:, t] * x64[:, t])[..., None] * b64[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h64, c64[:, t]))
+    y64 = torch.stack(ys, 1)
+    y_err = float((y.double() - y64).abs().max() / y64.abs().max())
+    h_err = float((h.double() - h64).abs().max() / h64.abs().max())
+    assert y.shape == (1, s, di) and y_err <= 1e-4 and h_err <= 1e-4
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    print(f"\njamba-v0.1-52b (mamba, moe) layer, 16 experts (full width, random factors): "
+          f"{layer_s:.1f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; experts holding a decode "
+          f"row {held} of 16; routings pinned {traces[0].flips} (prefill) "
+          f"{traces[1].flips} (decode); scan at S {s}: {scan_s * 1e3:.1f} ms (first call), "
+          f"y err {y_err:.3e}, h err {h_err:.3e} of the fp64 recurrence; {smi}")
+
+
+@pytest.mark.parametrize("method,in_dim,out_dim,gram_kind,tight", [
+    ("nsvd1", 14336, 4096, "indefinite", True), ("nsvd1", 14336, 4096, "spd", False),
+    ("nsvd1", 4096, 14336, "spd", True), ("nsvd1", 8192, 288, "indefinite", True),
+    ("nsvd1", 2048, 7168, "spd", True), ("nsvd1", 5120, 13824, "spd", True),
+    ("nsvd1", 13824, 5120, "indefinite", True), ("nsvd2", 14336, 4096, "spd", True)])
+def test_decomposition_bytes_bound_the_measured_peak(dev, method, in_dim, out_dim, gram_kind,
+                                                     tight):
+    """One kernel's fp64 decomposition (``compress_matrix`` with the serve
+    CLI's config: no randomized SVD, ratio 0.2) on the card peaks at or
+    below ``compress_shapes.decomposition_bytes``, which the serve CLI's
+    memory check adds, and where the model's leading term is the one that
+    runs (``tight``) the estimate is within 20% of the peak.  An indefinite
+    Gram makes the Cholesky whitener fall back to the eigen one, as a
+    rank-deficient expert Gram does; a Cholesky whitener that succeeds
+    peaks lower than the model's eigen build.  (5120, 13824) and (13824,
+    5120) are shapes the coefficients were not fitted on."""
+    from repro_torch.core.compress import compress_matrix
+    from repro_torch.core.ratio import rank_for_ratio
+    from repro_torch.launch.compress_shapes import decomposition_bytes
+
+    g = torch.Generator(device=dev).manual_seed(in_dim + out_dim)
+    kern = (torch.randn((in_dim, out_dim), generator=g, device=dev) * in_dim ** -0.5).to(
+        torch.bfloat16).float()
+    r = torch.randn((in_dim, in_dim), generator=g, device=dev, dtype=torch.float64)
+    shift = in_dim if gram_kind == "spd" else -in_dim / 100
+    gram = r @ r.T + shift * torch.eye(in_dim, device=dev, dtype=torch.float64)
+    del r
+    absmean = torch.rand(in_dim, generator=g, device=dev, dtype=torch.float64)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    compress_matrix(kern, rank_for_ratio(out_dim, in_dim, 0.2), CompressionConfig(
+        method=method, ratio=0.2, use_randomized=False), gram, absmean)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    est = decomposition_bytes(in_dim, out_dim, method)
+    print(f"{method} {in_dim} -> {out_dim} ({gram_kind} Gram): peak {peak / 2 ** 30:.3f} GiB, "
+          f"estimate {est / 2 ** 30:.3f} ({est / peak:.3f}x)")
+    assert peak <= est
+    assert est <= 1.2 * peak or not tight

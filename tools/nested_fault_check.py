@@ -12,9 +12,11 @@ Needs one H100 and the CUDA toolkit.  Each fault is a one-line patch of
 checkout is never touched), built and run in its own process on the nested
 phase's bf16 shapes at 1, 8 and 16 rows (stream) and 17, 64, 200 and 512
 rows (mma), on two card-test cases of each kernel with u and u2 at odd
-element offsets, and on the nested batched phase's bf16 cases (64 experts:
-8 rows on the stream kernel, 960 on the mma kernel).  Prints one line per
-fault and case, and
+element offsets, and on the nested batched phase's bf16 cases at their
+own expert counts and ranks (moonshot's 64 experts, deepseek-v3's 16 and
+256, jamba's 8 and 16; 8 rows on the stream kernel, 55-960 on the mma
+kernel), every expert holding all its rows.  Prints one line per fault and
+case, and
 exits non-zero unless the unpatched kernel passes both checks everywhere
 and every fault fails the per-element check somewhere.
 """
@@ -88,8 +90,7 @@ def measure() -> list:
         u = at_offset(mk(g, k_in, k1, s=k_in ** -0.5), 3)
         u2 = at_offset(mk(g, k_in, k2, s=k_in ** -0.5), 5)
         cases.append((f"card M={m} K={k_in} k={k1}+{k2}", x, u, v, u2, v2))
-    e, k1, k2 = chip_smoke.MOE_EXPERTS, chip_smoke.MOE_K1, chip_smoke.MOE_K2
-    for case, m, k_in, n, dname, _ in chip_smoke.NESTED_BATCHED_CASES:
+    for case, e, m, k_in, n, k1, k2, dname, _, _ in chip_smoke.NESTED_BATCHED_CASES:
         if dname != "bfloat16":
             continue
         g = torch.Generator(device="cuda").manual_seed(m + k_in)
