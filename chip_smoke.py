@@ -189,7 +189,23 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
      nested form at in_proj, x_proj, dt_proj and out_proj (8 and 173 rows),
      the batched nested form at jamba's experts (4096 <-> 14336) over 8 and
      all 16 experts x 8 rows and 8 x 55 rows, and the batched gram at its
-     calibration capacity (8, 640, n).
+     calibration capacity (8, 640, n);
+ 13. whisper path: whisper-small at full width and depth, no cut (12 + 12
+     layers, 768 wide, 1500 frames), through the reference's entry points
+     for the encoder-decoder (it has no serving path): calibrate over batch
+     dicts with frames (gram), compress (nsvd1 0.2, 192 targets), perplexity
+     on en_a and jp dense and compressed and the logit KL (flash in the
+     decoder; the encoder's bidirectional and every cross attention plain
+     torch; the nested linears above the 1024-row gate plain, counted
+     apart), then greedy decoding of 8 rows through ``make_prefill_step``
+     and ``make_decode_step`` (nested stream at decode, mma at the 128-row
+     prefill); its exact counts held against WHISPER_PREDICTED; the streams
+     by the margin rule, the prefill's self and cross K/V, a decode step's
+     and an eval batch's logits against the plain versions; a profiled
+     decode step and the bidirectional attention's share of a calibration
+     batch.  The kernel phase holds flash at (16, 128), 12/12 heads x 64,
+     the nested MLP linears at 8 and 128 rows and the gram at 24000 rows of
+     n 768 and 3072.
 Prints each path's seconds and peak device memory, a JSON kernel summary,
 nvidia-smi's line, and as its last line
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero; without a
@@ -277,6 +293,15 @@ JAMBA_PATH_SHAPES = (
     ("jamba_out_proj", 8192, 4096, 2184),
 )
 JAMBA_PATH_ROWS = (8, 173)
+# whisper-small's MLP linears on the whisper path at the served rank (nsvd1
+# at 0.2: 491; its 768 x 768 linears take 307): wi (768 -> 3072) and wo
+# (3072 -> 768).  Rows: a decode step's 8 (stream) and the prefill's 128
+# (8 prompts of 16; mma).
+WHISPER_PATH_SHAPES = (
+    ("whisper_wi", 768, 3072, 491),
+    ("whisper_wo_ff", 3072, 768, 491),
+)
+WHISPER_PATH_ROWS = (8, 128)
 # Max |kernel - plain| / max |plain| allowed.  bf16: the kernel and the plain
 # version round the rank-width intermediate and the output to bf16 at the
 # same points but sum in different orders (a few bf16 ulps of the output);
@@ -322,10 +347,12 @@ STEP_LOGIT_TOL = 5e-2
 # and at minicpm3-4b's kv_lora (256), q_lora (768), d_model (2560) and d_ff
 # (6400), chatglm3-6b's d_ff (13696), and deepseek-v3-671b's kv_lora (512),
 # q_lora (1536), attention output (16384 = 128 heads x v 128) and d_ff
-# (18432; its d_model is Mistral-7B's 7168).
+# (18432; its d_model is Mistral-7B's 7168); and whisper-small's encoder
+# taps over a calibration batch's 16 x 1500 frames, at its d_model (768)
+# and d_ff (3072).
 GRAM_SHAPES = ((2048, 256), (2048, 512), (2048, 768), (2048, 1536), (2048, 2048),
                (2048, 2560), (2048, 4096), (2048, 6400), (2048, 7168), (2048, 13696),
-               (2048, 14336), (2048, 16384), (2048, 18432))
+               (2048, 14336), (2048, 16384), (2048, 18432), (24000, 768), (24000, 3072))
 # Max |kernel - plain| / max |plain|, for G and for sum |x|: both sum the
 # same exact products (bf16 x bf16 is exact in fp32) in another order.
 GRAM_TOL = 1e-5
@@ -341,6 +368,9 @@ GRAM_ELEM_TOL = 1e-4
 # (B, S, Hq, Hkv): calibration and evaluation batches at Mistral-7B's heads,
 # a ragged S, and G = 1.
 FLASH_SHAPES = ((16, 128, 32, 8), (4, 2048, 32, 8), (4, 1000, 32, 8), (4, 1000, 8, 8))
+# (B, S, Hq, Hkv, hd), bf16 only: whisper-small's decoder at a calibration
+# and eval batch (12/12 heads x 64: G 1 at hd 64).
+WHISPER_FLASH_SHAPES = ((16, 128, 12, 12, 64),)
 # bf16: P is rounded to bf16 before P V unnormalized (kernel) vs normalized
 # (plain), and outputs round to bf16; fp32: sum order only.
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
@@ -475,6 +505,7 @@ def nested_phase(torch, ops, ref):
     cases.append(("bfloat16", NESTED_PATH_SHAPES, NESTED_PATH_ROWS))
     cases.append(("bfloat16", DSV3_PATH_SHAPES, DSV3_PATH_ROWS))
     cases.append(("bfloat16", JAMBA_PATH_SHAPES, JAMBA_PATH_ROWS))
+    cases.append(("bfloat16", WHISPER_PATH_SHAPES, WHISPER_PATH_ROWS))
     for dname, shapes, row_counts in cases:
         dt = getattr(torch, dname)
         for target, k_in, n, r in shapes:
@@ -929,46 +960,45 @@ def flash_phase(torch, ops, ref):
     rows_out = []
     gen = torch.Generator(device="cuda").manual_seed(3)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    hd = 128
-    for dname in ("bfloat16", "float32"):
+    cases = [(d, *shape, 128) for d in ("bfloat16", "float32") for shape in FLASH_SHAPES
+             if not (d == "float32" and shape[1] == 1000)]  # ragged, G = 1: bf16 only
+    cases += [("bfloat16", *shape) for shape in WHISPER_FLASH_SHAPES]
+    for dname, b, s, hq, hkv, hd in cases:
         dt = getattr(torch, dname)
-        for b, s, hq, hkv in FLASH_SHAPES:
-            if dname == "float32" and s == 1000:
-                continue  # the ragged and G = 1 cases are checked in bf16
 
-            def mk(h):
-                return torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dt)
-            q, k, v = mk(hq), mk(hkv), mk(hkv)
-            got = ops.flash_attention(q, k, v)
-            want = ref.flash_attention_ref(q, k, v)
-            torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            scale = float(want.float().abs().max())
-            e_err = elem_err(torch, got, want)
-            ok = (bool(torch.isfinite(got).all()) and err <= FLASH_TOL[dname] * scale
-                  and e_err <= FLASH_ELEM_TOL[dname])
-            del got, want
-            ms = time_ms(lambda: ops.flash_attention(q, k, v))
-            plain = time_ms(lambda: ref.flash_attention_ref(q, k, v), reps=3)
-            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
-            nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-            flops = 2 * b * hq * hd * s * (s + 1)
-            bnd, by = bound_ms(nbytes, flops, dname)
-            tflops = flops / ms * 1e-9
-            row = dict(kernel="flash_attention", dtype=dname, B=b, S=s, Hq=hq, Hkv=hkv,
-                       hd=hd, max_abs_err=err, ref_max_abs=scale,
-                       tol=FLASH_TOL[dname] * scale, elem_err=e_err,
-                       elem_tol=FLASH_ELEM_TOL[dname], ok=ok, ms=ms, plain_ms=plain,
-                       library_ms=lib, bytes=nbytes, flops=flops, bound_ms=bnd,
-                       bound_by=by, tflops=tflops, bound_share=bnd / ms)
-            rows_out.append(row)
-            log(f"flash  {dname:8s} B={b:<2d} S={s:<4d} Hq/Hkv={hq}/{hkv} err={err:.3e} "
-                f"(tol {row['tol']:.3e}) elem err {e_err:.3e} (tol {row['elem_tol']:.3e}) "
-                f"{'OK' if ok else 'FAIL'}  kernel {ms:.3f} ms  "
-                f"({tflops:.1f} TFLOP/s, {bnd / ms:.1%} of bound)  plain {plain:.3f} ms  "
-                f"library(sdpa) {lib:.3f} ms ({flops / lib * 1e-9:.1f} TFLOP/s)  "
-                f"bound {bnd:.4f} ms ({by})")
+        def mk(h):
+            return torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dt)
+        q, k, v = mk(hq), mk(hkv), mk(hkv)
+        got = ops.flash_attention(q, k, v)
+        want = ref.flash_attention_ref(q, k, v)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        e_err = elem_err(torch, got, want)
+        ok = (bool(torch.isfinite(got).all()) and err <= FLASH_TOL[dname] * scale
+              and e_err <= FLASH_ELEM_TOL[dname])
+        del got, want
+        ms = time_ms(lambda: ops.flash_attention(q, k, v))
+        plain = time_ms(lambda: ref.flash_attention_ref(q, k, v), reps=3)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        flops = 2 * b * hq * hd * s * (s + 1)
+        bnd, by = bound_ms(nbytes, flops, dname)
+        tflops = flops / ms * 1e-9
+        row = dict(kernel="flash_attention", dtype=dname, B=b, S=s, Hq=hq, Hkv=hkv,
+                   hd=hd, max_abs_err=err, ref_max_abs=scale,
+                   tol=FLASH_TOL[dname] * scale, elem_err=e_err,
+                   elem_tol=FLASH_ELEM_TOL[dname], ok=ok, ms=ms, plain_ms=plain,
+                   library_ms=lib, bytes=nbytes, flops=flops, bound_ms=bnd,
+                   bound_by=by, tflops=tflops, bound_share=bnd / ms)
+        rows_out.append(row)
+        log(f"flash  {dname:8s} B={b:<2d} S={s:<4d} Hq/Hkv={hq}/{hkv} hd={hd} err={err:.3e} "
+            f"(tol {row['tol']:.3e}) elem err {e_err:.3e} (tol {row['elem_tol']:.3e}) "
+            f"{'OK' if ok else 'FAIL'}  kernel {ms:.3f} ms  "
+            f"({tflops:.1f} TFLOP/s, {bnd / ms:.1%} of bound)  plain {plain:.3f} ms  "
+            f"library(sdpa) {lib:.3f} ms ({flops / lib * 1e-9:.1f} TFLOP/s)  "
+            f"bound {bnd:.4f} ms ({by})")
     return rows_out
 
 
@@ -1051,6 +1081,7 @@ def reset_counts() -> None:
     nlr.stream_launches = nlr.mma_launches = nlr.tile_launches = 0
     nlr.batched_by_kernel.update(stream=0, mma=0, tile=0)
     nlr.shape_launches.clear()
+    nlr.gate_calls = 0
     gram = _ops("gram")
     gram.mma_launches = gram.fma_launches = gram.batched_launches = 0
     gram.shape_launches.clear()
@@ -3632,6 +3663,312 @@ def methods_path(torch, np, cfg, taps_per_layer: int):
     return summary, counts
 
 
+# The whisper path: whisper-small at full width and depth (12 + 12
+# layers, 768 wide, 12/12 heads x 64, d_ff 3072, vocab 51865, 1500 frames;
+# no cut), random bf16 weights from seed 0, through the reference's own
+# entry points for the family (its serving engine has no encoder-decoder
+# path, and the port's refuses one): calibrate (the paper's 256 x 128
+# tokens of en_a in 16 batches of 16), compress (nsvd1 at 0.2, k1_frac 0.9,
+# every one of the 192 targets), evaluate (perplexity on en_a and jp,
+# dense and compressed, and the logit KL on en_a, 2 (16, 128) batches
+# each) and decode (greedy, 8 rows, 16-token prompts, 32 new tokens: one
+# ``make_prefill_step`` call, then 31 ``make_decode_step`` steps on the
+# cross K/V the prefill built).  Frames stand in for the stubbed conv
+# frontend: standard normal (B, 1500, 768) fp32 from a numpy seed a batch,
+# as the reference's tests draw them.
+WHISPER_RUN = dict(calib_batches=16, calib_batch=16, seq=128, eval_batches=2,
+                   eval_batch=16, rows=8, prompt=16, new=32)
+WHISPER_DOMAINS = ("en_a", "jp")
+# Exact counts of the whisper path's main run, entered before its first
+# chip call (``whisper_expect`` derives them from WHISPER_RUN's shapes;
+# tests/test_torch_encdec.py holds that derivation to a CPU run of a
+# reduced twin).  gram: 132 taps x 16 batches (4 a layer x 12 encoder, 7 x
+# 12 decoder), all on the mma kernel (bf16, n 768 or 3072).  flash: 12
+# decoder layers x 29 causal forwards (16 calibration, 2 domains x 2
+# batches x dense and compressed, 2 x 2 KL, 1 prefill), all tensor-core;
+# the encoder's bidirectional and every cross attention are plain torch.
+# nested: 8 compressed linears a decoder layer at decode and over the
+# prompt rows (self q/k/v/o, cross q/o, mlp wi/wo): stream 96 x 31 decode
+# steps (8 rows), mma 96 x 1 prefill call (128 rows), tile 0; and apart,
+# the wrapper's calls above its 1024-row gate, plain matmuls (the
+# reference leaves them to XLA): 192 a compressed (16, 128) forward (the
+# encoder's 72 over 24000 frame rows, cross wk/wv's 24 over them, the
+# decoder's 96 over 2048 rows) x 6, and 96 at the prefill (the encoder's
+# 72 over 12000 rows, cross wk/wv's 24).
+WHISPER_PREDICTED = dict(gram=2112, flash=348, stream=2976, mma=96, gate=1248)
+
+
+def whisper_expect(cfg, run, gate_rows: int = 1024, stream_rows: int = 16) -> dict:
+    """The whisper path's counts from its shapes: gram calls a calibration
+    batch (4 taps an encoder layer, 7 a decoder layer), flash calls (one a
+    decoder layer a causal forward), and the compressed linears' calls by
+    the route their rows take in the nested wrapper (bf16: "stream" up to
+    ``stream_rows``, "mma" up to ``gate_rows``, "gate" above: plain)."""
+    enc, dec, t = cfg.encoder_layers, cfg.num_layers, cfg.encoder_seq
+    nested = Counter()
+
+    def route(rows):
+        return "stream" if rows <= stream_rows else "mma" if rows <= gate_rows else "gate"
+
+    def forward(b, s):  # one compressed train or prefill forward
+        nested[route(b * t)] += 6 * enc + 2 * dec  # encoder; cross wk, wv over memory
+        nested[route(b * s)] += 8 * dec
+    evals = len(WHISPER_DOMAINS) * run["eval_batches"]
+    for _ in range(evals + run["eval_batches"]):  # compressed ppl, then the KL's
+        forward(run["eval_batch"], run["seq"])
+    forward(run["rows"], run["prompt"])
+    nested[route(run["rows"])] += 8 * dec * (run["new"] - 1)
+    causal = run["calib_batches"] + 2 * evals + 2 * run["eval_batches"] + 1
+    return dict(gram=(4 * enc + 7 * dec) * run["calib_batches"], flash=dec * causal,
+                stream=nested["stream"], mma=nested["mma"], gate=nested["gate"])
+
+
+def whisper_frames(np, cfg, b: int, seed: int):
+    """Stand-in frames for the stubbed conv frontend (B, encoder_seq,
+    d_model), fp32, as the reference's tests draw them."""
+    return np.random.default_rng(seed).standard_normal(
+        (b, cfg.encoder_seq, cfg.d_model), np.float32)
+
+
+def whisper_greedy(torch, model, params, prompts, frames, new: int) -> dict:
+    """Greedy decoding through the plain serve steps: one prefill of the
+    (B, P) prompts with their frames, then ``new`` - 1 decode steps; the
+    (B, new) tokens, each step's top-2 logit margin and the margin rule's
+    gate (STEP_LOGIT_TOL of max |logit|) per row, and a copy of the cache
+    as the prefill left it."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+
+    b, p = prompts.shape
+    logits, cache = make_prefill_step(model, p + new)(
+        params, {"tokens": prompts, "frames": frames})
+    snapshot = _clone_tree(cache)
+    decode = make_decode_step(model)
+    toks, margins, gates = [], [], []
+    cache_len = torch.full((b,), p, dtype=torch.int32, device=logits.device)
+    for i in range(new):
+        lg = logits[:, -1].float()
+        top2 = torch.topk(lg, 2, dim=-1).values
+        margins.append(top2[:, 0] - top2[:, 1])
+        gates.append(STEP_LOGIT_TOL * lg.abs().amax(-1))
+        toks.append(lg.argmax(-1))
+        if i < new - 1:
+            logits, cache = decode(params, cache, {"tokens": toks[-1][:, None],
+                                                   "cache_len": cache_len + i})
+    return dict(tokens=torch.stack(toks, 1).cpu().numpy(),
+                margins=torch.stack(margins, 1).cpu().numpy(),
+                gates=torch.stack(gates, 1).cpu().numpy(), prefill_cache=snapshot)
+
+
+def _clone_tree(tree):
+    return {k: _clone_tree(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+def whisper_drive(torch, np, model, params, run: dict) -> dict:
+    """The whisper path's main run on ``params``' device, through the
+    entry points a user calls: ``collect_grams`` over batch dicts with
+    frames, ``build_plan`` + ``compress_params``, ``evaluate_ppl`` dense
+    and compressed on each of WHISPER_DOMAINS, ``mean_logit_kl``, and
+    greedy decoding of the compressed model (``whisper_greedy``).  Frames
+    are drawn before the clock starts: calibration batch i from seed i,
+    eval batch i (every domain's) from seed 100 + i, the prompts' from 200."""
+    from repro_torch.calib.runner import calibration_batches, collect_grams
+    from repro_torch.core import CompressionConfig, build_plan, compress_params
+    from repro_torch.eval.attribution import mean_logit_kl
+    from repro_torch.eval.perplexity import eval_batches, evaluate_ppl
+
+    cfg = model.cfg
+    device = params["embed"]["table"].device
+    calib = [{"tokens": t, "frames": whisper_frames(np, cfg, run["calib_batch"], i)}
+             for i, t in enumerate(calibration_batches(
+                 cfg.vocab_size, "en_a", run["calib_batches"] * run["calib_batch"],
+                 run["calib_batch"], run["seq"]))]
+    eval_frames = [whisper_frames(np, cfg, run["eval_batch"], 100 + i)
+                   for i in range(run["eval_batches"])]
+
+    def evals(domain):
+        return [{"tokens": t, "frames": f} for t, f in zip(eval_batches(
+            cfg.vocab_size, domain, run["eval_batches"], run["eval_batch"], run["seq"]),
+            eval_frames)]
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(2, cfg.vocab_size // 2, size=(run["rows"], run["prompt"]))
+    frames = whisper_frames(np, cfg, run["rows"], 200)
+    seconds = {}
+
+    def phase(name, t0):
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grams = collect_grams(model, params, calib)
+    phase("calibrate", t0)
+    t0 = time.perf_counter()
+    plan = build_plan(model.compressible_targets(), CompressionConfig(
+        method="nsvd1", ratio=0.2, k1_frac=0.9, dtype=cfg.dtype, use_randomized=False))
+    cparams = compress_params(params, plan, grams)
+    phase("compress", t0)
+    del grams
+    t0 = time.perf_counter()
+    ppl = {d: {"dense": evaluate_ppl(model, params, evals(d)),
+               "compressed": evaluate_ppl(model, cparams, evals(d))}
+           for d in WHISPER_DOMAINS}
+    kl = mean_logit_kl(model, params, cparams, evals("en_a"))
+    phase("evaluate", t0)
+    t0 = time.perf_counter()
+    greedy = whisper_greedy(torch, model, cparams, prompts, frames, run["new"])
+    phase("decode", t0)
+    return dict(seconds=seconds, plan=plan, cparams=cparams, ppl=ppl, kl=kl,
+                greedy=greedy, prompts=prompts, frames=frames, eval_batch=evals("en_a")[0])
+
+
+def whisper_path(torch, np, cfg):
+    """The whisper path (see WHISPER_RUN): the main run with its launches
+    held to WHISPER_PREDICTED; then on the same inputs the compressed model
+    through the plain versions (``kernels.plain()``): the greedy streams by
+    the margin rule, the prefill's self and cross K/V slabs, a decode
+    step's and an eval batch's logits within STEP_LOGIT_TOL /
+    EVAL_LOGIT_TOL of max |logit|; a profiled decode step (wall against
+    device, the nested share) and a profiled steady calibration batch (the
+    plain bidirectional attention's share of its device time)."""
+    from repro_torch import kernels
+    from repro_torch.calib.gram import accumulate_taps
+    from repro_torch.calib.runner import collect_grams
+    from repro_torch.eval.attribution import get_subtree
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import build_model
+
+    model = build_model(cfg)
+    params = model.init(0, "cuda")
+    run = WHISPER_RUN
+    torch.cuda.synchronize()
+    reset_counts()
+    res = whisper_drive(torch, np, model, params, run)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    split, split_ok = flash_split_ok(counts)
+    gsplit, gshapes, nsplit = gram_split(), gram_shape_split(), nested_split()
+    shapes = shape_split()
+    got = dict(gram=counts["gram"], flash=counts["flash_attention"],
+               stream=nsplit["stream"], mma=nsplit["mma"],
+               gate=_ops("nested_lowrank").gate_calls)
+    expect = whisper_expect(cfg, run)
+    counts_ok = (got == expect == WHISPER_PREDICTED and split_ok and nsplit["tile"] == 0
+                 and gsplit == {"mma": counts["gram"], "fma": 0}
+                 and counts["paged_attention"] == counts["rwkv6"] == 0
+                 and counts["nested_lowrank"] == nsplit["stream"] + nsplit["mma"])
+    plan, cparams = res["plan"], res["cparams"]
+    n_slices = sum(math.prod(t.stacked) for t in plan.targets)
+    nested_leaves = all("u2" in get_subtree(cparams, t.path) for t in plan.targets)
+    ratio = factored_ratio(cparams, plan)
+    numbers = [v for d in res["ppl"].values() for v in d.values()] + [res["kl"], ratio]
+    finite = all(math.isfinite(float(x)) for x in numbers)
+    quality_ok = finite and n_slices == 192 and nested_leaves and res["kl"] >= 0
+    log(f"whisper path: {cfg.name} {cfg.encoder_layers} + {cfg.num_layers} layers, "
+        f"{cfg.d_model} wide, {cfg.encoder_seq} frames (no cut); phase seconds "
+        + ", ".join(f"{k}={v:.2f}" for k, v in res["seconds"].items()))
+    log(f"  launches {got} expected {expect} (predicted {WHISPER_PREDICTED}); flash by "
+        f"kernel {split}; gram by kernel {gsplit}, by width {gshapes}; nested by kernel "
+        f"{nsplit}, by shape {shapes} {'OK' if counts_ok else 'FAIL'}")
+    for d, v in res["ppl"].items():
+        log(f"  ppl[{d}]: dense {v['dense']:.3f} compressed {v['compressed']:.3f}")
+    log(f"  logit KL {res['kl']:.5f} nats/token; {n_slices} target slices, all nested: "
+        f"{nested_leaves}; achieved ratio {plan.achieved_ratio:.5f} (factors {ratio:.5f}) "
+        f"{'OK' if quality_ok else 'FAIL'}")
+
+    # The same inputs through the plain versions.
+    prompts, frames, g_k = res["prompts"], res["frames"], res["greedy"]
+    with kernels.plain():
+        g_p = whisper_greedy(torch, model, cparams, prompts, frames, run["new"])
+    rows = [margin_row(list(a), list(b), (m, gt)) for a, b, m, gt in zip(
+        g_k["tokens"], g_p["tokens"], g_p["margins"], g_p["gates"])]
+    streams_ok = all(r["ok"] for r in rows)
+    kv = {}
+    for part in ("attn", "cross"):
+        for leaf in ("k", "v"):
+            a = g_k["prefill_cache"]["decoder"]["sub0"][part][leaf].float()
+            b = g_p["prefill_cache"]["decoder"]["sub0"][part][leaf].float()
+            kv[f"{part}.{leaf}"] = (float((a - b).abs().max()), float(b.abs().max()))
+    kv_ok = all(e <= STEP_LOGIT_TOL * s for e, s in kv.values())
+    # One decode step from the plain run's prefill cache, both ways.
+    decode = make_decode_step(model)
+    batch = {"tokens": torch.as_tensor(g_p["tokens"][:, :1], device="cuda"),
+             "cache_len": torch.full((run["rows"],), run["prompt"], dtype=torch.int32,
+                                     device="cuda")}
+    lk, _ = decode(cparams, _clone_tree(g_p["prefill_cache"]), batch)
+    with kernels.plain():
+        lp, _ = decode(cparams, _clone_tree(g_p["prefill_cache"]), batch)
+    step_err, step_scale = float((lk.float() - lp.float()).abs().max()), float(
+        lp.float().abs().max())
+    step_ok = (lk.shape == (run["rows"], 1, cfg.vocab_size)
+               and bool(torch.isfinite(lk).all()) and step_err <= STEP_LOGIT_TOL * step_scale)
+    eb = res["eval_batch"]
+    etoks = torch.as_tensor(eb["tokens"], device="cuda")
+    eframes = torch.as_tensor(eb["frames"], device="cuda")
+    with torch.no_grad():
+        le = model.apply(cparams, etoks, frames=eframes).float()
+        with kernels.plain():
+            lpe = model.apply(cparams, etoks, frames=eframes).float()
+    e_err, e_scale = float((le - lpe).abs().max()), float(lpe.abs().max())
+    e_ok = (le.shape == (*etoks.shape, cfg.vocab_size) and bool(torch.isfinite(le).all())
+            and e_err <= EVAL_LOGIT_TOL * e_scale)
+    del le, lpe
+    log(f"  greedy streams (8 x {run['new']}) kernels vs plain: "
+        f"{sum(r['equal'] for r in rows)} of {len(rows)} equal, first differences "
+        f"{[(r['first_diff'], round(r['margin'], 4), round(r['gate'], 4)) for r in rows if not r['equal']]} "
+        f"{'OK' if streams_ok else 'FAIL'}")
+    log("  prefill K/V (layer stack) kernels vs plain, max abs err / max abs: "
+        + ", ".join(f"{k} {e:.3e} / {s:.3f}" for k, (e, s) in kv.items())
+        + f" {'OK' if kv_ok else 'FAIL'}")
+    log(f"  decode-step logits kernels vs plain: max abs err {step_err:.4e} (max |logit| "
+        f"{step_scale:.3f}, tol {STEP_LOGIT_TOL * step_scale:.4e}) "
+        f"{'OK' if step_ok else 'FAIL'}; compressed eval-batch logits ({etoks.shape[0]} x "
+        f"{etoks.shape[1]}): {e_err:.4e} (max |logit| {e_scale:.3f}, tol "
+        f"{EVAL_LOGIT_TOL * e_scale:.4e}) {'OK' if e_ok else 'FAIL'}")
+
+    # Where the time goes: a decode step (its cache as the prefill left
+    # it; every call rewrites the same position) and a steady calibration
+    # batch (the store already seeded), with the plain attention's ranges.
+    cache = _clone_tree(g_p["prefill_cache"])
+    prof_step = profile_step(torch, lambda: decode(cparams, cache, batch),
+                             "whisper decode step (8 rows)")
+    del cache
+    calib = {"tokens": torch.as_tensor(eb["tokens"], device="cuda"), "frames": eframes}
+    store = collect_grams(model, params, [calib])
+
+    @torch.no_grad()
+    def calib_batch():
+        taps = {}
+        model.apply(params, calib["tokens"], frames=calib["frames"], mode="train", taps=taps)
+        accumulate_taps(store, taps)
+    prof_calib = profile_step(torch, calib_batch, "steady calibration batch (16 x 128, "
+                              f"{cfg.encoder_seq} frames)",
+                              ranges=(attn_mod, ("_bidir_attention", "_cross_attention")))
+    del store
+    busy = max(prof_calib["device_busy_ms"], 1e-9)
+    bidir_share = prof_calib["ranges_ms"]["_bidir_attention"] / busy
+    cross_share = prof_calib["ranges_ms"]["_cross_attention"] / busy
+    log(f"  calibration batch: bidirectional attention {prof_calib['ranges_ms']['_bidir_attention']:.3f} "
+        f"ms ({bidir_share:.1%} of device busy), cross attention "
+        f"{prof_calib['ranges_ms']['_cross_attention']:.3f} ms ({cross_share:.1%}); decode "
+        f"step nested {prof_step['nested_ms'] / max(prof_step['device_busy_ms'], 1e-9):.1%} "
+        "of device busy")
+    ok = counts_ok and quality_ok and streams_ok and kv_ok and step_ok and e_ok
+    summary = dict(config=cfg.name, encoder_layers=cfg.encoder_layers,
+                   layers=cfg.num_layers, run=run, seconds=res["seconds"],
+                   launches=counts, got=got, expected=expect, predicted=WHISPER_PREDICTED,
+                   flash_launches=split, gram_launches=gsplit, gram_shape_launches=gshapes,
+                   nested_launches=nsplit, nested_shape_launches=shapes,
+                   ppl=res["ppl"], logit_kl=res["kl"], target_slices=n_slices,
+                   achieved_ratio=plan.achieved_ratio, factored_ratio=ratio,
+                   streams=rows, prefill_kv=kv, step_logit_max_abs_err=step_err,
+                   step_logit_max_abs=step_scale, eval_logit_max_abs_err=e_err,
+                   eval_logit_max_abs=e_scale, step_profile=prof_step,
+                   calib_profile=prof_calib, bidir_share=bidir_share,
+                   cross_share=cross_share, ok=bool(ok))
+    return summary, counts
+
+
+
 def ptxas_report(build_log: dict) -> list:
     """ptxas's register and spill lines of every kernel, each after the end
     of its mangled name (the template arguments: the paged kernel's KV
@@ -3665,7 +4002,7 @@ def main() -> int:
         from repro_torch.kernels.rwkv6 import ops as rwkv_ops, ref as rwkv_ref
         from repro_torch.configs import (CHATGLM3_6B, DEEPSEEK_V3_671B, JAMBA_V0_1_52B,
                                          MINICPM3_4B, MISTRAL_7B, MOONSHOT_V1_16B_A3B,
-                                         RWKV6_1_6B)
+                                         RWKV6_1_6B, WHISPER_SMALL)
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
         return 2
@@ -3755,7 +4092,8 @@ def main() -> int:
             ("mla_serve", serve_path, (minicpm3, None, (25, 0), None, MLA_PREDICTED)),
             ("dsv3_serve", serve_path, (dsv3, None, (26, 2), None, DSV3_PREDICTED)),
             ("jamba_serve", serve_path, (jamba, "flash_attention", (27, 4), None,
-                                         JAMBA_PREDICTED)))
+                                         JAMBA_PREDICTED)),
+            ("whisper", whisper_path, (WHISPER_SMALL,)))
     summaries, path_counts, path_s, path_peak = {}, {}, {}, {}
     for name, fn, args in runs:
         torch.cuda.reset_peak_memory_stats()
@@ -3894,6 +4232,28 @@ def main() -> int:
             r for r in grams_b if r["n"] == n and r["E"] == 8),
             jamba_gshapes.get(f"batched {n}", 0), "src/repro_torch/csrc/gram.cu",
             "src/repro/kernels/gram/gram.py:54"),)
+    # whisper-small's shapes (whisper path, no cut): flash at a (16, 128)
+    # batch, 12/12 heads x 64, with the path's flash launches; each MLP
+    # linear at 8 rows (stream) and 128 (mma) with its launches at its K x
+    # N; the gram at 24000 rows (a calibration batch's frames) of n 768 and
+    # 3072 with the path's gram launches at that width (its 2048-row
+    # decoder taps of n 768 among them).
+    whisper = summaries["whisper"]
+    picks += (("flash_attention_whisper", next(
+        r for r in flash if r["hd"] == 64 and r["B"] == 16 and r["S"] == 128),
+        whisper["launches"]["flash_attention"], "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:108"),)
+    for target, k_in, n, _ in WHISPER_PATH_SHAPES:
+        for m, kern in ((8, "stream"), (128, "mma")):
+            picks += ((f"nested_lowrank_{target}_{m}", next(
+                r for r in nested if r["target"] == target and r["M"] == m),
+                whisper["nested_shape_launches"].get(f"{kern} {k_in}x{n}", 0),
+                nested_src, nested_tpu),)
+    for n in (768, 3072):
+        picks += ((f"gram_whisper_{n}", next(
+            r for r in grams if r["dtype"] == "bfloat16" and r["rows"] == 24000
+            and r["n"] == n), whisper["gram_shape_launches"].get(str(n), 0),
+            "src/repro_torch/csrc/gram.cu", "src/repro/kernels/gram/gram.py:54"),)
     entries = []
     for name, row, launches, src, replaces in picks:
         entries.append({"name": name, "route": "cuda", "source": src,

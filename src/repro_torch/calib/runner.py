@@ -6,11 +6,11 @@ from __future__ import annotations
 import logging
 from typing import Iterable, Optional
 
-import numpy as np
 import torch
 
 from repro_torch.core.compress import GramStore
 from repro_torch.data.synth import DomainSampler
+from repro_torch.models.api import batch_inputs
 
 from .gram import accumulate_taps, calibration_precision
 
@@ -18,9 +18,11 @@ logger = logging.getLogger(__name__)
 
 
 @torch.no_grad()
-def collect_grams(model, params, batches: Iterable[np.ndarray],
+def collect_grams(model, params, batches: Iterable,
                   max_batches: Optional[int] = None, telemetry=None) -> GramStore:
-    """Accumulate Grams on the params' device from (B, S) token batches.
+    """Accumulate Grams on the params' device from the reference's batch
+    dicts (``{"tokens"}``, plus ``"frames"`` for an encoder-decoder model)
+    or bare (B, S) token arrays.
 
     ``telemetry`` (``repro_torch.obs.compression.CompressionTelemetry``)
     observes without changing the store: per-batch row counts during the
@@ -29,12 +31,12 @@ def collect_grams(model, params, batches: Iterable[np.ndarray],
     device = params["embed"]["table"].device
     store = GramStore()
     n = 0
-    for i, tokens in enumerate(batches):
+    for i, batch in enumerate(batches):
         if max_batches is not None and i >= max_batches:
             break
         taps = {}
-        model.apply(params, torch.as_tensor(tokens, device=device),
-                    mode="train", taps=taps)
+        tokens, kwargs = batch_inputs(model, batch, device)
+        model.apply(params, tokens, mode="train", taps=taps, **kwargs)
         accumulate_taps(store, taps, telemetry=telemetry)
         del taps
         n += 1

@@ -3,10 +3,12 @@
 The port serves the paper's dense families (LLaMA / OPT / Mistral), the
 dense GQA archs, Multi-head Latent Attention (minicpm3, and deepseek-v3
 over a token-choice MoE), the RWKV-6 family, the token-choice MoE family
-and the Mamba / attention hybrid (jamba over a top-2 MoE), so the frozen
-dataclass keeps the reference's field names and defaults for every field
-those families read.  The encoder-decoder and vision fields are not ported.
-``reduced()`` is the reference's smoke-test shrink.
+and the Mamba / attention hybrid (jamba over a top-2 MoE), and calibrates,
+compresses, evaluates and decodes the encoder-decoder (whisper), so the
+frozen dataclass keeps the reference's field names and defaults for every
+field those families read.  ``frontend`` and ``num_patches`` are kept with
+the reference's defaults; the vision frontend that reads them is not
+ported.  ``reduced()`` is the reference's smoke-test shrink.
 """
 
 from __future__ import annotations
@@ -77,6 +79,12 @@ class ModelConfig:
     mamba: Optional[MambaConfig] = None
     rwkv: Optional[RWKVConfig] = None
 
+    # Encoder-decoder (whisper): encoder_layers > 0 enables it.
+    encoder_layers: int = 0
+    encoder_seq: int = 1500  # audio frames after the (stubbed) conv frontend
+    frontend: str = "none"  # none | audio | vision
+    num_patches: int = 576  # llava anyres base tile
+
     max_seq: int = 131072
     dtype: str = "bfloat16"
     subquadratic: bool = False  # sub-quadratic mixer (recurrent state)
@@ -84,6 +92,10 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim == 0 and self.num_heads > 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
 
     def mixer_of(self, layer: int) -> str:
         return self.mixer_pattern[layer % len(self.mixer_pattern)]
@@ -144,6 +156,9 @@ class ModelConfig:
             mla=mla,
             mamba=mamba,
             rwkv=rwkv,
+            encoder_layers=2 if self.encoder_layers else 0,
+            encoder_seq=16 if self.encoder_layers else self.encoder_seq,
+            num_patches=8,
             max_seq=128,
             dtype="float32",
         )

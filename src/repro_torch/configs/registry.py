@@ -1,7 +1,9 @@
 """Architecture registry: ``--arch <id>`` lookup for the launchers.
 
-The paper's three families at full width, the other ported families at
-their published width (``FAMILIES``), plus the ``small-*`` variants whose
+The paper's three families at full width, the other ported decoder
+families at their published width (``FAMILIES``), the encoder-decoder
+(``ENCDEC``: whisper-small, calibrated, compressed, evaluated and decoded
+but not served: the serving engine has no encoder-decoder path), plus the ``small-*`` variants whose
 trained checkpoints the reference keeps under ``experiments/models/<name>/``
 (same widths as the reference benchmarks' SMALL_CONFIGS, vocabulary 512)."""
 
@@ -19,6 +21,7 @@ from .moonshot_v1_16b_a3b import CONFIG as MOONSHOT_V1_16B_A3B
 from .phi3_medium_14b import CONFIG as PHI3_MEDIUM_14B
 from .paper_models import LLAMA_7B, MISTRAL_7B, OPT_6_7B, small_lm
 from .rwkv6_1_6b import CONFIG as RWKV6_1_6B
+from .whisper_small import CONFIG as WHISPER_SMALL
 
 PAPER: Dict[str, ModelConfig] = {
     "llama-7b": LLAMA_7B,
@@ -37,6 +40,10 @@ FAMILIES: Dict[str, ModelConfig] = {
     "jamba-v0.1-52b": JAMBA_V0_1_52B,
 }
 
+ENCDEC: Dict[str, ModelConfig] = {
+    "whisper-small": WHISPER_SMALL,
+}
+
 SMALL_VOCAB = 512
 SMALL: Dict[str, ModelConfig] = {
     "small-llama": small_lm("small-llama", LLAMA_7B, 4, 128, 352, SMALL_VOCAB),
@@ -47,7 +54,7 @@ SMALL: Dict[str, ModelConfig] = {
                               SMALL_VOCAB),
 }
 
-ALL: Dict[str, ModelConfig] = {**PAPER, **FAMILIES, **SMALL}
+ALL: Dict[str, ModelConfig] = {**PAPER, **FAMILIES, **ENCDEC, **SMALL}
 
 
 def get_config(arch: str) -> ModelConfig:

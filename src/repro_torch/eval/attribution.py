@@ -13,8 +13,9 @@ from __future__ import annotations
 
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
+
+from repro_torch.models.api import batch_inputs
 
 from .perplexity import params_device
 
@@ -38,17 +39,18 @@ def get_subtree(params: Any, path: Tuple[str, ...]) -> Any:
 
 @torch.no_grad()
 def mean_logit_kl(model, params_ref: Any, params_test: Any,
-                  batches: Iterable[np.ndarray],
+                  batches: Iterable,
                   max_batches: Optional[int] = None) -> float:
-    """Mean per-token KL(ref || test) over the batch stream, in nats."""
+    """Mean per-token KL(ref || test) over the batch stream (the
+    reference's batch dicts or bare token arrays), in nats."""
     device = params_device(params_ref)
     tot, n = 0.0, 0
-    for i, tokens in enumerate(batches):
+    for i, batch in enumerate(batches):
         if max_batches is not None and i >= max_batches:
             break
-        toks = torch.as_tensor(tokens, device=device)
-        la = torch.log_softmax(model.apply(params_ref, toks, mode="train").float(), -1)
-        lb = torch.log_softmax(model.apply(params_test, toks, mode="train").float(), -1)
+        toks, kw = batch_inputs(model, batch, device)
+        la = torch.log_softmax(model.apply(params_ref, toks, mode="train", **kw).float(), -1)
+        lb = torch.log_softmax(model.apply(params_test, toks, mode="train", **kw).float(), -1)
         tot += float((la.exp() * (la - lb)).sum(-1).mean())
         n += 1
     return tot / max(n, 1)

@@ -1,8 +1,10 @@
 """Perplexity evaluation harness (the paper's metric, Tables 1 and 3-6).
 
 Every forward is causal (``mode="train"``), so its attention runs through
-the flash-attention kernel on the card.  Batches are (B, S) int token
-arrays, moved to the params' device.
+the flash-attention kernel on the card (an encoder-decoder's decoder; its
+encoder attends unmasked in plain torch).  Batches are the reference's
+dicts (``{"tokens"}``, plus ``"frames"`` for an encoder-decoder model) or
+bare (B, S) int token arrays, moved to the params' device.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.data.synth import DomainSampler
+from repro_torch.models.api import batch_inputs
 from repro_torch.models.losses import next_token_xent
 
 
@@ -21,16 +24,17 @@ def params_device(params) -> torch.device:
 
 
 @torch.no_grad()
-def evaluate_ppl(model, params, batches: Iterable[np.ndarray],
+def evaluate_ppl(model, params, batches: Iterable,
                  max_batches: Optional[int] = None) -> float:
     """exp(mean nats/token) over the stream (mean of per-batch means)."""
     device = params_device(params)
     tot, n = 0.0, 0
-    for i, tokens in enumerate(batches):
+    for i, batch in enumerate(batches):
         if max_batches is not None and i >= max_batches:
             break
-        toks = torch.as_tensor(tokens, device=device)
-        tot += float(next_token_xent(model.apply(params, toks, mode="train"), toks))
+        toks, kwargs = batch_inputs(model, batch, device)
+        tot += float(next_token_xent(model.apply(params, toks, mode="train", **kwargs),
+                                     toks))
         n += 1
     return float(np.exp(tot / max(n, 1)))
 

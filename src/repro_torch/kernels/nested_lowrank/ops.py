@@ -69,6 +69,9 @@ tile_launches = 0  # of which the tile kernel
 batched_by_kernel = {"stream": 0, "mma": 0, "tile": 0}
 # All launches by (kernel, K, N, batched): which linear of a model ran where.
 shape_launches: dict = {}
+# Calls on a CUDA tensor above MAX_KERNEL_ROWS, which take plain matmuls
+# (no launch; the reference leaves them to XLA): an encoder's frame rows.
+gate_calls = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNELS = {"tile": 0, "stream": 1, "mma": 2}
@@ -217,10 +220,18 @@ def _check(x, u, v, u2, v2, lead=()):
         raise TypeError(f"nested_lowrank: unsupported dtype {x.dtype}")
 
 
+def _gated() -> None:
+    global gate_calls
+    gate_calls += 1
+
+
 def nested_lowrank_matmul(x, u, v, u2, v2):
     """x (..., K) -> (..., N); see the module docstring for dispatch."""
     rows = x.numel() // max(1, x.shape[-1])
-    if use_plain(x) or rows > MAX_KERNEL_ROWS:
+    if use_plain(x):
+        return nested_lowrank_matmul_ref(x, u, v, u2, v2)
+    if rows > MAX_KERNEL_ROWS:
+        _gated()
         return nested_lowrank_matmul_ref(x, u, v, u2, v2)
     _check(x, u, v, u2, v2)
     k_in, n = x.shape[-1], v.shape[-1]
@@ -240,7 +251,10 @@ def nested_lowrank_matmul(x, u, v, u2, v2):
 def nested_lowrank_matmul_batched(x, u, v, u2, v2):
     """x (E, C, K) -> (E, C, N), expert e through its own factors u[e],
     v[e], u2[e], v2[e]; see the module docstring for dispatch."""
-    if use_plain(x) or x.shape[1] > MAX_KERNEL_ROWS:
+    if use_plain(x):
+        return nested_lowrank_matmul_batched_ref(x, u, v, u2, v2)
+    if x.shape[1] > MAX_KERNEL_ROWS:
+        _gated()
         return nested_lowrank_matmul_batched_ref(x, u, v, u2, v2)
     _check(x, u, v, u2, v2, lead=(u.shape[0],))
     e, rows, k_in = x.shape

@@ -3,7 +3,10 @@ exits: the paged decode step and the paged prefill-chunk step (attention
 stacks), the dense-slab decode step and prefill-admit step (RWKV-6's
 recurrent state, token-choice MoE's K/V slab, MLA's latent slab, and any
 attention stack served with ``paged=False``), and speculative decoding's
-draft and verify roots with the draft's two prefill twins.
+draft and verify roots with the draft's two prefill twins; and the
+reference's plain serve steps (``make_prefill_step``, ``make_decode_step``:
+no sampling, no slots), the one way an encoder-decoder model decodes,
+since the serving engine has no encoder-decoder path.
 
 All per-slot state lives on the device: cache_len, last_token, budget,
 sampling keys and active flags.  A decode step samples every live row,
@@ -32,6 +35,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.models.api import batch_inputs
 from repro_torch.obs.profiler import wrap_root
 
 _M32 = 0xFFFFFFFF
@@ -77,6 +81,41 @@ def sample_tokens(key_data: torch.Tensor, logits: torch.Tensor,
     new_kd = key_data.clone()
     new_kd[:, 1] += 1
     return new_kd, tok
+
+
+def make_prefill_step(model, max_len: int) -> Callable:
+    """The reference's plain prefill: ``prefill_step(params, batch)`` builds
+    a fresh (B, max_len) dense cache, runs ``batch["tokens"]`` (B, S)
+    through it (with ``batch["frames"]`` for an encoder-decoder model,
+    which also fills the cross slabs) and returns (the last position's
+    logits (B, 1, V), the cache).  Batch arrays move to the params'
+    device."""
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        device = params["embed"]["table"].device
+        tokens, kwargs = batch_inputs(model, batch, device)
+        cache = model.init_cache(tokens.shape[0], max_len, device=device)
+        logits = model.apply(params, tokens, mode="prefill", cache=cache, **kwargs)
+        return logits[:, -1:], cache
+
+    return prefill_step
+
+
+def make_decode_step(model) -> Callable:
+    """The reference's plain decode: ``decode_step(params, cache, batch)``
+    runs ``batch["tokens"]`` (B, 1) at ``batch["cache_len"]`` (B,) through
+    the cache, written in place, and returns (logits (B, 1, V), cache)."""
+
+    @torch.no_grad()
+    def decode_step(params, cache, batch):
+        device = params["embed"]["table"].device
+        logits = model.apply(params, torch.as_tensor(batch["tokens"], device=device),
+                             mode="decode", cache=cache,
+                             cache_len=torch.as_tensor(batch["cache_len"], device=device))
+        return logits, cache
+
+    return decode_step
 
 
 # The poison sentinel in the token word a decode step copies to the host.

@@ -1,14 +1,40 @@
-"""Model facade: build a registered arch and the serving-layout queries."""
+"""Model facade: build a registered arch, a batch's model inputs and the
+serving-layout queries."""
 
 from __future__ import annotations
 
+from typing import Any, Dict, Tuple, Union
+
+import torch
+
 from repro_torch.configs.base import ModelConfig
 
+from .encdec import EncDecLM
 from .transformer import DecoderLM
 
+Model = Union[DecoderLM, EncDecLM]
 
-def build_model(cfg: ModelConfig) -> DecoderLM:
+
+def build_model(cfg: ModelConfig) -> Model:
+    if cfg.is_encdec:
+        return EncDecLM(cfg)
     return DecoderLM(cfg)
+
+
+def batch_inputs(model: Model, batch, device) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """(tokens, apply kwargs) on ``device`` of one calibration or eval batch:
+    the reference's dict, ``{"tokens"}`` plus ``"frames"`` for an
+    encoder-decoder model, or a bare (B, S) token array, taken as the
+    tokens (a decoder-only model's)."""
+    if not isinstance(batch, dict):
+        batch = {"tokens": batch}
+    kwargs = {}
+    if model.cfg.is_encdec:
+        if "frames" not in batch:
+            raise ValueError(f"{model.cfg.name} is an encoder-decoder: its batches are "
+                             "dicts with 'tokens' and 'frames' (B, encoder_seq, d_model)")
+        kwargs["frames"] = torch.as_tensor(batch["frames"], device=device)
+    return torch.as_tensor(batch["tokens"], device=device), kwargs
 
 
 # Cache leaves holding RECURRENT state (SSM/RWKV): their post-prefill value
@@ -56,7 +82,7 @@ def prefill_pad_safe(model: DecoderLM) -> bool:
     return not has_recurrent_cache(model) and model.cfg.moe is None
 
 
-def cache_layout(model: DecoderLM) -> str:
+def cache_layout(model: Model) -> str:
     """How the serving engine lays out this model's decode cache.
 
     "paged": every cache leaf is per-position attention K/V (pure-GQA
@@ -72,7 +98,11 @@ def cache_layout(model: DecoderLM) -> str:
     mixes the Mamba layers' recurrent ``{h, conv}`` with its attention
     layer's (max_batch, max_len) K/V slab: dense, one exact-length
     admission a prompt; ``paged=True``, ``kv_quant`` and speculative
-    decoding are refused, as for RWKV-6."""
+    decoding are refused, as for RWKV-6.  An encoder-decoder's cross slabs
+    are not paged K/V: "dense", as the reference says (its serving engine
+    has no encoder-decoder path, and the port's refuses one)."""
+    if model.cfg.is_encdec:
+        return "dense"
     if not prefill_pad_safe(model):
         return "dense"
     if not cache_leaf_names(model) <= PAGEABLE_CACHE_LEAVES:

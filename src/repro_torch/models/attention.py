@@ -1,8 +1,13 @@
 """GQA attention: causal train/prefill (the flash-attention kernel), the
 paged decode / chunked-prefill path through a block table (with optional
-int8 KV quantization), and the dense (batch, max_len) slab: a causal
+int8 KV quantization), the dense (batch, max_len) slab: a causal
 prefill that writes each row's K/V from position 0, and decode of S >= 1
-new positions per row.
+new positions per row; and the encoder-decoder's two unmasked modes:
+"bidir" (encoder self-attention) and "cross" (decoder queries over the
+encoder's ``memory``, no rotary; with a ``cache`` it writes the memory's
+K/V into the cross slab for decode).  Both attend in plain torch
+(``_bidir_attention``, ``_cross_attention``) as the reference does: the
+flash-attention kernel is causal only.
 
 Conventions (the reference's):
   x          (B, S, D)
@@ -102,9 +107,23 @@ def _gqa_out(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def _naive_attention(q, k, v, mask, scale):
+    """Softmax attention in plain torch; ``mask`` None attends every key."""
     scores = _gqa_scores(q, k, scale)
-    scores = scores.masked_fill(~mask, NEG_INF)
+    if mask is not None:
+        scores = scores.masked_fill(~mask, NEG_INF)
     return _gqa_out(torch.softmax(scores, dim=-1), v)
+
+
+# The two unmasked modes, each its own function so that a profile can
+# range them apart (chip_smoke's whisper path).
+def _bidir_attention(q, k, v, scale):
+    """Encoder self-attention: every frame attends every frame."""
+    return _naive_attention(q, k, v, None, scale)
+
+
+def _cross_attention(q, k, v, scale):
+    """Decoder queries over the encoder memory's K/V, unmasked."""
+    return _naive_attention(q, k, v, None, scale)
 
 
 def _paged_decode_attend(q, k, v, cache, cache_len, block_tables, scale):
@@ -210,18 +229,31 @@ def attention_apply(
     block_tables: Optional[torch.Tensor] = None,
     taps: Optional[Dict] = None,
     tap_prefix: str = "",
+    memory: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """mode "causal" (train, or prefill writing the dense slab ``cache``) or
-    "decode" (paged with ``block_tables``, else the dense slab)."""
+    """mode "causal" (train, or prefill writing the dense slab ``cache``),
+    "decode" (paged with ``block_tables``, else the dense slab), "bidir"
+    (no mask, no cache) or "cross" (K/V from ``memory`` (B, T, D), no mask
+    and no rotary; a ``cache`` is the cross slab, (B, T, Hkv, hd), written
+    with the memory's K/V)."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     scale = 1.0 / math.sqrt(hd)
     if taps is not None:
         taps[f"{tap_prefix}.in"] = x
+    if mode == "cross":
+        if memory is None:
+            raise ValueError("cross attention needs the encoder's memory")
+        kv_src = memory
+        if taps is not None:
+            taps[f"{tap_prefix}.kv_in"] = memory
+    else:
+        kv_src = x
+    t = kv_src.shape[1]
     q = linear(params["wq"], x).reshape(b, s, cfg.num_heads, hd)
-    k = linear(params["wk"], x).reshape(b, s, cfg.num_kv_heads, hd)
-    v = linear(params["wv"], x).reshape(b, s, cfg.num_kv_heads, hd)
-    if cfg.pos_emb == "rope":
+    k = linear(params["wk"], kv_src).reshape(b, t, cfg.num_kv_heads, hd)
+    v = linear(params["wv"], kv_src).reshape(b, t, cfg.num_kv_heads, hd)
+    if cfg.pos_emb == "rope" and mode != "cross":
         inv_freq = rope_frequencies(hd, cfg.rotary_pct, cfg.rope_theta, x.device)
         q = apply_rope(q, positions, inv_freq)
         k = apply_rope(k, positions, inv_freq)
@@ -237,6 +269,16 @@ def attention_apply(
         out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
         if cache is not None:
             _slab_prefill_write(cache, k, v)
+    elif mode == "bidir":
+        out = _bidir_attention(q, k, v, scale)
+    elif mode == "cross":
+        out = _cross_attention(q, k, v, scale)
+        if cache is not None:
+            if cache["k"].shape[1] != t:
+                raise ValueError(f"cross slab holds {cache['k'].shape[1]} memory "
+                                 f"positions, the memory has {t}")
+            cache["k"].copy_(k)
+            cache["v"].copy_(v)
     else:
         raise ValueError(f"attention mode {mode!r} is not ported")
 

@@ -5,7 +5,11 @@ cmix).
 A layer is pre-norm: x = x + mixer(norm1(x)); x = x + ffn(norm2(x)), the
 mixer one of GQA attention, Multi-head Latent Attention, the Mamba (S6)
 mixer or the RWKV-6 time mix, the ffn an MLP, a token-choice MoE or the
-RWKV-6 channel mix.  The mixer and the ffn are resolved and built
+RWKV-6 channel mix.  An encoder-decoder's decoder layer (``cross``) puts
+cross-attention over the encoder's memory between the two:
+x = x + cross(norm_cross(x), memory), its K/V written into the layer's
+cross slab at prefill and read from it at decode; its encoder layer runs
+the gqa mixer unmasked ("bidir").  The mixer and the ffn are resolved and built
 independently, as the reference's: (mla, moe) is deepseek-v3's MoE layer
 (MLA's latent slab and taps ``…attn.*`` beside the MoE's ``…moe.*``), and
 jamba's period of 8 holds (mamba, mlp), (mamba, moe) and one (gqa, mlp)
@@ -20,6 +24,7 @@ slices.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
@@ -31,7 +36,7 @@ from . import mamba as mamba_mod
 from . import mla as mla_mod
 from . import moe as moe_mod
 from . import rwkv6 as rwkv_mod
-from .layers import mlp_apply, mlp_init, norm_apply, norm_init
+from .layers import linear, mlp_apply, mlp_init, norm_apply, norm_init
 
 BlockSpec = Tuple[str, str]  # (mixer, ffn)
 
@@ -97,7 +102,12 @@ def group_layers(specs: Sequence[BlockSpec], max_prefix: int = 8) -> List[StackG
     return groups
 
 
-def block_init(gen, spec: BlockSpec, cfg: ModelConfig, dtype, device) -> Dict:
+def block_init(gen, spec: BlockSpec, cfg: ModelConfig, dtype, device,
+               cross: bool = False) -> Dict:
+    """One layer's params; ``cross`` adds an encoder-decoder's cross-attention
+    (``norm_cross``, ``cross``) to a (gqa, mlp) layer."""
+    if cross and spec != ("gqa", "mlp"):
+        raise ValueError(f"cross-attention is ported for (gqa, mlp) layers, got {spec}")
     if spec == ("rwkv", "cmix"):
         return {
             "norm1": norm_init(cfg.norm, cfg.d_model, dtype, device),
@@ -111,6 +121,9 @@ def block_init(gen, spec: BlockSpec, cfg: ModelConfig, dtype, device) -> Dict:
     p = {"norm1": norm_init(cfg.norm, cfg.d_model, dtype, device),
          key: mixer_init(gen, cfg, dtype, device),
          "norm2": norm_init(cfg.norm, cfg.d_model, dtype, device)}
+    if cross:
+        p["norm_cross"] = norm_init(cfg.norm, cfg.d_model, dtype, device)
+        p["cross"] = attn_mod.attention_init(gen, cfg, dtype, device)
     if spec[1] == "moe":
         p["moe"] = moe_mod.moe_init(gen, cfg, dtype, device)
     else:
@@ -124,10 +137,11 @@ def _stack(trees: List[Dict]) -> Dict:
     return torch.stack(trees)
 
 
-def group_init(gen, group: StackGroup, cfg: ModelConfig, dtype, device) -> Dict:
+def group_init(gen, group: StackGroup, cfg: ModelConfig, dtype, device,
+               cross: bool = False) -> Dict:
     """{"sub{j}": block params}, with a leading repeats dim when stacked."""
     def one():
-        return {f"sub{j}": block_init(gen, spec, cfg, dtype, device)
+        return {f"sub{j}": block_init(gen, spec, cfg, dtype, device, cross)
                 for j, spec in enumerate(group.period)}
     if group.repeats == 1:
         return one()
@@ -135,24 +149,29 @@ def group_init(gen, group: StackGroup, cfg: ModelConfig, dtype, device) -> Dict:
 
 
 def block_cache_init(spec: BlockSpec, cfg: ModelConfig, batch: int, max_len: int,
-                     dtype, device) -> Dict:
+                     dtype, device, cross: bool = False) -> Dict:
     """One layer's dense-slab cache rows: the recurrent state for rwkv and
     mamba (``h`` and the conv tail, whatever ``max_len``), the (batch,
     max_len) latent slab (c_kv, k_rope) for mla, the (batch, max_len) K/V
-    slab for gqa."""
+    slab for gqa; a decoder layer with ``cross`` also its (batch,
+    encoder_seq) cross K/V slab."""
     if spec[0] == "rwkv":
         return {"rwkv": rwkv_mod.init_rwkv_cache(cfg, batch, dtype, device)}
     if spec[0] == "mamba":
         return {"mamba": mamba_mod.init_mamba_cache(cfg, batch, dtype, device)}
     if spec[0] == "mla":
         return {"attn": mla_mod.init_mla_cache(cfg, batch, max_len, dtype, device)}
-    return {"attn": attn_mod.init_kv_cache(cfg, batch, max_len, dtype, device)}
+    c = {"attn": attn_mod.init_kv_cache(cfg, batch, max_len, dtype, device)}
+    if cross:
+        c["cross"] = attn_mod.init_kv_cache(cfg, batch, cfg.encoder_seq, dtype, device)
+    return c
 
 
 def group_cache_init(group: StackGroup, cfg: ModelConfig, batch: int, max_len: int,
-                     dtype, device) -> Dict:
+                     dtype, device, cross: bool = False) -> Dict:
     def one():
-        return {f"sub{j}": block_cache_init(spec, cfg, batch, max_len, dtype, device)
+        return {f"sub{j}": block_cache_init(spec, cfg, batch, max_len, dtype, device,
+                                            cross)
                 for j, spec in enumerate(group.period)}
     if group.repeats == 1:
         return one()
@@ -181,12 +200,27 @@ def _index(tree, r: int):
     return tree[r]
 
 
+def _cross_cached(params: Mapping, x: torch.Tensor, cfg: ModelConfig,
+                  cross_cache: Dict) -> torch.Tensor:
+    """Decode-time cross-attention against the K/V the prefill wrote."""
+    b, s, _ = x.shape
+    q = linear(params["wq"], x).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    out = attn_mod._cross_attention(q, cross_cache["k"], cross_cache["v"],
+                                    1.0 / math.sqrt(cfg.head_dim))
+    return linear(params["wo"], out.reshape(b, s, -1))
+
+
 def block_apply(params: Mapping, x: torch.Tensor, spec: BlockSpec, cfg: ModelConfig, *,
                 positions, mode: str, cache=None, cache_len=None,
-                block_tables=None, taps=None, tap_prefix: str = "") -> torch.Tensor:
+                block_tables=None, taps=None, tap_prefix: str = "",
+                memory: Optional[torch.Tensor] = None,
+                encoder: bool = False) -> torch.Tensor:
     """mode "train" (causal, no cache), "prefill" (causal, writing a fresh
     dense cache) or "decode" (paged with ``block_tables``, else the dense
-    slab)."""
+    slab).  ``encoder``: the gqa mixer runs unmasked.  A block with
+    ``cross`` params attends ``memory`` after its mixer (train and
+    prefill; prefill also writes the cross slab) or, at decode, the cross
+    slab the prefill wrote."""
     if spec == ("rwkv", "cmix"):
         c = None if cache is None else cache["rwkv"]
         mixer_mode = "decode" if mode == "decode" else "causal"
@@ -217,10 +251,19 @@ def block_apply(params: Mapping, x: torch.Tensor, spec: BlockSpec, cfg: ModelCon
                                   tap_prefix=f"{tap_prefix}.attn")
     else:
         x = x + attn_mod.attention_apply(
-            params["attn"], h, cfg, positions, mode=mixer_mode,
+            params["attn"], h, cfg, positions, mode="bidir" if encoder else mixer_mode,
             cache=None if cache is None else cache["attn"],
             cache_len=cache_len, block_tables=block_tables, taps=taps,
             tap_prefix=f"{tap_prefix}.attn")
+    if "cross" in params:
+        h = norm_apply(params["norm_cross"], x)
+        if mode == "decode":
+            x = x + _cross_cached(params["cross"], h, cfg, cache["cross"])
+        else:
+            x = x + attn_mod.attention_apply(
+                params["cross"], h, cfg, positions, mode="cross", memory=memory,
+                cache=None if cache is None else cache["cross"], taps=taps,
+                tap_prefix=f"{tap_prefix}.cross")
     h = norm_apply(params["norm2"], x)
     if spec[1] == "moe":
         # The aux loss is read by training only (not ported).
@@ -234,7 +277,8 @@ def block_apply(params: Mapping, x: torch.Tensor, spec: BlockSpec, cfg: ModelCon
 def group_apply(params: Mapping, x: torch.Tensor, group: StackGroup,
                 cfg: ModelConfig, *, positions, mode: str, cache=None,
                 cache_len=None, block_tables=None, taps: Optional[Dict] = None,
-                tap_group: str = "") -> torch.Tensor:
+                tap_group: str = "", memory: Optional[torch.Tensor] = None,
+                encoder: bool = False) -> torch.Tensor:
     """Run a stack group layer by layer.  Tap names follow the reference's
     unrolled calibration naming: "g0/rep3/sub0.mlp.in" for stacked groups,
     "g0/sub0.mlp.in" otherwise."""
@@ -248,5 +292,5 @@ def group_apply(params: Mapping, x: torch.Tensor, group: StackGroup,
                             mode=mode,
                             cache=None if c_r is None else c_r[f"sub{j}"],
                             cache_len=cache_len, block_tables=block_tables,
-                            taps=taps, tap_prefix=tp)
+                            taps=taps, tap_prefix=tp, memory=memory, encoder=encoder)
     return x

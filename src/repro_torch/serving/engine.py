@@ -258,6 +258,13 @@ class ServingEngine:
                  fault_policy: Optional[FaultPolicy] = None,
                  spec_config: Optional[SpecConfig] = None,
                  telemetry=None, transfer_guard: bool = False):
+        if model.cfg.is_encdec:
+            # The reference engine has none either: its admissions pass no
+            # frames, so its prefill fails inside the model.
+            raise ValueError(
+                f"model {model.cfg.name!r} is an encoder-decoder: the serving engine "
+                "has no encoder-decoder path (a request carries no frames); decode it "
+                "through launch.steps.make_prefill_step and make_decode_step")
         # Observability (repro_torch.obs.Telemetry, or the shared no-op).
         self.obs = telemetry if telemetry is not None else NULL_TELEMETRY
         self._obs_blocked: set = set()  # uids flagged preempt_ready while blocked
