@@ -138,6 +138,15 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
      exact (C its columns, T the identity there, its error above the
      rank-k2 SVD's) and the nested kernel per element against its plain
      version on those bf16 factors at 8 and 512 rows;
+  8b. moe_serve and moe_quality paths: the serve and quality paths on
+     moonshot-v1-16b-a3b at full width cut to 3 of 48 layers (the
+     token-choice MoE on the dense K/V slab, exact-length admission);
+     moe_serve then serves its prompts again on the same compressed model
+     with the slab's K/V in int8 (``kv_quant``): every request finished,
+     the streams by the margin rule against the bf16 slab's, the same
+     nested launches, a decode step's logits on an int8 slab within 5% of
+     max |logit| of the bf16 slab's with the expert choices pinned, and the
+     slab's bytes a token both ways;
   9. glm_serve path (after the MoE paths): the serve path on chatglm3-6b at
      full width cut to 2 of 28 layers (32/2 heads x 128: paged_attention at
      G 16 with its combine, flash at G 16 in calibration, gram at n 4096
@@ -205,7 +214,24 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
      decode step and the bidirectional attention's share of a calibration
      batch.  The kernel phase holds flash at (16, 128), 12/12 heads x 64,
      the nested MLP linears at 8 and 128 rows and the gram at 24000 rows of
-     n 768 and 3072.
+     n 768 and 3072;
+ 14. llava path: llava-next-mistral-7b at full width cut to 4 of 32 layers
+     (its fp64 Grams: 2.05 GB a layer), the projector uncut, every row
+     behind one image's 576 patch features (fp32, from a numpy seed):
+     calibrate over batch dicts with patches (gram: the raw fp32
+     ``projector.in`` tap on the FMA kernel, the rest on mma), compress
+     (nsvd1 0.2, the layers' and the projector's 30 targets), perplexity on
+     en_a and jp dense and compressed and the logit KL, greedy decoding of
+     8 rows through ``make_prefill_step`` and ``make_decode_step`` (decode
+     at cache_len 576 + 16 + i), one image's prefill (the projector at 576
+     rows on the mma kernel), and the compressed model served text-only
+     through the paged engine (*Serve*'s plan); its exact counts held
+     against LLAVA_PREDICTED (the nested calls above the 1024-row gate
+     counted apart); the streams by the margin rule, a decode step's, the
+     one-image prefill's and an eval batch's logits against the plain
+     versions; a profiled decode step and calibration batch.  The kernel
+     phase holds the gram at (9216, 1024) (fp32: the FMA kernel) and the
+     projector's wi and wo at 576 rows.
 Prints each path's seconds and peak device memory, a JSON kernel summary,
 nvidia-smi's line, and as its last line
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero; without a
@@ -302,6 +328,15 @@ WHISPER_PATH_SHAPES = (
     ("whisper_wo_ff", 3072, 768, 491),
 )
 WHISPER_PATH_ROWS = (8, 128)
+# llava-next-mistral-7b's projector on the llava path at the served ranks
+# (nsvd1 at 0.2): wi (1024 -> 4096, the only K of 1024 on any path) and wo
+# (4096 -> 4096).  Rows: one image's 576 patches (mma; a batch's are above
+# the 1024-row gate).
+LLAVA_PATH_SHAPES = (
+    ("llava_proj_wi", 1024, 4096, 655),
+    ("llava_proj_wo", 4096, 4096, 1638),
+)
+LLAVA_PATH_ROWS = (576,)
 # Max |kernel - plain| / max |plain| allowed.  bf16: the kernel and the plain
 # version round the rank-width intermediate and the output to bf16 at the
 # same points but sum in different orders (a few bf16 ulps of the output);
@@ -347,12 +382,14 @@ STEP_LOGIT_TOL = 5e-2
 # and at minicpm3-4b's kv_lora (256), q_lora (768), d_model (2560) and d_ff
 # (6400), chatglm3-6b's d_ff (13696), and deepseek-v3-671b's kv_lora (512),
 # q_lora (1536), attention output (16384 = 128 heads x v 128) and d_ff
-# (18432; its d_model is Mistral-7B's 7168); and whisper-small's encoder
+# (18432; its d_model is Mistral-7B's 7168); whisper-small's encoder
 # taps over a calibration batch's 16 x 1500 frames, at its d_model (768)
-# and d_ff (3072).
+# and d_ff (3072); and llava's ``projector.in`` over a calibration batch's
+# 16 x 576 patches (fp32 on the path: the FMA kernel).
 GRAM_SHAPES = ((2048, 256), (2048, 512), (2048, 768), (2048, 1536), (2048, 2048),
                (2048, 2560), (2048, 4096), (2048, 6400), (2048, 7168), (2048, 13696),
-               (2048, 14336), (2048, 16384), (2048, 18432), (24000, 768), (24000, 3072))
+               (2048, 14336), (2048, 16384), (2048, 18432), (24000, 768), (24000, 3072),
+               (9216, 1024))
 # Max |kernel - plain| / max |plain|, for G and for sum |x|: both sum the
 # same exact products (bf16 x bf16 is exact in fp32) in another order.
 GRAM_TOL = 1e-5
@@ -506,6 +543,7 @@ def nested_phase(torch, ops, ref):
     cases.append(("bfloat16", DSV3_PATH_SHAPES, DSV3_PATH_ROWS))
     cases.append(("bfloat16", JAMBA_PATH_SHAPES, JAMBA_PATH_ROWS))
     cases.append(("bfloat16", WHISPER_PATH_SHAPES, WHISPER_PATH_ROWS))
+    cases.append(("bfloat16", LLAVA_PATH_SHAPES, LLAVA_PATH_ROWS))
     for dname, shapes, row_counts in cases:
         dt = getattr(torch, dname)
         for target, k_in, n, r in shapes:
@@ -1285,7 +1323,7 @@ def profile_step(torch, fn, label: str = "decode step", quiet: bool = False,
         log(f"    {ms:8.3f} ms  x{n:<4d} {name[:90]}")
     combine = sum(ms for k, (ms, _) in per.items() if "paged_combine" in k)
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "nested_ms": nested,
-            "gram_ms": gram, "paged_ms": paged, "combine_ms": combine,
+            "gram_ms": gram, "paged_ms": paged, "combine_ms": combine, "kernels": kernels,
             "top": [{"name": k, "ms": ms, "count": n} for k, (ms, n) in top], **used}
 
 
@@ -1312,11 +1350,10 @@ def _tree_bytes(tree) -> int:
 
 def cache_bytes_per_token(model) -> int:
     """Bytes one token takes in the model's decode cache over all layers
-    (what a one-row slab on the meta device grows by from one position to
-    two: K/V, or MLA's latents; the paged pools hold the same bytes a
-    token)."""
-    return (_tree_bytes(model.init_cache(1, 2, device="meta"))
-            - _tree_bytes(model.init_cache(1, 1, device="meta")))
+    (``models.api.cache_bytes_per_token``: K/V, or MLA's latents)."""
+    from repro_torch.models.api import cache_bytes_per_token as per_token
+
+    return per_token(model)
 
 
 def cache_bytes_per_row(model) -> int:
@@ -1519,7 +1556,82 @@ def mamba_share(prof: dict, label: str) -> dict:
                 conv_share=parts["causal_conv"] / max(busy, 1e-9), **parts)
 
 
-def serve_path(torch, np, cfg, mixer, gram_taps: tuple, keep=None, predicted=None):
+def int8_slab_run(torch, np, model, params, prompts, base: list, base_nested: dict,
+                  prefill_calls: int) -> dict:
+    """A second engine run on the serve path's compressed model and prompts
+    with the dense slab's attention K/V in int8 (``kv_quant``; the engine
+    as on the serve path: worst case, depth 1): every request finishes;
+    its streams against the bf16 slab's (``base``, in request order) by the
+    margin rule (the bf16 model's teacher-forced margins); the same nested
+    launches by kernel as the bf16 run (``base_nested``: the schedule is
+    the same) and flash once an attention layer an admission
+    (``prefill_calls``); a decode step's logits on an int8 slab against the
+    bf16 slab's within STEP_LOGIT_TOL of max |logit|, both prefilled with
+    each prompt's first 15 tokens, the int8 run pinned to the bf16 run's
+    expert choices; and the slab's bytes a token both ways."""
+    from repro_torch.models.moe import RoutingTrace
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.scheduler import SchedulerConfig
+
+    reset_counts()
+    eng = ServingEngine(model, params, max_batch=8, max_len=256, seed=0, kv_quant=True,
+                        pipeline_depth=1, sched_config=SchedulerConfig(admission="worst_case"))
+    uids = [eng.submit(p, max_new_tokens=32) for p in prompts]
+    t0 = time.perf_counter()
+    try:
+        eng.run()
+    finally:
+        eng.close()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, nsplit = read_counts(), nested_split()
+    reqs = [eng.finished_requests[u] for u in uids]
+    streams = [list(r.generated) for r in reqs]
+    margins = teacher_margins(torch, np, model, params, prompts, base)
+    rows = [margin_row(g, list(w), m) for g, w, m in zip(streams, base, margins)]
+    st = eng.stats()
+    launches_ok = (nsplit == base_nested and counts["paged_attention"] == 0
+                   and counts["flash_attention"]
+                   == mixer_layers(model, "flash_attention") * prefill_calls
+                   and st["prefill_ticks"] == prefill_calls)
+    finished_ok = all(r.finish_reason == "stop" and len(r.generated) == 32 for r in reqs)
+    toks = torch.as_tensor(np.stack([p[:15] for p in prompts]), device="cuda")
+    nxt = torch.as_tensor([[int(p[15])] for p in prompts], device="cuda")
+    clen = torch.full((8,), 15, dtype=torch.int32, device="cuda")
+    trace = RoutingTrace()
+    with torch.no_grad():
+        bf16 = model.init_cache(8, 256, device="cuda")
+        with trace.record():
+            model.apply(params, toks, mode="prefill", cache=bf16)
+            lb = model.apply(params, nxt, mode="decode", cache=bf16, cache_len=clen).float()
+        int8 = model.init_cache(8, 256, device="cuda", kv_quant=True)
+        with trace.replay():
+            model.apply(params, toks, mode="prefill", cache=int8)
+            lq = model.apply(params, nxt, mode="decode", cache=int8, cache_len=clen).float()
+    err, scale = float((lq - lb).abs().max()), float(lb.abs().max())
+    step_ok = bool(torch.isfinite(lq).all()) and err <= STEP_LOGIT_TOL * scale
+    del bf16, int8
+    per_token = {"bfloat16": cache_bytes_per_token(model),
+                 "int8": eng.cache_stats()["bytes_per_token"]}
+    ok = (finished_ok and all(r["ok"] for r in rows) and launches_ok and step_ok
+          and per_token["int8"] < per_token["bfloat16"])
+    log(f"  int8 dense slab (kv_quant), same model and prompts: {len(reqs)} requests "
+        f"finished {'OK' if finished_ok else 'FAIL'} in {wall:.2f} s ({st['steps']} steps, "
+        f"step p50 {st['step_p50_s'] * 1e3:.2f} ms); streams against the bf16 slab's: "
+        f"{sum(r['equal'] for r in rows)} of {len(rows)} equal, first differences "
+        f"{[(r['first_diff'], round(r['margin'], 4), round(r['gate'], 4)) for r in rows if not r['equal']]}; "
+        f"launches {counts}, nested by kernel {nsplit} (bf16 run {base_nested}) "
+        f"{'OK' if launches_ok else 'FAIL'}; decode-step logits int8 vs bf16 slab: max abs "
+        f"err {err:.4e} (max |logit| {scale:.3f}, tol {STEP_LOGIT_TOL * scale:.4e}), expert "
+        f"routings pinned {trace.flips} {'OK' if step_ok else 'FAIL'}; bytes a token "
+        f"{per_token} {'OK' if ok else 'FAIL'}")
+    return dict(streams=rows, launches=counts, nested_launches=nsplit, engine=st,
+                wall_s=wall, step_logit_max_abs_err=err, step_logit_max_abs=scale,
+                routings_pinned=trace.flips, bytes_per_token=per_token, ok=bool(ok))
+
+
+def serve_path(torch, np, cfg, mixer, gram_taps: tuple, keep=None, predicted=None,
+               int8: bool = False):
     """``serve()`` on ``cfg``: calibrate, compress (nsvd1, ratio 0.2) and
     serve 8 requests on the layout the model takes, with exact launch counts
     (``mixer``: the kernel each calibration forward runs once per layer,
@@ -1535,7 +1647,8 @@ def serve_path(torch, np, cfg, mixer, gram_taps: tuple, keep=None, predicted=Non
     counts, held beside the ones derived from the run's own steps, and one
     prefill call's logits through the kernels against the plain versions
     (a 64-token chunk of 8 rows on the pages, the admission call with the
-    most rows under the nested gate on the slab)."""
+    most rows under the nested gate on the slab).  ``int8`` (a dense-slab
+    model): then ``int8_slab_run`` on the same model and prompts."""
     from repro_torch import kernels
     from repro_torch.launch.serve import run_bytes, serve
     from repro_torch.models.api import prefill_pad_safe
@@ -1813,6 +1926,12 @@ def serve_path(torch, np, cfg, mixer, gram_taps: tuple, keep=None, predicted=Non
             f"abs err {e_err:.4e} (max |logit| {e_scale:.3f}, tol "
             f"{EVAL_LOGIT_TOL * e_scale:.4e}), expert routings pinned {trace.flips} of "
             f"{eb * es * len(trace.choices)} {'OK' if e_ok else 'FAIL'}")
+    int8_run = None
+    if int8:
+        int8_run = int8_slab_run(torch, np, model, params, prompts,
+                                 [res["outputs"][u] for u in sorted(res["outputs"])], nsplit,
+                                 st["prefill_ticks"])
+        step_ok = step_ok and int8_run["ok"]
     report = None
     if predicted is not None:
         step_ok = step_ok and prefill_check["ok"]
@@ -1839,7 +1958,7 @@ def serve_path(torch, np, cfg, mixer, gram_taps: tuple, keep=None, predicted=Non
                    step_logit_max_abs_err=step_err, step_logit_max_abs=step_scale,
                    step_argmax_agreement=agree, step_routings_pinned=step_flips,
                    step_profile=prof,
-                   prefill_profile=prof_prefill,
+                   prefill_profile=prof_prefill, int8_slab=int8_run,
                    ok=bool(ok and step_ok))
     return summary, counts
 
@@ -3730,21 +3849,23 @@ def whisper_frames(np, cfg, b: int, seed: int):
         (b, cfg.encoder_seq, cfg.d_model), np.float32)
 
 
-def whisper_greedy(torch, model, params, prompts, frames, new: int) -> dict:
-    """Greedy decoding through the plain serve steps: one prefill of the
-    (B, P) prompts with their frames, then ``new`` - 1 decode steps; the
-    (B, new) tokens, each step's top-2 logit margin and the margin rule's
-    gate (STEP_LOGIT_TOL of max |logit|) per row, and a copy of the cache
-    as the prefill left it."""
+def plain_greedy(torch, model, params, batch: dict, new: int) -> dict:
+    """Greedy decoding through the plain serve steps: one prefill of
+    ``batch`` (the (B, P) "tokens" with an encoder-decoder's "frames" or a
+    vision model's "patches"), then ``new`` - 1 decode steps at cache_len
+    n + P + i (n: the image's patch rows in front of the prompt, else 0);
+    the (B, new) tokens, each step's top-2 logit margin and the margin
+    rule's gate (STEP_LOGIT_TOL of max |logit|) per row, and a copy of the
+    cache as the prefill left it."""
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
 
-    b, p = prompts.shape
-    logits, cache = make_prefill_step(model, p + new)(
-        params, {"tokens": prompts, "frames": frames})
+    b, p = batch["tokens"].shape
+    start = p + (model.cfg.num_patches if "patches" in batch else 0)
+    logits, cache = make_prefill_step(model, start + new)(params, batch)
     snapshot = _clone_tree(cache)
     decode = make_decode_step(model)
     toks, margins, gates = [], [], []
-    cache_len = torch.full((b,), p, dtype=torch.int32, device=logits.device)
+    cache_len = torch.full((b,), start, dtype=torch.int32, device=logits.device)
     for i in range(new):
         lg = logits[:, -1].float()
         top2 = torch.topk(lg, 2, dim=-1).values
@@ -3763,35 +3884,38 @@ def _clone_tree(tree):
     return {k: _clone_tree(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
 
 
-def whisper_drive(torch, np, model, params, run: dict) -> dict:
-    """The whisper path's main run on ``params``' device, through the
-    entry points a user calls: ``collect_grams`` over batch dicts with
-    frames, ``build_plan`` + ``compress_params``, ``evaluate_ppl`` dense
-    and compressed on each of WHISPER_DOMAINS, ``mean_logit_kl``, and
-    greedy decoding of the compressed model (``whisper_greedy``).  Frames
-    are drawn before the clock starts: calibration batch i from seed i,
-    eval batch i (every domain's) from seed 100 + i, the prompts' from 200."""
+def frontend_drive(torch, np, model, params, run: dict, key: str, draw, config,
+                   domains) -> dict:
+    """The main run of a path whose rows carry frontend inputs (``key``:
+    whisper's "frames" or llava's "patches", drawn by ``draw(np, cfg, B,
+    seed)``) on ``params``' device, through the entry points a user calls:
+    ``collect_grams`` over batch dicts, ``build_plan`` + ``compress_params``
+    under ``config``, ``evaluate_ppl`` dense and compressed on each of
+    ``domains``, ``mean_logit_kl`` on the first, and greedy decoding of the
+    compressed model (``plain_greedy``).  Inputs are drawn before the clock
+    starts: calibration batch i's from seed i, eval batch i's (every
+    domain's) from 100 + i, the prompts' from 200."""
     from repro_torch.calib.runner import calibration_batches, collect_grams
-    from repro_torch.core import CompressionConfig, build_plan, compress_params
+    from repro_torch.core import build_plan, compress_params
     from repro_torch.eval.attribution import mean_logit_kl
     from repro_torch.eval.perplexity import eval_batches, evaluate_ppl
 
     cfg = model.cfg
     device = params["embed"]["table"].device
-    calib = [{"tokens": t, "frames": whisper_frames(np, cfg, run["calib_batch"], i)}
+    calib = [{"tokens": t, key: draw(np, cfg, run["calib_batch"], i)}
              for i, t in enumerate(calibration_batches(
                  cfg.vocab_size, "en_a", run["calib_batches"] * run["calib_batch"],
                  run["calib_batch"], run["seq"]))]
-    eval_frames = [whisper_frames(np, cfg, run["eval_batch"], 100 + i)
+    eval_inputs = [draw(np, cfg, run["eval_batch"], 100 + i)
                    for i in range(run["eval_batches"])]
 
     def evals(domain):
-        return [{"tokens": t, "frames": f} for t, f in zip(eval_batches(
+        return [{"tokens": t, key: f} for t, f in zip(eval_batches(
             cfg.vocab_size, domain, run["eval_batches"], run["eval_batch"], run["seq"]),
-            eval_frames)]
+            eval_inputs)]
     rng = np.random.default_rng(0)
-    prompts = rng.integers(2, cfg.vocab_size // 2, size=(run["rows"], run["prompt"]))
-    frames = whisper_frames(np, cfg, run["rows"], 200)
+    batch = {"tokens": rng.integers(2, cfg.vocab_size // 2, size=(run["rows"], run["prompt"])),
+             key: draw(np, cfg, run["rows"], 200)}
     seconds = {}
 
     def phase(name, t0):
@@ -3802,22 +3926,32 @@ def whisper_drive(torch, np, model, params, run: dict) -> dict:
     grams = collect_grams(model, params, calib)
     phase("calibrate", t0)
     t0 = time.perf_counter()
-    plan = build_plan(model.compressible_targets(), CompressionConfig(
-        method="nsvd1", ratio=0.2, k1_frac=0.9, dtype=cfg.dtype, use_randomized=False))
+    plan = build_plan(model.compressible_targets(), config)
     cparams = compress_params(params, plan, grams)
     phase("compress", t0)
     del grams
     t0 = time.perf_counter()
     ppl = {d: {"dense": evaluate_ppl(model, params, evals(d)),
                "compressed": evaluate_ppl(model, cparams, evals(d))}
-           for d in WHISPER_DOMAINS}
-    kl = mean_logit_kl(model, params, cparams, evals("en_a"))
+           for d in domains}
+    kl = mean_logit_kl(model, params, cparams, evals(domains[0]))
     phase("evaluate", t0)
     t0 = time.perf_counter()
-    greedy = whisper_greedy(torch, model, cparams, prompts, frames, run["new"])
+    greedy = plain_greedy(torch, model, cparams, batch, run["new"])
     phase("decode", t0)
     return dict(seconds=seconds, plan=plan, cparams=cparams, ppl=ppl, kl=kl,
-                greedy=greedy, prompts=prompts, frames=frames, eval_batch=evals("en_a")[0])
+                greedy=greedy, batch=batch, eval_batch=evals(domains[0])[0])
+
+
+def whisper_drive(torch, np, model, params, run: dict) -> dict:
+    """The whisper path's main run: ``frontend_drive`` with frames, nsvd1
+    at 0.2, k1_frac 0.9."""
+    from repro_torch.core import CompressionConfig
+
+    return frontend_drive(torch, np, model, params, run, "frames", whisper_frames,
+                          CompressionConfig(method="nsvd1", ratio=0.2, k1_frac=0.9,
+                                            dtype=model.cfg.dtype, use_randomized=False),
+                          WHISPER_DOMAINS)
 
 
 def whisper_path(torch, np, cfg):
@@ -3876,9 +4010,9 @@ def whisper_path(torch, np, cfg):
         f"{'OK' if quality_ok else 'FAIL'}")
 
     # The same inputs through the plain versions.
-    prompts, frames, g_k = res["prompts"], res["frames"], res["greedy"]
+    g_k = res["greedy"]
     with kernels.plain():
-        g_p = whisper_greedy(torch, model, cparams, prompts, frames, run["new"])
+        g_p = plain_greedy(torch, model, cparams, res["batch"], run["new"])
     rows = [margin_row(list(a), list(b), (m, gt)) for a, b, m, gt in zip(
         g_k["tokens"], g_p["tokens"], g_p["margins"], g_p["gates"])]
     streams_ok = all(r["ok"] for r in rows)
@@ -3968,6 +4102,329 @@ def whisper_path(torch, np, cfg):
     return summary, counts
 
 
+# The llava path (PR 32): llava-next-mistral-7b at full width, cut to 4 of
+# 32 layers for memory (its fp64 Grams take 2.05 GB a layer, 65.5 GB at 32
+# layers beside 14.5 GB of bf16 weights; 4 layers leave the compression's
+# fp64 work room: ``launch.serve.run_bytes`` reckons 26.1 GB), the
+# projector uncut, through the entry points a user calls: calibrate (the
+# paper's 256 x 128 tokens of en_a in 16 batches of 16, each row behind
+# one image's 576 patch features), compress (nsvd1 at 0.2, k1_frac 0.95,
+# every layer target and the projector's wi and wo), evaluate (perplexity
+# on en_a and jp, dense and compressed, and the logit KL on en_a, 2 (16,
+# 128) batches each, every row behind an image), decode (greedy, 8 rows of
+# an image and a 16-token prompt, 32 new tokens: one ``make_prefill_step``
+# call, then 31 ``make_decode_step`` steps at cache_len 576 + 16 + i;
+# then one image's prefill alone, 576 + 16 rows) and serve (*Serve*'s
+# plan, text-only through the paged engine: the compressed params through
+# ``serve(params=...)``, as the reference's engine admits no patches).
+# Patches stand in for the stubbed vision tower: standard normal (B, 576,
+# 1024) fp32 from a numpy seed a batch, as whisper's frames do.
+LLAVA_LAYERS = 4
+LLAVA_RUN = dict(calib_batches=16, calib_batch=16, seq=128, eval_batches=2,
+                 eval_batch=16, rows=8, prompt=16, new=32,
+                 engine=dict(requests=8, lo=16, hi=200, max_new=32, max_batch=8,
+                             max_len=256, block=16, chunk=64))
+LLAVA_DOMAINS = ("en_a", "jp")
+# Exact counts of the llava path's main run, entered before its first chip
+# call (``llava_expect`` derives them from LLAVA_RUN's shapes and the
+# engine's schedule, 33 decode steps and 3 chunk calls as *Serve*'s plan
+# gives on every paged path; tests/test_torch_llava.py holds that
+# derivation to a CPU run of a reduced twin).  gram: 19 taps x 16 batches
+# (4 a layer, the final norm's over all 704 rows of a row, the projector's
+# two over its 576), of which the 16 ``projector.in`` taps (the raw fp32
+# patches, 9216 x 1024 a batch) on the FMA kernel and the rest, bf16, on
+# the mma kernel.  flash: 4 layers x 30 causal forwards (16 calibration, 2
+# domains x 2 batches x dense and compressed, 2 x 2 KL, the greedy prefill
+# and the one-image prefill), at (16, 704), (8, 592) and (1, 592), all
+# tensor-core.  nested: 7 compressed linears a layer and the projector's 2:
+# stream 28 x (31 greedy steps + 33 engine steps); mma 30 at the one-image
+# prefill (592 and 576 rows) and 28 x 3 engine chunk calls (512 rows); and
+# apart, the wrapper's calls above its 1024-row gate, plain matmuls: 30 a
+# compressed (16, 704) forward x 6 and at the greedy prefill (8 x 592 and
+# 8 x 576 rows).  paged: 4 layers x 33 engine steps, each with its combine.
+LLAVA_PREDICTED = dict(gram=304, fma=16, flash=120, stream=1792, mma=114, gate=210,
+                       paged=132, steps=33, chunks=3)
+
+
+def llava_compression(cfg):
+    """The llava path's compression: nsvd1 at 0.2, k1_frac 0.95, factors in
+    the model's dtype."""
+    from repro_torch.core import CompressionConfig
+
+    return CompressionConfig(method="nsvd1", ratio=0.2, k1_frac=0.95, dtype=cfg.dtype,
+                             use_randomized=False)
+
+
+def llava_nested_linears(cfg) -> tuple:
+    """(the layers', the projector's) linears a forward calls through the
+    nested wrapper under ``llava_compression``: the targets whose rank
+    split keeps a second pair (u2, v2), one call a layer of a stacked
+    target (at full width all of them: 7 a layer and the projector's 2)."""
+    from repro_torch.core import build_plan
+    from repro_torch.core.nsvd import split_rank
+    from repro_torch.models import build_model
+
+    config = llava_compression(cfg)
+    plan = build_plan(build_model(cfg).compressible_targets(), config)
+    text = proj = 0
+    for t in plan.targets:
+        if split_rank(plan.rank_of(t), config.k1_frac)[1] == 0:
+            continue  # one pair: two plain matmuls
+        if t.path[0] == "projector":
+            proj += 1
+        else:
+            text += math.prod(t.stacked)
+    return text, proj
+
+
+def llava_expect(cfg, run, steps: int, chunks: int, gate_rows: int = 1024,
+                 stream_rows: int = 16) -> dict:
+    """The llava path's counts from its shapes and the engine's schedule
+    (``steps`` decode steps, ``chunks`` prefill-chunk calls): gram calls a
+    calibration batch (4 taps a (gqa, mlp) layer, the final norm's,
+    ``projector.mid``, and ``projector.in``, the one fp32 tap: "fma"),
+    flash calls (one a layer a causal forward), paged calls (one a layer an
+    engine step), and the nested linears' calls (``llava_nested_linears``)
+    by the route their rows take in the nested wrapper (bf16: "stream" up
+    to ``stream_rows``, "mma" up to ``gate_rows``, "gate" above: plain)."""
+    layers, p = cfg.num_layers, cfg.num_patches
+    n_text, n_proj = llava_nested_linears(cfg)
+    nested = Counter()
+
+    def route(rows):
+        return "stream" if rows <= stream_rows else "mma" if rows <= gate_rows else "gate"
+
+    def forward(b, s):  # one compressed forward, an image in front of each row
+        nested[route(b * (p + s))] += n_text
+        nested[route(b * p)] += n_proj
+
+    evals = len(LLAVA_DOMAINS) * run["eval_batches"]
+    for _ in range(evals + run["eval_batches"]):  # compressed ppl, then the KL's
+        forward(run["eval_batch"], run["seq"])
+    forward(run["rows"], run["prompt"])
+    forward(1, run["prompt"])
+    nested[route(run["rows"])] += n_text * (run["new"] - 1)
+    eng = run["engine"]
+    nested[route(eng["max_batch"])] += n_text * steps
+    nested[route(eng["max_batch"] * eng["chunk"])] += n_text * chunks
+    causal = run["calib_batches"] + 2 * evals + 2 * run["eval_batches"] + 2
+    return dict(gram=(4 * layers + 3) * run["calib_batches"], fma=run["calib_batches"],
+                flash=layers * causal, stream=nested["stream"], mma=nested["mma"],
+                gate=nested["gate"], paged=layers * steps, steps=steps, chunks=chunks)
+
+
+def llava_patches(np, cfg, b: int, seed: int):
+    """Stand-in patch features for the stubbed vision tower (B,
+    num_patches, VISION_FEATURE_DIM), fp32."""
+    from repro_torch.models.transformer import VISION_FEATURE_DIM
+
+    return np.random.default_rng(seed).standard_normal(
+        (b, cfg.num_patches, VISION_FEATURE_DIM), np.float32)
+
+
+def llava_drive(torch, np, model, params, run: dict) -> dict:
+    """The llava path's main run: ``frontend_drive`` with patches under
+    ``llava_compression``, then one image's prefill through
+    ``make_prefill_step`` and ``serve(params=...)`` of the compressed model
+    on run["engine"]'s plan (text-only, worst case, depth 1; its prompts
+    drawn as the serve path draws them)."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_prefill_step
+
+    cfg = model.cfg
+    res = frontend_drive(torch, np, model, params, run, "patches", llava_patches,
+                         llava_compression(cfg), LLAVA_DOMAINS)
+    eng = run["engine"]
+    erng = np.random.default_rng(0)
+    plens = erng.integers(eng["lo"], eng["hi"] + 1, size=eng["requests"])
+    eprompts = [erng.integers(2, cfg.vocab_size // 2, size=int(n)) for n in plens]
+    one = {k: v[:1] for k, v in res["batch"].items()}
+    t0 = time.perf_counter()
+    single, _ = make_prefill_step(model, cfg.num_patches + run["prompt"])(res["cparams"], one)
+    if single.device.type == "cuda":
+        torch.cuda.synchronize()
+    res["seconds"]["prefill_one"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    served = serve(cfg, params=res["cparams"], requests=eng["requests"], prompts=eprompts,
+                   max_new=eng["max_new"], max_batch=eng["max_batch"],
+                   max_len=eng["max_len"], block_size=eng["block"],
+                   prefill_chunk=eng["chunk"], sched_policy="worst_case",
+                   pipeline_depth=1, device=params["embed"]["table"].device)
+    res["seconds"]["serve"] = time.perf_counter() - t0
+    return dict(res, single=single, one=one, served=served)
+
+
+def llava_path(torch, np, cfg):
+    """The llava path (see LLAVA_RUN): the main run with its launches held
+    to LLAVA_PREDICTED; then on the same inputs the compressed model
+    through the plain versions (``kernels.plain()``): the greedy streams by
+    the margin rule, a decode step's logits (from the plain run's prefill
+    cache), the one-image prefill's and an eval batch's logits within
+    STEP_LOGIT_TOL / EVAL_LOGIT_TOL of max |logit|; every served request
+    finished with its tokens in the vocabulary; a profiled decode step
+    (wall against device, the nested share) and a profiled steady
+    calibration batch (the gram kernels' share, the FMA kernel's time on
+    ``projector.in``)."""
+    from repro_torch import kernels
+    from repro_torch.calib.gram import accumulate_taps
+    from repro_torch.calib.runner import collect_grams
+    from repro_torch.eval.attribution import get_subtree
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+
+    model = build_model(cfg)
+    params = model.init(0, "cuda")
+    run = LLAVA_RUN
+    torch.cuda.synchronize()
+    reset_counts()
+    res = llava_drive(torch, np, model, params, run)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    split, split_ok = flash_split_ok(counts)
+    gsplit, gshapes, nsplit = gram_split(), gram_shape_split(), nested_split()
+    shapes = shape_split()
+    eng = res["served"]["engine"]
+    st = eng.stats()
+    pa = _ops("paged_attention")
+    got = dict(gram=counts["gram"], fma=gsplit["fma"], flash=counts["flash_attention"],
+               stream=nsplit["stream"], mma=nsplit["mma"],
+               gate=_ops("nested_lowrank").gate_calls, paged=counts["paged_attention"],
+               steps=st["steps"], chunks=st["prefill_ticks"])
+    expect = llava_expect(cfg, run, st["steps"], st["prefill_ticks"])
+    n_splits = pa.plan_splits(eng.max_batch, cfg.num_kv_heads, eng.kv.max_blocks_per_row)[0]
+    combine_expect = counts["paged_attention"] if n_splits > 1 else 0
+    counts_ok = (got == expect == LLAVA_PREDICTED and split_ok and nsplit["tile"] == 0
+                 and gsplit == {"mma": counts["gram"] - run["calib_batches"],
+                                "fma": run["calib_batches"]}
+                 and gshapes.get(str(1024)) == run["calib_batches"]
+                 and pa.combine_launches == combine_expect and counts["rwkv6"] == 0
+                 and counts["nested_lowrank"] == nsplit["stream"] + nsplit["mma"])
+    plan, cparams = res["plan"], res["cparams"]
+    n_slices = sum(math.prod(t.stacked) for t in plan.targets)
+    nested_leaves = all("u2" in get_subtree(cparams, t.path) for t in plan.targets)
+    ratio = factored_ratio(cparams, plan)
+    numbers = [v for d in res["ppl"].values() for v in d.values()] + [res["kl"], ratio]
+    finite = all(math.isfinite(float(x)) for x in numbers)
+    quality_ok = (finite and n_slices == 7 * cfg.num_layers + 2 and nested_leaves
+                  and res["kl"] >= 0)
+    outs = res["served"]["outputs"]
+    reasons = {u: r.finish_reason for u, r in res["served"]["requests"].items()}
+    serve_ok = (eng.layout == "paged" and len(outs) == run["engine"]["requests"]
+                and all(reasons.get(u) for u in outs)
+                and all(1 <= len(v) <= run["engine"]["max_new"] for v in outs.values())
+                and all(0 <= t < cfg.vocab_size for v in outs.values() for t in v))
+    log(f"llava path: {cfg.name} {cfg.num_layers} of 32 layers (memory cut), "
+        f"{cfg.d_model} wide, {cfg.num_patches} patches a row (projector uncut); "
+        "phase seconds " + ", ".join(f"{k}={v:.2f}" for k, v in res["seconds"].items()))
+    log(f"  launches {got} expected {expect} (predicted {LLAVA_PREDICTED}); flash by "
+        f"kernel {split}; gram by kernel {gsplit}, by width {gshapes}; nested by kernel "
+        f"{nsplit}, by shape {shapes}; paged combine {pa.combine_launches} expected "
+        f"{combine_expect} ({n_splits} splits) {'OK' if counts_ok else 'FAIL'}")
+    for d, v in res["ppl"].items():
+        log(f"  ppl[{d}]: dense {v['dense']:.3f} compressed {v['compressed']:.3f}")
+    log(f"  logit KL {res['kl']:.5f} nats/token; {n_slices} target slices, all nested: "
+        f"{nested_leaves}; achieved ratio {plan.achieved_ratio:.5f} (factors {ratio:.5f}) "
+        f"{'OK' if quality_ok else 'FAIL'}")
+    log(f"  served text-only: {res['served']['tokens']} tokens, {st['steps']} steps, "
+        f"{st['prefill_ticks']} chunk calls, {res['served']['tok_per_s']:.1f} tok/s, step "
+        f"p50 {st['step_p50_s'] * 1e3:.2f} ms; finish reasons "
+        f"{sorted(set(reasons.values()))} {'OK' if serve_ok else 'FAIL'}")
+
+    # The same inputs through the plain versions.
+    g_k = res["greedy"]
+    with kernels.plain():
+        g_p = plain_greedy(torch, model, cparams, res["batch"], run["new"])
+    rows = [margin_row(list(a), list(b), (m, gt)) for a, b, m, gt in zip(
+        g_k["tokens"], g_p["tokens"], g_p["margins"], g_p["gates"])]
+    streams_ok = all(r["ok"] for r in rows)
+    # One decode step from the plain run's prefill cache, both ways (its
+    # positions at cache_len 576 + 16).
+    decode = make_decode_step(model)
+    batch = {"tokens": torch.as_tensor(g_p["tokens"][:, :1], device="cuda"),
+             "cache_len": torch.full((run["rows"],), cfg.num_patches + run["prompt"],
+                                     dtype=torch.int32, device="cuda")}
+    lk, _ = decode(cparams, _clone_tree(g_p["prefill_cache"]), batch)
+    with kernels.plain():
+        lp, _ = decode(cparams, _clone_tree(g_p["prefill_cache"]), batch)
+    step_err, step_scale = float((lk.float() - lp.float()).abs().max()), float(
+        lp.float().abs().max())
+    step_ok = (lk.shape == (run["rows"], 1, cfg.vocab_size)
+               and bool(torch.isfinite(lk).all()) and step_err <= STEP_LOGIT_TOL * step_scale)
+    # The one-image prefill (the projector's linears at 576 rows and the
+    # layers' at 592, on the mma kernel) both ways.
+    with kernels.plain():
+        sp, _ = make_prefill_step(model, cfg.num_patches + run["prompt"])(cparams, res["one"])
+    sk = res["single"].float()
+    s_err, s_scale = float((sk - sp.float()).abs().max()), float(sp.float().abs().max())
+    single_ok = (sk.shape == (1, 1, cfg.vocab_size) and bool(torch.isfinite(sk).all())
+                 and s_err <= STEP_LOGIT_TOL * s_scale)
+    eb = res["eval_batch"]
+    etoks = torch.as_tensor(eb["tokens"], device="cuda")
+    epatches = torch.as_tensor(eb["patches"], device="cuda")
+    with torch.no_grad():
+        le = model.apply(cparams, etoks, patches=epatches).float()
+        with kernels.plain():
+            lpe = model.apply(cparams, etoks, patches=epatches).float()
+    e_err, e_scale = float((le - lpe).abs().max()), float(lpe.abs().max())
+    e_ok = (le.shape == (*etoks.shape, cfg.vocab_size) and bool(torch.isfinite(le).all())
+            and e_err <= EVAL_LOGIT_TOL * e_scale)
+    del le, lpe
+    log(f"  greedy streams ({run['rows']} x {run['new']}, behind an image) kernels vs plain: "
+        f"{sum(r['equal'] for r in rows)} of {len(rows)} equal, first differences "
+        f"{[(r['first_diff'], round(r['margin'], 4), round(r['gate'], 4)) for r in rows if not r['equal']]} "
+        f"{'OK' if streams_ok else 'FAIL'}")
+    log(f"  decode-step logits kernels vs plain: max abs err {step_err:.4e} (max |logit| "
+        f"{step_scale:.3f}, tol {STEP_LOGIT_TOL * step_scale:.4e}) "
+        f"{'OK' if step_ok else 'FAIL'}; one-image prefill ({cfg.num_patches} + "
+        f"{run['prompt']} rows): {s_err:.4e} (max |logit| {s_scale:.3f}, tol "
+        f"{STEP_LOGIT_TOL * s_scale:.4e}) {'OK' if single_ok else 'FAIL'}; compressed "
+        f"eval-batch logits ({etoks.shape[0]} x {etoks.shape[1]} behind images): "
+        f"{e_err:.4e} (max |logit| {e_scale:.3f}, tol {EVAL_LOGIT_TOL * e_scale:.4e}) "
+        f"{'OK' if e_ok else 'FAIL'}")
+
+    # Where the time goes: a decode step (its cache as the prefill left it;
+    # every call rewrites the same position) and a steady calibration batch
+    # (the store already seeded).
+    cache = _clone_tree(g_p["prefill_cache"])
+    prof_step = profile_step(torch, lambda: decode(cparams, cache, batch),
+                             "llava decode step (8 rows)")
+    del cache
+    calib = {"tokens": etoks, "patches": epatches}
+    store = collect_grams(model, params, [calib])
+
+    @torch.no_grad()
+    def calib_batch():
+        taps = {}
+        model.apply(params, calib["tokens"], patches=calib["patches"], mode="train",
+                    taps=taps)
+        accumulate_taps(store, taps)
+    prof_calib = profile_step(torch, calib_batch, "steady calibration batch (16 x (576 "
+                              "+ 128))")
+    del store
+    busy = max(prof_calib["device_busy_ms"], 1e-9)
+    fma_ms = sum(ms for k, ms in prof_calib["kernels"].items() if "gram_kernel" in k)
+    log(f"  calibration batch: gram {prof_calib['gram_ms']:.3f} ms ({prof_calib['gram_ms'] / busy:.1%} "
+        f"of device busy), of which the FMA kernel (projector.in, 9216 x 1024 fp32) "
+        f"{fma_ms:.3f} ms ({fma_ms / busy:.1%}); decode step nested "
+        f"{prof_step['nested_ms'] / max(prof_step['device_busy_ms'], 1e-9):.1%} of device busy")
+    ok = (counts_ok and quality_ok and serve_ok and streams_ok and step_ok and single_ok
+          and e_ok)
+    summary = dict(config=cfg.name, layers=cfg.num_layers, run=run, seconds=res["seconds"],
+                   launches=counts, got=got, expected=expect, predicted=LLAVA_PREDICTED,
+                   flash_launches=split, gram_launches=gsplit, gram_shape_launches=gshapes,
+                   nested_launches=nsplit, nested_shape_launches=shapes,
+                   paged_splits=n_splits, paged_combine_launches=pa.combine_launches,
+                   ppl=res["ppl"], logit_kl=res["kl"], target_slices=n_slices,
+                   achieved_ratio=plan.achieved_ratio, factored_ratio=ratio,
+                   engine=st, tok_per_s=res["served"]["tok_per_s"], finish_reasons=reasons,
+                   streams=rows, step_logit_max_abs_err=step_err,
+                   step_logit_max_abs=step_scale, single_logit_max_abs_err=s_err,
+                   single_logit_max_abs=s_scale, eval_logit_max_abs_err=e_err,
+                   eval_logit_max_abs=e_scale, step_profile=prof_step,
+                   calib_profile=prof_calib, fma_ms=fma_ms, ok=bool(ok))
+    return summary, counts
+
+
 
 def ptxas_report(build_log: dict) -> list:
     """ptxas's register and spill lines of every kernel, each after the end
@@ -4001,8 +4458,8 @@ def main() -> int:
         from repro_torch.kernels.paged_attention import ops as pa_ops, ref as pa_ref
         from repro_torch.kernels.rwkv6 import ops as rwkv_ops, ref as rwkv_ref
         from repro_torch.configs import (CHATGLM3_6B, DEEPSEEK_V3_671B, JAMBA_V0_1_52B,
-                                         MINICPM3_4B, MISTRAL_7B, MOONSHOT_V1_16B_A3B,
-                                         RWKV6_1_6B, WHISPER_SMALL)
+                                         LLAVA_NEXT_MISTRAL_7B, MINICPM3_4B, MISTRAL_7B,
+                                         MOONSHOT_V1_16B_A3B, RWKV6_1_6B, WHISPER_SMALL)
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
         return 2
@@ -4076,6 +4533,7 @@ def main() -> int:
         DEEPSEEK_V3_671B.moe, num_experts=16))
     jamba = dataclasses.replace(JAMBA_V0_1_52B, num_layers=5, moe=dataclasses.replace(
         JAMBA_V0_1_52B.moe, num_experts=8))
+    llava = dataclasses.replace(LLAVA_NEXT_MISTRAL_7B, num_layers=LLAVA_LAYERS)
     served = {}
     runs = (("serve", serve_path, (mistral, "flash_attention", (9, 0), served)),
             ("sched_serve", sched_serve_path, (served,)),
@@ -4086,14 +4544,16 @@ def main() -> int:
             ("methods", methods_path, (dataclasses.replace(MISTRAL_7B, num_layers=1), 4)),
             ("rwkv_serve", serve_path, (rwkv6, "rwkv6", (37, 0))),
             ("rwkv_quality", quality_path, (rwkv6, 1, (37, 0), "rwkv6")),
-            ("moe_serve", serve_path, (moonshot, "flash_attention", (15, 4))),
+            ("moe_serve", serve_path, (moonshot, "flash_attention", (15, 4), None, None,
+                                       True)),
             ("moe_quality", quality_path, (moonshot, 2, (15, 4), "flash_attention")),
             ("glm_serve", serve_path, (glm, "flash_attention", (9, 0), None, GLM_PREDICTED)),
             ("mla_serve", serve_path, (minicpm3, None, (25, 0), None, MLA_PREDICTED)),
             ("dsv3_serve", serve_path, (dsv3, None, (26, 2), None, DSV3_PREDICTED)),
             ("jamba_serve", serve_path, (jamba, "flash_attention", (27, 4), None,
                                          JAMBA_PREDICTED)),
-            ("whisper", whisper_path, (WHISPER_SMALL,)))
+            ("whisper", whisper_path, (WHISPER_SMALL,)),
+            ("llava", llava_path, (llava,)))
     summaries, path_counts, path_s, path_peak = {}, {}, {}, {}
     for name, fn, args in runs:
         torch.cuda.reset_peak_memory_stats()
@@ -4117,7 +4577,8 @@ def main() -> int:
     # recurrence).  Launches are each kernel's count on its own path (nested:
     # by kernel on the Mistral serve path; gram: all of the wrapper's, then
     # the mma kernel's, on the Mistral quality path; rwkv6: the RWKV-6 serve
-    # path).  The gram FMA kernel (fp32 taps) has no launch on the paths.
+    # path).  The gram FMA kernel (fp32 taps) runs on the llava path only
+    # (its row below).
     nested_serve = summaries["serve"]["nested_launches"]
     nested_src = "src/repro_torch/csrc/nested_lowrank.cu"
     nested_tpu = "src/repro/kernels/nested_lowrank/nested_lowrank.py:84"
@@ -4254,6 +4715,21 @@ def main() -> int:
             r for r in grams if r["dtype"] == "bfloat16" and r["rows"] == 24000
             and r["n"] == n), whisper["gram_shape_launches"].get(str(n), 0),
             "src/repro_torch/csrc/gram.cu", "src/repro/kernels/gram/gram.py:54"),)
+    # llava's shapes (llava path, 4 of 32 layers): the gram FMA kernel at
+    # (9216, 1024) fp32 (``projector.in``: a calibration batch's patches)
+    # with the path's FMA launches; the projector's wi and wo at one image's
+    # 576 rows (mma) with the path's mma launches at that K x N (wo's 4096 x
+    # 4096 shared with the layers' wq and wo).
+    llava = summaries["llava"]
+    picks += (("gram_fma_llava", next(
+        r for r in grams if r["dtype"] == "float32" and r["rows"] == 9216 and r["n"] == 1024),
+        llava["gram_launches"]["fma"], "src/repro_torch/csrc/gram.cu",
+        "src/repro/kernels/gram/gram.py:54"),)
+    for target, k_in, n, _ in LLAVA_PATH_SHAPES:
+        picks += ((f"nested_lowrank_{target}_576", next(
+            r for r in nested if r["target"] == target and r["M"] == 576),
+            llava["nested_shape_launches"].get(f"mma {k_in}x{n}", 0), nested_src,
+            nested_tpu),)
     entries = []
     for name, row, launches, src, replaces in picks:
         entries.append({"name": name, "route": "cuda", "source": src,

@@ -3,12 +3,13 @@
 The port serves the paper's dense families (LLaMA / OPT / Mistral), the
 dense GQA archs, Multi-head Latent Attention (minicpm3, and deepseek-v3
 over a token-choice MoE), the RWKV-6 family, the token-choice MoE family
-and the Mamba / attention hybrid (jamba over a top-2 MoE), and calibrates,
-compresses, evaluates and decodes the encoder-decoder (whisper), so the
-frozen dataclass keeps the reference's field names and defaults for every
-field those families read.  ``frontend`` and ``num_patches`` are kept with
-the reference's defaults; the vision frontend that reads them is not
-ported.  ``reduced()`` is the reference's smoke-test shrink.
+and the Mamba / attention hybrid (jamba over a top-2 MoE), calibrates,
+compresses, evaluates and decodes the encoder-decoder (whisper), and runs
+the vision frontend (llava: ``frontend == "vision"``, a projector over
+``num_patches`` patch features in front of the tokens), so the frozen
+dataclass keeps the reference's field names and defaults for every field
+those families read.  ``reduced()`` is the reference's smoke-test shrink
+(``num_patches`` 8).
 """
 
 from __future__ import annotations

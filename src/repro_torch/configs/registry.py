@@ -1,7 +1,9 @@
 """Architecture registry: ``--arch <id>`` lookup for the launchers.
 
 The paper's three families at full width, the other ported decoder
-families at their published width (``FAMILIES``), the encoder-decoder
+families at their published width (``FAMILIES``; llava-next-mistral-7b's
+projector takes image patches in calibration, evaluation and the plain
+serve steps, while the serving engine serves it text-only), the encoder-decoder
 (``ENCDEC``: whisper-small, calibrated, compressed, evaluated and decoded
 but not served: the serving engine has no encoder-decoder path), plus the ``small-*`` variants whose
 trained checkpoints the reference keeps under ``experiments/models/<name>/``
@@ -16,6 +18,7 @@ from .chatglm3_6b import CONFIG as CHATGLM3_6B
 from .deepseek_67b import CONFIG as DEEPSEEK_67B
 from .deepseek_v3_671b import CONFIG as DEEPSEEK_V3_671B
 from .jamba_v0_1_52b import CONFIG as JAMBA_V0_1_52B
+from .llava_next_mistral_7b import CONFIG as LLAVA_NEXT_MISTRAL_7B
 from .minicpm3_4b import CONFIG as MINICPM3_4B
 from .moonshot_v1_16b_a3b import CONFIG as MOONSHOT_V1_16B_A3B
 from .phi3_medium_14b import CONFIG as PHI3_MEDIUM_14B
@@ -38,6 +41,7 @@ FAMILIES: Dict[str, ModelConfig] = {
     "moonshot-v1-16b-a3b": MOONSHOT_V1_16B_A3B,
     "deepseek-v3-671b": DEEPSEEK_V3_671B,
     "jamba-v0.1-52b": JAMBA_V0_1_52B,
+    "llava-next-mistral-7b": LLAVA_NEXT_MISTRAL_7B,
 }
 
 ENCDEC: Dict[str, ModelConfig] = {

@@ -74,15 +74,22 @@ def calibration_bytes(model) -> Dict[str, int]:
     one tap makes and drops (its fp32 Gram; a batched tap's (E, n, n) and
     the (n, n) fp64 sum over experts its shared key takes).  None of them
     depends on the calibration batch's shape: a Gram's width
-    is its tap's last dim, a batched tap's expert count its first."""
+    is its tap's last dim, a batched tap's expert count its first.  A
+    vision model's forward takes one image's patches, so its projector's
+    taps (``projector.in``, ``projector.mid``) are counted too."""
     from repro_torch import kernels
     from repro_torch.calib.gram import EXPERT_TAPS, gram_keys
+    from repro_torch.models.transformer import VISION_FEATURE_DIM
 
     params = model.init(device="meta")
     taps: Dict[str, torch.Tensor] = {}
+    kw = {}
+    if model.cfg.frontend == "vision":
+        kw["patches"] = torch.zeros((1, model.cfg.num_patches, VISION_FEATURE_DIM),
+                                    device="meta")
     with torch.no_grad(), kernels.plain():  # shapes only: no kernel on meta
         model.apply(params, torch.zeros((1, 8), dtype=torch.long, device="meta"),
-                    mode="train", taps=taps)
+                    mode="train", taps=taps, **kw)
     widths: Dict[str, int] = {}
     batch_gram = 0
     for name, x in taps.items():

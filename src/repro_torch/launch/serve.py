@@ -146,6 +146,13 @@ def serve(cfg: ModelConfig, *, requests: int = 8, max_new: int = 16,
     engine.  Matmuls run in full fp32 on the card (no TF32): calibration
     needs it, and so does the MoE router, whose top-k choices TF32 would
     change."""
+    if cfg.frontend == "vision" and (compress is not None or spec_ratio is not None):
+        # The reference's launcher calibrates on tokens only, and then finds
+        # no Gram for the projector's targets.
+        raise ValueError(
+            f"{cfg.name}'s projector targets are calibrated on image patches, and "
+            "serve() calibrates on tokens only: collect Grams over batch dicts with "
+            "'patches' (calib.runner.collect_grams), compress, and pass params=")
     dev = resolve_device(device)
     calibration_precision()
     model = build_model(cfg)

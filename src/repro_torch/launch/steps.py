@@ -177,7 +177,7 @@ def make_decode_sample_step(model, max_len: int) -> Callable:
 # Dense-slab cache leaves: name -> ndim of one layer's leaf; a stacked group
 # adds a leading layer dim, so the batch axis is ndim - base.
 _CACHE_LEAF_NDIM = {"state": 4, "shift_t": 2, "shift_c": 2, "h": 3, "conv": 3,
-                    "k": 4, "v": 4, "c_kv": 3, "k_rope": 3}
+                    "k": 4, "v": 4, "k_scale": 3, "v_scale": 3, "c_kv": 3, "k_rope": 3}
 
 
 def _drop_pad_rows(slots: torch.Tensor, n: int):
@@ -206,7 +206,7 @@ def set_cache_rows(cache, rows, dst: torch.Tensor, src: torch.Tensor) -> None:
             c.index_copy_(ax, dst, rows[name].index_select(ax, src).to(c.dtype))
 
 
-def make_prefill_admit_step(model, max_len: int) -> Callable:
+def make_prefill_admit_step(model, max_len: int, kv_quant: bool = False) -> Callable:
     """Admission of R requests in one call: prefill R prompts right-padded
     to a shared length P (``tokens`` (R, P), ``plens`` (R,) their real
     lengths) into a FRESH row cache, write its rows into the engine cache at
@@ -221,14 +221,15 @@ def make_prefill_admit_step(model, max_len: int) -> Callable:
     in every position, MoE capacity is budgeted over the call's tokens)
     with one exact-length request a call.  One cache tree may mix both
     kinds of leaf (jamba: the Mamba layers' ``h`` and ``conv`` beside the
-    attention layer's ``k`` and ``v``); each is written by its own rank."""
+    attention layer's ``k`` and ``v``); each is written by its own rank.
+    ``kv_quant``: the engine's slab is int8 (the fresh row cache too)."""
 
     @torch.no_grad()
     def prefill_admit_step(params, cache, tokens, plens, slots, budgets, row_keys,
                            cache_len, last_token, budget, key_data, temps,
                            active):
         r = tokens.shape[0]
-        row_cache = model.init_cache(r, max_len, device=tokens.device)
+        row_cache = model.init_cache(r, max_len, device=tokens.device, kv_quant=kv_quant)
         logits = model.apply(params, tokens, mode="prefill", cache=row_cache)
         rows = torch.arange(r, device=tokens.device)
         last = logits[rows, (plens.long() - 1).clamp(min=0)]
@@ -458,7 +459,7 @@ def make_paged_draft_prefill_step(model) -> Callable:
     return wrap_root(paged_draft_prefill_step, "draft_prefill")
 
 
-def make_dense_draft_prefill_step(model, max_len: int) -> Callable:
+def make_dense_draft_prefill_step(model, max_len: int, kv_quant: bool = False) -> Callable:
     """Draft twin of the dense prefill-admit root: prefill the same padded
     (R, P) prompt batch through the DRAFT params into a fresh row cache,
     write its rows into the draft slab at ``slots``, and set the admitted
@@ -468,7 +469,8 @@ def make_dense_draft_prefill_step(model, max_len: int) -> Callable:
 
     @torch.no_grad()
     def dense_draft_prefill_step(params, cache, tokens, slots, key_data, row_keys):
-        row_cache = model.init_cache(tokens.shape[0], max_len, device=tokens.device)
+        row_cache = model.init_cache(tokens.shape[0], max_len, device=tokens.device,
+                                     kv_quant=kv_quant)
         model.apply(params, tokens, mode="prefill", cache=row_cache, output="hidden")
         dst, src = _drop_pad_rows(slots, key_data.shape[0])
         set_cache_rows(cache, row_cache, dst, src)

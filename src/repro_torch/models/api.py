@@ -24,8 +24,9 @@ def build_model(cfg: ModelConfig) -> Model:
 def batch_inputs(model: Model, batch, device) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """(tokens, apply kwargs) on ``device`` of one calibration or eval batch:
     the reference's dict, ``{"tokens"}`` plus ``"frames"`` for an
-    encoder-decoder model, or a bare (B, S) token array, taken as the
-    tokens (a decoder-only model's)."""
+    encoder-decoder model or, when it has them, ``"patches"`` (B, P, 1024)
+    for a decoder-only model (llava's image features, fp32 as given), or a
+    bare (B, S) token array, taken as the tokens (a decoder-only model's)."""
     if not isinstance(batch, dict):
         batch = {"tokens": batch}
     kwargs = {}
@@ -34,6 +35,8 @@ def batch_inputs(model: Model, batch, device) -> Tuple[torch.Tensor, Dict[str, A
             raise ValueError(f"{model.cfg.name} is an encoder-decoder: its batches are "
                              "dicts with 'tokens' and 'frames' (B, encoder_seq, d_model)")
         kwargs["frames"] = torch.as_tensor(batch["frames"], device=device)
+    elif "patches" in batch:
+        kwargs["patches"] = torch.as_tensor(batch["patches"], device=device)
     return torch.as_tensor(batch["tokens"], device=device), kwargs
 
 
@@ -61,6 +64,18 @@ def cache_leaf_names(model: DecoderLM) -> frozenset:
 
     walk(model.init_cache(1, 8, device="meta"))
     return frozenset(names)
+
+
+def cache_bytes_per_token(model: Model, kv_quant: bool = False) -> int:
+    """Bytes one token takes in the model's decode cache over all layers:
+    what a one-row slab on the meta device grows by from one position to
+    two (K/V, int8 K/V and their scales with ``kv_quant``, or MLA's
+    latents; the paged pools hold the same bytes a token)."""
+    def nbytes(tree):
+        return sum(nbytes(v) if isinstance(v, dict) else v.numel() * v.element_size()
+                   for v in tree.values())
+    return (nbytes(model.init_cache(1, 2, device="meta", kv_quant=kv_quant))
+            - nbytes(model.init_cache(1, 1, device="meta", kv_quant=kv_quant)))
 
 
 def has_recurrent_cache(model: DecoderLM) -> bool:
@@ -97,8 +112,11 @@ def cache_layout(model: Model) -> str:
     engine refuses ``paged=True`` and ``kv_quant``.  jamba's cache tree
     mixes the Mamba layers' recurrent ``{h, conv}`` with its attention
     layer's (max_batch, max_len) K/V slab: dense, one exact-length
-    admission a prompt; ``paged=True``, ``kv_quant`` and speculative
-    decoding are refused, as for RWKV-6.  An encoder-decoder's cross slabs
+    admission a prompt; ``paged=True`` and speculative decoding are
+    refused, as for RWKV-6, and ``kv_quant`` quantizes the attention
+    layer's slab only.  A vision model (llava) adds no cache leaf: its
+    projector runs only where patches are given, and the engine serves it
+    text-only, as the reference's.  An encoder-decoder's cross slabs
     are not paged K/V: "dense", as the reference says (its serving engine
     has no encoder-decoder path, and the port's refuses one)."""
     if model.cfg.is_encdec:

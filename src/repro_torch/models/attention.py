@@ -15,15 +15,16 @@ Conventions (the reference's):
   paged pools {"k", "v"[, "k_scale", "v_scale"]}: (N + 1, bs, Hkv, hd)
              blocks, the last one a write sink (``init_paged_kv_cache``)
   block_tables (B, M) int32, -1 = no block
-  dense slab {"k", "v"}: (B, max_len, Hkv, hd)
+  dense slab {"k", "v"[, "k_scale", "v_scale"]}: (B, max_len, Hkv, hd)
   cache_len  (B,) tokens already in each row's cache
 
 Caches are updated IN PLACE (the reference's donated buffers): a decode,
 prefill or prefill-chunk call writes its new K/V into the tensors it is
 given.  The slab attends with plain torch ops under the reference's mask
-(``_naive_attention``, as the reference computes it outside any kernel);
-its int8 form (``k_scale``) is not ported, as the engine refuses
-``kv_quant`` on the dense layout.
+(``_naive_attention``, as the reference computes it outside any kernel).
+Its int8 form (``k_scale``), as the reference's: a prefill attends with
+its own full-precision K/V and writes them quantized; a decode writes its
+new K/V quantized and attends over the whole slab dequantized to q's dtype.
 """
 
 from __future__ import annotations
@@ -52,11 +53,26 @@ def attention_init(gen, cfg: ModelConfig, dtype, device) -> Dict:
     }
 
 
-def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> Dict:
-    """The reference's dense (batch, max_len) K/V slab."""
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+def _kv_leaves(shape, dtype, device, quant: bool) -> Dict:
+    """K/V leaves of ``shape`` (..., Hkv, hd): ``dtype``, or int8 with fp32
+    per-(position, head) scales."""
+    if quant:
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            "v_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+        }
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device,
+                  quant: bool = False) -> Dict:
+    """The reference's dense (batch, max_len) K/V slab; ``quant``: its int8
+    form (symmetric per (position, head), halving the decode's cache reads)."""
+    return _kv_leaves((batch, max_len, cfg.num_kv_heads, cfg.head_dim), dtype, device,
+                      quant)
 
 
 def init_paged_kv_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
@@ -67,16 +83,8 @@ def init_paged_kv_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
     Writes that must drop are sent there — the reference's positive
     out-of-range sentinel, given memory — so dropping needs no data-dependent
     selection (which would sync with the host).  No table entry names it."""
-    shape = (num_blocks + 1, block_size, cfg.num_kv_heads, cfg.head_dim)
-    if quant:
-        return {
-            "k": torch.zeros(shape, dtype=torch.int8, device=device),
-            "v": torch.zeros(shape, dtype=torch.int8, device=device),
-            "k_scale": torch.zeros(shape[:3], dtype=torch.float32, device=device),
-            "v_scale": torch.zeros(shape[:3], dtype=torch.float32, device=device),
-        }
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return _kv_leaves((num_blocks + 1, block_size, cfg.num_kv_heads, cfg.head_dim),
+                      dtype, device, quant)
 
 
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -180,10 +188,14 @@ def _paged_decode_attend(q, k, v, cache, cache_len, block_tables, scale):
     return _naive_attention(q, kg, vg, valid[:, None, None], scale)
 
 
-def _slab_only(cache: Dict) -> None:
-    if "k_scale" in cache:
-        raise ValueError("the int8 dense K/V slab is not ported (the engine refuses "
-                         "kv_quant on the dense layout)")
+def _slab_leaves(cache: Dict, k: torch.Tensor, v: torch.Tensor):
+    """(leaf name, new values) pairs to write into a slab: K/V, or on the
+    int8 slab their int8 values and scales."""
+    if "k_scale" not in cache:
+        return (("k", k), ("v", v))
+    kq, ks = quantize_kv(k)
+    vq, vs = quantize_kv(v)
+    return (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs))
 
 
 def _slab_decode_attend(q, k, v, cache, cache_len, scale):
@@ -191,28 +203,34 @@ def _slab_decode_attend(q, k, v, cache, cache_len, scale):
     row (positions past max_len drop), then query i attends positions <=
     cache_len + i.  Position i of every row is written in one indexed
     store (distinct rows, so no index repeats); a dropped write stores the
-    slab's last position back as it is."""
-    _slab_only(cache)
+    slab's last position back as it is.  The int8 slab is attended
+    dequantized to q's dtype."""
     b, s = q.shape[:2]
     t_max = cache["k"].shape[1]
     pos = cache_len.long()[:, None] + torch.arange(s, device=q.device)  # (B, S)
     rows = torch.arange(b, device=q.device)
+    new = _slab_leaves(cache, k, v)
     for i in range(s):
-        keep = (pos[:, i] < t_max)[:, None, None]
+        keep = pos[:, i] < t_max
         at = pos[:, i].clamp(max=t_max - 1)
-        for name, new in (("k", k), ("v", v)):
+        for name, val in new:
             c = cache[name]
-            c[rows, at] = torch.where(keep, new[:, i].to(c.dtype), c[rows, at])
+            kp = keep.view(b, *([1] * (c.ndim - 2)))
+            c[rows, at] = torch.where(kp, val[:, i].to(c.dtype), c[rows, at])
+    k_all, v_all = cache["k"], cache["v"]
+    if "k_scale" in cache:
+        k_all = dequantize_kv(k_all, cache["k_scale"], q.dtype)
+        v_all = dequantize_kv(v_all, cache["v_scale"], q.dtype)
     valid = torch.arange(t_max, device=q.device)[None, None, :] <= pos[:, :, None]
-    return _naive_attention(q, cache["k"], cache["v"], valid[:, None, None], scale)
+    return _naive_attention(q, k_all, v_all, valid[:, None, None], scale)
 
 
 def _slab_prefill_write(cache, k, v) -> None:
-    """Each row's K/V at positions 0..S-1 of its slab row, zeros after (the
-    reference returns the prefill's K/V padded to max_len)."""
-    _slab_only(cache)
+    """Each row's K/V (int8 and scales on the int8 slab) at positions
+    0..S-1 of its slab row, zeros after (the reference returns the
+    prefill's K/V padded to max_len)."""
     s = k.shape[1]
-    for name, new in (("k", k), ("v", v)):
+    for name, new in _slab_leaves(cache, k, v):
         c = cache[name]
         c[:, :s] = new.to(c.dtype)
         c[:, s:] = 0

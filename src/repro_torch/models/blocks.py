@@ -149,29 +149,30 @@ def group_init(gen, group: StackGroup, cfg: ModelConfig, dtype, device,
 
 
 def block_cache_init(spec: BlockSpec, cfg: ModelConfig, batch: int, max_len: int,
-                     dtype, device, cross: bool = False) -> Dict:
+                     dtype, device, cross: bool = False, kv_quant: bool = False) -> Dict:
     """One layer's dense-slab cache rows: the recurrent state for rwkv and
     mamba (``h`` and the conv tail, whatever ``max_len``), the (batch,
     max_len) latent slab (c_kv, k_rope) for mla, the (batch, max_len) K/V
-    slab for gqa; a decoder layer with ``cross`` also its (batch,
-    encoder_seq) cross K/V slab."""
+    slab for gqa (int8 with ``kv_quant``, as the reference's: only this
+    slab is quantized); a decoder layer with ``cross`` also its (batch,
+    encoder_seq) cross K/V slab, in ``dtype``."""
     if spec[0] == "rwkv":
         return {"rwkv": rwkv_mod.init_rwkv_cache(cfg, batch, dtype, device)}
     if spec[0] == "mamba":
         return {"mamba": mamba_mod.init_mamba_cache(cfg, batch, dtype, device)}
     if spec[0] == "mla":
         return {"attn": mla_mod.init_mla_cache(cfg, batch, max_len, dtype, device)}
-    c = {"attn": attn_mod.init_kv_cache(cfg, batch, max_len, dtype, device)}
+    c = {"attn": attn_mod.init_kv_cache(cfg, batch, max_len, dtype, device, kv_quant)}
     if cross:
         c["cross"] = attn_mod.init_kv_cache(cfg, batch, cfg.encoder_seq, dtype, device)
     return c
 
 
 def group_cache_init(group: StackGroup, cfg: ModelConfig, batch: int, max_len: int,
-                     dtype, device, cross: bool = False) -> Dict:
+                     dtype, device, cross: bool = False, kv_quant: bool = False) -> Dict:
     def one():
         return {f"sub{j}": block_cache_init(spec, cfg, batch, max_len, dtype, device,
-                                            cross)
+                                            cross, kv_quant)
                 for j, spec in enumerate(group.period)}
     if group.repeats == 1:
         return one()

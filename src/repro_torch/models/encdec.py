@@ -74,12 +74,13 @@ class EncDecLM:
         }
 
     def init_cache(self, batch: int, max_len: int, dtype=None,
-                   device: Device = None) -> Dict:
+                   device: Device = None, kv_quant: bool = False) -> Dict:
         """The decoder's dense slabs: per layer a (batch, max_len) self K/V
-        slab and a (batch, encoder_seq) cross K/V slab."""
+        slab (int8 with ``kv_quant``) and a (batch, encoder_seq) cross K/V
+        slab (always ``dtype``, as the reference's)."""
         return {"decoder": group_cache_init(self.dec_group, self.cfg, batch, max_len,
                                             dtype or self.dtype, resolve_device(device),
-                                            cross=True)}
+                                            cross=True, kv_quant=kv_quant)}
 
     def encode(self, params: Mapping[str, Any], frames: torch.Tensor,
                taps: Optional[Dict] = None) -> torch.Tensor:

@@ -2,13 +2,15 @@
 Latent Attention (mla, mlp), the token-choice MoE family (dense first
 layers, then (gqa, moe) layers, or deepseek-v3's (mla, moe)), jamba's
 Mamba / attention hybrid ((mamba, mlp), (mamba, moe) and (gqa, mlp) in a
-period of 8) and RWKV-6 (rwkv, cmix)."""
+period of 8), RWKV-6 (rwkv, cmix) and the vision frontend (llava: a
+projector over patch features, its output in front of the tokens)."""
 
 from __future__ import annotations
 
 from typing import Any, Dict, Mapping, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import Device, resolve_device, torch_dtype
 from repro_torch.configs.base import ModelConfig
@@ -25,12 +27,15 @@ from .layers import (
     embed,
     embedding_init,
     learned_pos,
+    linear,
     linear_init,
     norm_apply,
     norm_init,
     unembed,
 )
 from .mamba import dt_rank_of
+
+VISION_FEATURE_DIM = 1024  # CLIP-L patch feature width (llava stub input)
 
 
 class DecoderLM:
@@ -64,6 +69,10 @@ class DecoderLM:
         if cfg.pos_emb == "learned":
             params["pos"] = embedding_init(gen, cfg.max_seq, cfg.d_model,
                                            self.dtype, dev)
+        if cfg.frontend == "vision":
+            params["projector"] = {
+                "wi": linear_init(gen, VISION_FEATURE_DIM, cfg.d_model, self.dtype, dev),
+                "wo": linear_init(gen, cfg.d_model, cfg.d_model, self.dtype, dev)}
         for i, g in enumerate(self.groups):
             params[f"g{i}"] = group_init(gen, g, cfg, self.dtype, dev)
         params["final_norm"] = norm_init(cfg.norm, cfg.d_model, self.dtype, dev)
@@ -73,12 +82,15 @@ class DecoderLM:
         return params
 
     def init_cache(self, batch: int, max_len: int, dtype=None,
-                   device: Device = None) -> Dict:
+                   device: Device = None, kv_quant: bool = False) -> Dict:
         """The dense (batch, ...) cache slab (the reference's layout);
+        ``kv_quant``: the attention layers' K/V in int8 with fp32 scales
+        (recurrent state and MLA's latents keep ``dtype``);
         ``device="meta"`` gives its leaves without allocating."""
         dtype = dtype or self.dtype
         dev = resolve_device(device)
-        return {f"g{i}": group_cache_init(g, self.cfg, batch, max_len, dtype, dev)
+        return {f"g{i}": group_cache_init(g, self.cfg, batch, max_len, dtype, dev,
+                                          kv_quant=kv_quant)
                 for i, g in enumerate(self.groups)}
 
     def init_paged_cache(self, num_blocks: int, block_size: int, dtype=None,
@@ -90,6 +102,7 @@ class DecoderLM:
                 for i, g in enumerate(self.groups)}
 
     def apply(self, params: Mapping[str, Any], tokens: torch.Tensor, *,
+              patches: Optional[torch.Tensor] = None,
               mode: str = "train", cache: Optional[Dict] = None,
               cache_len: Optional[torch.Tensor] = None,
               block_tables: Optional[torch.Tensor] = None,
@@ -97,10 +110,29 @@ class DecoderLM:
         """Logits (B, S, V), or with ``output="hidden"`` the final-norm
         hidden states (B, S, d_model) without the unembed (the draft's
         prefills, which need only the cache writes).  In "prefill" and
-        "decode" mode the ``cache`` tensors are written in place."""
+        "decode" mode the ``cache`` tensors are written in place.
+
+        ``patches`` (B, P, VISION_FEATURE_DIM), a vision model's image
+        features: the projector maps them to P rows in front of the token
+        embeddings, and positions (and the cache) run over the P + S rows;
+        the taps see the raw patches (``projector.in``), the GELU's output
+        (``projector.mid``) and the final norm over every row, and the
+        output covers the S token positions only."""
         cfg = self.cfg
-        b, s = tokens.shape
+        b = tokens.shape[0]
         x = embed(params["embed"], tokens).to(self.dtype)
+        n_prefix = 0
+        if patches is not None:
+            if taps is not None:
+                taps["projector.in"] = patches
+            # jax.nn.gelu defaults to the tanh approximation.
+            pv = F.gelu(linear(params["projector"]["wi"], patches.to(self.dtype)),
+                        approximate="tanh")
+            if taps is not None:
+                taps["projector.mid"] = pv
+            x = torch.cat([linear(params["projector"]["wo"], pv), x], dim=1)
+            n_prefix = patches.shape[1]
+        s = x.shape[1]
         ar = torch.arange(s, device=tokens.device)
         if mode == "decode":
             positions = cache_len.long()[:, None] + ar
@@ -119,6 +151,7 @@ class DecoderLM:
         x = norm_apply(params["final_norm"], x)
         if taps is not None:
             taps["final.out_in"] = x
+        x = x[:, n_prefix:]
         if output == "hidden":
             return x
         if output != "logits":
@@ -132,7 +165,8 @@ class DecoderLM:
         ffn's (mlp, moe or channel mix), so every (mixer, ffn) pair,
         deepseek-v3's (mla, moe) and jamba's (mamba, moe) among them, gets
         its targets in the reference's order.
-        A MoE layer's expert targets are stacked over the experts too."""
+        A MoE layer's expert targets are stacked over the experts too; a
+        vision model's projector (``wi``, ``wo``) comes after the layers."""
         from repro_torch.core.plan import TargetSpec
 
         cfg = self.cfg
@@ -202,4 +236,8 @@ class DecoderLM:
                                               out_dim=out_dim,
                                               gram_key=f"{tap}.{key}",
                                               stacked=stacked))
+        if cfg.frontend == "vision":
+            targets.append(TargetSpec(("projector", "wi"), VISION_FEATURE_DIM, d,
+                                      "projector.in"))
+            targets.append(TargetSpec(("projector", "wo"), d, d, "projector.mid"))
         return targets

@@ -91,6 +91,11 @@ def build_entry(cfg: ModelConfig, *, method: str = "nsvd1", ratio: float = 0.2,
     """Run calibrate -> compress -> evaluate on ``cfg`` and return the
     history entry.  ``params`` (dense, on their device) skips the load or
     random init; the entry's ``seconds`` hold each phase's wall time."""
+    if cfg.frontend == "vision":
+        # Its calibration stream is bare token arrays: the projector's
+        # targets would find no Gram.
+        raise ValueError(f"{cfg.name}'s projector targets are calibrated on image "
+                         "patches; build_entry calibrates on tokens only")
     dev = resolve_device(device) if params is None else params["embed"]["table"].device
     model = build_model(cfg)
     vocab = cfg.vocab_size

@@ -34,7 +34,11 @@ of the reference's cache layouts, chosen by ``models.api.cache_layout``:
   pad-sensitive model (a recurrent state folds in every position, MoE
   capacity is budgeted over a call's tokens) is admitted one request a
   call at its exact length.  ``paged=True`` is refused for a model whose
-  layout is dense.
+  layout is dense.  ``kv_quant`` quantizes the slab's attention K/V to
+  int8 with fp32 scales, as the reference's (admission writes them
+  quantized; recurrent state and MLA's latents keep the model's dtype); it
+  is refused for a model whose cache holds no attention K/V (RWKV-6, MLA),
+  where the reference quantizes nothing.
 
 Every engine step decodes one token for all live rows, and finished rows
 free their slot (and blocks) immediately, so new requests join mid-flight.
@@ -112,7 +116,8 @@ from repro_torch.launch.steps import (
     make_spec_verify_step,
     request_keys,
 )
-from repro_torch.models.api import cache_layout, prefill_pad_safe
+from repro_torch.models.api import (cache_bytes_per_token, cache_layout, cache_leaf_names,
+                                    prefill_pad_safe)
 from repro_torch.obs import NULL_TELEMETRY
 from repro_torch.runtime.straggler import StepTimeWatchdog
 from repro_torch.serving.faults import (
@@ -287,6 +292,7 @@ class ServingEngine:
         self.transfer_guard = transfer_guard
         self.max_batch = max_batch
         self.max_len = max_len
+        self.kv_quant = kv_quant
         self.seed = seed
         self.eos_id = eos_id
         self.prefill_chunk = prefill_chunk
@@ -313,13 +319,14 @@ class ServingEngine:
             self._decode = make_paged_decode_step(model, max_len)
             self._chunk_step = make_paged_prefill_chunk_step(model)
         else:
-            if kv_quant:
-                raise ValueError(f"{model.cfg.name}: kv_quant quantizes paged "
-                                 "attention K/V; this engine's cache is the dense slab")
+            if kv_quant and "k" not in cache_leaf_names(model):
+                raise ValueError(f"{model.cfg.name}: kv_quant quantizes attention K/V; "
+                                 "this model's dense cache holds none")
             self.kv = None
-            self.cache = model.init_cache(max_batch, max_len, device=self.device)
+            self.cache = model.init_cache(max_batch, max_len, device=self.device,
+                                          kv_quant=kv_quant)
             self._decode = make_decode_sample_step(model, max_len)
-            self._prefill = make_prefill_admit_step(model, max_len)
+            self._prefill = make_prefill_admit_step(model, max_len, kv_quant)
             self._buckets = self._make_buckets(max_len)
         self._bucketed = prefill_pad_safe(model)
         # Dense admission calls by their prompt width (a bucket, or a
@@ -343,7 +350,8 @@ class ServingEngine:
             self._spec_draft = make_spec_draft_step(model, spec_config.k)
             self._spec_verify = make_spec_verify_step(model, spec_config.k, max_len)
             self._draft_prefill = (make_paged_draft_prefill_step(model) if paged_spec
-                                   else make_dense_draft_prefill_step(model, max_len))
+                                   else make_dense_draft_prefill_step(model, max_len,
+                                                                      kv_quant))
             # Per-row speculation windows (all k unless dynamic_k shrinks them).
             self._k_row = np.full(max_batch, spec_config.k, np.int32)
             self._k_row_dev = None
@@ -1649,7 +1657,8 @@ class ServingEngine:
         }
 
     def cache_stats(self) -> Dict[str, object]:
-        """Cache bytes and live/reserved tokens (one device: no mesh)."""
+        """Cache bytes, the bytes a token takes (int8 K/V and their scales
+        with ``kv_quant``) and live/reserved tokens (one device: no mesh)."""
         live = int((self._len_host * self.active).sum())
         if self.kv is not None:
             s = dict(self.kv.stats(), layout="paged")
@@ -1658,6 +1667,7 @@ class ServingEngine:
             s = {"layout": "dense", "tokens_capacity": self.max_batch * self.max_len,
                  "cache_hbm_bytes": slab, "dp_shards": 1,
                  "per_device_cache_hbm_bytes": slab}
+        s["bytes_per_token"] = cache_bytes_per_token(self.model, self.kv_quant)
         s["mesh"] = {"dp": 1, "tp": 1, "devices": 1}
         s["live_tokens"] = live
         if self.draft is not None:

@@ -46,7 +46,8 @@ class DraftState:
             self.cache = None
         else:
             self.kv = None
-            self.cache = model.init_cache(max_batch, max_len, device=self.device)
+            self.cache = model.init_cache(max_batch, max_len, device=self.device,
+                                          kv_quant=kv_quant)
         # Admission sets each row's key to its request's draft chain.
         self.key_data = torch.zeros((max_batch, 2), dtype=torch.int64, device=self.device)
 

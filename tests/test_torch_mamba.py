@@ -394,15 +394,22 @@ def test_layout_is_the_exact_length_dense_slab():
 
 @pytest.mark.parametrize("kw,match", [
     ({"paged": True}, "paging requires a pure-attention cache"),
-    ({"kv_quant": True}, "kv_quant quantizes paged attention"),
+    ({"paged": True, "kv_quant": True}, "paging requires a pure-attention cache"),
     ("spec", "speculative decoding needs pure-attention caches")])
 def test_engine_refuses_pages_int8_and_spec(kw, match):
-    """Each refusal names its reason, as for RWKV-6."""
+    """Each refusal names its reason, as for RWKV-6.  ``kv_quant`` alone is
+    taken: it makes the attention layer's slab int8, the Mamba state stays
+    fp32 (tests/test_torch_slab_int8.py); with pages it is refused as pages
+    are."""
     _, _, tmodel, tparams = _setup()
     if kw == "spec":
         kw = {"spec_config": SpecConfig(draft_params=tparams, k=2)}
     with pytest.raises(ValueError, match=match):
         ServingEngine(tmodel, tparams, max_batch=2, max_len=32, **kw)
+    eng = ServingEngine(tmodel, tparams, max_batch=2, max_len=32, kv_quant=True)
+    assert {str(leaf.dtype) for leaf in (eng.cache["g0"]["sub4"]["attn"]["k"],
+                                         eng.cache["g0"]["sub0"]["mamba"]["h"])} == {
+        "torch.int8", "torch.float32"}
 
 
 def _recorded(eng, attr, out):

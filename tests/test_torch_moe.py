@@ -422,17 +422,6 @@ def test_slab_prefill_then_decode_match_reference():
     assert clen[1] > t_max  # row 1's last write ran past the slab
 
 
-def test_slab_refuses_int8():
-    _, tcfg, _, tp = _attn()
-    cache = {"k": torch.zeros((1, 8, 4, 8), dtype=torch.int8),
-             "v": torch.zeros((1, 8, 4, 8), dtype=torch.int8),
-             "k_scale": torch.zeros((1, 8, 4)), "v_scale": torch.zeros((1, 8, 4))}
-    with pytest.raises(ValueError, match="int8"):
-        attention.attention_apply(tp, torch.zeros((1, 1, 32)), tcfg,
-                                  torch.zeros((1, 1), dtype=torch.long), mode="decode",
-                                  cache=cache, cache_len=torch.zeros(1, dtype=torch.int32))
-
-
 def _cache_leaves(tree, prefix=""):
     for k in sorted(tree):
         if isinstance(tree[k], dict):
@@ -474,15 +463,19 @@ def test_model_prefill_then_decode_match():
 def test_layout_queries_and_paged_refusal():
     """As tests/test_paged_kvcache.py and tests/test_serving_engine.py hold
     the reference: MoE is pad-sensitive and serves on the dense layout;
-    asking for pages is refused with the reference's message."""
+    asking for pages is refused with the reference's message; ``kv_quant``
+    makes its slab's K/V int8 (tests/test_torch_slab_int8.py holds that slab
+    against the reference's)."""
     _, tmodel, _, tparams = _model()
     assert cache_layout(tmodel) == "dense" and not prefill_pad_safe(tmodel)
     eng = ServingEngine(tmodel, tparams, max_batch=2, max_len=64)
     assert eng.layout == "dense" and eng.kv is None
     with pytest.raises(ValueError, match="cache layout"):
         ServingEngine(tmodel, tparams, max_batch=2, max_len=64, paged=True)
-    with pytest.raises(ValueError, match="kv_quant"):
-        ServingEngine(tmodel, tparams, max_batch=2, max_len=64, kv_quant=True)
+    eng = ServingEngine(tmodel, tparams, max_batch=2, max_len=64, kv_quant=True)
+    slab = eng.cache["g1"]["sub0"]["attn"]
+    assert eng.layout == "dense" and slab["k"].dtype == torch.int8
+    assert slab["k_scale"].shape == slab["k"].shape[:-1]
 
 
 def _min_margin(jmodel, jparams, prompt, gen):
