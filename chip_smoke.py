@@ -25,7 +25,11 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
      split plan, which kernels ran, the device time of one call and of SDPA,
      the achieved bytes/s, and the combine kernel alone against its plain
      version on the split kernel's partials; rwkv6: also a per-element check
-     of y and of the final state, and the device time of one call);
+     of y and of the final state, and the device time of one call;
+     flash_attention's backward (three kernels: D, dK/dV, dQ) against the
+     plain FA2 backward per element (FLASH_BWD_ELEM_TOL) at
+     FLASH_BWD_SHAPES, two runs bit-identical, the forward's log-sum-exp
+     against the plain one, beside SDPA's backward alone);
   4. serve path: ``serve()`` on mistral-7b at full width (depth cut to 2
      layers, random weights from a seed): calibrate, NSVD-compress (nsvd1,
      ratio 0.2, bf16 factors) and serve 8 requests, with the kernels' launch
@@ -231,7 +235,22 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
      one-image prefill's and an eval batch's logits against the plain
      versions; a profiled decode step and calibration batch.  The kernel
      phase holds the gram at (9216, 1024) (fp32: the FMA kernel) and the
-     projector's wi and wo at 576 rows.
+     projector's wi and wo at 576 rows;
+ 15. train path: mistral-7b at full width cut to 2 layers (0.70 B params,
+     bf16, fp32 AdamW state), batch 4 x 2048 from the data pipeline, the
+     loss chunked by 512: step 1's loss and every leaf's grad through the
+     kernels (flash forward with its log-sum-exp, the hand-written
+     backward) against the same step under ``kernels.plain()``
+     (TRAIN_GRAD_REL_TOL, TRAIN_LOSS_REL_TOL); one step, an async
+     checkpoint to a temporary directory, TRAIN_RESUME_STEPS steps, and the
+     same steps from the restored checkpoint bit for bit; launches exactly
+     TRAIN_PREDICTED (no nested, paged, rwkv6 or gram launch); a profiled
+     step (wall, device, tokens/s, the backward kernels' share); then
+     small-llama (fp32) trained by the reference's recipe
+     (``launch.train.train_small_lm``: 300 steps) with its loss falling by
+     SMALL_LOSS_DROP, and ``build_entry`` (nsvd1 0.2, k1 0.9) on its params
+     with exact launches (``small_quality_expect``), printed beside
+     BENCH_quality.json's JAX-trained entry.
 Prints each path's seconds and peak device memory, a JSON kernel summary,
 nvidia-smi's line, and as its last line
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero; without a
@@ -419,6 +438,17 @@ FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 # four ulps allowed (measured up to 1.33e-2 on the H100).  fp32: sum order
 # only (measured up to 7.4e-6).
 FLASH_ELEM_TOL = {"bfloat16": 2 ** -5, "float32": 1e-4}
+# The backward phase (dtype, B, S, Hq, Hkv, hd): the forward's (4, 2048)
+# row, small-llama's (16, 128) in fp32, a ragged S, and G 16 (chatglm3's
+# 32/2 heads).
+FLASH_BWD_SHAPES = (("bfloat16", 4, 2048, 32, 8, 128), ("float32", 16, 128, 4, 4, 32),
+                    ("bfloat16", 4, 1000, 32, 8, 128), ("bfloat16", 4, 2048, 32, 2, 128))
+# Per element of dq, dk, dv against the plain backward on ``bwd_elem_err``
+# (tests/test_torch_cuda.py's FLASH_BWD_ELEM_TOL): both compute the same
+# fp32 FA2 formulas in other orders; bf16 rounds each gradient once at the
+# end (a flip is one ulp, under 2^-7 of |want|), four ulps allowed; fp32:
+# sum order over up to S keys or S x G query rows.
+FLASH_BWD_ELEM_TOL = {"bfloat16": 2 ** -5, "float32": 1e-4}
 EVAL_LOGIT_TOL = 5e-2  # bf16 models: flash vs naive rounding, one batch
 # (case, BH, T, K, dtype, fixed w): an rwkv6-1.6b eval batch (4 x 32 heads,
 # 2048 tokens), one request's prefill (32 heads, ragged 200 tokens, with its
@@ -1040,6 +1070,86 @@ def flash_phase(torch, ops, ref):
     return rows_out
 
 
+def bwd_elem_err(torch, got, want) -> float:
+    """Max over elements of |got - want| / (|want| + rms of want's row + rms
+    of want): ``elem_err`` with the tensor's rms as a floor, since a
+    gradient row can vanish by cancellation (position 0's dq is dS K with
+    dS = dO.v0 - dO.o0 = 0 exactly: rounding noise in both versions)."""
+    w = want.float()
+    rms = w.pow(2).mean(-1, keepdim=True).sqrt()
+    floor = w.pow(2).mean().sqrt()
+    return float(((got.float() - w).abs() / (w.abs() + rms + floor).clamp_min(1e-30)).max())
+
+
+def flash_bwd_phase(torch, ops, ref):
+    """The three backward kernels against the plain FA2 backward on the
+    same inputs (the plain forward's out and lse, a random dO), per
+    element within FLASH_BWD_ELEM_TOL; the forward's lse against the plain
+    one; timed (CUDA events and profiled device time) beside the plain
+    backward, SDPA's backward alone and the bound: 2.5 times the forward's
+    causal FLOPs (two products forward, five backward, of which S is
+    recomputed: counted once) against every operand read once and every
+    gradient written once."""
+    rows_out = []
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for dname, b, s, hq, hkv, hd in FLASH_BWD_SHAPES:
+        dt = getattr(torch, dname)
+
+        def mk(h):
+            return torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dt)
+        q, k, v, dout = mk(hq), mk(hkv), mk(hkv), mk(hq)
+        out, lse = ref.flash_attention_fwd_ref(q, k, v)
+        klse = torch.empty_like(lse)
+        kout = ops._forward(q, k, v, klse)
+        got = ops.backward(q, k, v, out, lse, dout)
+        want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout)
+        again = ops.backward(q, k, v, out, lse, dout)
+        torch.cuda.synchronize()
+        errs = {n: bwd_elem_err(torch, x, w) for n, x, w in zip(("dq", "dk", "dv"), got, want)}
+        abs_err = max(float((x.float() - w.float()).abs().max()) for x, w in zip(got, want))
+        lse_err = float((klse - lse).abs().max())
+        same_bits = all(torch.equal(x, y) for x, y in zip(got, again))
+        ok = (all(bool(torch.isfinite(x).all()) for x in got) and same_bits
+              and max(errs.values()) <= FLASH_BWD_ELEM_TOL[dname]
+              and lse_err <= 1e-5 * float(lse.abs().max()) + 1e-5)
+        del got, want, again, kout, klse
+        ms = time_ms(lambda: ops.backward(q, k, v, out, lse, dout), reps=5)
+        dev = profile_step(torch, lambda: ops.backward(q, k, v, out, lse, dout), quiet=True,
+                           windows=3)
+        plain = time_ms(lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, dout), reps=3)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        ot = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        dot = dout.transpose(1, 2)
+        lib = time_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True),
+                      reps=5)
+        del ot, qt, kt, vt
+        el = q.element_size()
+        # Read q, k, v, out, dO and lse; write dq, dk, dv.
+        nbytes = (4 * q.numel() + 2 * (k.numel() + v.numel())) * el + 4 * lse.numel()
+        flops = 2.5 * 2 * b * hq * hd * s * (s + 1)
+        bnd, by = bound_ms(nbytes, flops, dname)
+        dev_ms = dev["device_busy_ms"]
+        row = dict(kernel="flash_attention_bwd", dtype=dname, B=b, S=s, Hq=hq, Hkv=hkv, hd=hd,
+                   elem_err=errs, elem_tol=FLASH_BWD_ELEM_TOL[dname], max_abs_err=abs_err,
+                   lse_max_abs_err=lse_err, bit_identical_reruns=same_bits, ok=ok, ms=ms,
+                   device_ms=dev_ms, device_kernels=dev["kernels"], plain_ms=plain,
+                   library_ms=lib, bytes=nbytes, flops=flops, bound_ms=bnd, bound_by=by,
+                   tflops=flops / dev_ms * 1e-9, bound_share=bnd / dev_ms)
+        rows_out.append(row)
+        log(f"flash_bwd {dname:8s} B={b:<2d} S={s:<4d} Hq/Hkv={hq}/{hkv} hd={hd} elem err "
+            + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
+            + f" (tol {FLASH_BWD_ELEM_TOL[dname]:.2e}) lse err {lse_err:.2e} reruns "
+            f"{'bit-identical' if same_bits else 'DIFFER'} {'OK' if ok else 'FAIL'}  kernels "
+            f"{ms:.3f} ms, device {dev_ms:.3f} ms ({flops / dev_ms * 1e-9:.1f} TFLOP/s, "
+            f"{bnd / dev_ms:.1%} of bound)  plain {plain:.3f} ms  library (sdpa backward) "
+            f"{lib:.3f} ms  bound {bnd:.4f} ms ({by})")
+        log("    device by kernel: " + ", ".join(f"{k[:40]} {v:.3f}" for k, v in sorted(
+            dev["kernels"].items(), key=lambda kv: -kv[1])[:4]))
+        del q, k, v, dout, out, lse
+    return rows_out
+
+
 def rwkv6_inputs(torch, gen, bh, t, k, dname, w_fixed):
     """r, k, v, w (BH, T, K) in ``dname`` and u (BH, K) fp32, drawn from
     ``gen``: decays uniform in (0.01, 0.999), or all ``w_fixed``."""
@@ -1114,7 +1224,7 @@ def reset_counts() -> None:
     for name in KERNELS:
         _ops(name).launches = 0
     fa = _ops("flash_attention")
-    fa.tensor_core_launches = fa.cuda_core_launches = 0
+    fa.tensor_core_launches = fa.cuda_core_launches = fa.backward_launches = 0
     nlr = _ops("nested_lowrank")
     nlr.stream_launches = nlr.mma_launches = nlr.tile_launches = 0
     nlr.batched_by_kernel.update(stream=0, mma=0, tile=0)
@@ -4441,6 +4551,280 @@ def ptxas_report(build_log: dict) -> list:
     return out
 
 
+# The train path.  Mistral-7B at full width cut to 2 of 32 layers (as the
+# serve path: 0.70 B params), bf16 params with fp32 AdamW state (about 11.2
+# GB of params, grads and state before activations), batch 4 x 2048 from
+# the data pipeline, the loss chunked by 512 positions: step 1's loss and
+# grads against the same step under ``kernels.plain()``, then one step, a
+# checkpoint (async, to a temporary directory) and TRAIN_RESUME_STEPS more
+# steps, against the same steps from the restored checkpoint.  Then
+# small-llama (fp32) by the reference's recipe (``train_small_lm``) and
+# ``build_entry`` on its params.
+TRAIN_LAYERS = 2
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_CHUNK = 4, 2048, 512
+TRAIN_RESUME_STEPS = 2
+# Step 1 with the kernels against plain, bf16 model: the forward's flash
+# kernel rounds P to bf16 at other points than the plain softmax (logits
+# within ~1.2% of max |logit|, EVAL_LOGIT_TOL), and every grad leaf is bf16.
+# Per leaf ||g - g_plain|| / ||g_plain|| within 5e-2; the loss within 1e-2.
+TRAIN_GRAD_REL_TOL = 5e-2
+TRAIN_LOSS_REL_TOL = 1e-2
+# small-llama's loss must fall by this many nats from step 1 (ln 512 = 6.24
+# at a uniform prediction) to step 300; the reference's JAX-trained model
+# evaluates at ln 131.6 = 4.88 on en_a.
+SMALL_LOSS_DROP = 1.0
+SMALL_QUALITY = dict(method="nsvd1", ratio=0.2, k1_frac=0.9, eval_n_batches=4,
+                     calib_samples=128, eval_batch=16, eval_seq=128)
+# Launches of the two training runs: flash forward and backward once per
+# attention layer and step (Mistral: step 1's kernel grads, then 1 + 2
+# steps uninterrupted and 2 resumed; none in the plain comparison;
+# small-llama: 4 layers x 300 steps), no nested, paged, rwkv6 or gram.
+TRAIN_PREDICTED = {
+    "mistral": dict(flash_attention=2 * (1 + 1 + 2 * TRAIN_RESUME_STEPS),
+                    flash_backward=2 * (1 + 1 + 2 * TRAIN_RESUME_STEPS), nested_lowrank=0,
+                    paged_attention=0, rwkv6=0, gram=0),
+    "small_llama": dict(flash_attention=4 * 300, flash_backward=4 * 300, nested_lowrank=0,
+                        paged_attention=0, rwkv6=0, gram=0),
+}
+FLASH_BWD_KERNEL_NAMES = ("flash_bwd_dsum", "flash_bwd_dkdv", "flash_bwd_dq")
+
+
+def train_counts() -> dict:
+    """Launch counts since ``reset_counts``, the flash backward's calls too."""
+    return {**read_counts(), "flash_backward": _ops("flash_attention").backward_launches}
+
+
+def small_quality_expect(cfg, model, q: dict) -> dict:
+    """Launches of ``build_entry`` with settings ``q`` on a dense (gqa, mlp)
+    model: flash once a layer and causal forward (the quality path's count:
+    calibration batches of 16, dense and compressed ppl per domain, the KL
+    batches' two forwards, two per target and attribution batch, 2 x 4 of
+    activation similarity), a gram call a tap (4 a layer and the final
+    norm's) and calibration batch; nested none, for eval batches of 2048
+    rows and more (above the kernel's 1024-row gate)."""
+    from repro_torch.obs.quality_report import EVAL_DOMAINS
+
+    batches = q["calib_samples"] // 16
+    attr_n = 2  # build_entry's attribution_batches
+    forwards = (batches + 2 * len(EVAL_DOMAINS) * q["eval_n_batches"]
+                + 2 * q["eval_n_batches"] + 2 * len(model.compressible_targets()) * attr_n
+                + 2 * 4)
+    return {"nested_lowrank": 0, "paged_attention": 0, "rwkv6": 0,
+            "flash_attention": cfg.num_layers * forwards,
+            "gram": (4 * cfg.num_layers + 1) * batches}
+
+
+def small_quality(torch, params) -> tuple:
+    """``build_entry`` on small-llama's trained params with its exact
+    launches (the quality path's count of causal forwards; every Gram tap
+    fp32 on the FMA kernel; the compressed linears' 2048-row batches above
+    the nested kernel's 1024-row gate, so no nested launch), beside the
+    reference's entry in BENCH_quality.json (JAX-trained, on the CPU)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.obs.quality_report import EVAL_DOMAINS, build_entry
+
+    cfg = get_config("small-llama")
+    model = build_model(cfg)
+    reset_counts()
+    entry = build_entry(cfg, params=params, **SMALL_QUALITY)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect = small_quality_expect(cfg, model, SMALL_QUALITY)
+    fa, gram = _ops("flash_attention"), _ops("gram")
+    kinds_ok = (fa.cuda_core_launches == counts["flash_attention"]
+                and gram.fma_launches == counts["gram"])
+    ref = None
+    path = os.path.join(ROOT, "BENCH_quality.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            hist = json.load(f).get("history", [])
+        ref = next((e for e in hist if e["meta"].get("model") == "small-llama"
+                    and e["meta"].get("method") == "nsvd1"
+                    and e["meta"].get("ratio") == 0.2), None)
+    dec = entry["decomposition"]
+    log(f"  small-llama build_entry (port-trained on this card, nsvd1 0.2, k1 0.9): achieved "
+        f"ratio {entry['achieved_ratio']:.5f}, whitened rel err {dec['whitened_rel_err_mean']:.4f}"
+        f" against plain {dec['plain_rel_err_mean']:.4f}, logit KL {entry['logit_kl']:.5f}; "
+        f"phase seconds " + ", ".join(f"{k}={v:.2f}" for k, v in entry["seconds"].items()))
+    for d in EVAL_DOMAINS:
+        beside = ""
+        if ref is not None:
+            beside = (f"   reference (JAX-trained, CPU, {ref['git_sha'][:7]}): dense "
+                      f"{ref['dense_ppl'][d]:.3f} compressed {ref['compressed_ppl'][d]:.3f}")
+        log(f"    ppl[{d}]: dense {entry['dense_ppl'][d]:.3f} compressed "
+            f"{entry['compressed_ppl'][d]:.3f} (x{entry['ppl_ratio'][d]:.4f}){beside}")
+    if ref is not None:
+        rdec = ref["decomposition"]
+        log(f"    reference: achieved ratio {ref['achieved_ratio']:.5f}, whitened rel err "
+            f"{rdec['whitened_rel_err_mean']:.4f} against plain {rdec['plain_rel_err_mean']:.4f}"
+            f", logit KL {ref['logit_kl']:.5f}")
+    numbers = [*entry["dense_ppl"].values(), *entry["compressed_ppl"].values(),
+               entry["logit_kl"], entry["achieved_ratio"]]
+    ok = (counts == expect and kinds_ok and all(math.isfinite(float(x)) for x in numbers)
+          and dec["whitened_rel_err_mean"] < dec["plain_rel_err_mean"])
+    log(f"    launches {counts} expected {expect}; flash all CUDA-core, gram all FMA: "
+        f"{kinds_ok} {'OK' if ok else 'FAIL'}")
+    return entry, ref, counts, expect, ok
+
+
+def train_path(torch, np):
+    """The train path (see TRAIN_LAYERS): Mistral-7B's train step at full
+    width with its plain comparison and its resume check, then small-llama
+    trained by the reference's recipe, compressed and evaluated; launches
+    held to TRAIN_PREDICTED."""
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.checkpointer import flatten
+    from repro_torch.configs import MISTRAL_7B
+    from repro_torch.data.pipeline import LMDataPipeline, PipelineState
+    from repro_torch.launch.steps import StepConfig, make_grad_fn, make_train_step
+    from repro_torch.launch.train import train_small_lm
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, AdamWState, init_state, linear_warmup_cosine
+
+    cfg = dataclasses.replace(MISTRAL_7B, num_layers=TRAIN_LAYERS)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, "cuda")
+    n_params = sum(p.numel() for p in flatten(params).values())
+    reckon = n_params * (2 + 2 + 3 * 4)  # bf16 params and grads, fp32 mu, nu, master
+    pipe = LMDataPipeline(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
+                          PipelineState(seed=0, step=0, domain="en_a"), device="cuda")
+    batches = [next(pipe) for _ in range(2 + TRAIN_RESUME_STEPS)]
+    step_cfg = StepConfig(chunked_loss=TRAIN_CHUNK)
+    opt_cfg = AdamWConfig(lr=3e-4, schedule=linear_warmup_cosine(2, 20))
+    grad_fn = make_grad_fn(model, step_cfg)
+    step_fn = make_train_step(model, opt_cfg, step_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+
+    # Step 1's loss and grads: kernels, then plain versions.
+    _, loss_k, _, grads_k = grad_fn(params, batches[0])
+    with kernels.plain():
+        _, loss_p, _, grads_p = grad_fn(params, batches[0])
+    plain = flatten(grads_p)
+    rel = {}
+    for k, g in flatten(grads_k).items():
+        w = plain[k].float()
+        rel["/".join(k)] = float((g.float() - w).norm() / w.norm().clamp_min(1e-30))
+    del grads_p, plain
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    grads_ok = (max(rel.values()) <= TRAIN_GRAD_REL_TOL and loss_rel <= TRAIN_LOSS_REL_TOL
+                and all(bool(torch.isfinite(g).all()) for g in flatten(grads_k).values()))
+    del grads_k
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
+    log(f"train path: {cfg.name} layers={cfg.num_layers} (depth cut), {n_params / 1e9:.3f} B "
+        f"params bf16, AdamW fp32, batch {TRAIN_BATCH} x {TRAIN_SEQ}, loss chunked by "
+        f"{TRAIN_CHUNK}")
+    log(f"  step 1 kernels vs plain: loss {float(loss_k):.5f} vs {float(loss_p):.5f} (rel "
+        f"{loss_rel:.2e}, tol {TRAIN_LOSS_REL_TOL:.0e}); grads rel L2 max {max(rel.values()):.3e}"
+        f" (tol {TRAIN_GRAD_REL_TOL:.0e}) over {len(rel)} leaves, worst {worst} "
+        f"{'OK' if grads_ok else 'FAIL'}")
+
+    # One step, an async checkpoint, then TRAIN_RESUME_STEPS steps; the same
+    # steps again from the restored checkpoint.
+    opt = init_state(params)
+    p1, o1, m1 = step_fn(params, opt, batches[1])
+    del params, opt
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp, keep=1, async_save=True)
+        t_save = time.perf_counter()
+        mgr.save(1, (p1, o1), {"pipeline": {"seed": 0, "step": 2, "domain": "en_a"}})
+        snap_s = time.perf_counter() - t_save
+        pa, oa, losses_a = p1, o1, []
+        for b in batches[2:]:
+            pa, oa, ma = step_fn(pa, oa, b)
+            losses_a.append(ma["loss"])
+        mgr.wait()
+        save_s = time.perf_counter() - t_save
+        del p1, o1
+        t_load = time.perf_counter()
+        (pb, ob), extra, at = mgr.restore(device="cuda")
+        ob = AdamWState(*ob)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t_load
+        ckpt_bytes = sum(os.path.getsize(os.path.join(tmp, "step_00000001", n))
+                         for n in os.listdir(os.path.join(tmp, "step_00000001")))
+    losses_b = []
+    for b in batches[2:]:
+        pb, ob, mb = step_fn(pb, ob, b)
+        losses_b.append(mb["loss"])
+    torch.cuda.synchronize()
+    counts = train_counts()
+    peak = torch.cuda.max_memory_allocated()
+    diffs = {}
+    fb = flatten((pb, ob))
+    for k, a in flatten((pa, oa)).items():
+        if not torch.equal(a, fb[k]):
+            diffs["/".join(k)] = float((a.float() - fb[k].float()).abs().max())
+    resume_ok = not diffs and at == 1 and int(ob.step) == 1 + TRAIN_RESUME_STEPS
+    losses = [float(x) for x in [m1["loss"], *losses_a]]
+    counts_ok = counts == TRAIN_PREDICTED["mistral"]
+    fa = _ops("flash_attention")
+    kinds_ok = fa.tensor_core_launches == counts["flash_attention"]
+    log(f"  resume: {TRAIN_RESUME_STEPS} steps after the step-1 checkpoint "
+        f"({ckpt_bytes / 1e9:.2f} GB: snapshot {snap_s:.2f} s, on disk after {save_s:.2f} s, "
+        f"restore {load_s:.2f} s) against the same steps uninterrupted: "
+        f"{'bit-identical' if not diffs else f'{len(diffs)} leaves differ, max {max(diffs.values()):.3e}'}"
+        f" {'OK' if resume_ok else 'FAIL'}; losses {[round(x, 5) for x in losses]}")
+    log(f"  peak {peak / 2 ** 30:.2f} GiB allocated against the reckoning of {reckon / 2 ** 30:.2f}"
+        f" GiB for params, grads and AdamW state (plus activations, the guard's old tree "
+        f"and the plain comparison)")
+    log(f"  launches {counts} expected {TRAIN_PREDICTED['mistral']}; flash forwards all "
+        f"tensor-core: {kinds_ok} {'OK' if counts_ok and kinds_ok else 'FAIL'}")
+
+    # Where a step's time goes (outside the counted run).
+    prof = profile_step(torch, lambda: step_fn(pb, ob, batches[2]), "train step", windows=3)
+    bwd_ms = sum(ms for k, ms in prof["kernels"].items()
+                 if any(n in k for n in FLASH_BWD_KERNEL_NAMES))
+    fwd_ms = sum(ms for k, ms in prof["kernels"].items() if "flash_mma_kernel" in k)
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (prof["wall_ms"] / 1e3)
+    log(f"  train step: wall {prof['wall_ms']:.2f} ms, device {prof['device_busy_ms']:.2f} ms, "
+        f"{tok_s:.0f} tokens/s; flash backward kernels {bwd_ms:.2f} ms "
+        f"({bwd_ms / prof['device_busy_ms']:.1%} of device), flash forward {fwd_ms:.3f} ms")
+    mistral_s = time.perf_counter() - t0
+    del pa, oa, pb, ob
+    torch.cuda.empty_cache()
+
+    # small-llama by the reference's recipe, then compressed and evaluated.
+    t1 = time.perf_counter()
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        small, extra = train_small_lm("small-llama", device="cuda", ckpt_dir=tmp)
+        torch.cuda.synchronize()
+    small_s = time.perf_counter() - t1
+    small_counts = train_counts()
+    small_counts_ok = (small_counts == TRAIN_PREDICTED["small_llama"]
+                       and fa.cuda_core_launches == small_counts["flash_attention"])
+    first, last = extra["losses"]["1"], extra["final_loss"]
+    drop_ok = math.isfinite(last) and first - last >= SMALL_LOSS_DROP
+    log(f"  small-llama: train_small_lm ({extra['steps']} steps, batch 16 x 128, mix) {small_s:.2f} s "
+        f"({small_s / extra['steps'] * 1e3:.1f} ms a step); loss {first:.4f} -> {last:.4f} "
+        f"(drop {first - last:.4f}, at least {SMALL_LOSS_DROP}; ln 512 = {math.log(512):.4f}); "
+        f"losses {extra['losses']} {'OK' if drop_ok else 'FAIL'}")
+    log(f"    launches {small_counts} expected {TRAIN_PREDICTED['small_llama']} (flash all "
+        f"CUDA-core) {'OK' if small_counts_ok else 'FAIL'}")
+    entry, ref, q_counts, q_expect, q_ok = small_quality(torch, small)
+    ok = (grads_ok and resume_ok and counts_ok and kinds_ok and small_counts_ok and drop_ok
+          and q_ok and all(math.isfinite(x) for x in losses))
+    summary = dict(config=cfg.name, layers=cfg.num_layers, params=n_params,
+                   reckoned_state_gib=reckon / 2 ** 30, peak_gib=peak / 2 ** 30,
+                   loss_kernel=float(loss_k), loss_plain=float(loss_p), loss_rel=loss_rel,
+                   grad_rel=rel, losses=losses, resume_diffs=diffs, checkpoint_bytes=ckpt_bytes,
+                   snapshot_s=snap_s, save_s=save_s, restore_s=load_s, launches=counts,
+                   expected_launches=TRAIN_PREDICTED["mistral"], step_profile=prof,
+                   flash_bwd_ms=bwd_ms, flash_fwd_ms=fwd_ms, tokens_per_s=tok_s,
+                   mistral_s=mistral_s, small_s=small_s, small_losses=extra["losses"],
+                   small_launches=small_counts, small_entry=entry, reference_entry=ref,
+                   small_quality_launches=q_counts, small_quality_expected=q_expect,
+                   ok=bool(ok))
+    return summary, counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4490,9 +4874,10 @@ def main() -> int:
     grams = gram_phase(torch, gram_ops, gram_ref)
     grams_b = gram_batched_phase(torch, gram_ops, gram_ref)
     flash = flash_phase(torch, fa_ops, fa_ref)
+    flash_bwd = flash_bwd_phase(torch, fa_ops, fa_ref)
     rwkv = rwkv6_phase(torch, rwkv_ops, rwkv_ref)
     kernels_ok = all(r["ok"] for r in nested + nested_b + paged + grams + grams_b + flash
-                     + rwkv)
+                     + flash_bwd + rwkv)
     # mistral-7b cut to 2 of 32 layers (1 on the methods path); rwkv6-1.6b
     # cut to 4 of 24; moonshot-v1-16b-a3b cut to 3 of 48 (its dense first
     # layer and two MoE layers); chatglm3-6b cut to 2 of 28; minicpm3-4b cut
@@ -4553,7 +4938,8 @@ def main() -> int:
             ("jamba_serve", serve_path, (jamba, "flash_attention", (27, 4), None,
                                          JAMBA_PREDICTED)),
             ("whisper", whisper_path, (WHISPER_SMALL,)),
-            ("llava", llava_path, (llava,)))
+            ("llava", llava_path, (llava,)),
+            ("train", train_path, ()))
     summaries, path_counts, path_s, path_peak = {}, {}, {}, {}
     for name, fn, args in runs:
         torch.cuda.reset_peak_memory_stats()
@@ -4730,6 +5116,14 @@ def main() -> int:
             r for r in nested if r["target"] == target and r["M"] == 576),
             llava["nested_shape_launches"].get(f"mma {k_in}x{n}", 0), nested_src,
             nested_tpu),)
+    # The flash backward (no TPU kernel: the reference differentiates its jnp
+    # causal attention through XLA) at the forward's (4, 2048) bf16 row,
+    # with the Mistral train run's backward calls.
+    picks += (("flash_attention_bwd", next(r for r in flash_bwd if r["dtype"] == "bfloat16"
+                                           and r["S"] == 2048 and r["Hkv"] == 8),
+               summaries["train"]["launches"]["flash_backward"],
+               "src/repro_torch/csrc/flash_attention_bwd.cu",
+               "src/repro/models/attention.py:345 (none: XLA's autodiff of jnp attention)"),)
     entries = []
     for name, row, launches, src, replaces in picks:
         entries.append({"name": name, "route": "cuda", "source": src,
@@ -4742,6 +5136,7 @@ def main() -> int:
         json.dump({"device": kind, "nvidia_smi": smi_line, "build_s": build_s,
                    "nested": nested, "nested_batched": nested_b, "paged": paged,
                    "gram": grams, "gram_batched": grams_b, "flash": flash,
+                   "flash_bwd": flash_bwd,
                    "rwkv6": rwkv, **{f"{k}_path": v for k, v in summaries.items()},
                    "path_seconds": path_s, "path_peak_gib": path_peak,
                    "kernels": entries}, f, indent=1)

@@ -4,8 +4,9 @@
   tensors with the same keys (``g{i}/sub{j}/attn/wq/{kernel | u,v,u2,v2}``,
   stacked leading layer dims kept).
 * Reference checkpoints: one directory holding ``manifest.json`` plus one
-  ``.npy`` per leaf (the reference's ``checkpoint/checkpointer.py`` layout);
-  ``save_checkpoint`` writes the same layout back.
+  ``.npy`` per leaf (the reference's ``checkpoint/checkpointer.py`` layout),
+  read and written by ``repro_torch.checkpoint.checkpointer`` (which
+  ``load_checkpoint`` and ``save_checkpoint`` here call).
 * GramStore npz files (schema 1 or 2): ``read_gram_npz``.
 
 bf16 leaves: without ``ml_dtypes`` (absent on the card's machine) numpy
@@ -15,11 +16,9 @@ as uint16 and viewed as ``torch.bfloat16`` — bit-exact, no float detour.
 
 from __future__ import annotations
 
-import json
 import os
 import re
-import shutil
-from typing import Any, Dict, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -35,14 +34,20 @@ def _is_bf16(arr: np.ndarray) -> bool:
         arr.dtype.kind == "V" and arr.dtype.itemsize == 2)
 
 
-def array_to_tensor(arr: np.ndarray, device: Device = None) -> torch.Tensor:
-    """numpy -> torch on ``device``; bf16 (ml_dtypes or raw void) is kept."""
+def array_to_tensor(arr: np.ndarray, device: Device = None, copy: bool = True) -> torch.Tensor:
+    """numpy -> torch on ``device``; bf16 (ml_dtypes or raw void) is kept.
+    ``copy=False``: a CPU tensor may share the array's memory (for an array
+    the caller owns and drops, as a checkpoint reader does)."""
     arr = np.asarray(arr)
+    # ascontiguousarray makes a 0-d array 1-d: the reshape keeps its shape.
+    flat = np.ascontiguousarray(arr).reshape(arr.shape)
     if _is_bf16(arr):
-        raw = np.ascontiguousarray(arr).view(np.uint16).view(np.int16)
-        t = torch.from_numpy(raw.copy()).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(np.ascontiguousarray(arr).copy())
+        flat = flat.view(np.uint16).view(np.int16)
+    if copy or not flat.flags.writeable:
+        flat = flat.copy()
+    t = torch.from_numpy(flat)
+    if _is_bf16(arr):
+        t = t.view(torch.bfloat16)
     return t.to(resolve_device(device))
 
 
@@ -75,39 +80,11 @@ def to_numpy(tree):
     return tensor_to_array(tree)
 
 
-def _flatten(tree, prefix=()) -> Dict[Tuple[str, ...], Any]:
-    out = {}
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            out.update(_flatten(tree[k], prefix + (str(k),)))
-    else:
-        out[prefix] = tree
-    return out
-
-
 def load_checkpoint(path: str, device: Device = None) -> Tuple[Dict, Dict]:
-    """Read one reference checkpoint directory -> (param tree, extra)."""
-    with open(os.path.join(path, "manifest.json")) as f:
-        manifest = json.load(f)
-    root: Dict[str, Any] = {}
-    for leaf in manifest["leaves"]:
-        keys = leaf["path"]
-        if any(k.startswith("#") for k in keys):
-            raise ValueError(f"tuple leaves are not part of a param tree: {keys}")
-        arr = np.load(os.path.join(path, leaf["file"]))
-        if leaf["dtype"] == "bfloat16":
-            if arr.dtype.itemsize != 2:
-                raise ValueError(f"leaf {keys} is declared bfloat16 but reads "
-                                 f"as {arr.dtype}")
-            arr = arr.view("V2")  # the bits, whatever numpy named them
-        if list(arr.shape) != list(leaf["shape"]):
-            raise ValueError(f"leaf {keys} has shape {arr.shape}, manifest "
-                             f"says {leaf['shape']}")
-        node = root
-        for k in keys[:-1]:
-            node = node.setdefault(k, {})
-        node[keys[-1]] = array_to_tensor(arr, device)
-    return root, manifest.get("extra", {})
+    """Read one checkpoint directory in the reference's layout -> (tree,
+    extra); ``checkpoint.checkpointer.load_checkpoint``, the one reader."""
+    from repro_torch.checkpoint.checkpointer import load_checkpoint as load
+    return load(path, device)
 
 
 def latest_checkpoint(directory: str) -> str:
@@ -120,28 +97,10 @@ def latest_checkpoint(directory: str) -> str:
 
 
 def save_checkpoint(path: str, tree, extra: Dict | None = None) -> None:
-    """Write a param tree in the reference layout (atomic rename)."""
-    tmp = path + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
-    manifest = {"leaves": [], "extra": extra or {}}
-    for i, (p, leaf) in enumerate(_flatten(tree).items()):
-        bf16 = isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16
-        arr = tensor_to_array(leaf) if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
-        if bf16:
-            arr = arr.view(np.uint16)  # bits; the manifest names the dtype
-        fname = f"leaf{i:05d}.npy"
-        np.save(os.path.join(tmp, fname), arr)
-        manifest["leaves"].append({
-            "path": list(p), "file": fname,
-            "dtype": "bfloat16" if bf16 else str(arr.dtype),
-            "shape": list(arr.shape)})
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f)
-    if os.path.exists(path):
-        shutil.rmtree(path)
-    os.rename(tmp, path)
+    """Write a tree in the reference's layout (atomic rename);
+    ``checkpoint.checkpointer.save_checkpoint``, the one writer."""
+    from repro_torch.checkpoint.checkpointer import save_checkpoint as save
+    save(path, tree, extra)
 
 
 def read_gram_npz(path: str) -> Dict[str, Tuple[np.ndarray, np.ndarray, float]]:

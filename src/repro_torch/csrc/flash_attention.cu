@@ -21,7 +21,11 @@
 // = position-in-block * G + head-in-group), so each K/V tile is read once
 // for all G heads, and walks the KV tiles only up to the diagonal.  Ragged
 // S is masked in the kernels: keys and rows past S load as zeros and are
-// never stored.  The wrapper pads nothing.
+// never stored.  The wrapper pads nothing.  Given an lse pointer (a train
+// forward: the backward in flash_attention_bwd.cu rebuilds P from it), both
+// kernels also store each row's log-sum-exp of its scaled, masked scores,
+// m * scale + log(l), from the running max and sum they already keep; a
+// null pointer leaves them as they were.
 //
 // bf16 (flash_mma_kernel): the FA2 schedule on mma.sync tensor cores.
 //  * 8 warps, 16 query rows each: BM = 128 rows a block; BN = 64 keys a KV
@@ -85,7 +89,8 @@ constexpr float NEG_INF = -1e30f;
 template <typename T, int RT, int NJ>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ out, int s_len, int hkv, int g, int hd, int bq, float scale) {
+             T* __restrict__ out, float* __restrict__ lse, int s_len, int hkv, int g, int hd,
+             int bq, float scale) {
   constexpr int R = 16 * RT;  // rows per block
   extern __shared__ float smem[];
   const int ld = hd + 1;
@@ -215,6 +220,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     const int r = rg + 16 * i;
     if (r >= rows || qpos[i] >= s_len) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    // m is in scaled units here: the row's log-sum-exp is m + log(l).
+    if (lse != nullptr && lane8 == 0)
+      lse[((size_t)b * hq + kvh * g + r % g) * s_len + qpos[i]] = m[i] + logf(l[i]);
     T* orow = out + (((size_t)b * s_len + qpos[i]) * hq + kvh * g + r % g) * hd + lane8;
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
@@ -228,8 +236,8 @@ size_t smem_bytes(int rt, int hd) {
 }
 
 template <typename T, int RT, int NJ>
-int launch(const void* q, const void* k, const void* v, void* out, int b, int s_len,
-           int hkv, int g, int hd, float scale, cudaStream_t st) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int b,
+           int s_len, int hkv, int g, int hd, float scale, cudaStream_t st) {
   constexpr int R = 16 * RT;
   if (g > R || b * hkv > 65535) return (int)cudaErrorInvalidValue;
   const int bq = R / g;
@@ -244,7 +252,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int b, int s_
   }
   const dim3 grid((s_len + bq - 1) / bq, b * hkv);
   flash_kernel<T, RT, NJ><<<grid, THREADS, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, s_len, hkv, g, hd, bq, scale);
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, s_len, hkv, g, hd, bq, scale);
   return 0;
 }
 
@@ -323,8 +331,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 template <int HDP, int BN>
 __global__ void __launch_bounds__(MMA_THREADS, 1)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out, int s_len, int hkv,
-                 int g, int hd, int bq, int n_bh, int n_qblocks, float scale_log2) {
+                 const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
+                 int s_len, int hkv, int g, int hd, int bq, int n_bh, int n_qblocks,
+                 float scale_log2) {
   constexpr int CH = HDP / 8;   // 16-byte chunks a row
   constexpr int ROW = CH * 16;  // bytes a row
   constexpr int KS = HDP / 16;  // k-steps of Q K^T
@@ -507,6 +516,11 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int r = warp * 16 + gid + 8 * h, pos = q0 + r / g;
     if (r >= rows || pos >= s_len) continue;
     const float inv = 1.f / fmaxf(l[h], 1e-30f);
+    // m is in raw score units: the row's log-sum-exp is m * scale + log(l),
+    // scale = scale_log2 * ln(2).
+    if (lse != nullptr && tig == 0)
+      lse[((size_t)b * hq + kvh * g + r % g) * s_len + pos] =
+          m[h] * (scale_log2 * 0.6931471805599453f) + logf(l[h]);
     bf16* orow = out + (((size_t)b * s_len + pos) * hq + kvh * g + r % g) * hd + 2 * tig;
 #pragma unroll
     for (int d = 0; d < DT; ++d)
@@ -517,8 +531,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int HDP>
-int launch_mma(const void* q, const void* k, const void* v, void* out, int b, int s_len,
-               int hkv, int g, int hd, float scale, cudaStream_t st) {
+int launch_mma(const void* q, const void* k, const void* v, void* out, float* lse, int b,
+               int s_len, int hkv, int g, int hd, float scale, cudaStream_t st) {
   constexpr int BN = mma_bn(HDP);
   if (g > BM) return (int)cudaErrorInvalidValue;
   const int bq = BM / g, n_bh = b * hkv, n_qblocks = (s_len + bq - 1) / bq;
@@ -533,8 +547,8 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int b, in
   }
   const float scale_log2 = scale * 1.4426950408889634f;  // exp(x) = exp2(x log2(e))
   flash_mma_kernel<HDP, BN><<<n_bh * n_qblocks, MMA_THREADS, smem, st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, s_len, hkv, g, hd, bq,
-      n_bh, n_qblocks, scale_log2);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, lse, s_len, hkv, g, hd,
+      bq, n_bh, n_qblocks, scale_log2);
   return 0;
 }
 
@@ -543,23 +557,26 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int b, in
 // q (B, S, Hkv*G, hd), k/v (B, S, Hkv, hd), out like q; all contiguous, one
 // dtype (0 fp32, 1 bf16), bf16 pointers 16-byte aligned; hd a multiple of 8,
 // padded to hdp, the head dim of the instantiation to run, as the wrapper's
-// plan() chose it.  Returns cudaGetLastError(), or cudaErrorInvalidValue
-// for what no instantiation can launch.
+// plan() chose it.  lse: null, or (B, Hkv*G, S) fp32 that receives each
+// row's log-sum-exp of its scaled, masked scores (the backward's input);
+// null changes nothing else.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for what no instantiation can launch.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       int b, int s_len, int hkv, int g, int hd, float scale,
-                                      int dtype, int hdp, void* stream) {
+                                      int dtype, int hdp, void* lse_ptr, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_ptr);
   if (hd < 8 || hd > hdp || hd % 8 != 0 || g < 1) return (int)cudaErrorInvalidValue;
   int rc = (int)cudaErrorInvalidValue;
   if (dtype == kF32) {
-    if (hdp == 32) rc = launch<float, 4, 4>(q, k, v, out, b, s_len, hkv, g, hd, scale, st);
-    else if (hdp == 64) rc = launch<float, 4, 8>(q, k, v, out, b, s_len, hkv, g, hd, scale, st);
-    else if (hdp == 128) rc = launch<float, 4, 16>(q, k, v, out, b, s_len, hkv, g, hd, scale, st);
-    else if (hdp == 256) rc = launch<float, 2, 32>(q, k, v, out, b, s_len, hkv, g, hd, scale, st);
+    if (hdp == 32) rc = launch<float, 4, 4>(q, k, v, out, lse, b, s_len, hkv, g, hd, scale, st);
+    else if (hdp == 64) rc = launch<float, 4, 8>(q, k, v, out, lse, b, s_len, hkv, g, hd, scale, st);
+    else if (hdp == 128) rc = launch<float, 4, 16>(q, k, v, out, lse, b, s_len, hkv, g, hd, scale, st);
+    else if (hdp == 256) rc = launch<float, 2, 32>(q, k, v, out, lse, b, s_len, hkv, g, hd, scale, st);
   } else if (dtype == kBF16) {
-    if (hdp == 64) rc = launch_mma<64>(q, k, v, out, b, s_len, hkv, g, hd, scale, st);
-    else if (hdp == 128) rc = launch_mma<128>(q, k, v, out, b, s_len, hkv, g, hd, scale, st);
-    else if (hdp == 256) rc = launch_mma<256>(q, k, v, out, b, s_len, hkv, g, hd, scale, st);
+    if (hdp == 64) rc = launch_mma<64>(q, k, v, out, lse, b, s_len, hkv, g, hd, scale, st);
+    else if (hdp == 128) rc = launch_mma<128>(q, k, v, out, lse, b, s_len, hkv, g, hd, scale, st);
+    else if (hdp == 256) rc = launch_mma<256>(q, k, v, out, lse, b, s_len, hkv, g, hd, scale, st);
   }
   if (rc != 0) return rc;
   return (int)cudaGetLastError();

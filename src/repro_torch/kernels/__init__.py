@@ -6,11 +6,17 @@ wrapper takes the plain version only for a tensor on the CPU — or inside
 ``plain()``, which a caller enters to run the same computation through the
 plain versions on purpose (the card-side kernel-vs-plain comparison).  On a
 CUDA tensor it otherwise launches its kernel or raises.
+
+Only ``flash_attention`` has a backward kernel.  The other wrappers are
+forward-only: on a CUDA tensor that requires grad under grad mode they
+raise (``refuse_grad``) rather than return a tensor cut from the graph.
 """
 
 from __future__ import annotations
 
 import contextlib
+
+import torch
 
 _plain_depth = 0
 
@@ -35,3 +41,12 @@ def check_launch(err: int, name: str) -> None:
     """Raise on a non-zero ``cudaGetLastError`` code returned by a launch."""
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when a forward-only kernel is asked for a gradient: grad mode
+    on and an operand that requires grad."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel is forward-only (no backward kernel); "
+                           "call it under torch.no_grad() or on tensors that do not "
+                           "require grad")

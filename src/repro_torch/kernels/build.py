@@ -24,7 +24,8 @@ from typing import Dict, Sequence
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-SOURCES = ("nested_lowrank", "paged_attention", "gram", "flash_attention", "rwkv6")
+SOURCES = ("nested_lowrank", "paged_attention", "gram", "flash_attention",
+           "flash_attention_bwd", "rwkv6")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

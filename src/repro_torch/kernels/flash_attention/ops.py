@@ -7,6 +7,14 @@ the CPU (or inside ``kernels.plain()``) it is the plain version in
 ``ref.py``; on a CUDA tensor it launches a kernel or raises: bf16 runs the
 tensor-core kernel, fp32 the CUDA-core one (``plan``).  The kernels mask a
 ragged S themselves: nothing is padded here.
+
+When a gradient is asked for (grad mode on and an input that requires
+grad) the call goes through ``FlashAttention``, an autograd Function: its
+forward launches the same kernel with the row log-sum-exp written out, and
+its backward launches the three backward kernels of
+``csrc/flash_attention_bwd.cu``.  On the CPU or under ``kernels.plain()``
+that Function runs ``flash_attention_fwd_ref`` and ``flash_attention_bwd_ref``.
+Without a gradient nothing changes: the same launch, no log-sum-exp.
 """
 
 from __future__ import annotations
@@ -18,7 +26,7 @@ from typing import NamedTuple
 import torch
 
 from .. import build, check_launch, use_plain
-from .ref import flash_attention_ref
+from .ref import flash_attention_bwd_ref, flash_attention_fwd_ref, flash_attention_ref
 
 MAX_HEAD_DIM = 256
 MAX_GRID_Y = 65535  # the CUDA-core kernel's grid y is B * Hkv
@@ -26,9 +34,11 @@ MAX_GRID_Y = 65535  # the CUDA-core kernel's grid y is B * Hkv
 launches = 0  # kernel launches (one per wrapper call that runs a kernel)
 tensor_core_launches = 0  # of which bf16, mma.sync
 cuda_core_launches = 0  # of which fp32, FMA
+backward_launches = 0  # backward calls on the card, three kernels each
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
+_bwd_fn = None
 
 
 class Plan(NamedTuple):
@@ -64,10 +74,22 @@ def _launcher():
     if _fn is None:
         fn = build.load("flash_attention").flash_attention_launch
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def _bwd_launcher():
+    global _bwd_fn
+    if _bwd_fn is None:
+        fn = build.load("flash_attention_bwd").flash_attention_bwd_launch
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _bwd_fn = fn
+    return _bwd_fn
 
 
 def check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Plan:
@@ -92,9 +114,9 @@ def check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Plan:
     return p
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    if use_plain(q):
-        return flash_attention_ref(q, k, v)
+def _forward(q, k, v, lse=None) -> torch.Tensor:
+    """One forward launch; ``lse`` (B, Hq, S) fp32 receives the rows'
+    log-sum-exp when given."""
     p = check(q, k, v)
     b, s, hq, hd = q.shape
     hkv = k.shape[2]
@@ -105,7 +127,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                       b, s, hkv, hq // hkv, hd, 1.0 / math.sqrt(hd), _DTYPES[q.dtype],
-                      p.head_dim, stream)
+                      p.head_dim, None if lse is None else lse.data_ptr(), stream)
     check_launch(err, "flash_attention")
     launches += 1
     if p.kernel == "tensor_core":
@@ -113,3 +135,65 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     else:
         cuda_core_launches += 1
     return out
+
+
+def backward(q, k, v, out, lse, dout):
+    """The three backward kernels: (dq, dk, dv) like (q, k, v)."""
+    check(q, k, v)
+    b, s, hq, hd = q.shape
+    hkv = k.shape[2]
+    out, dout, lse = out.contiguous(), dout.contiguous(), lse.contiguous()
+    for t, want in ((out, q.shape), (dout, q.shape), (lse, (b, hq, s))):
+        if t.shape != want or t.device != q.device:
+            raise ValueError(f"flash_attention backward: an operand of shape "
+                             f"{tuple(t.shape)} on {t.device}, want {tuple(want)} on "
+                             f"{q.device}")
+    if out.dtype != q.dtype or dout.dtype != q.dtype or lse.dtype != torch.float32:
+        raise TypeError("flash_attention backward: out/dout in q's dtype, lse fp32")
+    if b * hq > MAX_GRID_Y:
+        raise ValueError(f"flash_attention backward: B*Hq={b * hq} > {MAX_GRID_Y}")
+    global backward_launches
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if b == 0 or s == 0:
+        return dq, dk, dv
+    dsum = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    hdp = next(n for n in (32, 64, 128, 256) if hd <= n)  # the instantiation's head dim
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _bwd_launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                          dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+                          dk.data_ptr(), dv.data_ptr(), b, s, hkv, hq // hkv, hd,
+                          1.0 / math.sqrt(hd), _DTYPES[q.dtype], hdp, stream)
+    check_launch(err, "flash_attention backward")
+    backward_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Causal GQA attention with the hand-written backward (plain versions
+    on the CPU or under ``kernels.plain()``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        if use_plain(q):
+            out, lse = flash_attention_fwd_ref(q, k, v)
+        else:
+            b, s, hq, _ = q.shape
+            lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+            out = _forward(q, k, v, lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if use_plain(q):
+            return flash_attention_bwd_ref(q, k, v, out, lse, dout)
+        return backward(q, k, v, out, lse, dout)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v)
+    if use_plain(q):
+        return flash_attention_ref(q, k, v)
+    return _forward(q, k, v)

@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from .. import build, check_launch, use_plain
+from .. import build, check_launch, refuse_grad, use_plain
 from .ref import gram_accumulate_batched_ref, gram_accumulate_ref
 
 launches = 0  # kernel launches (one per wrapper call that runs a kernel)
@@ -57,6 +57,7 @@ def gram_accumulate(x: torch.Tensor):
     """x (..., n) bf16 or fp32 -> (G (n, n) fp32, sum |x| (n,) fp32)."""
     if use_plain(x):
         return gram_accumulate_ref(x)
+    refuse_grad("gram", x)
     if x.dtype not in _DTYPES:
         raise TypeError(f"gram: unsupported dtype {x.dtype}")
     n = x.shape[-1]
@@ -69,6 +70,7 @@ def gram_accumulate_batched(buf: torch.Tensor):
     expert by expert over its C rows."""
     if use_plain(buf):
         return gram_accumulate_batched_ref(buf)
+    refuse_grad("gram (batched)", buf)
     if buf.dtype not in _DTYPES:
         raise TypeError(f"gram: unsupported dtype {buf.dtype}")
     if buf.ndim != 3:

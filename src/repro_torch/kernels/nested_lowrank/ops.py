@@ -28,7 +28,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import build, check_launch, use_plain
+from .. import build, check_launch, refuse_grad, use_plain
 from .ref import nested_lowrank_matmul_batched_ref, nested_lowrank_matmul_ref
 
 MAX_KERNEL_ROWS = 1024
@@ -233,6 +233,7 @@ def nested_lowrank_matmul(x, u, v, u2, v2):
     if rows > MAX_KERNEL_ROWS:
         _gated()
         return nested_lowrank_matmul_ref(x, u, v, u2, v2)
+    refuse_grad("nested_lowrank", x, u, v, u2, v2)
     _check(x, u, v, u2, v2)
     k_in, n = x.shape[-1], v.shape[-1]
     k1, k2 = u.shape[-1], u2.shape[-1]
@@ -256,6 +257,7 @@ def nested_lowrank_matmul_batched(x, u, v, u2, v2):
     if x.shape[1] > MAX_KERNEL_ROWS:
         _gated()
         return nested_lowrank_matmul_batched_ref(x, u, v, u2, v2)
+    refuse_grad("nested_lowrank (batched)", x, u, v, u2, v2)
     _check(x, u, v, u2, v2, lead=(u.shape[0],))
     e, rows, k_in = x.shape
     n, k1, k2 = v.shape[-1], u.shape[-1], u2.shape[-1]

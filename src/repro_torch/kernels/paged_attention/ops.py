@@ -18,7 +18,7 @@ import math
 
 import torch
 
-from .. import build, check_launch, use_plain
+from .. import build, check_launch, refuse_grad, use_plain
 from .ref import gather_pages, paged_attention_ref  # noqa: F401 (re-export)
 
 GROUPS = (1, 2, 4, 8, 16)  # query heads per KV head the kernel instantiates
@@ -113,6 +113,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths,
     if use_plain(q):
         return paged_attention_ref(q, k_pages, v_pages, block_tables, lengths,
                                    k_scales, v_scales, scale)
+    refuse_grad("paged_attention", q, k_pages, v_pages, k_scales, v_scales)
     n_splits, pps = plan_splits(q.shape[0], k_pages.shape[2], block_tables.shape[1])
     return launch(q, k_pages, v_pages, block_tables, lengths, k_scales, v_scales,
                   scale, n_splits, pps)

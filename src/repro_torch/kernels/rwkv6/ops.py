@@ -23,7 +23,7 @@ from typing import Sequence
 
 import torch
 
-from .. import build, check_launch, use_plain
+from .. import build, check_launch, refuse_grad, use_plain
 from .ref import rwkv6_scan_ref
 
 HEAD_DIMS = (8, 16, 32, 64)  # K the kernel instantiates
@@ -114,6 +114,7 @@ def rwkv6_heads(r, k, v, w, u, return_state: bool = False):
         if return_state:
             return out[0].view(b, h, t_len, kd), out[1].view(b, h, kd, kd)
         return out.view(b, h, t_len, kd)
+    refuse_grad("rwkv6", r, k, v, w, u)
     if any(x.shape != r.shape for x in (k, v, w)) or u.shape != (b, h, kd):
         raise ValueError(f"rwkv6: r{tuple(r.shape)} k{tuple(k.shape)} v{tuple(v.shape)} "
                          f"w{tuple(w.shape)} u{tuple(u.shape)}")

@@ -62,8 +62,9 @@ picks the cache layout (auto: the model's own).
     python -m repro_torch.launch.serve --arch mistral-7b --no-reduced --layers 2 \\
         --compress 0.2 --metrics-json m.json --trace-chrome t.json --profile-dir prof
 
-``small-*`` archs load the reference's trained checkpoint from
-``experiments/models/<name>/`` (and its ``grams.npz`` when present); every
+``small-*`` archs load the trained checkpoint from
+``experiments/models/<name>/`` (and its ``grams.npz`` when present),
+training it first with the reference's recipe when there is none; every
 other arch starts from random weights drawn from ``--seed``.
 """
 
@@ -85,6 +86,7 @@ from repro_torch.calib.gram import calibration_precision
 from repro_torch.calib.runner import calibration_batches, collect_grams
 from repro_torch.configs import ModelConfig, get_config
 from repro_torch.core import CompressionConfig, GramStore, build_plan, compress_params
+from repro_torch.launch.train import MODELS_DIR, train_small_lm
 from repro_torch.models import build_model
 from repro_torch.models.api import build_draft_params
 from repro_torch.obs import CompressionTelemetry, MetricsServer, Telemetry, write_metrics_json
@@ -93,18 +95,17 @@ from repro_torch.serving.faults import FaultPlan, FaultPolicy
 from repro_torch.serving.scheduler import SchedulerConfig
 from repro_torch.serving.spec import SpecConfig
 
-MODELS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
-                          "experiments", "models")
-
 
 def load_small(name: str, device: Device = None):
-    """The reference's trained small-* checkpoint (no training in the port)."""
+    """The trained small-* checkpoint under ``experiments/models/<name>/``
+    (the reference's or the port's: one layout).  When there is none, it is
+    trained first with the reference's recipe (``launch.train.train_small_lm``)
+    on ``device`` and saved there, as the reference's launcher does on its
+    first run."""
     ckpt_dir = os.path.join(MODELS_DIR, name)
-    if not os.path.isdir(ckpt_dir):
-        raise FileNotFoundError(
-            f"no reference checkpoint for {name!r} under {ckpt_dir}: training "
-            "is not ported yet — train it with the JAX package first "
-            f"(python -m repro.launch.serve --arch {name})")
+    if not os.path.isdir(ckpt_dir) or not any(
+            n.startswith("step_") and not n.endswith(".tmp") for n in os.listdir(ckpt_dir)):
+        train_small_lm(name, device=device, ckpt_dir=ckpt_dir)
     params, _ = bridge.load_checkpoint(bridge.latest_checkpoint(ckpt_dir), device)
     return params
 

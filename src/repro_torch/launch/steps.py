@@ -31,12 +31,17 @@ root each launch came from.
 
 from __future__ import annotations
 
-from typing import Callable
+import dataclasses
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.models.api import batch_inputs
+from repro_torch.models.losses import chunked_xent_from_hidden, next_token_xent
 from repro_torch.obs.profiler import wrap_root
+from repro_torch.optim import AdamWConfig, apply_updates, roundtrip
+from repro_torch.optim.adamw import tree_leaves, tree_map, tree_unflatten
+from repro_torch.runtime.fault import GuardConfig, guarded_update
 
 _M32 = 0xFFFFFFFF
 
@@ -81,6 +86,86 @@ def sample_tokens(key_data: torch.Tensor, logits: torch.Tensor,
     new_kd = key_data.clone()
     new_kd[:, 1] += 1
     return new_kd, tok
+
+
+@dataclasses.dataclass(frozen=True)
+class StepConfig:
+    aux_weight: float = 0.01  # MoE load-balance loss weight
+    chunked_loss: int = 0  # >0: seq-chunked xent (memory optimization)
+    grad_compress: bool = False  # int8+error-feedback gradients
+    guard: Optional[GuardConfig] = GuardConfig()
+
+
+def make_grad_fn(model, step_cfg: StepConfig = StepConfig()) -> Callable:
+    """``grad_fn(params, batch)`` -> (total, loss, aux, grads): the train
+    step's loss (next-token cross-entropy over ``batch["loss_mask"]`` when
+    given, sequence-chunked from the hidden states with ``chunked_loss``,
+    plus ``aux_weight`` times the MoE layers' load-balance loss) and its
+    gradient from ``torch.autograd.grad`` over every param leaf; a leaf
+    the loss does not reach gets zeros, as ``jax.grad`` gives."""
+    cfg = model.cfg
+
+    def loss_fn(params, batch):
+        device = params["embed"]["table"].device
+        tokens, kwargs = batch_inputs(model, batch, device)
+        mask = batch.get("loss_mask") if isinstance(batch, dict) else None
+        if mask is not None:
+            mask = torch.as_tensor(mask, device=device)
+        auxs: list = []
+        if step_cfg.chunked_loss and not cfg.is_encdec:
+            hidden = model.apply(params, tokens, mode="train", output="hidden", aux=auxs,
+                                 **kwargs)
+            loss = chunked_xent_from_hidden(hidden, params.get("unembed", params["embed"]),
+                                            tokens, chunk=step_cfg.chunked_loss, mask=mask)
+        else:
+            logits = model.apply(params, tokens, mode="train", aux=auxs, **kwargs)
+            loss = next_token_xent(logits, tokens, mask)
+        aux = (torch.stack(auxs).sum() if auxs
+               else torch.zeros((), dtype=torch.float32, device=device))
+        return loss + step_cfg.aux_weight * aux, loss, aux
+
+    def grad_fn(params, batch):
+        with torch.enable_grad():
+            live = tree_map(lambda p: p.detach().requires_grad_(), params)
+            leaves = tree_leaves(live)
+            total, loss, aux = loss_fn(live, batch)
+            flat = torch.autograd.grad(total, leaves, allow_unused=True)
+        grads = tree_unflatten(params, iter([
+            torch.zeros_like(p) if g is None else g for g, p in zip(flat, leaves)]))
+        return total.detach(), loss.detach(), aux.detach(), grads
+
+    return grad_fn
+
+
+def make_train_step(model, opt_cfg: AdamWConfig,
+                    step_cfg: StepConfig = StepConfig()) -> Callable:
+    """The reference's train step: ``train_step(params, opt_state, batch[,
+    grad_error])`` -> ``(params, opt_state, metrics[, grad_error])``: the
+    gradient of ``make_grad_fn``'s loss, then the optional int8 roundtrip
+    with error feedback, AdamW, and the step guard, which keeps the old
+    params and state on a corrupt step.  Metrics (grad_norm, lr, loss,
+    aux, bad_step) are 0-d device tensors: the step reads nothing from the
+    host."""
+    grad_fn = make_grad_fn(model, step_cfg)
+
+    def train_step(params, opt_state, batch, grad_error=None):
+        _, loss, aux, grads = grad_fn(params, batch)
+        with torch.no_grad():
+            new_error = grad_error
+            if step_cfg.grad_compress:
+                grads, new_error = roundtrip(grads, grad_error)
+            new_params, new_opt, metrics = apply_updates(params, grads, opt_state, opt_cfg)
+            metrics = dict(metrics, loss=loss, aux=aux)
+            if step_cfg.guard is not None:
+                (new_params, new_opt), bad = guarded_update(
+                    loss, metrics["grad_norm"], (new_params, new_opt),
+                    (params, opt_state), step_cfg.guard)
+                metrics["bad_step"] = bad
+        if step_cfg.grad_compress:
+            return new_params, new_opt, metrics, new_error
+        return new_params, new_opt, metrics
+
+    return train_step
 
 
 def make_prefill_step(model, max_len: int) -> Callable:

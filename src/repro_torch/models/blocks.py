@@ -215,7 +215,7 @@ def block_apply(params: Mapping, x: torch.Tensor, spec: BlockSpec, cfg: ModelCon
                 positions, mode: str, cache=None, cache_len=None,
                 block_tables=None, taps=None, tap_prefix: str = "",
                 memory: Optional[torch.Tensor] = None,
-                encoder: bool = False) -> torch.Tensor:
+                encoder: bool = False, aux: Optional[List] = None) -> torch.Tensor:
     """mode "train" (causal, no cache), "prefill" (causal, writing a fresh
     dense cache) or "decode" (paged with ``block_tables``, else the dense
     slab).  ``encoder``: the gqa mixer runs unmasked.  A block with
@@ -267,9 +267,10 @@ def block_apply(params: Mapping, x: torch.Tensor, spec: BlockSpec, cfg: ModelCon
                 tap_prefix=f"{tap_prefix}.cross")
     h = norm_apply(params["norm2"], x)
     if spec[1] == "moe":
-        # The aux loss is read by training only (not ported).
-        y, _ = moe_mod.moe_apply(params["moe"], h, cfg, taps=taps,
-                                 tap_prefix=f"{tap_prefix}.moe")
+        y, layer_aux = moe_mod.moe_apply(params["moe"], h, cfg, taps=taps,
+                                         tap_prefix=f"{tap_prefix}.moe")
+        if aux is not None:
+            aux.append(layer_aux)
         return x + y
     return x + mlp_apply(params["mlp"], h, cfg.activation, taps,
                          f"{tap_prefix}.mlp")
@@ -279,7 +280,7 @@ def group_apply(params: Mapping, x: torch.Tensor, group: StackGroup,
                 cfg: ModelConfig, *, positions, mode: str, cache=None,
                 cache_len=None, block_tables=None, taps: Optional[Dict] = None,
                 tap_group: str = "", memory: Optional[torch.Tensor] = None,
-                encoder: bool = False) -> torch.Tensor:
+                encoder: bool = False, aux: Optional[List] = None) -> torch.Tensor:
     """Run a stack group layer by layer.  Tap names follow the reference's
     unrolled calibration naming: "g0/rep3/sub0.mlp.in" for stacked groups,
     "g0/sub0.mlp.in" otherwise."""
@@ -293,5 +294,6 @@ def group_apply(params: Mapping, x: torch.Tensor, group: StackGroup,
                             mode=mode,
                             cache=None if c_r is None else c_r[f"sub{j}"],
                             cache_len=cache_len, block_tables=block_tables,
-                            taps=taps, tap_prefix=tp, memory=memory, encoder=encoder)
+                            taps=taps, tap_prefix=tp, memory=memory, encoder=encoder,
+                            aux=aux)
     return x

@@ -17,7 +17,7 @@ reference tree loads unchanged; tap names are the reference's
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
 import torch
 
@@ -97,10 +97,11 @@ class EncDecLM:
               memory: Optional[torch.Tensor] = None, mode: str = "train",
               cache: Optional[Dict] = None,
               cache_len: Optional[torch.Tensor] = None,
-              taps: Optional[Dict] = None) -> torch.Tensor:
+              taps: Optional[Dict] = None, aux: Optional[List] = None) -> torch.Tensor:
         """Logits (B, S, V).  Train and prefill take ``frames`` (or
         ``memory``); decode takes the prefilled ``cache`` and writes it in
-        place."""
+        place.  ``aux`` as ``DecoderLM.apply``'s (no MoE layer here: it
+        stays empty)."""
         b, s = tokens.shape
         ar = torch.arange(s, device=tokens.device)
         if mode == "decode":
@@ -121,7 +122,8 @@ class EncDecLM:
         x = group_apply(params["decoder"], x, self.dec_group, self.cfg,
                         positions=positions, mode=mode,
                         cache=None if cache is None else cache["decoder"],
-                        cache_len=cache_len, taps=taps, tap_group="dec", memory=memory)
+                        cache_len=cache_len, taps=taps, tap_group="dec", memory=memory,
+                        aux=aux)
         return unembed(params["unembed"], norm_apply(params["final_norm"], x))
 
     def compressible_targets(self):

@@ -116,7 +116,16 @@ def embedding_init(gen, vocab: int, dim: int, dtype, device) -> Dict:
 
 
 def embed(params: Mapping[str, Any], tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens.long()]
+    table = params["table"]
+    if torch.is_grad_enabled() and table.requires_grad:
+        # Training: the same rows, but F.embedding's backward on the card (a
+        # sort, then a sum per token in order) is deterministic where
+        # indexing's (an accumulating index_put, atomics) is not, and a
+        # resumed run must give the bits of an uninterrupted one.
+        return F.embedding(tokens.long(), table)
+    # Serving feeds negative ids (finished and poisoned rows), which
+    # indexing wraps and F.embedding refuses.
+    return table[tokens.long()]
 
 
 def unembed(params: Mapping[str, Any], x: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,7 @@ projector over patch features, its output in front of the tokens)."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
@@ -106,7 +106,8 @@ class DecoderLM:
               mode: str = "train", cache: Optional[Dict] = None,
               cache_len: Optional[torch.Tensor] = None,
               block_tables: Optional[torch.Tensor] = None,
-              taps: Optional[Dict] = None, output: str = "logits") -> torch.Tensor:
+              taps: Optional[Dict] = None, output: str = "logits",
+              aux: Optional[List] = None) -> torch.Tensor:
         """Logits (B, S, V), or with ``output="hidden"`` the final-norm
         hidden states (B, S, d_model) without the unembed (the draft's
         prefills, which need only the cache writes).  In "prefill" and
@@ -117,7 +118,11 @@ class DecoderLM:
         embeddings, and positions (and the cache) run over the P + S rows;
         the taps see the raw patches (``projector.in``), the GELU's output
         (``projector.mid``) and the final norm over every row, and the
-        output covers the S token positions only."""
+        output covers the S token positions only.
+
+        ``aux``: a list that receives each MoE layer's load-balance loss
+        (0-d fp32), which the reference's apply returns as its third
+        output; the train step sums it, every other caller passes none."""
         cfg = self.cfg
         b = tokens.shape[0]
         x = embed(params["embed"], tokens).to(self.dtype)
@@ -147,7 +152,7 @@ class DecoderLM:
                             mode=mode,
                             cache=None if cache is None else cache[f"g{i}"],
                             cache_len=cache_len, block_tables=block_tables,
-                            taps=taps, tap_group=f"g{i}")
+                            taps=taps, tap_group=f"g{i}", aux=aux)
         x = norm_apply(params["final_norm"], x)
         if taps is not None:
             taps["final.out_in"] = x

@@ -30,6 +30,9 @@ class GuardConfig:
 def _tree_where(bad, new, old):
     if isinstance(new, dict):
         return {k: _tree_where(bad, new[k], old[k]) for k in new}
+    if isinstance(new, tuple):  # (params, AdamWState) and NamedTuples
+        leaves = [_tree_where(bad, n, o) for n, o in zip(new, old)]
+        return type(new)(*leaves) if hasattr(new, "_fields") else tuple(leaves)
     return torch.where(bad, old, new)
 
 
@@ -37,7 +40,7 @@ def guarded_update(loss, grad_norm, new_tree, old_tree, cfg: GuardConfig):
     """Keep the old (params, optimizer state) when the step looks corrupt.
 
     ``loss`` and ``grad_norm`` are 0-d tensors; the trees are nested dicts
-    of tensors with the same keys.  Returns (tree, bad) with ``bad`` a 0-d
+    and tuples (``(params, AdamWState)``) of tensors of the same structure.  Returns (tree, bad) with ``bad`` a 0-d
     bool tensor on the loss's device: both trees are materialised, so this
     is one select per leaf and never waits for the device."""
     bad = (~torch.isfinite(loss) | (loss > cfg.max_loss)

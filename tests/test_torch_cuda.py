@@ -666,6 +666,139 @@ def test_flash_kernel_rejects_bad_head_dim(dev):
         fa_ops.flash_attention(q, q[:, :, :1].contiguous(), q[:, :, :1].contiguous())
 
 
+# Per-element tolerance of the backward kernels against the plain backward
+# (chip_smoke.py's FLASH_BWD_ELEM_TOL), on ``_bwd_elem_err``.  Both compute
+# the same fp32 FA2 formulas from the same inputs in another order.  bf16:
+# dq, dk, dv round to bf16 at the end (a rounding flip is one ulp, under
+# 2^-7 of |want|), four ulps allowed; fp32: sum order over up to S keys or
+# S x G query rows.
+FLASH_BWD_ELEM_TOL = {torch.bfloat16: 2 ** -5, torch.float32: 1e-4}
+
+
+def _bwd_elem_err(got, want) -> float:
+    """Max over elements of |got - want| / (|want| + rms of want's row +
+    rms of want).  The whole tensor's rms is the floor because a gradient
+    row can vanish by cancellation: position 0's dq is dS K with dS = P (dP
+    - D) = dO.v0 - dO.o0 = 0 exactly, so both versions hold rounding noise
+    there, unrelated to each other, however right the kernel."""
+    w = want.float()
+    rms = w.pow(2).mean(-1, keepdim=True).sqrt()
+    floor = w.pow(2).mean().sqrt()
+    return float(((got.float() - w).abs() / (w.abs() + rms + floor).clamp_min(1e-30)).max())
+
+
+def _bwd_inputs(dev, b, s, hkv, group, hd, dtype, seed):
+    """q, k, v, the plain forward's (out, lse) and dout, all on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda h: torch.randn((b, s, h, hd), generator=g, device=dev).to(dtype)  # noqa: E731
+    q, k, v = mk(hkv * group), mk(hkv), mk(hkv)
+    out, lse = fa_ref.flash_attention_fwd_ref(q, k, v)
+    return q, k, v, out, lse, mk(hkv * group)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,hkv,group,hd", [
+    (2, 128, 2, 1, 32), (2, 128, 4, 4, 32), (1, 100, 2, 4, 64), (2, 64, 1, 16, 64),
+    (1, 257, 2, 4, 128), (1, 130, 1, 16, 128), (3, 37, 2, 1, 256), (1, 70, 1, 4, 256),
+    (1, 5, 3, 3, 40)])
+def test_flash_bwd_kernel_matches_plain(dev, b, s, hkv, group, hd, dtype):
+    """dq, dk, dv of the three backward kernels against the plain FA2
+    backward on the same inputs: hd 32-256, G 1-16, ragged S."""
+    args = _bwd_inputs(dev, b, s, hkv, group, hd, dtype, s + group)
+    before = fa_ops.backward_launches
+    got = fa_ops.backward(*args)
+    torch.cuda.synchronize()
+    assert fa_ops.backward_launches == before + 1
+    want = fa_ref.flash_attention_bwd_ref(*args)
+    for name, x, w in zip(("dq", "dk", "dv"), got, want):
+        assert x.dtype == dtype and x.shape == w.shape, name
+        assert torch.isfinite(x).all(), name
+        assert _bwd_elem_err(x, w) <= FLASH_BWD_ELEM_TOL[dtype], name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_lse_leaves_out_bit_identical(dev, dtype):
+    """The forward with the log-sum-exp written out gives the same bits in
+    ``out`` as without it; its lse against the plain forward's (fp32 sum
+    order over S keys: 1e-5 of |lse| plus 1e-5)."""
+    b, s, hkv, group, hd = 2, 300, 2, 4, 128
+    q, k, v, _, want_lse, _ = _bwd_inputs(dev, b, s, hkv, group, hd, dtype, 7)
+    plain_out = fa_ops.flash_attention(q, k, v)
+    lse = torch.empty((b, hkv * group, s), dtype=torch.float32, device=dev)
+    out = fa_ops._forward(q, k, v, lse)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain_out)
+    assert torch.allclose(lse, want_lse, rtol=1e-5, atol=1e-5)
+
+
+def test_flash_bwd_runs_are_bit_identical(dev):
+    """No atomics: two backward runs give the same bits."""
+    args = _bwd_inputs(dev, 2, 500, 2, 4, 128, torch.bfloat16, 11)
+    one, two = fa_ops.backward(*args), fa_ops.backward(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_autograd_on_card_matches_plain(dev, dtype):
+    """``flash_attention`` on tensors that require grad: one forward launch
+    with lse and one backward call; its output and grads against the same
+    autograd Function under ``kernels.plain()``."""
+    b, s, hkv, group, hd = 2, 90, 2, 4, 64
+    g = torch.Generator(device=dev).manual_seed(5)
+    base = [torch.randn((b, s, h, hd), generator=g, device=dev).to(dtype)
+            for h in (hkv * group, hkv, hkv)]
+    dout = torch.randn((b, s, hkv * group, hd), generator=g, device=dev).to(dtype)
+
+    def run():
+        ins = [t.clone().requires_grad_() for t in base]
+        out = fa_ops.flash_attention(*ins)
+        return (out, *torch.autograd.grad(out, ins, dout))
+    n0, b0 = fa_ops.launches, fa_ops.backward_launches
+    got = run()
+    torch.cuda.synchronize()
+    assert (fa_ops.launches, fa_ops.backward_launches) == (n0 + 1, b0 + 1)
+    with kernels.plain():
+        want = run()
+    assert (fa_ops.launches, fa_ops.backward_launches) == (n0 + 1, b0 + 1)
+    assert _elem_err(got[0].detach(), want[0].detach()) <= FLASH_ELEM_TOL[dtype]
+    # Twice the backward's tolerance: here the two backward passes also
+    # start from two forwards' out and lse, which differ within the
+    # forward's own tolerance (bf16: P rounded at other points).
+    for x, w in zip(got[1:], want[1:]):
+        assert _bwd_elem_err(x, w) <= 2 * FLASH_BWD_ELEM_TOL[dtype]
+
+
+def test_forward_only_kernels_refuse_grad(dev):
+    """nested_lowrank (single and batched), paged_attention, gram (single
+    and batched) and rwkv6 raise, naming the kernel, when asked for a
+    gradient on the card; under no_grad the same call runs."""
+    x = torch.randn((8, 64), device=dev, dtype=torch.bfloat16, requires_grad=True)
+    u, v = torch.randn((64, 8), device=dev), torch.randn((8, 32), device=dev)
+    fac = [t.to(torch.bfloat16) for t in (u, v, u, v)]
+    q = torch.randn((2, 4, 32), device=dev, requires_grad=True)
+    pages = torch.randn((4, 16, 2, 32), device=dev)
+    tables = torch.zeros((2, 2), dtype=torch.int32, device=dev)
+    lens = torch.full((2,), 5, dtype=torch.int32, device=dev)
+    r = torch.rand((2, 8, 16), device=dev, requires_grad=True)
+    uu = torch.rand((2, 16), device=dev)
+    calls = {
+        "nested_lowrank": lambda: nlr_ops.nested_lowrank_matmul(x, *fac),
+        "nested_lowrank (batched)": lambda: nlr_ops.nested_lowrank_matmul_batched(
+            x[None], *(f[None] for f in fac)),
+        "paged_attention": lambda: pa_ops.paged_attention(q, pages, pages, tables, lens),
+        "gram": lambda: gram_ops.gram_accumulate(x),
+        "gram (batched)": lambda: gram_ops.gram_accumulate_batched(x[None]),
+        "rwkv6": lambda: rwkv_ops.rwkv6_attention(r, r, r, r.detach() * 0.9, uu),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=rf"^{name.replace('(', '.').replace(')', '.')}:"):
+            call()
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_calibration_runs_through_gram_and_flash(dev, dtype):
     """collect_grams on a CUDA model launches gram once per tap and batch
