@@ -26,8 +26,9 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
      the achieved bytes/s, and the combine kernel alone against its plain
      version on the split kernel's partials; rwkv6: also a per-element check
      of y and of the final state, and the device time of one call;
-     flash_attention's backward (three kernels: D, dK/dV, dQ) against the
-     plain FA2 backward per element (FLASH_BWD_ELEM_TOL) at
+     flash_attention's backward (three kernels: D, dK/dV, dQ; tensor-core
+     for bf16 at hd <= 128, CUDA-core for fp32, as ``bwd_plan`` picks)
+     against the plain FA2 backward per element (FLASH_BWD_ELEM_TOL) at
      FLASH_BWD_SHAPES, two runs bit-identical, the forward's log-sum-exp
      against the plain one, beside SDPA's backward alone);
   4. serve path: ``serve()`` on mistral-7b at full width (depth cut to 2
@@ -244,13 +245,15 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
      (TRAIN_GRAD_REL_TOL, TRAIN_LOSS_REL_TOL); one step, an async
      checkpoint to a temporary directory, TRAIN_RESUME_STEPS steps, and the
      same steps from the restored checkpoint bit for bit; launches exactly
-     TRAIN_PREDICTED (no nested, paged, rwkv6 or gram launch); a profiled
+     TRAIN_PREDICTED (no nested, paged, rwkv6 or gram launch; every
+     backward on the tensor-core kernels); a profiled
      step (wall, device, tokens/s, the backward kernels' share); then
      small-llama (fp32) trained by the reference's recipe
      (``launch.train.train_small_lm``: 300 steps) with its loss falling by
-     SMALL_LOSS_DROP, and ``build_entry`` (nsvd1 0.2, k1 0.9) on its params
-     with exact launches (``small_quality_expect``), printed beside
-     BENCH_quality.json's JAX-trained entry.
+     SMALL_LOSS_DROP (every backward on the CUDA-core kernels), and
+     ``build_entry`` (nsvd1 0.2, k1 0.9) on its params with exact launches
+     (``small_quality_expect``), printed beside BENCH_quality.json's
+     JAX-trained entry.
 Prints each path's seconds and peak device memory, a JSON kernel summary,
 nvidia-smi's line, and as its last line
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero; without a
@@ -1102,7 +1105,12 @@ def flash_bwd_phase(torch, ops, ref):
         out, lse = ref.flash_attention_fwd_ref(q, k, v)
         klse = torch.empty_like(lse)
         kout = ops._forward(q, k, v, klse)
+        kind = ops.bwd_plan(dt, hd, hq // hkv).kernel
+        before = (ops.backward_tensor_core_launches, ops.backward_cuda_core_launches)
         got = ops.backward(q, k, v, out, lse, dout)
+        ran = dict(zip(("tensor_core", "cuda_core"), (
+            ops.backward_tensor_core_launches - before[0],
+            ops.backward_cuda_core_launches - before[1])))
         want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout)
         again = ops.backward(q, k, v, out, lse, dout)
         torch.cuda.synchronize()
@@ -1111,6 +1119,7 @@ def flash_bwd_phase(torch, ops, ref):
         lse_err = float((klse - lse).abs().max())
         same_bits = all(torch.equal(x, y) for x, y in zip(got, again))
         ok = (all(bool(torch.isfinite(x).all()) for x in got) and same_bits
+              and ran == {n: int(n == kind) for n in ran}
               and max(errs.values()) <= FLASH_BWD_ELEM_TOL[dname]
               and lse_err <= 1e-5 * float(lse.abs().max()) + 1e-5)
         del got, want, again, kout, klse
@@ -1131,13 +1140,15 @@ def flash_bwd_phase(torch, ops, ref):
         bnd, by = bound_ms(nbytes, flops, dname)
         dev_ms = dev["device_busy_ms"]
         row = dict(kernel="flash_attention_bwd", dtype=dname, B=b, S=s, Hq=hq, Hkv=hkv, hd=hd,
-                   elem_err=errs, elem_tol=FLASH_BWD_ELEM_TOL[dname], max_abs_err=abs_err,
-                   lse_max_abs_err=lse_err, bit_identical_reruns=same_bits, ok=ok, ms=ms,
-                   device_ms=dev_ms, device_kernels=dev["kernels"], plain_ms=plain,
+                   ran=kind, elem_err=errs, elem_tol=FLASH_BWD_ELEM_TOL[dname],
+                   max_abs_err=abs_err, lse_max_abs_err=lse_err,
+                   bit_identical_reruns=same_bits, ok=ok, ms=ms, device_ms=dev_ms,
+                   device_kernels=dev["kernels"], plain_ms=plain,
                    library_ms=lib, bytes=nbytes, flops=flops, bound_ms=bnd, bound_by=by,
                    tflops=flops / dev_ms * 1e-9, bound_share=bnd / dev_ms)
         rows_out.append(row)
-        log(f"flash_bwd {dname:8s} B={b:<2d} S={s:<4d} Hq/Hkv={hq}/{hkv} hd={hd} elem err "
+        log(f"flash_bwd {dname:8s} B={b:<2d} S={s:<4d} Hq/Hkv={hq}/{hkv} hd={hd} ran {ran} "
+            f"(plan {kind}) elem err "
             + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
             + f" (tol {FLASH_BWD_ELEM_TOL[dname]:.2e}) lse err {lse_err:.2e} reruns "
             f"{'bit-identical' if same_bits else 'DIFFER'} {'OK' if ok else 'FAIL'}  kernels "
@@ -1225,6 +1236,7 @@ def reset_counts() -> None:
         _ops(name).launches = 0
     fa = _ops("flash_attention")
     fa.tensor_core_launches = fa.cuda_core_launches = fa.backward_launches = 0
+    fa.backward_tensor_core_launches = fa.backward_cuda_core_launches = 0
     nlr = _ops("nested_lowrank")
     nlr.stream_launches = nlr.mma_launches = nlr.tile_launches = 0
     nlr.batched_by_kernel.update(stream=0, mma=0, tile=0)
@@ -4578,20 +4590,28 @@ SMALL_QUALITY = dict(method="nsvd1", ratio=0.2, k1_frac=0.9, eval_n_batches=4,
 # Launches of the two training runs: flash forward and backward once per
 # attention layer and step (Mistral: step 1's kernel grads, then 1 + 2
 # steps uninterrupted and 2 resumed; none in the plain comparison;
-# small-llama: 4 layers x 300 steps), no nested, paged, rwkv6 or gram.
+# small-llama: 4 layers x 300 steps), no nested, paged, rwkv6 or gram.  The
+# backward's kernels by ``bwd_plan``: Mistral's bf16 at hd 128 all on the
+# tensor cores, small-llama's fp32 all on CUDA cores.
+_MISTRAL_STEPS = 2 * (1 + 1 + 2 * TRAIN_RESUME_STEPS)
 TRAIN_PREDICTED = {
-    "mistral": dict(flash_attention=2 * (1 + 1 + 2 * TRAIN_RESUME_STEPS),
-                    flash_backward=2 * (1 + 1 + 2 * TRAIN_RESUME_STEPS), nested_lowrank=0,
-                    paged_attention=0, rwkv6=0, gram=0),
-    "small_llama": dict(flash_attention=4 * 300, flash_backward=4 * 300, nested_lowrank=0,
-                        paged_attention=0, rwkv6=0, gram=0),
+    "mistral": dict(flash_attention=_MISTRAL_STEPS, flash_backward=_MISTRAL_STEPS,
+                    flash_backward_tensor_core=_MISTRAL_STEPS, flash_backward_cuda_core=0,
+                    nested_lowrank=0, paged_attention=0, rwkv6=0, gram=0),
+    "small_llama": dict(flash_attention=4 * 300, flash_backward=4 * 300,
+                        flash_backward_tensor_core=0, flash_backward_cuda_core=4 * 300,
+                        nested_lowrank=0, paged_attention=0, rwkv6=0, gram=0),
 }
 FLASH_BWD_KERNEL_NAMES = ("flash_bwd_dsum", "flash_bwd_dkdv", "flash_bwd_dq")
 
 
 def train_counts() -> dict:
-    """Launch counts since ``reset_counts``, the flash backward's calls too."""
-    return {**read_counts(), "flash_backward": _ops("flash_attention").backward_launches}
+    """Launch counts since ``reset_counts``, the flash backward's calls too,
+    by kernel."""
+    fa = _ops("flash_attention")
+    return {**read_counts(), "flash_backward": fa.backward_launches,
+            "flash_backward_tensor_core": fa.backward_tensor_core_launches,
+            "flash_backward_cuda_core": fa.backward_cuda_core_launches}
 
 
 def small_quality_expect(cfg, model, q: dict) -> dict:
@@ -4775,7 +4795,9 @@ def train_path(torch, np):
         f" GiB for params, grads and AdamW state (plus activations, the guard's old tree "
         f"and the plain comparison)")
     log(f"  launches {counts} expected {TRAIN_PREDICTED['mistral']}; flash forwards all "
-        f"tensor-core: {kinds_ok} {'OK' if counts_ok and kinds_ok else 'FAIL'}")
+        f"tensor-core: {kinds_ok}; backward all tensor-core: "
+        f"{counts['flash_backward_tensor_core'] == counts['flash_backward']} "
+        f"{'OK' if counts_ok and kinds_ok else 'FAIL'}")
 
     # Where a step's time goes (outside the counted run).
     prof = profile_step(torch, lambda: step_fn(pb, ob, batches[2]), "train step", windows=3)
@@ -4806,8 +4828,8 @@ def train_path(torch, np):
         f"({small_s / extra['steps'] * 1e3:.1f} ms a step); loss {first:.4f} -> {last:.4f} "
         f"(drop {first - last:.4f}, at least {SMALL_LOSS_DROP}; ln 512 = {math.log(512):.4f}); "
         f"losses {extra['losses']} {'OK' if drop_ok else 'FAIL'}")
-    log(f"    launches {small_counts} expected {TRAIN_PREDICTED['small_llama']} (flash all "
-        f"CUDA-core) {'OK' if small_counts_ok else 'FAIL'}")
+    log(f"    launches {small_counts} expected {TRAIN_PREDICTED['small_llama']} (flash and "
+        f"its backward all CUDA-core) {'OK' if small_counts_ok else 'FAIL'}")
     entry, ref, q_counts, q_expect, q_ok = small_quality(torch, small)
     ok = (grads_ok and resume_ok and counts_ok and kinds_ok and small_counts_ok and drop_ok
           and q_ok and all(math.isfinite(x) for x in losses))

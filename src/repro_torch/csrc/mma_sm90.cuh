@@ -1,6 +1,11 @@
 // cp.async, ldmatrix and mma.sync helpers for the port's kernels (sm_90a).
 // flash_attention.cu and nested_lowrank.cu still carry their own copies,
 // whose signatures differ.
+//
+// Fragment layouts (PTX ISA, mma.m16n8k16 .bf16), lane = 4 * gid + tig:
+//   A regs {(gid, 2tig..+1), (gid+8, 2tig..), (gid, 2tig+8..), (gid+8, 2tig+8..)}
+//   B regs {(k 2tig..+1, n gid), (k 2tig+8..+9, n gid)}
+//   C      {(gid, 2tig), (gid, 2tig+1), (gid+8, 2tig), (gid+8, 2tig+1)}
 #pragma once
 
 #include <cuda_bf16.h>
@@ -25,6 +30,21 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
+// Byte offset of 16-byte chunk c of row r in a tile of CH chunks a row, the
+// chunk index XOR-swizzled by the row's low three bits (ldmatrix reads of 8
+// rows at one chunk column hit 8 different bank groups).
+template <int CH>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (uint32_t)(r * CH + (c ^ (r & 7))) * 16u;
+}
+
+// Four 8x8 b16 matrices: lanes 8i..8i+7 address the 8 rows of matrix i,
+// which lands in register i as (row lane / 4, cols 2 (lane % 4)..+1).
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
 // Four 8x8 b16 matrices, transposed: lanes 8i..8i+7 address the 8 rows of
 // matrix i, which lands in register i as (row 2 (lane % 4)..+1, col lane / 4).
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
@@ -41,4 +61,11 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16 (round-to-nearest-even), lo in the low half:
+// a C fragment's pair repacked as an A fragment's register.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
 }

@@ -12,8 +12,10 @@ When a gradient is asked for (grad mode on and an input that requires
 grad) the call goes through ``FlashAttention``, an autograd Function: its
 forward launches the same kernel with the row log-sum-exp written out, and
 its backward launches the three backward kernels of
-``csrc/flash_attention_bwd.cu``.  On the CPU or under ``kernels.plain()``
-that Function runs ``flash_attention_fwd_ref`` and ``flash_attention_bwd_ref``.
+``csrc/flash_attention_bwd.cu``: bf16 at hd <= 128 the tensor-core ones,
+fp32 and bf16 above hd 128 the CUDA-core ones (``bwd_plan``).  On the CPU
+or under ``kernels.plain()`` that Function runs ``flash_attention_fwd_ref``
+and ``flash_attention_bwd_ref``.
 Without a gradient nothing changes: the same launch, no log-sum-exp.
 """
 
@@ -35,6 +37,8 @@ launches = 0  # kernel launches (one per wrapper call that runs a kernel)
 tensor_core_launches = 0  # of which bf16, mma.sync
 cuda_core_launches = 0  # of which fp32, FMA
 backward_launches = 0  # backward calls on the card, three kernels each
+backward_tensor_core_launches = 0  # of which bf16 at hd <= 128, mma.sync
+backward_cuda_core_launches = 0  # of which fp32 or bf16 above hd 128, FMA
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
@@ -67,6 +71,32 @@ def plan(dtype: torch.dtype, hd: int, g: int) -> Plan:
     if not 1 <= g <= p.rows:
         raise ValueError(f"flash_attention: G={g} (at most {p.rows} at hd={hd}, {dtype})")
     return p
+
+
+class BwdPlan(NamedTuple):
+    """What ``flash_attention_bwd_launch`` runs for one (dtype, hd, G)."""
+
+    kernel: str  # "tensor_core" (bf16, mma.sync) or "cuda_core" (FMA)
+    head_dim: int  # the padded head dim the kernels are instantiated for
+
+
+def bwd_plan(dtype: torch.dtype, hd: int, g: int) -> BwdPlan:
+    """The backward's kernels and padded head dim for (dtype, hd, G), by
+    dtype and shape alone: bf16 at hd <= 128 on the tensor cores (padded to
+    64 or 128; any G), fp32 (tensor cores would round it to TF32) and bf16
+    above hd 128 on CUDA cores (32, 64, 128 or 256).  Raises on what no
+    kernel takes: hd not a multiple of 8 in [8, 256], G below 1, a dtype
+    other than fp32 or bf16."""
+    if hd % 8 or not 8 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention backward: hd={hd} (a multiple of 8 up to "
+                         f"{MAX_HEAD_DIM})")
+    if g < 1:
+        raise ValueError(f"flash_attention backward: G={g}")
+    if dtype == torch.bfloat16 and hd <= 128:
+        return BwdPlan("tensor_core", 64 if hd <= 64 else 128)
+    if dtype in (torch.bfloat16, torch.float32):
+        return BwdPlan("cuda_core", next(n for n in (32, 64, 128, 256) if hd <= n))
+    raise TypeError(f"flash_attention backward: dtype {dtype} (fp32 or bf16)")
 
 
 def _launcher():
@@ -138,7 +168,8 @@ def _forward(q, k, v, lse=None) -> torch.Tensor:
 
 
 def backward(q, k, v, out, lse, dout):
-    """The three backward kernels: (dq, dk, dv) like (q, k, v)."""
+    """The three backward kernels ``bwd_plan`` picks: (dq, dk, dv) like
+    (q, k, v)."""
     check(q, k, v)
     b, s, hq, hd = q.shape
     hkv = k.shape[2]
@@ -150,21 +181,28 @@ def backward(q, k, v, out, lse, dout):
                              f"{q.device}")
     if out.dtype != q.dtype or dout.dtype != q.dtype or lse.dtype != torch.float32:
         raise TypeError("flash_attention backward: out/dout in q's dtype, lse fp32")
-    if b * hq > MAX_GRID_Y:
+    p = bwd_plan(q.dtype, hd, hq // hkv)
+    if p.kernel == "cuda_core" and b * hq > MAX_GRID_Y:
         raise ValueError(f"flash_attention backward: B*Hq={b * hq} > {MAX_GRID_Y}")
-    global backward_launches
+    if p.kernel == "tensor_core" and dout.data_ptr() % 16:
+        raise ValueError("flash_attention backward: bf16 dout must be 16-byte aligned "
+                         "(cp.async)")
+    global backward_launches, backward_tensor_core_launches, backward_cuda_core_launches
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if b == 0 or s == 0:
         return dq, dk, dv
     dsum = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
-    hdp = next(n for n in (32, 64, 128, 256) if hd <= n)  # the instantiation's head dim
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _bwd_launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                           dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
                           dk.data_ptr(), dv.data_ptr(), b, s, hkv, hq // hkv, hd,
-                          1.0 / math.sqrt(hd), _DTYPES[q.dtype], hdp, stream)
+                          1.0 / math.sqrt(hd), _DTYPES[q.dtype], p.head_dim, stream)
     check_launch(err, "flash_attention backward")
     backward_launches += 1
+    if p.kernel == "tensor_core":
+        backward_tensor_core_launches += 1
+    else:
+        backward_cuda_core_launches += 1
     return dq, dk, dv
 
 

@@ -700,7 +700,14 @@ def _bwd_inputs(dev, b, s, hkv, group, hd, dtype, seed):
 @pytest.mark.parametrize("b,s,hkv,group,hd", [
     (2, 128, 2, 1, 32), (2, 128, 4, 4, 32), (1, 100, 2, 4, 64), (2, 64, 1, 16, 64),
     (1, 257, 2, 4, 128), (1, 130, 1, 16, 128), (3, 37, 2, 1, 256), (1, 70, 1, 4, 256),
-    (1, 5, 3, 3, 40)])
+    (1, 5, 3, 3, 40),
+    # The tensor-core kernels' edges (64-row tiles, 32-row chunks, hd
+    # padded to 64 or 128, rows packed position x G): S below one tile and
+    # at 64k - 1, 64k, 64k + 1; hd 40, 72, 96; G 1, 8, 16 at hd 128; a grid
+    # of 128 (batch, KV head) pairs.
+    (2, 37, 2, 4, 128), (1, 63, 2, 4, 128), (1, 64, 2, 4, 128), (1, 65, 1, 8, 128),
+    (1, 127, 2, 2, 96), (1, 129, 1, 1, 128), (1, 191, 2, 4, 72), (1, 193, 2, 3, 40),
+    (2, 300, 4, 1, 128), (1, 300, 2, 8, 128), (1, 300, 1, 16, 128), (8, 70, 16, 2, 64)])
 def test_flash_bwd_kernel_matches_plain(dev, b, s, hkv, group, hd, dtype):
     """dq, dk, dv of the three backward kernels against the plain FA2
     backward on the same inputs: hd 32-256, G 1-16, ragged S."""
@@ -714,6 +721,41 @@ def test_flash_bwd_kernel_matches_plain(dev, b, s, hkv, group, hd, dtype):
         assert x.dtype == dtype and x.shape == w.shape, name
         assert torch.isfinite(x).all(), name
         assert _bwd_elem_err(x, w) <= FLASH_BWD_ELEM_TOL[dtype], name
+
+
+@pytest.mark.parametrize("dtype,hd", [(torch.float32, 128), (torch.bfloat16, 128),
+                                      (torch.bfloat16, 64), (torch.bfloat16, 256)])
+def test_flash_bwd_single_position(dev, dtype, hd):
+    """S = 1: dv against the plain backward; dq and dk are zero in exact
+    arithmetic (dS = dO.v0 - dO.o0 with o0 = v0), so both versions hold
+    only the fp32 rounding of two dot products of hd unit-scale terms (about
+    1e-6): held to 1e-4 absolute, not to a relative error of noise."""
+    args = _bwd_inputs(dev, 2, 1, 2, 4, hd, dtype, 1)
+    dq, dk, dv = fa_ops.backward(*args)
+    torch.cuda.synchronize()
+    want = fa_ref.flash_attention_bwd_ref(*args)
+    assert _bwd_elem_err(dv, want[2]) <= FLASH_BWD_ELEM_TOL[dtype]
+    for x in (dq, dk):
+        assert torch.isfinite(x).all() and float(x.float().abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype,hd,kind", [
+    (torch.bfloat16, 40, "tensor_core"), (torch.bfloat16, 64, "tensor_core"),
+    (torch.bfloat16, 128, "tensor_core"), (torch.bfloat16, 256, "cuda_core"),
+    (torch.float32, 64, "cuda_core"), (torch.float32, 128, "cuda_core")])
+def test_flash_bwd_dtype_picks_kernel(dev, dtype, hd, kind):
+    """bf16 at hd <= 128 runs only the tensor-core backward kernels, fp32
+    and bf16 above hd 128 only the CUDA-core ones (``bwd_plan``), by the
+    wrapper's counters; the total is their sum."""
+    args = _bwd_inputs(dev, 1, 80, 2, 4, hd, dtype, 3)
+    counts = lambda: {n: getattr(fa_ops, f"backward_{n}launches")  # noqa: E731
+                      for n in ("", "tensor_core_", "cuda_core_")}
+    before = counts()
+    fa_ops.backward(*args)
+    torch.cuda.synchronize()
+    after = counts()
+    assert {n: after[n] - before[n] for n in after} == {
+        "": 1, "tensor_core_": int(kind == "tensor_core"), "cuda_core_": int(kind == "cuda_core")}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -97,6 +97,37 @@ def test_flash_plan_rejects(dtype, hd, g, exc):
         fa_ops.plan(dtype, hd, g)
 
 
+# The backward's dispatch: bf16 at hd <= 128 on the tensor-core kernels at a
+# padded head dim of 64 or 128, any G; bf16 above hd 128 and fp32 on the
+# CUDA-core ones at 32/64/128/256.
+@pytest.mark.parametrize("dtype,hd,g,want", [
+    (torch.bfloat16, 8, 1, ("tensor_core", 64)),
+    (torch.bfloat16, 32, 4, ("tensor_core", 64)),
+    (torch.bfloat16, 64, 8, ("tensor_core", 64)),
+    (torch.bfloat16, 72, 1, ("tensor_core", 128)),
+    (torch.bfloat16, 96, 4, ("tensor_core", 128)),
+    (torch.bfloat16, 128, 16, ("tensor_core", 128)),
+    (torch.bfloat16, 128, 200, ("tensor_core", 128)),
+    (torch.bfloat16, 136, 4, ("cuda_core", 256)),
+    (torch.bfloat16, 256, 2, ("cuda_core", 256)),
+    (torch.float32, 32, 1, ("cuda_core", 32)),
+    (torch.float32, 64, 4, ("cuda_core", 64)),
+    (torch.float32, 128, 4, ("cuda_core", 128)),
+    (torch.float32, 256, 16, ("cuda_core", 256))])
+def test_flash_bwd_plan_picks_kernel_and_padded_head_dim(dtype, hd, g, want):
+    assert tuple(fa_ops.bwd_plan(dtype, hd, g)) == want
+
+
+@pytest.mark.parametrize("dtype,hd,g,exc", [
+    (torch.bfloat16, 12, 1, ValueError), (torch.bfloat16, 0, 1, ValueError),
+    (torch.bfloat16, 264, 1, ValueError), (torch.float32, 4, 1, ValueError),
+    (torch.bfloat16, 128, 0, ValueError), (torch.float16, 128, 4, TypeError),
+    (torch.float16, 256, 4, TypeError)])
+def test_flash_bwd_plan_rejects(dtype, hd, g, exc):
+    with pytest.raises(exc):
+        fa_ops.bwd_plan(dtype, hd, g)
+
+
 def test_flash_check_gates_operands():
     """The gates run on any device: shapes, dtypes, contiguity, and the
     plan they give."""

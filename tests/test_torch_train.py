@@ -805,6 +805,18 @@ def test_chip_train_path_counts_hold_on_cpu(monkeypatch):
     for pred in cs.TRAIN_PREDICTED.values():
         assert pred["flash_attention"] == pred["flash_backward"]
         assert not any(pred[k] for k in ("nested_lowrank", "paged_attention", "rwkv6", "gram"))
+    # Which backward kernels each path runs: the one ``bwd_plan`` picks for
+    # its config (Mistral bf16 at hd 128 on the tensor cores, small-llama
+    # fp32 on CUDA cores), every call, and the other none.
+    kinds = {}
+    for path, pcfg in (("mistral", get_config("mistral-7b")), ("small_llama", cfg)):
+        pred = cs.TRAIN_PREDICTED[path]
+        kinds[path] = fa_ops.bwd_plan(getattr(torch, pcfg.dtype), pcfg.head_dim,
+                                      pcfg.num_heads // pcfg.num_kv_heads).kernel
+        other = {"tensor_core": "cuda_core", "cuda_core": "tensor_core"}[kinds[path]]
+        assert pred[f"flash_backward_{kinds[path]}"] == pred["flash_backward"]
+        assert pred[f"flash_backward_{other}"] == 0
+    assert kinds == {"mistral": "tensor_core", "small_llama": "cuda_core"}
     calls.clear()
     q = dict(cs.SMALL_QUALITY, eval_n_batches=1, calib_samples=16)
     entry = build_entry(cfg, params=params, device="cpu", **q)

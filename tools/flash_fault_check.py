@@ -1,17 +1,27 @@
 #!/usr/bin/env python3
-"""Planted faults in the bf16 flash_attention kernel, against chip_smoke.py's
-two checks of it: the global one (max |kernel - plain| <= FLASH_TOL x max
-|plain|) and the per-element one (FLASH_ELEM_TOL, relative to |plain| plus
-the rms of the row).
+"""Planted faults in the bf16 flash_attention kernels, against chip_smoke.py's
+checks of them.
 
-    python3 tools/flash_fault_check.py
+    python3 tools/flash_fault_check.py [forward|backward]
 
-Needs one H100 and the CUDA toolkit.  Each fault is a one-line patch of
-``csrc/flash_attention.cu`` in a temporary copy of ``repro_torch`` (the
-checkout is never touched), built and run in its own process on the flash
-phase's bf16 shapes and a (1, 2048) G = 8 case.  Prints one line per fault
-and case, and exits non-zero unless the unpatched kernel passes both checks
-everywhere and every fault fails the per-element check somewhere.
+forward: faults in ``csrc/flash_attention.cu``'s tensor-core kernel against
+the global check (max |kernel - plain| <= FLASH_TOL x max |plain|) and the
+per-element one (FLASH_ELEM_TOL, relative to |plain| plus the rms of the
+row), on the flash phase's bf16 shapes and a (1, 2048) G = 8 case.
+
+backward: faults in ``csrc/flash_attention_bwd.cu``'s tensor-core kernels
+(dK/dV and dQ) against the per-element check of dq, dk and dv
+(FLASH_BWD_ELEM_TOL on ``bwd_elem_err``; the global column is max |kernel -
+plain| / max |plain| over the three, held to the same number), on the
+flash_bwd phase's bf16 shapes (its inputs) and a (2, 300) 8/2 case at hd 72
+(padded to 128 in shared memory), whose inputs lie in buffers with slack
+after them so that a copy past hd reads memory that exists.
+
+Needs one H100 and the CUDA toolkit.  Each fault is a one-line patch in a
+temporary copy of ``repro_torch`` (the checkout is never touched), built
+and run in its own process.  Prints one line per fault and case, and exits
+non-zero unless the unpatched kernels pass every check everywhere and
+every fault fails the per-element check somewhere.  With no argument, both.
 """
 
 from __future__ import annotations
@@ -41,6 +51,72 @@ FAULTS = {
 }
 
 
+BWD_FAULTS = {
+    # The causal mask dropped in dK/dV: keys see queries before them.
+    "dkdv_no_causal_mask": ("if (masked && (key[e >> 1] > qpos || qpos >= s_len)) p = 0.f;",
+                            "if (masked && qpos >= s_len) p = 0.f;"),
+    # The causal mask dropped in dQ.
+    "dq_no_causal_mask": ("if (masked && kc + 8 * j + 2 * tig + (e & 1) > lim[e >> 1]) p = 0.f;",
+                          "(void)masked;"),
+    # P rebuilt without the row's lse.
+    "dkdv_lse_not_subtracted": ("float p = exp2f(fmaf(s[j][e], scale_log2, nl));",
+                                "float p = exp2f(s[j][e] * scale_log2);"),
+    "dq_lse_not_subtracted": ("float p = exp2f(fmaf(s[j][e], scale_log2, -lse2[e >> 1]));",
+                              "float p = exp2f(s[j][e] * scale_log2);"),
+    # dS = P dP, without D.
+    "dkdv_d_not_subtracted": ("dp[j][e] = p * (dp[j][e] - dd);", "dp[j][e] = p * dp[j][e];"),
+    "dq_d_not_subtracted": ("dp[j][e] = p * (dp[j][e] - dd[e >> 1]);",
+                            "dp[j][e] = p * dp[j][e];"),
+    # A KV head paired with the next KV head's query heads (dK/dV), or a
+    # query head reading the next KV head's K and V (dQ).
+    "dkdv_wrong_kv_head": ("const int q0 = (kt + i / g) * TR, h = kvh * g + i % g;",
+                           "const int q0 = (kt + i / g) * TR, h = ((kvh + 1) % hkv) * g + i % g;"),
+    "dq_wrong_kv_head": ("const size_t off = (((size_t)b * s_len + k0) * hkv + kvh) * hd;",
+                         "const size_t off = (((size_t)b * s_len + k0) * hkv + (kvh + 1) % hkv)"
+                         " * hd;"),
+    # The dims past hd of streamed and resident tiles copied, not zero-filled.
+    "hd_tail_not_zero_filled": ("const bool lc_live = lc * 8 < hd;", "const bool lc_live = true;"),
+}
+
+
+def measure_bwd() -> list:
+    """The backward's checks on the current PYTHONPATH's repro_torch."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(5)  # as chip_smoke's flash_bwd phase
+    cases = []
+    for dname, b, s, hq, hkv, hd in chip_smoke.FLASH_BWD_SHAPES:
+        def mk(h):
+            return torch.randn((b, s, h, hd), generator=gen, device="cuda").to(
+                getattr(torch, dname))
+        args = (mk(hq), mk(hkv), mk(hkv), mk(hq))
+        if dname == "bfloat16":
+            cases.append((f"phase ({b}, {s}) {hq}/{hkv} hd {hd}", args))
+    b, s, hq, hkv, hd = 2, 300, 8, 2, 72
+    gen = torch.Generator(device="cuda").manual_seed(72)
+
+    def slack(h):
+        n = b * s * h * hd
+        buf = torch.randn(n + 4096, generator=gen, device="cuda").to(torch.bfloat16)
+        return buf[:n].view(b, s, h, hd)
+    cases.append((f"slack ({b}, {s}) {hq}/{hkv} hd {hd}", (slack(hq), slack(hkv), slack(hkv),
+                                                           slack(hq))))
+    out = []
+    for name, (q, k, v, dout) in cases:
+        o, lse = ref.flash_attention_fwd_ref(q, k, v)
+        got = ops.backward(q, k, v, o, lse, dout)
+        want = ref.flash_attention_bwd_ref(q, k, v, o, lse, dout)
+        out.append(dict(case=name, glob=max(float((x.float() - w.float()).abs().max()
+                                                  / w.float().abs().max())
+                                            for x, w in zip(got, want)),
+                        elem=max(chip_smoke.bwd_elem_err(torch, x, w) for x, w in zip(got, want)),
+                        finite=all(bool(torch.isfinite(x).all()) for x in got)))
+        del o, lse, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
 def measure() -> list:
     """Both checks of the kernel on the current PYTHONPATH's repro_torch."""
     import torch
@@ -66,8 +142,8 @@ def measure() -> list:
 
 
 def run_variant(name: str, patch, source: str = "flash_attention.cu",
-                script: str = __file__) -> list:
-    """``script --measure``'s results on ``repro_torch`` with ``patch`` (old,
+                script: str = __file__, flag: str = "--measure") -> list:
+    """``script flag``'s results on ``repro_torch`` with ``patch`` (old,
     new) applied once to ``csrc/<source>`` in a temporary copy (None: the
     checkout as it is), built and run in a process of its own."""
     env = dict(os.environ)
@@ -89,7 +165,7 @@ def run_variant(name: str, patch, source: str = "flash_attention.cu",
             f.write(text.replace(old, new))
         env["PYTHONPATH"] = tmp
     try:
-        p = subprocess.run([sys.executable, os.path.abspath(script), "--measure"], env=env,
+        p = subprocess.run([sys.executable, os.path.abspath(script), flag], env=env,
                            capture_output=True, text=True, timeout=600)
     finally:
         if tmp:
@@ -101,7 +177,7 @@ def run_variant(name: str, patch, source: str = "flash_attention.cu",
 
 
 def check_faults(faults: dict, g_tol: float, e_tol: float, source: str = "flash_attention.cu",
-                 script: str = __file__) -> bool:
+                 script: str = __file__, flag: str = "--measure") -> bool:
     """Both checks on the unpatched kernel and on each fault, one line per
     case: True when the unpatched kernel passes both everywhere and every
     fault fails the per-element check somewhere.  A case that reports
@@ -109,7 +185,7 @@ def check_faults(faults: dict, g_tol: float, e_tol: float, source: str = "flash_
     differs from its mirror."""
     ok = True
     for name, patch in [("unpatched", None), *faults.items()]:
-        rows = run_variant(name, patch, source, script)
+        rows = run_variant(name, patch, source, script, flag)
         caught_g = caught_e = False
         for r in rows:
             g_fail = not r["finite"] or r["glob"] > g_tol
@@ -127,11 +203,22 @@ def check_faults(faults: dict, g_tol: float, e_tol: float, source: str = "flash_
 
 
 def main() -> int:
-    if sys.argv[1:] == ["--measure"]:
-        print("RESULT " + json.dumps(measure()), flush=True)
+    if sys.argv[1:] in (["--measure"], ["--measure-bwd"]):
+        rows = measure() if sys.argv[1] == "--measure" else measure_bwd()
+        print("RESULT " + json.dumps(rows), flush=True)
         return 0
-    ok = check_faults(FAULTS, chip_smoke.FLASH_TOL["bfloat16"],
-                      chip_smoke.FLASH_ELEM_TOL["bfloat16"])
+    which = sys.argv[1:] or ["forward", "backward"]
+    if not set(which) <= {"forward", "backward"}:
+        print(__doc__, file=sys.stderr)
+        return 2
+    ok = True
+    if "forward" in which:
+        ok = check_faults(FAULTS, chip_smoke.FLASH_TOL["bfloat16"],
+                          chip_smoke.FLASH_ELEM_TOL["bfloat16"]) and ok
+    if "backward" in which:
+        tol = chip_smoke.FLASH_BWD_ELEM_TOL["bfloat16"]
+        ok = check_faults(BWD_FAULTS, tol, tol, "flash_attention_bwd.cu", __file__,
+                          "--measure-bwd") and ok
     return 0 if ok else 1
 
 

@@ -2,7 +2,7 @@
 """One phase of chip_smoke.py on two trees of this repository, on one card,
 in turns: the other tree, this one, this one, the other.
 
-    python3 tools/nested_ab.py OTHER_ROOT [nested|gram|paged|rwkv6|admit|calibrate]
+    python3 tools/nested_ab.py OTHER_ROOT [nested|gram|paged|rwkv6|flash_bwd|admit|calibrate]
 
 OTHER_ROOT is another checkout (for example the parent commit, unpacked with
 ``git archive`` into a directory that .gitignore lists).  Each run is a
@@ -24,6 +24,13 @@ process of its own that builds that tree's kernels.  Phases:
              for it, at prefill), device ms of one call from torch.profiler
              (the mean of 5), and whether y and the state are within
              RWKV_TOL and RWKV_STATE_TOL of the plain version;
+  flash_bwd  that tree's flash-attention backward (``ops.backward``) at this
+             tree's FLASH_BWD_SHAPES (chip_smoke's inputs: the plain
+             forward's out and lse, a random dO), device ms of one call
+             from torch.profiler (the mean of 5, its three kernels), which
+             kernels ran (a tree without the split counters: cuda_core), and
+             whether dq, dk, dv are within FLASH_BWD_ELEM_TOL of the plain
+             backward;
   admit      that tree's dense-slab admission on chip_smoke's spec_serve
              S3 (Mistral-7B width, 2 layers, bf16, *Serve*'s 8 prompts,
              target nsvd1 0.2 and draft 0.6 from one calibration, k 4,
@@ -143,6 +150,33 @@ for case, bh, t, k, dname, w_fixed in chip_smoke.RWKV_SHAPES:
     torch.cuda.empty_cache()
 print("RESULT " + json.dumps(out), flush=True)
 """
+RUN_FLASH_BWD = """
+import json, sys, torch
+sys.path[:0] = [{src!r}, {this!r}]
+import chip_smoke
+from repro_torch.kernels.flash_attention import ops, ref
+out = []
+gen = torch.Generator(device="cuda").manual_seed(5)
+for dname, b, s, hq, hkv, hd in chip_smoke.FLASH_BWD_SHAPES:
+    dt = getattr(torch, dname)
+    mk = lambda h: torch.randn((b, s, h, hd), generator=gen, device="cuda").to(dt)
+    q, k, v, dout = mk(hq), mk(hkv), mk(hkv), mk(hq)
+    o, lse = ref.flash_attention_fwd_ref(q, k, v)
+    tc = lambda: getattr(ops, "backward_tensor_core_launches", 0)
+    before = tc()
+    got = ops.backward(q, k, v, o, lse, dout)
+    ran = "tensor_core" if tc() > before else "cuda_core"
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, dout)
+    ok = max(chip_smoke.bwd_elem_err(torch, x, w) for x, w in zip(got, want)) <= (
+        chip_smoke.FLASH_BWD_ELEM_TOL[dname])
+    del got, want
+    calls = lambda: [ops.backward(q, k, v, o, lse, dout) for _ in range(5)]
+    dev = chip_smoke.profile_step(torch, calls, quiet=True)["device_busy_ms"] / 5
+    out.append(dict(key=[dname, b, s, hq, hkv, hd], value=dev, ran=ran, ok=bool(ok)))
+    del q, k, v, dout, o, lse
+    torch.cuda.empty_cache()
+print("RESULT " + json.dumps(out), flush=True)
+"""
 RUN_ADMIT = """
 import dataclasses, json, statistics, sys, time, numpy as np, torch
 sys.path[:0] = [{src!r}, {this!r}]
@@ -230,7 +264,7 @@ def run_script(root: str, phase: str) -> list:
                             ok=p.returncode == 0))
         return out
     template = {"nested": RUN_NESTED, "gram": RUN_GRAM, "paged": RUN_PAGED,
-                "rwkv6": RUN_RWKV, "admit": RUN_ADMIT}[phase]
+                "rwkv6": RUN_RWKV, "flash_bwd": RUN_FLASH_BWD, "admit": RUN_ADMIT}[phase]
     code = template.format(root=root, src=os.path.join(root, "src"), this=ROOT,
                            shapes=list(chip_smoke.GRAM_SHAPES), tol=chip_smoke.GRAM_TOL,
                            reps=ADMIT_REPS)
@@ -245,7 +279,7 @@ def run_script(root: str, phase: str) -> list:
 def main() -> int:
     if len(sys.argv) not in (2, 3) or (sys.argv[2:] and sys.argv[2] not in
                                        ("nested", "gram", "paged", "rwkv6",
-                                        "admit", "calibrate")):
+                                        "flash_bwd", "admit", "calibrate")):
         print(__doc__, file=sys.stderr)
         return 2
     other = os.path.abspath(sys.argv[1])
