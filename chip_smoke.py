@@ -15,9 +15,12 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
      kernel for fp32 -- the device time of one call and of ``multi_dot``
      from torch.profiler, and at bf16 rows above 16 the device time of the
      tile kernel that ran them before the mma kernel; gram: also a
-     per-element check, exact symmetry, which kernel ran -- mma for bf16,
-     FMA for fp32 -- the device time of one call and of the library call,
-     and for bf16 the device time of the FMA kernel on the same rows;
+     per-element check, exact symmetry, two runs bit-identical, which
+     kernel ran -- mma for bf16, tf32x3 for fp32, whose per-element error
+     against an fp64 Gram is also held within GRAM_GATE of the plain fp32
+     matmul's -- the device time of one call and of the library call, and
+     the FMA kernel on the same rows, its event and device times and the
+     same checks but the gate (held on fp32 rows, logged on bf16 ones);
      paged_attention: also a per-element check and zeros on a length-0 row at
      lengths 1-700, at eight rows of 512-8192 tokens, at one row of 32768
      and at the serve path's decode step, and that step at chatglm3-6b's
@@ -224,7 +227,7 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
      (its fp64 Grams: 2.05 GB a layer), the projector uncut, every row
      behind one image's 576 patch features (fp32, from a numpy seed):
      calibrate over batch dicts with patches (gram: the raw fp32
-     ``projector.in`` tap on the FMA kernel, the rest on mma), compress
+     ``projector.in`` tap on the tf32x3 kernel, the rest on mma), compress
      (nsvd1 0.2, the layers' and the projector's 30 targets), perplexity on
      en_a and jp dense and compressed and the logit KL, greedy decoding of
      8 rows through ``make_prefill_step`` and ``make_decode_step`` (decode
@@ -235,7 +238,7 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
      counted apart); the streams by the margin rule, a decode step's, the
      one-image prefill's and an eval batch's logits against the plain
      versions; a profiled decode step and calibration batch.  The kernel
-     phase holds the gram at (9216, 1024) (fp32: the FMA kernel) and the
+     phase holds the gram at (9216, 1024) (fp32: the tf32x3 kernel) and the
      projector's wi and wo at 576 rows;
  15. train path: mistral-7b at full width cut to 2 layers (0.70 B params,
      bf16, fp32 AdamW state), batch 4 x 2048 from the data pipeline, the
@@ -278,7 +281,7 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 
 # H100 SXM published peaks (dense): HBM bytes/s and FLOP/s per input type.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12, "int8": 1979e12}
 
 NESTED_SHAPES = (  # (target, in K, out N, rank) at ratio 0.2 on Mistral-7B
     ("wq", 4096, 4096, 1638),
@@ -407,7 +410,7 @@ STEP_LOGIT_TOL = 5e-2
 # (18432; its d_model is Mistral-7B's 7168); whisper-small's encoder
 # taps over a calibration batch's 16 x 1500 frames, at its d_model (768)
 # and d_ff (3072); and llava's ``projector.in`` over a calibration batch's
-# 16 x 576 patches (fp32 on the path: the FMA kernel).
+# 16 x 576 patches (fp32 on the path: the tf32x3 kernel).
 GRAM_SHAPES = ((2048, 256), (2048, 512), (2048, 768), (2048, 1536), (2048, 2048),
                (2048, 2560), (2048, 4096), (2048, 6400), (2048, 7168), (2048, 13696),
                (2048, 14336), (2048, 16384), (2048, 18432), (24000, 768), (24000, 3072),
@@ -421,15 +424,25 @@ GRAM_TOL = 1e-5
 # entry).  sqrt(G_ii G_jj) bounds sum_k |x_ki x_kj| (Cauchy-Schwarz), so a
 # summation-order error over R rows is at most gamma_R of it: 1e-4 is
 # gamma_2048 in fp32 (measured on the H100: up to 4.5e-6 for the mma
-# kernel, 0 for the FMA kernel).  G must also equal G^T exactly, entry by
-# entry.
+# kernel).  G must also equal G^T exactly, entry by entry, and two runs must
+# give the same bits.  The FMA kernel is held to the same on fp32 rows.
 GRAM_ELEM_TOL = 1e-4
+# fp32 rows hold the kernel to fp32's precision, which GRAM_ELEM_TOL cannot
+# see (a single-pass TF32 Gram passes it at most rows): its per-element error
+# against an fp64 Gram of the same rows (``gram_elem_err``) at most
+# GRAM_GATE times the plain fp32 matmul's.  On the H100 at the phase's
+# fp32 rows: the tf32x3 kernel 0.19-1.8x the plain's, a single-pass TF32
+# Gram 10-180x (tools/gram_fault_check.py's dropped lo products).
+GRAM_GATE = 4.0
 # (B, S, Hq, Hkv): calibration and evaluation batches at Mistral-7B's heads,
 # a ragged S, and G = 1.
 FLASH_SHAPES = ((16, 128, 32, 8), (4, 2048, 32, 8), (4, 1000, 32, 8), (4, 1000, 8, 8))
 # (B, S, Hq, Hkv, hd), bf16 only: whisper-small's decoder at a calibration
 # and eval batch (12/12 heads x 64: G 1 at hd 64).
 WHISPER_FLASH_SHAPES = ((16, 128, 12, 12, 64),)
+# (B, S, Hq, Hkv, hd), fp32 only: small-llama's training batch (the train
+# path: 4/4 heads x 32 on the CUDA-core forward).
+SMALL_FLASH_SHAPES = ((16, 128, 4, 4, 32),)
 # bf16: P is rounded to bf16 before P V unnormalized (kernel) vs normalized
 # (plain), and outputs round to bf16; fp32: sum order only.
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
@@ -531,6 +544,10 @@ NESTED_BATCHED_CASES = (
 # held to GRAM_TOL and GRAM_ELEM_TOL with exact symmetry, expert by expert.
 GRAM_BATCHED_SHAPES = ((64, 240, 2048), (64, 240, 1408), (16, 1280, 7168), (16, 1280, 2048),
                        (8, 640, 14336), (8, 640, 4096))
+# And in fp32 (the tf32x3 kernel, held also to GRAM_GATE): moonshot's and
+# the dsv3_serve cut's expert_buf taps, as an fp32 model's calibration
+# gives them.
+GRAM_BATCHED_FP32_SHAPES = ((64, 240, 2048), (16, 1280, 2048))
 
 
 def log(msg: str) -> None:
@@ -813,6 +830,17 @@ def gram_library(torch, x):
     return (lambda: torch.matmul(x.T, x)), "fp32 matmul"
 
 
+def gram_fp64_gate(torch, ref, x, got, want) -> dict:
+    """fp32 rows: the kernel's and the plain fp32 matmul's per-element
+    errors against an fp64 Gram of the same rows (a batch (E, C, n): per
+    expert), and whether the kernel's is within GRAM_GATE of the plain's."""
+    x64 = x.double()
+    g64 = x64.transpose(-1, -2) @ x64
+    k_err, p_err = ref.gram_elem_err(got, g64), ref.gram_elem_err(want, g64)
+    return dict(fp64_err=k_err, plain_fp64_err=p_err, fp64_gate=GRAM_GATE,
+                fp64_ok=k_err <= GRAM_GATE * p_err)
+
+
 def gram_phase(torch, ops, ref):
     rows_out = []
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -828,51 +856,98 @@ def gram_phase(torch, ops, ref):
             torch.cuda.synchronize()
             after = gram_split()
             ran = next((k for k in after if after[k] > before[k]), "none")
-            want_ran = "mma" if dname == "bfloat16" else "fma"
+            want_ran = "mma" if dname == "bfloat16" else "tf32x3"
             err = float((got_g - want_g).abs().max())
             scale = float(want_g.abs().max())
             a_err = float((got_a - want_a).abs().max())
             a_scale = float(want_a.abs().max())
             e_err = ref.gram_elem_err(got_g, want_g)
             sym = bool(torch.equal(got_g, got_g.T))
+            again = ops.gram_accumulate(x)
+            same_bits = bool(torch.equal(again[0], got_g) and torch.equal(again[1], got_a))
+            del again
+            gate = gram_fp64_gate(torch, ref, x, got_g, want_g) if dname == "float32" else {}
+            # The FMA kernel on the same rows (it ran all of them before the
+            # mma kernel took bf16 and the tf32x3 kernel fp32, and still takes
+            # ragged widths and unaligned rows), with its event and device
+            # times beside the kernel's, from this run.  On fp32 rows it is
+            # held to GRAM_TOL, GRAM_ELEM_TOL, exact symmetry and same bits,
+            # as before the tf32x3 kernel took them.  On bf16 rows the same
+            # checks are logged, not held: its one accumulator over 24000
+            # rows lands above GRAM_TOL there (ROADMAP C).
+            fma_g, fma_a = ops.launch(x, "fma")
+            fma_err = float((fma_g - want_g).abs().max())
+            fma_a_err = float((fma_a - want_a).abs().max())
+            fma_e_err = ref.gram_elem_err(fma_g, want_g)
+            fma_again = ops.launch(x, "fma")
+            fma_ok = (bool(torch.isfinite(fma_g).all()) and fma_err <= GRAM_TOL * scale
+                      and fma_a_err <= GRAM_TOL * a_scale and fma_e_err <= GRAM_ELEM_TOL
+                      and bool(torch.equal(fma_g, fma_g.T))
+                      and bool(torch.equal(fma_again[0], fma_g)
+                               and torch.equal(fma_again[1], fma_a)))
             ok = (bool(torch.isfinite(got_g).all()) and err <= GRAM_TOL * scale
                   and a_err <= GRAM_TOL * a_scale and e_err <= GRAM_ELEM_TOL and sym
-                  and ran == want_ran)
-            del got_g, want_g
+                  and same_bits and gate.get("fp64_ok", True) and ran == want_ran
+                  and (fma_ok or dname != "float32"))
+            del got_g, want_g, fma_g, fma_a, fma_again
             ms = time_ms(lambda: ops.gram_accumulate(x), reps=5)
             plain = time_ms(lambda: ref.gram_accumulate_ref(x), reps=5)
+            fma_ms = time_ms(lambda: ops.launch(x, "fma"), reps=5)
             lib_fn, lib_name = gram_library(torch, x)
             lib = time_ms(lib_fn, reps=5)
-            # Device time of one call (the mean of DEVICE_REPS), of the
-            # library call, and for bf16 of the FMA kernel that ran these
-            # rows before the mma kernel.
-            dev_ms = profile_step(torch, lambda: [ops.gram_accumulate(x) for _ in range(
-                DEVICE_REPS)], quiet=True)["device_busy_ms"] / DEVICE_REPS
+            # Device time of one call (the mean of DEVICE_REPS; the tf32x3
+            # kernel's reduce apart), of the library call and of the FMA
+            # kernel.
+            prof = profile_step(torch, lambda: [ops.gram_accumulate(x) for _ in range(
+                DEVICE_REPS)], quiet=True)
+            dev_ms = prof["device_busy_ms"] / DEVICE_REPS
+            reduce_dev = sum(v for k, v in prof["kernels"].items()
+                             if "gram_tf32x3_reduce" in k) / DEVICE_REPS
             lib_dev = profile_step(torch, lambda: [lib_fn() for _ in range(DEVICE_REPS)],
                                    quiet=True)["device_busy_ms"] / DEVICE_REPS
-            fma_dev = None
-            if ran == "mma":
-                fma_dev = profile_step(torch, lambda: [ops.launch(x, "fma") for _ in range(
-                    DEVICE_REPS)], quiet=True)["device_busy_ms"] / DEVICE_REPS
+            fma_dev = profile_step(torch, lambda: [ops.launch(x, "fma") for _ in range(
+                DEVICE_REPS)], quiet=True)["device_busy_ms"] / DEVICE_REPS
             nbytes = x.numel() * x.element_size() + 4 * (n * n + n)
             flops = rows * n * (n + 1)  # upper triangle: products exact for bf16
             b, by = bound_ms(nbytes, flops, dname)
+            # fp32: the bound of the arithmetic the tf32x3 kernel does (three
+            # TF32 products a pair, at the TF32 peak).  The FFMA bound beside
+            # it is the FMA kernel's (fp32 FMAs, whatever the rows' dtype).
+            rate = dname
+            b_ffma, by_ffma = bound_ms(nbytes, flops, "float32")
+            if ran == "tf32x3":
+                rate = "tf32x3"
+                b, by = bound_ms(nbytes, 3 * flops, "tf32")
             row = dict(kernel="gram", dtype=dname, rows=rows, n=n, ran=ran, max_abs_err=err,
                        ref_max_abs=scale, tol=GRAM_TOL * scale, abs_sum_err=a_err,
                        abs_sum_tol=GRAM_TOL * a_scale, elem_err=e_err,
-                       elem_tol=GRAM_ELEM_TOL, symmetric=sym, ok=ok, ms=ms,
-                       device_ms=dev_ms, plain_ms=plain, library=lib_name, library_ms=lib,
-                       library_device_ms=lib_dev, fma_device_ms=fma_dev, bytes=nbytes,
-                       flops=flops, bound_ms=b, bound_by=by,
+                       elem_tol=GRAM_ELEM_TOL, symmetric=sym, same_bits=same_bits, **gate,
+                       ok=ok, ms=ms, device_ms=dev_ms, reduce_device_ms=reduce_dev,
+                       splits=ops.plan_splits(rows, n, 1, ops.sm_count(x.device))
+                       if ran == "tf32x3" else 1,
+                       plain_ms=plain, library=lib_name, library_ms=lib,
+                       library_device_ms=lib_dev, fma_max_abs_err=fma_err,
+                       fma_abs_sum_err=fma_a_err, fma_elem_err=fma_e_err, fma_ok=fma_ok,
+                       fma_ms=fma_ms, fma_device_ms=fma_dev, bytes=nbytes, flops=flops,
+                       bound_ms=b, bound_by=by, bound_rate=rate, bound_ffma_ms=b_ffma,
+                       bound_ffma_by=by_ffma,
                        tflops=flops / dev_ms * 1e-9 if dev_ms > 0 else None)
             rows_out.append(row)
-            fma_txt = "" if fma_dev is None else f"  fma kernel device {fma_dev:.4f}"
+            gate_txt = "" if not gate else (
+                f" fp64 err {gate['fp64_err']:.3e} (plain {gate['plain_fp64_err']:.3e}, gate "
+                f"{GRAM_GATE:g}x)")
+            fma_verdict = "OK" if fma_ok else "FAIL" if dname == "float32" else "over tol"
+            split_txt = "" if ran != "tf32x3" else (
+                f", {row['splits']} splits, reduce {reduce_dev:.4f}")
             log(f"gram   {dname:8s} rows={rows} n={n:<5d} {ran} err={err:.3e} (tol "
                 f"{row['tol']:.3e}) |x| err={a_err:.3e} (tol {row['abs_sum_tol']:.3e}) elem "
-                f"err {e_err:.3e} (tol {GRAM_ELEM_TOL:.0e}) symmetric={sym} "
-                f"{'OK' if ok else 'FAIL'}  kernel {ms:.3f} ms (device {dev_ms:.4f})  plain "
-                f"{plain:.3f} ms  library({lib_name}) {lib:.3f} ms (device {lib_dev:.4f})  "
-                f"bound {b:.3f} ms ({by}){fma_txt}")
+                f"err {e_err:.3e} (tol {GRAM_ELEM_TOL:.0e}){gate_txt} symmetric={sym} "
+                f"same bits={same_bits} {'OK' if ok else 'FAIL'}  kernel {ms:.3f} ms (device "
+                f"{dev_ms:.4f}{split_txt})  plain {plain:.3f} ms  library({lib_name}) "
+                f"{lib:.3f} ms (device {lib_dev:.4f})  bound {b:.4f} ms ({by}, {rate}"
+                f"; FFMA {b_ffma:.4f})  fma kernel device {fma_dev:.4f} (event "
+                f"{fma_ms:.3f}, err {fma_err:.3e} |x| err {fma_a_err:.3e} elem err "
+                f"{fma_e_err:.3e} {fma_verdict})")
     return rows_out
 
 
@@ -970,14 +1045,18 @@ def nested_batched_phase(torch, ops, ref):
 
 def gram_batched_phase(torch, ops, ref):
     """Per-expert Grams of zero-padded capacity buffers in one launch, each
-    expert per element and exactly symmetric."""
+    expert per element and exactly symmetric, two runs bit-identical, fp32
+    also within GRAM_GATE against fp64."""
     rows_out = []
     gen = torch.Generator(device="cuda").manual_seed(6)
-    for e, rows, n in GRAM_BATCHED_SHAPES:
+    cases = ([(*shape, "bfloat16") for shape in GRAM_BATCHED_SHAPES]
+             + [(*shape, "float32") for shape in GRAM_BATCHED_FP32_SHAPES])
+    for e, rows, n, dname in cases:
         buf = torch.randn((e, rows, n), generator=gen, device="cuda")
         buf[:, :, ::97] *= 20.0  # outlier channels
         buf[:, rows - rows // 5:] = 0  # capacity slots left empty
-        buf = buf.to(torch.bfloat16)
+        buf = buf.to(getattr(torch, dname))
+        want_ran = "mma" if dname == "bfloat16" else "tf32x3"
         before = (gram_split(), _ops("gram").batched_launches)
         got_g, got_a = ops.gram_accumulate_batched(buf)
         want_g, want_a = ref.gram_accumulate_batched_ref(buf)
@@ -990,15 +1069,23 @@ def gram_batched_phase(torch, ops, ref):
         a_scale = float(want_a.abs().max())
         e_err = ref.gram_elem_err(got_g, want_g)
         sym = bool(torch.equal(got_g, got_g.transpose(1, 2)))
+        again = ops.gram_accumulate_batched(buf)
+        same_bits = bool(torch.equal(again[0], got_g) and torch.equal(again[1], got_a))
+        del again
+        gate = gram_fp64_gate(torch, ref, buf, got_g, want_g) if dname == "float32" else {}
         ok = (bool(torch.isfinite(got_g).all()) and err <= GRAM_TOL * scale
               and a_err <= GRAM_TOL * a_scale and e_err <= GRAM_ELEM_TOL and sym
-              and ran == "mma" and after[1] == before[1] + 1)
+              and same_bits and gate.get("fp64_ok", True) and ran == want_ran
+              and after[1] == before[1] + 1)
         del got_g, want_g
         # One PyTorch call for the same Grams: cuBLAS's bf16 tensor cores
-        # with fp32 output.
+        # with fp32 output, or its fp32 bmm (TF32 off).
         bt = buf.transpose(1, 2)
-        lib_fn, lib_name = (lambda: torch.bmm(bt, buf, out_dtype=torch.float32),
-                            "bmm(out_dtype=fp32)")
+        if dname == "bfloat16":
+            lib_fn, lib_name = (lambda: torch.bmm(bt, buf, out_dtype=torch.float32),
+                                "bmm(out_dtype=fp32)")
+        else:
+            lib_fn, lib_name = (lambda: torch.bmm(bt, buf)), "fp32 bmm"
         ms = time_ms(lambda: ops.gram_accumulate_batched(buf), reps=5)
         plain = time_ms(lambda: ref.gram_accumulate_batched_ref(buf), reps=5)
         lib = time_ms(lib_fn, reps=5)
@@ -1007,20 +1094,25 @@ def gram_batched_phase(torch, ops, ref):
         lib_dev = profile_step(torch, lambda: [lib_fn() for _ in range(DEVICE_REPS)],
                                quiet=True)["device_busy_ms"] / DEVICE_REPS
         nbytes = buf.numel() * buf.element_size() + 4 * e * (n * n + n)
-        # Upper triangles (products exact for bf16), of the rows held.
+        # Upper triangles (products exact for bf16; fp32: three TF32 products
+        # a pair), of the rows held.
         flops = int((buf != 0).any(-1).sum()) * n * (n + 1)
-        b, by = bound_ms(nbytes, flops, "bfloat16")
-        row = dict(kernel="gram_batched", dtype="bfloat16", E=e, rows=rows, n=n, ran=ran,
+        b, by = (bound_ms(nbytes, flops, "bfloat16") if dname == "bfloat16"
+                 else bound_ms(nbytes, 3 * flops, "tf32"))
+        row = dict(kernel="gram_batched", dtype=dname, E=e, rows=rows, n=n, ran=ran,
                    max_abs_err=err, ref_max_abs=scale, tol=GRAM_TOL * scale,
                    abs_sum_err=a_err, abs_sum_tol=GRAM_TOL * a_scale, elem_err=e_err,
-                   elem_tol=GRAM_ELEM_TOL, symmetric=sym, ok=ok, ms=ms, device_ms=dev_ms,
-                   plain_ms=plain, library=lib_name, library_ms=lib,
+                   elem_tol=GRAM_ELEM_TOL, symmetric=sym, same_bits=same_bits, **gate, ok=ok,
+                   ms=ms, device_ms=dev_ms, plain_ms=plain, library=lib_name, library_ms=lib,
                    library_device_ms=lib_dev, bytes=nbytes, flops=flops, bound_ms=b,
                    bound_by=by)
         rows_out.append(row)
-        log(f"gram batched E={e} rows={rows} n={n:<5d} {ran} err={err:.3e} (tol "
+        gate_txt = "" if not gate else (
+            f" fp64 err {gate['fp64_err']:.3e} (plain {gate['plain_fp64_err']:.3e})")
+        log(f"gram batched {dname:8s} E={e} rows={rows} n={n:<5d} {ran} err={err:.3e} (tol "
             f"{row['tol']:.3e}) |x| err={a_err:.3e} elem err {e_err:.3e} (tol "
-            f"{GRAM_ELEM_TOL:.0e}) symmetric={sym} {'OK' if ok else 'FAIL'}  kernel {ms:.3f} "
+            f"{GRAM_ELEM_TOL:.0e}){gate_txt} symmetric={sym} same bits={same_bits} "
+            f"{'OK' if ok else 'FAIL'}  kernel {ms:.3f} "
             f"ms (device {dev_ms:.4f})  plain {plain:.3f} ms  library({lib_name}) {lib:.3f} "
             f"ms (device {lib_dev:.4f})  bound {b:.4f} ms ({by}, {nbytes / 1e6:.1f} MB)")
         del buf
@@ -1034,6 +1126,7 @@ def flash_phase(torch, ops, ref):
     cases = [(d, *shape, 128) for d in ("bfloat16", "float32") for shape in FLASH_SHAPES
              if not (d == "float32" and shape[1] == 1000)]  # ragged, G = 1: bf16 only
     cases += [("bfloat16", *shape) for shape in WHISPER_FLASH_SHAPES]
+    cases += [("float32", *shape) for shape in SMALL_FLASH_SHAPES]
     for dname, b, s, hq, hkv, hd in cases:
         dt = getattr(torch, dname)
 
@@ -1053,6 +1146,13 @@ def flash_phase(torch, ops, ref):
         plain = time_ms(lambda: ref.flash_attention_ref(q, k, v), reps=3)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+        # Device time of one call (the mean of DEVICE_REPS) and of SDPA's:
+        # at small shapes the events above mostly time the host.
+        dev_ms = profile_step(torch, lambda: [ops.flash_attention(q, k, v) for _ in range(
+            DEVICE_REPS)], quiet=True)["device_busy_ms"] / DEVICE_REPS
+        lib_dev = profile_step(torch, lambda: [sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+                                               for _ in range(DEVICE_REPS)],
+                               quiet=True)["device_busy_ms"] / DEVICE_REPS
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         flops = 2 * b * hq * hd * s * (s + 1)
         bnd, by = bound_ms(nbytes, flops, dname)
@@ -1060,16 +1160,17 @@ def flash_phase(torch, ops, ref):
         row = dict(kernel="flash_attention", dtype=dname, B=b, S=s, Hq=hq, Hkv=hkv,
                    hd=hd, max_abs_err=err, ref_max_abs=scale,
                    tol=FLASH_TOL[dname] * scale, elem_err=e_err,
-                   elem_tol=FLASH_ELEM_TOL[dname], ok=ok, ms=ms, plain_ms=plain,
-                   library_ms=lib, bytes=nbytes, flops=flops, bound_ms=bnd,
-                   bound_by=by, tflops=tflops, bound_share=bnd / ms)
+                   elem_tol=FLASH_ELEM_TOL[dname], ok=ok, ms=ms, device_ms=dev_ms,
+                   plain_ms=plain, library_ms=lib, library_device_ms=lib_dev, bytes=nbytes,
+                   flops=flops, bound_ms=bnd, bound_by=by, tflops=tflops,
+                   bound_share=bnd / ms)
         rows_out.append(row)
         log(f"flash  {dname:8s} B={b:<2d} S={s:<4d} Hq/Hkv={hq}/{hkv} hd={hd} err={err:.3e} "
             f"(tol {row['tol']:.3e}) elem err {e_err:.3e} (tol {row['elem_tol']:.3e}) "
-            f"{'OK' if ok else 'FAIL'}  kernel {ms:.3f} ms  "
+            f"{'OK' if ok else 'FAIL'}  kernel {ms:.3f} ms (device {dev_ms:.4f})  "
             f"({tflops:.1f} TFLOP/s, {bnd / ms:.1%} of bound)  plain {plain:.3f} ms  "
-            f"library(sdpa) {lib:.3f} ms ({flops / lib * 1e-9:.1f} TFLOP/s)  "
-            f"bound {bnd:.4f} ms ({by})")
+            f"library(sdpa) {lib:.3f} ms (device {lib_dev:.4f}; {flops / lib * 1e-9:.1f} "
+            f"TFLOP/s)  bound {bnd:.4f} ms ({by})")
     return rows_out
 
 
@@ -1243,7 +1344,8 @@ def reset_counts() -> None:
     nlr.shape_launches.clear()
     nlr.gate_calls = 0
     gram = _ops("gram")
-    gram.mma_launches = gram.fma_launches = gram.batched_launches = 0
+    gram.mma_launches = gram.tf32x3_launches = gram.fma_launches = 0
+    gram.batched_launches = gram.reduce_launches = 0
     gram.shape_launches.clear()
     _ops("paged_attention").combine_launches = 0
     rw = _ops("rwkv6")
@@ -1294,7 +1396,8 @@ def mixer_layers(model, mixer) -> int:
 def gram_split() -> dict:
     """gram's launches by kernel since ``reset_counts``."""
     gram = _ops("gram")
-    return {"mma": gram.mma_launches, "fma": gram.fma_launches}
+    return {"mma": gram.mma_launches, "tf32x3": gram.tf32x3_launches,
+            "fma": gram.fma_launches}
 
 
 def gram_shape_split() -> dict:
@@ -1342,7 +1445,7 @@ def nested_calls(model, decode: bool = False) -> tuple:
 # Device kernels of one nested_lowrank call (both phases and reductions), of
 # one gram call, and of one paged_attention call (split kernel and combine).
 NESTED_KERNEL_NAMES = ("stream_partial", "mma_partial", "gemm_partial", "reduce_partials")
-GRAM_KERNEL_NAMES = ("gram_mma", "gram_kernel")
+GRAM_KERNEL_NAMES = ("gram_mma", "gram_tf32x3", "gram_kernel")
 PAGED_KERNEL_NAMES = ("paged_split_kernel", "paged_combine_kernel")
 
 
@@ -1801,7 +1904,7 @@ def serve_path(torch, np, cfg, mixer, gram_taps: tuple, keep=None, predicted=Non
     # Every tap is bf16 (the mma kernel); the batched form ran at each MoE
     # layer's two expert tap widths, once a calibration batch each.
     gshapes_expect = batched_gram_expect(cfg, model, 256 // 16)
-    gram_ok = (gsplit == {"mma": counts["gram"], "fma": 0}
+    gram_ok = (gsplit == {"mma": counts["gram"], "tf32x3": 0, "fma": 0}
                and {k: c for k, c in gshapes.items() if k.startswith("batched")}
                == gshapes_expect)
     if keep is not None:
@@ -2877,6 +2980,7 @@ def spec_check(label, r, want, margins, forced, model, n_splits, cuda) -> dict:
     launches_ok = (not cuda or (sm["launches"] == expect
                                 and sm["nested_launches"] == nested_expect
                                 and sm["gram_launches"]["fma"] == 0
+                                and sm["gram_launches"]["tf32x3"] == 0
                                 and sm["paged_combine_launches"] == combine_expect))
     accounting = {}
     if sm["fault_stats"] is not None:
@@ -3580,7 +3684,7 @@ def quality_path(torch, np, cfg, eval_n: int, gram_taps: tuple, mixer: str):
     gsplit, gshapes = gram_split(), gram_shape_split()
     nsplit, bsplit = nested_split(), batched_split()
     gshapes_expect = batched_gram_expect(cfg, model, 256 // 16)
-    gram_ok = (gsplit == {"mma": counts["gram"], "fma": 0}  # every tap is bf16
+    gram_ok = (gsplit == {"mma": counts["gram"], "tf32x3": 0, "fma": 0}  # every tap is bf16
                and {k: c for k, c in gshapes.items() if k.startswith("batched")}
                == gshapes_expect)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -3781,7 +3885,7 @@ def methods_path(torch, np, cfg, taps_per_layer: int):
               "flash_attention": layers * forwards, "rwkv6": 0}
     nested_expect = {"stream": 0, "mma": nested_calls, "tile": 0}
     counts_ok = (counts == expect and split_ok and nsplit == nested_expect
-                 and gsplit == {"mma": expect["gram"], "fma": 0})
+                 and gsplit == {"mma": expect["gram"], "tf32x3": 0, "fma": 0})
 
     names = [t.name for t in targets]
     numbers = [calib_s, *dense_ppl.values()]
@@ -4109,7 +4213,7 @@ def whisper_path(torch, np, cfg):
                gate=_ops("nested_lowrank").gate_calls)
     expect = whisper_expect(cfg, run)
     counts_ok = (got == expect == WHISPER_PREDICTED and split_ok and nsplit["tile"] == 0
-                 and gsplit == {"mma": counts["gram"], "fma": 0}
+                 and gsplit == {"mma": counts["gram"], "tf32x3": 0, "fma": 0}
                  and counts["paged_attention"] == counts["rwkv6"] == 0
                  and counts["nested_lowrank"] == nsplit["stream"] + nsplit["mma"])
     plan, cparams = res["plan"], res["cparams"]
@@ -4254,17 +4358,18 @@ LLAVA_DOMAINS = ("en_a", "jp")
 # derivation to a CPU run of a reduced twin).  gram: 19 taps x 16 batches
 # (4 a layer, the final norm's over all 704 rows of a row, the projector's
 # two over its 576), of which the 16 ``projector.in`` taps (the raw fp32
-# patches, 9216 x 1024 a batch) on the FMA kernel and the rest, bf16, on
-# the mma kernel.  flash: 4 layers x 30 causal forwards (16 calibration, 2
-# domains x 2 batches x dense and compressed, 2 x 2 KL, the greedy prefill
-# and the one-image prefill), at (16, 704), (8, 592) and (1, 592), all
+# patches, 9216 x 1024 a batch) on the tf32x3 kernel, each over 11 row
+# splits (so 16 reduce launches), and the rest, bf16, on the mma kernel.
+# flash: 4 layers x 30 causal forwards (16 calibration, 2 domains x 2
+# batches x dense and compressed, 2 x 2 KL, the greedy prefill and the
+# one-image prefill), at (16, 704), (8, 592) and (1, 592), all
 # tensor-core.  nested: 7 compressed linears a layer and the projector's 2:
 # stream 28 x (31 greedy steps + 33 engine steps); mma 30 at the one-image
 # prefill (592 and 576 rows) and 28 x 3 engine chunk calls (512 rows); and
 # apart, the wrapper's calls above its 1024-row gate, plain matmuls: 30 a
 # compressed (16, 704) forward x 6 and at the greedy prefill (8 x 592 and
 # 8 x 576 rows).  paged: 4 layers x 33 engine steps, each with its combine.
-LLAVA_PREDICTED = dict(gram=304, fma=16, flash=120, stream=1792, mma=114, gate=210,
+LLAVA_PREDICTED = dict(gram=304, tf32x3=16, flash=120, stream=1792, mma=114, gate=210,
                        paged=132, steps=33, chunks=3)
 
 
@@ -4304,7 +4409,7 @@ def llava_expect(cfg, run, steps: int, chunks: int, gate_rows: int = 1024,
     """The llava path's counts from its shapes and the engine's schedule
     (``steps`` decode steps, ``chunks`` prefill-chunk calls): gram calls a
     calibration batch (4 taps a (gqa, mlp) layer, the final norm's,
-    ``projector.mid``, and ``projector.in``, the one fp32 tap: "fma"),
+    ``projector.mid``, and ``projector.in``, the one fp32 tap: "tf32x3"),
     flash calls (one a layer a causal forward), paged calls (one a layer an
     engine step), and the nested linears' calls (``llava_nested_linears``)
     by the route their rows take in the nested wrapper (bf16: "stream" up
@@ -4330,7 +4435,7 @@ def llava_expect(cfg, run, steps: int, chunks: int, gate_rows: int = 1024,
     nested[route(eng["max_batch"])] += n_text * steps
     nested[route(eng["max_batch"] * eng["chunk"])] += n_text * chunks
     causal = run["calib_batches"] + 2 * evals + 2 * run["eval_batches"] + 2
-    return dict(gram=(4 * layers + 3) * run["calib_batches"], fma=run["calib_batches"],
+    return dict(gram=(4 * layers + 3) * run["calib_batches"], tf32x3=run["calib_batches"],
                 flash=layers * causal, stream=nested["stream"], mma=nested["mma"],
                 gate=nested["gate"], paged=layers * steps, steps=steps, chunks=chunks)
 
@@ -4385,7 +4490,7 @@ def llava_path(torch, np, cfg):
     STEP_LOGIT_TOL / EVAL_LOGIT_TOL of max |logit|; every served request
     finished with its tokens in the vocabulary; a profiled decode step
     (wall against device, the nested share) and a profiled steady
-    calibration batch (the gram kernels' share, the FMA kernel's time on
+    calibration batch (the gram kernels' share, the tf32x3 kernel's time on
     ``projector.in``)."""
     from repro_torch import kernels
     from repro_torch.calib.gram import accumulate_taps
@@ -4408,7 +4513,7 @@ def llava_path(torch, np, cfg):
     eng = res["served"]["engine"]
     st = eng.stats()
     pa = _ops("paged_attention")
-    got = dict(gram=counts["gram"], fma=gsplit["fma"], flash=counts["flash_attention"],
+    got = dict(gram=counts["gram"], tf32x3=gsplit["tf32x3"], flash=counts["flash_attention"],
                stream=nsplit["stream"], mma=nsplit["mma"],
                gate=_ops("nested_lowrank").gate_calls, paged=counts["paged_attention"],
                steps=st["steps"], chunks=st["prefill_ticks"])
@@ -4417,7 +4522,8 @@ def llava_path(torch, np, cfg):
     combine_expect = counts["paged_attention"] if n_splits > 1 else 0
     counts_ok = (got == expect == LLAVA_PREDICTED and split_ok and nsplit["tile"] == 0
                  and gsplit == {"mma": counts["gram"] - run["calib_batches"],
-                                "fma": run["calib_batches"]}
+                                "tf32x3": run["calib_batches"], "fma": 0}
+                 and _ops("gram").reduce_launches == run["calib_batches"]
                  and gshapes.get(str(1024)) == run["calib_batches"]
                  and pa.combine_launches == combine_expect and counts["rwkv6"] == 0
                  and counts["nested_lowrank"] == nsplit["stream"] + nsplit["mma"])
@@ -4524,10 +4630,10 @@ def llava_path(torch, np, cfg):
                               "+ 128))")
     del store
     busy = max(prof_calib["device_busy_ms"], 1e-9)
-    fma_ms = sum(ms for k, ms in prof_calib["kernels"].items() if "gram_kernel" in k)
+    x3_ms = sum(ms for k, ms in prof_calib["kernels"].items() if "gram_tf32x3" in k)
     log(f"  calibration batch: gram {prof_calib['gram_ms']:.3f} ms ({prof_calib['gram_ms'] / busy:.1%} "
-        f"of device busy), of which the FMA kernel (projector.in, 9216 x 1024 fp32) "
-        f"{fma_ms:.3f} ms ({fma_ms / busy:.1%}); decode step nested "
+        f"of device busy), of which the tf32x3 kernel and its reduce (projector.in, 9216 x "
+        f"1024 fp32) {x3_ms:.3f} ms ({x3_ms / busy:.1%}); decode step nested "
         f"{prof_step['nested_ms'] / max(prof_step['device_busy_ms'], 1e-9):.1%} of device busy")
     ok = (counts_ok and quality_ok and serve_ok and streams_ok and step_ok and single_ok
           and e_ok)
@@ -4543,7 +4649,7 @@ def llava_path(torch, np, cfg):
                    step_logit_max_abs=step_scale, single_logit_max_abs_err=s_err,
                    single_logit_max_abs=s_scale, eval_logit_max_abs_err=e_err,
                    eval_logit_max_abs=e_scale, step_profile=prof_step,
-                   calib_profile=prof_calib, fma_ms=fma_ms, ok=bool(ok))
+                   calib_profile=prof_calib, tf32x3_ms=x3_ms, ok=bool(ok))
     return summary, counts
 
 
@@ -4637,7 +4743,7 @@ def small_quality_expect(cfg, model, q: dict) -> dict:
 def small_quality(torch, params) -> tuple:
     """``build_entry`` on small-llama's trained params with its exact
     launches (the quality path's count of causal forwards; every Gram tap
-    fp32 on the FMA kernel; the compressed linears' 2048-row batches above
+    fp32 on the tf32x3 kernel; the compressed linears' 2048-row batches above
     the nested kernel's 1024-row gate, so no nested launch), beside the
     reference's entry in BENCH_quality.json (JAX-trained, on the CPU)."""
     from repro_torch.configs import get_config
@@ -4653,7 +4759,7 @@ def small_quality(torch, params) -> tuple:
     expect = small_quality_expect(cfg, model, SMALL_QUALITY)
     fa, gram = _ops("flash_attention"), _ops("gram")
     kinds_ok = (fa.cuda_core_launches == counts["flash_attention"]
-                and gram.fma_launches == counts["gram"])
+                and gram.tf32x3_launches == counts["gram"])
     ref = None
     path = os.path.join(ROOT, "BENCH_quality.json")
     if os.path.exists(path):
@@ -4683,7 +4789,7 @@ def small_quality(torch, params) -> tuple:
                entry["logit_kl"], entry["achieved_ratio"]]
     ok = (counts == expect and kinds_ok and all(math.isfinite(float(x)) for x in numbers)
           and dec["whitened_rel_err_mean"] < dec["plain_rel_err_mean"])
-    log(f"    launches {counts} expected {expect}; flash all CUDA-core, gram all FMA: "
+    log(f"    launches {counts} expected {expect}; flash all CUDA-core, gram all tf32x3: "
         f"{kinds_ok} {'OK' if ok else 'FAIL'}")
     return entry, ref, counts, expect, ok
 
@@ -4985,8 +5091,8 @@ def main() -> int:
     # recurrence).  Launches are each kernel's count on its own path (nested:
     # by kernel on the Mistral serve path; gram: all of the wrapper's, then
     # the mma kernel's, on the Mistral quality path; rwkv6: the RWKV-6 serve
-    # path).  The gram FMA kernel (fp32 taps) runs on the llava path only
-    # (its row below).
+    # path).  The gram tf32x3 kernel (fp32 taps) runs on the llava and train
+    # paths (its row below).
     nested_serve = summaries["serve"]["nested_launches"]
     nested_src = "src/repro_torch/csrc/nested_lowrank.cu"
     nested_tpu = "src/repro/kernels/nested_lowrank/nested_lowrank.py:84"
@@ -5048,7 +5154,8 @@ def main() -> int:
          sum(b["nested"]["stream"] for b in moe_b), nested_src, nested_tpu),
         ("nested_lowrank_batched_mma", next(r for r in nested_b if r["case"] == "eval_gate"),
          sum(b["nested"]["mma"] for b in moe_b), nested_src, nested_tpu),
-        ("gram_batched", next(r for r in grams_b if r["n"] == 2048),
+        ("gram_batched", next(r for r in grams_b if r["n"] == 2048
+                              and r["dtype"] == "bfloat16"),
          sum(summaries[k]["gram_shape_launches"].get("batched 2048", 0)
              for k in ("moe_serve", "moe_quality")), "src/repro_torch/csrc/gram.cu",
          "src/repro/kernels/gram/gram.py:54"))
@@ -5069,7 +5176,8 @@ def main() -> int:
         ("nested_lowrank_batched_mma_dsv3", next(r for r in nested_b
                                                  if r["case"] == "dsv3_admit_gate"),
          dsv3_b["nested"]["mma"], nested_src, nested_tpu),
-        ("gram_batched_dsv3", next(r for r in grams_b if r["n"] == 7168),
+        ("gram_batched_dsv3", next(r for r in grams_b if r["n"] == 7168
+                                   and r["dtype"] == "bfloat16"),
          summaries["dsv3_serve"]["gram_shape_launches"].get("batched 7168", 0),
          "src/repro_torch/csrc/gram.cu",
          "src/repro/kernels/gram/gram.py:54"))
@@ -5098,7 +5206,7 @@ def main() -> int:
             nested_src, nested_tpu),)
     for n in (14336, 4096):
         picks += ((f"gram_batched_jamba_{n}", next(
-            r for r in grams_b if r["n"] == n and r["E"] == 8),
+            r for r in grams_b if r["n"] == n and r["E"] == 8 and r["dtype"] == "bfloat16"),
             jamba_gshapes.get(f"batched {n}", 0), "src/repro_torch/csrc/gram.cu",
             "src/repro/kernels/gram/gram.py:54"),)
     # whisper-small's shapes (whisper path, no cut): flash at a (16, 128)
@@ -5123,21 +5231,37 @@ def main() -> int:
             r for r in grams if r["dtype"] == "bfloat16" and r["rows"] == 24000
             and r["n"] == n), whisper["gram_shape_launches"].get(str(n), 0),
             "src/repro_torch/csrc/gram.cu", "src/repro/kernels/gram/gram.py:54"),)
-    # llava's shapes (llava path, 4 of 32 layers): the gram FMA kernel at
+    # llava's shapes (llava path, 4 of 32 layers): the gram tf32x3 kernel at
     # (9216, 1024) fp32 (``projector.in``: a calibration batch's patches)
-    # with the path's FMA launches; the projector's wi and wo at one image's
-    # 576 rows (mma) with the path's mma launches at that K x N (wo's 4096 x
-    # 4096 shared with the layers' wq and wo).
+    # with the path's tf32x3 launches, and the FMA kernel, which ran them
+    # before, on the same rows (its error, times and FFMA bound from the
+    # gram phase, the same library call) with the path's FMA launches; the
+    # projector's wi and wo at one image's 576 rows (mma) with the path's
+    # mma launches at that K x N (wo's 4096 x 4096 shared with the layers'
+    # wq and wo).
     llava = summaries["llava"]
-    picks += (("gram_fma_llava", next(
-        r for r in grams if r["dtype"] == "float32" and r["rows"] == 9216 and r["n"] == 1024),
-        llava["gram_launches"]["fma"], "src/repro_torch/csrc/gram.cu",
-        "src/repro/kernels/gram/gram.py:54"),)
+    x3_row = next(r for r in grams if r["dtype"] == "float32" and r["rows"] == 9216
+                  and r["n"] == 1024)
+    fma_row = {**x3_row, "max_abs_err": x3_row["fma_max_abs_err"], "ms": x3_row["fma_ms"],
+               "bound_ms": x3_row["bound_ffma_ms"], "bound_by": x3_row["bound_ffma_by"]}
+    picks += (("gram_tf32x3_llava", x3_row, llava["gram_launches"]["tf32x3"],
+               "src/repro_torch/csrc/gram.cu", "src/repro/kernels/gram/gram.py:54"),
+              ("gram_fma_llava", fma_row, llava["gram_launches"]["fma"],
+               "src/repro_torch/csrc/gram.cu", "src/repro/kernels/gram/gram.py:54"))
     for target, k_in, n, _ in LLAVA_PATH_SHAPES:
         picks += ((f"nested_lowrank_{target}_576", next(
             r for r in nested if r["target"] == target and r["M"] == 576),
             llava["nested_shape_launches"].get(f"mma {k_in}x{n}", 0), nested_src,
             nested_tpu),)
+    # The fp32 CUDA-core flash forward at small-llama's training batch,
+    # with the train path's forwards on it (its recipe and its build_entry).
+    train = summaries["train"]
+    picks += (("flash_attention_fp32_small_llama", next(
+        r for r in flash if r["dtype"] == "float32" and r["hd"] == 32),
+        train["small_launches"]["flash_attention"]
+        + train["small_quality_launches"]["flash_attention"],
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:108"),)
     # The flash backward (no TPU kernel: the reference differentiates its jnp
     # causal attention through XLA) at the forward's (4, 2048) bf16 row,
     # with the Mistral train run's backward calls.

@@ -10,16 +10,21 @@
 // R = 2048 that is ~480 FLOP per byte, above the card's ~295 FLOP/byte
 // ridge for bf16 (and far above fp32's ~20).
 //
-// Both kernels share the work split:
-//  * One block per 128 x 128 output tile (bi, bj) with bi <= bj; the block
-//    loops over ALL rows itself.  This replaces the TPU's sequential row
-//    axis: there is no reduction across blocks, no atomics, and the sum
-//    order of every element is fixed, so a run repeats bit for bit.  A
-//    block writes its tile and the mirror, so the lower triangle costs no
-//    FLOPs.
-//  * The diagonal-tile blocks also sum |x| for their columns, in row order,
-//    from the staged chunk, so sum |x| costs no second pass over X.
-//  * The kernels allocate nothing; ragged rows are zero-filled on load and
+// Three kernels, by the rows' dtype, width and alignment (ops.route):
+// gram_mma, gram_tf32x3 and gram_kernel (FMA).  They share the work split:
+//  * One block per 128 x 128 output tile (bi, bj) with bi <= bj.  In
+//    gram_mma and gram_kernel the block loops over ALL rows itself: there
+//    is no reduction across blocks.  gram_tf32x3 splits the rows across
+//    blocks and its reduce kernel adds the partial tiles in split order
+//    (below).  This replaces the TPU's sequential row axis; there are no
+//    atomics, and the sum order of every element is fixed, so a run
+//    repeats bit for bit.  A block writes its tile and the mirror, so the
+//    lower triangle costs no FLOPs.
+//  * The diagonal-tile blocks also sum |x| for their columns (of their
+//    split's rows), in row order, from the staged chunk, so sum |x| costs
+//    no second pass over X.
+//  * The kernels allocate nothing (gram_tf32x3's partials go to a scratch
+//    the wrapper allocates); ragged rows are zero-filled on load and
 //    columns past n are never stored.
 //
 // gram_mma (bf16 taps, n % 8 == 0, x 16-byte aligned): the tensor cores.
@@ -57,12 +62,46 @@
 //    (i, j) and (j, i) are not guaranteed to be bit-equal (on the H100
 //    they came out equal).
 //
-// gram_kernel (fp32 taps, and bf16 at odd widths or offsets): CUDA cores.
-// Tensor cores on fp32 inputs would compute in TF32, below the reference's
-// precision.  256 threads, an 8 x 8 register tile each (rows ty + 16 i,
+// gram_tf32x3 (fp32 taps, n % 4 == 0, x 16-byte aligned): the tensor
+// cores at fp32's precision, with the rows split across blocks.
+//  * One TF32 product keeps 11 bits of each operand: a single-pass TF32
+//    Gram is 10-180x the plain fp32 matmul's per-element error against an
+//    fp64 Gram (1.5e-5 to 6.8e-5 of sqrt(G_ii G_jj) at the gram phase's
+//    fp32 shapes on the H100).  So each staged value is split in registers
+//    into hi = tf32(x) and lo = tf32(x - hi) (cvt.rna), and
+//    mma.sync.m16n8k8.tf32 sums lo_i hi_j, then hi_i lo_j, then hi_i hi_j
+//    (3xTF32: each product exact in fp32; lo_i lo_j, below 2^-22 of a
+//    product, is dropped): 0.19-1.8x the plain's error there.  Splitting
+//    once at staging into hi and lo slabs instead ran slower (one block an
+//    SM for the two slabs).
+//  * Short tensor-core sums: the tensor cores' adds truncate (see
+//    gram_mma), so the three products of 8 rows go into a fresh
+//    accumulator, which one round-to-nearest add moves into the running
+//    fp32 sum in registers.  An accumulator of 8 rows costs no register
+//    beyond its 4; a longer one would need a second set of 64.
+//  * Rows split across blocks: the grid is (upper tiles x splits, batch),
+//    and split s of a tile takes rows [s R / S, (s + 1) R / S).  The
+//    wrapper plans S (ops.plan_splits) to spread the work evenly over the
+//    card's SMs.  With S = 1 the block writes G itself; with more it writes
+//    its partial tile (a diagonal tile also its partial sum |x|) to a
+//    scratch the wrapper allocates, and gram_tf32x3_reduce adds the
+//    partials in split order.  No atomics: a run repeats bit for bit.
+//  * Warps as gram_mma's (8 of 64 x 32; m16n8k8's C fragment is
+//    m16n8k16's).  Chunks of 32 rows of slabs i and j arrive by 16-byte
+//    cp.async.cg in a 3-stage ring (zero-filled past the split's rows and
+//    past n).  A slab row is 128 floats padded to 136, so the fragment
+//    reads (row tig, column gid) hit 32 different banks.  104 KB of shared
+//    memory: two blocks an SM.
+//  * Epilogue through shared memory at row stride 129 (conflict-free by
+//    row and by column): the rows of G, then the mirror rows; a diagonal
+//    tile writes its upper half and mirrors it onto the lower one, so G
+//    equals G^T exactly.
+//
+// gram_kernel (fp32 taps the tf32x3 kernel does not take: a width not a
+// multiple of 4 or an unaligned start; bf16 at odd widths or offsets):
+// CUDA cores.  256 threads, an 8 x 8 register tile each (rows ty + 16 i,
 // columns tx + 16 j: conflict-free shared-memory reads); row chunks of 32
-// staged in shared memory as fp32; fp32 FMA (bit-identical to the plain
-// fp32 matmul in every case measured on the H100).
+// staged in shared memory as fp32; fp32 FMA.
 //
 // The batched form (a token-choice MoE layer's per-expert Grams, which the
 // reference computes with one einsum over the zero-padded (E, C, n)
@@ -89,15 +128,17 @@ __device__ __forceinline__ ExpertOffsets expert_offsets(int rows, int n) {
   return {e * rows * n, e * n * n, e * n};
 }
 
-// Map the linear block index onto the upper triangle (bi <= bj), row by row.
-__device__ __forceinline__ void tile_of(int ntiles, int& bi, int& bj) {
-  int t = blockIdx.x;
+// Map tile index t onto the upper triangle (bi <= bj), row by row.
+__device__ __forceinline__ void tile_at(int t, int ntiles, int& bi, int& bj) {
   bi = 0;
   while (t >= ntiles - bi) {
     t -= ntiles - bi;
     ++bi;
   }
   bj = bi + t;
+}
+__device__ __forceinline__ void tile_of(int ntiles, int& bi, int& bj) {
+  tile_at(blockIdx.x, ntiles, bi, bj);
 }
 
 template <typename T>
@@ -368,23 +409,245 @@ int launch_mma(const void* x, float* g, float* asum, int rows, int n, int ntiles
   return 0;
 }
 
+constexpr int XLD = TILE + 8;             // fp32 slab row stride of gram_tf32x3
+constexpr int XSLAB = CHUNK * XLD * 4;    // bytes of one slab of one chunk
+constexpr int XSTAGE = 2 * XSLAB;         // slabs i and j
+constexpr int ELD = TILE + 1;             // row stride of the epilogue's tile
+constexpr int X3_SMEM = STAGES * XSTAGE;  // 102 KB: two blocks an SM
+constexpr int RQ = 32;                    // tile rows a reduce block sums
+static_assert(TILE * ELD * 4 <= X3_SMEM, "the epilogue tile reuses the ring");
+
+// Rows r0 .. r0 + nr - 1 of tile (c0i, c0j) of G, laid out in shared memory
+// at row stride ELD (row r at tile + r * ELD), to G: first its rows (c0i +
+// r0 + r, c0j + c), then its mirror (c0j + c, c0i + r0 + r), each pass a
+// warp on 32 neighbouring elements of one row of G.  A diagonal tile
+// writes its upper half (c >= r0 + r) and mirrors it onto the lower.
+__device__ __forceinline__ void store_tile(const float* tile, int nr, int r0, bool diag,
+                                           float* __restrict__ g, int n, int c0i, int c0j) {
+  for (int idx = threadIdx.x; idx < nr * TILE; idx += THREADS) {
+    const int r = idx / TILE, c = idx % TILE, i = c0i + r0 + r, j = c0j + c;
+    if (i < n && j < n && (!diag || c >= r0 + r)) g[(size_t)i * n + j] = tile[r * ELD + c];
+  }
+  for (int idx = threadIdx.x; idx < nr * TILE; idx += THREADS) {
+    const int c = idx / nr, r = idx % nr, i = c0i + r0 + r, j = c0j + c;
+    if (i < n && j < n && (!diag || c > r0 + r)) g[(size_t)j * n + i] = tile[r * ELD + c];
+  }
+}
+
+// part: (batch, splits, upper tiles, TILE, TILE) partial tiles; apart:
+// (batch, splits, ntiles, TILE) partial sums |x| of the diagonal tiles.
+// Both are read only by gram_tf32x3_reduce, and only when splits > 1.
+__global__ void __launch_bounds__(THREADS, 2)
+gram_tf32x3(const float* __restrict__ x, float* __restrict__ g, float* __restrict__ asum,
+            float* __restrict__ part, float* __restrict__ apart, int rows, int n, int ntiles,
+            int splits) {
+  extern __shared__ __align__(128) unsigned char smem_x[];
+  const uint32_t ring = smem_u32(smem_x);
+  float* tile = reinterpret_cast<float*>(smem_x);  // the epilogue's, after the ring
+  const ExpertOffsets eo = expert_offsets(rows, n);
+  x += eo.x, g += eo.g, asum += eo.a;
+
+  const int upper = gridDim.x / splits, t = blockIdx.x / splits, s = blockIdx.x % splits;
+  int bi, bj;
+  tile_at(t, ntiles, bi, bj);
+  const bool diag = bi == bj;
+  const int c0i = bi * TILE, c0j = bj * TILE;
+  const int r0 = (int)((long long)s * rows / splits);
+  const int r1 = (int)((long long)(s + 1) * rows / splits);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 1, wn = warp >> 1;  // sub-tile: columns i wm*64.., j wn*32..
+  const int gid = lane >> 2, tig = lane & 3;
+
+  // Loads: this thread copies 16-byte chunk lc of slab rows lr + 8 q.
+  const int lr = tid >> 5, lc = tid & 31;
+  const uint32_t ldst = ring + (lr * XLD + 4 * lc) * 4;
+  const bool li = c0i + 4 * lc < n, lj = c0j + 4 * lc < n;
+  const float* xi = x + (li ? c0i + 4 * lc : 0);
+  const float* xj = x + (lj ? c0j + 4 * lc : 0);
+  const int nch = (r1 - r0 + CHUNK - 1) / CHUNK;
+  auto load = [&](int ch) {
+    const uint32_t dst = ldst + (ch % STAGES) * XSTAGE;
+#pragma unroll
+    for (int q = 0; q < CHUNK / 8; ++q) {
+      const int r = r0 + ch * CHUNK + lr + 8 * q;
+      const size_t off = r < r1 ? (size_t)r * n : 0;
+      cp_async16(dst + q * 8 * XLD * 4, xi + off, r < r1 && li);
+      if (!diag) cp_async16(dst + XSLAB + q * 8 * XLD * 4, xj + off, r < r1 && lj);
+    }
+  };
+
+  // Fragment offsets (floats) in a slab at k8 step 0: A(m, k) = x(row k,
+  // column c0i + m), B(k, n) = x(row k, column c0j + n).
+  const int a_off = tig * XLD + wm * 64 + gid, b_off = tig * XLD + wn * 32 + gid;
+  float sum[4][4][4];  // the running fp32 sums
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sum[mi][nj][e] = 0.f;
+  float colsum = 0.f;  // diagonal blocks: sum |x| of column c0i + tid (tid < TILE)
+
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < nch) load(st);
+    cp_async_commit();
+  }
+  for (int ch = 0; ch < nch; ++ch) {
+    // Chunk ch has landed for every thread, and every warp is done with
+    // chunk ch - 1, whose slot the next load refills.
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (ch + STAGES - 1 < nch) load(ch + STAGES - 1);
+    cp_async_commit();
+    const float* si = reinterpret_cast<const float*>(smem_x + (ch % STAGES) * XSTAGE);
+    const float* sj = diag ? si : si + XSLAB / 4;
+    if (diag && tid < TILE) {
+#pragma unroll 8
+      for (int r = 0; r < CHUNK; ++r) colsum += fabsf(si[r * XLD + tid]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < CHUNK / 8; ++kk) {
+      const float* ak = si + a_off + kk * 8 * XLD;
+      const float* bk = sj + b_off + kk * 8 * XLD;
+      uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) tf32_split(bk[h * 4 * XLD + 8 * nj], bh[nj][h], bl[nj][h]);
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi) {
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          tf32_split(ak[(e >> 1) * 4 * XLD + (e & 1) * 8 + 16 * mi], ah[e], al[e]);
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj) {
+          float acc[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32(acc, al, bh[nj][0], bh[nj][1]);
+          mma_tf32(acc, ah, bl[nj][0], bl[nj][1]);
+          mma_tf32(acc, ah, bh[nj][0], bh[nj][1]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sum[mi][nj][e] += acc[e];
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring, which the tile reuses
+
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        tile[(wm * 64 + 16 * mi + gid + 8 * (e >> 1)) * ELD + wn * 32 + 8 * nj + 2 * tig +
+             (e & 1)] = sum[mi][nj][e];
+  __syncthreads();
+  if (splits == 1) {
+    store_tile(tile, TILE, 0, diag, g, n, c0i, c0j);
+    if (diag && tid < TILE && c0i + tid < n) asum[c0i + tid] = colsum;
+    return;
+  }
+  const size_t e = blockIdx.y;
+  float* p = part + ((e * splits + s) * upper + t) * TILE * TILE;
+  for (int idx = tid; idx < TILE * TILE; idx += THREADS)
+    p[idx] = tile[(idx / TILE) * ELD + idx % TILE];
+  if (diag && tid < TILE) apart[((e * splits + s) * ntiles + bi) * TILE + tid] = colsum;
+}
+
+// The partials of gram_tf32x3 summed in split order: a block a (upper
+// tile, RQ-row quarter), each thread 16 entries, the quarter's G rows and
+// mirror through shared memory; a diagonal tile's first quarter also sums
+// |x| of the tile's columns.
+__global__ void __launch_bounds__(THREADS)
+gram_tf32x3_reduce(const float* __restrict__ part, const float* __restrict__ apart,
+                   float* __restrict__ g, float* __restrict__ asum, int n, int ntiles,
+                   int splits) {
+  __shared__ float tile[RQ * ELD];
+  const int quarters = TILE / RQ;
+  const int upper = gridDim.x / quarters, t = blockIdx.x / quarters, q = blockIdx.x % quarters;
+  const size_t e = blockIdx.y;
+  g += e * n * n, asum += e * n;
+  int bi, bj;
+  tile_at(t, ntiles, bi, bj);
+  const bool diag = bi == bj;
+  const int c0i = bi * TILE, c0j = bj * TILE;
+  const size_t step = (size_t)upper * TILE * TILE / 4;  // one split to the next, float4s
+  const float4* p = reinterpret_cast<const float4*>(part + ((e * splits) * upper + t) * TILE *
+                                                    TILE + q * RQ * TILE);
+#pragma unroll
+  for (int k = 0; k < RQ * TILE / 4 / THREADS; ++k) {
+    const int idx = threadIdx.x + THREADS * k, r = idx / (TILE / 4), c = 4 * (idx % (TILE / 4));
+    float4 v = p[idx];
+    for (int sp = 1; sp < splits; ++sp) {
+      const float4 w = p[sp * step + idx];
+      v.x += w.x, v.y += w.y, v.z += w.z, v.w += w.w;
+    }
+    float* dst = tile + r * ELD + c;
+    dst[0] = v.x, dst[1] = v.y, dst[2] = v.z, dst[3] = v.w;
+  }
+  if (diag && q == 0 && threadIdx.x < TILE && c0i + threadIdx.x < n) {
+    float a = 0.f;
+    for (int sp = 0; sp < splits; ++sp)
+      a += apart[((e * splits + sp) * ntiles + bi) * TILE + threadIdx.x];
+    asum[c0i + threadIdx.x] = a;
+  }
+  __syncthreads();
+  store_tile(tile, RQ, q * RQ, diag, g, n, c0i, c0j);
+}
+
+int launch_tf32x3(const float* x, float* g, float* asum, float* part, float* apart, int rows,
+                  int n, int ntiles, int blocks, int batch, int splits, cudaStream_t st) {
+  static bool configured = false;  // one attribute call
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(gram_tf32x3,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, X3_SMEM);
+    if (e == cudaSuccess)  // all of the SM's shared memory: two blocks fit
+      e = cudaFuncSetAttribute(gram_tf32x3, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  gram_tf32x3<<<dim3(blocks * splits, batch), THREADS, X3_SMEM, st>>>(x, g, asum, part, apart,
+                                                                      rows, n, ntiles, splits);
+  if (splits > 1) {
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    gram_tf32x3_reduce<<<dim3(blocks * (TILE / RQ), batch), THREADS, 0, st>>>(
+        part, apart, g, asum, n, ntiles, splits);
+  }
+  return 0;
+}
+
 }  // namespace
 
 // x (batch, rows, n) contiguous (the single form: batch 1), dtype 0 fp32 /
 // 1 bf16; kernel 0 the FMA kernel, 1 the mma kernel (bf16 only, n % 8 ==
-// 0, x 16-byte aligned); g (batch, n, n) fp32 and asum (batch, n) fp32 are
-// written in full.  Returns cudaGetLastError(), or cudaErrorInvalidValue
-// for what the named kernel does not take.
-extern "C" int gram_launch(const void* x, float* g, float* asum, int rows, int n, int batch,
-                           int dtype, int kernel, void* stream) {
+// 0, x 16-byte aligned), 2 the tf32x3 kernel (fp32 only, n % 4 == 0, x
+// 16-byte aligned) over ``splits`` row splits, with part and apart its
+// scratch when splits > 1 (see gram_tf32x3); g (batch, n, n) fp32 and asum
+// (batch, n) fp32 are written in full.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for what the named kernel does not take.
+extern "C" int gram_launch(const void* x, float* g, float* asum, float* part, float* apart,
+                           int rows, int n, int batch, int dtype, int kernel, int splits,
+                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int ntiles = (n + TILE - 1) / TILE;
   const int blocks = ntiles * (ntiles + 1) / 2;
   if (batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid(blocks, batch);
-  if (kernel == 1) {
-    if (dtype != kBF16 || n % 8 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  if (kernel == 2) {
+    if (dtype != kF32 || n % 4 != 0 || !aligned || splits < 1 ||
+        (long long)blocks * splits > 0x7fffffffLL || (splits > 1 && (!part || !apart)))
       return (int)cudaErrorInvalidValue;
+    const int rc = launch_tf32x3((const float*)x, g, asum, part, apart, rows, n, ntiles,
+                                 blocks, batch, splits, st);
+    if (rc != 0) return rc;
+  } else if (kernel == 1) {
+    if (dtype != kBF16 || n % 8 != 0 || !aligned) return (int)cudaErrorInvalidValue;
     const int rc = launch_mma(x, g, asum, rows, n, ntiles, blocks, batch, st);
     if (rc != 0) return rc;
   } else if (kernel != 0) {

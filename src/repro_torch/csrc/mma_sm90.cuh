@@ -63,6 +63,28 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// x split for 3xTF32: hi = tf32(x), lo = tf32(x - hi) (both rounded to
+// nearest, ties away from zero; x - hi is exact in fp32), so that hi + lo
+// carries x to about 2^-22 and hi * hi, hi * lo are exact in fp32.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+// Fragment layouts (PTX ISA, mma.m16n8k8 .tf32), lane = 4 * gid + tig:
+//   A regs {(gid, tig), (gid+8, tig), (gid, tig+4), (gid+8, tig+4)}
+//   B regs {(k tig, n gid), (k tig+4, n gid)}
+//   C      as m16n8k16's above.
+// c (16x8 fp32) += a (16x8 tf32, row) * b (8x8 tf32, col).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // Two floats rounded to bf16 (round-to-nearest-even), lo in the low half:
 // a C fragment's pair repacked as an A fragment's register.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

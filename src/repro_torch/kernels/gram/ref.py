@@ -19,17 +19,23 @@ def gram_accumulate_batched_ref(buf: torch.Tensor):
     return torch.bmm(b.transpose(1, 2), b), b.abs().sum(1)
 
 
+def _wide(t: torch.Tensor) -> torch.dtype:
+    """fp64 for an fp64 Gram (the fp32 gate's reference), else fp32."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def gram_elem_scale(g: torch.Tensor) -> torch.Tensor:
     """sqrt(G_ii G_jj) for every (i, j): the natural scale of a Gram entry.
     By Cauchy-Schwarz it bounds sum_k |x_ki x_kj|, so any summation-order
     error of entry (i, j) over R rows is at most this times gamma_R.  A
     batch of Grams (E, n, n) scales each by its own diagonal."""
-    d = torch.diagonal(g, dim1=-2, dim2=-1).float().clamp_min(0).sqrt()
+    d = torch.diagonal(g, dim1=-2, dim2=-1).to(_wide(g)).clamp_min(0).sqrt()
     return d[..., :, None] * d[..., None, :]
 
 
 def gram_elem_err(got: torch.Tensor, want: torch.Tensor) -> float:
     """Max over entries of |got - want| / sqrt(want_ii want_jj) (0 where
-    both are 0, as in a channel that is all zeros)."""
-    diff = (got.float() - want.float()).abs()
+    both are 0, as in a channel that is all zeros), in fp64 when want is
+    fp64, else in fp32."""
+    diff = (got.to(_wide(want)) - want.to(_wide(want))).abs()
     return float((diff / gram_elem_scale(want).clamp_min(1e-30)).max())

@@ -476,6 +476,10 @@ def test_paged_combine_alone_matches_plain(dev, qd):
 # of sqrt(G_ii G_jj), which bounds the entry's sum of |products|.
 GRAM_TOL = 1e-5
 GRAM_ELEM_TOL = 1e-4
+# fp32 rows (chip_smoke.py's GRAM_GATE): per element against an fp64 Gram,
+# at most 4x the plain fp32 matmul's error (tf32x3 measured at 0.19-1.8x,
+# a single-pass TF32 Gram at 10-180x).
+GRAM_GATE = 4.0
 
 
 def _gram_checks(x, got_g, got_a):
@@ -488,20 +492,30 @@ def _gram_checks(x, got_g, got_a):
 
 
 def _gram_counts():
-    return gram_ops.launches, gram_ops.mma_launches, gram_ops.fma_launches
+    return (gram_ops.launches, gram_ops.mma_launches, gram_ops.fma_launches,
+            gram_ops.tf32x3_launches)
+
+
+def _gram_ran(before, kernel):
+    """The counts after one launch of ``kernel`` since ``before``."""
+    return (before[0] + 1, before[1] + (kernel == "mma"), before[2] + (kernel == "fma"),
+            before[3] + (kernel == "tf32x3"))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,n", [(64, 128), (77, 200), (2048, 4096), (5, 1)])
 def test_gram_kernel_matches_plain(dev, rows, n, dtype):
-    """Ragged rows and n included, against GRAM_TOL and GRAM_ELEM_TOL."""
+    """Ragged rows and n included, against GRAM_TOL and GRAM_ELEM_TOL, on
+    the kernel ``route`` picks: fp32 at n % 4 == 0 on the tf32x3 kernel,
+    bf16 at n % 8 == 0 on the mma kernel, n 1 on the FMA kernel."""
     g = torch.Generator(device=dev).manual_seed(rows + n)
     x = torch.randn((rows, n), generator=g, device=dev).to(dtype)
     x[:, n // 2] *= 30.0  # an outlier channel
-    before = gram_ops.launches
+    want = "fma" if n % 4 else "tf32x3" if dtype == torch.float32 else "mma"
+    before = _gram_counts()
     got_g, got_a = gram_ops.gram_accumulate(x.reshape(1, rows, n))
     torch.cuda.synchronize()
-    assert gram_ops.launches == before + 1
+    assert _gram_counts() == _gram_ran(before, want)
     _gram_checks(x, got_g, got_a)
 
 
@@ -521,8 +535,7 @@ def test_gram_mma_kernel_edges(dev, rows, n, offset):
     before = _gram_counts()
     got_g, got_a = gram_ops.gram_accumulate(x)
     torch.cuda.synchronize()
-    assert _gram_counts() == (before[0] + 1, before[1] + (want == "mma"),
-                              before[2] + (want == "fma"))
+    assert _gram_counts() == _gram_ran(before, want)
     _gram_checks(x, got_g, got_a)
 
 
@@ -531,8 +544,8 @@ def test_gram_mma_kernel_edges(dev, rows, n, offset):
                                             (64, 240, 1408), (5, 1, 8)])
 def test_gram_batched_matches_plain(dev, experts, rows, n, dtype):
     """Per-expert Grams of a zero-padded capacity buffer in one launch (mma
-    for bf16, FMA for fp32), each expert per element and exactly symmetric;
-    empty rows and an empty expert included."""
+    for bf16, tf32x3 for fp32), each expert per element and exactly
+    symmetric; empty rows and an empty expert included."""
     g = torch.Generator(device=dev).manual_seed(experts * rows + n)
     buf = torch.randn((experts, rows, n), generator=g, device=dev)
     buf[:, :, ::97] *= 20.0  # outlier channels
@@ -542,15 +555,69 @@ def test_gram_batched_matches_plain(dev, experts, rows, n, dtype):
     before = (*_gram_counts(), gram_ops.batched_launches)
     got_g, got_a = gram_ops.gram_accumulate_batched(buf)
     torch.cuda.synchronize()
-    mma = dtype == torch.bfloat16
+    want = "mma" if dtype == torch.bfloat16 else "tf32x3"
     assert (*_gram_counts(), gram_ops.batched_launches) == (
-        before[0] + 1, before[1] + mma, before[2] + (not mma), before[3] + 1)
+        *_gram_ran(before[:4], want), before[4] + 1)
     assert got_g.shape == (experts, n, n) and got_a.shape == (experts, n)
     for e in range(experts):
         if e == experts // 2:
             assert not got_g[e].any() and not got_a[e].any()
         else:
             _gram_checks(buf[e], got_g[e], got_a[e])
+
+
+# (rows, n) or (E, rows, n) fp32: llava's projector.in, whisper's encoder
+# width, a ragged tap, a batched one (both at one split), and a batched one
+# over several splits.
+GATE_CASES = [(9216, 1024), (24000, 768), (33, 136), (8, 12, 32), (4, 2048, 256)]
+
+
+@pytest.mark.parametrize("shape", GATE_CASES)
+def test_gram_tf32x3_fp64_gate(dev, shape):
+    """fp32 rows on the tf32x3 kernel: per element within GRAM_GATE of the
+    plain fp32 matmul's error against an fp64 Gram (a single-pass TF32 Gram
+    would pass GRAM_ELEM_TOL, not this), the usual checks against plain,
+    exactly symmetric, and two runs bit-identical."""
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    x = torch.randn(shape, generator=g, device=dev)
+    x[..., ::97] *= 20.0  # outlier channels, as in the gram phase
+    fn, ref_fn = ((gram_ops.gram_accumulate_batched, gram_ref.gram_accumulate_batched_ref)
+                  if x.ndim == 3 else (gram_ops.gram_accumulate, gram_ref.gram_accumulate_ref))
+    before = _gram_counts()
+    got_g, got_a = fn(x)
+    torch.cuda.synchronize()
+    assert _gram_counts() == _gram_ran(before, "tf32x3")
+    want_g, _ = ref_fn(x)
+    x64 = x.double()
+    g64 = x64.transpose(-1, -2) @ x64
+    assert gram_ref.gram_elem_err(got_g, g64) <= GRAM_GATE * gram_ref.gram_elem_err(want_g, g64)
+    again_g, again_a = fn(x)
+    assert torch.equal(again_g, got_g) and torch.equal(again_a, got_a)
+    if x.ndim == 2:
+        _gram_checks(x, got_g, got_a)
+    else:
+        for e in range(x.shape[0]):
+            _gram_checks(x[e], got_g[e], got_a[e])
+
+
+def test_gram_tf32x3_refusals_and_fma_taps(dev):
+    """The tf32x3 launcher refuses bf16 rows, a width not a multiple of 4
+    and a start not 16-byte aligned; fp32 rows at such a width or start go
+    to the FMA kernel (ragged rows too), never quietly to another kernel."""
+    x = torch.zeros((4, 24), device=dev)
+    for bad in (x.to(torch.bfloat16), x[:, :10].contiguous(), x[:, :14].contiguous(),
+                x.reshape(-1)[3:3 + 64].view(4, 16)):
+        with pytest.raises(RuntimeError):
+            gram_ops.launch(bad, "tf32x3")
+    g = torch.Generator(device=dev).manual_seed(77)
+    for t in (torch.randn((77, 202), generator=g, device=dev),
+              _at_offset(torch.randn((77, 200), generator=g, device=dev), 3)):
+        assert gram_ops.route(t.dtype, t.shape[-1], t.data_ptr()) == "fma"
+        before = _gram_counts()
+        got_g, got_a = gram_ops.gram_accumulate(t)
+        torch.cuda.synchronize()
+        assert _gram_counts() == _gram_ran(before, "fma")
+        _gram_checks(t, got_g, got_a)
 
 
 def test_gram_launch_refuses_what_mma_cannot_do(dev):
@@ -844,7 +911,7 @@ def test_forward_only_kernels_refuse_grad(dev):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_calibration_runs_through_gram_and_flash(dev, dtype):
     """collect_grams on a CUDA model launches gram once per tap and batch
-    (every launch on the mma kernel for bf16 taps, on the FMA kernel for
+    (every launch on the mma kernel for bf16 taps, on the tf32x3 kernel for
     fp32) and flash_attention once per layer and batch.  fp32: its Grams
     match the same calibration through the plain versions.  bf16 (where the
     plain attention rounds the taps differently): each tap's Gram of one
@@ -861,7 +928,9 @@ def test_calibration_runs_through_gram_and_flash(dev, dtype):
     g1 = _gram_counts()
     assert g1[0] - g0[0] == 3 * taps_per_batch
     mma = dtype == "bfloat16"
-    assert (g1[1] - g0[1], g1[2] - g0[2]) == ((g1[0] - g0[0], 0) if mma else (0, g1[0] - g0[0]))
+    calls = g1[0] - g0[0]
+    assert (g1[1] - g0[1], g1[2] - g0[2], g1[3] - g0[3]) == (
+        (calls, 0, 0) if mma else (0, 0, calls))
     assert fa_ops.launches - f0 == 3 * cfg.num_layers
     if not mma:
         with kernels.plain():

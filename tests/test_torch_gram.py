@@ -1,9 +1,13 @@
 """Port parity for the calibration Gram: the port's ``gram_accumulate``
 (its plain version on the CPU) and ``gram_update`` against the reference's
 Pallas kernel in interpret mode and its ``calib.gram.gram_update``, on the
-same numpy-seeded inputs, ragged rows and widths included; and the
-calibration telemetry's per-batch rows against the reference's."""
+same numpy-seeded inputs, ragged rows and widths included; the
+calibration telemetry's per-batch rows against the reference's; the
+kernels' routes and the tf32x3 kernel's row splits; and its 3xTF32
+arithmetic, emulated here, against the reference within the card's fp64
+gate, which a single-pass TF32 Gram fails."""
 
+import chip_smoke
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -114,14 +118,133 @@ def test_collect_grams_key_sets_match_reference(family):
 
 
 @pytest.mark.parametrize("offset", [0, 2, 8, 16, 48])
-@pytest.mark.parametrize("n", [8, 12, 2048, 4100, 14336])
+@pytest.mark.parametrize("n", [8, 12, 2048, 4100, 14336, 10, 4102])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_gram_route(dtype, n, offset):
-    """bf16 rows of a width that is a multiple of 8, starting 16-byte
-    aligned, take the mma kernel; fp32 rows, other widths and misaligned
-    starts take the FMA kernel."""
-    want = "mma" if dtype == torch.bfloat16 and n % 8 == 0 and offset % 16 == 0 else "fma"
+    """Rows starting 16-byte aligned take a tensor-core kernel: bf16 the
+    mma kernel at a width that is a multiple of 8, fp32 the tf32x3 kernel
+    at a multiple of 4; other widths and misaligned starts take the FMA
+    kernel."""
+    want = "fma"
+    if offset % 16 == 0 and dtype == torch.bfloat16 and n % 8 == 0:
+        want = "mma"
+    elif offset % 16 == 0 and dtype == torch.float32 and n % 4 == 0:
+        want = "tf32x3"
     assert gram_ops.route(dtype, n, 0x7f0000000000 + offset) == want
+
+
+# (rows, n, batch): calibration taps of the paths (llava's fp32
+# ``projector.in``, whisper's encoder width, small-llama's widths, Mistral's
+# d_ff), a MoE layer's per-expert buffers, ragged and tiny taps.
+SPLIT_CASES = [(9216, 1024, 1), (24000, 768, 1), (2048, 128, 1), (2048, 352, 1),
+               (2048, 14336, 1), (240, 2048, 64), (2048, 256, 4), (520, 128, 1),
+               (777, 136, 1), (5, 256, 1), (0, 128, 1), (12, 32, 8)]
+
+
+H100_SMS = 132  # the SMs plan_splits plans for on the H100
+
+
+def _split_rows(rows, splits):
+    """[(start, stop)] of each split, as csrc/gram.cu's gram_tf32x3 takes
+    them: split s has rows [s R / S, (s + 1) R / S)."""
+    return [(s * rows // splits, (s + 1) * rows // splits) for s in range(splits)]
+
+
+@pytest.mark.parametrize("rows,n,batch", SPLIT_CASES)
+def test_gram_split_plan_covers_rows(rows, n, batch):
+    """The splits cover every row once, in order; a plan of more than one
+    split keeps each at MIN_SPLIT_ROWS rows or more; and the grid stays
+    within MAX_BLOCKS_PER_SM (4) blocks an SM of the H100."""
+    s = gram_ops.plan_splits(rows, n, batch, H100_SMS)
+    assert s >= 1
+    spans = _split_rows(rows, s)
+    assert [r for a, b in spans for r in range(a, b)] == list(range(rows))
+    if s > 1:
+        assert min(b - a for a, b in spans) >= gram_ops.MIN_SPLIT_ROWS
+        assert gram_ops.upper_tiles(n) * batch * s <= gram_ops.MAX_BLOCKS_PER_SM * H100_SMS
+
+
+@pytest.mark.parametrize("rows,n", [(9216, 1024), (24000, 768)])
+def test_gram_split_plan_fills_the_card(rows, n):
+    """llava's ``projector.in`` and whisper's encoder taps: at least two
+    blocks on each of the H100's 132 SMs."""
+    assert gram_ops.upper_tiles(n) * gram_ops.plan_splits(rows, n, 1, H100_SMS) >= 2 * H100_SMS
+
+
+@pytest.mark.parametrize("rows,n", [(5, 256), (127, 1024), (1, 8)])
+def test_gram_split_plan_keeps_a_small_tap_whole(rows, n):
+    assert gram_ops.plan_splits(rows, n, 1, H100_SMS) == 1
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> TF32 (10 mantissa bits), rounded to nearest with ties away
+    from zero, as the card's cvt.rna.tf32.f32."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _gram_tf32(x: torch.Tensor, passes: int) -> torch.Tensor:
+    """The tf32x3 kernel's arithmetic on the CPU: hi = tf32(x), lo =
+    tf32(x - hi); each 8 rows' lo_i hi_j + hi_i lo_j + hi_i hi_j (passes 3)
+    or hi_i hi_j alone (passes 1, a single-pass TF32 Gram) summed exactly
+    and truncated once to fp32 (rounded toward zero: the tensor cores' adds
+    truncate, perhaps at more steps than this one), then added into a
+    running fp32 sum in row order with round-to-nearest adds."""
+    n = x.shape[-1]
+    x = x.reshape(-1, n).float()
+    x = torch.cat([x, x.new_zeros((-x.shape[0] % 8, n))])
+    hi = _tf32(x)
+    lo = _tf32(x - hi)
+    h, lw = (t.double().reshape(-1, 8, n) for t in (hi, lo))
+    part = h.transpose(1, 2) @ h
+    if passes == 3:
+        part += lw.transpose(1, 2) @ h + h.transpose(1, 2) @ lw
+    near = part.float()
+    part = torch.where(near.double().abs() > part.abs(), torch.nextafter(near, torch.zeros(())),
+                       near)
+    total = torch.zeros((n, n))
+    for p in part:
+        total += p
+    return total
+
+
+def _gate_inputs(shape, seed):
+    """randn rows with every 97th channel scaled by 20, as the card's gram
+    phase makes them."""
+    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    x[:, ::97] *= 20.0
+    return x
+
+
+@pytest.mark.parametrize("shape", [(2048, 256), (600, 136)])
+def test_gram_tf32x3_within_fp64_gate(shape):
+    """3xTF32, emulated, holds to the card's gate: its per-element error
+    against an fp64 Gram at most GRAM_GATE times that of the reference's
+    fp32 Gram (the Pallas kernel in interpret mode); and it matches that
+    Gram within GRAM_ELEM_TOL."""
+    x = _gate_inputs(shape, 11)
+    g64 = torch.as_tensor(x.astype(np.float64).T @ x.astype(np.float64))
+    want = torch.as_tensor(np.array(jax_gram_accumulate(
+        jnp.asarray(x), block_n=128, block_t=256, interpret=True)))
+    got = _gram_tf32(torch.as_tensor(x), passes=3)
+    ref_err = gram_ref.gram_elem_err(want, g64)
+    assert 0 < ref_err < 1e-6
+    assert gram_ref.gram_elem_err(got, g64) <= chip_smoke.GRAM_GATE * ref_err
+    assert gram_ref.gram_elem_err(got, want) <= chip_smoke.GRAM_ELEM_TOL
+    assert torch.equal(got, got.T)
+
+
+@pytest.mark.parametrize("shape", [(2048, 256), (600, 136)])
+def test_gram_single_tf32_fails_the_gate_only(shape):
+    """Why the gate exists: a single-pass TF32 Gram passes the per-element
+    check against the plain version (GRAM_ELEM_TOL) but not the fp64 gate."""
+    x = _gate_inputs(shape, 11)
+    g64 = torch.as_tensor(x.astype(np.float64).T @ x.astype(np.float64))
+    want = torch.as_tensor(np.array(jax_gram_accumulate(
+        jnp.asarray(x), block_n=128, block_t=256, interpret=True)))
+    got = _gram_tf32(torch.as_tensor(x), passes=1)
+    assert gram_ref.gram_elem_err(got, want) <= chip_smoke.GRAM_ELEM_TOL
+    assert gram_ref.gram_elem_err(got, g64) > chip_smoke.GRAM_GATE * gram_ref.gram_elem_err(
+        want, g64)
 
 
 def test_gram_elem_scale_and_err_match_numpy():

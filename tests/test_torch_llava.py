@@ -478,7 +478,7 @@ def test_chip_llava_path_counts_hold_on_cpu(monkeypatch):
     calibration batches, 1 eval batch a domain, 2 rows decoding 3 tokens,
     3 served requests) the main run's calls of each wrapper, the gram's by
     the kernel its tap would take on the card (fp32 ``projector.in``: the
-    FMA kernel) and the nested ones by the route their rows take (with the
+    tf32x3 kernel) and the nested ones by the route their rows take (with the
     row gate at 48, so that all three routes occur), equal ``llava_expect``
     at the twin's shapes and its engine's schedule.  The kernel phase's
     projector ranks are the served plan's."""
@@ -502,7 +502,7 @@ def test_chip_llava_path_counts_hold_on_cpu(monkeypatch):
 
     def gram_routed(x):
         calls["gram"] += 1
-        calls["fma"] += gram_ops.route(x.dtype, x.shape[-1], x.data_ptr()) == "fma"
+        calls["tf32x3"] += gram_ops.route(x.dtype, x.shape[-1], x.data_ptr()) == "tf32x3"
         return gram(x)
 
     def routed(x, *a):

@@ -96,11 +96,11 @@ for dname in ("bfloat16", "float32"):
         x = torch.randn((rows, n), generator=gen, device="cuda")
         x[:, ::97] *= 20.0
         x = x.to(getattr(torch, dname))
-        before = getattr(ops, "mma_launches", 0)
+        before = {{k: getattr(ops, k + "_launches", 0) for k in ("mma", "tf32x3", "fma")}}
         g, _ = ops.gram_accumulate(x)
         w, _ = ref.gram_accumulate_ref(x)
         ok = bool((g - w).abs().max() <= {tol!r} * w.abs().max())
-        ran = "mma" if getattr(ops, "mma_launches", 0) > before else "fma"
+        ran = next(k for k, v in before.items() if getattr(ops, k + "_launches", 0) > v)
         del g, w
         out.append(dict(key=[dname, rows, n], value=device_ms(lambda: ops.gram_accumulate(x)),
                         ran=ran, ok=ok))
