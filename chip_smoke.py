@@ -20,7 +20,7 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
      against an fp64 Gram is also held within GRAM_GATE of the plain fp32
      matmul's -- the device time of one call and of the library call, and
      the FMA kernel on the same rows, its event and device times and the
-     same checks but the gate (held on fp32 rows, logged on bf16 ones);
+     same checks but the gate;
      paged_attention: also a per-element check and zeros on a length-0 row at
      lengths 1-700, at eight rows of 512-8192 tokens, at one row of 32768
      and at the serve path's decode step, and that step at chatglm3-6b's
@@ -33,7 +33,11 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
      for bf16 at hd <= 128, CUDA-core for fp32, as ``bwd_plan`` picks)
      against the plain FA2 backward per element (FLASH_BWD_ELEM_TOL) at
      FLASH_BWD_SHAPES, two runs bit-identical, the forward's log-sum-exp
-     against the plain one, beside SDPA's backward alone);
+     against the plain one, beside SDPA's backward alone; the rwkv6
+     backward against the plain reverse recurrence at RWKV_BWD_SHAPES
+     (RWKV_SHAPES, long memory, K 8/16/32), every gradient globally and per
+     element, two runs bit-identical, the kernel's device time beside the
+     call's);
   4. serve path: ``serve()`` on mistral-7b at full width (depth cut to 2
      layers, random weights from a seed): calibrate, NSVD-compress (nsvd1,
      ratio 0.2, bf16 factors) and serve 8 requests, with the kernels' launch
@@ -256,7 +260,22 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
      SMALL_LOSS_DROP (every backward on the CUDA-core kernels), and
      ``build_entry`` (nsvd1 0.2, k1 0.9) on its params with exact launches
      (``small_quality_expect``), printed beside BENCH_quality.json's
-     JAX-trained entry.
+     JAX-trained entry;
+ 16. train_rwkv path: rwkv6-1.6b at full width cut to 4 of 24 layers,
+     bf16, fp32 AdamW state, the train path's batch: step 1's loss and
+     grads through the rwkv6 kernel and its hand-written backward against
+     the plain scan and backward (TRAIN_LOSS_REL_TOL; the grads within
+     TRAIN_GRAD_REL_TOL of a plain run replaying the kernel run's
+     recurrence outputs, ``RecurrenceTrace``, and on an fp32 twin of 2
+     layers with nothing pinned),
+     1 + 2 steps, launches exactly TRAIN_PREDICTED["rwkv"] (rwkv6 and its
+     backward once a layer and step, every forward on 16-byte copies; no
+     nested, paged, gram or flash launch), a profiled step (wall, device,
+     tokens/s, the backward kernel's share), peak GiB against the
+     reckoning; then ``launch.train.train_loop(arch="rwkv6-1.6b",
+     reduced=True)`` on the card for RWKV_CLI_STEPS steps, its loss on its
+     first batch falling by RWKV_CLI_DROP, launches TRAIN_PREDICTED
+     ["rwkv_cli"].  No other path launches the rwkv6 backward.
 Prints each path's seconds and peak device memory, a JSON kernel summary,
 nvidia-smi's line, and as its last line
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero; without a
@@ -496,6 +515,29 @@ RWKV_STATE_TOL = 1e-4
 # global bound, covers a plain version that fuses a multiply-add.
 RWKV_ELEM_TOL = {"float32": 2e-3, "bfloat16": 2 ** -6}
 RWKV_STATE_ELEM_TOL = 1e-4
+# The backward phase (case, BH, T, K, dtype, fixed w): every RWKV_SHAPES
+# case (the eval batch is train_rwkv's (4 x 32 heads, 2048 tokens) shape),
+# long memory (w = 1 - 1e-3 over 512 tokens: S and G sum hundreds of
+# terms, so dw and du add large terms of both signs), and K 8, 16, 32 (the
+# CPU-reduced config's K 8 in a one-block cluster, K 16 one block, K 32 a
+# cluster of two).
+RWKV_BWD_SHAPES = RWKV_SHAPES + (("long_memory", 32, 512, 64, "float32", 1.0 - 1e-3),
+                                 ("k8", 64, 200, 8, "float32", None),
+                                 ("k16", 64, 200, 16, "float32", None),
+                                 ("k32", 64, 200, 32, "float32", None))
+# dr, dk, dv, dw and du against the plain backward: max |kernel - plain| /
+# max |plain| for each, and per element ``bwd_elem_err`` (|plain| plus the
+# rms of its row over K plus the tensor's rms).  fp32: both step S and G
+# rounded the same way (bit for bit), so only the sums differ in order:
+# dr, dk, dw over K columns of a row, dv over K rows (a block's rows, then
+# the cluster's blocks), dy . v over K, du over T in the same order;
+# fp32 rounding of a K-term sum, up to ~K 2^-24 of the sum of |terms|,
+# which cancellation (random signs) puts near 1e-5 of the row's rms; 1e-4
+# allowed.  bf16: widened exactly to fp32 on both sides, the same math, each
+# side then rounds every gradient to bf16 once (RWKV_TOL's and
+# RWKV_ELEM_TOL's bf16 reasons).
+RWKV_BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+RWKV_BWD_ELEM_TOL = {"float32": 1e-4, "bfloat16": 2 ** -6}
 DEVICE_REPS = 5  # calls a nested row's profiled device time is the mean of
 # The batched (per-expert) forms at moonshot-v1-16b-a3b's expert shapes:
 # 64 experts, rank 667 at ratio 0.2 (k1 634, k2 33 at k1_frac 0.95), and at
@@ -870,11 +912,10 @@ def gram_phase(torch, ops, ref):
             # The FMA kernel on the same rows (it ran all of them before the
             # mma kernel took bf16 and the tf32x3 kernel fp32, and still takes
             # ragged widths and unaligned rows), with its event and device
-            # times beside the kernel's, from this run.  On fp32 rows it is
-            # held to GRAM_TOL, GRAM_ELEM_TOL, exact symmetry and same bits,
-            # as before the tf32x3 kernel took them.  On bf16 rows the same
-            # checks are logged, not held: its one accumulator over 24000
-            # rows lands above GRAM_TOL there (ROADMAP C).
+            # times beside the kernel's, from this run, held to GRAM_TOL,
+            # GRAM_ELEM_TOL, exact symmetry and same bits on every row (its
+            # sums of 1024 rows moved into a running sum keep 24000 bf16 rows
+            # within GRAM_TOL, as gram_mma's do).
             fma_g, fma_a = ops.launch(x, "fma")
             fma_err = float((fma_g - want_g).abs().max())
             fma_a_err = float((fma_a - want_a).abs().max())
@@ -887,8 +928,7 @@ def gram_phase(torch, ops, ref):
                                and torch.equal(fma_again[1], fma_a)))
             ok = (bool(torch.isfinite(got_g).all()) and err <= GRAM_TOL * scale
                   and a_err <= GRAM_TOL * a_scale and e_err <= GRAM_ELEM_TOL and sym
-                  and same_bits and gate.get("fp64_ok", True) and ran == want_ran
-                  and (fma_ok or dname != "float32"))
+                  and same_bits and gate.get("fp64_ok", True) and ran == want_ran and fma_ok)
             del got_g, want_g, fma_g, fma_a, fma_again
             ms = time_ms(lambda: ops.gram_accumulate(x), reps=5)
             plain = time_ms(lambda: ref.gram_accumulate_ref(x), reps=5)
@@ -936,7 +976,6 @@ def gram_phase(torch, ops, ref):
             gate_txt = "" if not gate else (
                 f" fp64 err {gate['fp64_err']:.3e} (plain {gate['plain_fp64_err']:.3e}, gate "
                 f"{GRAM_GATE:g}x)")
-            fma_verdict = "OK" if fma_ok else "FAIL" if dname == "float32" else "over tol"
             split_txt = "" if ran != "tf32x3" else (
                 f", {row['splits']} splits, reduce {reduce_dev:.4f}")
             log(f"gram   {dname:8s} rows={rows} n={n:<5d} {ran} err={err:.3e} (tol "
@@ -947,7 +986,7 @@ def gram_phase(torch, ops, ref):
                 f"{lib:.3f} ms (device {lib_dev:.4f})  bound {b:.4f} ms ({by}, {rate}"
                 f"; FFMA {b_ffma:.4f})  fma kernel device {fma_dev:.4f} (event "
                 f"{fma_ms:.3f}, err {fma_err:.3e} |x| err {fma_a_err:.3e} elem err "
-                f"{fma_e_err:.3e} {fma_verdict})")
+                f"{fma_e_err:.3e} {'OK' if fma_ok else 'FAIL'})")
     return rows_out
 
 
@@ -1325,6 +1364,74 @@ def rwkv6_phase(torch, ops, ref):
     return rows_out
 
 
+RWKV_BWD_NAMES = ("dr", "dk", "dv", "dw", "du")
+
+
+def rwkv6_bwd_phase(torch, ops, ref):
+    """The backward kernel against the plain backward (``rwkv6_scan_bwd_ref``)
+    on the same inputs and a random dy, every gradient within RWKV_BWD_TOL
+    globally and RWKV_BWD_ELEM_TOL per element, two runs bit-identical;
+    timed (CUDA events, and the profiled device time of the kernel alone
+    and of the call) beside the plain backward and the bound: the
+    recurrence stepped once (3 K^2 FLOPs a token and head: two products and
+    a sum an element of S), the four sums dr, dk, dw, dv (8 K^2), G's update
+    (3 K^2) and the bonus terms (16 K), against r, k, v, w, dy read and dr,
+    dk, dv, dw written once, u read and du written once.  No PyTorch call
+    computes this gradient (library none)."""
+    rows_out = []
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for case, bh, t, k, dname, w_fixed in RWKV_BWD_SHAPES:
+        args = rwkv6_inputs(torch, gen, bh, t, k, dname, w_fixed)
+        dy = torch.randn((bh, t, k), generator=gen, device="cuda").to(args[0].dtype)
+        heads = [x[:, None] for x in (*args, dy)]  # (BH, 1, T, K) views, u (BH, 1, K)
+        before = ops.backward_launches
+        got = [g[:, 0] for g in ops.backward(*heads)]
+        launched = ops.backward_launches - before
+        again = [g[:, 0] for g in ops.backward(*heads)]
+        want = ref.rwkv6_scan_bwd_ref(*args, dy)
+        torch.cuda.synchronize()
+        glob = {n: float((g.float() - x.float()).abs().max()
+                         / x.float().abs().max().clamp_min(1e-30))
+                for n, g, x in zip(RWKV_BWD_NAMES, got, want)}
+        elem = {n: bwd_elem_err(torch, g, x) for n, g, x in zip(RWKV_BWD_NAMES, got, want)}
+        abs_err = max(float((g.float() - x.float()).abs().max()) for g, x in zip(got, want))
+        same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
+        ok = (all(bool(torch.isfinite(g).all()) for g in got) and same_bits and launched == 1
+              and all(x.dtype == a.dtype for x, a in zip(got, args))
+              and max(glob.values()) <= RWKV_BWD_TOL[dname]
+              and max(elem.values()) <= RWKV_BWD_ELEM_TOL[dname])
+        del got, again, want
+        ms = time_ms(lambda: ops.backward(*heads), reps=5)
+        dev = profile_step(torch, lambda: ops.backward(*heads), quiet=True, windows=3)
+        kern_ms = sum(v for kk, v in dev["kernels"].items() if "rwkv6_bwd_kernel" in kk)
+        plain = time_ms(lambda: ref.rwkv6_scan_bwd_ref(*args, dy), reps=2, warmup=1)
+        el = args[0].element_size()
+        nbytes = 9 * bh * t * k * el + 2 * 4 * bh * k
+        flops = bh * t * (14 * k * k + 16 * k)
+        bnd, by = bound_ms(nbytes, flops, "float32")
+        dev_ms = dev["device_busy_ms"]
+        row = dict(kernel="rwkv6_bwd", case=case, dtype=dname, BH=bh, T=t, K=k, w=w_fixed,
+                   rel_err=glob, tol=RWKV_BWD_TOL[dname], elem_err=elem,
+                   elem_tol=RWKV_BWD_ELEM_TOL[dname], max_abs_err=abs_err,
+                   bit_identical_reruns=same_bits, ok=ok, ms=ms, device_ms=dev_ms,
+                   kernel_device_ms=kern_ms, device_kernels=dev["kernels"], plain_ms=plain,
+                   library_ms=None, bytes=nbytes, flops=flops, bound_ms=bnd, bound_by=by,
+                   bound_share=bnd / kern_ms if kern_ms > 0 else None)
+        rows_out.append(row)
+        log(f"rwkv6_bwd {dname:8s} {case:11s} BH={bh:<3d} T={t:<4d} K={k:<2d} rel err "
+            + " ".join(f"{n} {e:.2e}" for n, e in glob.items())
+            + f" (tol {RWKV_BWD_TOL[dname]:.0e}) elem err "
+            + " ".join(f"{n} {e:.2e}" for n, e in elem.items())
+            + f" (tol {RWKV_BWD_ELEM_TOL[dname]:.1e}) reruns "
+            f"{'bit-identical' if same_bits else 'DIFFER'} {'OK' if ok else 'FAIL'}  kernel "
+            f"{ms:.3f} ms, device {kern_ms:.4f} ms (call {dev_ms:.4f}; "
+            f"{bnd / max(kern_ms, 1e-9):.1%} of bound)  plain {plain:.3f} ms  library none  "
+            f"bound {bnd:.4f} ms ({by}, {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        del args, dy, heads
+        torch.cuda.empty_cache()
+    return rows_out
+
+
 KERNELS = ("nested_lowrank", "paged_attention", "gram", "flash_attention", "rwkv6")
 
 
@@ -1349,7 +1456,7 @@ def reset_counts() -> None:
     gram.shape_launches.clear()
     _ops("paged_attention").combine_launches = 0
     rw = _ops("rwkv6")
-    rw.vec16_launches = rw.vec4_launches = 0
+    rw.vec16_launches = rw.vec4_launches = rw.backward_launches = 0
 
 
 def read_counts() -> dict:
@@ -1365,11 +1472,15 @@ def flash_split_ok(counts: dict) -> tuple:
 
 
 def rwkv6_split_ok(counts: dict) -> tuple:
-    """rwkv6's launches by copy width since ``reset_counts``, and whether
-    every one took 16-byte copies (the model's permuted views are aligned)."""
+    """rwkv6's launches by copy width since ``reset_counts`` and its
+    backward's, and whether every forward took 16-byte copies (the model's
+    permuted views are aligned) and the backward ran as often as ``counts``
+    says (train_counts' ``rwkv6_backward``; never on a path without it)."""
     rw = _ops("rwkv6")
-    split = {"vec16": rw.vec16_launches, "vec4": rw.vec4_launches}
-    return split, split == {"vec16": counts["rwkv6"], "vec4": 0}
+    split = {"vec16": rw.vec16_launches, "vec4": rw.vec4_launches,
+             "backward": rw.backward_launches}
+    return split, split == {"vec16": counts["rwkv6"], "vec4": 0,
+                            "backward": counts.get("rwkv6_backward", 0)}
 
 
 def nested_split() -> dict:
@@ -4700,24 +4811,67 @@ SMALL_QUALITY = dict(method="nsvd1", ratio=0.2, k1_frac=0.9, eval_n_batches=4,
 # backward's kernels by ``bwd_plan``: Mistral's bf16 at hd 128 all on the
 # tensor cores, small-llama's fp32 all on CUDA cores.
 _MISTRAL_STEPS = 2 * (1 + 1 + 2 * TRAIN_RESUME_STEPS)
+# The train_rwkv path.  rwkv6-1.6b at full width cut to RWKV_TRAIN_LAYERS
+# of its 24 layers (as rwkv_serve), bf16 params with fp32 AdamW state, the
+# train path's batch (4 x 2048 of en_a, the loss chunked by 512): step 1's
+# loss and grads against the same step under ``kernels.plain()`` (the plain
+# scan and backward, whose T states of (128, 64, 64) fp32 take 4.3 GB a
+# layer in turn), then 1 + 2 steps, one profiled; then the training entry
+# point, ``launch.train.train_loop`` on the reduced config (2 layers, K 8),
+# for RWKV_CLI_STEPS steps, its loss on its own first batch falling by
+# RWKV_CLI_DROP from the init's (0.53 in a CPU run of the same steps).
+# Step 1's grads are held three ways.  The bf16 model rounds the
+# recurrence's fp32 output y to bf16 before its group norm, and at init that
+# norm amplifies the few roundings that the forward's sum order flips (y
+# within ~1e-7 of the plain scan's) into grads up to 0.16 apart by
+# relative L2 (the bonus; H100 runs, and 0.022 for a 1e-7 perturbation of
+# y on a CPU twin at d 512): that comparison is logged, not held.  Held to
+# TRAIN_GRAD_REL_TOL: the bf16 grads against a plain run that replays the
+# kernel run's y (``RecurrenceTrace``), which differs from it in the
+# backward alone (measured 0.013-0.018, bf16 grads rounded on both sides),
+# and an fp32 twin of RWKV_FP32_LAYERS layers, kernel against plain with
+# nothing pinned (measured 1.7e-4; 1.8e-6 with y pinned).
+RWKV_TRAIN_LAYERS = 4
+RWKV_FP32_LAYERS = 2
+RWKV_TRAIN_STEPS = 1 + 1 + 2  # step 1's kernel grads, then 1 + 2 steps
+RWKV_CLI_STEPS = 40
+RWKV_CLI_DROP = 0.25
+# Launches of the training runs: flash forward and backward once per
+# attention layer and step (Mistral: step 1's kernel grads, then 1 + 2
+# steps uninterrupted and 2 resumed; none in the plain comparison;
+# small-llama: 4 layers x 300 steps); rwkv6 forward and backward once per
+# RWKV layer and step (full width: 4 layers x 4 steps; the entry point: 2
+# reduced layers x RWKV_CLI_STEPS); no nested, paged or gram launch.  The
+# flash backward's kernels by ``bwd_plan``: Mistral's bf16 at hd 128 all on
+# the tensor cores, small-llama's fp32 all on CUDA cores.
+_MISTRAL_STEPS = 2 * (1 + 1 + 2 * TRAIN_RESUME_STEPS)
+_NO_FLASH = dict(flash_attention=0, flash_backward=0, flash_backward_tensor_core=0,
+                 flash_backward_cuda_core=0)
 TRAIN_PREDICTED = {
     "mistral": dict(flash_attention=_MISTRAL_STEPS, flash_backward=_MISTRAL_STEPS,
                     flash_backward_tensor_core=_MISTRAL_STEPS, flash_backward_cuda_core=0,
-                    nested_lowrank=0, paged_attention=0, rwkv6=0, gram=0),
+                    nested_lowrank=0, paged_attention=0, rwkv6=0, rwkv6_backward=0, gram=0),
     "small_llama": dict(flash_attention=4 * 300, flash_backward=4 * 300,
                         flash_backward_tensor_core=0, flash_backward_cuda_core=4 * 300,
-                        nested_lowrank=0, paged_attention=0, rwkv6=0, gram=0),
+                        nested_lowrank=0, paged_attention=0, rwkv6=0, rwkv6_backward=0,
+                        gram=0),
+    "rwkv": dict(rwkv6=RWKV_TRAIN_LAYERS * RWKV_TRAIN_STEPS,
+                 rwkv6_backward=RWKV_TRAIN_LAYERS * RWKV_TRAIN_STEPS, **_NO_FLASH,
+                 nested_lowrank=0, paged_attention=0, gram=0),
+    "rwkv_cli": dict(rwkv6=2 * RWKV_CLI_STEPS, rwkv6_backward=2 * RWKV_CLI_STEPS, **_NO_FLASH,
+                     nested_lowrank=0, paged_attention=0, gram=0),
 }
 FLASH_BWD_KERNEL_NAMES = ("flash_bwd_dsum", "flash_bwd_dkdv", "flash_bwd_dq")
 
 
 def train_counts() -> dict:
-    """Launch counts since ``reset_counts``, the flash backward's calls too,
-    by kernel."""
+    """Launch counts since ``reset_counts``, the flash and rwkv6 backwards'
+    calls too (flash's by kernel)."""
     fa = _ops("flash_attention")
     return {**read_counts(), "flash_backward": fa.backward_launches,
             "flash_backward_tensor_core": fa.backward_tensor_core_launches,
-            "flash_backward_cuda_core": fa.backward_cuda_core_launches}
+            "flash_backward_cuda_core": fa.backward_cuda_core_launches,
+            "rwkv6_backward": _ops("rwkv6").backward_launches}
 
 
 def small_quality_expect(cfg, model, q: dict) -> dict:
@@ -4801,7 +4955,6 @@ def train_path(torch, np):
     held to TRAIN_PREDICTED."""
     import tempfile
 
-    from repro_torch import kernels
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.checkpoint.checkpointer import flatten
     from repro_torch.configs import MISTRAL_7B
@@ -4829,24 +4982,15 @@ def train_path(torch, np):
     reset_counts()
 
     # Step 1's loss and grads: kernels, then plain versions.
-    _, loss_k, _, grads_k = grad_fn(params, batches[0])
-    with kernels.plain():
-        _, loss_p, _, grads_p = grad_fn(params, batches[0])
-    plain = flatten(grads_p)
-    rel = {}
-    for k, g in flatten(grads_k).items():
-        w = plain[k].float()
-        rel["/".join(k)] = float((g.float() - w).norm() / w.norm().clamp_min(1e-30))
-    del grads_p, plain
-    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
-    grads_ok = (max(rel.values()) <= TRAIN_GRAD_REL_TOL and loss_rel <= TRAIN_LOSS_REL_TOL
-                and all(bool(torch.isfinite(g).all()) for g in flatten(grads_k).values()))
-    del grads_k
+    loss_k, loss_p, rel, finite = grads_against_plain(torch, grad_fn, params, batches[0])
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    grads_ok = (finite and max(rel.values()) <= TRAIN_GRAD_REL_TOL
+                and loss_rel <= TRAIN_LOSS_REL_TOL)
     worst = sorted(rel.items(), key=lambda kv: -kv[1])[:3]
     log(f"train path: {cfg.name} layers={cfg.num_layers} (depth cut), {n_params / 1e9:.3f} B "
         f"params bf16, AdamW fp32, batch {TRAIN_BATCH} x {TRAIN_SEQ}, loss chunked by "
         f"{TRAIN_CHUNK}")
-    log(f"  step 1 kernels vs plain: loss {float(loss_k):.5f} vs {float(loss_p):.5f} (rel "
+    log(f"  step 1 kernels vs plain: loss {loss_k:.5f} vs {loss_p:.5f} (rel "
         f"{loss_rel:.2e}, tol {TRAIN_LOSS_REL_TOL:.0e}); grads rel L2 max {max(rel.values()):.3e}"
         f" (tol {TRAIN_GRAD_REL_TOL:.0e}) over {len(rel)} leaves, worst {worst} "
         f"{'OK' if grads_ok else 'FAIL'}")
@@ -4941,7 +5085,7 @@ def train_path(torch, np):
           and q_ok and all(math.isfinite(x) for x in losses))
     summary = dict(config=cfg.name, layers=cfg.num_layers, params=n_params,
                    reckoned_state_gib=reckon / 2 ** 30, peak_gib=peak / 2 ** 30,
-                   loss_kernel=float(loss_k), loss_plain=float(loss_p), loss_rel=loss_rel,
+                   loss_kernel=loss_k, loss_plain=loss_p, loss_rel=loss_rel,
                    grad_rel=rel, losses=losses, resume_diffs=diffs, checkpoint_bytes=ckpt_bytes,
                    snapshot_s=snap_s, save_s=save_s, restore_s=load_s, launches=counts,
                    expected_launches=TRAIN_PREDICTED["mistral"], step_profile=prof,
@@ -4949,6 +5093,222 @@ def train_path(torch, np):
                    mistral_s=mistral_s, small_s=small_s, small_losses=extra["losses"],
                    small_launches=small_counts, small_entry=entry, reference_entry=ref,
                    small_quality_launches=q_counts, small_quality_expected=q_expect,
+                   ok=bool(ok))
+    return summary, counts
+
+
+def grad_rel(torch, grads, want) -> dict:
+    """Per leaf ||g - g_want|| / ||g_want|| of two grad trees."""
+    from repro_torch.checkpoint.checkpointer import flatten
+
+    flat = flatten(want)
+    return {"/".join(k): float((g.float() - flat[k].float()).norm()
+                               / flat[k].float().norm().clamp_min(1e-30))
+            for k, g in flatten(grads).items()}
+
+
+def grads_against_plain(torch, grad_fn, params, batch, pinned=None) -> tuple:
+    """Step 1's loss and grads through the kernels, then under
+    ``kernels.plain()``: (loss, plain loss, per-leaf relative L2 error of the
+    grads, whether every kernel grad is finite).  ``pinned`` (a
+    RecurrenceTrace) records the kernel run's recurrence outputs and adds a
+    third run, plain with those outputs replayed: its per-leaf errors are
+    returned in ``pinned.rel``."""
+    from repro_torch import kernels
+    from repro_torch.checkpoint.checkpointer import flatten
+
+    with pinned.record() if pinned else contextlib.nullcontext():
+        _, loss_k, _, grads_k = grad_fn(params, batch)
+    with kernels.plain():
+        _, loss_p, _, grads_p = grad_fn(params, batch)
+        if pinned:
+            with pinned.replay():
+                pinned.rel = grad_rel(torch, grads_k, grad_fn(params, batch)[3])
+    rel = grad_rel(torch, grads_k, grads_p)
+    finite = all(bool(torch.isfinite(g).all()) for g in flatten(grads_k).values())
+    return float(loss_k), float(loss_p), rel, finite
+
+
+class RecurrenceTrace:
+    """The output of every ``RWKV6`` forward of a run, in call order: inside
+    ``record()`` each forward keeps its output; inside ``replay()`` each
+    forward returns the next recorded output instead of computing its own
+    (and launches nothing), its backward unchanged.  A plain run replaying
+    the kernel run's outputs differs from it in the backward alone: the
+    bf16 model rounds the recurrence's fp32 output to bf16, and the
+    forward's sum order flips a few of those roundings, which its group
+    norm at init amplifies far past any kernel error (see train_rwkv_path)."""
+
+    def __init__(self, ops):
+        self.ops, self.ys, self.rel = ops, [], None
+
+    @contextlib.contextmanager
+    def _use(self, fn):
+        base = self.ops.RWKV6
+        self.ops.RWKV6 = type("RWKV6", (base,), {"forward": staticmethod(fn(base))})
+        try:
+            yield self
+        finally:
+            self.ops.RWKV6 = base
+
+    def record(self):
+        self.ys = []
+
+        def fn(base):
+            def forward(ctx, *args):
+                y = base.forward(ctx, *args)
+                self.ys.append(y.detach())
+                return y
+            return forward
+        return self._use(fn)
+
+    def replay(self):
+        ys = iter(self.ys)
+
+        def fn(base):
+            def forward(ctx, *args):
+                ctx.save_for_backward(*args)
+                return next(ys).clone()
+            return forward
+        return self._use(fn)
+
+
+def train_rwkv_path(torch, np):
+    """The train_rwkv path (see RWKV_TRAIN_LAYERS): rwkv6-1.6b's train step
+    at full width through the rwkv6 kernel and its hand-written backward,
+    against the plain versions, three steps and a profiled one; then
+    ``train_loop`` on the reduced config, its loss falling; launches held to
+    TRAIN_PREDICTED["rwkv"] and ["rwkv_cli"]."""
+    from repro_torch.checkpoint.checkpointer import flatten
+    from repro_torch.configs import RWKV6_1_6B, get_config
+    from repro_torch.data.pipeline import LMDataPipeline, PipelineState
+    from repro_torch.launch.steps import StepConfig, make_grad_fn, make_train_step
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import build_model
+    from repro_torch.models.losses import next_token_xent
+    from repro_torch.optim import AdamWConfig, init_state, linear_warmup_cosine
+
+    t0 = time.perf_counter()
+    step_cfg = StepConfig(chunked_loss=TRAIN_CHUNK)
+    pipe = LMDataPipeline(RWKV6_1_6B.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
+                          PipelineState(seed=0, step=0, domain="en_a"), device="cuda")
+    batches = [next(pipe) for _ in range(RWKV_TRAIN_STEPS - 1)]
+    # The fp32 twin: kernels against plain, nothing pinned (its launches
+    # before the counted run).
+    cfg32 = dataclasses.replace(RWKV6_1_6B, num_layers=RWKV_FP32_LAYERS, dtype="float32")
+    model32 = build_model(cfg32)
+    loss32_k, loss32_p, rel32, finite32 = grads_against_plain(
+        torch, make_grad_fn(model32, step_cfg), model32.init(0, "cuda"), batches[0])
+    loss32_rel = abs(loss32_k - loss32_p) / abs(loss32_p)
+    fp32_ok = (finite32 and max(rel32.values()) <= TRAIN_GRAD_REL_TOL
+               and loss32_rel <= TRAIN_LOSS_REL_TOL)
+    del model32
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(RWKV6_1_6B, num_layers=RWKV_TRAIN_LAYERS)
+    model = build_model(cfg)
+    params = model.init(0, "cuda")
+    n_params = sum(p.numel() for p in flatten(params).values())
+    reckon = n_params * (2 + 2 + 3 * 4)  # bf16 params and grads, fp32 mu, nu, master
+    opt_cfg = AdamWConfig(lr=3e-4, schedule=linear_warmup_cosine(2, 20))
+    step_fn = make_train_step(model, opt_cfg, step_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+
+    pinned = RecurrenceTrace(_ops("rwkv6"))
+    loss_k, loss_p, rel, finite = grads_against_plain(
+        torch, make_grad_fn(model, step_cfg), params, batches[0], pinned)
+    pinned.ys = []
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    grads_ok = (finite and max(pinned.rel.values()) <= TRAIN_GRAD_REL_TOL
+                and loss_rel <= TRAIN_LOSS_REL_TOL and fp32_ok)
+
+    def worst(r):
+        return [(k, round(v, 6)) for k, v in sorted(r.items(), key=lambda kv: -kv[1])[:3]]
+    log(f"train_rwkv path: {cfg.name} layers={cfg.num_layers} (depth cut), "
+        f"{n_params / 1e9:.3f} B params bf16, AdamW fp32, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+        f"loss chunked by {TRAIN_CHUNK}")
+    log(f"  step 1 kernels vs plain: loss {loss_k:.5f} vs {loss_p:.5f} (rel {loss_rel:.2e}, tol "
+        f"{TRAIN_LOSS_REL_TOL:.0e}); grads rel L2 against the plain run replaying the "
+        f"kernel's y: max {max(pinned.rel.values()):.3e} (tol {TRAIN_GRAD_REL_TOL:.0e}) over "
+        f"{len(rel)} leaves, worst {worst(pinned.rel)}; against the plain run, nothing "
+        f"pinned (logged): max {max(rel.values()):.3e}, worst {worst(rel)}")
+    log(f"  fp32 twin ({RWKV_FP32_LAYERS} layers): loss {loss32_k:.6f} vs {loss32_p:.6f} (rel "
+        f"{loss32_rel:.2e}); grads rel L2 max {max(rel32.values()):.3e} (tol "
+        f"{TRAIN_GRAD_REL_TOL:.0e}), worst {worst(rel32)}; {'OK' if grads_ok else 'FAIL'}")
+
+    p, o, losses = params, init_state(params), []
+    del params
+    for b in batches:
+        p, o, m = step_fn(p, o, b)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    counts = train_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    rsplit, rsplit_ok = rwkv6_split_ok(counts)
+    counts_ok = counts == TRAIN_PREDICTED["rwkv"] and rsplit_ok
+    log(f"  {len(batches)} steps: losses {[round(x, 5) for x in losses]}; peak "
+        f"{peak / 2 ** 30:.2f} GiB allocated against the reckoning of {reckon / 2 ** 30:.2f} GiB "
+        f"for params, grads and AdamW state (plus activations, the guard's old tree and the "
+        f"plain comparison)")
+    log(f"  launches {counts} expected {TRAIN_PREDICTED['rwkv']}; rwkv6 {rsplit} "
+        f"{'OK' if counts_ok else 'FAIL'}")
+
+    # Where a step's time goes (outside the counted run).
+    prof = profile_step(torch, lambda: step_fn(p, o, batches[-1]), "rwkv train step",
+                        windows=3)
+    bwd_ms = sum(ms for k, ms in prof["kernels"].items() if "rwkv6_bwd_kernel" in k)
+    fwd_ms = sum(ms for k, ms in prof["kernels"].items() if "rwkv6_kernel" in k)
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (prof["wall_ms"] / 1e3)
+    log(f"  rwkv train step: wall {prof['wall_ms']:.2f} ms, device {prof['device_busy_ms']:.2f} "
+        f"ms, {tok_s:.0f} tokens/s; rwkv6 backward kernel {bwd_ms:.2f} ms "
+        f"({bwd_ms / prof['device_busy_ms']:.1%} of device), forward {fwd_ms:.3f} ms")
+    full_s = time.perf_counter() - t0
+    del p, o, batches
+    torch.cuda.empty_cache()
+
+    # The training entry point on the reduced config (K 8: one-block clusters).
+    cli_cfg = get_config("rwkv6-1.6b").reduced()
+    cli_model = build_model(cli_cfg)
+    t1 = time.perf_counter()
+    reset_counts()
+    pc, _, mc = train_loop(arch="rwkv6-1.6b", steps=RWKV_CLI_STEPS, reduced=True,
+                           device="cuda")
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t1
+    cli_counts = train_counts()
+    csplit, csplit_ok = rwkv6_split_ok(cli_counts)
+    cli_counts_ok = cli_counts == TRAIN_PREDICTED["rwkv_cli"] and csplit_ok
+    # train_loop's own first batch (its pipeline: seed 0, en_a, 8 x 128),
+    # before (its init, seed 0) and after.
+    b0 = next(LMDataPipeline(cli_cfg.vocab_size, 8, 128,
+                             PipelineState(seed=0, step=0, domain="en_a"), device="cuda"))
+
+    def eval_loss(pp) -> float:
+        with torch.no_grad():
+            logits = cli_model.apply(pp, b0["tokens"], mode="train")
+            return float(next_token_xent(logits, b0["tokens"], b0.get("loss_mask")))
+    first, last = eval_loss(cli_model.init(0, "cuda")), eval_loss(pc)
+    drop_ok = math.isfinite(last) and first - last >= RWKV_CLI_DROP
+    log(f"  train_loop(arch='rwkv6-1.6b', reduced=True, device='cuda'): {RWKV_CLI_STEPS} steps "
+        f"in {cli_s:.2f} s ({cli_s / RWKV_CLI_STEPS * 1e3:.1f} ms a step), last step's loss "
+        f"{float(mc['loss']):.4f}; its first batch's loss {first:.4f} at init -> {last:.4f} "
+        f"(drop {first - last:.4f}, at least {RWKV_CLI_DROP}) {'OK' if drop_ok else 'FAIL'}; "
+        f"launches {cli_counts} expected {TRAIN_PREDICTED['rwkv_cli']}; rwkv6 {csplit} "
+        f"{'OK' if cli_counts_ok else 'FAIL'}")
+    ok = (grads_ok and counts_ok and cli_counts_ok and drop_ok
+          and all(math.isfinite(x) for x in losses))
+    summary = dict(config=cfg.name, layers=cfg.num_layers, params=n_params,
+                   reckoned_state_gib=reckon / 2 ** 30, peak_gib=peak / 2 ** 30,
+                   loss_kernel=loss_k, loss_plain=loss_p, loss_rel=loss_rel, grad_rel=rel,
+                   grad_rel_pinned=pinned.rel, fp32_loss_rel=loss32_rel, fp32_grad_rel=rel32,
+                   losses=losses, launches=counts, expected_launches=TRAIN_PREDICTED["rwkv"],
+                   rwkv6_split=rsplit, step_profile=prof, rwkv6_bwd_ms=bwd_ms,
+                   rwkv6_fwd_ms=fwd_ms, tokens_per_s=tok_s, full_width_s=full_s,
+                   cli_s=cli_s, cli_steps=RWKV_CLI_STEPS, cli_launches=cli_counts,
+                   cli_loss_first=first, cli_loss_last=last, cli_last_step_loss=float(mc["loss"]),
                    ok=bool(ok))
     return summary, counts
 
@@ -5004,8 +5364,9 @@ def main() -> int:
     flash = flash_phase(torch, fa_ops, fa_ref)
     flash_bwd = flash_bwd_phase(torch, fa_ops, fa_ref)
     rwkv = rwkv6_phase(torch, rwkv_ops, rwkv_ref)
+    rwkv_bwd = rwkv6_bwd_phase(torch, rwkv_ops, rwkv_ref)
     kernels_ok = all(r["ok"] for r in nested + nested_b + paged + grams + grams_b + flash
-                     + flash_bwd + rwkv)
+                     + flash_bwd + rwkv + rwkv_bwd)
     # mistral-7b cut to 2 of 32 layers (1 on the methods path); rwkv6-1.6b
     # cut to 4 of 24; moonshot-v1-16b-a3b cut to 3 of 48 (its dense first
     # layer and two MoE layers); chatglm3-6b cut to 2 of 28; minicpm3-4b cut
@@ -5067,7 +5428,8 @@ def main() -> int:
                                          JAMBA_PREDICTED)),
             ("whisper", whisper_path, (WHISPER_SMALL,)),
             ("llava", llava_path, (llava,)),
-            ("train", train_path, ()))
+            ("train", train_path, ()),
+            ("train_rwkv", train_rwkv_path, ()))
     summaries, path_counts, path_s, path_peak = {}, {}, {}, {}
     for name, fn, args in runs:
         torch.cuda.reset_peak_memory_stats()
@@ -5270,6 +5632,14 @@ def main() -> int:
                summaries["train"]["launches"]["flash_backward"],
                "src/repro_torch/csrc/flash_attention_bwd.cu",
                "src/repro/models/attention.py:345 (none: XLA's autodiff of jnp attention)"),)
+    # The rwkv6 backward (no TPU kernel: the reference differentiates its
+    # lax.scan through XLA) at the eval batch's fp32 row (train_rwkv's
+    # shape), with the train_rwkv run's backward calls.
+    picks += (("rwkv6_bwd", next(r for r in rwkv_bwd if r["dtype"] == "float32"
+                                 and r["case"] == "eval"),
+               summaries["train_rwkv"]["launches"]["rwkv6_backward"],
+               "src/repro_torch/csrc/rwkv6_bwd.cu",
+               "src/repro/models/rwkv6.py:169 (none: XLA's autodiff of lax.scan)"),)
     entries = []
     for name, row, launches, src, replaces in picks:
         entries.append({"name": name, "route": "cuda", "source": src,
@@ -5283,7 +5653,8 @@ def main() -> int:
                    "nested": nested, "nested_batched": nested_b, "paged": paged,
                    "gram": grams, "gram_batched": grams_b, "flash": flash,
                    "flash_bwd": flash_bwd,
-                   "rwkv6": rwkv, **{f"{k}_path": v for k, v in summaries.items()},
+                   "rwkv6": rwkv, "rwkv6_bwd": rwkv_bwd,
+                   **{f"{k}_path": v for k, v in summaries.items()},
                    "path_seconds": path_s, "path_peak_gib": path_peak,
                    "kernels": entries}, f, indent=1)
     paths_ok = {k: v["ok"] for k, v in summaries.items()}

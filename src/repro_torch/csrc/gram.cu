@@ -101,7 +101,16 @@
 // multiple of 4 or an unaligned start; bf16 at odd widths or offsets):
 // CUDA cores.  256 threads, an 8 x 8 register tile each (rows ty + 16 i,
 // columns tx + 16 j: conflict-free shared-memory reads); row chunks of 32
-// staged in shared memory as fp32; fp32 FMA.
+// staged in shared memory as fp32; fp32 FMA.  Two-level sums, as in
+// gram_mma: the FMAs sum a span of 1024 rows (FLUSH chunks) into a
+// partial tile in registers, which one add moves into the running sum,
+// kept in the block's own tile of G (each thread reads back only what it
+// wrote; the mirror is written at the end).  One accumulator over all rows
+// lost too much on long taps: on 24000 bf16 rows the error reached 1.5e-5
+// and 1.8e-5 of max |G| at n 768 and 3072 (H100).  A running tile in
+// registers cost one block an SM (1.4-2.4x slower), and the flush as a
+// branch inside the chunk loop 1.2-1.3x; the span loop around the chunk
+// loop runs as fast as one accumulator did.
 //
 // The batched form (a token-choice MoE layer's per-expert Grams, which the
 // reference computes with one einsum over the zero-padded (E, C, n)
@@ -117,6 +126,7 @@ constexpr int TILE = 128;   // output tile edge
 constexpr int CHUNK = 32;   // rows staged per step
 constexpr int THREADS = 256;
 constexpr int PER = 8;      // register tile edge per thread (16 x 16 threads)
+constexpr int FLUSH = 32;   // chunks (1024 rows) a partial sum spans (gram_kernel, gram_mma)
 
 // Element offsets of expert blockIdx.y's rows, Gram and sum |x| in a batch
 // of (rows, n) taps.
@@ -156,52 +166,80 @@ gram_kernel(const T* __restrict__ x, float* __restrict__ g, float* __restrict__ 
   const int c0i = bi * TILE, c0j = bj * TILE;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
 
+  // acc: the FMA partial sum of the current FLUSH chunks; the running sum
+  // of the partials is G(i, j) itself, from the first flush on.
   float acc[PER][PER];
 #pragma unroll
   for (int a = 0; a < PER; ++a)
 #pragma unroll
     for (int b = 0; b < PER; ++b) acc[a][b] = 0.f;
   float colsum = 0.f;  // diagonal blocks: sum |x| of column c0i + tid (tid < TILE)
+  // This thread's row p of G (columns c0j + tx + 16 q), or null past n.
+  auto g_row = [&](int p) -> float* {
+    const int i = c0i + ty + 16 * p;
+    return i < n ? g + (size_t)i * n + c0j + tx : nullptr;
+  };
+  const int qn = min(PER, (n - c0j - tx + 15) / 16);  // q < qn: column in range
 
-  for (int r0 = 0; r0 < rows; r0 += CHUNK) {
-    for (int idx = tid; idx < CHUNK * TILE; idx += THREADS) {
-      const int r = idx / TILE, c = idx % TILE;
-      const bool rok = r0 + r < rows;
-      const size_t base = (size_t)(r0 + r) * n;
-      xi[r][c] = (rok && c0i + c < n) ? to_f(x[base + c0i + c]) : 0.f;
-      xj[r][c] = diag ? xi[r][c] : ((rok && c0j + c < n) ? to_f(x[base + c0j + c]) : 0.f);
-    }
-    __syncthreads();
-    if (diag && tid < TILE) {
-#pragma unroll 8
-      for (int r = 0; r < CHUNK; ++r) colsum += fabsf(xi[r][tid]);
-    }
-#pragma unroll 4
-    for (int r = 0; r < CHUNK; ++r) {
-      float a[PER], b[PER];
+  // Rows in spans of FLUSH chunks; each span's partial is moved into G
+  // after it, but the last span's (the epilogue adds it).
+  for (int f0 = 0; f0 < rows; f0 += FLUSH * CHUNK) {
+    if (f0 > 0) {
 #pragma unroll
-      for (int k = 0; k < PER; ++k) {
-        a[k] = xi[r][ty + 16 * k];
-        b[k] = xj[r][tx + 16 * k];
+      for (int p = 0; p < PER; ++p) {
+        float* gr = g_row(p);
+#pragma unroll
+        for (int q = 0; q < PER; ++q) {
+          if (gr != nullptr && q < qn)
+            gr[16 * q] = f0 == FLUSH * CHUNK ? acc[p][q] : gr[16 * q] + acc[p][q];
+          acc[p][q] = 0.f;
+        }
       }
-#pragma unroll
-      for (int p = 0; p < PER; ++p)
-#pragma unroll
-        for (int q = 0; q < PER; ++q) acc[p][q] = fmaf(a[p], b[q], acc[p][q]);
     }
-    __syncthreads();
+    const int f1 = min(rows, f0 + FLUSH * CHUNK);
+    for (int r0 = f0; r0 < f1; r0 += CHUNK) {
+      for (int idx = tid; idx < CHUNK * TILE; idx += THREADS) {
+        const int r = idx / TILE, c = idx % TILE;
+        const bool rok = r0 + r < rows;
+        const size_t base = (size_t)(r0 + r) * n;
+        xi[r][c] = (rok && c0i + c < n) ? to_f(x[base + c0i + c]) : 0.f;
+        xj[r][c] = diag ? xi[r][c] : ((rok && c0j + c < n) ? to_f(x[base + c0j + c]) : 0.f);
+      }
+      __syncthreads();
+      if (diag && tid < TILE) {
+#pragma unroll 8
+        for (int r = 0; r < CHUNK; ++r) colsum += fabsf(xi[r][tid]);
+      }
+#pragma unroll 4
+      for (int r = 0; r < CHUNK; ++r) {
+        float a[PER], b[PER];
+#pragma unroll
+        for (int k = 0; k < PER; ++k) {
+          a[k] = xi[r][ty + 16 * k];
+          b[k] = xj[r][tx + 16 * k];
+        }
+#pragma unroll
+        for (int p = 0; p < PER; ++p)
+#pragma unroll
+          for (int q = 0; q < PER; ++q) acc[p][q] = fmaf(a[p], b[q], acc[p][q]);
+      }
+      __syncthreads();
+    }
   }
 
+  const bool flushed = rows > FLUSH * CHUNK;  // G holds the running sum
 #pragma unroll
   for (int p = 0; p < PER; ++p) {
     const int i = c0i + ty + 16 * p;
     if (i >= n) continue;
+    float* gr = g_row(p);
 #pragma unroll
     for (int q = 0; q < PER; ++q) {
       const int j = c0j + tx + 16 * q;
       if (j >= n) continue;
-      g[(size_t)i * n + j] = acc[p][q];
-      if (!diag) g[(size_t)j * n + i] = acc[p][q];
+      const float sum = flushed ? gr[16 * q] + acc[p][q] : acc[p][q];
+      gr[16 * q] = sum;
+      if (!diag) g[(size_t)j * n + i] = sum;
     }
   }
   if (diag && tid < TILE && c0i + tid < n) asum[c0i + tid] = colsum;
@@ -209,7 +247,6 @@ gram_kernel(const T* __restrict__ x, float* __restrict__ g, float* __restrict__ 
 
 using bf16 = __nv_bfloat16;
 constexpr int STAGES = 3;                 // ring stages of gram_mma
-constexpr int FLUSH = 32;                 // chunks (1024 rows) a partial sum spans
 constexpr int ROWB = TILE * 2;            // bytes of one staged row of a slab
 constexpr int SLAB = CHUNK * ROWB;        // one column slab of one chunk
 constexpr int STAGE = 2 * SLAB;           // slabs i and j

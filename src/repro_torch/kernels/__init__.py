@@ -7,9 +7,10 @@ wrapper takes the plain version only for a tensor on the CPU — or inside
 plain versions on purpose (the card-side kernel-vs-plain comparison).  On a
 CUDA tensor it otherwise launches its kernel or raises.
 
-Only ``flash_attention`` has a backward kernel.  The other wrappers are
-forward-only: on a CUDA tensor that requires grad under grad mode they
-raise (``refuse_grad``) rather than return a tensor cut from the graph.
+``flash_attention`` and ``rwkv6`` have backward kernels (an autograd
+Function each).  The other wrappers are forward-only: on a CUDA tensor
+that requires grad under grad mode they raise (``refuse_grad``) rather
+than return a tensor cut from the graph.
 """
 
 from __future__ import annotations

@@ -25,7 +25,7 @@ from typing import Dict, Sequence
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("nested_lowrank", "paged_attention", "gram", "flash_attention",
-           "flash_attention_bwd", "rwkv6")
+           "flash_attention_bwd", "rwkv6", "rwkv6_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

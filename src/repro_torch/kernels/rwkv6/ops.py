@@ -1,4 +1,5 @@
-"""Wrapper for the chunked RWKV-6 recurrence CUDA kernel (``csrc/rwkv6.cu``).
+"""Wrapper for the chunked RWKV-6 recurrence CUDA kernel (``csrc/rwkv6.cu``)
+and its backward (``csrc/rwkv6_bwd.cu``).
 
 ``rwkv6_attention(r, k, v, w, u)``: r/k/v/w (BH, T, K), u (BH, K) ->
 y (BH, T, K) in r's dtype, from a zero state; ``return_state=True`` also
@@ -13,6 +14,16 @@ kernel masks a ragged T itself: nothing is padded here.  ``plan`` is the
 launch the kernel makes (cluster, blocks, the rows and columns each block
 owns, the copy width), kept here as a pure function so that the CPU tests
 reach it.
+
+When a gradient is asked for (grad mode on and an operand that requires
+grad) the call goes through ``RWKV6``, an autograd Function: its forward
+is the same launch, and its backward launches the backward kernel
+(``backward``), which takes fp32 only: bf16 operands are widened to fp32
+for it and the gradients rounded back.  On the CPU or under
+``kernels.plain()`` that Function runs ``rwkv6_scan_ref`` and
+``rwkv6_scan_bwd_ref``.  No path asks for the final state's gradient:
+``return_state=True`` with a gradient raises.  Without a gradient nothing
+changes: the same launch as before.
 """
 
 from __future__ import annotations
@@ -23,15 +34,17 @@ from typing import Sequence
 
 import torch
 
-from .. import build, check_launch, refuse_grad, use_plain
-from .ref import rwkv6_scan_ref
+from .. import build, check_launch, use_plain
+from .ref import rwkv6_scan_bwd_ref, rwkv6_scan_ref
 
 HEAD_DIMS = (8, 16, 32, 64)  # K the kernel instantiates
 SLICE = 16  # rows of S (and columns of y) one block owns
+BWD_CHUNK = 8  # tokens a chunk of the backward kernel (its state scratch: one a chunk)
 
 launches = 0  # kernel launches (one per wrapper call that runs the kernel)
 vec16_launches = 0  # of those, with 16-byte cp.async copies
 vec4_launches = 0  # with 4-byte copies (other strides or bases)
+backward_launches = 0  # backward kernel launches (one per backward call on the card)
 
 
 @dataclass(frozen=True)
@@ -81,6 +94,7 @@ def plan(shape: Sequence[int], elsize: int, ptrs: Sequence[int],
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
+_bwd_fn = None
 
 
 def _launcher():
@@ -94,6 +108,17 @@ def _launcher():
     return _fn
 
 
+def _bwd_launcher():
+    global _bwd_fn
+    if _bwd_fn is None:
+        fn = build.load("rwkv6_bwd").rwkv6_bwd_launch
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 11
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _bwd_fn = fn
+    return _bwd_fn
+
+
 def rwkv6_attention(r, k, v, w, u, return_state: bool = False):
     """r/k/v/w (BH, T, K), u (BH, K) -> y (BH, T, K) [, S_T (BH, K, K)]."""
     out = rwkv6_heads(r[:, None], k[:, None], v[:, None], w[:, None], u[:, None],
@@ -103,18 +128,9 @@ def rwkv6_attention(r, k, v, w, u, return_state: bool = False):
     return out[:, 0]
 
 
-def rwkv6_heads(r, k, v, w, u, return_state: bool = False):
-    """r/k/v/w (B, H, T, K) views with unit stride along K, u (B, H, K) ->
-    y (B, H, T, K) [, S_T (B, H, K, K) fp32]."""
-    b, h, t_len, kd = r.shape
-    if use_plain(r):
-        def flat(x):
-            return x.reshape(b * h, *x.shape[2:])
-        out = rwkv6_scan_ref(flat(r), flat(k), flat(v), flat(w), flat(u), return_state)
-        if return_state:
-            return out[0].view(b, h, t_len, kd), out[1].view(b, h, kd, kd)
-        return out.view(b, h, t_len, kd)
-    refuse_grad("rwkv6", r, k, v, w, u)
+def _check(r, k, v, w, u) -> None:
+    """The gates on shapes, dtypes and devices that both kernels share."""
+    b, h, _, kd = r.shape
     if any(x.shape != r.shape for x in (k, v, w)) or u.shape != (b, h, kd):
         raise ValueError(f"rwkv6: r{tuple(r.shape)} k{tuple(k.shape)} v{tuple(v.shape)} "
                          f"w{tuple(w.shape)} u{tuple(u.shape)}")
@@ -122,6 +138,24 @@ def rwkv6_heads(r, k, v, w, u, return_state: bool = False):
         raise TypeError(f"rwkv6: dtypes {r.dtype}/{k.dtype}/{v.dtype}/{w.dtype}")
     if any(x.device != r.device for x in (k, v, w, u)):
         raise ValueError("rwkv6: operands on different devices")
+
+
+def _plain(r, k, v, w, u, return_state: bool):
+    """``rwkv6_scan_ref`` on (B, H, T, K) views."""
+    b, h, t_len, kd = r.shape
+
+    def flat(x):
+        return x.reshape(b * h, *x.shape[2:])
+    out = rwkv6_scan_ref(flat(r), flat(k), flat(v), flat(w), flat(u), return_state)
+    if return_state:
+        return out[0].view(b, h, t_len, kd), out[1].view(b, h, kd, kd)
+    return out.view(b, h, t_len, kd)
+
+
+def _forward(r, k, v, w, u, return_state: bool = False):
+    """One forward launch on (B, H, T, K) views."""
+    b, h, t_len, kd = r.shape
+    _check(r, k, v, w, u)
     ins = (r, k, v, w)
     if r.stride(-1) != 1 or any(x.stride() != r.stride() for x in ins):
         ins = tuple(x.contiguous() for x in ins)
@@ -152,3 +186,77 @@ def rwkv6_heads(r, k, v, w, u, return_state: bool = False):
     else:
         vec4_launches += 1
     return (y, state) if return_state else y
+
+
+def backward(r, k, v, w, u, dy):
+    """The backward kernel on (B, H, T, K) views: (dr, dk, dv, dw, du), each
+    like its operand (du (B, H, K)).  fp32 in the kernel: bf16 operands are
+    widened and the gradients rounded back to their dtypes."""
+    b, h, t_len, kd = r.shape
+    _check(r, k, v, w, u)
+    if kd not in HEAD_DIMS:
+        raise ValueError(f"rwkv6 backward: K={kd} (the kernel takes {HEAD_DIMS})")
+    if dy.shape != r.shape or dy.device != r.device:
+        raise ValueError(f"rwkv6 backward: dy{tuple(dy.shape)} on {dy.device}, want "
+                         f"{tuple(r.shape)} on {r.device}")
+    if dy.dtype not in _DTYPES:
+        raise TypeError(f"rwkv6 backward: dy dtype {dy.dtype}")
+    ins = tuple(x.float() for x in (r, k, v, w))
+    if ins[0].stride(-1) != 1 or any(x.stride() != ins[0].stride() for x in ins):
+        ins = tuple(x.contiguous() for x in ins)
+    uf, dyf = u.float(), dy.float()
+    if uf.stride(-1) != 1:
+        uf = uf.contiguous()
+    if dyf.stride(-1) != 1:
+        dyf = dyf.contiguous()
+    grads = [torch.empty_like(ins[0]) for _ in range(4)]  # dr, dk, dv, dw: one set of strides
+    du = torch.empty((b, h, kd), dtype=torch.float32, device=r.device)
+    if b * h == 0 or t_len == 0:
+        for g in (*grads, du):
+            g.zero_()
+    else:
+        chunks = -(-t_len // BWD_CHUNK)
+        ckpt = torch.empty((b * h, chunks, kd, kd), dtype=torch.float32, device=r.device)
+        global backward_launches
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = _bwd_launcher()(*(x.data_ptr() for x in ins), uf.data_ptr(), dyf.data_ptr(),
+                              *(g.data_ptr() for g in grads), du.data_ptr(), ckpt.data_ptr(),
+                              b, h, t_len, kd, *ins[0].stride()[:3], *uf.stride()[:2],
+                              *dyf.stride()[:3], *grads[0].stride()[:3], stream)
+        check_launch(err, "rwkv6 backward")
+        backward_launches += 1
+    return (*(g.to(x.dtype) for g, x in zip(grads, (r, k, v, w))), du.to(u.dtype))
+
+
+class RWKV6(torch.autograd.Function):
+    """The recurrence from a zero state with the hand-written backward
+    (plain versions on the CPU or under ``kernels.plain()``)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        y = _plain(r, k, v, w, u, False) if use_plain(r) else _forward(r, k, v, w, u)
+        ctx.save_for_backward(r, k, v, w, u)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        r, k, v, w, u = ctx.saved_tensors
+        if not use_plain(r):
+            return backward(r, k, v, w, u, dy)
+        b, h, t_len, kd = r.shape
+        grads = rwkv6_scan_bwd_ref(*(x.reshape(b * h, *x.shape[2:])
+                                     for x in (r, k, v, w, u, dy)))
+        return tuple(g.view(x.shape) for g, x in zip(grads, (r, k, v, w, u)))
+
+
+def rwkv6_heads(r, k, v, w, u, return_state: bool = False):
+    """r/k/v/w (B, H, T, K) views with unit stride along K, u (B, H, K) ->
+    y (B, H, T, K) [, S_T (B, H, K, K) fp32]."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (r, k, v, w, u)):
+        if return_state:
+            raise RuntimeError("rwkv6: return_state=True with a gradient (no path asks "
+                               "for the final state's gradient)")
+        return RWKV6.apply(r, k, v, w, u)
+    if use_plain(r):
+        return _plain(r, k, v, w, u, return_state)
+    return _forward(r, k, v, w, u, return_state)

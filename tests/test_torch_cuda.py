@@ -879,9 +879,10 @@ def test_flash_autograd_on_card_matches_plain(dev, dtype):
 
 
 def test_forward_only_kernels_refuse_grad(dev):
-    """nested_lowrank (single and batched), paged_attention, gram (single
-    and batched) and rwkv6 raise, naming the kernel, when asked for a
-    gradient on the card; under no_grad the same call runs."""
+    """nested_lowrank (single and batched), paged_attention and gram (single
+    and batched) raise, naming the kernel, when asked for a gradient on the
+    card; under no_grad the same call runs.  (rwkv6 has a backward kernel:
+    ``test_rwkv6_autograd_on_card_matches_plain``.)"""
     x = torch.randn((8, 64), device=dev, dtype=torch.bfloat16, requires_grad=True)
     u, v = torch.randn((64, 8), device=dev), torch.randn((8, 32), device=dev)
     fac = [t.to(torch.bfloat16) for t in (u, v, u, v)]
@@ -889,8 +890,6 @@ def test_forward_only_kernels_refuse_grad(dev):
     pages = torch.randn((4, 16, 2, 32), device=dev)
     tables = torch.zeros((2, 2), dtype=torch.int32, device=dev)
     lens = torch.full((2,), 5, dtype=torch.int32, device=dev)
-    r = torch.rand((2, 8, 16), device=dev, requires_grad=True)
-    uu = torch.rand((2, 16), device=dev)
     calls = {
         "nested_lowrank": lambda: nlr_ops.nested_lowrank_matmul(x, *fac),
         "nested_lowrank (batched)": lambda: nlr_ops.nested_lowrank_matmul_batched(
@@ -898,7 +897,6 @@ def test_forward_only_kernels_refuse_grad(dev):
         "paged_attention": lambda: pa_ops.paged_attention(q, pages, pages, tables, lens),
         "gram": lambda: gram_ops.gram_accumulate(x),
         "gram (batched)": lambda: gram_ops.gram_accumulate_batched(x[None]),
-        "rwkv6": lambda: rwkv_ops.rwkv6_attention(r, r, r, r.detach() * 0.9, uu),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match=rf"^{name.replace('(', '.').replace(')', '.')}:"):
@@ -1124,6 +1122,103 @@ def test_rwkv6_kernel_copies_odd_bf16_offset(dev):
     assert rwkv_ops.vec16_launches == v16 + 1
     wy, ws = rwkv_ref.rwkv6_scan_ref(*args, return_state=True)
     _rwkv_checks(y, s, wy, ws, torch.bfloat16)
+
+
+# The backward against the plain backward (chip_smoke.py's RWKV_BWD_TOL and
+# RWKV_BWD_ELEM_TOL, on ``_bwd_elem_err``): S and G step bit for bit as the
+# plain version, the sums over K (and dy . v) run in other orders, 1e-4
+# allowed in fp32; bf16 operands widen exactly and each side rounds every
+# gradient to bf16 once.
+RWKV_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+RWKV_BWD_ELEM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -6}
+
+
+def _rwkv_bwd_checks(got, want, dtype):
+    for name, g, w in zip(("dr", "dk", "dv", "dw", "du"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        # Max |got - want| within tol x max |want| (dw is exactly 0 at T 1).
+        assert float((g.float() - w.float()).abs().max()) <= RWKV_BWD_TOL[dtype] * float(
+            w.float().abs().max()), name
+        assert _bwd_elem_err(g, w) <= RWKV_BWD_ELEM_TOL[dtype], name
+
+
+_RWKV_BWD_CASES = [(2, 40, 16, None), (1, 5, 8, None), (3, 37, 32, None), (4, 16, 64, None),
+                   (2, 1, 64, None), (3, 7, 8, None), (3, 9, 8, None), (3, 17, 64, None),
+                   (5, 100, 64, None)]
+
+
+@pytest.mark.parametrize("bh,t,k,w_value,dtype", [
+    *((*c, d) for c in _RWKV_BWD_CASES for d in (torch.float32, torch.bfloat16)),
+    (3, 64, 64, 1e-6, torch.float32), (2, 400, 64, 1.0 - 1e-3, torch.float32)])
+def test_rwkv6_backward_kernel_matches_plain(dev, bh, t, k, w_value, dtype):
+    """Ragged T (below one 8-token chunk, just past chunk boundaries),
+    every instantiated K (one-block clusters at K 8 and 16, two and four
+    blocks at 32 and 64), in fp32 and bf16, then extreme decay and long
+    memory in fp32 (the model's dtype for the recurrence): every gradient
+    globally and per element, and two runs bit-identical (no atomics)."""
+    args = _rwkv_inputs(dev, bh, t, k, dtype, seed=t * k + 1, w_value=w_value)
+    g = torch.Generator(device=dev).manual_seed(t)
+    dy = torch.randn((bh, t, k), generator=g, device=dev).to(dtype)
+    heads = [x[:, None] for x in (*args, dy)]
+    n = rwkv_ops.backward_launches
+    got = [x[:, 0] for x in rwkv_ops.backward(*heads)]
+    again = [x[:, 0] for x in rwkv_ops.backward(*heads)]
+    torch.cuda.synchronize()
+    assert rwkv_ops.backward_launches == n + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _rwkv_bwd_checks(got, rwkv_ref.rwkv6_scan_bwd_ref(*args, dy), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [8, 64])
+def test_rwkv6_autograd_on_card_matches_plain(dev, k, dtype):
+    """``rwkv6_heads`` on the model's layout ((B, T, H, K) tensors permuted,
+    a broadcast bonus) that requires grad: one forward and one backward
+    launch; y and the grads of r, k, v, w and the bonus against the same
+    autograd Function under ``kernels.plain()``, which launches nothing."""
+    b, t, h = 2, 70, 3
+    g = torch.Generator(device=dev).manual_seed(k)
+    base = [torch.randn((b, t, h, k), generator=g, device=dev) * 0.5 for _ in range(3)]
+    base.append(torch.rand((b, t, h, k), generator=g, device=dev) * 0.9 + 0.05)
+    base = [x.to(dtype) for x in base]
+    bonus = torch.randn((h, k), generator=g, device=dev) * 0.5
+    dy = torch.randn((b, h, t, k), generator=g, device=dev).to(dtype)
+
+    def run():
+        ins = [x.clone().requires_grad_() for x in (*base, bonus)]
+        heads = [x.permute(0, 2, 1, 3) for x in ins[:4]]
+        y = rwkv_ops.rwkv6_heads(*heads, ins[4].expand(b, h, k))
+        return (y, *torch.autograd.grad(y, ins, dy))
+    counts = (rwkv_ops.launches, rwkv_ops.backward_launches)
+    got = run()
+    torch.cuda.synchronize()
+    assert (rwkv_ops.launches, rwkv_ops.backward_launches) == (counts[0] + 1, counts[1] + 1)
+    with kernels.plain():
+        want = run()
+    assert (rwkv_ops.launches, rwkv_ops.backward_launches) == (counts[0] + 1, counts[1] + 1)
+    assert _elem_err(got[0].detach(), want[0].detach()) <= RWKV_ELEM_TOL[dtype]
+    # Each gradient's row runs over K, as in the backward's check: the (B,
+    # T, H, K) leaves and the (H, K) bonus.  dy is given, so both backward
+    # passes start from the same inputs: the backward's own tolerance.
+    for x, w in zip(got[1:], want[1:]):
+        assert _bwd_elem_err(x, w) <= RWKV_BWD_ELEM_TOL[dtype]
+
+
+def test_rwkv6_backward_raises_on_what_it_does_not_take(dev):
+    """K outside the instantiated set, fp16, or a dy of another shape
+    raise: no plain fallback, no launch counted."""
+    n = rwkv_ops.backward_launches
+    args = _rwkv_inputs(dev, 2, 20, 24, torch.float32, seed=1)
+    with pytest.raises(ValueError):
+        rwkv_ops.backward(*(x[:, None] for x in args), args[0][:, None])
+    args = _rwkv_inputs(dev, 2, 20, 64, torch.float16, seed=1)
+    with pytest.raises(TypeError):
+        rwkv_ops.backward(*(x[:, None] for x in args), args[0][:, None])
+    args = _rwkv_inputs(dev, 2, 20, 64, torch.float32, seed=1)
+    with pytest.raises(ValueError):
+        rwkv_ops.backward(*(x[:, None] for x in args), args[0][:, None, :10])
+    assert rwkv_ops.backward_launches == n
 
 
 def test_rwkv6_kernel_raises_on_what_it_does_not_take(dev):
