@@ -71,6 +71,19 @@ __device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) 
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
 }
 
+// tf32_split's rounding by integer ops: adding half of TF32's last place
+// to the magnitude's bits and clearing the 13 bits below it rounds to
+// nearest, ties away from zero, as cvt.rna does (NaN payloads aside).  Five
+// instructions where the two cvt.rna take nine, for kernels whose splits
+// are most of their product phases' instructions.
+__device__ __forceinline__ uint32_t tf32_round_bits(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void tf32_split_int(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_round_bits(x);
+  lo = tf32_round_bits(x - __uint_as_float(hi));
+}
+
 // Fragment layouts (PTX ISA, mma.m16n8k8 .tf32), lane = 4 * gid + tig:
 //   A regs {(gid, tig), (gid+8, tig), (gid, tig+4), (gid+8, tig+4)}
 //   B regs {(k tig, n gid), (k tig+4, n gid)}

@@ -17,9 +17,12 @@ reach it.
 
 When a gradient is asked for (grad mode on and an operand that requires
 grad) the call goes through ``RWKV6``, an autograd Function: its forward
-is the same launch, and its backward launches the backward kernel
-(``backward``), which takes fp32 only: bf16 operands are widened to fp32
-for it and the gradients rounded back.  On the CPU or under
+is the same launch, and its backward calls ``backward``: the chunked,
+division-free backward's three kernels (chunk summaries, the scan over
+chunks, the gradients; ``bwd_plan`` gives their grids and scratch, and
+``ref.rwkv6_chunked_bwd_ref`` their algebra in plain torch), counted as
+one launch a call.  They take fp32 only: bf16 operands are widened to fp32
+for them and the gradients rounded back.  On the CPU or under
 ``kernels.plain()`` that Function runs ``rwkv6_scan_ref`` and
 ``rwkv6_scan_bwd_ref``.  No path asks for the final state's gradient:
 ``return_state=True`` with a gradient raises.  Without a gradient nothing
@@ -39,12 +42,13 @@ from .ref import rwkv6_scan_bwd_ref, rwkv6_scan_ref
 
 HEAD_DIMS = (8, 16, 32, 64)  # K the kernel instantiates
 SLICE = 16  # rows of S (and columns of y) one block owns
-BWD_CHUNK = 8  # tokens a chunk of the backward kernel (its state scratch: one a chunk)
+BWD_CHUNK = 32  # tokens a chunk of the backward kernels (csrc/rwkv6_bwd.cu: C)
+BWD_THREADS = 128  # threads a block of each backward kernel
 
 launches = 0  # kernel launches (one per wrapper call that runs the kernel)
 vec16_launches = 0  # of those, with 16-byte cp.async copies
 vec4_launches = 0  # with 4-byte copies (other strides or bases)
-backward_launches = 0  # backward kernel launches (one per backward call on the card)
+backward_launches = 0  # backward calls on the card (each launches the three kernels)
 
 
 @dataclass(frozen=True)
@@ -92,6 +96,48 @@ def plan(shape: Sequence[int], elsize: int, ptrs: Sequence[int],
     return Plan(kd=kd, cluster=max(1, kd // SLICE), threads=128 if kd >= 32 else 4 * kd,
                 vec=vec)
 
+@dataclass(frozen=True)
+class BwdPlan:
+    """The backward's three launches for one call, as csrc/rwkv6_bwd.cu's
+    launcher takes them (it refuses a chunk, chunk count, tile count or
+    scratch size other than its kernels'): the chunk summaries and the
+    gradients one block a (head, chunk), the scan one block a (tile of a
+    head's K x K, head, direction), and the scratch they share: two states
+    a (head, chunk), then W and du's share a (head, chunk)."""
+
+    chunk: int  # tokens a chunk
+    chunks: int  # chunks a head
+    heads: int
+    kd: int
+
+    @property
+    def scan_tiles(self) -> int:
+        """Blocks of a head's K x K (a thread a float4) in one direction."""
+        return -(-self.kd * self.kd // 4 // BWD_THREADS)
+
+    @property
+    def grids(self) -> tuple[int, int, int]:
+        """Blocks of the summaries, the scan and the gradients."""
+        return (self.heads * self.chunks, self.scan_tiles * self.heads * 2,
+                self.heads * self.chunks)
+
+    @property
+    def scratch_floats(self) -> int:
+        return self.heads * self.chunks * (2 * self.kd * self.kd + 2 * self.kd)
+
+    @property
+    def scratch_bytes(self) -> int:
+        return 4 * self.scratch_floats
+
+
+def bwd_plan(t_len: int, kd: int, heads: int) -> BwdPlan:
+    """The backward's launches for ``heads`` (B H) heads of ``t_len`` tokens
+    of width ``kd``."""
+    if kd not in HEAD_DIMS:
+        raise ValueError(f"rwkv6 backward: K={kd} (the kernel takes {HEAD_DIMS})")
+    return BwdPlan(chunk=BWD_CHUNK, chunks=-(-t_len // BWD_CHUNK), heads=heads, kd=kd)
+
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _fn = None
 _bwd_fn = None
@@ -113,7 +159,8 @@ def _bwd_launcher():
     if _bwd_fn is None:
         fn = build.load("rwkv6_bwd").rwkv6_bwd_launch
         fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 11
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                               ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _bwd_fn = fn
     return _bwd_fn
@@ -189,13 +236,14 @@ def _forward(r, k, v, w, u, return_state: bool = False):
 
 
 def backward(r, k, v, w, u, dy):
-    """The backward kernel on (B, H, T, K) views: (dr, dk, dv, dw, du), each
-    like its operand (du (B, H, K)).  fp32 in the kernel: bf16 operands are
-    widened and the gradients rounded back to their dtypes."""
+    """The backward's kernels on (B, H, T, K) views: (dr, dk, dv, dw, du),
+    each like its operand (du (B, H, K)).  fp32 in the kernels: bf16
+    operands are widened and the gradients rounded back to their dtypes.
+    The kernels read every input in place through its strides, with
+    16-byte copies when every base and stride allows them."""
     b, h, t_len, kd = r.shape
     _check(r, k, v, w, u)
-    if kd not in HEAD_DIMS:
-        raise ValueError(f"rwkv6 backward: K={kd} (the kernel takes {HEAD_DIMS})")
+    bp = bwd_plan(t_len, kd, b * h)
     if dy.shape != r.shape or dy.device != r.device:
         raise ValueError(f"rwkv6 backward: dy{tuple(dy.shape)} on {dy.device}, want "
                          f"{tuple(r.shape)} on {r.device}")
@@ -215,14 +263,18 @@ def backward(r, k, v, w, u, dy):
         for g in (*grads, du):
             g.zero_()
     else:
-        chunks = -(-t_len // BWD_CHUNK)
-        ckpt = torch.empty((b * h, chunks, kd, kd), dtype=torch.float32, device=r.device)
+        scratch = torch.empty(bp.scratch_floats, dtype=torch.float32, device=r.device)
+        # 16-byte copies when every input's base and strides allow them (the
+        # forward's rule, dy with its own strides).
+        vec16 = all(plan(x.shape, 4, [x.data_ptr()], x.stride()).vec == 16 for x in (*ins, dyf))
         global backward_launches
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = _bwd_launcher()(*(x.data_ptr() for x in ins), uf.data_ptr(), dyf.data_ptr(),
-                              *(g.data_ptr() for g in grads), du.data_ptr(), ckpt.data_ptr(),
-                              b, h, t_len, kd, *ins[0].stride()[:3], *uf.stride()[:2],
-                              *dyf.stride()[:3], *grads[0].stride()[:3], stream)
+                              *(g.data_ptr() for g in grads), du.data_ptr(),
+                              scratch.data_ptr(), b, h, t_len, kd, *ins[0].stride()[:3],
+                              *uf.stride()[:2], *dyf.stride()[:3], *grads[0].stride()[:3],
+                              bp.chunk, bp.chunks, bp.scan_tiles, bp.scratch_floats,
+                              int(vec16), stream)
         check_launch(err, "rwkv6 backward")
         backward_launches += 1
     return (*(g.to(x.dtype) for g, x in zip(grads, (r, k, v, w))), du.to(u.dtype))

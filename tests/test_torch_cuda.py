@@ -1125,10 +1125,11 @@ def test_rwkv6_kernel_copies_odd_bf16_offset(dev):
 
 
 # The backward against the plain backward (chip_smoke.py's RWKV_BWD_TOL and
-# RWKV_BWD_ELEM_TOL, on ``_bwd_elem_err``): S and G step bit for bit as the
-# plain version, the sums over K (and dy . v) run in other orders, 1e-4
-# allowed in fp32; bf16 operands widen exactly and each side rounds every
-# gradient to bf16 once.
+# RWKV_BWD_ELEM_TOL, on ``_bwd_elem_err``): the kernels associate S's and
+# G's sums by 32-token chunks and run their products in 3xTF32 (fp32's
+# level), so each gradient is the plain one up to fp32 rounding of sums in
+# other orders, 1e-4 allowed in fp32; bf16 operands widen exactly and each
+# side rounds every gradient to bf16 once.
 RWKV_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 RWKV_BWD_ELEM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -6}
 
@@ -1145,18 +1146,21 @@ def _rwkv_bwd_checks(got, want, dtype):
 
 _RWKV_BWD_CASES = [(2, 40, 16, None), (1, 5, 8, None), (3, 37, 32, None), (4, 16, 64, None),
                    (2, 1, 64, None), (3, 7, 8, None), (3, 9, 8, None), (3, 17, 64, None),
-                   (5, 100, 64, None)]
+                   (5, 100, 64, None), (2, 31, 64, None), (2, 32, 16, None), (2, 33, 8, None),
+                   (2, 65, 32, None)]
 
 
 @pytest.mark.parametrize("bh,t,k,w_value,dtype", [
     *((*c, d) for c in _RWKV_BWD_CASES for d in (torch.float32, torch.bfloat16)),
-    (3, 64, 64, 1e-6, torch.float32), (2, 400, 64, 1.0 - 1e-3, torch.float32)])
+    (3, 64, 64, 1e-6, torch.float32), (2, 45, 64, 1e-6, torch.float32),
+    (2, 400, 64, 1.0 - 1e-3, torch.float32)])
 def test_rwkv6_backward_kernel_matches_plain(dev, bh, t, k, w_value, dtype):
-    """Ragged T (below one 8-token chunk, just past chunk boundaries),
-    every instantiated K (one-block clusters at K 8 and 16, two and four
-    blocks at 32 and 64), in fp32 and bf16, then extreme decay and long
-    memory in fp32 (the model's dtype for the recurrence): every gradient
-    globally and per element, and two runs bit-identical (no atomics)."""
+    """Ragged T (a single token, below one 32-token chunk, at and just past
+    its edges: C - 1, C, C + 1, 2C + 1), every instantiated K (8 and 16
+    padded to the mma tiles), in fp32 and bf16, then extreme decay (one
+    chunk and a ragged one past it) and long memory in fp32 (the model's
+    dtype for the recurrence): every gradient globally and per element, and
+    two runs bit-identical (no atomics)."""
     args = _rwkv_inputs(dev, bh, t, k, dtype, seed=t * k + 1, w_value=w_value)
     g = torch.Generator(device=dev).manual_seed(t)
     dy = torch.randn((bh, t, k), generator=g, device=dev).to(dtype)
@@ -1168,6 +1172,25 @@ def test_rwkv6_backward_kernel_matches_plain(dev, bh, t, k, w_value, dtype):
     assert rwkv_ops.backward_launches == n + 2
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     _rwkv_bwd_checks(got, rwkv_ref.rwkv6_scan_bwd_ref(*args, dy), dtype)
+
+
+@pytest.mark.parametrize("k", [8, 64])
+def test_rwkv6_backward_four_byte_copies(dev, k):
+    """Inputs whose token stride (K + 1 floats) is not a multiple of 16
+    bytes take the kernels' 4-byte copies: the same checks, read in place."""
+    bh, t = 3, 70
+    args = _rwkv_inputs(dev, bh, t, k, torch.float32, seed=k + 5)
+    g = torch.Generator(device=dev).manual_seed(k)
+    dy = torch.randn((bh, t, k), generator=g, device=dev)
+
+    def odd(x):
+        wide = torch.zeros((bh, t, k + 1), device=dev)
+        wide[..., :k] = x
+        return wide[..., :k]
+    heads = [odd(x)[:, None] for x in (*args[:4], dy)]
+    got = [x[:, 0] for x in rwkv_ops.backward(*heads[:4], args[4][:, None], heads[4])]
+    torch.cuda.synchronize()
+    _rwkv_bwd_checks(got, rwkv_ref.rwkv6_scan_bwd_ref(*args, dy), torch.float32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1218,6 +1241,22 @@ def test_rwkv6_backward_raises_on_what_it_does_not_take(dev):
     args = _rwkv_inputs(dev, 2, 20, 64, torch.float32, seed=1)
     with pytest.raises(ValueError):
         rwkv_ops.backward(*(x[:, None] for x in args), args[0][:, None, :10])
+    assert rwkv_ops.backward_launches == n
+
+
+@pytest.mark.parametrize("field,value", [("chunk", 16), ("chunks", 1), ("kd", 32)])
+def test_rwkv6_backward_refuses_a_plan_unlike_its_kernels(dev, monkeypatch, field, value):
+    """The launcher checks the wrapper's plan (chunk size, chunks a head,
+    scan tiles, scratch size) against its kernels' and launches nothing
+    when they differ: a chunk of 16, too few chunks for T, or the tiles and
+    scratch of another K."""
+    real = rwkv_ops.bwd_plan
+    monkeypatch.setattr(rwkv_ops, "bwd_plan", lambda t, kd, heads: dataclasses.replace(
+        real(t, kd, heads), **{field: value}))
+    args = _rwkv_inputs(dev, 2, 40, 64, torch.float32, seed=3)
+    n = rwkv_ops.backward_launches
+    with pytest.raises(RuntimeError):
+        rwkv_ops.backward(*(x[:, None] for x in args), args[0][:, None])
     assert rwkv_ops.backward_launches == n
 
 
