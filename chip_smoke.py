@@ -261,7 +261,10 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
      SMALL_LOSS_DROP (every backward on the CUDA-core kernels), and
      ``build_entry`` (nsvd1 0.2, k1 0.9) on its params with exact launches
      (``small_quality_expect``), printed beside BENCH_quality.json's
-     JAX-trained entry;
+     JAX-trained entry; then ``build_entry`` on the committed
+     reference-trained small-llama (``trained_quality``: its Grams in host
+     memory) held to the reference's entry on the same weights within
+     TRAINED_TOL;
  16. train_rwkv path: rwkv6-1.6b at full width cut to 4 of 24 layers,
      bf16, fp32 AdamW state, the train path's batch: step 1's loss and
      grads through the rwkv6 kernel and its hand-written backward against
@@ -276,7 +279,25 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
      reckoning; then ``launch.train.train_loop(arch="rwkv6-1.6b",
      reduced=True)`` on the card for RWKV_CLI_STEPS steps, its loss on its
      first batch falling by RWKV_CLI_DROP, launches TRAIN_PREDICTED
-     ["rwkv_cli"].  No other path launches the rwkv6 backward.
+     ["rwkv_cli"].  No other path launches the rwkv6 backward;
+ 17. full_depth path: mistral-7b at full width and all 32 layers (random
+     weights from seed 0, bf16) with the calibration GramStore in host
+     memory (67.69 GB of fp64 sums, more than the card holds beside the
+     weights; the serve CLI's check refuses the device home and names the
+     host one): the serve path's run with ``grams_on="host"`` (calibrate
+     in layer groups sized from the card's free memory, every group
+     running the 16 batches and folding only its layers' taps, nsvd1 0.2
+     with each Gram read onto the card, 8 requests paged at worst case
+     and depth 1, exact launches, a decode step's logits against plain;
+     the peak held to calibration's own bound), then perplexity of the
+     dense and compressed model on FULL_DEPTH_EVAL batches of en_a and the
+     logit KL on one (flash once a layer and forward; the compressed
+     linears above the nested gate, counted), then both homes at
+     HOMES_LAYERS layers (``gram_homes_check``: layer keys and nsvd1
+     params bit-identical, shared keys within HOMES_SHARED_REL).  Prints
+     the host's MemTotal and MemAvailable (/proc/meminfo, read only), the
+     store's host bytes and groups, the process's peak RSS and each
+     phase's seconds.
 Prints each path's seconds and peak device memory, a JSON kernel summary,
 nvidia-smi's line, and as its last line
 {"ok": true, "device": {...}}.  Any failed phase exits non-zero; without a
@@ -2021,7 +2042,7 @@ def int8_slab_run(torch, np, model, params, prompts, base: list, base_nested: di
 
 
 def serve_path(torch, np, cfg, mixer, gram_taps: tuple, keep=None, predicted=None,
-               int8: bool = False):
+               int8: bool = False, grams_on: str = "device"):
     """``serve()`` on ``cfg``: calibrate, compress (nsvd1, ratio 0.2) and
     serve 8 requests on the layout the model takes, with exact launch counts
     (``mixer``: the kernel each calibration forward runs once per layer,
@@ -2038,7 +2059,10 @@ def serve_path(torch, np, cfg, mixer, gram_taps: tuple, keep=None, predicted=Non
     prefill call's logits through the kernels against the plain versions
     (a 64-token chunk of 8 rows on the pages, the admission call with the
     most rows under the nested gate on the slab).  ``int8`` (a dense-slab
-    model): then ``int8_slab_run`` on the same model and prompts."""
+    model): then ``int8_slab_run`` on the same model and prompts.
+    ``grams_on``: the calibration GramStore's home (``serve(grams_on=)``);
+    in host memory each of its layer groups runs every calibration batch
+    through the mixer, and the memory reckoning is the host home's."""
     from repro_torch import kernels
     from repro_torch.launch.serve import run_bytes, serve
     from repro_torch.models.api import prefill_pad_safe
@@ -2051,11 +2075,29 @@ def serve_path(torch, np, cfg, mixer, gram_taps: tuple, keep=None, predicted=Non
     reset_counts()
     res = serve(cfg, requests=8, max_new=32, max_batch=8, max_len=256,
                 seed=0, compress=0.2, block_size=16, prefill_chunk=64,
-                prompts=prompts, sched_policy="worst_case", pipeline_depth=1)
+                prompts=prompts, sched_policy="worst_case", pipeline_depth=1,
+                grams_on=grams_on)
     # What the serve CLI's memory check reckons the run holds at most, beside
     # the peak it reached (calibration, compression and serving; the caller
     # reset the peak just before).
-    fit_need, fit_what = run_bytes(cfg, [0.2])
+    fit_need, fit_what = run_bytes(cfg, [0.2], grams_on)
+    store = res["gram_store"]
+    if grams_on == "host":
+        # Its groups take what the card has free, so calibration's own bound
+        # stands beside the reckoning: the weights, the most fp64 sums a
+        # group held, a tap's fp32 Gram and twice a batch's taps (the
+        # runner's allowance for the forward), as the runner sized them.
+        from repro_torch.launch.compress_shapes import calibration_bytes, gram_layers
+
+        meta = res["model"]
+        calib_need = (calibration_bytes(meta)["weights"] + store["device_bytes"]
+                      + calibration_bytes(meta)["batch_gram"]
+                      + 2 * 16 * 128 * gram_layers(meta)["tap_bytes_per_token"])
+        if calib_need > fit_need:
+            fit_need, fit_what = calib_need, (
+                f"calibration {calib_need / 1e9:.2f}: the weights, a group's sums "
+                f"{store['device_bytes'] / 1e9:.2f}, a tap's Gram and two batches' taps; "
+                f"the serve CLI's host-home reckoning {fit_what}")
     run_peak = torch.cuda.max_memory_allocated()
     counts = read_counts()
     split, split_ok = flash_split_ok(counts)
@@ -2106,7 +2148,7 @@ def serve_path(torch, np, cfg, mixer, gram_taps: tuple, keep=None, predicted=Non
               "flash_attention": 0, "rwkv6": 0}
     if mixer is not None:
         expect[mixer] = mixer_layers(model, mixer) * (
-            calib_batches + (0 if paged else st["prefill_ticks"]))
+            calib_batches * store["groups"] + (0 if paged else st["prefill_ticks"]))
     nested_ok = (nsplit == nested_expect and bsplit == batched_expect
                  and len(prefill_rows) == st["prefill_ticks"] and admits_ok)
     # Every paged decode step's attention also runs the combine when
@@ -2146,6 +2188,8 @@ def serve_path(torch, np, cfg, mixer, gram_taps: tuple, keep=None, predicted=Non
     log(f"  prompt lengths {plens.tolist()}; plan achieved ratio "
         f"{plan.achieved_ratio:.4f} (counted from the factors: {ratio:.4f})")
     log("  phase seconds: " + ", ".join(f"{k}={v:.2f}" for k, v in res["seconds"].items()))
+    log(f"  GramStore on the {store['grams_on']}: {store['groups']} group(s) of layers, "
+        f"{store['bytes'] / 1e9:.2f} GB")
     log(f"  serve CLI's memory reckoning {fit_need / 2 ** 30:.2f} GiB ({fit_what} GB) "
         f"against the run's peak {run_peak / 2 ** 30:.2f} GiB "
         f"{'OK' if run_peak <= fit_need else 'FAIL'}")
@@ -2330,7 +2374,7 @@ def serve_path(torch, np, cfg, mixer, gram_taps: tuple, keep=None, predicted=Non
     summary = dict(config=cfg.name, layers=layers, layout=eng.layout,
                    predicted=predicted, predicted_got=pred_got, prefill_check=prefill_check,
                    report=report,
-                   prompt_lengths=plens.tolist(), seconds=res["seconds"],
+                   prompt_lengths=plens.tolist(), seconds=res["seconds"], gram_store=store,
                    fit_need_gib=fit_need / 2 ** 30, run_peak_gib=run_peak / 2 ** 30,
                    tokens=res["tokens"], tok_per_s=res["tok_per_s"], engine=st,
                    launches=counts, expected_launches=expect, flash_launches=split,
@@ -4948,6 +4992,68 @@ def small_quality_expect(cfg, model, q: dict) -> dict:
             "gram": (4 * cfg.num_layers + 1) * batches}
 
 
+# small-llama trained by the reference's recipe on the CPU, in the
+# reference's checkpoint layout, and the reference's ``build_entry`` on it
+# under SMALL_QUALITY's settings (jax 0.9.0 on the CPU;
+# tests/test_torch_quality_trained.py holds these numbers to a live run of
+# the reference and the port's CPU run to them within TRAINED_TOL).
+TRAINED_CHECKPOINT = os.path.join(ROOT, "tests", "torch_data", "small-llama")
+TRAINED_REFERENCE = dict(
+    dense_ppl={"en_a": 132.1636374562816, "en_b": 162.18416021142133,
+               "task": 80.97832205837315, "zh": 85.88657125572655, "jp": 71.80651808810266},
+    compressed_ppl={"en_a": 132.39471495509582, "en_b": 162.3558583606309,
+                    "task": 82.90583259638363, "zh": 93.07460445905824,
+                    "jp": 86.38046691153151},
+    logit_kl=0.0014470549940597266, achieved_ratio=0.20169005102040816,
+    plain_rel_err_mean=0.5125425892247051, whitened_rel_err_mean=0.06281730282593152,
+    outlier_absorption_mean=0.8037966278353117)
+# Relative tolerances against the reference: fp32 forwards summed in
+# another order (ppl), the KL of two nearly equal distributions, fp64
+# decompositions of Grams that differ at fp32 rounding.
+TRAINED_TOL = dict(ppl=1e-5, kl=1e-4, decomposition=1e-5)
+
+
+def trained_quality(torch) -> dict:
+    """``build_entry`` on the committed reference-trained small-llama
+    (TRAINED_CHECKPOINT) on the card, its GramStore in host memory, with
+    SMALL_QUALITY's settings and exact launches (``small_quality_expect``),
+    held to the reference's entry on the same weights (TRAINED_REFERENCE)
+    within TRAINED_TOL: every domain's dense and compressed ppl, the KL,
+    the errors and absorption; the achieved ratio exactly."""
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.obs.quality_report import build_entry
+
+    cfg = get_config("small-llama")
+    params, _ = bridge.load_checkpoint(bridge.latest_checkpoint(TRAINED_CHECKPOINT), "cuda")
+    reset_counts()
+    entry = build_entry(cfg, params=params, grams_on="host", **SMALL_QUALITY)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect = small_quality_expect(cfg, build_model(cfg), SMALL_QUALITY)
+    ref, dec = TRAINED_REFERENCE, entry["decomposition"]
+    rel = {f"{k}[{d}]": abs(entry[k][d] / ref[k][d] - 1.0)
+           for k in ("dense_ppl", "compressed_ppl") for d in ref[k]}
+    rel["logit_kl"] = abs(entry["logit_kl"] / ref["logit_kl"] - 1.0)
+    for k in ("plain_rel_err_mean", "whitened_rel_err_mean", "outlier_absorption_mean"):
+        rel[k] = abs(dec[k] / ref[k] - 1.0)
+    tol = {k: TRAINED_TOL["ppl" if "ppl" in k else "kl" if k == "logit_kl"
+                          else "decomposition"] for k in rel}
+    worst = max(rel, key=lambda k: rel[k] / tol[k])
+    ok = (counts == expect and entry["achieved_ratio"] == ref["achieved_ratio"]
+          and all(rel[k] <= tol[k] for k in rel))
+    log(f"  small-llama trained by the reference's recipe (committed checkpoint), Grams in "
+        f"host memory ({entry['meta']['grams_on']}): ppl en_a {entry['dense_ppl']['en_a']:.4f} "
+        f"-> {entry['compressed_ppl']['en_a']:.4f}, jp {entry['dense_ppl']['jp']:.4f} -> "
+        f"{entry['compressed_ppl']['jp']:.4f}, KL {entry['logit_kl']:.6f}, whitened err "
+        f"{dec['whitened_rel_err_mean']:.5f} against plain {dec['plain_rel_err_mean']:.5f}; "
+        f"against the reference's CPU entry: worst {worst} rel {rel[worst]:.2e} (tol "
+        f"{tol[worst]:g}), achieved ratio {entry['achieved_ratio']!r}; launches {counts} "
+        f"expected {expect} {'OK' if ok else 'FAIL'}")
+    return dict(entry=entry, rel=rel, launches=counts, expected=expect, ok=bool(ok))
+
+
 def small_quality(torch, params) -> tuple:
     """``build_entry`` on small-llama's trained params with its exact
     launches (the quality path's count of causal forwards; every Gram tap
@@ -5135,8 +5241,9 @@ def train_path(torch, np):
     log(f"    launches {small_counts} expected {TRAIN_PREDICTED['small_llama']} (flash and "
         f"its backward all CUDA-core) {'OK' if small_counts_ok else 'FAIL'}")
     entry, ref, q_counts, q_expect, q_ok = small_quality(torch, small)
+    trained = trained_quality(torch)
     ok = (grads_ok and resume_ok and counts_ok and kinds_ok and small_counts_ok and drop_ok
-          and q_ok and all(math.isfinite(x) for x in losses))
+          and q_ok and trained["ok"] and all(math.isfinite(x) for x in losses))
     summary = dict(config=cfg.name, layers=cfg.num_layers, params=n_params,
                    reckoned_state_gib=reckon / 2 ** 30, peak_gib=peak / 2 ** 30,
                    loss_kernel=loss_k, loss_plain=loss_p, loss_rel=loss_rel,
@@ -5147,7 +5254,7 @@ def train_path(torch, np):
                    mistral_s=mistral_s, small_s=small_s, small_losses=extra["losses"],
                    small_launches=small_counts, small_entry=entry, reference_entry=ref,
                    small_quality_launches=q_counts, small_quality_expected=q_expect,
-                   ok=bool(ok))
+                   trained_quality=trained, ok=bool(ok))
     return summary, counts
 
 
@@ -5371,6 +5478,167 @@ def train_rwkv_path(torch, np):
     return summary, counts
 
 
+FULL_DEPTH_EVAL = dict(n_batches=2, batch=4, seq=2048)  # ppl; the KL on the first
+HOMES_LAYERS = 2  # the depth at which both GramStore homes fit and are compared
+HOMES_SHARED_REL = 1e-12  # a shared key's groups summed in another order (fp64)
+
+
+def host_memory() -> dict:
+    """The host's MemTotal and MemAvailable (/proc/meminfo, read only) and
+    this process's peak resident set, in bytes."""
+    import resource
+
+    info = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, value = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                info[key] = int(value.split()[0]) * 1024
+    info["peak_rss"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    return info
+
+
+def gram_homes_check(torch, np, cfg, device: str = "cuda") -> dict:
+    """Both GramStore homes on ``cfg`` (random weights from seed 0 on
+    ``device``), where both fit: the device store in one pass, the host
+    store one layer a group (so its shared keys add the groups' sums in
+    turn).  Every layer's keys bit-identical, the shared keys within
+    HOMES_SHARED_REL of their largest entry, the counts equal; then nsvd1
+    0.2 (factors in the model's dtype) from each store on ``device``, every
+    factor there and bit-identical."""
+    from repro_torch.calib.runner import calibration_batches, collect_grams
+    from repro_torch.checkpoint.checkpointer import flatten
+    from repro_torch.core import CompressionConfig, build_plan, compress_params
+    from repro_torch.launch.compress_shapes import gram_layers
+    from repro_torch.models import build_model
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+    model = build_model(cfg)
+    params = model.init(0, device)
+    batches = list(calibration_batches(cfg.vocab_size, "en_a", n_samples=256, batch=16,
+                                       seq=128))
+    t0 = time.perf_counter()
+    dev = collect_grams(model, params, batches)
+    sync()
+    dev_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = collect_grams(model, params, batches, grams_on="host",
+                         group_bytes=max(gram_layers(model)["layers"].values()))
+    host_s = time.perf_counter() - t0
+    own = [k for k in dev.keys() if k.rsplit("/", 1)[-1].isdigit()]
+    shared = [k for k in dev.keys() if k not in own]
+    own_equal = all(torch.equal(host.gram(k), dev.gram(k).cpu())
+                    and torch.equal(host.absmean(k), dev.absmean(k).cpu()) for k in own)
+    shared_rel = max(float((host.gram(k) - dev.gram(k).cpu()).abs().max()
+                           / dev.gram(k).abs().max()) for k in shared)
+    counts_equal = all(host.count(k) == dev.count(k) for k in dev.keys())
+    plan = build_plan(model.compressible_targets(), CompressionConfig(
+        method="nsvd1", ratio=0.2, dtype=cfg.dtype, use_randomized=False))
+    from_dev = flatten(compress_params(params, plan, dev))
+    from_host = flatten(compress_params(params, plan, host))
+    sync()
+    on_card = all(t.device.type == device for t in from_host.values())
+    params_equal = (from_dev.keys() == from_host.keys()
+                    and all(torch.equal(from_dev[k], from_host[k]) for k in from_dev))
+    ok = (host.device == torch.device("cpu") and host.groups == cfg.num_layers
+          and set(host.keys()) == set(dev.keys()) and own_equal and counts_equal
+          and shared_rel <= HOMES_SHARED_REL and on_card and params_equal)
+    log(f"  GramStore homes at {cfg.num_layers} layers: device store {dev_s:.2f} s, host store "
+        f"{host_s:.2f} s in {host.groups} groups; {len(own)} layer keys bit-identical: "
+        f"{own_equal}, {len(shared)} shared keys max rel diff {shared_rel:.3e} (tol "
+        f"{HOMES_SHARED_REL:g}), counts equal {counts_equal}; nsvd1 0.2 from each: "
+        f"{len(from_dev)} leaves bit-identical {params_equal}, on {device} {on_card} "
+        f"{'OK' if ok else 'FAIL'}")
+    return dict(layers=cfg.num_layers, groups=host.groups, own_keys=len(own),
+                shared_keys=len(shared), own_equal=own_equal, shared_max_rel=shared_rel,
+                counts_equal=counts_equal, params_equal=params_equal, on_card=on_card,
+                device_s=dev_s, host_s=host_s, ok=ok)
+
+
+def full_depth_path(torch, np, cfg):
+    """mistral-7b at full width and all its layers, random weights from
+    seed 0, bf16, the calibration GramStore in host memory (67.7 GB of fp64
+    sums: more than the card holds beside the weights): the serve path's
+    run (calibrate in layer groups, nsvd1 0.2, 8 requests paged at worst
+    case and depth 1, exact launches, a decode step's logits against
+    plain); then perplexity of the dense and the compressed model on
+    FULL_DEPTH_EVAL batches of en_a and the logit KL on the first (flash
+    once a layer and forward; every compressed linear above the nested
+    gate at 8192 rows: ``gate_calls``); then both homes at HOMES_LAYERS
+    layers (``gram_homes_check``).  Prints the host's memory, the store's
+    host bytes and groups, the peak device memory against the serve
+    CLI's reckoning for the host home, and each phase's seconds."""
+    from repro_torch.eval.attribution import mean_logit_kl
+    from repro_torch.eval.perplexity import eval_batches, evaluate_ppl
+    from repro_torch.launch.compress_shapes import calibration_bytes
+    from repro_torch.launch.serve import fit_error
+    from repro_torch.models import build_model
+
+    before = host_memory()
+    free = torch.cuda.mem_get_info()[0]
+    refused = fit_error(cfg, [0.2], free)
+    log(f"full_depth path: {cfg.name} at {cfg.num_layers} layers; host MemTotal "
+        f"{before['MemTotal'] / 1e9:.2f} GB, MemAvailable {before['MemAvailable'] / 1e9:.2f} GB; "
+        f"card free {free / 1e9:.2f} GB; the serve CLI with the Grams on the device: "
+        f"{refused}")
+    keep = {}
+    summary, counts = serve_path(torch, np, cfg, "flash_attention", (4 * cfg.num_layers + 1, 0),
+                                 keep=keep, grams_on="host")
+    after = host_memory()
+    model, cparams = keep["model"], keep["params"]
+    store = summary["gram_store"]
+    grams_bytes = calibration_bytes(build_model(cfg))["grams"]
+    store_ok = (store["grams_on"] == "host" and store["bytes"] == grams_bytes
+                and store["groups"] >= 1 and refused is not None)
+    log(f"  host store {store['bytes'] / 1e9:.2f} GB (reckoned {grams_bytes / 1e9:.2f}) in "
+        f"{store['groups']} groups; host peak RSS {after['peak_rss'] / 1e9:.2f} GB, "
+        f"MemAvailable after {after['MemAvailable'] / 1e9:.2f} GB "
+        f"{'OK' if store_ok else 'FAIL'}")
+
+    dense = model.init(0, "cuda")
+    batches = list(eval_batches(cfg.vocab_size, "en_a", **FULL_DEPTH_EVAL))
+    reset_counts()
+    nlr = _ops("nested_lowrank")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ppl_dense = evaluate_ppl(model, dense, batches)
+        ppl_comp = evaluate_ppl(model, cparams, batches)
+        kl = mean_logit_kl(model, dense, cparams, batches[:1])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_counts = read_counts()
+    forwards = 2 * len(batches) + 2
+    eval_expect = {"nested_lowrank": 0, "paged_attention": 0, "gram": 0, "rwkv6": 0,
+                   "flash_attention": cfg.num_layers * forwards}
+    gate_expect = nested_calls(model)[0] * (len(batches) + 1)
+    eval_ok = (eval_counts == eval_expect and nlr.gate_calls == gate_expect
+               and all(math.isfinite(x) and x > 0 for x in (ppl_dense, ppl_comp))
+               and math.isfinite(kl) and kl >= 0)
+    log(f"  eval on {len(batches)} x {FULL_DEPTH_EVAL['batch']} x {FULL_DEPTH_EVAL['seq']} of "
+        f"en_a: ppl dense {ppl_dense:.3f} compressed {ppl_comp:.3f}, logit KL {kl:.5f} "
+        f"(random weights: wiring only); {eval_s:.2f} s; launches {eval_counts} expected "
+        f"{eval_expect}, nested gate calls {nlr.gate_calls} expected {gate_expect} "
+        f"{'OK' if eval_ok else 'FAIL'}")
+    del dense, cparams, keep
+    torch.cuda.empty_cache()
+
+    homes = gram_homes_check(torch, np, dataclasses.replace(cfg, num_layers=HOMES_LAYERS))
+    seconds = {**summary["seconds"], "evaluate": eval_s}
+    log("  full_depth seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+        + f"; peak {summary['run_peak_gib']:.2f} GiB against the host home's reckoning "
+        f"{summary['fit_need_gib']:.2f} GiB")
+    out = dict(summary, host_memory_before=before, host_memory_after=after,
+               device_refusal=refused, grams_bytes=grams_bytes,
+               eval=dict(ppl_dense=ppl_dense, ppl_compressed=ppl_comp, logit_kl=kl,
+                         seconds=eval_s, launches=eval_counts, expected=eval_expect,
+                         gate_calls=nlr.gate_calls, expected_gate_calls=gate_expect),
+               homes=homes, full_seconds=seconds,
+               ok=bool(summary["ok"] and store_ok and eval_ok and homes["ok"]))
+    return out, counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5487,7 +5755,8 @@ def main() -> int:
             ("whisper", whisper_path, (WHISPER_SMALL,)),
             ("llava", llava_path, (llava,)),
             ("train", train_path, ()),
-            ("train_rwkv", train_rwkv_path, ()))
+            ("train_rwkv", train_rwkv_path, ()),
+            ("full_depth", full_depth_path, (MISTRAL_7B,)))
     summaries, path_counts, path_s, path_peak = {}, {}, {}, {}
     for name, fn, args in runs:
         torch.cuda.reset_peak_memory_stats()

@@ -2,7 +2,8 @@
 
 For each tapped activation x (..., n):  G += x^T x (fp32 product), a +=
 sum |x|, c += rows — accumulated on the device into the GramStore's fp64
-sums (the reference copies every per-batch Gram to the host as fp64).  The
+sums (the reference copies every per-batch Gram to the host as fp64; a
+host store here is filled a group of layers at a time, ``runner``).  The
 per-batch Gram and sum |x| come from the ``gram`` kernel
 (``kernels/gram``); its plain version is a full-fp32 matmul, for which TF32
 must stay off to match the reference's ``Precision.HIGHEST``
@@ -24,7 +25,7 @@ it (a slot left empty is all zeros).
 from __future__ import annotations
 
 import re
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -49,6 +50,13 @@ def normalize_tap(name: str) -> Tuple[str, str]:
     return _REP_RE.sub("/", name), m.group(1)
 
 
+def tap_layer(name: str) -> Optional[str]:
+    """The stacked layer a tap belongs to ("g0/rep3" for
+    "g0/rep3/sub0.mlp.in"), or None for an unstacked tap."""
+    m = _REP_RE.search(name)
+    return name[:m.end() - 1] if m else None
+
+
 def gram_keys(name: str, x: torch.Tensor) -> Tuple[str, List[str]]:
     """A tap's GramStore keys: (the shared key, its own keys).  An expert
     tap owns one key an expert, a stacked tap one for its layer, an
@@ -67,12 +75,13 @@ def gram_update(x: torch.Tensor):
 
 
 def accumulate_taps(store: GramStore, taps: Dict[str, torch.Tensor],
-                    telemetry=None) -> None:
-    """Fold one batch of dense taps into ``store``.
+                    telemetry=None) -> Dict[str, float]:
+    """Fold one batch of dense taps into ``store``; returns the rows folded
+    per normalized tap.
 
     ``telemetry`` (``repro_torch.obs.compression.CompressionTelemetry``)
-    gets the cheap per-batch signal only: rows folded per normalized tap.
-    The expensive per-tap statistics run once at the end of calibration
+    gets the cheap per-batch signal only: those rows.  The expensive
+    per-tap statistics run once at the end of calibration
     (``runner.collect_grams``)."""
     tap_rows: Dict[str, float] = {}
     for name, x in taps.items():
@@ -99,3 +108,4 @@ def accumulate_taps(store: GramStore, taps: Dict[str, torch.Tensor],
         tap_rows[base] = tap_rows.get(base, 0.0) + c
     if telemetry is not None and telemetry.enabled:
         telemetry.on_calib_batch(tap_rows)
+    return tap_rows

@@ -1,10 +1,11 @@
 """Compression orchestrator: dense param tree -> factored param tree.
 
 The reference runs this on the host in numpy float64, matrix by matrix;
-the port runs the same math in torch float64 on the device the params and
-Grams live on.  Stacked (layers, in, out) kernels are compressed slice by
-slice against their per-layer Gram with a shared rank, producing stacked
-factors with the same leading dims.
+the port runs the same math in torch float64 on the params' device, and
+takes each Gram there one key at a time from wherever its store lives (a
+host store never sends a decomposition to the CPU).  Stacked (layers, in,
+out) kernels are compressed slice by slice against their per-layer Gram
+with a shared rank, producing stacked factors with the same leading dims.
 """
 
 from __future__ import annotations
@@ -25,23 +26,64 @@ from .ratio import rank_for_ratio
 logger = logging.getLogger(__name__)
 
 
-class GramStore:
-    """name -> (gram (n,n) fp64, absmean sum (n,), row count), on a device.
+GRAM_HOMES = ("device", "host")  # where a calibration keeps its GramStore
+HOST_STAGE_BYTES = 1 << 28  # a host copy's pinned staging buffer
 
-    Per-batch fp32 Grams are summed into fp64 accumulators on the device
-    they were computed on — the reference's fp32-per-batch, fp64-across-
-    batches arithmetic without a per-batch host copy.  The npz schema is
+
+def host_copy(x: torch.Tensor) -> torch.Tensor:
+    """A card tensor copied into new host memory through a pinned staging
+    buffer: the card writes each piece into it at the link's rate, and a
+    multi-threaded host copy moves it on, faulting the new pages in on
+    every core (a plain ``.to("cpu")`` faults them in one thread, at about
+    half the rate: ``tools/host_copy_probe.py``)."""
+    out = torch.empty(x.shape, dtype=x.dtype)
+    src, dst = x.reshape(-1), out.view(-1)
+    step = max(1, HOST_STAGE_BYTES // x.element_size())
+    stage = torch.empty(min(step, src.numel()), dtype=x.dtype, pin_memory=True)
+    for i in range(0, src.numel(), step):
+        k = min(step, src.numel() - i)
+        stage[:k].copy_(src[i:i + k])
+        dst[i:i + k].copy_(stage[:k])
+    return out
+
+
+class GramStore:
+    """name -> (gram (n,n) fp64, absmean sum (n,), row count), on a home
+    device.
+
+    Per-batch fp32 Grams are summed into fp64 accumulators in batch order,
+    the reference's fp32-per-batch, fp64-across-batches arithmetic.
+    ``device`` is the store's home: the card (the sums stay where the
+    Grams are computed, with no per-batch host copy), ``"cpu"`` (host
+    memory, as the reference keeps its store: every Gram added is moved
+    there first), or None (each key stays on the device its first update
+    came from).  Readers take one key at a time to the device that uses it
+    (``gram(..., device=)``), never the whole store.  The npz schema is
     the reference's (``bridge.read_gram_npz``/``write_gram_npz``)."""
 
-    def __init__(self):
+    def __init__(self, device: Device = None):
+        self.device = None if device is None else torch.device(device)
         self._grams: Dict[str, torch.Tensor] = {}
         self._absmean: Dict[str, torch.Tensor] = {}
         self._counts: Dict[str, float] = {}
         # keys -> the (E, n, n) and (E, n) sums whose slices they read
         self._stacks: Dict[Tuple[str, ...], Tuple[torch.Tensor, torch.Tensor]] = {}
+        # What a calibration (``calib.runner.collect_grams``) reports: the
+        # layer groups it filled the store in, and the most bytes of sums
+        # it held on the device at once.
+        self.groups = 1
+        self.device_bytes = 0
+
+    def _home(self, x: torch.Tensor) -> torch.Tensor:
+        if self.device is None:
+            return x
+        if self.device.type == "cpu" and x.is_cuda:
+            return host_copy(x)
+        return x.to(self.device)
 
     def update(self, key: str, gram: torch.Tensor, absmean: torch.Tensor,
                count: float):
+        gram, absmean = self._home(gram), self._home(absmean)
         if key in self._grams:
             self._grams[key] += gram
             self._absmean[key] += absmean
@@ -57,20 +99,47 @@ class GramStore:
         with one fp64 add for all of them: keys first seen together read
         slices of one (E, n, n) sum (a MoE layer's per-expert Grams)."""
         keys = tuple(keys)
+        grams, absmeans = self._home(grams), self._home(absmeans)
         stack = self._stacks.get(keys)
         if stack is None:
             if any(k in self._grams for k in keys):
                 raise ValueError("update_stacked: keys already summed one by one")
-            stack = (grams.to(torch.float64, copy=True), absmeans.to(torch.float64, copy=True))
-            self._stacks[keys] = stack
-            for e, k in enumerate(keys):
-                self._grams[k], self._absmean[k] = stack[0][e], stack[1][e]
-                self._counts[k] = float(counts[e])
+            self._add_stack(keys, grams.to(torch.float64, copy=True),
+                            absmeans.to(torch.float64, copy=True), counts)
             return
         stack[0].add_(grams)
         stack[1].add_(absmeans)
         for k, c in zip(keys, counts):
             self._counts[k] += float(c)
+
+    def _add_stack(self, keys: Tuple[str, ...], grams: torch.Tensor,
+                   absmeans: torch.Tensor, counts: Sequence[float]):
+        self._stacks[keys] = (grams, absmeans)
+        for e, k in enumerate(keys):
+            self._grams[k], self._absmean[k] = grams[e], absmeans[e]
+            self._counts[k] = float(counts[e])
+
+    def merge(self, other: "GramStore"):
+        """Add ``other``'s sums into this store, each moved to the home in
+        one copy; ``other`` is consumed (a key new here takes its tensor: a
+        stack of per-expert sums stays one tensor).  A key both hold is
+        added, this store's sum first."""
+        stacked = set()
+        for keys, (g, a) in other._stacks.items():
+            if any(k in self._grams for k in keys):
+                raise ValueError("merge: stacked keys already in the store")
+            self._add_stack(keys, self._home(g), self._home(a),
+                            [other._counts[k] for k in keys])
+            stacked.update(keys)
+        for k in other._grams.keys() - stacked:
+            g, a = self._home(other._grams[k]), self._home(other._absmean[k])
+            if k in self._grams:
+                self._grams[k] += g
+                self._absmean[k] += a
+                self._counts[k] += other._counts[k]
+            else:
+                self._grams[k], self._absmean[k] = g, a
+                self._counts[k] = other._counts[k]
 
     def _pick(self, key: str, fallback: Optional[str], min_count: int) -> str:
         if key in self._grams and self._counts[key] >= min_count:
@@ -80,14 +149,17 @@ class GramStore:
         raise KeyError(f"no Gram for {key!r} (fallback={fallback!r})")
 
     def gram(self, key: str, fallback: Optional[str] = None,
-             min_count: int = 0) -> torch.Tensor:
-        return self._grams[self._pick(key, fallback, min_count)]
+             min_count: int = 0, device: Device = None) -> torch.Tensor:
+        """The picked key's Gram, on ``device`` (None: where it lives)."""
+        g = self._grams[self._pick(key, fallback, min_count)]
+        return g if device is None else g.to(device)
 
     def absmean(self, key: str, fallback: Optional[str] = None,
-                min_count: int = 0) -> torch.Tensor:
+                min_count: int = 0, device: Device = None) -> torch.Tensor:
         """Mean |x| per channel, from the same statistics gram() picks."""
         k = self._pick(key, fallback, min_count)
-        return self._absmean[k] / max(self._counts[k], 1.0)
+        a = self._absmean[k] if device is None else self._absmean[k].to(device)
+        return a / max(self._counts[k], 1.0)
 
     def count(self, key: str) -> float:
         return self._counts.get(key, 0.0)
@@ -109,6 +181,11 @@ class GramStore:
     def keys(self):
         return self._grams.keys()
 
+    def nbytes(self) -> int:
+        """Bytes of the sums (Grams and absmeans) the store holds."""
+        return sum(t.numel() * t.element_size()
+                   for d in (self._grams, self._absmean) for t in d.values())
+
     def save(self, path: str):
         bridge.write_gram_npz(path, {
             k: (self._grams[k].cpu().numpy(), self._absmean[k].cpu().numpy(),
@@ -116,8 +193,9 @@ class GramStore:
 
     @classmethod
     def load(cls, path: str, device: Device = None) -> "GramStore":
-        store = cls()
+        """The npz at ``path`` in a store whose home is ``device``."""
         dev = resolve_device(device)
+        store = cls(dev)
         for name, (g, a, c) in bridge.read_gram_npz(path).items():
             store._grams[name] = torch.from_numpy(g).to(dev, torch.float64)
             store._absmean[name] = torch.from_numpy(a).to(dev, torch.float64)
@@ -173,7 +251,9 @@ def compress_params(params: Mapping[str, Any], plan: CompressionPlan,
     replaced by the factors, a sibling leaf such as Mamba's ``dt_proj``
     bias kept beside them); other leaves are passed through by reference.
     Stacked kernels (L, in, out) compress slice by slice against
-    f"{gram_key}/{i}" (falling back to gram_key).
+    f"{gram_key}/{i}" (falling back to gram_key).  Each Gram is read onto
+    the kernel's device as its slice needs it, so the fp64 solvers run
+    there whatever the store's home.
 
     ``telemetry`` observes the pass without affecting it: one report per
     target (errors, tail mass, k1/k2, absorption, achieved-vs-requested
@@ -200,8 +280,10 @@ def compress_params(params: Mapping[str, Any], plan: CompressionPlan,
                     key = (f"{spec.gram_key}/{'/'.join(map(str, idx))}"
                            if spec.per_layer_gram else spec.gram_key)
                     min_count = spec.in_dim // 4
-                    g = grams.gram(key, fallback=spec.gram_key, min_count=min_count)
-                    a = grams.absmean(key, fallback=spec.gram_key, min_count=min_count)
+                    g = grams.gram(key, fallback=spec.gram_key, min_count=min_count,
+                                   device=kernel.device)
+                    a = grams.absmean(key, fallback=spec.gram_key, min_count=min_count,
+                                      device=kernel.device)
                     if observing:
                         _, reason = grams.resolve(key, fallback=spec.gram_key,
                                                   min_count=min_count)
@@ -216,8 +298,8 @@ def compress_params(params: Mapping[str, Any], plan: CompressionPlan,
         else:
             g = a = None
             if needs_gram:
-                g = grams.gram(spec.gram_key)
-                a = grams.absmean(spec.gram_key)
+                g = grams.gram(spec.gram_key, device=kernel.device)
+                a = grams.absmean(spec.gram_key, device=kernel.device)
             factored = compress_matrix(kernel, rank, cfg, g, a,
                                        telemetry=telemetry, target=spec.name)
         # The target's sibling leaves stay beside its factors (dt_proj's

@@ -7,14 +7,16 @@ input leaves may be real or meta tensors (only their shapes and dtypes are
 read), and every factored leaf comes back as a meta tensor holding no
 memory.  Nested methods (nsvd*, nid*) split each rank by ``split_rank``.
 ``calibration_bytes`` sizes what a calibration holds on the device (the
-weights and the fp64 GramStore) from one tapped forward on meta tensors;
+weights and the fp64 GramStore) from one tapped forward on meta tensors,
+``gram_layers`` / ``gram_groups`` how that store splits by layer for a
+calibration into host memory;
 ``compression_bytes`` what compressing adds to it (the factored leaves and
 the widest target's fp64 decomposition), from the plan alone.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping
 
 import torch
 
@@ -66,6 +68,31 @@ def tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
+_META_TOKENS = 8  # the meta forward's (1, 8) tokens
+
+
+def _meta_taps(model) -> Dict[str, torch.Tensor]:
+    """One tapped forward of ``model`` on meta tensors: its taps, in the
+    order the forward makes them (a vision model's behind one image)."""
+    from repro_torch import kernels
+    from repro_torch.models.transformer import VISION_FEATURE_DIM
+
+    params = model.init(device="meta")
+    taps: Dict[str, torch.Tensor] = {}
+    kw = {}
+    if model.cfg.frontend == "vision":
+        kw["patches"] = torch.zeros((1, model.cfg.num_patches, VISION_FEATURE_DIM),
+                                    device="meta")
+    with torch.no_grad(), kernels.plain():  # shapes only: no kernel on meta
+        model.apply(params, torch.zeros((1, _META_TOKENS), dtype=torch.long,
+                                        device="meta"), mode="train", taps=taps, **kw)
+    return taps
+
+
+def _key_bytes(n: int) -> int:
+    return 8 * (n * n + n)  # an (n, n) fp64 Gram and its (n,) absmean
+
+
 def calibration_bytes(model) -> Dict[str, int]:
     """What calibrating ``model`` holds on the device, from one tapped
     forward on meta tensors (no memory): ``weights``, the param tree;
@@ -77,22 +104,11 @@ def calibration_bytes(model) -> Dict[str, int]:
     is its tap's last dim, a batched tap's expert count its first.  A
     vision model's forward takes one image's patches, so its projector's
     taps (``projector.in``, ``projector.mid``) are counted too."""
-    from repro_torch import kernels
     from repro_torch.calib.gram import EXPERT_TAPS, gram_keys
-    from repro_torch.models.transformer import VISION_FEATURE_DIM
 
-    params = model.init(device="meta")
-    taps: Dict[str, torch.Tensor] = {}
-    kw = {}
-    if model.cfg.frontend == "vision":
-        kw["patches"] = torch.zeros((1, model.cfg.num_patches, VISION_FEATURE_DIM),
-                                    device="meta")
-    with torch.no_grad(), kernels.plain():  # shapes only: no kernel on meta
-        model.apply(params, torch.zeros((1, 8), dtype=torch.long, device="meta"),
-                    mode="train", taps=taps, **kw)
     widths: Dict[str, int] = {}
     batch_gram = 0
-    for name, x in taps.items():
+    for name, x in _meta_taps(model).items():
         base, own = gram_keys(name, x)
         n = x.shape[-1]
         widths.update(dict.fromkeys([base, *own], n))
@@ -100,9 +116,57 @@ def calibration_bytes(model) -> Dict[str, int]:
             batch_gram = max(batch_gram, 4 * x.shape[0] * n * n + 8 * n * n)
         else:
             batch_gram = max(batch_gram, 4 * n * n)
-    return {"weights": tree_bytes(params),
-            "grams": sum(8 * (n * n + n) for n in widths.values()),
+    return {"weights": tree_bytes(model.init(device="meta")),
+            "grams": sum(_key_bytes(n) for n in widths.values()),
             "batch_gram": batch_gram}
+
+
+def gram_layers(model) -> Dict[str, Any]:
+    """How ``model``'s fp64 GramStore splits by layer, for a calibration
+    that fills a host store a group of layers at a time
+    (``calib.runner.collect_grams(grams_on="host")``), from the same meta
+    forward as ``calibration_bytes``: ``layers``, each stacked layer's own
+    keys' bytes ({"g0/rep3": bytes}, in forward order); ``shared``, the
+    keys every group's pass holds (the shared keys summed over layers, and
+    the unstacked taps' keys); ``tap_bytes_per_token``, the taps one token
+    of a batch leaves on the device until its Grams are taken."""
+    from repro_torch.calib.gram import gram_keys, tap_layer
+
+    layers: Dict[str, Dict[str, int]] = {}
+    shared: Dict[str, int] = {}
+    tap_bytes = 0
+    for name, x in _meta_taps(model).items():
+        base, own = gram_keys(name, x)
+        n = x.shape[-1]
+        layer = tap_layer(name)
+        shared[base] = n
+        (shared if layer is None else layers.setdefault(layer, {})).update(
+            dict.fromkeys(own, n))
+        tap_bytes += x.numel() * x.element_size()
+    return {"layers": {k: sum(_key_bytes(n) for n in v.values()) for k, v in layers.items()},
+            "shared": sum(_key_bytes(n) for n in shared.values()),
+            "tap_bytes_per_token": -(-tap_bytes // _META_TOKENS)}
+
+
+def gram_groups(model, budget: int) -> List[List[str]]:
+    """``model``'s stacked layers (``gram_layers``) split, in forward
+    order, into the fewest runs whose own keys' bytes each fit ``budget``
+    (the device bytes one group's sums may take beside the shared keys).
+    A model with no stacked layer is one empty group.  Raises ValueError
+    when one layer's keys alone exceed the budget."""
+    groups: List[List[str]] = [[]]
+    held = 0
+    for layer, nbytes in gram_layers(model)["layers"].items():
+        if nbytes > budget:
+            raise ValueError(f"{model.cfg.name}: layer {layer}'s Grams take "
+                             f"{nbytes / 1e9:.2f} GB, over the {budget / 1e9:.2f} GB "
+                             "a group may hold on the device")
+        if held + nbytes > budget and groups[-1]:
+            groups.append([])
+            held = 0
+        groups[-1].append(layer)
+        held += nbytes
+    return groups
 
 
 # The fp64 decomposition's working set on the H100 (torch.linalg on

@@ -86,6 +86,7 @@ from repro_torch.calib.gram import calibration_precision
 from repro_torch.calib.runner import calibration_batches, collect_grams
 from repro_torch.configs import ModelConfig, get_config
 from repro_torch.core import CompressionConfig, GramStore, build_plan, compress_params
+from repro_torch.core.compress import GRAM_HOMES
 from repro_torch.launch.train import MODELS_DIR, train_small_lm
 from repro_torch.models import build_model
 from repro_torch.models.api import build_draft_params
@@ -129,7 +130,8 @@ def serve(cfg: ModelConfig, *, requests: int = 8, max_new: int = 16,
           spec_ratio: Optional[float] = None, spec_k: int = 4,
           spec_dynamic_k: bool = False, paged: Optional[bool] = None,
           telemetry: Optional[Telemetry] = None, transfer_guard: bool = False,
-          on_engine: Optional[Callable[[ServingEngine], None]] = None) -> Dict:
+          on_engine: Optional[Callable[[ServingEngine], None]] = None,
+          grams_on: str = "device") -> Dict:
     """Init (or take ``params``), calibrate + compress when ``compress`` is
     a ratio, build a speculative draft at ``spec_ratio`` (from the
     uncompressed params and the same Grams, drafting ``spec_k`` tokens a
@@ -140,13 +142,16 @@ def serve(cfg: ModelConfig, *, requests: int = 8, max_new: int = 16,
     picks (None: the model's own).  ``telemetry`` observes the engine, and
     compression reports into its registry; ``transfer_guard`` runs every
     dispatch under sync-debug "error"; ``on_engine`` is called with the
-    engine once it is built.  Every request goes to the lowest class.  In
-    the main thread SIGTERM drains the engine while it runs; the engine is
-    closed on every exit (a ``ServingFault`` still raises).  Returns the
-    outputs, the finished requests, the seconds of each phase and the
-    engine.  Matmuls run in full fp32 on the card (no TF32): calibration
-    needs it, and so does the MoE router, whose top-k choices TF32 would
-    change."""
+    engine once it is built; ``grams_on`` is the calibration GramStore's
+    home, "device" or "host" (``calib.runner.collect_grams``).  Every
+    request goes to the lowest class.  In the main thread SIGTERM drains
+    the engine while it runs; the engine is closed on every exit (a
+    ``ServingFault`` still raises).  Returns the outputs, the finished
+    requests, the seconds of each phase, the engine and, when it
+    calibrated, its GramStore's home, group count, bytes and the most of
+    them held on the device at once (``gram_store``).  Matmuls run in full
+    fp32 on the card (no TF32): calibration needs it, and so does the MoE
+    router, whose top-k choices TF32 would change."""
     if cfg.frontend == "vision" and (compress is not None or spec_ratio is not None):
         # The reference's launcher calibrates on tokens only, and then finds
         # no Gram for the projector's targets.
@@ -170,17 +175,20 @@ def serve(cfg: ModelConfig, *, requests: int = 8, max_new: int = 16,
     sync()
     seconds["init"] = time.perf_counter() - t0
 
-    plan = spec = None
+    plan = spec = store = None
     if compress is not None or spec_ratio is not None:
         t0 = time.perf_counter()
         gram_path = os.path.join(MODELS_DIR, cfg.name, "grams.npz")
         if cfg.name.startswith("small-") and os.path.exists(gram_path):
-            grams = GramStore.load(gram_path, dev)
+            grams = GramStore.load(gram_path, dev if grams_on == "device" else "cpu")
         else:
             grams = collect_grams(model, params, calibration_batches(
-                cfg.vocab_size, "en_a", n_samples=256, batch=16, seq=128))
+                cfg.vocab_size, "en_a", n_samples=256, batch=16, seq=128),
+                grams_on=grams_on)
         sync()
         seconds["calibrate"] = time.perf_counter() - t0
+        store = {"grams_on": grams_on, "groups": grams.groups, "bytes": grams.nbytes(),
+                 "device_bytes": grams.device_bytes}
         base = params
         if compress is not None:
             t0 = time.perf_counter()
@@ -233,45 +241,68 @@ def serve(cfg: ModelConfig, *, requests: int = 8, max_new: int = 16,
     return {"outputs": out, "requests": eng.finished_requests, "plan": plan,
             "seconds": seconds, "tokens": n_tok,
             "tok_per_s": n_tok / max(seconds["serve"], 1e-9), "engine": eng,
-            "params": params, "model": model}
+            "params": params, "model": model, "gram_store": store}
 
 
-def run_bytes(cfg: ModelConfig, ratios: Sequence[float]) -> tuple:
+def run_bytes(cfg: ModelConfig, ratios: Sequence[float],
+              grams_on: str = "device") -> tuple:
     """(bytes, what they are) that a run of ``cfg`` holds on the device at
     most: the weights; when it compresses (at each of ``ratios``: the
-    served model's, a draft's) the calibration's fp64 GramStore too, and
-    on top of that the larger of what a calibration batch's tap makes and
-    drops and compression's own bytes (every ratio's factored leaves and
-    the most one target's fp64 decomposition adds); all sized on meta
-    tensors (``calibration_bytes``, ``compression_bytes``).  A calibration
-    batch's activations are not counted: on the served cuts the
-    compression's bytes are larger."""
+    served model's, a draft's) the calibration's fp64 Grams, and on top of
+    them the larger of what a calibration batch's tap makes and drops and
+    compression's own bytes (every ratio's factored leaves and the most
+    one target's fp64 decomposition adds); all sized on meta tensors
+    (``calibration_bytes``, ``gram_layers``, ``compression_bytes``).  With
+    the Grams in host memory (``grams_on="host"``) the device holds, in
+    place of all of them, the keys every calibration group holds and one
+    layer's (the least a group takes) while it calibrates, and one Gram at
+    a time while it compresses.  A calibration batch's activations are not
+    counted: on the served cuts the compression's bytes are larger."""
     from repro_torch.launch.compress_shapes import (calibration_bytes, compression_bytes,
-                                                    tree_bytes)
+                                                    gram_layers, tree_bytes)
 
     model = build_model(cfg)
     if not ratios:
         return tree_bytes(model.init(device="meta")), "weights"
     calib = calibration_bytes(model)
-    comp = [compression_bytes(model, CompressionConfig(
-        method="nsvd1", ratio=r, dtype=cfg.dtype, use_randomized=False)) for r in ratios]
-    extra = max(calib["batch_gram"], sum(c["factors"] for c in comp)
-                + max(c["work"] for c in comp))
-    return (calib["weights"] + calib["grams"] + extra,
-            f"weights {calib['weights'] / 1e9:.2f} + calibration Grams "
-            f"{calib['grams'] / 1e9:.2f} + compression {extra / 1e9:.2f}")
+    configs = [CompressionConfig(method="nsvd1", ratio=r, dtype=cfg.dtype,
+                                 use_randomized=False) for r in ratios]
+    comp = [compression_bytes(model, c) for c in configs]
+    factors = sum(c["factors"] for c in comp)
+    work = max(c["work"] for c in comp)
+    if grams_on == "device":
+        extra = max(calib["batch_gram"], factors + work)
+        return (calib["weights"] + calib["grams"] + extra,
+                f"weights {calib['weights'] / 1e9:.2f} + calibration Grams "
+                f"{calib['grams'] / 1e9:.2f} + compression {extra / 1e9:.2f}")
+    layers = gram_layers(model)
+    group = layers["shared"] + max(layers["layers"].values(), default=0) + calib["batch_gram"]
+    widest = max(t.in_dim for t in model.compressible_targets())
+    comp_dev = factors + work + 8 * (widest * widest + widest)
+    return (calib["weights"] + max(group, comp_dev),
+            f"weights {calib['weights'] / 1e9:.2f} + the larger of a calibration group's "
+            f"Grams {group / 1e9:.2f} and compression {comp_dev / 1e9:.2f}; "
+            f"{calib['grams'] / 1e9:.2f} of Grams in host memory")
 
 
-def fit_error(cfg: ModelConfig, ratios: Sequence[float], free_bytes: int) -> Optional[str]:
-    """Why a run of ``cfg`` compressing at ``ratios`` cannot fit
-    ``free_bytes`` of device memory (both numbers, ``run_bytes``), or None
-    when it fits."""
-    need, what = run_bytes(cfg, ratios)
+def fit_error(cfg: ModelConfig, ratios: Sequence[float], free_bytes: int,
+              grams_on: str = "device") -> Optional[str]:
+    """Why a run of ``cfg`` compressing at ``ratios`` with its Grams on
+    ``grams_on`` cannot fit ``free_bytes`` of device memory (both numbers,
+    ``run_bytes``), or None when it fits.  When the Grams on the device do
+    not fit but in host memory they would, the message says so before it
+    suggests a cut."""
+    need, what = run_bytes(cfg, ratios, grams_on)
     if need <= free_bytes:
         return None
-    return (f"{cfg.name} at {cfg.num_layers} layers needs {need / 1e9:.2f} GB "
-            f"({what}) but the card has {free_bytes / 1e9:.2f} GB free; cut it with "
-            "--layers")
+    msg = (f"{cfg.name} at {cfg.num_layers} layers needs {need / 1e9:.2f} GB "
+           f"({what}) but the card has {free_bytes / 1e9:.2f} GB free; ")
+    if grams_on == "device" and ratios:
+        host, _ = run_bytes(cfg, ratios, "host")
+        if host <= free_bytes:
+            return msg + (f"--grams-on host keeps the Grams in host memory and needs "
+                          f"{host / 1e9:.2f} GB on the card, or cut it with --layers")
+    return msg + "cut it with --layers"
 
 
 def report_telemetry(telemetry: Telemetry, eng: ServingEngine, args) -> None:
@@ -324,6 +355,10 @@ def main(argv=None):
     ap.add_argument("--layers", type=int, default=None, help="cut the depth")
     ap.add_argument("--eos", type=int, default=None)
     ap.add_argument("--device", default=None, help="default: cuda")
+    ap.add_argument("--grams-on", choices=GRAM_HOMES, default="device",
+                    help="the calibration GramStore's home: device memory, or host "
+                    "memory (as the reference keeps it), filled a group of layers at "
+                    "a time so that only one group's sums are on the card")
     ap.add_argument("--sched-policy", choices=("on_demand", "worst_case"),
                     default="on_demand", help="paged admission: on_demand "
                     "reserves the prompt's blocks and grows at block boundaries; "
@@ -420,7 +455,7 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     if resolve_device(args.device).type == "cuda":
         err = fit_error(cfg, [r for r in (args.compress, args.spec_ratio) if r is not None],
-                        torch.cuda.mem_get_info()[0])
+                        torch.cuda.mem_get_info()[0], args.grams_on)
         if err is not None:
             if server is not None:
                 server.close()
@@ -441,10 +476,15 @@ def main(argv=None):
                     spec_k=args.spec_k, spec_dynamic_k=args.spec_dynamic_k,
                     paged={"auto": None, "on": True, "off": False}[args.paged],
                     telemetry=telemetry, transfer_guard=args.transfer_guard,
-                    on_engine=lambda eng: engine_ref.update(eng=eng))
+                    on_engine=lambda eng: engine_ref.update(eng=eng),
+                    grams_on=args.grams_on)
     finally:
         if server is not None:
             server.close()
+    if res["gram_store"] is not None:
+        gs = res["gram_store"]
+        print(f"calibration Grams on the {gs['grams_on']}: {gs['groups']} group(s) of "
+              f"layers, {gs['bytes'] / 1e9:.2f} GB ({gs['bytes']} bytes)")
     if res["plan"] is not None:
         print(f"serving NSVD-compressed weights "
               f"({res['plan'].achieved_ratio:.0%} removed)")

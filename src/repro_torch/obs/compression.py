@@ -217,14 +217,16 @@ class CompressionTelemetry:
         for tap, rows in tap_rows.items():
             self.calib_rows.labels(tap=tap).inc(rows)
 
-    def on_calib_store(self, store) -> None:
+    def on_calib_store(self, store, device=None) -> None:
         """End-of-calibration sweep over the accumulated GramStore: the
         expensive per-tap statistics (outlier fractions, Gram condition
-        numbers) computed exactly once; ``calib_store_seconds`` times it."""
+        numbers) computed exactly once, each key read onto ``device``
+        (None: where it lives) in turn; ``calib_store_seconds`` times it."""
         t0 = time.perf_counter()
         for key in sorted(store.keys()):
             stats = gram_activation_stats(
-                store.gram(key), store.absmean(key), store.count(key),
+                store.gram(key, device=device), store.absmean(key, device=device),
+                store.count(key),
                 thresholds=self.outlier_thresholds)
             self.calib[key] = stats
             self.calib_samples.labels(tap=key).set(stats["samples"])
@@ -367,7 +369,7 @@ class _NullCompressionTelemetry:
     def on_calib_batch(self, tap_rows):
         pass
 
-    def on_calib_store(self, store):
+    def on_calib_store(self, store, device=None):
         pass
 
     def on_gram_fallback(self, key, fallback, reason):

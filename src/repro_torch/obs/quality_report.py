@@ -37,6 +37,7 @@ from repro_torch import Device, resolve_device
 from repro_torch.calib.runner import calibration_batches, collect_grams
 from repro_torch.configs import ModelConfig, get_config
 from repro_torch.core import CompressionConfig, build_plan, compress_params
+from repro_torch.core.compress import GRAM_HOMES
 from repro_torch.eval.attribution import mean_logit_kl, per_target_attribution
 from repro_torch.eval.perplexity import activation_similarity, eval_batches, evaluate_ppl
 from repro_torch.launch.serve import load_small
@@ -87,10 +88,13 @@ def build_entry(cfg: ModelConfig, *, method: str = "nsvd1", ratio: float = 0.2,
                 k1_frac: float = 0.9, eval_n_batches: int = 6, eval_batch: int = 16,
                 eval_seq: int = 128, calib_samples: int = 256, attribution: bool = True,
                 attribution_batches: int = 2, report_path: Optional[str] = None,
-                seed: int = 0, params=None, device: Device = None) -> Dict:
+                seed: int = 0, params=None, device: Device = None,
+                grams_on: str = "device") -> Dict:
     """Run calibrate -> compress -> evaluate on ``cfg`` and return the
     history entry.  ``params`` (dense, on their device) skips the load or
-    random init; the entry's ``seconds`` hold each phase's wall time."""
+    random init; ``grams_on`` is the GramStore's home, "device" or "host"
+    (``calib.runner.collect_grams``); the entry's ``seconds`` hold each
+    phase's wall time."""
     if cfg.frontend == "vision":
         # Its calibration stream is bare token arrays: the projector's
         # targets would find no Gram.
@@ -117,7 +121,7 @@ def build_entry(cfg: ModelConfig, *, method: str = "nsvd1", ratio: float = 0.2,
     t0 = time.perf_counter()
     grams = collect_grams(model, params, calibration_batches(
         vocab, "en_a", n_samples=calib_samples, batch=16, seq=128),
-        telemetry=telemetry)
+        telemetry=telemetry, grams_on=grams_on)
     phase("calibrate", t0)
     seconds["calib_stats"] = telemetry.calib_store_seconds  # within calibrate
 
@@ -165,7 +169,7 @@ def build_entry(cfg: ModelConfig, *, method: str = "nsvd1", ratio: float = 0.2,
     meta = {"model": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
             "dtype": cfg.dtype, "method": method, "ratio": ratio, "k1_frac": k1_frac,
             "eval_n_batches": eval_n_batches, "eval_shape": [eval_batch, eval_seq],
-            "calib_samples": calib_samples,
+            "calib_samples": calib_samples, "grams_on": grams_on,
             "seed": seed, "device": (torch.cuda.get_device_name(dev)
                                      if dev.type == "cuda" else dev.type)}
     return {
@@ -209,6 +213,9 @@ def main(argv=None):
                     help="append-only quality history JSON")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="default: cuda")
+    ap.add_argument("--grams-on", choices=GRAM_HOMES, default="device",
+                    help="the calibration GramStore's home: device memory, or host "
+                    "memory filled a group of layers at a time")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.model)
@@ -222,7 +229,7 @@ def main(argv=None):
         eval_seq=args.eval_seq, calib_samples=args.calib_samples,
         attribution=not args.no_attribution,
         attribution_batches=args.attribution_batches, report_path=args.report,
-        seed=args.seed, device=args.device)
+        seed=args.seed, device=args.device, grams_on=args.grams_on)
     for d in EVAL_DOMAINS:
         print(f"  ppl[{d}]: dense={entry['dense_ppl'][d]:.4f} compressed="
               f"{entry['compressed_ppl'][d]:.4f} (x{entry['ppl_ratio'][d]:.4f})")

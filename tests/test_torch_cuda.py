@@ -2209,3 +2209,56 @@ def test_decomposition_bytes_bound_the_measured_peak(dev, method, in_dim, out_di
           f"estimate {est / 2 ** 30:.3f} ({est / peak:.3f}x)")
     assert peak <= est
     assert est <= 1.2 * peak or not tight
+
+
+def test_gram_homes_agree_at_mistral_7b_depth_2(dev, monkeypatch):
+    """mistral-7b at full width cut to 2 layers (random weights from seed
+    0), where both GramStore homes fit the card: the host store, filled one
+    layer a group, against the one-pass device store -- every layer's
+    Grams, absmeans and counts bit-identical, the shared keys (summed over
+    the two groups in turn) within 1e-12 of their largest entry -- and
+    nsvd1 0.2 from either store bit-identical, every factor on the card;
+    the host store's Grams read onto the card one key at a time."""
+    from repro_torch.calib.runner import calibration_batches
+    from repro_torch.checkpoint.checkpointer import flatten
+    from repro_torch.core import GramStore
+    from repro_torch.launch.compress_shapes import gram_layers
+
+    cfg = dataclasses.replace(MISTRAL_7B, num_layers=2)
+    model = build_model(cfg)
+    params = model.init(0, dev)
+    batches = list(calibration_batches(cfg.vocab_size, "en_a", n_samples=256, batch=16,
+                                       seq=128))
+    one = collect_grams(model, params, batches)
+    host = collect_grams(model, params, batches, grams_on="host",
+                         group_bytes=max(gram_layers(model)["layers"].values()))
+    assert one.device.type == "cuda" and host.device == torch.device("cpu") and host.groups == 2
+    assert set(host.keys()) == set(one.keys())
+    own = [k for k in one.keys() if k.rsplit("/", 1)[-1].isdigit()]
+    assert len(own) == 2 * 4
+    for k in one.keys():
+        assert host.count(k) == one.count(k), k
+        for got, want in ((host.gram(k), one.gram(k).cpu()),
+                          (host.absmean(k), one.absmean(k).cpu())):
+            if k in own:
+                assert torch.equal(got, want), k
+            else:
+                assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max()), k
+    plan = build_plan(model.compressible_targets(), CompressionConfig(
+        method="nsvd1", ratio=0.2, dtype=cfg.dtype, use_randomized=False))
+    reads = []
+    real = GramStore.gram
+
+    def spy(self, key, *a, **kw):
+        reads.append(kw.get("device"))
+        return real(self, key, *a, **kw)
+    monkeypatch.setattr(GramStore, "gram", spy)
+    from_host = compress_params(params, plan, host)
+    monkeypatch.undo()
+    from_dev = compress_params(params, plan, one)
+    assert len(reads) == cfg.num_layers * len(plan.targets)
+    assert all(d.type == "cuda" for d in reads)
+    a, b = flatten(from_host), flatten(from_dev)
+    assert a.keys() == b.keys()
+    for k in a:
+        assert a[k].device.type == "cuda" and torch.equal(a[k], b[k]), k

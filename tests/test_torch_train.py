@@ -9,6 +9,7 @@ import dataclasses
 import functools
 import json
 import os
+import threading
 from collections import Counter
 
 import jax
@@ -18,6 +19,7 @@ import pytest
 import torch
 from torch_parity import t2np, to_t
 
+from repro.checkpoint import checkpointer as jax_checkpointer
 from repro.checkpoint.checkpointer import load_checkpoint as jax_load_checkpoint
 from repro.checkpoint.checkpointer import save_checkpoint as jax_save_checkpoint
 from repro.checkpoint.manager import CheckpointManager as JaxCheckpointManager
@@ -41,6 +43,7 @@ from repro.optim import init_state as jax_init_state
 from repro.optim import schedule as jax_schedule
 from repro_torch import optim
 from repro_torch.checkpoint import CheckpointManager, load_checkpoint, save_checkpoint
+from repro_torch.checkpoint import checkpointer as port_checkpointer
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import LMDataPipeline, PipelineState
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -658,22 +661,44 @@ def test_reference_training_checkpoint_loads_in_port(tmp_path, dtype):
 
 
 @pytest.mark.parametrize("async_save", [False, True])
-def test_manager_rotation_latest_and_wait(tmp_path, async_save):
+def test_manager_rotation_latest_and_wait(tmp_path, monkeypatch, async_save):
     """keep=2 rotates the oldest away as the reference's manager does on
     the same saves (an async save rotates before its own directory lands,
     so it keeps one more until the next save), ``latest_step`` names the
     newest, no ``.tmp`` stays after a save, and an async save is on disk
-    after ``wait`` (the reference's manager reads it)."""
+    after ``wait`` (the reference's manager reads it).
+
+    Each async writer is held until its ``save`` has returned, for both
+    managers: a save rotates right after it starts its writer, so a
+    writer left free could land its directory before that rotation and
+    let it remove step 1 early."""
     mgr = CheckpointManager(str(tmp_path), keep=2, async_save=async_save)
     ref = JaxCheckpointManager(str(tmp_path / "ref"), keep=2, async_save=async_save)
     assert mgr.latest_step() is None
     with pytest.raises(FileNotFoundError):
         mgr.restore()
-    for step in (1, 2, 3):
-        mgr.save(step, {"w": torch.full((3,), float(step))}, {"step": step})
-        ref.save(step, {"w": jnp.full((3,), float(step))}, {"step": step})
-    mgr.wait()
-    ref.wait()
+    release = threading.Semaphore(0)
+
+    def held(write):
+        def run(*args, **kwargs):
+            release.acquire()
+            return write(*args, **kwargs)
+        return run
+    with monkeypatch.context() as m:
+        if async_save:
+            # The writer threads' targets only: the port's thread calls
+            # ``_write``, the reference's is ``save_checkpoint`` itself.
+            m.setattr(port_checkpointer, "_write", held(port_checkpointer._write))
+            m.setattr(jax_checkpointer, "save_checkpoint",
+                      held(jax_checkpointer.save_checkpoint))
+        for step in (1, 2, 3):
+            mgr.save(step, {"w": torch.full((3,), float(step))}, {"step": step})
+            ref.save(step, {"w": jnp.full((3,), float(step))}, {"step": step})
+            if async_save:
+                assert step not in mgr.all_steps() and step not in ref.all_steps()
+                release.release(2)
+        mgr.wait()
+        ref.wait()
     assert mgr.all_steps() == ref.all_steps() == ([1, 2, 3] if async_save else [2, 3])
     mgr.save(4, {"w": torch.full((3,), 4.0)}, {"step": 4}, block=True)
     ref.save(4, {"w": jnp.full((3,), 4.0)}, {"step": 4}, block=True)
