@@ -123,6 +123,21 @@ Needs one NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases:
      engine step's wall off and on.  Device times and idle gaps of every
      profile leave out the card-side mirrors of ``record_function`` ranges
      (``device_work``);
+  4f. mesh_serve path: the parallelism layer (``torch.distributed``) on
+     *Serve*'s compressed model and prompts (nothing compressed again): a
+     one-rank NCCL process group through a ``FileStore`` in a temporary
+     directory, ``make_serving_mesh(1, 1)`` on cuda, *Serve*'s params saved
+     to a temporary checkpoint and restored onto the mesh by
+     ``param_shardings`` (each leaf memory-mapped, its slice copied to the
+     card), then *Serve*'s plan (worst case, depth 1) served over the mesh.
+     Gates: the restored leaves bit-identical to the params, the streams
+     bit-identical to the serve path's, every kernel's launches equal to
+     *Serve*'s plan's (obs_serve's O1), the data group's all-gathers = the
+     decode steps + the admissions' first-token reads of O1 and no TP
+     collective (``parallel.collectives.counts``), no sync in a dispatch
+     (sync-debug "error"); then one decode step profiled, the gather's
+     device time apart.  The process group is destroyed at its end, so the
+     later paths run meshless;
   5. quality path: ``obs.quality_report.build_entry`` on the same model:
      calibrate (gram kernel), compress with telemetry, evaluate dense vs
      compressed perplexity on five domains at (4, 2048) tokens a batch
@@ -1524,7 +1539,7 @@ def reset_counts() -> None:
     nlr.stream_launches = nlr.mma_launches = nlr.tile_launches = 0
     nlr.batched_by_kernel.update(stream=0, mma=0, tile=0)
     nlr.shape_launches.clear()
-    nlr.gate_calls = 0
+    nlr.gate_calls = nlr.split_calls = 0
     gram = _ops("gram")
     gram.mma_launches = gram.tf32x3_launches = gram.fma_launches = 0
     gram.batched_launches = gram.reduce_launches = 0
@@ -3296,7 +3311,7 @@ def spec_serve_path(torch, np, served):
     from repro_torch.serving.spec import SpecConfig
 
     model, params = served["model"], served["params"]  # the obs path takes them on
-    prompts, want = served["prompts"], served.pop("outputs")
+    prompts, want = served["prompts"], served["outputs"]  # mesh_serve takes them on
     serve_st = served.pop("serve_stats")
     cfg = model.cfg
     margins = teacher_margins(torch, np, model, params, prompts, want)
@@ -3424,8 +3439,9 @@ def spec_serve_path(torch, np, served):
 # off and on; O4 spec_serve S5 (a draft kill, a poisoned row) off and on,
 # /healthz read between its steps.  The scrape interval is a stress
 # setting (a Prometheus scrape is typically every 15 s), so that a run of
-# under a second sees several.
-OBS_PAIRS, OBS_PROFILE_STEPS, OBS_SCRAPE_S = 6, 8, 0.1
+# under a second sees several.  Three pairs (medians of three) keep the
+# whole script inside its time limit beside the mesh_serve path.
+OBS_PAIRS, OBS_PROFILE_STEPS, OBS_SCRAPE_S = 3, 8, 0.1
 OBS_PROFILE_DIR = os.path.join(OUT_DIR, "obs_profile")
 OBS_TRACE_KEEP_BYTES = 8 << 20  # a larger captured trace is summarised, then removed
 
@@ -3842,8 +3858,12 @@ def obs_serve_path(torch, np, served):
         f"{latency['queue_wait_s_p50_ms']:.3f} ms")
     ok = all(gates.values())
     log(f"  gates {gates} {'OK' if ok else 'FAIL'}")
-    for k in ("model", "params", "prompts", "draft", "sched"):
+    for k in ("draft", "sched"):
         served.pop(k, None)
+    # mesh_serve takes on the model, params, prompts and streams, and O1's
+    # launches and stats (Serve's plan on a fresh engine).
+    served.update(plan_launches=offs[0]["summary"]["launches"],
+                  plan_stats=offs[0]["summary"]["stats"])
     summary = dict(config=cfg.name, layers=cfg.num_layers, pairs=OBS_PAIRS,
                    runs={f"{r['summary']['run']}_{i}": r["summary"]
                          for i, r in enumerate(offs + hooks + ons + o3 + o4)},
@@ -3853,6 +3873,127 @@ def obs_serve_path(torch, np, served):
                    bench={k: r["summary"]["bench"] for k, r in on_runs.items()},
                    gates=gates, ok=bool(ok))
     return summary, {k: ons[0]["summary"]["launches"][k] for k in KERNELS}
+
+
+# Phase 4f (mesh_serve): the parallelism layer on *Serve*'s compressed model
+MESH_SHAPE = (1, 1)  # the serving mesh one card holds (dp, tp)
+
+
+def mesh_serve_path(torch, np, served, device: str = "cuda"):
+    """*Serve*'s plan over a (1, 1) serving mesh on one NCCL rank (phase 4f):
+    a checkpoint of *Serve*'s params restored onto the mesh, then the
+    engine with ``parallelism=``.  Gates: the restored leaves, the streams
+    and every kernel's launches equal to the meshless ones, the data
+    group's all-gathers as predicted (one a decode step and one an
+    admission's first-token read: O1's host syncs) and no TP collective, no
+    sync in a dispatch.  Then one decode step profiled (depth 1, 8 rows),
+    the NCCL gather's device time apart.  The process group is destroyed
+    on every exit.  ``device="cpu"``: one gloo rank, no profile (the CPU
+    tests' run of this path)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.parallel import collectives, make_parallelism, param_shardings
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.scheduler import SchedulerConfig
+
+    model, params, prompts = served.pop("model"), served.pop("params"), served.pop("prompts")
+    want, plan = served.pop("outputs"), served.pop("plan_launches")
+    plan_st = served.pop("plan_stats")
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    tmp = tempfile.mkdtemp(prefix="mesh_serve_")
+    kw = dict(max_batch=8, max_len=256, seed=0, block_size=16, prefill_chunk=64,
+              pipeline_depth=1, sched_config=SchedulerConfig(admission="worst_case"))
+    try:
+        t0 = time.perf_counter()
+        dist.init_process_group("nccl" if cuda else "gloo",
+                                store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        mesh = make_serving_mesh(*MESH_SHAPE, device=device)
+        par = make_parallelism(mesh)
+        t_mesh = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mgr = CheckpointManager(os.path.join(tmp, "ckpt"), keep=1, async_save=False)
+        mgr.save(0, params)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        local, _, _ = mgr.restore(shardings=param_shardings(params, mesh))
+        sync()
+        t_restore = time.perf_counter() - t0
+        restored = all(a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+                       for a, b in zip(_tensors(local), _tensors(params)))
+        ckpt_bytes = sum(t.numel() * t.element_size() for t in _tensors(local))
+        del params
+        eng = ServingEngine(model, local, parallelism=par, **kw)
+        checked = {}
+        sync()
+        reset_counts()
+        collectives.reset_counts()
+        t0 = time.perf_counter()
+        with dispatches_checked(torch, checked):
+            uids = [eng.submit(p, max_new_tokens=32) for p in prompts]
+            out = eng.run()
+        sync()
+        wall = time.perf_counter() - t0
+        counts = dict(read_counts(), nested=nested_split(),
+                      paged_combine=_ops("paged_attention").combine_launches)
+        coll = {f"{k} {a}": n for (k, a), n in sorted(collectives.counts.items())}
+        st = eng.stats()
+        streams = [out[u] for u in uids]
+        want_gathers = plan_st["host_syncs"]  # O1's decode steps + first-token reads
+        tp_coll = sum(n for (k, a), n in collectives.counts.items() if a == "model")
+        cs = eng.cache_stats()
+        prof, gather_ms = {"wall_ms": 0.0, "device_busy_ms": 0.0}, {}
+        if cuda:  # one decode step (depth 1, 8 rows decoding) on a fresh engine
+            eng2 = ServingEngine(model, local, parallelism=par, **kw)
+            for p in prompts:
+                eng2.submit(p, max_new_tokens=32)
+            while eng2.sched or eng2._prefilling:
+                eng2.run(max_steps=1)
+            prof = profile_step(torch, eng2.step, "mesh decode step (1, 1)")
+            eng2.drain()
+            gather_ms = {k: ms for k, ms in prof["kernels"].items()
+                         if "nccl" in k.lower() or "Memcpy DtoD" in k}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    gates = {
+        "restored_bit_identical": restored,
+        "streams_bit_identical": streams == want,
+        "launches_equal": counts == plan,
+        "data_gathers": coll.get("all_gather data", 0) == want_gathers == st["host_syncs"],
+        "no_tp_collective": tp_coll == 0,
+        "no_sync_in_dispatch": checked.get("_dispatch_decode", 0) == st["steps"] > 0,
+        "mesh": cs["mesh"] == {"dp": 1, "tp": 1, "devices": 1},
+    }
+    ok = all(gates.values())
+    log(f"  mesh {MESH_SHAPE}: process group and mesh {t_mesh:.2f} s; checkpoint of "
+        f"{ckpt_bytes / 1e9:.3f} GB saved {t_save:.2f} s, restored onto the mesh "
+        f"{t_restore:.2f} s; served {sum(len(x) for x in streams)} tokens in {wall:.3f} s, "
+        f"steps {st['steps']}, host syncs {st['host_syncs']} (O1 {want_gathers}); "
+        f"collectives {coll}; launches {counts}")
+    log(f"  mesh decode step: wall {prof['wall_ms']:.3f} ms, device "
+        f"{prof['device_busy_ms']:.4f} ms; the token word's gather (NCCL, one rank): "
+        f"{ {k: round(ms * 1e3, 2) for k, ms in gather_ms.items()} } us")
+    log(f"  gates {gates} {'OK' if ok else 'FAIL'}")
+    summary = dict(mesh=list(MESH_SHAPE), seconds_mesh=t_mesh, seconds_save=t_save,
+                   seconds_restore=t_restore, checkpoint_bytes=ckpt_bytes,
+                   serve_seconds=wall, stats=st, cache_stats=cs, collectives=coll,
+                   predicted_data_gathers=want_gathers, launches=counts,
+                   plan_launches=plan, profile=prof,
+                   gather_device_us={k: ms * 1e3 for k, ms in gather_ms.items()},
+                   gates=gates, ok=bool(ok))
+    return summary, {k: counts[k] for k in KERNELS}
 
 
 def _tensors(tree):
@@ -5740,6 +5881,7 @@ def main() -> int:
             ("fault_serve", fault_serve_path, (served,)),
             ("spec_serve", spec_serve_path, (served,)),
             ("obs_serve", obs_serve_path, (served,)),
+            ("mesh_serve", mesh_serve_path, (served,)),
             ("quality", quality_path, (mistral, 2, (9, 0), "flash_attention")),
             ("methods", methods_path, (dataclasses.replace(MISTRAL_7B, num_layers=1), 4)),
             ("rwkv_serve", serve_path, (rwkv6, "rwkv6", (37, 0))),

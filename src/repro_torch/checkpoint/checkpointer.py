@@ -110,26 +110,51 @@ def save_checkpoint(path: str, tree, extra: Optional[Dict] = None) -> None:
     _write(path, {p: _host(leaf) for p, leaf in flatten(tree).items()}, extra)
 
 
-def load_checkpoint(path: str, device: Device = None):
+def load_checkpoint(path: str, device: Device = None, shardings=None):
     """Read one checkpoint directory -> (tree, extra), the leaves as torch
     tensors on ``device`` (default: the card), tuples rebuilt from ``#i``
-    keys."""
+    keys.
+
+    ``shardings`` (a tree of ``parallel.NamedSharding`` matching the saved
+    tree, or a callable from a leaf's path to one) restores onto a mesh,
+    which may differ from the one that saved (elastic reshard): each rank
+    memory-maps a leaf's ``.npy`` and copies only its ``local_slice`` to
+    the sharding's device.  A leaf the tree does not cover loads whole on
+    ``device``.  A dict tree comes back as ``parallel.LocalParams``, its
+    ``specs`` the specs it was cut by."""
+    from repro_torch.parallel.sharding import LocalParams, P
+
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
-    flat = {}
+    shard_flat = None
+    if shardings is not None and not callable(shardings):
+        shard_flat = flatten(shardings)
+    flat, specs = {}, {}
     for leaf in manifest["leaves"]:
-        keys = leaf["path"]
-        arr = np.load(os.path.join(path, leaf["file"]))
+        keys = tuple(leaf["path"])
+        sh = (shardings(keys) if callable(shardings)
+              else shard_flat.get(keys) if shard_flat is not None else None)
+        arr = np.load(os.path.join(path, leaf["file"]),
+                      mmap_mode="r" if sh is not None else None)
         if leaf["dtype"] == "bfloat16":
             if arr.dtype.itemsize != 2:
-                raise ValueError(f"leaf {keys} is declared bfloat16 but reads "
+                raise ValueError(f"leaf {list(keys)} is declared bfloat16 but reads "
                                  f"as {arr.dtype}")
             arr = arr.view("V2")  # the bits, whatever numpy named them
         if list(arr.shape) != list(leaf["shape"]):
-            raise ValueError(f"leaf {keys} has shape {arr.shape}, manifest "
+            raise ValueError(f"leaf {list(keys)} has shape {arr.shape}, manifest "
                              f"says {leaf['shape']}")
-        flat[tuple(keys)] = array_to_tensor(arr, device, copy=False)
-    return _unflatten(flat), manifest.get("extra", {})
+        if sh is None:
+            flat[keys] = array_to_tensor(arr, device, copy=False)
+            specs[keys] = P()
+        else:
+            flat[keys] = array_to_tensor(arr[sh.local_slice(arr.shape)], sh.device)
+            specs[keys] = sh.spec
+    tree = _unflatten(flat)
+    if shardings is not None and isinstance(tree, dict):
+        tree = LocalParams(tree)
+        tree.specs = _unflatten(specs)
+    return tree, manifest.get("extra", {})
 
 
 class AsyncCheckpointer:

@@ -1,6 +1,6 @@
 """Checkpoint manager: rotation and resume (the reference's
-``checkpoint/manager.py``).  ``restore(shardings=)``, the elastic reshard
-onto another mesh, waits for the parallelism slice."""
+``checkpoint/manager.py``); ``restore(shardings=)`` is the elastic reshard
+onto another mesh."""
 
 from __future__ import annotations
 
@@ -63,14 +63,16 @@ class CheckpointManager:
 
     # -------------------------------------------------------------- restore
 
-    def restore(self, step: Optional[int] = None,
-                device: Device = None) -> Tuple[Any, Dict, int]:
+    def restore(self, step: Optional[int] = None, device: Device = None,
+                shardings=None) -> Tuple[Any, Dict, int]:
         """Returns (tree, extra, step), the latest step by default, its
-        leaves on ``device``."""
+        leaves on ``device``.  ``shardings`` may target another mesh than the
+        one that saved (elastic rescale): each rank reads its slices
+        (``load_checkpoint``)."""
         self.wait()
         if step is None:
             step = self.latest_step()
             if step is None:
                 raise FileNotFoundError(f"no checkpoints in {self.directory}")
-        tree, extra = load_checkpoint(self._step_path(step), device)
+        tree, extra = load_checkpoint(self._step_path(step), device, shardings)
         return tree, extra, step

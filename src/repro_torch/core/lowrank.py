@@ -10,6 +10,15 @@ After compression the same call site consumes either
 and computes y = (x @ u) @ v [+ (x @ u2) @ v2] without ever materializing
 the dense kernel.  Nested params route through the nested-lowrank kernel
 wrapper (``kernels/nested_lowrank/ops.py``).
+
+``tp_linear_apply`` is the same product on a rank's local shards when a
+mesh splits the linear over its model axis (``parallel.sharding``'s
+rules): a column-parallel dense layer computes ``x @ W_local``, a
+row-parallel one ``all_reduce(x_local @ W_local)``; a factored layer
+all-reduces its rank-k partial ``x_part @ [u|u2]_local`` and multiplies it
+by ``[v;v2]_local``, gathering the output where the rule leaves it split
+and the residual stream needs it whole.  Those factored products are plain
+matmuls, counted in the nested wrapper's ``split_calls``.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ import torch
 
 from repro_torch import torch_dtype
 from repro_torch.kernels.nested_lowrank import ops as nlr_ops
+from repro_torch.parallel import collectives
 
 from .asvd import LowRankFactors
 
@@ -42,6 +52,35 @@ def linear_apply(params: Mapping[str, Any], x: torch.Tensor) -> torch.Tensor:
         return nlr_ops.nested_lowrank_matmul(
             x, params["u"], params["v"], params["u2"], params["v2"])
     return torch.matmul(torch.matmul(x, params["u"]), params["v"])
+
+
+def tp_linear_apply(params: Mapping[str, Any], x: torch.Tensor, in_ax, out_ax,
+                    par) -> torch.Tensor:
+    """``linear_apply`` over ``par``'s model axis for a linear whose rule is
+    (in_ax, out_ax), each "model" or None: ``x`` is whole on a column-
+    parallel layer (in_ax None) and this rank's slice on a row-parallel one;
+    the output is this rank's slice on a column-parallel layer and whole
+    otherwise."""
+    axis = par.tp_axis
+    if "kernel" in params:
+        y = torch.matmul(x, params["kernel"])
+        return collectives.all_reduce(y, par, axis) if in_ax is not None else y
+    us = [params["u"]] + ([params["u2"]] if "u2" in params else [])
+    vs = [params["v"]] + ([params["v2"]] if "v2" in params else [])
+    if in_ax is None:
+        # u holds a slice of the input dim: this rank's part of x.
+        lo, hi = collectives.tp_slice(x.shape[-1], par)
+        x = x[..., lo:hi]
+    parts = [torch.matmul(x, u) for u in us]
+    t = collectives.all_reduce(torch.cat(parts, dim=-1), par, axis)
+    ranks = [u.shape[-1] for u in us]
+    y = None
+    for ti, v in zip(torch.split(t, ranks, dim=-1), vs):
+        yi = torch.matmul(ti, v)
+        y = yi if y is None else y + yi
+    if "u2" in params:
+        nlr_ops.split_calls += 1
+    return collectives.all_gather(y, par, axis, dim=-1) if out_ax is None else y
 
 
 def dense_equivalent(params: Mapping[str, Any]) -> torch.Tensor:

@@ -72,6 +72,9 @@ shape_launches: dict = {}
 # Calls on a CUDA tensor above MAX_KERNEL_ROWS, which take plain matmuls
 # (no launch; the reference leaves them to XLA): an encoder's frame rows.
 gate_calls = 0
+# Nested products split over a mesh's model axis (``core.lowrank.
+# tp_linear_apply``): plain matmuls around a rank-k all-reduce, no launch.
+split_calls = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNELS = {"tile": 0, "stream": 1, "mma": 2}

@@ -62,6 +62,16 @@ picks the cache layout (auto: the model's own).
     python -m repro_torch.launch.serve --arch mistral-7b --no-reduced --layers 2 \\
         --compress 0.2 --metrics-json m.json --trace-chrome t.json --profile-dir prof
 
+Mesh serving (``--dp``/``--tp``): one process a rank under ``torchrun``
+(NCCL on the card, gloo with ``--device cpu``), each serving the same
+requests over a (dp, tp) mesh -- weights tensor-parallel, slots and their
+KV pools data-parallel (``serving.engine``).  Without ``torchrun``, dp*tp
+> 1 warns and serves a (1, 1) mesh, as the reference does.  Rank 0 prints
+the mesh line, the per-device cache bytes and the per-shard peaks.
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve --device cpu \
+        --dp 2 --tp 2 --arch llama-7b --requests 8 --max-new 8
+
 ``small-*`` archs load the trained checkpoint from
 ``experiments/models/<name>/`` (and its ``grams.npz`` when present),
 training it first with the reference's recipe when there is none; every
@@ -91,6 +101,7 @@ from repro_torch.launch.train import MODELS_DIR, train_small_lm
 from repro_torch.models import build_model
 from repro_torch.models.api import build_draft_params
 from repro_torch.obs import CompressionTelemetry, MetricsServer, Telemetry, write_metrics_json
+from repro_torch.parallel import Parallelism, make_parallelism
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.faults import FaultPlan, FaultPolicy
 from repro_torch.serving.scheduler import SchedulerConfig
@@ -131,7 +142,7 @@ def serve(cfg: ModelConfig, *, requests: int = 8, max_new: int = 16,
           spec_dynamic_k: bool = False, paged: Optional[bool] = None,
           telemetry: Optional[Telemetry] = None, transfer_guard: bool = False,
           on_engine: Optional[Callable[[ServingEngine], None]] = None,
-          grams_on: str = "device") -> Dict:
+          grams_on: str = "device", parallelism: Optional[Parallelism] = None) -> Dict:
     """Init (or take ``params``), calibrate + compress when ``compress`` is
     a ratio, build a speculative draft at ``spec_ratio`` (from the
     uncompressed params and the same Grams, drafting ``spec_k`` tokens a
@@ -143,7 +154,9 @@ def serve(cfg: ModelConfig, *, requests: int = 8, max_new: int = 16,
     compression reports into its registry; ``transfer_guard`` runs every
     dispatch under sync-debug "error"; ``on_engine`` is called with the
     engine once it is built; ``grams_on`` is the calibration GramStore's
-    home, "device" or "host" (``calib.runner.collect_grams``).  Every
+    home, "device" or "host" (``calib.runner.collect_grams``);
+    ``parallelism``: the serving mesh (every rank calibrates and compresses
+    the whole model, then the engine cuts its shards).  Every
     request goes to the lowest class.  In the main thread SIGTERM drains
     the engine while it runs; the engine is closed on every exit (a
     ``ServingFault`` still raises).  Returns the outputs, the finished
@@ -216,7 +229,8 @@ def serve(cfg: ModelConfig, *, requests: int = 8, max_new: int = 16,
                             admission=sched_policy, preempt=preempt, resume=resume,
                             priority_classes=tuple(priority_classes)),
                         faults=faults, fault_policy=fault_policy, spec_config=spec,
-                        paged=paged, telemetry=telemetry, transfer_guard=transfer_guard)
+                        paged=paged, telemetry=telemetry, transfer_guard=transfer_guard,
+                        parallelism=parallelism)
     if on_engine is not None:
         on_engine(eng)
     if prompts is None:
@@ -355,6 +369,14 @@ def main(argv=None):
     ap.add_argument("--layers", type=int, default=None, help="cut the depth")
     ap.add_argument("--eos", type=int, default=None)
     ap.add_argument("--device", default=None, help="default: cuda")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel mesh axis: slots, per-slot state and KV pools "
+                    "shard over dp ranks (max-batch should divide it)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel mesh axis: weights shard over tp ranks "
+                    "(factored NSVD layers all-reduce rank-k partials). Run under "
+                    "torchrun --nproc-per-node dp*tp; without it dp*tp > 1 falls back "
+                    "to a (1, 1) mesh with a warning")
     ap.add_argument("--grams-on", choices=GRAM_HOMES, default="device",
                     help="the calibration GramStore's home: device memory, or host "
                     "memory (as the reference keeps it), filled a group of layers at "
@@ -448,6 +470,17 @@ def main(argv=None):
                                                    if "eng" in engine_ref else {}))
             print(f"metrics: {server.url} (+ /metrics.json, /healthz)")
 
+    parallelism, rank = None, 0
+    if args.dp * args.tp > 1 or "WORLD_SIZE" in os.environ:
+        from repro_torch.launch.mesh import make_serving_mesh
+
+        mesh = make_serving_mesh(args.dp, args.tp, device=args.device)
+        parallelism = make_parallelism(mesh)
+        rank = torch.distributed.get_rank()
+        if rank == 0:
+            print(f"serving mesh: dp={parallelism.dp_size} tp={parallelism.tp_size} "
+                  f"({parallelism.size} device(s))")
+
     cfg = get_config(args.arch)
     if args.reduced and not args.arch.startswith("small-"):
         cfg = cfg.reduced()
@@ -477,10 +510,15 @@ def main(argv=None):
                     paged={"auto": None, "on": True, "off": False}[args.paged],
                     telemetry=telemetry, transfer_guard=args.transfer_guard,
                     on_engine=lambda eng: engine_ref.update(eng=eng),
-                    grams_on=args.grams_on)
+                    grams_on=args.grams_on, parallelism=parallelism)
     finally:
         if server is not None:
             server.close()
+    if parallelism is not None:
+        torch.distributed.destroy_process_group()
+    if rank != 0:
+        return
+
     if res["gram_store"] is not None:
         gs = res["gram_store"]
         print(f"calibration Grams on the {gs['grams_on']}: {gs['groups']} group(s) of "
@@ -502,6 +540,16 @@ def main(argv=None):
           f"[dispatch {s['step_dispatch_s'] * 1e3:.2f}ms + device wait "
           f"{s['step_device_wait_s'] * 1e3:.2f}ms + host {s['step_host_s'] * 1e3:.2f}ms "
           f"per step]  host syncs={s['host_syncs']}")
+    cs = res["engine"].cache_stats()
+    mesh_s = cs["mesh"]
+    per_dev = (f" ({cs['per_device_cache_hbm_bytes'] / 1e6:.2f}MB/device, "
+               f"dp={mesh_s['dp']} tp={mesh_s['tp']})" if mesh_s["devices"] > 1 else "")
+    extra = (f"  peak blocks={cs['blocks_peak']}/{cs['num_blocks']}"
+             if cs["layout"] == "paged" else "")
+    if cs.get("blocks_peak_by_shard"):
+        extra += f"  per-shard peaks={cs['blocks_peak_by_shard']}"
+    print(f"cache[{cs['layout']}]: {cs['cache_hbm_bytes'] / 1e6:.2f}MB{per_dev}, "
+          f"capacity {cs['tokens_capacity']} tok{extra}")
     if res["engine"].layout == "paged":
         sch = res["engine"].scheduler_stats()
         occ = sch["occupancy_live_frac"]

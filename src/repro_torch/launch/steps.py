@@ -36,11 +36,13 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.models.api import batch_inputs
+from repro_torch.models.api import CACHE_LEAF_NDIM, batch_inputs
 from repro_torch.models.losses import chunked_xent_from_hidden, next_token_xent
 from repro_torch.obs.profiler import wrap_root
-from repro_torch.optim import AdamWConfig, apply_updates, roundtrip
+from repro_torch.optim import AdamWConfig, apply_updates, roundtrip, state_pspecs
 from repro_torch.optim.adamw import tree_leaves, tree_map, tree_unflatten
+from repro_torch.parallel.sharding import (NamedSharding, P, Parallelism, mesh_axis_sizes,
+                                           param_pspecs, param_shardings, sanitized)
 from repro_torch.runtime.fault import GuardConfig, guarded_update
 
 _M32 = 0xFFFFFFFF
@@ -261,8 +263,7 @@ def make_decode_sample_step(model, max_len: int) -> Callable:
 
 # Dense-slab cache leaves: name -> ndim of one layer's leaf; a stacked group
 # adds a leading layer dim, so the batch axis is ndim - base.
-_CACHE_LEAF_NDIM = {"state": 4, "shift_t": 2, "shift_c": 2, "h": 3, "conv": 3,
-                    "k": 4, "v": 4, "k_scale": 3, "v_scale": 3, "c_kv": 3, "k_rope": 3}
+_CACHE_LEAF_NDIM = CACHE_LEAF_NDIM
 
 
 def _drop_pad_rows(slots: torch.Tensor, n: int):
@@ -562,3 +563,173 @@ def make_dense_draft_prefill_step(model, max_len: int, kv_quant: bool = False) -
         return key_data.index_copy(0, dst, row_keys.index_select(0, src))
 
     return wrap_root(dense_draft_prefill_step, "draft_prefill")
+
+
+# -------------------------------------------------------------- shardings
+#
+# The reference's partition specs for caches, batches, logits and the train
+# step, and its serving placement bundle.  The port runs explicit SPMD, so
+# a spec says what each rank holds (``NamedSharding.local_slice``), not
+# what a jit boundary pins.
+
+# KV caches are SEQUENCE-sharded over the model axis (context parallelism)
+# in the reference's train-time specs; batch == 1 long-context cells fold the
+# DP axes into the sequence dim instead.
+_CACHE_LEAF_RULES = {
+    # leaf name -> (base ndim, seq_dim, chan_dim)
+    "k": (4, 1, None),
+    "v": (4, 1, None),
+    "c_kv": (3, 1, None),
+    "k_rope": (3, 1, None),
+    "h": (3, None, 1),
+    "conv": (3, None, 2),
+    "state": (4, None, 1),
+    "shift_t": (2, None, None),
+    "shift_c": (2, None, None),
+    "k_scale": (3, 1, None),
+    "v_scale": (3, 1, None),
+}
+
+
+def _axis_size(mesh, axes) -> int:
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        axes = (axes,)
+    sizes = mesh_axis_sizes(mesh)
+    n = 1
+    for a in axes:
+        n *= sizes[a]
+    return n
+
+
+def _map_specs(fn, specs, shapes):
+    if isinstance(specs, dict):
+        return {k: _map_specs(fn, specs[k], shapes[k]) for k in specs}
+    return fn(specs, shapes)
+
+
+def cache_pspecs(cache_shapes, par: Parallelism):
+    """PartitionSpec tree for a cache tree (stack dims -> None prefix)."""
+    mesh = par.mesh
+    dp = par.dp
+    tp = par.tp_axis
+
+    def walk(tree, name=""):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        base_ndim, seq_dim, chan_dim = _CACHE_LEAF_RULES[name]
+        pad = len(tree.shape) - base_ndim
+        spec = [None] * len(tree.shape)
+        shape = tree.shape
+        b = shape[pad]
+        batch_ok = mesh is None or b % _axis_size(mesh, dp) == 0
+        if batch_ok and mesh is not None:
+            spec[pad] = dp
+        if seq_dim is not None and mesh is not None:
+            t = shape[pad + seq_dim]
+            if batch_ok:
+                if t % _axis_size(mesh, tp) == 0:
+                    spec[pad + seq_dim] = tp
+            else:
+                # batch=1 long-context: fold DP axes into the sequence dim.
+                all_axes = tuple(par.dp_axes) + (tp,)
+                if t % _axis_size(mesh, all_axes) == 0:
+                    spec[pad + seq_dim] = all_axes
+                elif t % _axis_size(mesh, tp) == 0:
+                    spec[pad + seq_dim] = tp
+        if chan_dim is not None and mesh is not None:
+            c = shape[pad + chan_dim]
+            if c % _axis_size(mesh, tp) == 0:
+                spec[pad + chan_dim] = tp
+        return P(*spec)
+
+    return walk(cache_shapes)
+
+
+def batch_pspecs(batch_shapes, par: Parallelism):
+    mesh = par.mesh
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        ok = mesh is None or tree.shape[0] % _axis_size(mesh, par.dp) == 0
+        lead = par.dp if (ok and mesh is not None) else None
+        return P(*([lead] + [None] * (len(tree.shape) - 1)))
+
+    return walk(batch_shapes)
+
+
+def logits_pspec(batch: int, vocab: int, par: Parallelism) -> P:
+    mesh = par.mesh
+    b_ok = mesh is not None and batch % _axis_size(mesh, par.dp) == 0
+    v_ok = mesh is not None and vocab % _axis_size(mesh, par.tp_axis) == 0
+    return P(par.dp if b_ok else None, None, par.tp_axis if v_ok else None)
+
+
+def sanitize_pspecs(pspec_tree, shape_tree, mesh):
+    """Drop sharding entries that don't divide the dim (every rank holds
+    equal parts)."""
+    sizes = mesh_axis_sizes(mesh)
+    return _map_specs(lambda spec, leaf: sanitized(spec, leaf.shape, sizes),
+                      pspec_tree, shape_tree)
+
+
+def named(tree_pspec, mesh):
+    if isinstance(tree_pspec, dict):
+        return {k: named(v, mesh) for k, v in tree_pspec.items()}
+    return NamedSharding(mesh, tree_pspec)
+
+
+def _dp_entry(par: Parallelism, max_batch: int):
+    """Spec entry for slot-indexed dims; None when the slots do not divide
+    DP (every rank then runs every slot, and the engine keeps one pool
+    shard so its bookkeeping matches)."""
+    n = _axis_size(par.mesh, par.dp)
+    return par.dp if max_batch % n == 0 else None
+
+
+class ServingShardings:
+    """What each rank of a serving mesh holds, as NamedSharding bundles (the
+    reference pins them as its serving roots' in/out shardings): ``params``
+    the param tree's (the rules, sanitized against the leaves' shapes:
+    factored NSVD layers hold a slice of u's input and v's output dims),
+    ``row`` per-slot state (B,) and ``mat`` / ``mat3`` per-slot matrices,
+    split over DP when the slots divide it, ``rep`` what every rank holds
+    whole, and ``cache`` the cache tree's as the caller gives it
+    (``models.api.serving_cache_pspecs``; the engine allocates its shard
+    directly and gives none).  On a (1, 1) mesh each is the whole tree."""
+
+    def __init__(self, par: Parallelism, params, cache_shardings, max_batch: int):
+        mesh = par.mesh
+        dp = _dp_entry(par, max_batch)
+
+        def ns(*spec):
+            return NamedSharding(mesh, P(*spec))
+
+        self.par = par
+        self.max_batch = max_batch
+        self.rep = ns()
+        self.row = ns(dp)
+        self.mat = ns(dp, None)
+        self.mat3 = ns(dp, None, None)
+        self.params = self.tree(params)
+        self.cache = cache_shardings
+
+    def tree(self, shapes):
+        """Param shardings for a (possibly factored) params tree."""
+        return param_shardings(shapes, self.par.mesh)
+
+    def slot_range(self):
+        """(first slot, stop) of the slots this rank runs."""
+        sl = self.row.local_slice((self.max_batch,))[0]
+        return sl.start, sl.stop
+
+
+def train_shardings(params_shape, par: Parallelism, batch_shapes, fsdp: bool = False):
+    """(in_shardings, out_shardings) pspec trees for the train step."""
+    p_specs = param_pspecs(params_shape, fsdp_axes=par.dp_axes if fsdp else None)
+    opt_specs = state_pspecs(params_shape, p_specs, par.dp_axes)
+    b_specs = batch_pspecs(batch_shapes, par)
+    metrics = {"loss": P(), "aux": P(), "grad_norm": P(), "lr": P(), "bad_step": P()}
+    return (p_specs, opt_specs, b_specs), (p_specs, opt_specs, metrics)

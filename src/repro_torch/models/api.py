@@ -3,22 +3,26 @@ serving-layout queries."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel.sharding import NONE_PARALLEL, P, Parallelism
 
 from .encdec import EncDecLM
-from .transformer import DecoderLM
+from .transformer import DecoderLM, tensor_parallel_refusal
 
 Model = Union[DecoderLM, EncDecLM]
 
 
-def build_model(cfg: ModelConfig) -> Model:
+def build_model(cfg: ModelConfig, par: Parallelism = NONE_PARALLEL) -> Model:
+    """The model facade; ``par``: the mesh it runs on (``DecoderLM``)."""
     if cfg.is_encdec:
+        if par.active and par.tp_size > 1:
+            raise ValueError(tensor_parallel_refusal(cfg, par.tp_size))
         return EncDecLM(cfg)
-    return DecoderLM(cfg)
+    return DecoderLM(cfg, par)
 
 
 def batch_inputs(model: Model, batch, device) -> Tuple[torch.Tensor, Dict[str, Any]]:
@@ -76,6 +80,55 @@ def cache_bytes_per_token(model: Model, kv_quant: bool = False) -> int:
                    for v in tree.values())
     return (nbytes(model.init_cache(1, 2, device="meta", kv_quant=kv_quant))
             - nbytes(model.init_cache(1, 1, device="meta", kv_quant=kv_quant)))
+
+
+# Cache leaves: name -> ndim of one layer's leaf (a stacked group adds a
+# leading layer dim, so the batch or block axis is ndim - base), and, for
+# the leaves that hold heads, the head dim's index past that axis.
+CACHE_LEAF_NDIM = {"state": 4, "shift_t": 2, "shift_c": 2, "h": 3, "conv": 3,
+                   "k": 4, "v": 4, "k_scale": 3, "v_scale": 3, "c_kv": 3, "k_rope": 3}
+_CACHE_HEAD_DIM = {"k": 2, "v": 2, "k_scale": 2, "v_scale": 2, "state": 1}
+
+
+def serving_cache_pspecs(model: Model, par: Parallelism, *,
+                         max_batch: Optional[int] = None, max_len: Optional[int] = None,
+                         num_blocks: Optional[int] = None,
+                         block_size: Optional[int] = None,
+                         kv_quant: bool = False) -> Any:
+    """PartitionSpec tree of what each rank of a serving mesh holds of the
+    decode cache.  Pass (num_blocks, block_size) for the paged layout or
+    (max_batch, max_len) for the dense slab.  As the reference's: the pools'
+    block dim (each DP shard a range of blocks, beside its own write sink)
+    or the slab's batch dim over the DP axes when it divides them.  Unlike
+    the reference's, which keeps the cache whole over TP, the heads of the
+    attention K/V (and RWKV-6's state) split over the model axis: a rank's
+    pools hold the heads its attention computes."""
+    if (num_blocks is None) == (max_batch is None):
+        raise ValueError("pass exactly one of num_blocks (paged) or max_batch (dense)")
+    whole = build_model(model.cfg)
+    shapes = (whole.init_paged_cache(num_blocks, block_size, kv_quant=kv_quant,
+                                     device="meta") if num_blocks is not None
+              else whole.init_cache(max_batch, max_len, kv_quant=kv_quant, device="meta"))
+    lead = num_blocks if num_blocks is not None else max_batch
+    dp_ok = par.active and lead % par.dp_size == 0
+    tp = par.tp_size if par.active else 1
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(v) if isinstance(v, dict) else spec(k, v)
+                    for k, v in tree.items()}
+
+    def spec(name, leaf):
+        ax = leaf.ndim - CACHE_LEAF_NDIM[name]
+        entries = [None] * leaf.ndim
+        if dp_ok:
+            entries[ax] = par.dp
+        head = _CACHE_HEAD_DIM.get(name)
+        if head is not None and tp > 1 and leaf.shape[ax + head] % tp == 0:
+            entries[ax + head] = par.tp_axis
+        return P(*entries)
+
+    return walk(shapes)
 
 
 def has_recurrent_cache(model: DecoderLM) -> bool:

@@ -68,22 +68,25 @@ def _kv_leaves(shape, dtype, device, quant: bool) -> Dict:
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device,
-                  quant: bool = False) -> Dict:
+                  quant: bool = False, tp: int = 1) -> Dict:
     """The reference's dense (batch, max_len) K/V slab; ``quant``: its int8
-    form (symmetric per (position, head), halving the decode's cache reads)."""
-    return _kv_leaves((batch, max_len, cfg.num_kv_heads, cfg.head_dim), dtype, device,
-                      quant)
+    form (symmetric per (position, head), halving the decode's cache reads);
+    ``tp``: the ranks of a mesh's model axis, of whose KV heads a rank's
+    slab holds its share."""
+    return _kv_leaves((batch, max_len, cfg.num_kv_heads // tp, cfg.head_dim), dtype,
+                      device, quant)
 
 
 def init_paged_kv_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
-                        dtype, device, quant: bool = False) -> Dict:
-    """Block-pool KV cache shared by all rows (see serving/kvcache).
+                        dtype, device, quant: bool = False, tp: int = 1) -> Dict:
+    """Block-pool KV cache shared by all rows (see serving/kvcache), a rank's
+    share of the KV heads under ``tp`` model ranks.
 
     Holds ``num_blocks + 1`` blocks: block ``num_blocks`` is a write sink.
     Writes that must drop are sent there — the reference's positive
     out-of-range sentinel, given memory — so dropping needs no data-dependent
     selection (which would sync with the host).  No table entry names it."""
-    return _kv_leaves((num_blocks + 1, block_size, cfg.num_kv_heads, cfg.head_dim),
+    return _kv_leaves((num_blocks + 1, block_size, cfg.num_kv_heads // tp, cfg.head_dim),
                       dtype, device, quant)
 
 
@@ -248,12 +251,14 @@ def attention_apply(
     taps: Optional[Dict] = None,
     tap_prefix: str = "",
     memory: Optional[torch.Tensor] = None,
+    key: str = "attn",
 ) -> torch.Tensor:
     """mode "causal" (train, or prefill writing the dense slab ``cache``),
     "decode" (paged with ``block_tables``, else the dense slab), "bidir"
     (no mask, no cache) or "cross" (K/V from ``memory`` (B, T, D), no mask
     and no rotary; a ``cache`` is the cross slab, (B, T, Hkv, hd), written
-    with the memory's K/V)."""
+    with the memory's K/V).  ``key`` is the params' key in the layer
+    ("attn", or "cross"), the linears' path for the sharding rules."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     scale = 1.0 / math.sqrt(hd)
@@ -268,9 +273,11 @@ def attention_apply(
     else:
         kv_src = x
     t = kv_src.shape[1]
-    q = linear(params["wq"], x).reshape(b, s, cfg.num_heads, hd)
-    k = linear(params["wk"], kv_src).reshape(b, t, cfg.num_kv_heads, hd)
-    v = linear(params["wv"], kv_src).reshape(b, t, cfg.num_kv_heads, hd)
+    # Heads from the projections' widths: under a tensor-parallel forward
+    # they are this rank's heads (its slice of wq, wk, wv and of the cache).
+    q = linear(params["wq"], x, f"{key}/wq").reshape(b, s, -1, hd)
+    k = linear(params["wk"], kv_src, f"{key}/wk").reshape(b, t, -1, hd)
+    v = linear(params["wv"], kv_src, f"{key}/wv").reshape(b, t, -1, hd)
     if cfg.pos_emb == "rope" and mode != "cross":
         inv_freq = rope_frequencies(hd, cfg.rotary_pct, cfg.rope_theta, x.device)
         q = apply_rope(q, positions, inv_freq)
@@ -303,4 +310,4 @@ def attention_apply(
     merged = out.reshape(b, s, -1)
     if taps is not None:
         taps[f"{tap_prefix}.out_in"] = merged
-    return linear(params["wo"], merged)
+    return linear(params["wo"], merged, f"{key}/wo")

@@ -149,30 +149,33 @@ def group_init(gen, group: StackGroup, cfg: ModelConfig, dtype, device,
 
 
 def block_cache_init(spec: BlockSpec, cfg: ModelConfig, batch: int, max_len: int,
-                     dtype, device, cross: bool = False, kv_quant: bool = False) -> Dict:
+                     dtype, device, cross: bool = False, kv_quant: bool = False,
+                     tp: int = 1) -> Dict:
     """One layer's dense-slab cache rows: the recurrent state for rwkv and
     mamba (``h`` and the conv tail, whatever ``max_len``), the (batch,
     max_len) latent slab (c_kv, k_rope) for mla, the (batch, max_len) K/V
     slab for gqa (int8 with ``kv_quant``, as the reference's: only this
     slab is quantized); a decoder layer with ``cross`` also its (batch,
-    encoder_seq) cross K/V slab, in ``dtype``."""
+    encoder_seq) cross K/V slab, in ``dtype``.  ``tp``: a rank's share of
+    the heads under a mesh's model axis (gqa and rwkv)."""
     if spec[0] == "rwkv":
-        return {"rwkv": rwkv_mod.init_rwkv_cache(cfg, batch, dtype, device)}
+        return {"rwkv": rwkv_mod.init_rwkv_cache(cfg, batch, dtype, device, tp)}
     if spec[0] == "mamba":
         return {"mamba": mamba_mod.init_mamba_cache(cfg, batch, dtype, device)}
     if spec[0] == "mla":
         return {"attn": mla_mod.init_mla_cache(cfg, batch, max_len, dtype, device)}
-    c = {"attn": attn_mod.init_kv_cache(cfg, batch, max_len, dtype, device, kv_quant)}
+    c = {"attn": attn_mod.init_kv_cache(cfg, batch, max_len, dtype, device, kv_quant, tp)}
     if cross:
         c["cross"] = attn_mod.init_kv_cache(cfg, batch, cfg.encoder_seq, dtype, device)
     return c
 
 
 def group_cache_init(group: StackGroup, cfg: ModelConfig, batch: int, max_len: int,
-                     dtype, device, cross: bool = False, kv_quant: bool = False) -> Dict:
+                     dtype, device, cross: bool = False, kv_quant: bool = False,
+                     tp: int = 1) -> Dict:
     def one():
         return {f"sub{j}": block_cache_init(spec, cfg, batch, max_len, dtype, device,
-                                            cross, kv_quant)
+                                            cross, kv_quant, tp)
                 for j, spec in enumerate(group.period)}
     if group.repeats == 1:
         return one()
@@ -181,14 +184,14 @@ def group_cache_init(group: StackGroup, cfg: ModelConfig, batch: int, max_len: i
 
 def group_paged_cache_init(group: StackGroup, cfg: ModelConfig, num_blocks: int,
                            block_size: int, dtype, device,
-                           kv_quant: bool = False) -> Dict:
+                           kv_quant: bool = False, tp: int = 1) -> Dict:
     if any(spec[0] != "gqa" for spec in group.period):
         raise ValueError(f"paged KV cache requires attention (gqa) layers, got "
                          f"{group.period}; see models.api.cache_layout")
 
     def one():
         return {f"sub{j}": {"attn": attn_mod.init_paged_kv_cache(
-            cfg, num_blocks, block_size, dtype, device, kv_quant)}
+            cfg, num_blocks, block_size, dtype, device, kv_quant, tp)}
             for j in range(len(group.period))}
     if group.repeats == 1:
         return one()
@@ -264,7 +267,7 @@ def block_apply(params: Mapping, x: torch.Tensor, spec: BlockSpec, cfg: ModelCon
             x = x + attn_mod.attention_apply(
                 params["cross"], h, cfg, positions, mode="cross", memory=memory,
                 cache=None if cache is None else cache["cross"], taps=taps,
-                tap_prefix=f"{tap_prefix}.cross")
+                tap_prefix=f"{tap_prefix}.cross", key="cross")
     h = norm_apply(params["norm2"], x)
     if spec[1] == "moe":
         y, layer_aux = moe_mod.moe_apply(params["moe"], h, cfg, taps=taps,

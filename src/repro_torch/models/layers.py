@@ -3,6 +3,12 @@
 Plain functions over dict param trees (the reference's keys), so a
 reference checkpoint drops in.  Every linear goes through
 ``core.lowrank.linear_apply``, so compressed params are drop-in too.
+
+Under a mesh whose model axis has more than one rank (inside
+``parallel.collectives.tensor_parallel``), a linear called with its path
+takes its role, column or row parallel, from the sharding rules
+(``parallel.sharding._match_linear``) and runs on the rank's local shards
+(``core.lowrank.tp_linear_apply``).
 """
 
 from __future__ import annotations
@@ -12,7 +18,9 @@ from typing import Any, Dict, Mapping
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.lowrank import linear_apply
+from repro_torch.core.lowrank import linear_apply, tp_linear_apply
+from repro_torch.parallel.collectives import current_tp
+from repro_torch.parallel.sharding import _match_linear
 
 
 def linear_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
@@ -22,7 +30,14 @@ def linear_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
     return {"kernel": w.to(dtype)}
 
 
-def linear(params: Mapping[str, Any], x: torch.Tensor) -> torch.Tensor:
+def linear(params: Mapping[str, Any], x: torch.Tensor, path: str = "") -> torch.Tensor:
+    """y = x @ W; ``path`` ("attn/wq", "mlp/wo", "rwkv_c/wk", ...) names the
+    linear for the sharding rules when a tensor-parallel forward runs."""
+    par = current_tp()
+    if par is not None and path:
+        axes = _match_linear(path)
+        if axes is not None and axes != (None, None):
+            return tp_linear_apply(params, x, *axes, par)
     return linear_apply(params, x)
 
 
@@ -89,10 +104,10 @@ def mlp_init(gen, activation: str, d_model: int, d_ff: int, dtype, device) -> Di
 
 def _mlp_hidden(params, x, activation: str) -> torch.Tensor:
     if activation == "swiglu":
-        return F.silu(linear(params["wg"], x)) * linear(params["wi"], x)
+        return F.silu(linear(params["wg"], x, "mlp/wg")) * linear(params["wi"], x, "mlp/wi")
     if activation == "gelu":
         # jax.nn.gelu defaults to the tanh approximation.
-        return F.gelu(linear(params["wi"], x), approximate="tanh")
+        return F.gelu(linear(params["wi"], x, "mlp/wi"), approximate="tanh")
     raise ValueError(activation)
 
 
@@ -105,7 +120,7 @@ def mlp_apply(params: Mapping[str, Any], x: torch.Tensor, activation: str,
     h = _mlp_hidden(params, x, activation)
     if taps is not None:
         taps[f"{prefix}.mid"] = h
-    return linear(params["wo"], h)
+    return linear(params["wo"], h, "mlp/wo")
 
 
 # ---------------------------------------------------------------- embeddings

@@ -24,8 +24,9 @@ reference's results:
 
 The router is a full-fp32 matmul, as the reference keeps it for routing
 stability: TF32 would flip top-k choices, so on the card it must be off
-(``calib.gram.calibration_precision``).  Expert parallelism (``ep_axis``)
-waits for the parallelism port.
+(``calib.gram.calibration_precision``).  Expert parallelism (``ep_axis``,
+the reference's ``shard_map`` over the model axis) is ROADMAP A3b: the
+parallelism layer serves MoE on a (1, 1) mesh only.
 
 Top-k routing is discrete: where two experts' probabilities nearly tie (a
 random router has many such tokens), a rounding-level change in the
@@ -204,8 +205,8 @@ def moe_apply(params: Mapping[str, Any], x: torch.Tensor, cfg: ModelConfig,
               tap_prefix: str = "") -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (out (B, S, D), the load-balance aux loss, a scalar)."""
     if ep_axis is not None:
-        raise NotImplementedError("expert parallelism is not ported (it waits for the "
-                                  "parallelism port)")
+        raise NotImplementedError("expert parallelism is not ported (ROADMAP A3b): "
+                                  "MoE runs on a (1, 1) mesh or meshless")
     m = cfg.moe
     b, s, d = x.shape
     n = b * s

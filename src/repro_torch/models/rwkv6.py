@@ -18,6 +18,17 @@ Decode is one plain step against the {shift_t, shift_c, state} cache.
 
 Caches are written IN PLACE (the reference returns new ones): prefill and
 decode copy the new state and shifts into the cache tensors they are given.
+
+Under a tensor-parallel forward (``parallel.collectives.tensor_parallel``)
+the rules split the time mix over heads (``rwkv_t/*``: wr, wk, wv, wg
+column-parallel, wo row-parallel, bonus and the group norm's affine a
+rank's heads) and the channel mix's hidden dim (``rwkv_c/wk`` column,
+``rwkv_c/wv`` row, ``rwkv_c/wr`` whole).  The token shift and the
+data-dependent lerp stay whole on every rank (their params are
+replicated), the decay is cut to the rank's channels, and the recurrence
+(the ``rwkv6`` kernel, or a decode step) runs on the rank's heads: the
+head count comes from ``bonus``, so the code is one path at any model
+axis.
 """
 
 from __future__ import annotations
@@ -29,6 +40,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rwkv6.ops import rwkv6_heads
+from repro_torch.parallel.collectives import current_tp, tp_slice
 
 from .layers import linear, linear_init
 
@@ -78,9 +90,10 @@ def rwkv_channel_mix_init(gen, cfg: ModelConfig, dtype, device) -> Dict:
     }
 
 
-def init_rwkv_cache(cfg: ModelConfig, batch: int, dtype, device) -> Dict:
+def init_rwkv_cache(cfg: ModelConfig, batch: int, dtype, device, tp: int = 1) -> Dict:
+    """The shifts (whole) and the state of a rank's ``1 / tp`` of the heads."""
     rc, d = cfg.rwkv, cfg.d_model
-    n_heads = d // rc.head_dim
+    n_heads = d // rc.head_dim // tp
     return {
         "shift_t": torch.zeros((batch, d), dtype=dtype, device=device),
         "shift_c": torch.zeros((batch, d), dtype=dtype, device=device),
@@ -124,8 +137,8 @@ def rwkv_time_mix(params: Mapping, x: torch.Tensor, cfg: ModelConfig, mode: str 
     state that writes the final state and shift into it) or "decode" (one
     token per row against ``cache``, updated in place)."""
     hd = cfg.rwkv.head_dim
-    d = cfg.d_model
-    n_heads = d // hd
+    n_heads = params["bonus"].shape[0]  # this rank's heads
+    d = n_heads * hd
     b, s, _ = x.shape
 
     decode = mode == "decode"
@@ -135,12 +148,15 @@ def rwkv_time_mix(params: Mapping, x: torch.Tensor, cfg: ModelConfig, mode: str 
         for nm in MIX_NAMES:
             taps[f"{tap_prefix}.{nm}_in"] = mixed[nm]
 
-    rf = linear(params["wr"], mixed["r"]).reshape(b, s, n_heads, hd).float()
-    kf = linear(params["wk"], mixed["k"]).reshape(b, s, n_heads, hd).float()
-    vf = linear(params["wv"], mixed["v"]).reshape(b, s, n_heads, hd).float()
-    g = linear(params["wg"], mixed["g"])
+    rf = linear(params["wr"], mixed["r"], "rwkv_t/wr").reshape(b, s, n_heads, hd).float()
+    kf = linear(params["wk"], mixed["k"], "rwkv_t/wk").reshape(b, s, n_heads, hd).float()
+    vf = linear(params["wv"], mixed["v"], "rwkv_t/wv").reshape(b, s, n_heads, hd).float()
+    g = linear(params["wg"], mixed["g"], "rwkv_t/wg")
     decay = params["decay_w0"] + torch.matmul(
         torch.tanh(torch.matmul(mixed["w"], params["decay_w1"])), params["decay_w2"]).float()
+    if d != decay.shape[-1]:
+        lo, hi = tp_slice(decay.shape[-1], current_tp())
+        decay = decay[..., lo:hi]
     w = torch.exp(-torch.exp(decay)).reshape(b, s, n_heads, hd)  # in (0, 1)
     u = params["bonus"]  # (H, hd) fp32
 
@@ -168,7 +184,7 @@ def rwkv_time_mix(params: Mapping, x: torch.Tensor, cfg: ModelConfig, mode: str 
     y = y * F.silu(g)
     if taps is not None:
         taps[f"{tap_prefix}.out_in"] = y
-    return linear(params["wo"], y)
+    return linear(params["wo"], y, "rwkv_t/wo")
 
 
 def rwkv_channel_mix(params: Mapping, x: torch.Tensor, cfg: ModelConfig,
@@ -183,11 +199,11 @@ def rwkv_channel_mix(params: Mapping, x: torch.Tensor, cfg: ModelConfig,
     if taps is not None:
         taps[f"{tap_prefix}.k_in"] = xk
         taps[f"{tap_prefix}.r_in"] = xr
-    h = torch.square(torch.relu(linear(params["wk"], xk)))
+    h = torch.square(torch.relu(linear(params["wk"], xk, "rwkv_c/wk")))
     if taps is not None:
         taps[f"{tap_prefix}.mid"] = h
-    v = linear(params["wv"], h)
-    y = torch.sigmoid(linear(params["wr"], xr)) * v
+    v = linear(params["wv"], h, "rwkv_c/wv")
+    y = torch.sigmoid(linear(params["wr"], xr, "rwkv_c/wr")) * v
     if cache is not None:
         cache["shift_c"].copy_(x[:, -1])
     return y

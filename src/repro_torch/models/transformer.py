@@ -7,6 +7,7 @@ projector over patch features, its output in front of the tokens)."""
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Mapping, Optional
 
 import torch
@@ -14,6 +15,8 @@ import torch.nn.functional as F
 
 from repro_torch import Device, resolve_device, torch_dtype
 from repro_torch.configs.base import ModelConfig
+from repro_torch.parallel import collectives
+from repro_torch.parallel.sharding import NONE_PARALLEL, Parallelism
 
 from .blocks import (
     group_apply,
@@ -50,13 +53,27 @@ class DecoderLM:
     chunk of streaming prefill — or into the dense slab: attention K/V at
     cache_len.., or one token per row into the recurrent cache or MLA's
     latent slab).
+
+    ``par``: the mesh the model runs on.  With more than one rank on its
+    model axis, every forward runs inside ``collectives.tensor_parallel``
+    on this rank's local params (``parallel.shard_params``): the linears
+    split by the sharding rules, the vocab-sharded embedding is summed over
+    the model group, the logits are gathered whole before they are
+    returned, and the caches hold this rank's heads.  With one rank there
+    it is the meshless model, bit for bit.
     """
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, par: Parallelism = NONE_PARALLEL):
         self.cfg = cfg
         self.specs = resolve_specs(cfg)
         self.groups = group_layers(self.specs)
         self.dtype = torch_dtype(cfg.dtype)
+        self.par = par
+        self.tp = par.tp_size if par.active else 1
+        if self.tp > 1:
+            err = tensor_parallel_refusal(cfg, self.tp)
+            if err is not None:
+                raise ValueError(err)
 
     def init(self, seed: int = 0, device: Device = None) -> Dict:
         """Random weights drawn from a ``torch.Generator`` seeded with
@@ -90,7 +107,7 @@ class DecoderLM:
         dtype = dtype or self.dtype
         dev = resolve_device(device)
         return {f"g{i}": group_cache_init(g, self.cfg, batch, max_len, dtype, dev,
-                                          kv_quant=kv_quant)
+                                          kv_quant=kv_quant, tp=self.tp)
                 for i, g in enumerate(self.groups)}
 
     def init_paged_cache(self, num_blocks: int, block_size: int, dtype=None,
@@ -98,7 +115,7 @@ class DecoderLM:
         dtype = dtype or self.dtype
         dev = resolve_device(device)
         return {f"g{i}": group_paged_cache_init(g, self.cfg, num_blocks,
-                                                block_size, dtype, dev, kv_quant)
+                                                block_size, dtype, dev, kv_quant, tp=self.tp)
                 for i, g in enumerate(self.groups)}
 
     def apply(self, params: Mapping[str, Any], tokens: torch.Tensor, *,
@@ -123,9 +140,41 @@ class DecoderLM:
         ``aux``: a list that receives each MoE layer's load-balance loss
         (0-d fp32), which the reference's apply returns as its third
         output; the train step sums it, every other caller passes none."""
+        scope = (collectives.tensor_parallel(self.par) if self.tp > 1
+                 else contextlib.nullcontext())
+        with scope:
+            return self._apply(params, tokens, patches=patches, mode=mode, cache=cache,
+                               cache_len=cache_len, block_tables=block_tables, taps=taps,
+                               output=output, aux=aux)
+
+    def _embed(self, table_params, tokens: torch.Tensor) -> torch.Tensor:
+        """Token embeddings; a vocab-sharded table (this rank's rows) looks
+        up the ids it holds, zeros elsewhere, and sums over the model group
+        (exact: one rank holds each id).  Ids wrap as indexing wraps them
+        (serving feeds negative ids for finished rows)."""
+        table = table_params["table"]
+        v = self.cfg.vocab_size
+        if self.tp == 1 or table.shape[0] == v:
+            return embed(table_params, tokens)
+        n = table.shape[0]
+        local = tokens.long().remainder(v) - self.par.tp_rank * n
+        held = (local >= 0) & (local < n)
+        x = table[local.clamp(0, n - 1)] * held[..., None].to(table.dtype)
+        return collectives.all_reduce(x, self.par, self.par.tp_axis)
+
+    def _unembed(self, out_params, x: torch.Tensor) -> torch.Tensor:
+        """Logits; vocab-sharded ones (this rank's columns) gathered whole
+        over the model group before sampling."""
+        logits = unembed(out_params, x)
+        if self.tp > 1 and logits.shape[-1] != self.cfg.vocab_size:
+            logits = collectives.all_gather(logits, self.par, self.par.tp_axis, dim=-1)
+        return logits
+
+    def _apply(self, params, tokens, *, patches, mode, cache, cache_len, block_tables,
+               taps, output, aux):
         cfg = self.cfg
         b = tokens.shape[0]
-        x = embed(params["embed"], tokens).to(self.dtype)
+        x = self._embed(params["embed"], tokens).to(self.dtype)
         n_prefix = 0
         if patches is not None:
             if taps is not None:
@@ -161,7 +210,7 @@ class DecoderLM:
             return x
         if output != "logits":
             raise ValueError(f"output {output!r}: 'logits' or 'hidden'")
-        return unembed(params.get("unembed", params["embed"]), x)
+        return self._unembed(params.get("unembed", params["embed"]), x)
 
     def compressible_targets(self):
         """TargetSpecs for every factorizable matrix (reference names and
@@ -246,3 +295,34 @@ class DecoderLM:
                                       "projector.in"))
             targets.append(TargetSpec(("projector", "wo"), d, d, "projector.mid"))
         return targets
+
+
+def tensor_parallel_refusal(cfg: ModelConfig, tp: int):
+    """Why ``cfg`` cannot split over ``tp`` model ranks, or None.  The split
+    is ported for the dense attention decoders (LLaMA, OPT, Mistral,
+    chatglm3, phi3, deepseek-67b) and RWKV-6, whose heads, widths and
+    hidden dims the model axis divides; the rest is ROADMAP A3b."""
+    kind = mesh_family_refusal(cfg)
+    if kind is not None:
+        return kind
+    heads = ((cfg.d_model // cfg.rwkv.head_dim,) if cfg.rwkv is not None
+             else (cfg.num_heads, cfg.num_kv_heads))
+    if any(n % tp for n in heads + (cfg.d_model, cfg.d_ff)):
+        return (f"{cfg.name}: a model axis of {tp} ranks does not divide its heads "
+                f"{heads}, d_model {cfg.d_model} or d_ff {cfg.d_ff}; the reference pads "
+                "them, the port refuses (ROADMAP A3b)")
+    return None
+
+
+def mesh_family_refusal(cfg: ModelConfig):
+    """Why ``cfg``'s family cannot run on a mesh of more than one rank, or
+    None (the dense attention decoders and RWKV-6 can)."""
+    kind = ("an encoder-decoder" if cfg.is_encdec
+            else "MoE: capacity routing differs once rows split" if cfg.moe is not None
+            else "Mamba" if cfg.mamba is not None
+            else "MLA" if cfg.attention == "mla"
+            else "a vision frontend" if cfg.frontend == "vision" else None)
+    if kind is None:
+        return None
+    return (f"{cfg.name} ({kind}) has no form on a mesh of more than one rank yet "
+            "(ROADMAP A3b): serve it on a (1, 1) mesh or meshless")

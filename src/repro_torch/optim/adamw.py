@@ -6,9 +6,9 @@ Trees are nested dicts of tensors with the param tree's keys.  The update
 runs on the params' device and reads nothing from the host: the step, the
 norm and the learning rate stay 0-d tensors.
 
-``zero_pspec`` and ``state_pspecs`` (ZeRO-1: the state sharded over the
-data-parallel axes) are the reference's sharding helpers; they wait for the
-port's parallelism slice (``torch.distributed``), and are not here.
+``zero_pspec`` and ``state_pspecs`` (ZeRO-1): the optimizer state's
+partition specs, each moment sharded over the data-parallel axes on its
+largest dim that TP leaves free (``parallel.sharding``'s specs).
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ import dataclasses
 from typing import Any, Callable, Mapping, NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch.parallel.sharding import P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,3 +104,34 @@ def apply_updates(params, grads, state: AdamWState,
     pick = lambda i: tree_map(lambda t: t[i], out)  # noqa: E731
     new_state = AdamWState(step=step, mu=pick(0), nu=pick(1), master=pick(2))
     return pick(3), new_state, {"grad_norm": gnorm, "lr": lr}
+
+
+# ------------------------------------------------------------------ ZeRO-1
+
+def zero_pspec(param_spec: P, shape: Tuple[int, ...], dp_axes: Tuple[str, ...]) -> P:
+    """Shard an optimizer-state leaf over the DP axes on its largest dim not
+    already claimed by TP.  Falls back to the param spec when no dim is free
+    or divisible."""
+    entries = list(param_spec) + [None] * (len(shape) - len(param_spec))
+
+    def uses_dp(e):
+        if e is None:
+            return False
+        axes = e if isinstance(e, tuple) else (e,)
+        return any(a in dp_axes for a in axes)
+
+    if any(uses_dp(e) for e in entries):
+        return param_spec  # FSDP already shards this param over DP
+    free = [i for i, e in enumerate(entries) if e is None and shape[i] > 1]
+    if not free:
+        return param_spec
+    target = max(free, key=lambda i: shape[i])
+    entries[target] = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+    return P(*entries)
+
+
+def state_pspecs(params_shape, param_pspec_tree, dp_axes: Tuple[str, ...]) -> AdamWState:
+    """PartitionSpec tree for AdamWState given the params' spec tree."""
+    moments = tree_map(lambda leaf, spec: zero_pspec(spec, tuple(leaf.shape), dp_axes),
+                       params_shape, param_pspec_tree)
+    return AdamWState(step=P(), mu=moments, nu=moments, master=moments)

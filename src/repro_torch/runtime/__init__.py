@@ -1,5 +1,6 @@
 """Runtime primitives: the step-time watchdog (straggler.py) and the step
-guard, fault handler and heartbeat monitor (fault.py)."""
+guard, fault handler and heartbeat monitor (fault.py), and the elastic
+mesh plan (elastic.py)."""
 
 from repro_torch.runtime.fault import (  # noqa: F401
     FaultHandler,
@@ -8,3 +9,8 @@ from repro_torch.runtime.fault import (  # noqa: F401
     guarded_update,
 )
 from repro_torch.runtime.straggler import StepTimeWatchdog, StragglerConfig  # noqa: F401
+from repro_torch.runtime.elastic import (  # noqa: F401
+    MeshPlan,
+    shrink_plan,
+    validate_batch_divisibility,
+)

@@ -86,7 +86,24 @@ extra device sync, and every per-row hook sits behind ``self.obs.enabled``,
 so the default ``NULL_TELEMETRY`` does no work.  ``transfer_guard`` runs
 every dispatch under torch's sync-debug mode "error" (a CUDA engine only).
 
-Not ported yet (later slices): meshes.
+Mesh serving (``parallelism=`` over a ``launch.mesh.make_serving_mesh`` DP x
+TP mesh), explicit SPMD: one process a rank, each running this same host
+logic (scheduler, allocator, finish detection) on the same token word each
+step.  Weights are the rank's shards (``parallel.shard_params``; the model
+is rebuilt on the mesh, so its linears split by the sharding rules and its
+caches hold the rank's heads).  Slot s maps to DP shard s*dp/max_batch:
+each rank holds and runs only its shard's slots (per-slot state, table
+rows, dense slab rows) and allocates only its shard's sub-pool
+(``PagedKVCache``); when max_batch does not divide dp, every rank runs
+every slot on one shard and the weights keep TP.  A step's token word (and
+an admission's first tokens) is gathered over the data group by one
+all_gather_into_tensor, at every group size, and copied to the host once:
+one sync a step, none in a dispatch.  A swapped row's blocks are broadcast
+from its shard over the data group, so it resumes on any shard.  Pools are
+written in place.  On a mesh of more than one rank, MoE, MLA, Mamba,
+llava, speculative decoding and heads the model axis does not divide are
+refused (ROADMAP A3b); a (1, 1) mesh takes every family and its streams
+are the meshless engine's, bit for bit.
 """
 
 from __future__ import annotations
@@ -116,9 +133,13 @@ from repro_torch.launch.steps import (
     make_spec_verify_step,
     request_keys,
 )
-from repro_torch.models.api import (cache_bytes_per_token, cache_layout, cache_leaf_names,
-                                    prefill_pad_safe)
+from repro_torch.launch.steps import ServingShardings
+from repro_torch.models.api import (build_model, cache_bytes_per_token, cache_layout,
+                                    cache_leaf_names, prefill_pad_safe)
+from repro_torch.models.transformer import mesh_family_refusal, tensor_parallel_refusal
 from repro_torch.obs import NULL_TELEMETRY
+from repro_torch.parallel import collectives
+from repro_torch.parallel.sharding import Parallelism, shard_params
 from repro_torch.runtime.straggler import StepTimeWatchdog
 from repro_torch.serving.faults import (
     FaultPlan,
@@ -262,7 +283,8 @@ class ServingEngine:
                  faults: Optional[FaultPlan] = None,
                  fault_policy: Optional[FaultPolicy] = None,
                  spec_config: Optional[SpecConfig] = None,
-                 telemetry=None, transfer_guard: bool = False):
+                 telemetry=None, transfer_guard: bool = False,
+                 parallelism: Optional[Parallelism] = None):
         if model.cfg.is_encdec:
             # The reference engine has none either: its admissions pass no
             # frames, so its prefill fails inside the model.
@@ -283,6 +305,26 @@ class ServingEngine:
             raise ValueError(f"pipeline_depth must be >= 1, got {pipeline_depth}")
         self.pipeline_depth = pipeline_depth
         self.sched = Scheduler(sched_config)
+        par = parallelism if parallelism is not None and parallelism.active else None
+        self.par = par
+        self.dp_shards = 1
+        if par is not None:
+            if par.size > 1:
+                err = (mesh_family_refusal(model.cfg)
+                       or tensor_parallel_refusal(model.cfg, par.tp_size))
+                if spec_config is not None:
+                    err = ("speculative decoding on a mesh of more than one rank is not "
+                           "ported (ROADMAP A3b): serve it on a (1, 1) mesh or meshless")
+                if err is not None:
+                    raise ValueError(err)
+            # The model rebuilt on the mesh (its linears split over the model
+            # axis, its caches a rank's heads); params cut to this rank's.
+            model = build_model(model.cfg, par)
+            params = shard_params(params, par)
+            # Slots (and the pools' block ranges) shard over DP only when
+            # they divide it; otherwise every rank runs every slot.
+            if max_batch % par.dp_size == 0:
+                self.dp_shards = par.dp_size
         self.model = model
         self.params = params
         self.device = params["embed"]["table"].device
@@ -312,10 +354,19 @@ class ServingEngine:
             raise ValueError(
                 "resume='swap' is unsupported with speculative decoding (the draft "
                 "pool's swapped prefix has no catch-up path); use resume='reprefill'")
+        # This rank's slots [_lo, _hi): all of them unless DP shards them.
+        # Its pools and slab rows are allocated for its shard directly (the
+        # placement of ``models.api.serving_cache_pspecs``).
+        self._sh = None
+        self._lo, self._hi = 0, max_batch
+        if par is not None:
+            self._sh = ServingShardings(par, params, None, max_batch)
+            self._lo, self._hi = self._sh.slot_range()
+        self._rows = self._hi - self._lo
         if self.layout == "paged":
             self.kv = PagedKVCache(model, max_batch, max_len, block_size=block_size,
                                    num_blocks=num_blocks, kv_quant=kv_quant,
-                                   device=self.device)
+                                   device=self.device, dp_shards=self.dp_shards, par=par)
             self._decode = make_paged_decode_step(model, max_len)
             self._chunk_step = make_paged_prefill_chunk_step(model)
         else:
@@ -323,7 +374,7 @@ class ServingEngine:
                 raise ValueError(f"{model.cfg.name}: kv_quant quantizes attention K/V; "
                                  "this model's dense cache holds none")
             self.kv = None
-            self.cache = model.init_cache(max_batch, max_len, device=self.device,
+            self.cache = model.init_cache(self._rows, max_len, device=self.device,
                                           kv_quant=kv_quant)
             self._decode = make_decode_sample_step(model, max_len)
             self._prefill = make_prefill_admit_step(model, max_len, kv_quant)
@@ -333,12 +384,12 @@ class ServingEngine:
         # pad-sensitive model's exact length).
         self.admissions_by_width: Dict[int, int] = {}
 
-        dev = self.device
-        self.cache_len = torch.zeros(max_batch, dtype=torch.int32, device=dev)
-        self.last_token = torch.zeros(max_batch, dtype=torch.int32, device=dev)
-        self.budget_dev = torch.zeros(max_batch, dtype=torch.int32, device=dev)
-        self.key_data = torch.zeros((max_batch, 2), dtype=torch.int64, device=dev)
-        self.active_dev = torch.zeros(max_batch, dtype=torch.bool, device=dev)
+        dev, rows = self.device, self._rows  # per-slot state: this rank's slots
+        self.cache_len = torch.zeros(rows, dtype=torch.int32, device=dev)
+        self.last_token = torch.zeros(rows, dtype=torch.int32, device=dev)
+        self.budget_dev = torch.zeros(rows, dtype=torch.int32, device=dev)
+        self.key_data = torch.zeros((rows, 2), dtype=torch.int64, device=dev)
+        self.active_dev = torch.zeros(rows, dtype=torch.bool, device=dev)
 
         self.draft = None
         if spec_config is not None:
@@ -459,8 +510,10 @@ class ServingEngine:
             # always resume.
             need = self.kv.blocks_for(min(self.max_len, len(prompt) + max_new_tokens))
             if need > self.kv.blocks_per_shard:
-                raise ValueError(f"request needs {need} blocks worst-case but the "
-                                 f"pool only has {self.kv.num_blocks}")
+                raise ValueError(f"request needs {need} blocks worst-case but a pool "
+                                 f"shard only has {self.kv.blocks_per_shard} (num_blocks="
+                                 f"{self.kv.num_blocks} over {self.kv.dp_shards} DP "
+                                 "shard(s))")
         req = Request(next(self._uid), prompt, max_new_tokens, temperature,
                       eos_id if eos_id is not None else self.eos_id,
                       class_idx=self.sched.class_index(latency_class))
@@ -674,10 +727,10 @@ class ServingEngine:
                     # target's reservation rolls back.
                     self.kv.free(cand)
                     continue
-                if self.kv.alloc.in_use() == 0:
+                if self.kv.alloc.in_use(self.kv.slot_shard(cand)) == 0:
                     raise RuntimeError(f"request {req.uid} needs "
                                        f"{self.kv.blocks_for(need)} blocks but the "
-                                       f"idle pool has {self.kv.num_blocks}")
+                                       f"idle pool shard has {self.kv.blocks_per_shard}")
             if slot is None:
                 victim = (self.sched.pick_victim(self._outranked_victims(req))
                           if self.sched.preempt else None)
@@ -739,7 +792,9 @@ class ServingEngine:
         max_batch; the padding rows drop their writes), a pad-sensitive
         model's one request at its exact length.  Each call's
         first tokens are read back at once: one host sync per admission
-        group, as the reference's dense admission."""
+        group, as the reference's dense admission.  Under a mesh each rank
+        runs its shard's rows of the group (none: no call) and the first
+        tokens travel in the gathered word."""
         dev = self.device
         t = lambda a: upload(np.asarray(a), dev)  # noqa: E731
         finished: List[Request] = []
@@ -750,51 +805,59 @@ class ServingEngine:
             group = self._take_group(len(free))
             if not group:
                 break
+            # The word's index of each request's first token: its rank's
+            # block of rows, then its row in that rank's call.
+            at, mine = self._word_rows(free[:len(group)])
             if self._bucketed:
                 width = self._bucket(max(len(r.prompt) for r in group))
-                rows = min(self.max_batch, 1 << (len(group) - 1).bit_length())
+                rows = min(self._rows, 1 << (len(mine) - 1).bit_length()) if mine else 0
             else:
-                width, rows = len(group[0].prompt), 1
-            tokens = np.zeros((rows, width), np.int32)
-            plens = np.ones(rows, np.int32)
-            slots = np.full(rows, self.max_batch, np.int32)  # pad = dropped
-            budgets = np.zeros(rows, np.int32)
-            temps = np.zeros(rows, np.float32)
-            for r, req in enumerate(group):
-                tokens[r, :len(req.prompt)] = req.prompt
-                plens[r] = len(req.prompt)
-                slots[r] = free[r]
-                budgets[r] = max(0, req.max_new_tokens - 1)
-                temps[r] = req.temperature
-                if self.obs.enabled:
+                width, rows = len(group[0].prompt), len(mine)
+            if self.obs.enabled:
+                for r, req in enumerate(group):
                     self.obs.on_admit(req.uid, free[r], time.perf_counter() - req.t_submit)
-            uids = [req.uid for req in group]
-            rkeys = torch.zeros((rows, 2), dtype=torch.int64, device=dev)
-            rkeys[:len(group)] = request_keys(self.seed, uids, dev)
-            tokens_d, slots_d = t(tokens), t(slots)
-            (first, self.cache_len, self.last_token, self.budget_dev, self.key_data,
-             self.active_dev) = self._prefill(
-                self.params, self.cache, tokens_d, t(plens), slots_d, t(budgets), rkeys,
-                self.cache_len, self.last_token, self.budget_dev, self.key_data,
-                t(temps), self.active_dev)
-            if self.draft is not None:
-                d = self.draft
-                dkeys = torch.zeros((rows, 2), dtype=torch.int64, device=dev)
-                dkeys[:len(group)] = d.request_keys(uids)
-                d.key_data = self._draft_prefill(d.params, d.cache, tokens_d, slots_d,
-                                                 d.key_data, dkeys)
+            first = None
+            if rows:
+                tokens = np.zeros((rows, width), np.int32)
+                plens = np.ones(rows, np.int32)
+                slots = np.full(rows, self.max_batch, np.int32)  # pad = dropped
+                budgets = np.zeros(rows, np.int32)
+                temps = np.zeros(rows, np.float32)
+                for j, r in enumerate(mine):
+                    req = group[r]
+                    tokens[j, :len(req.prompt)] = req.prompt
+                    plens[j] = len(req.prompt)
+                    slots[j] = free[r] - self._lo
+                    budgets[j] = max(0, req.max_new_tokens - 1)
+                    temps[j] = req.temperature
+                uids = [group[r].uid for r in mine]
+                rkeys = torch.zeros((rows, 2), dtype=torch.int64, device=dev)
+                rkeys[:len(mine)] = request_keys(self.seed, uids, dev)
+                tokens_d, slots_d = t(tokens), t(slots)
+                (first, self.cache_len, self.last_token, self.budget_dev, self.key_data,
+                 self.active_dev) = self._prefill(
+                    self.params, self.cache, tokens_d, t(plens), slots_d, t(budgets),
+                    rkeys, self.cache_len, self.last_token, self.budget_dev,
+                    self.key_data, t(temps), self.active_dev)
+                if self.draft is not None:
+                    d = self.draft
+                    dkeys = torch.zeros((rows, 2), dtype=torch.int64, device=dev)
+                    dkeys[:len(mine)] = d.request_keys(uids)
+                    d.key_data = self._draft_prefill(d.params, d.cache, tokens_d, slots_d,
+                                                     d.key_data, dkeys)
             self.prefill_ticks += 1
             self.admissions_by_width[width] = self.admissions_by_width.get(width, 0) + 1
-            toks = first.cpu().numpy()
-            self.host_syncs += 1
+            toks = self._read_first(first)
             for r, req in enumerate(group):
-                self._finish_or_activate(req, free[r], int(toks[r]), finished)
+                self._finish_or_activate(req, free[r], int(toks[at[r]]), finished)
         return finished
 
     def _prefill_tick(self) -> List[Request]:
-        """Advance up to max_batch prefills by ONE chunk (one step call)."""
-        c, r_rows, dev = self.prefill_chunk, self.max_batch, self.device
-        tasks = self._prefilling[:r_rows]
+        """Advance up to max_batch prefills by ONE chunk (one step call of
+        this rank's slots' rows: its prefilling tasks in list order)."""
+        c, r_rows, dev = self.prefill_chunk, self._rows, self.device
+        tasks = self._prefilling[:self.max_batch]
+        at, mine = self._word_rows([task.slot for task in tasks])
         tokens = np.zeros((r_rows, c), np.int32)
         starts = np.zeros(r_rows, np.int32)
         nvalid = np.ones(r_rows, np.int32)
@@ -802,58 +865,102 @@ class ServingEngine:
         budgets = np.zeros(r_rows, np.int32)
         temps = np.zeros(r_rows, np.float32)
         bt_rows = np.full((r_rows, self.kv.max_blocks_per_row), -1, np.int32)
-        fin = []
+        row_of = {r: j for j, r in enumerate(mine)}
+        fin, fin_rows = [], []
         for r, task in enumerate(tasks):
             p = task.req.prompt
             n = min(len(p) - task.pos, c)
             if self.obs.enabled and task.pos == 0:
                 self.obs.on_first_chunk(task.req.uid, task.slot)
-            tokens[r, :n] = p[task.pos:task.pos + n]
-            starts[r] = task.pos
-            nvalid[r] = n
-            temps[r] = task.req.temperature
-            bt_rows[r] = self.kv.table_np[task.slot]
+            j = row_of.get(r)
+            if j is not None:
+                tokens[j, :n] = p[task.pos:task.pos + n]
+                starts[j] = task.pos
+                nvalid[j] = n
+                temps[j] = task.req.temperature
+                bt_rows[j] = self.kv.table_np[task.slot]
             task.pos += n
             if task.pos >= len(p):
-                fslots[r] = task.slot
-                # The budget after the first sampled token; a re-prefilled
-                # request's prompt already holds its generated tokens.
-                budgets[r] = max(0, task.req.max_new_tokens
-                                 - len(task.req.generated) - 1)
+                if j is not None:
+                    fslots[j] = task.slot - self._lo
+                    # The budget after the first sampled token; a re-prefilled
+                    # request's prompt already holds its generated tokens.
+                    budgets[j] = max(0, task.req.max_new_tokens
+                                     - len(task.req.generated) - 1)
+                    fin_rows.append(j)
                 fin.append((r, task))
-        rkeys = torch.zeros((r_rows, 2), dtype=torch.int64, device=dev)
-        dkeys = torch.zeros((r_rows, 2), dtype=torch.int64, device=dev)
-        if fin:
-            rows, uids = [r for r, _ in fin], [t.req.uid for _, t in fin]
-            rkeys[rows] = request_keys(self.seed, uids, dev)
+        if self.kv.block_base:
+            bt_rows = np.where(bt_rows >= 0, bt_rows - self.kv.block_base, -1)
+        first = None
+        if mine:
+            rkeys = torch.zeros((r_rows, 2), dtype=torch.int64, device=dev)
+            dkeys = torch.zeros((r_rows, 2), dtype=torch.int64, device=dev)
+            if fin_rows:
+                uids = [tasks[mine[j]].req.uid for j in fin_rows]
+                rkeys[fin_rows] = request_keys(self.seed, uids, dev)
+                if self.draft is not None:
+                    dkeys[fin_rows] = self.draft.request_keys(uids)
+            t = lambda a: upload(a, dev)  # noqa: E731
+            tokens_d, starts_d, fslots_d = t(tokens), t(starts), t(fslots)
+            (first, self.cache_len, self.last_token, self.budget_dev, self.key_data,
+             self.active_dev) = self._chunk_step(
+                self.params, self.kv.pools, t(bt_rows), tokens_d, starts_d,
+                t(nvalid), fslots_d, t(budgets), rkeys, self.cache_len,
+                self.last_token, self.budget_dev, self.key_data, t(temps),
+                self.active_dev)
             if self.draft is not None:
-                dkeys[rows] = self.draft.request_keys(uids)
-        t = lambda a: upload(a, dev)  # noqa: E731
-        tokens_d, starts_d, fslots_d = t(tokens), t(starts), t(fslots)
-        (first, self.cache_len, self.last_token, self.budget_dev, self.key_data,
-         self.active_dev) = self._chunk_step(
-            self.params, self.kv.pools, t(bt_rows), tokens_d, starts_d,
-            t(nvalid), fslots_d, t(budgets), rkeys, self.cache_len,
-            self.last_token, self.budget_dev, self.key_data, t(temps),
-            self.active_dev)
-        if self.draft is not None:
-            # The same chunk into the draft pools through the draft's table
-            # rows (lengths and last tokens are shared with the target).
-            d = self.draft
-            d_rows = np.full_like(bt_rows, -1)
-            d_rows[:len(tasks)] = d.kv.table_np[[task.slot for task in tasks]]
-            d.key_data = self._draft_prefill(d.params, d.pools, t(d_rows), tokens_d,
-                                             starts_d, fslots_d, d.key_data, dkeys)
+                # The same chunk into the draft pools through the draft's table
+                # rows (lengths and last tokens are shared with the target).
+                d = self.draft
+                d_rows = np.full_like(bt_rows, -1)
+                d_rows[:len(mine)] = d.kv.table_np[[tasks[r].slot for r in mine]]
+                d.key_data = self._draft_prefill(d.params, d.pools, t(d_rows), tokens_d,
+                                                 starts_d, fslots_d, d.key_data, dkeys)
         self.prefill_ticks += 1
         finished: List[Request] = []
         if fin:
-            toks = first.cpu().numpy()
-            self.host_syncs += 1
+            toks = self._read_first(first)
             for r, task in fin:
-                self._finish_or_activate(task.req, task.slot, int(toks[r]), finished)
+                self._finish_or_activate(task.req, task.slot, int(toks[at[r]]), finished)
             done = {id(t) for _, t in fin}
             self._prefilling = [t for t in self._prefilling if id(t) not in done]
         return finished
+
+    def _word_rows(self, slots: List[int]) -> Tuple[List[int], List[int]]:
+        """For the requests going to ``slots`` in one admission call: the
+        index of each one's first token in the (gathered) word, and the
+        positions of this rank's requests in order (its call's rows)."""
+        at, mine, seen = [], [], {}
+        for r, slot in enumerate(slots):
+            shard = slot * self.dp_shards // self.max_batch
+            j = seen.get(shard, 0)
+            seen[shard] = j + 1
+            at.append(shard * self._rows + j)
+            if self._lo <= slot < self._hi:
+                mine.append(r)
+        return at, mine
+
+    def _read_first(self, first: Optional[torch.Tensor]) -> np.ndarray:
+        """An admission call's first tokens on the host (one sync): this
+        rank's rows, in the word gathered over the data group under a mesh
+        (zeros for a rank whose shard had no rows)."""
+        if self.par is not None:
+            local = torch.zeros(self._rows, dtype=torch.int32, device=self.device)
+            if first is not None:
+                local[:first.shape[0]] = first
+            first = self._word(local)
+        self.host_syncs += 1
+        return first.cpu().numpy()
+
+    def _word(self, local: torch.Tensor) -> torch.Tensor:
+        """The word over every slot: under a mesh, every rank's rows gathered
+        over the data group (one all_gather_into_tensor); with one pool
+        shard every data rank ran every slot, and the first copy is the
+        word.  Meshless, the rows themselves."""
+        if self.par is None:
+            return local
+        word = collectives.gather_rows(local, self.par, self.par.dp_axes[0])
+        return word[:self.dp_shards * local.shape[0]]
 
     def _finish_or_activate(self, req: Request, slot: int, tok: int,
                             finished: List[Request]) -> None:
@@ -1066,13 +1173,26 @@ class ServingEngine:
         per pool leaf) and its key state to pinned host memory, with one
         wait for the copies (counted in ``swap_syncs``), and checksum them.
         An injected ``swap_corrupt`` flips one byte of a private copy of the
-        first leaf after the checksum, so the mismatch shows at resume."""
+        first leaf after the checksum, so the mismatch shows at resume.
+        With more than one pool shard the blocks are broadcast from the
+        slot's shard over the data group, so every rank holds the payload
+        (its heads) and the row may resume on any shard."""
         n_blocks = self.kv.blocks_for(max(1, n_ctx))
-        ids = upload(np.asarray(self.kv.alloc.owned_by(slot)[:n_blocks], np.int64),
-                     self.device)
-        copies = [_to_host(leaf.index_select(ax, ids))
-                  for _, ax, leaf in pool_leaves(self.kv.pools)]
-        key_row, ready = _to_host(self.key_data[slot])
+        owner = self.kv.slot_shard(slot)
+        if owner == self.kv.shard:
+            ids = upload(self.kv.local_ids(self.kv.alloc.owned_by(slot)[:n_blocks]),
+                         self.device)
+            rows = [leaf.index_select(ax, ids) for _, ax, leaf in pool_leaves(self.kv.pools)]
+            key = self.key_data[slot - self._lo].clone()
+        else:
+            rows = [leaf.new_empty(leaf.shape[:ax] + (n_blocks,) + leaf.shape[ax + 1:])
+                    for _, ax, leaf in pool_leaves(self.kv.pools)]
+            key = self.key_data.new_empty((2,))
+        if self.dp_shards > 1:
+            for t in rows + [key]:
+                collectives.broadcast(t, self.par, self.par.dp_axes[0], owner)
+        copies = [_to_host(r) for r in rows]
+        key_row, ready = _to_host(key)
         if ready is not None:
             ready.synchronize()  # after every copy above, on one stream
         self.swap_syncs += 1
@@ -1091,15 +1211,16 @@ class ServingEngine:
         pay, dev = req.swap, self.device
         req.swap = None
         self.sched_events["resumes"] += 1
-        ids = upload(np.asarray(self.kv.alloc.owned_by(slot)[:pay.n_blocks], np.int64),
-                     dev)
-        for (_, ax, leaf), host in zip(pool_leaves(self.kv.pools), pay.blocks):
-            leaf.index_copy_(ax, ids, host.to(dev, non_blocking=True))
-        self.cache_len[slot] = pay.n_ctx
-        self.last_token[slot] = req.generated[-1]
-        self.budget_dev[slot] = req.max_new_tokens - len(req.generated)
-        self.key_data[slot] = pay.key_row.to(dev, non_blocking=True)
-        self.active_dev[slot] = True
+        if self._lo <= slot < self._hi:  # this rank's slot: its shard's blocks
+            ids = upload(self.kv.local_ids(self.kv.alloc.owned_by(slot)[:pay.n_blocks]), dev)
+            for (_, ax, leaf), host in zip(pool_leaves(self.kv.pools), pay.blocks):
+                leaf.index_copy_(ax, ids, host.to(dev, non_blocking=True))
+            row = slot - self._lo
+            self.cache_len[row] = pay.n_ctx
+            self.last_token[row] = req.generated[-1]
+            self.budget_dev[row] = req.max_new_tokens - len(req.generated)
+            self.key_data[row] = pay.key_row.to(dev, non_blocking=True)
+            self.active_dev[row] = True
         self.slots[slot] = req
         self.active[slot] = True
         self._stalled[slot] = False
@@ -1141,9 +1262,9 @@ class ServingEngine:
                 vec = np.zeros(self.max_batch, np.float32)
             vec[slot] = np.nan
         if vec is not None:
-            return (upload(vec, self.device),)
+            return (upload(vec[self._lo:self._hi], self.device),)
         if self._poison_zero is None:
-            self._poison_zero = upload(np.zeros(self.max_batch, np.float32), self.device)
+            self._poison_zero = upload(np.zeros(self._rows, np.float32), self.device)
         return (self._poison_zero,)
 
     def _quarantine(self, slot: int, req: Request, finished: List[Request]) -> None:
@@ -1330,14 +1451,15 @@ class ServingEngine:
         freezes their state on the device.  A fixed row order stays valid
         between rebuilds: any permutation leaves the tokens unchanged."""
         if self._host_dirty:
-            dev = self.device
+            dev, lo, hi = self.device, self._lo, self._hi  # this rank's slots
             keep = self.active & ~self._stalled
-            self._host_dev = (upload(keep, dev), upload(self.temps, dev),
-                              upload(self._eos, dev))
+            self._host_dev = (upload(keep[lo:hi], dev), upload(self.temps[lo:hi], dev),
+                              upload(self._eos[lo:hi], dev))
             if self.kv is not None:
-                order = self.sched.row_order(self._dev_len, keep, self.max_batch, 1)
+                order = self.sched.row_order(self._dev_len, keep, self.max_batch,
+                                             self.dp_shards)
                 self._host_dev += (None if order is None
-                                   else upload(order.astype(np.int64), dev),)
+                                   else upload(order[lo:hi].astype(np.int64) - lo, dev),)
             if self.spec is not None:
                 self._k_row_dev = upload(self._k_row, dev)
             self._host_dirty = False
@@ -1364,7 +1486,7 @@ class ServingEngine:
                 self._dev_len += mask  # each dispatched row writes one entry
             sampled, self.cache_len, self.budget_dev, self.key_data, self.active_dev = out
             self.last_token = sampled
-            host, ready = _to_host(sampled)
+            host, ready = _to_host(self._word(sampled))
         self._note_occupancy(mask)
         self._ring.append(_InFlight(host, ready, mask, time.perf_counter() - t0))
         if self.obs.enabled:
@@ -1407,7 +1529,7 @@ class ServingEngine:
                 self.params, cache, table, self.last_token, proposals, q_probs,
                 self.cache_len, self.budget_dev, self.key_data, self.active_dev, keep,
                 temps, eos, self._k_row_dev, *self._poison_args())
-            host, ready = _to_host(pack)
+            host, ready = _to_host(self._word(pack))
         if self.kv is not None:
             # Conservative: verify writes all k+1 entries before the length
             # rolls back to the accepted prefix; _commit_spec reconciles.
@@ -1656,19 +1778,28 @@ class ServingEngine:
             "queued": len(self.sched),
         }
 
+    def mesh_shape(self) -> Dict[str, int]:
+        """The serving mesh as {dp, tp, devices} ((1, 1, 1) meshless: the
+        layout every sharded stat reduces to on one device)."""
+        if self.par is None:
+            return {"dp": 1, "tp": 1, "devices": 1}
+        return {"dp": self.par.dp_size, "tp": self.par.tp_size, "devices": self.par.size}
+
     def cache_stats(self) -> Dict[str, object]:
-        """Cache bytes, the bytes a token takes (int8 K/V and their scales
-        with ``kv_quant``) and live/reserved tokens (one device: no mesh)."""
+        """Cache bytes (over every rank, and this rank's: the per-device
+        bytes), the bytes a token takes over every rank (int8 K/V and their
+        scales with ``kv_quant``), live/reserved tokens and the mesh."""
         live = int((self._len_host * self.active).sum())
+        mesh = self.mesh_shape()
         if self.kv is not None:
             s = dict(self.kv.stats(), layout="paged")
         else:
             slab = sum(c.numel() * c.element_size() for c in _leaves(self.cache))
             s = {"layout": "dense", "tokens_capacity": self.max_batch * self.max_len,
-                 "cache_hbm_bytes": slab, "dp_shards": 1,
-                 "per_device_cache_hbm_bytes": slab}
-        s["bytes_per_token"] = cache_bytes_per_token(self.model, self.kv_quant)
-        s["mesh"] = {"dp": 1, "tp": 1, "devices": 1}
+                 "cache_hbm_bytes": slab * self.dp_shards * mesh["tp"],
+                 "dp_shards": self.dp_shards, "per_device_cache_hbm_bytes": slab}
+        s["bytes_per_token"] = cache_bytes_per_token(self.model, self.kv_quant) * mesh["tp"]
+        s["mesh"] = mesh
         s["live_tokens"] = live
         if self.draft is not None:
             s["draft_hbm_bytes"] = self.draft.hbm_bytes()

@@ -13,7 +13,16 @@ under worst case), ``extend`` grows a live row's reservation at block
 boundaries, ``rollback`` shrinks it to a prefix (``0``: preemption), and
 ``free`` returns a finished request's blocks at once.  ``defrag`` compacts
 live blocks to the lowest ids and permutes the device pools to match.
-One card holds one pool shard: ``slot_shard`` is always 0.
+
+Under a serving mesh (``dp_shards`` > 1, the reference's): the block id
+space splits into ``dp_shards`` contiguous ranges, slot s maps to DP shard
+``s * dp_shards // max_batch``, and its reservations come from that
+shard's range.  Every rank keeps the whole host bookkeeping (the same on
+every rank), but allocates only its own shard's sub-pool (``blocks_per_
+shard`` blocks and its own sink), of the heads its model rank computes
+(the model built on the mesh sizes them), and uploads only its slots'
+table rows with ids local to that sub-pool.  Defrag moves never cross
+shards, so each rank permutes only its own sub-pool.
 """
 
 from __future__ import annotations
@@ -63,36 +72,53 @@ def _ceil_div(a: int, b: int) -> int:
 
 
 def resolve_num_blocks(max_batch: int, max_len: int, block_size: int,
-                       num_blocks: Optional[int] = None) -> int:
+                       num_blocks: Optional[int] = None, dp_shards: int = 1) -> int:
     """Pool size: capacity parity with a (max_batch, max_len) slab unless
-    given."""
-    return num_blocks if num_blocks is not None else _ceil_div(
-        max_batch * max_len, block_size)
+    given, rounded up to a multiple of the DP shards (each holds an equal
+    sub-pool)."""
+    if num_blocks is None:
+        num_blocks = _ceil_div(max_batch * max_len, block_size)
+    return _ceil_div(num_blocks, dp_shards) * dp_shards
 
 
 class PagedKVCache:
     def __init__(self, model, max_batch: int, max_len: int,
                  block_size: int = 16, num_blocks: Optional[int] = None,
-                 kv_quant: bool = False, device: Device = None):
+                 kv_quant: bool = False, device: Device = None, dp_shards: int = 1,
+                 par=None):
         self.device = resolve_device(device)
         self.block_size = block_size
         self.num_blocks = resolve_num_blocks(max_batch, max_len, block_size,
-                                             num_blocks)
+                                             num_blocks, dp_shards)
+        self.dp_shards = dp_shards
         self.max_batch = max_batch
         self.max_blocks_per_row = _ceil_div(max_len, block_size)
-        self.pools = model.init_paged_cache(self.num_blocks, block_size,
+        # This rank's shard, its slots [slot_lo, slot_hi) and its blocks'
+        # first global id; and the ranks that hold the rest of the pool.
+        self.shard = par.dp_rank if dp_shards > 1 else 0
+        self.slot_lo = self.shard * max_batch // dp_shards
+        self.slot_hi = (self.shard + 1) * max_batch // dp_shards
+        self.block_base = self.shard * self.blocks_per_shard
+        self.devices = dp_shards * (par.tp_size if par is not None and par.active else 1)
+        self.pools = model.init_paged_cache(self.blocks_per_shard, block_size,
                                             kv_quant=kv_quant, device=self.device)
-        self.alloc = BlockAllocator(self.num_blocks)
+        self.alloc = BlockAllocator(self.num_blocks, num_shards=dp_shards)
         self.table_np = np.full((max_batch, self.max_blocks_per_row), -1, np.int32)
         self._table_dev: Optional[torch.Tensor] = None
         self.table_uploads = 0  # host table -> device mirror rebuilds
 
     @property
     def blocks_per_shard(self) -> int:
-        return self.num_blocks
+        return self.num_blocks // self.dp_shards
 
     def slot_shard(self, slot: int) -> int:
-        return 0
+        """DP shard owning engine slot ``slot`` (slots split evenly and
+        contiguously over the shards, as the engine's per-slot state)."""
+        return slot * self.dp_shards // self.max_batch
+
+    def local_ids(self, ids) -> np.ndarray:
+        """Global block ids of this rank's shard -> indices into its pools."""
+        return np.asarray(ids, np.int64) - self.block_base
 
     def blocks_for(self, n_tokens: int) -> int:
         return _ceil_div(max(1, n_tokens), self.block_size)
@@ -104,7 +130,7 @@ class PagedKVCache:
         if n > self.max_blocks_per_row:
             raise ValueError(f"{n_tokens} tokens need {n} blocks > "
                              f"max_blocks_per_row={self.max_blocks_per_row}")
-        if self.alloc.alloc(slot, n) is None:
+        if self.alloc.alloc(slot, n, shard=self.slot_shard(slot)) is None:
             return False
         owned = self.alloc.owned_by(slot)
         self.table_np[slot, :] = -1
@@ -113,7 +139,7 @@ class PagedKVCache:
         return True
 
     def can_reserve(self, n_tokens: int, slot: int = 0) -> bool:
-        return self.alloc.can_alloc(self.blocks_for(n_tokens))
+        return self.alloc.can_alloc(self.blocks_for(n_tokens), shard=self.slot_shard(slot))
 
     def extend(self, slot: int, n_tokens: int) -> Optional[int]:
         """Grow slot's reservation to cover ``n_tokens`` positions (the
@@ -128,7 +154,7 @@ class PagedKVCache:
                              f"max_blocks_per_row={self.max_blocks_per_row}")
         if need <= have:
             return 0
-        ids = self.alloc.grow(slot, need - have)
+        ids = self.alloc.grow(slot, need - have, shard=self.slot_shard(slot))
         if ids is None:
             return None
         self.table_np[slot, have:have + len(ids)] = ids
@@ -156,8 +182,12 @@ class PagedKVCache:
         return freed
 
     def table_device(self) -> torch.Tensor:
+        """This rank's slots' table rows, their ids local to its sub-pool."""
         if self._table_dev is None:
-            self._table_dev = upload(self.table_np, self.device)
+            rows = self.table_np[self.slot_lo:self.slot_hi]
+            if self.block_base:
+                rows = np.where(rows >= 0, rows - self.block_base, -1).astype(np.int32)
+            self._table_dev = upload(rows, self.device)
             self.table_uploads += 1
         return self._table_dev
 
@@ -171,11 +201,13 @@ class PagedKVCache:
             return moves
         old = np.fromiter(moves.keys(), np.int64, len(moves))
         new = np.fromiter(moves.values(), np.int64, len(moves))
-        perm = np.arange(self.num_blocks + 1)  # + the sink
-        perm[new] = old
-        perm_dev = upload(perm, self.device)
-        for path, ax, leaf in list(pool_leaves(self.pools)):
-            _set_leaf(self.pools, path, leaf.index_select(ax, perm_dev))
+        mine = (old >= self.block_base) & (old < self.block_base + self.blocks_per_shard)
+        if mine.any():  # moves stay in their shard: permute this rank's sub-pool
+            perm = np.arange(self.blocks_per_shard + 1)  # + the sink
+            perm[self.local_ids(new[mine])] = self.local_ids(old[mine])
+            perm_dev = upload(perm, self.device)
+            for path, ax, leaf in list(pool_leaves(self.pools)):
+                _set_leaf(self.pools, path, leaf.index_select(ax, perm_dev))
         remap = np.arange(self.num_blocks, dtype=np.int32)
         remap[old] = new
         live = self.table_np >= 0
@@ -188,16 +220,23 @@ class PagedKVCache:
                    for _, _, leaf in pool_leaves(self.pools))
 
     def stats(self) -> Dict[str, Any]:
+        """Pool accounting; the bytes are the pools' over every rank and
+        this rank's (the per-device bytes: its shard's blocks, its heads)."""
         hbm = self.hbm_bytes()
-        return {
+        s = {
             "block_size": self.block_size,
             "num_blocks": self.num_blocks,
             "blocks_in_use": self.alloc.in_use(),
             "blocks_peak": self.alloc.peak_in_use,
             "tokens_capacity": self.num_blocks * self.block_size,
             "tokens_reserved": self.alloc.in_use() * self.block_size,
-            "cache_hbm_bytes": hbm,
-            "dp_shards": 1,
+            "cache_hbm_bytes": hbm * self.devices,
+            "dp_shards": self.dp_shards,
             "per_device_cache_hbm_bytes": hbm,
             "table_uploads": self.table_uploads,
         }
+        if self.dp_shards > 1:
+            # A device's peak is its shard's, not the aggregate over dp.
+            s["blocks_peak_by_shard"] = list(self.alloc.peak_by_shard)
+            s["blocks_per_shard"] = self.blocks_per_shard
+        return s

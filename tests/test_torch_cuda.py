@@ -2262,3 +2262,37 @@ def test_gram_homes_agree_at_mistral_7b_depth_2(dev, monkeypatch):
     assert a.keys() == b.keys()
     for k in a:
         assert a[k].device.type == "cuda" and torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_mesh_11_nccl_engine_bit_identical_on_card(dev, tmp_path, paged):
+    """A (1, 1) serving mesh on one NCCL rank (a FileStore process group) on
+    the card: the streams, every kernel's launches and the host syncs of the
+    meshless engine, bit for bit, with one all-gather of the token word
+    over the data group a host sync, no TP collective, and every dispatch
+    under the transfer guard (sync-debug "error")."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.parallel import collectives, make_parallelism
+
+    model, params = _paged_card_model(dev)
+    prompts = _sched_prompts()
+    runs = []
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        par = make_parallelism(make_serving_mesh(1, 1))
+        for p in (None, par):
+            before = (nlr_ops.launches, pa_ops.launches, fa_ops.launches)
+            collectives.reset_counts()
+            out, eng = _serve_card(model, params, prompts, paged=paged, parallelism=p,
+                                   transfer_guard=True)
+            launched = (nlr_ops.launches - before[0], pa_ops.launches - before[1],
+                        fa_ops.launches - before[2])
+            runs.append((out, launched, eng.stats()["host_syncs"], dict(collectives.counts)))
+    finally:
+        dist.destroy_process_group()
+    (base, base_l, base_syncs, none), (mesh, mesh_l, syncs, coll) = runs
+    assert mesh == base and mesh_l == base_l and syncs == base_syncs
+    assert none == {} and coll == {("all_gather", "data"): syncs}
